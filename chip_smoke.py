@@ -5,19 +5,33 @@
 Phases, each printed on its own line, none catching its own failure:
 
   1. card      the card's name and power limit (nvidia-smi), torch / CUDA;
-  2. build     both hand-written CUDA kernels, one nvcc each, in parallel;
-  3. kernels   each kernel against its plain PyTorch version on the same
-               CUDA tensors (atol 2e-3) at the main path's shapes, the smoke
-               shapes and int8 pages; kernel, plain and yardstick times
-               (``scaled_dot_product_attention`` over already-gathered dense
-               K/V: it leaves the page walk out and is not the same
-               function) beside the least time the card could take;
-  4. serve     full-width qwen2-0.5b (random weights, seed 0, bf16) through
+  2. build     every hand-written CUDA kernel library, one nvcc each, in
+               parallel;
+  3. kernels   each paged attention kernel against its plain PyTorch version
+               on the same CUDA tensors (atol 2e-3) at the main path's
+               shapes, the smoke shapes and int8 pages; kernel, plain and
+               yardstick times (``scaled_dot_product_attention`` over
+               already-gathered dense K/V: it leaves the page walk out and
+               is not the same function) beside the least time the card
+               could take;
+  4. suite kernels  the AutoDMA builder with each gemm body (mxu, vpu,
+               loop), matvec and matvec_t against the plain grid walker on
+               the same CUDA tensors: gemm 2048³ and 1024×1024×4608, matvec
+               2048², every mode, bf16, and a ragged shape with a tile that
+               does not divide; tolerances as relative Frobenius error
+               (mxu f32 5e-3: TF32; vpu / loop / matvec f32 1e-5; bf16
+               1e-2); kernel, plain, yardstick (``torch.matmul`` /
+               ``torch.mv``) and bound times at the main shapes;
+  5. suite     the paper's kernel suite through ``kernels/ops.py``
+               (``launch/kernel_suite.py``: Fig. 7 at N=2048 and darknet,
+               the ISA study), every builder launch counted, then each
+               Fig. 7 output against its oracle;
+  6. serve     full-width qwen2-0.5b (random weights, seed 0, bf16) through
                the chunked paged engine: 8 requests, prompts of 128-1536
                tokens, 64 new tokens each; every kernel launch counted;
-  5. card/cpu  the smoke config in f32 on the card and on the CPU (asked
+  7. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams;
-  6. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+  8. a ``{"kernels": [...]}`` line, then the card's name and power limit,
      then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line. Without a card, or run
@@ -29,7 +43,6 @@ import copy
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -44,6 +57,7 @@ import repro_torch  # noqa: E402,F401  (fails outside a checkout of the repo)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12        # H100 SXM dense TF32 tensor cores
 TOL = 2e-3
 LAYERS = 24                     # qwen2-0.5b depth: timing cycles layer pools
 
@@ -52,18 +66,11 @@ def log(phase: str, msg: str) -> None:
     print(f"[chip_smoke:{phase}] {msg}", flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    return out.splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 20, warm: int = 3) -> float:
     """Mean ms per call of ``fn(i)`` over ``iters`` calls, CUDA events,
-    after a warm-up; ``i`` lets the caller cycle inputs (cold L2)."""
-    for i in range(3):
+    after ``warm`` warm-up calls; ``i`` lets the caller cycle inputs (cold
+    L2)."""
+    for i in range(warm):
         fn(i)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -76,9 +83,9 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, rate: float = F32_FLOP_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -226,7 +233,232 @@ def time_prefill(res, call, q, kp, vp, row, start, K, pt, hd, layers):
 
 
 # --------------------------------------------------------------------------
-# phases 4 and 5: the engine
+# phases 4 and 5: the AutoDMA kernel suite
+# --------------------------------------------------------------------------
+SUITE_MODES = ("unmodified", "paper", "autodma", "handwritten")
+RAGGED_MODES = ("unmodified", "autodma", "handwritten")
+RAGGED_GEMM, RAGGED_MATVEC = (1000, 600, 1100), (1000, 1500)
+BODIES = ("mxu", "vpu", "loop")
+BF16_TOL = 1e-2                 # bf16 output rounded every reduction step
+MXU_F32_TOL = 5e-3              # TF32 operands: a 10-bit mantissa
+F32_TOL = 1e-5                  # f32 sums taken in another order
+
+
+def rel_err(out, ref) -> float:
+    return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def hold(rows, out, ref, tol, what):
+    """Fail unless ``out`` is finite and within ``tol`` (relative Frobenius)
+    of ``ref``; record the max abs error on every row in ``rows``."""
+    err = rel_err(out, ref)
+    abs_err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out.float()).all() and err <= tol, (what, err, tol)
+    for r in rows:
+        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+    log("suite kernels", f"{what}: rel err {err:.2e} (tol {tol:g}), max "
+        f"|kernel - plain| {abs_err:.3e}")
+
+
+def check_suite_kernels(results):
+    import functools
+    from repro_torch.core import autodma
+    from repro_torch.kernels import gemm as tg
+    from repro_torch.kernels import polybench as pb
+    from repro_torch.launch.kernel_suite import HANDWRITTEN_TILES
+    g = torch.Generator(device="cuda").manual_seed(2)
+    builder = results["autodma_tiled"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    gemm_cases = [  # shape, dtype, alpha, bodies, modes, handwritten tiles
+        ((2048, 2048, 2048), f32, 1.0, BODIES, SUITE_MODES,
+         HANDWRITTEN_TILES),
+        ((1024, 1024, 4608), f32, 1.0, BODIES, SUITE_MODES,
+         HANDWRITTEN_TILES),
+        ((2048, 2048, 2048), bf16, 1.0, ("mxu",), SUITE_MODES,
+         HANDWRITTEN_TILES),
+        ((2048, 2048, 2048), bf16, 1.0, ("vpu", "loop"), ("autodma",), None),
+        # ragged: no tile divides 1000 x 600 x 1100, so autodma degrades to
+        # granule tiles and the last block of every axis is short; paper's
+        # rule falls back to whole axes, which shared memory cannot hold
+        (RAGGED_GEMM, f32, 0.5, BODIES, RAGGED_MODES, (48, 80, 96)),
+        (RAGGED_GEMM, bf16, 0.5, BODIES, RAGGED_MODES, (48, 80, 96)),
+    ]
+    for (M, N, K), dt, alpha, bodies, modes, hw in gemm_cases:
+        A = torch.randn(M, K, generator=g, device="cuda").to(dt)
+        B = torch.randn(K, N, generator=g, device="cuda").to(dt)
+        for body in bodies:
+            tol = BF16_TOL if dt == bf16 else (
+                MXU_F32_TOL if body == "mxu" else F32_TOL)
+            for mode in modes:
+                kw = (dict(handwritten_tiles=hw) if mode == "handwritten"
+                      else dict(mode=mode))
+                out, plan = tg.gemm(A, B, alpha=alpha, body=body, **kw)
+                torch.cuda.synchronize()
+                plain = autodma.walk(functools.partial(
+                    tg.BODIES[body], alpha=alpha), plan, A, B)
+                hold([builder, results["gemm"]], out, plain, tol,
+                     f"gemm {M}x{N}x{K} {str(dt)[6:]} {body} {mode} tiles "
+                     f"{plan.tiles}")
+        if (M, N, K) == RAGGED_GEMM:  # a plan over the limit: raise, no fallback
+            try:
+                tg.gemm(A, B, mode="paper")
+            except ValueError as e:
+                log("suite kernels", f"gemm {M}x{N}x{K} paper refused: {e}")
+            else:
+                raise AssertionError("an over-budget plan was launched")
+    bodies = {"matvec": pb._matvec_body, "matvec_t": pb._matvec_t_body}
+    for (M, N), dt, modes in [((2048, 2048), f32, SUITE_MODES[:3]),
+                              ((2048, 2048), bf16, SUITE_MODES[:3]),
+                              (RAGGED_MATVEC, f32, RAGGED_MODES[:2])]:
+        A = torch.randn(M, N, generator=g, device="cuda").to(dt)
+        x = torch.randn(N, generator=g, device="cuda").to(dt)
+        xt = torch.randn(M, generator=g, device="cuda").to(dt)
+        for name, v in (("matvec", x), ("matvec_t", xt)):
+            if (M, N) == RAGGED_MATVEC:
+                try:
+                    getattr(pb, name)(A, v, mode="paper")
+                except ValueError as e:
+                    log("suite kernels", f"{name} {M}x{N} paper refused: {e}")
+                else:
+                    raise AssertionError("an over-budget plan was launched")
+            for mode in modes:
+                y, plan = getattr(pb, name)(A, v, mode=mode)
+                torch.cuda.synchronize()
+                plain = autodma.walk(bodies[name], plan, A, v)
+                hold([builder, results[name]], y, plain,
+                     BF16_TOL if dt == bf16 else F32_TOL,
+                     f"{name} {M}x{N} {str(dt)[6:]} {mode} tiles "
+                     f"{plan.tiles}")
+    torch.cuda.synchronize()
+    time_suite_kernels(results)
+
+
+def _library_tf32(fn):
+    """Time a yardstick under TF32, as the mxu body computes."""
+    from repro_torch.launch.kernel_suite import graph_ms
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return graph_ms(fn, 20)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def time_suite_kernels(results):
+    """Kernel and yardstick: device time of 20 calls replayed from a CUDA
+    graph (kernel_suite.graph_ms), as the kernel suite times; plain: CUDA
+    events around calls of the grid walker, whose many small launches the
+    host issues one by one."""
+    import functools
+    import itertools
+    from repro_torch.core import autodma
+    from repro_torch.kernels import gemm as tg
+    from repro_torch.kernels import polybench as pb
+    from repro_torch.launch.kernel_suite import graph_ms
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mxu = functools.partial(tg.BODIES["mxu"], alpha=1.0)
+    # gemm 2048^3 (autodma, mxu) and the builder at darknet's conv-as-gemm
+    for name, (M, N, K) in (("gemm", (2048, 2048, 2048)),
+                            ("autodma_tiled", (1024, 1024, 4608))):
+        res = results[name]
+        A = torch.randn(M, K, generator=g, device="cuda")
+        B = torch.randn(K, N, generator=g, device="cuda")
+        if name == "gemm":
+            _, plan = tg.gemm(A, B)
+            res["ms"] = graph_ms(lambda: tg.gemm(A, B), 20)
+        else:
+            call, plan = autodma.tiled_call(
+                autodma.Body("gemm_mxu", mxu), autodma.matmul_spec(M, N, K))
+            res["ms"] = graph_ms(lambda: call(A, B), 20)
+        res["plain_ms"] = cuda_ms(lambda i: autodma.walk(mxu, plan, A, B),
+                                  iters=2, warm=1)
+        res["library_ms"] = _library_tf32(lambda: torch.matmul(A, B))
+        nbytes = (M * K + K * N + M * N) * 4
+        res["bound_ms"], res["bound_by"] = bound(nbytes, 2 * M * N * K,
+                                                 TF32_FLOP_PER_S)
+        log("suite kernels", f"{name} {M}x{N}x{K} f32 mxu autodma tiles "
+            f"{plan.tiles}: kernel {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms, torch.matmul (TF32) yardstick "
+            f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}: {nbytes} B at 3.35 TB/s, "
+            f"{2 * M * N * K} flop at 495 TFLOP/s TF32)")
+    # matvec / matvec_t at 2048^2, cycling 4 matrices (64 MB > 50 MB L2)
+    M = N = 2048
+    As = [torch.randn(M, N, generator=g, device="cuda") for _ in range(4)]
+    x = torch.randn(N, generator=g, device="cuda")
+    for name, body, lib in (
+            ("matvec", pb._matvec_body, lambda a: torch.mv(a, x)),
+            ("matvec_t", pb._matvec_t_body, lambda a: torch.mv(a.t(), x))):
+        res, fn = results[name], getattr(pb, name)
+        _, plan = fn(As[0], x)
+        cycle = itertools.cycle(As)     # each captured call reads the next
+        res["ms"] = graph_ms(lambda: fn(next(cycle), x), 20)
+        res["plain_ms"] = cuda_ms(
+            lambda i: autodma.walk(body, plan, As[i % 4], x), iters=4,
+            warm=1)
+        res["library_ms"] = graph_ms(lambda: lib(next(cycle)), 20)
+        nbytes = (M * N + M + N) * 4
+        res["bound_ms"], res["bound_by"] = bound(nbytes, 2 * M * N)
+        log("suite kernels", f"{name} {M}x{N} f32 autodma tiles "
+            f"{plan.tiles}: kernel {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms, torch.mv yardstick "
+            f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}: {nbytes} B at 3.35 TB/s)")
+
+
+def suite_main_path(results):
+    from repro_torch.kernels import gemm as tg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import polybench as pb
+    from repro_torch.kernels import tiled
+    from repro_torch.launch import kernel_suite
+    counters = {"autodma_tiled": tiled.launch, "gemm": tg.gemm,
+                "matvec": pb.matvec, "matvec_t": pb.matvec_t}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = kernel_suite.run("cuda", 1, iters=3,
+                           log=lambda m: print(m, flush=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    assert all(n > 0 for n in counts.values()), counts
+    assert counts["autodma_tiled"] == (counts["gemm"] + counts["matvec"]
+                                       + counts["matvec_t"]), counts
+    for name, n in counts.items():
+        results[name]["launches"] = n
+    log("suite", f"{len(res['fig7'])} Fig. 7 rows and {len(res['isa'])} ISA "
+        f"rows in {wall:.1f} s; launches {counts}")
+    log("suite", json.dumps({"fig7": res["fig7"], "isa": res["isa"],
+                             "summary": res["summary"]}))
+    # what comes out is right: each Fig. 7 kernel (autodma) against its
+    # oracle in f32; the mxu products run in TF32, 3mm chains three
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n = kernel_suite.N
+    A, B, C, D = (torch.randn(n, n, generator=g, device="cuda")
+                  for _ in range(4))
+    x, r = (torch.randn(n, generator=g, device="cuda") for _ in range(2))
+    Ad = torch.randn(1024, 4608, generator=g, device="cuda")
+    Bd = torch.randn(4608, 1024, generator=g, device="cuda")
+    checks = [("gemm", ops.gemm(A, B), ops.REFS["gemm"](A, B), MXU_F32_TOL),
+              ("2mm", ops.mm2(A, B, C), ops.REFS["mm2"](A, B, C),
+               2 * MXU_F32_TOL),
+              ("3mm", ops.mm3(A, B, C, D), ops.REFS["mm3"](A, B, C, D),
+               3 * MXU_F32_TOL),
+              ("atax", ops.atax(A, x), ops.REFS["atax"](A, x), F32_TOL),
+              ("darknet", ops.gemm(Ad, Bd), ops.REFS["gemm"](Ad, Bd),
+               MXU_F32_TOL)]
+    for got, exp in zip(ops.bicg(A, x, r), ops.REFS["bicg"](A, x, r)):
+        checks.append(("bicg", got, exp, F32_TOL))
+    for name, got, exp, tol in checks:
+        err = rel_err(got, exp)
+        assert tuple(got.shape) == tuple(exp.shape) and \
+            torch.isfinite(got).all() and err <= tol, (name, err)
+        log("suite", f"{name} (autodma) against its oracle: rel err "
+            f"{err:.2e} (tol {tol:g})")
+
+
+# --------------------------------------------------------------------------
+# phases 6 and 7: the engine
 # --------------------------------------------------------------------------
 def serve(engine, prompts, max_new):
     from repro_torch.serve.engine import Request
@@ -327,6 +559,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.kernel_suite import card_line
     card = card_line()
     log("card", f"{card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
@@ -336,8 +569,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build_all()
-    log("build", f"both kernels built with nvcc for sm_90a in "
-        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    log("build", f"{len(_build.SIGNATURES)} kernel libraries built with "
+        f"nvcc for sm_90a in {time.perf_counter() - t0:.2f} s (set-up)")
     for name, out in _build.BUILD_LOG.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -354,7 +587,21 @@ def main() -> int:
             "replaces": "src/repro/kernels/paged_prefill_attention.py:46",
             "launches": 0, "max_abs_err": 0.0},
     }
+    for name, replaces in (
+            ("autodma_tiled", "src/repro/core/autodma.py:321"),
+            ("gemm", "src/repro/kernels/gemm.py:62"),
+            ("matvec", "src/repro/kernels/polybench.py:31"),
+            ("matvec_t", "src/repro/kernels/polybench.py:39")):
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/autodma_tiled.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0}
     check_kernels(results)
+    torch.cuda.synchronize()
+    check_suite_kernels(results)
+    torch.cuda.synchronize()
+    suite_main_path(results)
+    torch.cuda.synchronize()
     full_width_serve(results, card)
     card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

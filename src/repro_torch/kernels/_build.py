@@ -28,6 +28,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
     "paged_prefill_attention": [_P] * 7 + [_I] * 8 + [_P],
+    "autodma_tiled": [_P] * 3 + [ctypes.POINTER(_I), _I, ctypes.c_float, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

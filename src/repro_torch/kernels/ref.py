@@ -1,6 +1,7 @@
-"""Plain PyTorch oracles for the attention kernels.
+"""Plain PyTorch oracles for the kernels.
 
-Counterpart of the attention half of ``repro/kernels/ref.py``. The paged
+Counterpart of ``repro/kernels/ref.py``: the paper's Table 2 linear-algebra
+oracles (gemm, 2mm, 3mm, atax, bicg) and the attention oracles. The paged
 oracles (gather, dequantise, then these) live beside their kernels, in
 paged_decode_attention.py and paged_prefill_attention.py, as in the
 reference.
@@ -12,6 +13,35 @@ import math
 import torch
 
 NEG = -1e30
+
+
+# --- paper Table 2 ----------------------------------------------------------
+def gemm(A, B, alpha=1.0, beta=0.0, C=None):
+    """C = beta·C + alpha·A·B (darknet conv-as-gemm is the same kernel)."""
+    out = alpha * (A @ B)
+    if C is not None and beta != 0.0:
+        out = out + beta * C
+    return out
+
+
+def mm2(A, B, C, alpha=1.0):
+    """2mm: tmp = alpha·A·B ; out = tmp·C."""
+    return (alpha * (A @ B)) @ C
+
+
+def mm3(A, B, C, D):
+    """3mm: E=A·B ; F=C·D ; G=E·F."""
+    return (A @ B) @ (C @ D)
+
+
+def atax(A, x):
+    """y = Aᵀ(A x)."""
+    return A.T @ (A @ x)
+
+
+def bicg(A, p, r):
+    """q = A p ; s = Aᵀ r."""
+    return A @ p, A.T @ r
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
