@@ -18,20 +18,40 @@ Phases, each printed on its own line, none catching its own failure:
                loop), matvec and matvec_t against the plain grid walker on
                the same CUDA tensors: gemm 2048³ and 1024×1024×4608, matvec
                2048², every mode, bf16, and a ragged shape with a tile that
-               does not divide; tolerances as relative Frobenius error
-               (mxu f32 5e-3: TF32; vpu / loop / matvec f32 1e-5; bf16
-               1e-2); kernel, plain, yardstick (``torch.matmul`` /
-               ``torch.mv``) and bound times at the main shapes;
-  5. suite     the paper's kernel suite through ``kernels/ops.py``
-               (``launch/kernel_suite.py``: Fig. 7 at N=2048 and darknet,
-               the ISA study), every builder launch counted, then each
-               Fig. 7 output against its oracle;
-  6. serve     full-width qwen2-0.5b (random weights, seed 0, bf16) through
+               does not divide; then conv2d (its own kernel) against its
+               row-tile walk at 2048² in every mode, bf16, and a ragged
+               1001×1500, and covar (the builder's center and gram bodies)
+               against the walker at 2048² in every mode and a ragged
+               1000×600; tolerances as relative Frobenius error (mxu f32
+               and covar 5e-3: TF32; vpu / loop / matvec / conv2d f32
+               1e-5; bf16 1e-2); kernel, plain, yardstick (``torch.matmul``
+               / ``torch.mv`` / ``F.conv2d`` with a [1,1,3,3] weight and
+               padding 1, cuDNN TF32 off / ``torch.cov(D.T)`` under TF32)
+               and bound times at the main shapes;
+  5. attention kernels  flash_decode at the serving path's decode shape
+               (B 8, H 14, K 2, S 2048, hd 64, bf16; ragged lengths from
+               the serving mix, a length-0 slot, which must return the
+               mean of V, and a full one) and at the reference tests'
+               shapes in f32; flash_attention at qwen2-0.5b's full width
+               (B 1, H 14, L 2048, hd 64, bf16, causal), gemma3-27b's
+               local layer (B 1, H 32, L 4096, hd 128, bf16, causal,
+               window 1024) and small softcap / window / no-key-row cases;
+               each against its plain version on the same CUDA tensors
+               within atol 2e-3, plus one bf16 rounding step of the value
+               for bf16 outputs (both sides round an f32 result to bf16);
+               kernel, plain, ``scaled_dot_product_attention`` yardstick
+               (mask stated in the log) and bound times;
+  6. suite     the paper's kernel suite through ``kernels/ops.py``
+               (``launch/kernel_suite.py``: Fig. 7 at N=2048 with conv2d
+               and covar, darknet, the ISA study, the attention rows),
+               every kernel launch counted from 0, then each output against
+               its oracle;
+  7. serve     full-width qwen2-0.5b (random weights, seed 0, bf16) through
                the chunked paged engine: 8 requests, prompts of 128-1536
                tokens, 64 new tokens each; every kernel launch counted;
-  7. card/cpu  the smoke config in f32 on the card and on the CPU (asked
+  8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams;
-  8. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+  9. a ``{"kernels": [...]}`` line, then the card's name and power limit,
      then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line. Without a card, or run
@@ -58,6 +78,7 @@ import repro_torch  # noqa: E402,F401  (fails outside a checkout of the repo)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12        # H100 SXM dense TF32 tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 TOL = 2e-3
 LAYERS = 24                     # qwen2-0.5b depth: timing cycles layer pools
 
@@ -238,6 +259,7 @@ def time_prefill(res, call, q, kp, vp, row, start, K, pt, hd, layers):
 SUITE_MODES = ("unmodified", "paper", "autodma", "handwritten")
 RAGGED_MODES = ("unmodified", "autodma", "handwritten")
 RAGGED_GEMM, RAGGED_MATVEC = (1000, 600, 1100), (1000, 1500)
+RAGGED_CONV, RAGGED_COVAR = (1001, 1500), (1000, 600)
 BODIES = ("mxu", "vpu", "loop")
 BF16_TOL = 1e-2                 # bf16 output rounded every reduction step
 MXU_F32_TOL = 5e-3              # TF32 operands: a 10-bit mantissa
@@ -329,6 +351,35 @@ def check_suite_kernels(results):
                      BF16_TOL if dt == bf16 else F32_TOL,
                      f"{name} {M}x{N} {str(dt)[6:]} {mode} tiles "
                      f"{plan.tiles}")
+    c = torch.randn(3, 3, generator=g, device="cuda")
+    for (H, W), dt, modes in [((2048, 2048), f32, SUITE_MODES[:3]),
+                              ((2048, 2048), bf16, ("autodma",)),
+                              (RAGGED_CONV, f32, ("autodma",))]:
+        A = torch.randn(H, W, generator=g, device="cuda").to(dt)
+        plain = pb.conv2d_plain(A, c, pb.conv2d_row_tile(H, W))
+        for mode in modes:   # one kernel in every mode: the plan changes
+            out, plan = pb.conv2d(A, c, mode=mode)
+            torch.cuda.synchronize()
+            hold([results["conv2d"]], out, plain,
+                 BF16_TOL if dt == bf16 else F32_TOL,
+                 f"conv2d {H}x{W} {str(dt)[6:]} {mode} (row tile "
+                 f"{pb.conv2d_row_tile(H, W)}, plan tiles {plan.tiles})")
+    for (M, N), modes in [((2048, 2048), SUITE_MODES[:3]),
+                          (RAGGED_COVAR, RAGGED_MODES[:2])]:
+        D = torch.randn(M, N, generator=g, device="cuda")
+        if (M, N) == RAGGED_COVAR:   # paper's whole-axis blocks: must raise
+            try:
+                pb.covar(D, mode="paper")
+            except ValueError as e:
+                log("suite kernels", f"covar {M}x{N} paper refused: {e}")
+            else:
+                raise AssertionError("an over-budget plan was launched")
+        for mode in modes:
+            out, (p1, p2) = pb.covar(D, mode=mode)
+            torch.cuda.synchronize()
+            plain = pb.covar_plain(D, p1, p2)
+            hold([builder, results["covar"]], out, plain, MXU_F32_TOL,
+                 f"covar {M}x{N} f32 {mode} tiles {p1.tiles} / {p2.tiles}")
     torch.cuda.synchronize()
     time_suite_kernels(results)
 
@@ -345,9 +396,10 @@ def _library_tf32(fn):
 
 def time_suite_kernels(results):
     """Kernel and yardstick: device time of 20 calls replayed from a CUDA
-    graph (kernel_suite.graph_ms), as the kernel suite times; plain: CUDA
-    events around calls of the grid walker, whose many small launches the
-    host issues one by one."""
+    graph (kernel_suite.graph_ms), as the kernel suite times (torch.cov,
+    which waits on the host, with CUDA events around eager calls); plain:
+    CUDA events around calls of the grid walker, whose many small launches
+    the host issues one by one."""
     import functools
     import itertools
     from repro_torch.core import autodma
@@ -403,16 +455,206 @@ def time_suite_kernels(results):
             f"{res['plain_ms']:.4f} ms, torch.mv yardstick "
             f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']}: {nbytes} B at 3.35 TB/s)")
+    # conv2d at 2048^2 f32 (row tile 8), cycling the 4 matrices
+    cycle = itertools.cycle(As)
+    res = results["conv2d"]
+    c = torch.randn(3, 3, generator=g, device="cuda")
+    bh = pb.conv2d_row_tile(M, N)
+    res["ms"] = graph_ms(lambda: pb.conv2d(next(cycle), c), 20)
+    res["plain_ms"] = cuda_ms(lambda i: pb.conv2d_plain(As[i % 4], c, bh),
+                              iters=2, warm=1)
+    w = c[None, None].contiguous()                         # [1, 1, 3, 3]
+    res["library_ms"] = graph_ms(
+        lambda: F.conv2d(next(cycle)[None, None], w, padding=1), 20)
+    nbytes = 2 * M * N * 4 + 9 * 4
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 18 * M * N)
+    log("suite kernels", f"conv2d {M}x{N} f32 row tile {bh}: kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, F.conv2d "
+        f"(cuDNN, TF32 off) yardstick {res['library_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {nbytes} B at 3.35 "
+        f"TB/s, {18 * M * N} flop at 67 TFLOP/s f32)")
+    # covar at 2048^2 f32, autodma: mean, center, gram (TF32)
+    res = results["covar"]
+    _, (p1, p2) = pb.covar(As[0])
+    res["ms"] = graph_ms(lambda: pb.covar(next(cycle)), 20)
+    res["plain_ms"] = cuda_ms(lambda i: pb.covar_plain(As[i % 4], p1, p2),
+                              iters=1, warm=1)
+    # torch.cov waits on the host inside, so it cannot be graphed: CUDA
+    # events around eager calls, under TF32 as the gram computes
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        res["library_ms"] = cuda_ms(lambda i: torch.cov(As[i % 4].T))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    nbytes = (M * N + N * N) * 4
+    flops = 2 * N * N * M
+    t_ops = (flops / TF32_FLOP_PER_S + 2 * M * N / F32_FLOP_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    res["bound_ms"], res["bound_by"] = ((t_ops, "operations")
+                                        if t_ops >= t_bytes
+                                        else (t_bytes, "bytes"))
+    log("suite kernels", f"covar {M}x{N} f32 autodma tiles {p1.tiles} / "
+        f"{p2.tiles}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, torch.cov (TF32, eager) yardstick "
+        f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}: {flops} flop at 495 TFLOP/s TF32 + "
+        f"{2 * M * N} at 67 TFLOP/s f32; {nbytes} B at 3.35 TB/s)")
+
+
+# --------------------------------------------------------------------------
+# phase 5: the attention kernels against their plain versions
+# --------------------------------------------------------------------------
+def close(out, plain, tol: float = TOL) -> float:
+    """Fail unless ``out`` is finite and within ``tol`` of ``plain`` plus,
+    for bf16, one bf16 rounding step of the value; returns max |diff|."""
+    diff = (out.float() - plain.float()).abs()
+    lim = tol + (2**-8 * plain.float().abs()
+                 if plain.dtype == torch.bfloat16 else 0.0)
+    assert torch.isfinite(out.float()).all() and bool((diff <= lim).all()), \
+        (diff.max().item(), tol)
+    return diff.max().item()
+
+
+def check_attention_kernels(results):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.kernel_suite import (ATTENTION, DECODE,
+                                                 decode_lengths)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    dec, att = results["flash_decode"], results["flash_attention"]
+    B, H, K, S, hd = DECODE
+    main_lens = decode_lengths(B, S)
+    cases = [((B, H, K, S, hd), bf16, main_lens),
+             ((B, H, K, S, hd), f32, main_lens),
+             ((2, 8, 2, 256, 64), f32, [0, 200]),
+             ((1, 4, 4, 512, 128), f32, [512]),
+             ((3, 6, 3, 384, 64), f32, [383, 0, 17]),
+             ((2, 4, 2, 100, 32), bf16, [0, 99])]
+    for (B_, H_, K_, S_, hd_), dt, lens in cases:
+        q = torch.randn(B_, H_, hd_, generator=g, device="cuda").to(dt)
+        kc, vc = (torch.randn(B_, K_, S_, hd_, generator=g, device="cuda")
+                  .to(dt) for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = da.flash_decode(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        err = close(out, da.flash_decode_plain(q, kc, vc, lengths))
+        for b in [i for i, n in enumerate(lens) if n == 0]:
+            mean_v = vc[b].float().mean(dim=1).repeat_interleave(H_ // K_, 0)
+            close(out[b], mean_v.to(dt))
+        dec["max_abs_err"] = max(dec["max_abs_err"], err)
+        log("attention kernels", f"flash_decode B {B_} H {H_} K {K_} S {S_} "
+            f"hd {hd_} {str(dt)[6:]} lengths {lens}: max |kernel - plain| "
+            f"{err:.3e}")
+    time_decode_dense(dec, DECODE, main_lens, g)
+    small = [  # (B, H, L, Lk, hd), causal, window, softcap, dtype
+        ((2, 4, 256, 256, 32), False, None, 20.0, f32),
+        ((2, 4, 128, 128, 128), True, 64, 20.0, bf16),
+        ((1, 2, 256, 256, 64), False, 48, 5.0, f32),
+        ((1, 2, 256, 128, 64), True, 32, None, f32),    # rows that see no key
+        ((1, 2, 200, 130, 64), False, None, None, f32)]
+    main = [((B_, H_, L, L, hd_), causal, window, None, bf16)
+            for B_, H_, L, hd_, causal, window in ATTENTION.values()]
+    for (B_, H_, L, Lk, hd_), causal, window, softcap, dt in main + small:
+        q = torch.randn(B_, H_, L, hd_, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(B_, H_, Lk, hd_, generator=g, device="cuda")
+                .to(dt) for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = close(out, fa.flash_attention_plain(q, k, v, **kw))
+        att["max_abs_err"] = max(att["max_abs_err"], err)
+        log("attention kernels", f"flash_attention B {B_} H {H_} L {L} Lk "
+            f"{Lk} hd {hd_} {str(dt)[6:]} causal {causal} window {window} "
+            f"softcap {softcap}: max |kernel - plain| {err:.3e}")
+        if (B_, H_, L, Lk, hd_) == (1, 14, 2048, 2048, 64):
+            time_flash(att, q, k, v, causal, window)
+        elif Lk == L and L >= 4096:
+            time_flash({}, q, k, v, causal, window)
+
+
+def time_decode_dense(res, shape, lens, g):
+    """Kernel and the SDPA yardstick: device time of 20 calls replayed from
+    a CUDA graph, cycling 8 caches (67 MB > the 50 MB L2); plain: CUDA
+    events around eager calls."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch.kernel_suite import graph_ms
+    import itertools
+    B, H, K, S, hd = shape
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    caches = [tuple(torch.randn(B, K, S, hd, generator=g, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2)) for _ in range(8)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cyc = itertools.cycle(caches)
+    res["ms"] = graph_ms(lambda: da.flash_decode(q, *next(cyc), lengths), 20)
+    res["plain_ms"] = cuda_ms(lambda i: da.flash_decode_plain(
+        q, *caches[i % 8], lengths), iters=4, warm=1)
+    qb = q[:, :, None]                                     # [B, H, 1, hd]
+    mask = (torch.arange(S, device="cuda")[None] <
+            lengths[:, None])[:, None, None]               # key pos < length
+    res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        qb, *next(cyc), attn_mask=mask, enable_gqa=True), 20)
+    G, item = H // K, 2
+    nbytes = (sum(K * hd * item * (n + (n if n > 0 else S)) for n in lens)
+              + 2 * q.numel() * item + 4 * B)
+    flops = sum(K * G * hd * (4 * n if n > 0 else 2 * S) for n in lens)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
+    log("attention kernels", f"flash_decode timing B {B} H {H} K {K} S {S} "
+        f"hd {hd} bf16 lengths {lens}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, sdpa yardstick (graph; mask: key "
+        f"position < length) {res['library_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}: {nbytes} B at 3.35 TB/s, {flops} flop at 989 "
+        "TFLOP/s bf16)")
+
+
+def time_flash(res, q, k, v, causal, window):
+    """Kernel and the SDPA yardstick: device time of 20 calls replayed from
+    a CUDA graph; plain (the block walk): CUDA events around eager calls."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.kernel_suite import graph_ms
+    B, H, L, hd = q.shape
+    assert causal, "the pair count below is the causal one"
+    res["ms"] = graph_ms(lambda: fa.flash_attention(
+        q, k, v, causal=causal, window=window), 20)
+    res["plain_ms"] = cuda_ms(lambda i: fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window), iters=2, warm=1)
+    if window is None:
+        what = "is_causal=True"
+        res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 20)
+    else:
+        i = torch.arange(L, device="cuda")
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        what = f"bool [L, L] mask, causal and window {window}"
+        res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), 20)
+    pairs = sum(min(n + 1, window or n + 1) for n in range(L))
+    flops = 4 * hd * pairs * B * H
+    nbytes = 4 * q.numel() * q.element_size()
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
+    log("attention kernels", f"flash_attention timing B {B} H {H} L {L} hd "
+        f"{hd} bf16 causal {causal} window {window}: kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, sdpa "
+        f"yardstick (graph, {what}) {res['library_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {flops} flop at 989 "
+        f"TFLOP/s bf16, {nbytes} B at 3.35 TB/s)")
 
 
 def suite_main_path(results):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm as tg
     from repro_torch.kernels import ops
     from repro_torch.kernels import polybench as pb
+    from repro_torch.kernels import ref
     from repro_torch.kernels import tiled
     from repro_torch.launch import kernel_suite
     counters = {"autodma_tiled": tiled.launch, "gemm": tg.gemm,
-                "matvec": pb.matvec, "matvec_t": pb.matvec_t}
+                "matvec": pb.matvec, "matvec_t": pb.matvec_t,
+                "conv2d": pb.conv2d, "covar": pb.covar,
+                "flash_attention": fa.flash_attention,
+                "flash_decode": da.flash_decode}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -423,12 +665,15 @@ def suite_main_path(results):
     counts = {name: fn.launches for name, fn in counters.items()}
     assert all(n > 0 for n in counts.values()), counts
     assert counts["autodma_tiled"] == (counts["gemm"] + counts["matvec"]
-                                       + counts["matvec_t"]), counts
+                                       + counts["matvec_t"]
+                                       + 2 * counts["covar"]), counts
     for name, n in counts.items():
         results[name]["launches"] = n
-    log("suite", f"{len(res['fig7'])} Fig. 7 rows and {len(res['isa'])} ISA "
-        f"rows in {wall:.1f} s; launches {counts}")
+    log("suite", f"{len(res['fig7'])} Fig. 7 rows, {len(res['isa'])} ISA "
+        f"rows and {len(res['attention'])} attention rows in {wall:.1f} s; "
+        f"launches {counts}")
     log("suite", json.dumps({"fig7": res["fig7"], "isa": res["isa"],
+                             "attention": res["attention"],
                              "summary": res["summary"]}))
     # what comes out is right: each Fig. 7 kernel (autodma) against its
     # oracle in f32; the mxu products run in TF32, 3mm chains three
@@ -447,6 +692,10 @@ def suite_main_path(results):
               ("atax", ops.atax(A, x), ops.REFS["atax"](A, x), F32_TOL),
               ("darknet", ops.gemm(Ad, Bd), ops.REFS["gemm"](Ad, Bd),
                MXU_F32_TOL)]
+    c = torch.randn(3, 3, generator=g, device="cuda")
+    checks += [("conv2d", ops.conv2d(A, c), ops.REFS["conv2d"](A, c),
+                F32_TOL),
+               ("covar", ops.covar(A), ops.REFS["covar"](A), MXU_F32_TOL)]
     for got, exp in zip(ops.bicg(A, x, r), ops.REFS["bicg"](A, x, r)):
         checks.append(("bicg", got, exp, F32_TOL))
     for name, got, exp, tol in checks:
@@ -455,6 +704,25 @@ def suite_main_path(results):
             torch.isfinite(got).all() and err <= tol, (name, err)
         log("suite", f"{name} (autodma) against its oracle: rel err "
             f"{err:.2e} (tol {tol:g})")
+    # the attention kernels against their oracles, f32, within 2e-3
+    q, k, v = (torch.randn(1, 14, 512, 64, generator=g, device="cuda")
+               for _ in range(3))
+    B, H, K, S, hd = kernel_suite.DECODE
+    qd = torch.randn(B, H, hd, generator=g, device="cuda")
+    kc, vc = (torch.randn(B, K, S, hd, generator=g, device="cuda")
+              for _ in range(2))
+    lens = torch.tensor(kernel_suite.decode_lengths(B, S), dtype=torch.int32,
+                        device="cuda")
+    for name, got, exp in [
+            ("flash_attention", ops.flash_attention(q, k, v, window=128),
+             ops.REFS["flash_attention"](q, k, v, window=128)),
+            ("flash_decode", da.flash_decode(qd, kc, vc, lens),
+             ref.decode_attention(qd, kc, vc, lens))]:
+        err = (got - exp).abs().max().item()
+        assert tuple(got.shape) == tuple(exp.shape) and \
+            torch.isfinite(got).all() and err <= TOL, (name, err)
+        log("suite", f"{name} against its oracle (f32): max abs err "
+            f"{err:.2e} (tol {TOL:g})")
 
 
 # --------------------------------------------------------------------------
@@ -591,14 +859,27 @@ def main() -> int:
             ("autodma_tiled", "src/repro/core/autodma.py:321"),
             ("gemm", "src/repro/kernels/gemm.py:62"),
             ("matvec", "src/repro/kernels/polybench.py:31"),
-            ("matvec_t", "src/repro/kernels/polybench.py:39")):
+            ("matvec_t", "src/repro/kernels/polybench.py:39"),
+            ("covar", "src/repro/kernels/polybench.py:142")):
         results[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/autodma_tiled.cu",
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0}
+    for name, source, replaces in (
+            ("conv2d", "conv2d_3x3.cu", "polybench.py:94"),
+            ("flash_decode", "decode_attention.cu", "decode_attention.py:26"),
+            ("flash_attention", "flash_attention.cu",
+             "flash_attention.py:55")):
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": 0,
+            "max_abs_err": 0.0}
     check_kernels(results)
     torch.cuda.synchronize()
     check_suite_kernels(results)
+    torch.cuda.synchronize()
+    check_attention_kernels(results)
     torch.cuda.synchronize()
     suite_main_path(results)
     torch.cuda.synchronize()

@@ -307,10 +307,10 @@ class Body:
 
     ``cuda`` names the device body in ``csrc/autodma_tiled.cu`` (see
     ``kernels/tiled.py``: ``gemm_mxu``, ``gemm_vpu``, ``gemm_loop``,
-    ``matvec``, ``matvec_t``); ``plain`` is the same body in PyTorch,
-    ``plain(*in_blocks, *out_blocks, axis_info)``, writing its output
-    blocks in place as a Pallas body writes its refs; ``alpha`` scales each
-    reduction step's product (gemm).
+    ``gram``, ``matvec``, ``matvec_t``, ``center``); ``plain`` is the same
+    body in PyTorch, ``plain(*in_blocks, *out_blocks, axis_info)``, writing
+    its output blocks in place as a Pallas body writes its refs; ``alpha``
+    scales each reduction step's product (gemm, gram).
     """
     cuda: str
     plain: Callable

@@ -1,21 +1,25 @@
 // The AutoDMA tiled-kernel builder for Hopper (sm_90a), with the bodies of
-// gemm (three ISA-study variants), matvec and matvec_t.
+// gemm (three ISA-study variants), matvec, matvec_t and covar's two passes.
 //
 // Replaces: src/repro/core/autodma.py:321 pallas_call (the builder) and the
 // Pallas bodies it carries: src/repro/kernels/gemm.py:62 gemm (_body_mxu
 // :26, _body_vpu :33, _body_loop :42), src/repro/kernels/polybench.py:31
-// matvec and :39 matvec_t.
+// matvec, :39 matvec_t, and :142 covar (center_body :150, gram_body :167).
 //
 // What it computes. A Plan from the AutoDMA planner (core/autodma.py) tiles
 // a loop nest of at most three axes: parallel axes, then one reduction axis.
 // Each input array's block is cut by its per-dimension axis map (`dims`),
 // and the body folds one reduction step into the resident output tile:
 //   gemm      C = prev + alpha * (A_blk @ B_blk), A [M,K], B [K,N]
+//   gram      S = prev + alpha * (A_blk^T @ B_blk), A, B [M,N] dims (2,0),
+//             (2,1); covar's Dc^T Dc with alpha = 1/(M-1)
 //   matvec    y = prev + A_blk @ x_blk,           A [M,N] dims (0,1)
 //   matvec_t  y = prev + A_blk^T @ x_blk,         A [M,N] dims (1,0)
+//   center    y = x0_blk - x1_blk                 (no reduction axis)
 // with prev = 0 at reduction index 0 and the tile rounded to the dtype
 // (f32 or bf16) after every step, as the JAX bodies keep their output block
-// in VMEM in that dtype.
+// in VMEM in that dtype. A spec without a reduction axis (center) runs as
+// one step over a virtual third axis of bound 1.
 //
 // Design. Tiles, grid and axis maps are runtime ints from the Plan (laid
 // out by kernels/tiled.py), so one build serves every plan.
@@ -42,16 +46,19 @@
 //     gemm_vpu multiplies and adds on CUDA cores with __fmul_rn/__fadd_rn,
 //     which nvcc never contracts into FFMA (no MAC instruction); gemm_loop
 //     runs FFMA in a k-loop over 8-deep slices kept rolled (#pragma unroll
-//     1, a software loop); matvec/matvec_t reduce on CUDA cores (matvec a
-//     warp per row; matvec_t lanes across columns, warps down the rows,
-//     the warps' sums added in a fixed order). The gemm bodies share one
+//     1, a software loop); gram is gemm_mxu reading its A fragments through
+//     a transposed view of the staged [k, m] block (no transpose pass; the
+//     block's row pitch is skewed for that access); matvec/matvec_t reduce
+//     on CUDA cores (matvec a warp per row; matvec_t lanes across columns,
+//     warps down the rows, the warps' sums added in a fixed order); center
+//     subtracts element by element and stores. The gemm bodies share one
 //     register layout: each warp owns 16x32 fragments of the output tile
 //     in the mma accumulator layout; a tile of more fragments than 16
 //     warps hold is covered in passes.
 //
 // What bounds it on the H100. gemm at the suite's shapes is bound by
 // operations (2MNK flops against 495 TFLOP/s TF32; ~0.035 ms at 2048^3);
-// matvec and matvec_t by bytes (the matrix read once at 3.35 TB/s). This
+// matvec, matvec_t and center by bytes (each array once at 3.35 TB/s). This
 // first version loads mma fragments element by element from shared memory
 // (no ldmatrix, no wgmma, no TMA) and so runs far from the tensor cores'
 // rate; the matvec bodies stage x and A through shared memory although
@@ -68,7 +75,7 @@ constexpr int MAX_SMEM = 232448;  // shared memory one block may use (H100)
 constexpr int MAX_THREADS = 512;
 
 enum BodyId { GEMM_MXU = 0, GEMM_VPU = 1, GEMM_LOOP = 2, MATVEC = 3,
-              MATVEC_T = 4 };
+              MATVEC_T = 4, CENTER = 5, GRAM = 6 };
 enum DtypeId { F32 = 0, BF16 = 1 };
 
 // The int fields laid out by kernels/tiled.py (FIELDS there), in order.
@@ -184,6 +191,17 @@ struct GView {
   }
   __device__ __forceinline__ uint16_t raw(int r, int c) const {
     return in(r, c) ? bits16(p[(size_t)(r0 + r) * ld + c0 + c]) : 0;
+  }
+};
+
+// A view read transposed: gram's A block is staged as [k, m] and read as
+// [m, k] by the gemm fragment loaders.
+template <class V>
+struct TView {
+  V v;
+  __device__ __forceinline__ float f(int r, int c) const { return v.f(c, r); }
+  __device__ __forceinline__ uint16_t raw(int r, int c) const {
+    return v.raw(c, r);
   }
 };
 
@@ -372,8 +390,9 @@ __device__ __forceinline__ void fragment_product(float (&p)[4][4],
 
 // gemm: each warp owns FPW fragments of the output tile, in registers. An
 // output tile of more than 16 warps x FPW fragments is covered in passes,
-// each of which runs the whole reduction loop again.
-template <int ISA, int FPW, typename T>
+// each of which runs the whole reduction loop again. TA: A is read
+// transposed (gram).
+template <int ISA, int FPW, typename T, bool TA = false>
 struct GemmBody {
   float c[FPW][4][4];
   int first;  // the pass's first fragment
@@ -402,7 +421,10 @@ struct GemmBody {
       const int r0 = (f / P.ncg) * 16, c0 = (f % P.ncg) * 32;
       if (r0 >= er || c0 >= ec) continue;  // wholly past a ragged edge
       float p[4][4] = {};
-      fragment_product<ISA, T>(p, A, B, r0, c0, kext, g, q);
+      if constexpr (TA)
+        fragment_product<ISA, T>(p, TView<VA>{A}, B, r0, c0, kext, g, q);
+      else
+        fragment_product<ISA, T>(p, A, B, r0, c0, kext, g, q);
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
@@ -491,6 +513,28 @@ struct MatvecBody {
   }
 };
 
+// center: y = x0 - x1 over the block, stored straight to device memory
+// (its one reduction step is the virtual axis of bound 1).
+template <typename T>
+struct CenterBody {
+  __device__ void init(const Params&, unsigned char*, int) {}
+
+  template <class VA, class VB>
+  __device__ void step(const Params& P, const Ctx& cx, const VA& A,
+                       const VB& B) {
+    const int er = cx.ext[P.out_ax0], ec = cx.ext[P.out_ax1];
+    const int or0 = cx.org[P.out_ax0], oc0 = cx.org[P.out_ax1];
+    T* out = static_cast<T*>(P.out);
+    for (int i = threadIdx.x; i < er * ec; i += blockDim.x) {
+      const int r = i / ec, c = i - r * ec;
+      out[(size_t)(or0 + r) * P.out_cols + oc0 + c] =
+          from_f<T>(A.f(r, c) - B.f(r, c));
+    }
+  }
+
+  __device__ void finish(const Params&, const Ctx&) {}
+};
+
 // One pass of a block: the reduction loop over the staged (or, unmodified,
 // the device-memory) blocks, then the output tile's store.
 template <class Body, typename T>
@@ -557,13 +601,16 @@ cudaError_t launch(const Params& P, int blocks, int threads, int smem,
   return cudaGetLastError();
 }
 
-template <int ISA, typename T>
+template <int ISA, typename T, bool TA = false>
 cudaError_t launch_gemm(const Params& P, int fpw, int blocks, int threads,
                         int smem, cudaStream_t s) {
   switch (fpw) {
-    case 1: return launch<GemmBody<ISA, 1, T>, T>(P, blocks, threads, smem, s);
-    case 2: return launch<GemmBody<ISA, 2, T>, T>(P, blocks, threads, smem, s);
-    case 4: return launch<GemmBody<ISA, 4, T>, T>(P, blocks, threads, smem, s);
+    case 1:
+      return launch<GemmBody<ISA, 1, T, TA>, T>(P, blocks, threads, smem, s);
+    case 2:
+      return launch<GemmBody<ISA, 2, T, TA>, T>(P, blocks, threads, smem, s);
+    case 4:
+      return launch<GemmBody<ISA, 4, T, TA>, T>(P, blocks, threads, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -582,6 +629,11 @@ cudaError_t dispatch(const Params& P, const int* f, cudaStream_t s) {
       return launch<MatvecBody<false, T>, T>(P, blocks, threads, smem, s);
     case MATVEC_T:
       return launch<MatvecBody<true, T>, T>(P, blocks, threads, smem, s);
+    case CENTER:
+      return launch<CenterBody<T>, T>(P, blocks, threads, smem, s);
+    case GRAM:
+      return launch_gemm<GEMM_MXU, T, true>(P, f[F_FPW], blocks, threads,
+                                            smem, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,5 +1,8 @@
-// Shared device code of the two paged attention kernels
-// (paged_decode_attention.cu, paged_prefill_attention.cu).
+// Shared device code of the attention kernels. The two paged kernels
+// (paged_decode_attention.cu, paged_prefill_attention.cu) use all of it; the
+// dense ones (decode_attention.cu, flash_attention.cu) only its constants,
+// dtype conversions and warp reductions, since their masking rule differs
+// (below).
 //
 // Both kernels walk one sequence's page table inside a thread block and keep
 // an online softmax per query row in shared memory:
@@ -35,6 +38,16 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
+}
+
+// An f32 value rounded to the output's element type (f32 or bf16).
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -1,13 +1,14 @@
 """Public wrappers for the kernel suite — the hero API surface.
 
-Counterpart of ``repro/kernels/ops.py`` for the linear-algebra half of
-Table 2. Every op takes ``mode`` ∈ {"unmodified", "paper", "autodma"}
-mirroring HEROv2 Fig. 7's bars (gemm, 2mm and 3mm also take
+Counterpart of ``repro/kernels/ops.py``: the paper's Table 2 suite and
+flash attention. Every suite op takes ``mode`` ∈ {"unmodified", "paper",
+"autodma"} mirroring HEROv2 Fig. 7's bars (gemm, 2mm and 3mm also take
 ``handwritten_tiles``, the fourth bar) and returns only the result; the
 plans are returned by the functions of kernels/gemm.py and polybench.py.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gemm_mod
 from repro_torch.kernels import polybench as pb
 from repro_torch.kernels import ref
@@ -40,5 +41,21 @@ def bicg(A, p, r, mode="autodma"):
     return out
 
 
-REFS = {"gemm": ref.gemm, "mm2": ref.mm2, "mm3": ref.mm3, "atax": ref.atax,
-        "bicg": ref.bicg}
+def conv2d(A, c, mode="autodma"):
+    out, _ = pb.conv2d(A, c, mode=mode)
+    return out
+
+
+def covar(D, mode="autodma"):
+    out, _ = pb.covar(D, mode=mode)
+    return out
+
+
+flash_attention = fa.flash_attention   # returns no plan: nothing to drop
+
+
+REFS = {
+    "gemm": ref.gemm, "mm2": ref.mm2, "mm3": ref.mm3, "atax": ref.atax,
+    "bicg": ref.bicg, "conv2d": ref.conv2d, "covar": ref.covar,
+    "flash_attention": ref.attention,
+}

@@ -1,7 +1,7 @@
 """Plain PyTorch oracles for the kernels.
 
-Counterpart of ``repro/kernels/ref.py``: the paper's Table 2 linear-algebra
-oracles (gemm, 2mm, 3mm, atax, bicg) and the attention oracles. The paged
+Counterpart of ``repro/kernels/ref.py``: the paper's Table 2 oracles (gemm,
+2mm, 3mm, atax, bicg, conv2d, covar) and the attention oracles. The paged
 oracles (gather, dequantise, then these) live beside their kernels, in
 paged_decode_attention.py and paged_prefill_attention.py, as in the
 reference.
@@ -44,6 +44,23 @@ def bicg(A, p, r):
     return A @ p, A.T @ r
 
 
+def conv2d(A, c):
+    """3×3 stencil, zero-padded borders. c: [3,3]."""
+    Ap = torch.nn.functional.pad(A, (1, 1, 1, 1))
+    out = torch.zeros_like(A)
+    for di in range(3):
+        for dj in range(3):
+            out = out + c[di, dj] * Ap[di:di + A.shape[0], dj:dj + A.shape[1]]
+    return out
+
+
+def covar(D):
+    """Column-mean-center, then S = Dᵀ D / (M−1)."""
+    M = D.shape[0]
+    Dc = D - D.mean(dim=0, keepdim=True)
+    return (Dc.T @ Dc) / (M - 1)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor
                      ) -> torch.Tensor:
@@ -67,12 +84,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True, window=None) -> torch.Tensor:
-    """q, k, v: [B, H, L, hd] (MHA; GQA broadcast upstream)."""
+              causal: bool = True, window=None, softcap=None) -> torch.Tensor:
+    """q, k, v: [B, H, L, hd] (MHA; GQA broadcast upstream); ``softcap``
+    caps the scaled logits as ``tanh(s / softcap) · softcap``."""
     B, H, Lq, hd = q.shape
     Lk = k.shape[2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     logits = logits / math.sqrt(hd)
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
     qi = torch.arange(Lq, device=q.device)[:, None]
     kj = torch.arange(Lk, device=q.device)[None, :]
     m = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)

@@ -9,6 +9,12 @@ and raises on anything the kernel does not take, such as a plan whose
 staged blocks exceed the 232,448 bytes of shared memory a block may use.
 There is no fallback.
 
+The bodies come in three families: gemm (``gemm_mxu``, ``gemm_vpu``,
+``gemm_loop``, and ``gram``, whose A is read through (reduction, row) as
+covar's DcᵀDc reads Dc), matvec (``matvec``, ``matvec_t``), and the
+elementwise family for specs without a reduction axis (``center``: y =
+x0 − x1), which runs as one reduction step over a virtual axis of bound 1.
+
 ``launch.launches`` counts the builder's launches. The plain version is the
 grid walker :func:`repro_torch.core.autodma.walk`, which
 :func:`~repro_torch.core.autodma.tiled_call` takes for CPU tensors.
@@ -28,8 +34,9 @@ from repro_torch.kernels import _build
 
 # the device bodies of csrc/autodma_tiled.cu (enum BodyId)
 BODIES = {"gemm_mxu": 0, "gemm_vpu": 1, "gemm_loop": 2, "matvec": 3,
-          "matvec_t": 4}
+          "matvec_t": 4, "center": 5, "gram": 6}
 GEMM_BODIES = ("gemm_mxu", "gemm_vpu", "gemm_loop")
+ELTWISE_BODIES = ("center",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's int fields, in the order of enum Field in the source
 FIELDS = ("body", "dtype", "staged", "nbuf", "stage_bytes", "out_off",
@@ -46,12 +53,17 @@ FRAG_ROWS, FRAG_COLS = 16, 32   # one warp's gemm fragment (mma layout)
 # fragments a warp holds in registers; a larger output tile takes passes
 FPW = (1, 2, 4)
 MATVEC_THREADS = 256
+ELTWISE_THREADS = 256
 # unmodified plans run unstaged on the kernel's own grid of output tiles:
-# 64x64 gemm tiles, a row per warp (matvec), 32 columns a block (matvec_t)
+# 64x64 gemm and elementwise tiles, a row per warp (matvec), 32 columns a
+# block (matvec_t)
 UNSTAGED_TILE = {"gemm_mxu": 64, "gemm_vpu": 64, "gemm_loop": 64,
+                 "gram": 64, "center": 64,
                  "matvec": MATVEC_THREADS // 32, "matvec_t": 32}
 # row-pitch skew, in 4-byte words, that keeps the gemm fragment loads from
-# shared memory free of bank conflicts (A read along rows, B down columns)
+# shared memory free of bank conflicts: an array read along its rows (the
+# reduction axis on its columns, gemm's A) takes the first, one read down
+# its columns (the reduction axis on its rows: B, and gram's A) the second
 SKEW_WORDS = (4, 8)
 
 
@@ -71,7 +83,9 @@ def _as_2d(a: autodma.ArrayAccess):
 
 
 def _family(body_name: str) -> str:
-    return "gemm" if body_name in GEMM_BODIES else "matvec"
+    if body_name in GEMM_BODIES + ("gram",):
+        return "gemm"
+    return "eltwise" if body_name in ELTWISE_BODIES else "matvec"
 
 
 def _plan_key(plan_: autodma.Plan) -> tuple:
@@ -93,24 +107,29 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
     """:func:`layout` as a tuple in FIELDS order, memoised per plan."""
     if body_name not in BODIES:
         raise ValueError(f"tiled: unknown body {body_name!r}")
+    family = _family(body_name)
     ins, outs = spec.inputs(), spec.outputs()
     naxes = len(spec.loop_bounds)
-    if len(ins) != 2 or len(outs) != 1 or naxes > 3 or \
-            len(spec.reduction_axes) != 1:
-        raise ValueError(f"tiled: {spec.name} needs 2 inputs, 1 output, at "
-                         "most 3 loop axes and one reduction axis")
+    nred = 0 if family == "eltwise" else 1
+    if len(ins) != 2 or len(outs) != 1 or naxes + 1 - nred > 3 or \
+            len(spec.reduction_axes) != nred:
+        raise ValueError(f"tiled: body {body_name} needs 2 inputs, 1 output, "
+                         f"at most {2 + nred} loop axes and {nred} reduction "
+                         f"axis; {spec.name} has {len(ins)}, {len(outs)}, "
+                         f"{naxes} and {len(spec.reduction_axes)}")
     dtype = ins[0].dtype
     if dtype not in DTYPES or any(a.dtype != dtype for a in spec.arrays):
         raise TypeError(f"tiled: {spec.name} arrays must share one dtype in "
                         f"{tuple(DTYPES)}")
-    family = _family(body_name)
     rank = [len(a.shape) for a in spec.arrays]
-    if rank != ([2, 2, 2] if family == "gemm" else [2, 1, 1]):
+    if rank != ([2, 1, 1] if family == "matvec" else [2, 2, 2]):
         raise ValueError(f"tiled: body {body_name} does not fit {spec.name} "
                          f"(array ranks {rank})")
-    npar = naxes - 1
-    par = list(grid_axes[:npar])
-    red = grid_axes[npar]
+    if nred:
+        par = list(grid_axes[:naxes - 1])
+        red = grid_axes[naxes - 1]
+    else:   # one reduction step over a virtual axis of bound 1
+        par, red = list(grid_axes), naxes
     bound = list(spec.loop_bounds) + [1] * (3 - naxes)
     staged = mode != "unmodified"
     tile = list(tiles) + [1] * (3 - naxes)
@@ -124,7 +143,7 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
              bound1=bound[1], bound2=bound[2], tile0=tile[0], tile1=tile[1],
              tile2=tile[2], ntile0=ntile[0], ntile1=ntile[1],
              ntile2=ntile[2], par0=par[0],
-             par1=par[1] if npar > 1 else -1, red=red,
+             par1=par[1] if len(par) > 1 else -1, red=red,
              blocks=math.prod(ntile[a] for a in par))
     soff = 0
     for k, a in enumerate(ins):
@@ -138,8 +157,8 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
         if family == "gemm":   # zero padding to whole fragments, plus skew
             prow = _round_up(e0, FRAG_ROWS)
             pcol = _round_up(e1, FRAG_COLS)
-            ld = pcol + SKEW_WORDS[k] * 4 // item
-        else:   # the matvec bodies stop at the extents; rows of 16 bytes
+            ld = pcol + SKEW_WORDS[ax0 == red] * 4 // item
+        else:   # the other bodies stop at the extents; rows of 16 bytes
             prow, pcol = e0, _round_up(e1, 8)
             ld = pcol
         f.update({f"in{k}_rows": rows, f"in{k}_cols": cols,
@@ -151,11 +170,13 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
     out_rows, out_cols, out_ax0, out_ax1 = _as_2d(outs[0])
     # the axis maps each body is written against (its arrays' own layouts)
     a_map = (f["in0_ax0"], f["in0_ax1"])
-    fits = {"gemm": a_map == (out_ax0, red) and
-            (f["in1_ax0"], f["in1_ax1"]) == (red, out_ax1),
+    b_map = (f["in1_ax0"], f["in1_ax1"])
+    fits = {"gemm": a_map == (out_ax0, red) and b_map == (red, out_ax1),
+            "gram": a_map == (red, out_ax0) and b_map == (red, out_ax1),
             "matvec": a_map == (out_ax1, red) and f["in1_ax1"] == red,
-            "matvec_t": a_map == (red, out_ax1) and f["in1_ax1"] == red}
-    if not fits["gemm" if family == "gemm" else body_name]:
+            "matvec_t": a_map == (red, out_ax1) and f["in1_ax1"] == red,
+            "center": a_map == b_map == (out_ax0, out_ax1)}
+    if not fits["gemm" if body_name in GEMM_BODIES else body_name]:
         raise ValueError(f"tiled: body {body_name} does not fit the axis "
                          f"maps of {spec.name}")
     f.update(out_rows=out_rows, out_cols=out_cols, out_ax0=out_ax0,
@@ -169,6 +190,9 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
         warps = max(4, min(MAX_WARPS, -(-nfrag // fpw)))
         f.update(nrg=nrg, ncg=ncg, fpw=fpw, threads=32 * warps,
                  npass=-(-nfrag // (warps * fpw)))
+        out_bytes = 0
+    elif family == "eltwise":   # stores straight from the staged blocks
+        f.update(nrg=0, ncg=0, fpw=0, npass=1, threads=ELTWISE_THREADS)
         out_bytes = 0
     else:
         f.update(nrg=0, ncg=0, fpw=0, npass=1, threads=MATVEC_THREADS)

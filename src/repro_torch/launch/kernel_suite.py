@@ -1,5 +1,5 @@
 """The paper's kernel suite, measured: Fig. 7 (AutoDMA vs handwritten vs
-unmodified) and the §3.4 ISA study, on the card.
+unmodified), the §3.4 ISA study and the attention kernels, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_suite
         [--device cuda|cpu] [--scale N] [--iters N] [--out PATH]
@@ -13,15 +13,23 @@ replayed between CUDA events (:func:`graph_ms`), so the time is the
 kernels' and not the host's planning and dispatch:
 
   * Fig. 7 — gemm 2048³, 2mm and 3mm at N=2048, atax and bicg at N=2048,
-    darknet's conv-as-gemm 1024×1024×4608, all f32 with body ``mxu``, in
-    modes ``unmodified``, ``paper`` and ``autodma`` at the H100 budget
+    conv2d and covar at N=2048 (``bench_tiling``'s shapes), darknet's
+    conv-as-gemm 1024×1024×4608, all f32 (gemm bodies ``mxu``), in modes
+    ``unmodified``, ``paper`` and ``autodma`` at the H100 budget
     (``heromem.hero_l1_capacity()``); the gemm family also ``handwritten``
-    with :data:`HANDWRITTEN_TILES`;
+    with :data:`HANDWRITTEN_TILES`. conv2d runs one kernel in every mode
+    (as in the reference, the mode changes only its returned plan), and its
+    rows say so;
   * ISA study — bodies ``mxu``, ``vpu`` and ``loop`` at ``bench_isa``'s
     sizes (512³, 256×256×1152, 384³), mode ``autodma`` at the H100 budget
     (``bench_isa`` plans with a 1 MiB TPU VMEM budget);
   * a sweep of handwritten tiles at gemm 2048³, from which
-    :data:`HANDWRITTEN_TILES` was chosen.
+    :data:`HANDWRITTEN_TILES` was chosen;
+  * attention — ``ops.flash_attention`` at qwen2-0.5b's full width (causal,
+    L 2048) and gemma3-27b's local layer (window 1024, L 4096), and the
+    dense ``flash_decode`` at the serving path's decode shape (8 slots,
+    ragged lengths including 0 and S), bf16 (:data:`ATTENTION`,
+    :data:`DECODE`).
 
 Each row prints ms, the speed-up over ``unmodified`` and, for autodma, its
 fraction of handwritten, beside the paper's claims (4.4× at most, 85 % of
@@ -40,9 +48,10 @@ import subprocess
 import time
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import decode_attention, ops
 
 # the expert tile for the gemm family on the H100 (tm, tn, tk): a 64×128
 # output tile in registers across 16 warps, 128-deep k-steps double-
@@ -61,6 +70,12 @@ ISA_SIZES = {"gemm": (512, 512, 512), "darknet": (256, 256, 1152),
              "2mm": (384, 384, 384)}
 GEMM_FAMILY = ("gemm", "2mm", "3mm", "darknet")
 MODES = ("unmodified", "paper", "autodma")
+ONE_KERNEL_EVERY_MODE = ("conv2d",)   # the mode changes only the plan
+# (B, H, L, hd, causal, window): full published widths of the configs
+ATTENTION = {"qwen2-0.5b": (1, 14, 2048, 64, True, None),
+             "gemma3-27b-local": (1, 32, 4096, 128, True, 1024)}
+# (B, H, K, S, hd): the serving main path's decode step at max_seq 2048
+DECODE = (8, 14, 2, 2048, 64)
 
 
 def card_line() -> str:
@@ -122,11 +137,13 @@ def _inputs(device: str, scale: int, seed: int = 0) -> Dict[str, tuple]:
     return {"gemm": (r(n, n), r(n, n)), "2mm": (r(n, n), r(n, n), r(n, n)),
             "3mm": (r(n, n), r(n, n), r(n, n), r(n, n)),
             "atax": (r(n, n), r(n)), "bicg": (r(n, n), r(n), r(n)),
+            "conv2d": (r(n, n), r(3, 3)), "covar": (r(n, n),),
             "darknet": (r(dm, dk), r(dk, dn))}
 
 
 OPS = {"gemm": ops.gemm, "2mm": ops.mm2, "3mm": ops.mm3, "atax": ops.atax,
-       "bicg": ops.bicg, "darknet": ops.gemm}
+       "bicg": ops.bicg, "conv2d": ops.conv2d, "covar": ops.covar,
+       "darknet": ops.gemm}
 
 
 def fig7(device: str, scale: int, iters: int) -> List[dict]:
@@ -141,7 +158,8 @@ def fig7(device: str, scale: int, iters: int) -> List[dict]:
                                                  handwritten_tiles=tiles))
         for mode, t in times.items():
             row = {"kernel": name, "mode": mode, "ms": t,
-                   "speedup_vs_unmodified": times["unmodified"] / t}
+                   "speedup_vs_unmodified": times["unmodified"] / t,
+                   "one_kernel_every_mode": name in ONE_KERNEL_EVERY_MODE}
             if mode == "autodma" and "handwritten" in times:
                 row["autodma_fraction_of_handwritten"] = \
                     times["handwritten"] / t
@@ -182,6 +200,46 @@ def isa(device: str, scale: int, iters: int) -> List[dict]:
     return rows
 
 
+def decode_lengths(B: int, S: int, seed: int = 0) -> List[int]:
+    """Ragged decode lengths: an empty slot, a full one, and the serving
+    mix's (prompts uniform in [128, 1536] plus up to 64 new tokens, cut to
+    S)."""
+    rng = np.random.default_rng(seed)
+    mix = rng.integers(min(128, S), min(1601, S) + 1, max(0, B - 2))
+    return ([0, S] + [int(n) for n in mix])[:B]
+
+
+def attention(device: str, scale: int, iters: int) -> List[dict]:
+    """Device ms of ``ops.flash_attention`` at :data:`ATTENTION` and of
+    ``flash_decode`` at :data:`DECODE`, bf16, lengths cut by ``scale``."""
+    ms = timer(device, iters)
+    g = torch.Generator(device=device).manual_seed(2)
+    bf16 = torch.bfloat16
+    rows = []
+    for name, (B, H, L, hd, causal, window) in ATTENTION.items():
+        L = max(64, L // scale)
+        window = window and max(16, window // scale)
+        q, k, v = (torch.randn(B, H, L, hd, generator=g, device=device)
+                   .to(bf16) for _ in range(3))
+        t = ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                           window=window))
+        rows.append({"kernel": "flash_attention", "case": name,
+                     "shape": [B, H, L, hd], "causal": causal,
+                     "window": window, "dtype": "bfloat16", "ms": t})
+    B, H, K, S, hd = DECODE
+    S = max(64, S // scale)
+    q = torch.randn(B, H, hd, generator=g, device=device).to(bf16)
+    kc, vc = (torch.randn(B, K, S, hd, generator=g, device=device).to(bf16)
+              for _ in range(2))
+    lens = decode_lengths(B, S)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    t = ms(lambda: decode_attention.flash_decode(q, kc, vc, lengths))
+    rows.append({"kernel": "flash_decode", "case": "serving decode step",
+                 "shape": [B, H, K, S, hd], "lengths": lens,
+                 "dtype": "bfloat16", "ms": t})
+    return rows
+
+
 def summary(fig7_rows: List[dict], isa_rows: List[dict]) -> dict:
     auto = [r for r in fig7_rows if r["mode"] == "autodma"]
     fracs = [r["autodma_fraction_of_handwritten"] for r in auto
@@ -215,6 +273,9 @@ def run(device: str = "cuda", scale: int = 1, iters: int = 5,
         extra = (f", autodma = {r['autodma_fraction_of_handwritten']:.1%} "
                  "of handwritten" if "autodma_fraction_of_handwritten" in r
                  else "")
+        if r["one_kernel_every_mode"]:
+            extra += " (one kernel in every mode: the mode changes only " \
+                "the returned plan)"
         log(f"[kernel_suite:fig7] {r['kernel']:8s} {r['mode']:11s} "
             f"{r['ms']:10.4f} {unit}, {r['speedup_vs_unmodified']:6.2f}x "
             f"vs unmodified{extra}")
@@ -228,6 +289,10 @@ def run(device: str = "cuda", scale: int = 1, iters: int = 5,
             f"{r['ms_mxu']:.4f}, vpu {r['ms_vpu']:.4f}, loop "
             f"{r['ms_loop']:.4f} {unit}; mac {r['speedup_mac']:.2f}x, "
             f"hwloop {r['speedup_hwloop']:.2f}x")
+    att = attention(device, scale, iters)
+    for r in att:
+        log(f"[kernel_suite:attention] {r['kernel']} {r['case']} "
+            f"{r['shape']} {r['dtype']}: {r['ms']:.4f} {unit}")
     s = summary(f7, isa_rows)
     log(f"[kernel_suite:summary] autodma max {s['max_speedup_autodma_vs_unmodified']:.2f}x "
         f"vs unmodified (paper 4.4x), autodma "
@@ -235,7 +300,8 @@ def run(device: str = "cuda", scale: int = 1, iters: int = 5,
         f"(paper 85%), MAC {s['geomean_isa_mac_speedup']:.2f}x (paper 2.1x)")
     return {"device": where, "time_unit": unit, "scale": scale,
             "iters": iters, "handwritten_tiles": list(HANDWRITTEN_TILES),
-            "fig7": f7, "sweep": sweep_rows, "isa": isa_rows, "summary": s}
+            "fig7": f7, "sweep": sweep_rows, "isa": isa_rows,
+            "attention": att, "summary": s}
 
 
 def main(argv=None) -> int:

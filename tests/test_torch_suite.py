@@ -178,8 +178,9 @@ def test_cpu_calls_count_no_launch():
 
 def test_kernel_suite_runs_on_the_cpu_when_asked(tmp_path):
     """python -m repro_torch.launch.kernel_suite --device cpu: every Fig. 7
-    row (handwritten for the gemm family), the tile sweep and the ISA rows,
-    at sizes / 32, with host-clock times labelled as such."""
+    row (handwritten for the gemm family; conv2d marked as one kernel in
+    every mode), the tile sweep, the ISA rows and the attention rows, at
+    sizes / 32, with host-clock times labelled as such."""
     from repro_torch.launch import kernel_suite
     out = tmp_path / "k.json"
     assert kernel_suite.main(["--device", "cpu", "--iters", "1", "--scale",
@@ -191,9 +192,16 @@ def test_kernel_suite_runs_on_the_cpu_when_asked(tmp_path):
         modes.setdefault(r["kernel"], []).append(r["mode"])
     assert modes == {k: ["unmodified", "paper", "autodma"] + (
         ["handwritten"] if k in kernel_suite.GEMM_FAMILY else [])
-        for k in ("gemm", "2mm", "3mm", "atax", "bicg", "darknet")}
+        for k in ("gemm", "2mm", "3mm", "atax", "bicg", "conv2d", "covar",
+                  "darknet")}
+    assert all(r["one_kernel_every_mode"] == (r["kernel"] == "conv2d")
+               for r in res["fig7"])
     assert len(res["sweep"]) == 2 * len(kernel_suite.SWEEP_TILES)
     assert [r["kernel"] for r in res["isa"]] == list(kernel_suite.ISA_SIZES)
+    assert [(r["kernel"], r["shape"]) for r in res["attention"]] == [
+        ("flash_attention", [1, 14, 64, 64]),
+        ("flash_attention", [1, 32, 128, 128]),
+        ("flash_decode", [8, 14, 2, 64, 64])]
     assert res["summary"]["paper_claims"]["max_speedup_vs_unmodified"] == 4.4
 
 
