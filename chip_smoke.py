@@ -9,11 +9,13 @@ Phases, each printed on its own line, none catching its own failure:
                parallel;
   3. kernels   each paged attention kernel against its plain PyTorch version
                on the same CUDA tensors (atol 2e-3) at the main path's
-               shapes, the smoke shapes and int8 pages; kernel, plain and
+               shapes, the smoke shapes, int8 pages, f16 pages and pt 8 /
+               hd 128 (bf16), each kernel's grid logged; kernel and
                yardstick times (``scaled_dot_product_attention`` over
                already-gathered dense K/V: it leaves the page walk out and
-               is not the same function) beside the least time the card
-               could take;
+               is not the same function) from CUDA-graph replays, plain
+               times from CUDA events, beside the least time the card could
+               take;
   4. suite kernels  the AutoDMA builder with each gemm body (mxu, vpu,
                loop), matvec and matvec_t against the plain grid walker on
                the same CUDA tensors: gemm 2048³ and 1024×1024×4608, matvec
@@ -151,7 +153,14 @@ def check_kernels(results):
         ("int8", 14, 2, 64, 16, torch.int8,
          [0, 7, 16, 33, 512, 513, 1999, 2048], 128,
          [(1, 2047), (37, 100), (256, 1500)]),
+        ("f16", 14, 2, 64, 16, torch.float16,
+         [0, 1, 15, 64, 300, 1024, 1999, 2048], 128,
+         [(1, 2047), (37, 100), (256, 1500)]),
+        ("pt8-hd128", 14, 2, 128, 8, torch.bfloat16,
+         [0, 5, 8, 9, 300, 1001, 1777, 2048], 256,
+         [(1, 2047), (37, 100), (256, 1500), (64, 3)]),
     ]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for name, H, K, hd, pt, dt, lengths, max_pages, chunks in cases:
         B = len(lengths)
         P = sum(-(-n // pt) for n in lengths) + 4
@@ -173,8 +182,13 @@ def check_kernels(results):
         assert torch.isfinite(out).all() and err <= TOL, (name, err)
         assert out[0].abs().max().item() == 0.0, "length-0 slot not zero"
         dec["max_abs_err"] = max(dec["max_abs_err"], err)
+        grid = pda.decode_grid(B, H, K, hd, max_pages, n_sm)
         log("kernels", f"decode {name}: B {B} H {H} K {K} hd {hd} pt {pt} "
-            f"{str(dt)[6:]} pages, max |kernel - plain| {err:.3e}")
+            f"{str(dt)[6:]} pages, {grid.nsplit} splits of "
+            f"{grid.pages_per_split} pages, {grid.blocks} blocks + merge "
+            f"{B * H}, max |kernel - plain| {err:.3e}")
+        if name == "main":
+            assert grid.blocks >= n_sm, grid
         if name == "main":
             time_decode(dec, dec_call, q, kp, vp, table, lens, lengths, K,
                         pt, hd, layers)
@@ -192,19 +206,33 @@ def check_kernels(results):
             err = err.max().item()
             assert torch.isfinite(out).all() and err <= TOL, (name, C, err)
             pre["max_abs_err"] = max(pre["max_abs_err"], err)
-            log("kernels", f"prefill {name}: C {C} start {start}, max "
+            grid = ppa.prefill_grid(C, H, K, hd, pt, max_pages, start, n_sm,
+                                    dt)
+            kind = ("tensor cores" if dt in ppa.TENSOR_CORE_DTYPES
+                    else "CUDA cores")
+            log("kernels", f"prefill {name}: C {C} start {start}, {kind}, "
+                f"{grid.nsplit} splits of {grid.tiles_per_split} key tiles, "
+                f"{grid.blocks} blocks"
+                f"{f' + merge {C * H}' if grid.nsplit > 1 else ''}, max "
                 f"|kernel - plain| {err:.3e}")
             if name == "main" and (C, start) == (256, 1500):
+                assert grid.blocks >= n_sm, grid
                 time_prefill(pre, pre_call, q2, kp, vp, row, start, K, pt,
                              hd, layers)
 
 
 def time_decode(res, call, q, kp, vp, table, lens, lengths, K, pt, hd,
                 layers):
+    """Kernel and the SDPA yardstick: device time of 20 calls replayed from
+    one CUDA graph (kernel_suite.graph_ms), cycling the layer pools; plain:
+    CUDA events around eager calls."""
+    import itertools
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.launch.kernel_suite import graph_ms
     B, H, _ = q.shape
     G = H // K
-    res["ms"] = cuda_ms(lambda i: call(i))
+    cyc = itertools.cycle(range(layers))
+    res["ms"] = graph_ms(lambda: call(next(cyc)), 20)
     res["plain_ms"] = cuda_ms(lambda i: call(i, pda.paged_flash_decode_plain))
     # yardstick: SDPA over K/V gathered dense beforehand (no page walk)
     S = table.shape[1] * pt
@@ -213,24 +241,34 @@ def time_decode(res, call, q, kp, vp, table, lens, lengths, K, pt, hd,
     qb = q.to(kp.dtype)[:, :, None]                        # [B, H, 1, hd]
     mask = (torch.arange(S, device="cuda")[None] <
             lens[:, None])[:, None, None]
-    res["library_ms"] = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        qb, kd[i % layers], vd[i % layers], attn_mask=mask, enable_gqa=True))
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qb, kd[i], vd[i],
+                                              attn_mask=mask, enable_gqa=True)
+
+    res["library_ms"] = graph_ms(lambda: sdpa(next(cyc)), 20)
     page_rows = sum(-(-n // pt) * pt for n in lengths)
     nbytes = (K * page_rows * hd * 2 * kp.element_size()
               + 2 * q.numel() * 4 + table.numel() * 4 + lens.numel() * 4)
     flops = 4 * G * K * hd * sum(lengths)
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
-    log("kernels", f"decode main timing: kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, sdpa yardstick {res['library_ms']:.4f} "
-        f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
-        f"{nbytes} B at 3.35 TB/s, {flops} flop at 67 TFLOP/s f32)")
+    log("kernels", f"decode main timing: kernel (graph) {res['ms']:.4f} "
+        f"ms, plain {res['plain_ms']:.4f} ms, sdpa yardstick (graph) "
+        f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}: {nbytes} B at 3.35 TB/s, {flops} flop at 67 "
+        "TFLOP/s f32)")
 
 
 def time_prefill(res, call, q, kp, vp, row, start, K, pt, hd, layers):
+    """Timed as :func:`time_decode`; the bound takes the bf16 tensor-core
+    rate for bf16 pages, which the kernel multiplies on tensor cores."""
+    import itertools
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.launch.kernel_suite import graph_ms
     C, H, _ = q.shape
-    res["ms"] = cuda_ms(lambda i: call(i))
+    cyc = itertools.cycle(range(layers))
+    res["ms"] = graph_ms(lambda: call(next(cyc)), 20)
     res["plain_ms"] = cuda_ms(lambda i: call(i,
                                              ppa.paged_flash_prefill_plain))
     kd = [pda.gather_pages(kp[i], row[None]) for i in range(layers)]
@@ -239,18 +277,23 @@ def time_prefill(res, call, q, kp, vp, row, start, K, pt, hd, layers):
     qb = q.to(kp.dtype).transpose(0, 1)[None]              # [1, H, C, hd]
     mask = (torch.arange(S, device="cuda")[None] <=
             start + torch.arange(C, device="cuda")[:, None])
-    res["library_ms"] = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        qb, kd[i % layers], vd[i % layers], attn_mask=mask, enable_gqa=True))
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qb, kd[i], vd[i],
+                                              attn_mask=mask, enable_gqa=True)
+
+    res["library_ms"] = graph_ms(lambda: sdpa(next(cyc)), 20)
     rows = -(-(start + C) // pt) * pt
     nbytes = (K * rows * hd * 2 * kp.element_size() + 2 * q.numel() * 4
               + row.numel() * 4)
     flops = 4 * H * hd * sum(start + c + 1 for c in range(C))
-    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    assert kp.dtype == torch.bfloat16, "the rate below is bf16's"
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
     log("kernels", f"prefill main timing (C {C}, start {start}): kernel "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, sdpa "
-        f"yardstick {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
-        f"ms ({res['bound_by']}: {nbytes} B at 3.35 TB/s, {flops} flop at "
-        "67 TFLOP/s f32)")
+        f"(graph) {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, sdpa "
+        f"yardstick (graph) {res['library_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {nbytes} B at 3.35 "
+        f"TB/s, {flops} flop at 989 TFLOP/s bf16)")
 
 
 # --------------------------------------------------------------------------

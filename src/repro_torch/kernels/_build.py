@@ -26,8 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # c_void_p so ctypes never cuts them to 32 bits)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
-    "paged_prefill_attention": [_P] * 7 + [_I] * 8 + [_P],
+    "paged_decode_attention": [_P] * 10 + [_I] * 9 + [_P],
+    "paged_prefill_attention": [_P] * 9 + [_I] * 10 + [_P],
     "autodma_tiled": [_P] * 3 + [ctypes.POINTER(_I), _I, ctypes.c_float, _P],
     "conv2d_3x3": [_P] * 3 + [_I] * 5 + [_P],
     "decode_attention": [_P] * 7 + [_I] * 8 + [_P],

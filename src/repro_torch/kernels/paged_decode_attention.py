@@ -7,18 +7,21 @@ list ``page_table[b]`` (-1 = unmapped, never read below the slot's length).
 :func:`paged_flash_decode` dispatches by the device of its tensors:
 
   * CUDA — the hand-written kernel ``csrc/paged_decode_attention.cu``
-    (built on first use, see kernels/_build.py), or an error: there is no
-    fallback to the plain version on the card;
+    (built on first use, see kernels/_build.py): the page walk split over
+    blocks as :func:`decode_grid` says, then a merge of the splits, two
+    launches; or an error: there is no fallback to the plain version on the
+    card;
   * CPU — :func:`paged_flash_decode_plain`, the same function from a gather
     and a masked softmax.
 
-``paged_flash_decode.launches`` counts kernel launches (plain calls and
-failed launches do not count).
+``paged_flash_decode.launches`` counts wrapper calls that launched the
+kernel (plain calls and failed launches do not count).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +31,36 @@ HEAD_DIMS = (16, 32, 64, 128)
 PAGE_TOKENS = (4, 8, 16, 32, 64)
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
+
+
+SPLIT_BLOCKS_PER_SM = 4   # split the page walk until blocks come to this
+ROWS_PER_BLOCK = 8        # query rows of one kv head in a decode block
+
+
+class DecodeGrid(NamedTuple):
+    """The decode kernel's launch: ``nsplit`` splits of ``pages_per_split``
+    pages for each (slot, kv head, group of 8 query rows), ``blocks`` blocks
+    in all, and the f32 scratch of the splits' partials (``part_ml``: m and
+    l, ``part_acc``: acc) in elements."""
+    nsplit: int
+    pages_per_split: int
+    blocks: int
+    part_ml: int
+    part_acc: int
+
+
+def decode_grid(B: int, H: int, K: int, hd: int, max_pages: int,
+                n_sm: int) -> DecodeGrid:
+    """Split the page axis until the blocks come to about
+    ``SPLIT_BLOCKS_PER_SM`` per SM. Host ints only: ``lengths`` lives on the
+    device, and reading it would sync and break CUDA-graph capture; a split
+    past a slot's length exits at once instead."""
+    pairs = max(1, B * K * -(-(H // K) // ROWS_PER_BLOCK))  # B = 0: no launch
+    want = min(max_pages, max(1, -(-SPLIT_BLOCKS_PER_SM * n_sm // pairs)))
+    pps = -(-max_pages // want)
+    nsplit = -(-max_pages // pps)
+    return DecodeGrid(nsplit, pps, nsplit * pairs, 2 * B * H * nsplit,
+                      B * H * nsplit * hd)
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -93,6 +126,9 @@ def check_cuda_inputs(name: str, q, k_pages, v_pages, tables, scales,
         raise ValueError(f"{name}: all tensors must be on {q.device}")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError(f"{name}: q and the page pools must be 16-byte "
+                         "aligned")
     if q.dtype != torch.float32:
         raise TypeError(f"{name}: q must be float32 on CUDA, got {q.dtype}")
     if k_pages.dtype not in PAGE_DTYPES or v_pages.dtype != k_pages.dtype:
@@ -153,13 +189,19 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths,
             tuple(lengths.shape) != (B,):
         raise ValueError("paged_flash_decode: page_table must be [B, "
                          "max_pages] and lengths [B]")
+    max_pages = page_table.shape[1]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    grid = decode_grid(B, H, K, hd, max_pages, n_sm)
     out = torch.empty_like(q)
+    part_ml = torch.empty(grid.part_ml, device=q.device)
+    part_acc = torch.empty(grid.part_acc, device=q.device)
     lib = _build.load("paged_decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_decode_attention(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
-        _ptr(page_table), _ptr(lengths), _ptr(out), B, H, K, hd, pt,
-        page_table.shape[1], code, ctypes.c_void_p(stream))
+        _ptr(page_table), _ptr(lengths), _ptr(out), _ptr(part_ml),
+        _ptr(part_acc), B, H, K, hd, pt, max_pages, grid.nsplit,
+        grid.pages_per_split, code, ctypes.c_void_p(stream))
     _build.check("paged_decode_attention", err)
     paged_flash_decode.launches += 1
     return out

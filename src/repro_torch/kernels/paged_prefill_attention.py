@@ -9,20 +9,66 @@ scattered in before the call).
 
 :func:`paged_flash_prefill` dispatches by device as paged_flash_decode
 does: CUDA tensors launch ``csrc/paged_prefill_attention.cu`` or raise, CPU
-tensors take :func:`paged_flash_prefill_plain`.
-``paged_flash_prefill.launches`` counts kernel launches.
+tensors take :func:`paged_flash_prefill_plain`. On the card the page dtype
+picks the kernel: bf16 / f16 pages the tensor-core one (split over keys as
+:func:`prefill_grid` says, with a merge launch when it splits), f32 / int8
+pages the CUDA-core one. ``paged_flash_prefill.launches`` counts wrapper
+calls that launched a kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 import operator
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.paged_decode_attention import (
     _ptr, check_cuda_inputs, check_scales, dequant_pages, gather_pages)
+
+ROW_TILE = 64           # query rows per block (4 warps x 16)
+KEY_TILE = 64           # keys per tile of the tensor-core kernel
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+SPLIT_BLOCKS_PER_SM = 2  # split the key axis until blocks come to this
+
+
+class PrefillGrid(NamedTuple):
+    """The prefill kernel's launch: ``nsplit`` splits of the key axis, each
+    ``tiles_per_split`` tiles of 64 keys, for each (row tile, kv head);
+    ``blocks`` blocks in all; f32 scratch of the partials in elements (0
+    when the kernel does not split)."""
+    nsplit: int
+    tiles_per_split: int
+    blocks: int
+    part_ml: int
+    part_acc: int
+
+
+def prefill_grid(C: int, H: int, K: int, hd: int, pt: int, max_pages: int,
+                 start: int, n_sm: int, dtype: torch.dtype) -> PrefillGrid:
+    """Tensor-core pages (bf16 / f16): 64-row tiles, and the key axis split
+    into runs of whole 64-key tiles until the blocks reach
+    ``SPLIT_BLOCKS_PER_SM`` per SM where the keys allow, from host ints
+    only. f32 / int8 pages: the CUDA-core kernel's grid, one block
+    per (kv head, 64 rows), no split."""
+    rows = max(1, C * (H // K))      # C = 0 launches nothing
+    keys = min(start + C, max_pages * pt)
+    tiles = max(1, -(-keys // KEY_TILE))
+    if dtype not in TENSOR_CORE_DTYPES:
+        return PrefillGrid(1, tiles, K * -(-rows // min(ROW_TILE, rows)), 0,
+                           0)
+    base = K * -(-rows // ROW_TILE)
+    target = SPLIT_BLOCKS_PER_SM * n_sm
+    want = min(tiles, max(1, -(-target // base)))
+    tps = -(-tiles // want)
+    while tps > 1 and base * -(-tiles // tps) < target:  # ceil cut a split
+        tps -= 1
+    nsplit = -(-tiles // tps)
+    scratch = C * H * nsplit if nsplit > 1 else 0
+    return PrefillGrid(nsplit, tps, base * nsplit, 2 * scratch,
+                       scratch * hd)
 
 
 def _dense_prefix(k_pages, v_pages, page_table, k_scale, v_scale):
@@ -100,13 +146,22 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, start,
         raise ValueError("paged_flash_prefill: page_table must be [max_pages]")
     C, H, hd = q.shape
     _, K, pt, _ = k_pages.shape
+    max_pages = page_table.shape[0]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    grid = prefill_grid(C, H, K, hd, pt, max_pages, start, n_sm,
+                        k_pages.dtype)
     out = torch.empty_like(q)
+    part_ml = torch.empty(grid.part_ml, device=q.device) \
+        if grid.part_ml else None
+    part_acc = torch.empty(grid.part_acc, device=q.device) \
+        if grid.part_acc else None
     lib = _build.load("paged_prefill_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_prefill_attention(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
-        _ptr(page_table), _ptr(out), C, H, K, hd, pt, page_table.shape[0],
-        start, code, ctypes.c_void_p(stream))
+        _ptr(page_table), _ptr(out), _ptr(part_ml), _ptr(part_acc), C, H, K,
+        hd, pt, max_pages, start, grid.nsplit, grid.tiles_per_split, code,
+        ctypes.c_void_p(stream))
     _build.check("paged_prefill_attention", err)
     paged_flash_prefill.launches += 1
     return out
