@@ -6,7 +6,7 @@ Phases, each printed on its own line, none catching its own failure:
 
   1. card      the card's name and power limit (nvidia-smi), torch / CUDA;
   2. build     every hand-written CUDA kernel library, one nvcc each, in
-               parallel;
+               parallel; each kernel instance's registers and spills;
   3. kernels   each paged attention kernel against its plain PyTorch version
                on the same CUDA tensors (atol 2e-3) at the main path's
                shapes, the smoke shapes, int8 pages, f16 pages and pt 8 /
@@ -37,12 +37,14 @@ Phases, each printed on its own line, none catching its own failure:
                shapes in f32; flash_attention at qwen2-0.5b's full width
                (B 1, H 14, L 2048, hd 64, bf16, causal), gemma3-27b's
                local layer (B 1, H 32, L 4096, hd 128, bf16, causal,
-               window 1024) and small softcap / window / no-key-row cases;
-               each against its plain version on the same CUDA tensors
-               within atol 2e-3, plus one bf16 rounding step of the value
-               for bf16 outputs (both sides round an f32 result to bf16);
-               kernel, plain, ``scaled_dot_product_attention`` yardstick
-               (mask stated in the log) and bound times;
+               window 1024) and small softcap / window / no-key-row /
+               ragged cases at hd 32, 64 and 128, each in bf16 (the
+               tensor-core kernel) and f32 (the CUDA-core kernel); each
+               against its plain version on the same CUDA tensors within
+               atol 2e-3, plus one bf16 rounding step of the value for bf16
+               outputs (both sides round an f32 result to bf16); kernel,
+               plain, ``scaled_dot_product_attention`` yardstick (mask
+               stated in the log) and bound times;
   6. suite     the paper's kernel suite through ``kernels/ops.py``
                (``launch/kernel_suite.py``: Fig. 7 at N=2048 with conv2d
                and covar, darknet, the ISA study, the attention rows),
@@ -448,6 +450,7 @@ def time_suite_kernels(results):
     from repro_torch.core import autodma
     from repro_torch.kernels import gemm as tg
     from repro_torch.kernels import polybench as pb
+    from repro_torch.kernels import tiled
     from repro_torch.launch.kernel_suite import graph_ms
     g = torch.Generator(device="cuda").manual_seed(3)
     mxu = functools.partial(tg.BODIES["mxu"], alpha=1.0)
@@ -470,8 +473,11 @@ def time_suite_kernels(results):
         nbytes = (M * K + K * N + M * N) * 4
         res["bound_ms"], res["bound_by"] = bound(nbytes, 2 * M * N * K,
                                                  TF32_FLOP_PER_S)
+        lay = tiled.layout("gemm_mxu", plan)
         log("suite kernels", f"{name} {M}x{N}x{K} f32 mxu autodma tiles "
-            f"{plan.tiles}: kernel {res['ms']:.4f} ms, plain "
+            f"{plan.tiles} ({lay['threads'] // 32} warps of "
+            f"{16 * lay['fpw']}x32, {lay['npass']} pass): kernel "
+            f"{res['ms']:.4f} ms, plain "
             f"{res['plain_ms']:.4f} ms, torch.matmul (TF32) yardstick "
             f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']}: {nbytes} B at 3.35 TB/s, "
@@ -547,12 +553,21 @@ def time_suite_kernels(results):
 # --------------------------------------------------------------------------
 # phase 5: the attention kernels against their plain versions
 # --------------------------------------------------------------------------
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x|: 2^(e - 7) for |x| in [2^e,
+    2^(e+1)) (2^-8 to 2^-7 of |x|), 0 at 0."""
+    x = x.float().abs()
+    e = torch.floor(torch.log2(x.clamp_min(2.0**-126)))
+    return torch.where(x > 0, torch.exp2(e - 7), 0.0)
+
+
 def close(out, plain, tol: float = TOL) -> float:
     """Fail unless ``out`` is finite and within ``tol`` of ``plain`` plus,
-    for bf16, one bf16 rounding step of the value; returns max |diff|."""
+    for bf16, one bf16 rounding step of the value (both sides round an f32
+    result to bf16: two f32 values a few ulp apart on either side of a
+    midpoint land one step apart); returns max |diff|."""
     diff = (out.float() - plain.float()).abs()
-    lim = tol + (2**-8 * plain.float().abs()
-                 if plain.dtype == torch.bfloat16 else 0.0)
+    lim = tol + (bf16_step(plain) if plain.dtype == torch.bfloat16 else 0.0)
     assert torch.isfinite(out.float()).all() and bool((diff <= lim).all()), \
         (diff.max().item(), tol)
     return diff.max().item()
@@ -590,15 +605,18 @@ def check_attention_kernels(results):
             f"hd {hd_} {str(dt)[6:]} lengths {lens}: max |kernel - plain| "
             f"{err:.3e}")
     time_decode_dense(dec, DECODE, main_lens, g)
-    small = [  # (B, H, L, Lk, hd), causal, window, softcap, dtype
-        ((2, 4, 256, 256, 32), False, None, 20.0, f32),
-        ((2, 4, 128, 128, 128), True, 64, 20.0, bf16),
-        ((1, 2, 256, 256, 64), False, 48, 5.0, f32),
-        ((1, 2, 256, 128, 64), True, 32, None, f32),    # rows that see no key
-        ((1, 2, 200, 130, 64), False, None, None, f32)]
+    small = [  # (B, H, L, Lk, hd), causal, window, softcap; bf16 and f32
+        ((2, 4, 256, 256, 32), False, None, 20.0),
+        ((2, 4, 128, 128, 128), True, 64, 20.0),
+        ((1, 2, 256, 256, 64), False, 48, 5.0),
+        ((1, 2, 256, 128, 64), True, 32, None),    # rows that see no key
+        ((1, 2, 200, 130, 64), False, None, None),
+        ((1, 3, 300, 300, 32), True, None, None),
+        ((1, 2, 384, 384, 128), True, 100, None)]
     main = [((B_, H_, L, L, hd_), causal, window, None, bf16)
             for B_, H_, L, hd_, causal, window in ATTENTION.values()]
-    for (B_, H_, L, Lk, hd_), causal, window, softcap, dt in main + small:
+    cases = main + [c + (dt,) for c in small for dt in (bf16, f32)]
+    for (B_, H_, L, Lk, hd_), causal, window, softcap, dt in cases:
         q = torch.randn(B_, H_, L, hd_, generator=g, device="cuda").to(dt)
         k, v = (torch.randn(B_, H_, Lk, hd_, generator=g, device="cuda")
                 .to(dt) for _ in range(2))
@@ -607,9 +625,13 @@ def check_attention_kernels(results):
         torch.cuda.synchronize()
         err = close(out, fa.flash_attention_plain(q, k, v, **kw))
         att["max_abs_err"] = max(att["max_abs_err"], err)
+        shape = fa.launch_shape(L, hd_, dt)
         log("attention kernels", f"flash_attention B {B_} H {H_} L {L} Lk "
             f"{Lk} hd {hd_} {str(dt)[6:]} causal {causal} window {window} "
-            f"softcap {softcap}: max |kernel - plain| {err:.3e}")
+            f"softcap {softcap}: "
+            f"{'tensor cores' if dt == bf16 else 'CUDA cores'}, "
+            f"{shape.blocks * B_ * H_} blocks of {shape.threads} threads, "
+            f"{shape.smem} B shared; max |kernel - plain| {err:.3e}")
         if (B_, H_, L, Lk, hd_) == (1, 14, 2048, 2048, 64):
             time_flash(att, q, k, v, causal, window)
         elif Lk == L and L >= 4096:
@@ -863,6 +885,48 @@ def card_vs_cpu():
         "on cuda and cpu")
 
 
+# the kernel templates' mangled names, as ptxas prints them, shortened
+KERNEL_NAMES = (
+    (r"GemmBodyILi(\d)ELi(\d)E(f|13__nv_bfloat16)Lb(\d)E",
+     lambda m: f"gemm {('mxu', 'vpu', 'loop')[int(m[1])]} fpw {m[2]} "
+     f"{'f32' if m[3] == 'f' else 'bf16'}{' gram' if m[4] == '1' else ''}"),
+    (r"MatvecBodyILb(\d)E(f|13__nv_bfloat16)",
+     lambda m: f"matvec{'_t' if m[1] == '1' else ''} "
+     f"{'f32' if m[2] == 'f' else 'bf16'}"),
+    (r"CenterBodyI(f|13__nv_bfloat16)E",
+     lambda m: f"center {'f32' if m[1] == 'f' else 'bf16'}"),
+    (r"flash_mmaILi(\d+)E", lambda m: f"flash_mma hd {m[1]} (tensor cores)"),
+    (r"flash_kernelIfLi(\d+)E",
+     lambda m: f"flash_kernel hd {m[1]} (CUDA cores, f32)"))
+
+
+def build_kernels() -> None:
+    """Build every kernel library (one nvcc each, in parallel) and log each
+    kernel instance's registers and spills from ptxas."""
+    import re
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all()
+    log("build", f"{len(_build.SIGNATURES)} kernel libraries built with "
+        f"nvcc for sm_90a in {time.perf_counter() - t0:.2f} s (set-up)")
+    for name, out in _build.BUILD_LOG.items():
+        fn, spill = "", ""
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+                for pat, short in KERNEL_NAMES:
+                    m = re.search(pat, fn)
+                    if m:
+                        fn = short(m)
+                        break
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                log("build", f"{name}: {fn[-60:]}: {regs[1]} registers; "
+                    f"{spill}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
@@ -877,15 +941,7 @@ def main() -> int:
         f"{torch.cuda.device_count()}; tf32 matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}, tf32 cudnn "
         f"{torch.backends.cudnn.allow_tf32}")
-    from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    _build.build_all()
-    log("build", f"{len(_build.SIGNATURES)} kernel libraries built with "
-        f"nvcc for sm_90a in {time.perf_counter() - t0:.2f} s (set-up)")
-    for name, out in _build.BUILD_LOG.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+    build_kernels()
     results = {
         "paged_flash_decode": {
             "name": "paged_flash_decode", "route": "cuda",

@@ -51,18 +51,30 @@
 //     block's row pitch is skewed for that access); matvec/matvec_t reduce
 //     on CUDA cores (matvec a warp per row; matvec_t lanes across columns,
 //     warps down the rows, the warps' sums added in a fixed order); center
-//     subtracts element by element and stores. The gemm bodies share one
-//     register layout: each warp owns 16x32 fragments of the output tile
-//     in the mma accumulator layout; a tile of more fragments than 16
-//     warps hold is covered in passes.
+//     subtracts element by element and stores.
+//   * The gemm bodies (mxu, vpu, loop, gram) share one register-blocked
+//     warp layout: each warp owns a sub-tile of WR (1, 2 or 4) fragments of
+//     16 rows by one of 32 columns in the mma accumulator layout, so each A
+//     fragment feeds four products and each B fragment WR; kernels/tiled.py
+//     picks WR and the warp count from the plan's output tile (fields fpw,
+//     threads, npass) so that no instance spills, and a tile of more
+//     sub-tiles than the block's warps is covered in passes. mxu loads its
+//     fragments from the staged blocks with ldmatrix (A for TF32 and bf16,
+//     B and gram's transposed A with ldmatrix.trans for bf16; TF32 B and
+//     gram's TF32 A a 32-bit element a lane from a conflict-free pitch) and
+//     rounds each f32 element to TF32 once per load. The same layout runs
+//     unstaged from device memory in unmodified mode, and vpu / loop differ
+//     from mxu only in the instruction that forms the products. The output
+//     tile is scaled by alpha and rounded to the dtype once per plan
+//     reduction step; the plan's tiles and bytes are not changed.
 //
 // What bounds it on the H100. gemm at the suite's shapes is bound by
 // operations (2MNK flops against 495 TFLOP/s TF32; ~0.035 ms at 2048^3);
-// matvec, matvec_t and center by bytes (each array once at 3.35 TB/s). This
-// first version loads mma fragments element by element from shared memory
-// (no ldmatrix, no wgmma, no TMA) and so runs far from the tensor cores'
-// rate; the matvec bodies stage x and A through shared memory although
-// each element of A is used once (PERF.md has the times).
+// matvec, matvec_t and center by bytes (each array once at 3.35 TB/s).
+// mma.sync (no wgmma, no TMA) and one block per SM at the plans' shared
+// memory keep gemm from the tensor cores' rate; the matvec bodies stage x
+// and A through shared memory although each element of A is used once
+// (PERF.md has the times).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,6 +180,7 @@ __device__ __forceinline__ uint16_t bits16(T v) {
 // A staged block in shared memory (zero padded: no bounds to check).
 template <typename T>
 struct SView {
+  static constexpr int kStaged = 1;
   const T* p;
   int ld;
   __device__ __forceinline__ float f(int r, int c) const {
@@ -181,6 +194,7 @@ struct SView {
 // A block read straight from device memory (unmodified mode), masked.
 template <typename T>
 struct GView {
+  static constexpr int kStaged = 0;
   const T* p;
   int ld, r0, c0, er, ec;
   __device__ __forceinline__ bool in(int r, int c) const {
@@ -198,6 +212,7 @@ struct GView {
 // [m, k] by the gemm fragment loaders.
 template <class V>
 struct TView {
+  static constexpr int kStaged = V::kStaged == 1 ? 2 : 0;
   V v;
   __device__ __forceinline__ float f(int r, int c) const { return v.f(c, r); }
   __device__ __forceinline__ uint16_t raw(int r, int c) const {
@@ -250,7 +265,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stage both input blocks of grid position `c` into stage buffer `buf`.
 template <typename T>
-__device__ void stage(const Params& P, const Ctx& c, unsigned char* buf) {
+__device__ __forceinline__ void stage(const Params& P, const Ctx& c,
+                                      unsigned char* buf) {
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const Arr& a = P.in[k];
@@ -261,9 +277,17 @@ __device__ void stage(const Params& P, const Ctx& c, unsigned char* buf) {
     constexpr int V = 16 / sizeof(T);  // elements in one 16-byte copy
     if (a.pcol % V == 0 && a.ld % V == 0 && a.cols % V == 0 && c0 % V == 0 &&
         reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-      const int nv = a.pcol / V, n = a.prow * nv;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int r = i / nv, col = (i - r * nv) * V;
+      // chunk i = r * nv + j of the block, walked by stepping (r, j) by the
+      // block's threads, without a division per chunk
+      const int nv = a.pcol / V;
+      const int dr = blockDim.x / nv, dj = blockDim.x - dr * nv;
+      int r = threadIdx.x / nv, j = threadIdx.x - r * nv;
+      for (; r < a.prow; r += dr, j += dj) {
+        if (j >= nv) {
+          j -= nv;
+          if (++r >= a.prow) break;
+        }
+        const int col = j * V;
         const int valid = r < er ? max(0, min(V, ec - col)) : 0;
         const T* s = valid ? src + (size_t)(r0 + r) * a.cols + (c0 + col) : src;
         cp_async16(dst + r * a.ld + col, s, valid * (int)sizeof(T));
@@ -285,10 +309,12 @@ __device__ void stage(const Params& P, const Ctx& c, unsigned char* buf) {
 }
 
 // --- tensor-core products --------------------------------------------------
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero: half of the 13 dropped bits added to the magnitude, then cut),
+// in two integer operations: the conversion instruction runs on a slower
+// pipe (on the H100 it cost up to a quarter of gemm 2048^3's time)
 __device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 __device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
@@ -317,143 +343,294 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// --- gemm bodies: one 16x32 fragment's product over one reduction step ----
-// Lane (g = lane/4, q = lane%4) holds p[t][e] for row r0 + g + 8*(e/2),
-// column c0 + 8t + 2q + e%2 (the mma.sync accumulator layout).
-template <int ISA, typename T, class VA, class VB>
-__device__ __forceinline__ void fragment_product(float (&p)[4][4],
-                                                 const VA& A, const VB& B,
-                                                 int r0, int c0, int kext,
-                                                 int g, int q) {
-  if constexpr (ISA == GEMM_MXU && std::is_same<T, float>::value) {
-    for (int kk = 0; kk < kext; kk += 8) {
-      const uint32_t a0 = tf32(A.f(r0 + g, kk + q));
-      const uint32_t a1 = tf32(A.f(r0 + g + 8, kk + q));
-      const uint32_t a2 = tf32(A.f(r0 + g, kk + q + 4));
-      const uint32_t a3 = tf32(A.f(r0 + g + 8, kk + q + 4));
+// --- fragment loaders ------------------------------------------------------
+// A warp's mma operands for one k-step: an A fragment (16 rows of the
+// output tile, row-major over k) and the B fragments of 32 columns (four
+// n8 blocks), in the mma.sync register layouts (lane g = lane/4, q = lane%4).
+// Staged blocks are read with ldmatrix where the element layout allows it:
+// A row-major (reduction along its rows) for TF32 and bf16 alike (a 32-bit
+// element is two b16 halves of an 8x8 b16 matrix), B and gram's transposed A
+// (reduction down their columns) with ldmatrix.trans for bf16. TF32 B and
+// gram's TF32 A are read one 32-bit element a lane: ldmatrix.trans cannot
+// transpose 32-bit elements, and their row pitch (skewed by 8 words,
+// kernels/tiled.py) puts the 32 lanes' (k = q, n = g) reads in 32 banks.
+// Unstaged views (device memory, unmodified mode) are read element by
+// element, masked. Each f32 element is rounded to TF32 (cvt.rna) once per
+// load into registers, where the register blocking below reuses it.
+__device__ __forceinline__ uint32_t ldsm_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(ldsm_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(ldsm_addr(p)));
+}
+__device__ __forceinline__ uint32_t tf32_bits(uint32_t x) {
+  return tf32(__uint_as_float(x));
+}
+
+template <typename T>
+__host__ __device__ constexpr int k_step() {
+  return std::is_same<T, float>::value ? 8 : 16;
+}
+
+// A fragment of rows r0.., k-step at k
+template <typename T, class V>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const V& A, int r0,
+                                       int k, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (V::kStaged == 1) {      // row-major in shared memory
+      ldsm_x4(a, A.p + (r0 + (lane & 15)) * A.ld + k + (lane >> 4) * 4);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int n = c0 + 8 * t + g;
-        mma_tf32(p[t], a0, a1, a2, a3, tf32(B.f(kk + q, n)),
-                 tf32(B.f(kk + q + 4, n)));
-      }
+      for (int i = 0; i < 4; ++i) a[i] = tf32_bits(a[i]);
+    } else {
+      a[0] = tf32(A.f(r0 + g, k + q));
+      a[1] = tf32(A.f(r0 + g + 8, k + q));
+      a[2] = tf32(A.f(r0 + g, k + q + 4));
+      a[3] = tf32(A.f(r0 + g + 8, k + q + 4));
     }
-  } else if constexpr (ISA == GEMM_MXU) {
-    for (int kk = 0; kk < kext; kk += 16) {
-      const int k = kk + 2 * q;
-      const uint32_t a0 = pack(A.raw(r0 + g, k), A.raw(r0 + g, k + 1));
-      const uint32_t a1 = pack(A.raw(r0 + g + 8, k), A.raw(r0 + g + 8, k + 1));
-      const uint32_t a2 = pack(A.raw(r0 + g, k + 8), A.raw(r0 + g, k + 9));
-      const uint32_t a3 = pack(A.raw(r0 + g + 8, k + 8),
-                               A.raw(r0 + g + 8, k + 9));
+  } else if constexpr (V::kStaged == 1) {
+    ldsm_x4(a, A.p + (r0 + (lane & 15)) * A.ld + k + (lane >> 4) * 8);
+  } else if constexpr (V::kStaged == 2) { // gram: stored [k][m]
+    const int mat = lane >> 3;
+    ldsm_x4_trans(a, A.v.p + (k + (lane & 7) + (mat >> 1) * 8) * A.v.ld +
+                         r0 + (mat & 1) * 8);
+  } else {
+    const int kk = k + 2 * q;
+    a[0] = pack(A.raw(r0 + g, kk), A.raw(r0 + g, kk + 1));
+    a[1] = pack(A.raw(r0 + g + 8, kk), A.raw(r0 + g + 8, kk + 1));
+    a[2] = pack(A.raw(r0 + g, kk + 8), A.raw(r0 + g, kk + 9));
+    a[3] = pack(A.raw(r0 + g + 8, kk + 8), A.raw(r0 + g + 8, kk + 9));
+  }
+}
+
+// B fragments of columns c0 .. c0+31, k-step at k
+template <typename T, class V>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4][2], const V& B,
+                                       int k, int c0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int n = c0 + 8 * t + g;
-        mma_bf16(p[t], a0, a1, a2, a3, pack(B.raw(k, n), B.raw(k + 1, n)),
-                 pack(B.raw(k + 8, n), B.raw(k + 9, n)));
-      }
+    for (int t = 0; t < 4; ++t) {
+      b[t][0] = tf32(B.f(k + q, c0 + 8 * t + g));
+      b[t][1] = tf32(B.f(k + q + 4, c0 + 8 * t + g));
     }
-  } else if constexpr (ISA == GEMM_VPU) {
-#pragma unroll 8
-    for (int k = 0; k < kext; ++k) {
-      const float lo = A.f(r0 + g, k), hi = A.f(r0 + g + 8, k);
+  } else if constexpr (V::kStaged == 1) {  // [k][n] in shared memory
+    const int mat = lane >> 3;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float b = B.f(k, c0 + 8 * t + 2 * q + e);
-          p[t][e] = __fadd_rn(p[t][e], __fmul_rn(lo, b));
-          p[t][2 + e] = __fadd_rn(p[t][2 + e], __fmul_rn(hi, b));
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, B.p + (k + (mat & 1) * 8 + (lane & 7)) * B.ld + c0 +
+                           16 * h + (mat >> 1) * 8);
+      b[2 * h][0] = r[0];
+      b[2 * h][1] = r[1];
+      b[2 * h + 1][0] = r[2];
+      b[2 * h + 1][1] = r[3];
     }
-  } else {  // GEMM_LOOP
-#pragma unroll 1
-    for (int kk = 0; kk < kext; kk += 8) {
+  } else {
+    const int kk = k + 2 * q;
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int k = kk + u;
-        const float lo = A.f(r0 + g, k), hi = A.f(r0 + g + 8, k);
+    for (int t = 0; t < 4; ++t) {
+      const int n = c0 + 8 * t + g;
+      b[t][0] = pack(B.raw(kk, n), B.raw(kk + 1, n));
+      b[t][1] = pack(B.raw(kk + 8, n), B.raw(kk + 9, n));
+    }
+  }
+}
+
+// --- gemm bodies: a warp's WR x 1 fragments over one reduction step ------
+// The warp's sub-tile is WR row fragments of 16 rows by one column fragment
+// of 32 (four n8 blocks): rows r0 .. r0 + 16 WR - 1 (the first `nrf` of its
+// fragments hold rows of the tile), columns c0 .. c0 + 31. Lane (g, q) holds
+// p[i][t][e] for row r0 + 16 i + g + 8 (e / 2), column c0 + 8 t + 2 q + e % 2
+// (the mma.sync accumulator layout). Every A fragment feeds four products,
+// every B fragment WR. The three ISA bodies share this layout; only the
+// instruction that forms the products differs.
+template <int ISA, int WR, typename T, class VA, class VB>
+__device__ __forceinline__ void warp_product(float (&p)[WR][4][4],
+                                             const VA& A, const VB& B,
+                                             int r0, int c0, int nrf,
+                                             int kext) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  if constexpr (ISA == GEMM_MXU) {
+    // U k-steps at a time: every fragment of the U steps is loaded before
+    // their products, so that the loads' latency overlaps (the padding of
+    // the staged blocks holds zeros up to whole k-steps)
+    constexpr int KS = k_step<T>();
+    constexpr int U = WR == 4 ? 1 : 4;   // WR = 4 has 16 products a k-step
+    auto ksteps = [&](auto n_steps, int kk) {
+      constexpr int N = decltype(n_steps)::value;
+      uint32_t b[N][4][2], a[N][WR][4];
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
+      for (int u = 0; u < N; ++u) {
+        frag_b<T>(b[u], B, kk + u * KS, c0, lane);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float b = B.f(k, c0 + 8 * t + 2 * q + e);
-            p[t][e] = fmaf(lo, b, p[t][e]);
-            p[t][2 + e] = fmaf(hi, b, p[t][2 + e]);
+        for (int i = 0; i < WR; ++i)
+          if (i < nrf) frag_a<T>(a[u][i], A, r0 + 16 * i, kk + u * KS, lane);
+      }
+#pragma unroll
+      for (int u = 0; u < N; ++u)
+#pragma unroll
+        for (int i = 0; i < WR; ++i) {
+          if (i >= nrf) break;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            if constexpr (std::is_same<T, float>::value)
+              mma_tf32(p[i][t], a[u][i][0], a[u][i][1], a[u][i][2],
+                       a[u][i][3], b[u][t][0], b[u][t][1]);
+            else
+              mma_bf16(p[i][t], a[u][i][0], a[u][i][1], a[u][i][2],
+                       a[u][i][3], b[u][t][0], b[u][t][1]);
           }
         }
+    };
+    const int kpad = (kext + KS - 1) / KS * KS;
+    int kk = 0;
+#pragma unroll 1
+    for (; kk + U * KS <= kpad; kk += U * KS)
+      ksteps(std::integral_constant<int, U>{}, kk);
+#pragma unroll 1
+    for (; kk < kpad; kk += KS) ksteps(std::integral_constant<int, 1>{}, kk);
+  } else {
+    // CUDA cores: per k, the lane's 2 WR values of A and 8 of B, then
+    // 8 WR products; vpu multiplies and adds without FMA, loop runs FFMA
+    // in a rolled loop over 8-deep slices
+    auto slice = [&](int k) {
+      float bv[4][2];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) bv[t][e] = B.f(k, c0 + 8 * t + 2 * q + e);
+#pragma unroll
+      for (int i = 0; i < WR; ++i) {
+        if (i >= nrf) break;
+        const float lo = A.f(r0 + 16 * i + g, k);
+        const float hi = A.f(r0 + 16 * i + g + 8, k);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if constexpr (ISA == GEMM_VPU) {
+              p[i][t][e] = __fadd_rn(p[i][t][e], __fmul_rn(lo, bv[t][e]));
+              p[i][t][2 + e] =
+                  __fadd_rn(p[i][t][2 + e], __fmul_rn(hi, bv[t][e]));
+            } else {
+              p[i][t][e] = fmaf(lo, bv[t][e], p[i][t][e]);
+              p[i][t][2 + e] = fmaf(hi, bv[t][e], p[i][t][2 + e]);
+            }
+          }
+      }
+    };
+    if constexpr (ISA == GEMM_VPU) {
+#pragma unroll 4
+      for (int k = 0; k < kext; ++k) slice(k);
+    } else {  // GEMM_LOOP: the padding holds zeros
+#pragma unroll 1
+      for (int kk = 0; kk < kext; kk += 8) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) slice(kk + u);
       }
     }
   }
 }
 
-// gemm: each warp owns FPW fragments of the output tile, in registers. An
-// output tile of more than 16 warps x FPW fragments is covered in passes,
-// each of which runs the whole reduction loop again. TA: A is read
-// transposed (gram).
-template <int ISA, int FPW, typename T, bool TA = false>
+// gemm: each warp owns WR fragments of the output tile in registers (its
+// sub-tile; kernels/tiled.py chooses WR and at most 8 warps, so that a
+// thread may hold 255 registers and nothing spills). An output tile of
+// more sub-tiles than the block's warps is covered in passes, each of
+// which runs the whole reduction loop again. TA: A is read transposed
+// (gram).
+template <int ISA, int WR, typename T, bool TA = false>
 struct GemmBody {
-  float c[FPW][4][4];
-  int first;  // the pass's first fragment
+  static constexpr int kMaxThreads = 256;   // up to 255 registers a thread
+  float c[WR][4][4];
+  int wt;  // this warp's sub-tile in this pass
 
-  __device__ void init(const Params&, unsigned char*, int pass) {
-    first = pass * (blockDim.x >> 5) * FPW;
+  __device__ __forceinline__ void init(const Params&, unsigned char*,
+                                       int pass) {
+    wt = pass * (blockDim.x >> 5) + (threadIdx.x >> 5);
 #pragma unroll
-    for (int f = 0; f < FPW; ++f)
+    for (int i = 0; i < WR; ++i)
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) c[f][t][e] = 0.f;
+        for (int e = 0; e < 4; ++e) c[i][t][e] = 0.f;
+  }
+
+  // the sub-tile's origin and row fragments inside the tile (nrf <= 0:
+  // no sub-tile, or one wholly past a ragged edge)
+  __device__ __forceinline__ void origin(const Params& P, const Ctx& cx,
+                                         int& r0, int& c0,
+                                         int& nrf) const {
+    const int nwr = (P.nrg + WR - 1) / WR;
+    nrf = 0;
+    r0 = c0 = 0;
+    if (wt >= nwr * P.ncg) return;
+    const int wrow = wt / P.ncg;
+    r0 = wrow * WR * 16;
+    c0 = (wt - wrow * P.ncg) * 32;
+    if (c0 >= cx.ext[P.out_ax1]) return;
+    nrf = min(min(WR, P.nrg - wrow * WR),
+              (cx.ext[P.out_ax0] - r0 + 15) / 16);
   }
 
   template <class VA, class VB>
-  __device__ void step(const Params& P, const Ctx& cx, const VA& A,
-                       const VB& B) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5, g = lane >> 2, q = lane & 3;
-    const int er = cx.ext[P.out_ax0], ec = cx.ext[P.out_ax1];
-    const int kext = cx.ext[P.red];
+  __device__ __forceinline__ void step(const Params& P, const Ctx& cx,
+                                       const VA& A, const VB& B) {
+    int r0, c0, nrf;
+    origin(P, cx, r0, c0, nrf);
+    if (nrf <= 0) return;
+    float p[WR][4][4];
 #pragma unroll
-    for (int fi = 0; fi < FPW; ++fi) {
-      const int f = first + warp + fi * nw;
-      if (f >= P.nrg * P.ncg) continue;
-      const int r0 = (f / P.ncg) * 16, c0 = (f % P.ncg) * 32;
-      if (r0 >= er || c0 >= ec) continue;  // wholly past a ragged edge
-      float p[4][4] = {};
-      if constexpr (TA)
-        fragment_product<ISA, T>(p, TView<VA>{A}, B, r0, c0, kext, g, q);
-      else
-        fragment_product<ISA, T>(p, A, B, r0, c0, kext, g, q);
+    for (int i = 0; i < WR; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[i][t][e] = 0.f;
+    const int kext = cx.ext[P.red];
+    if constexpr (TA)
+      warp_product<ISA, WR, T>(p, TView<VA>{A}, B, r0, c0, nrf, kext);
+    else
+      warp_product<ISA, WR, T>(p, A, B, r0, c0, nrf, kext);
+    // alpha and the rounding to the dtype: once per plan reduction step
+#pragma unroll
+    for (int i = 0; i < WR; ++i)
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          c[fi][t][e] = in_dtype<T>(
-              __fadd_rn(c[fi][t][e], __fmul_rn(P.alpha, p[t][e])));
-    }
+          c[i][t][e] = in_dtype<T>(
+              __fadd_rn(c[i][t][e], __fmul_rn(P.alpha, p[i][t][e])));
   }
 
-  __device__ void finish(const Params& P, const Ctx& cx) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5, g = lane >> 2, q = lane & 3;
+  __device__ __forceinline__ void finish(const Params& P, const Ctx& cx) {
+    int r0, c0, nrf;
+    origin(P, cx, r0, c0, nrf);
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
     const int er = cx.ext[P.out_ax0], ec = cx.ext[P.out_ax1];
     const int or0 = cx.org[P.out_ax0], oc0 = cx.org[P.out_ax1];
     T* out = static_cast<T*>(P.out);
 #pragma unroll
-    for (int fi = 0; fi < FPW; ++fi) {
-      const int f = first + warp + fi * nw;
-      if (f >= P.nrg * P.ncg) continue;
-      const int r0 = (f / P.ncg) * 16, c0 = (f % P.ncg) * 32;
+    for (int i = 0; i < WR; ++i) {
+      if (i >= nrf) break;
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = r0 + g + 8 * (e >> 1);
+          const int r = r0 + 16 * i + g + 8 * (e >> 1);
           const int col = c0 + 8 * t + 2 * q + (e & 1);
           if (r < er && col < ec)
             out[(size_t)(or0 + r) * P.out_cols + oc0 + col] =
-                from_f<T>(c[fi][t][e]);
+                from_f<T>(c[i][t][e]);
         }
     }
   }
@@ -462,6 +639,7 @@ struct GemmBody {
 // matvec / matvec_t: the resident y tile is f32 in shared memory.
 template <bool TRANSPOSED, typename T>
 struct MatvecBody {
+  static constexpr int kMaxThreads = MAX_THREADS;
   float* y;
 
   __device__ void init(const Params& P, unsigned char* smem, int) {
@@ -517,6 +695,7 @@ struct MatvecBody {
 // (its one reduction step is the virtual axis of bound 1).
 template <typename T>
 struct CenterBody {
+  static constexpr int kMaxThreads = MAX_THREADS;
   __device__ void init(const Params&, unsigned char*, int) {}
 
   template <class VA, class VB>
@@ -538,8 +717,8 @@ struct CenterBody {
 // One pass of a block: the reduction loop over the staged (or, unmodified,
 // the device-memory) blocks, then the output tile's store.
 template <class Body, typename T>
-__device__ void run_pass(const Params& P, const Ctx& cx, unsigned char* smem,
-                         int pass) {
+__device__ __forceinline__ void run_pass(const Params& P, const Ctx& cx,
+                                         unsigned char* smem, int pass) {
   const int nk = P.ntile[P.red];
   Body body;
   body.init(P, smem, pass);
@@ -577,8 +756,10 @@ __device__ void run_pass(const Params& P, const Ctx& cx, unsigned char* smem,
   __syncthreads();  // a next pass restages the buffers
 }
 
+// (min. 1 block an SM: without it ptxas held some gemm instances to 80 or
+// 128 registers and spilled)
 template <class Body, typename T>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(Body::kMaxThreads, 1)
     tiled_kernel(const Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Ctx cx = block_ctx(P);
@@ -589,6 +770,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 template <class Body, typename T>
 cudaError_t launch(const Params& P, int blocks, int threads, int smem,
                    cudaStream_t stream) {
+  if (threads > Body::kMaxThreads) return cudaErrorInvalidConfiguration;
   auto kern = tiled_kernel<Body, T>;
   static int opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {            // (set once, so launches can be graphed)
@@ -601,6 +783,7 @@ cudaError_t launch(const Params& P, int blocks, int threads, int smem,
   return cudaGetLastError();
 }
 
+// fpw: the row fragments of a warp's sub-tile (kernels/tiled.py)
 template <int ISA, typename T, bool TA = false>
 cudaError_t launch_gemm(const Params& P, int fpw, int blocks, int threads,
                         int smem, cudaStream_t s) {

@@ -62,89 +62,6 @@ constexpr int MMA_THREADS = 128;       // 4 warps x 16 query rows
 constexpr int BM = 64;                 // query rows per block
 constexpr int BN = 64;                 // keys per tile
 
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  // two f32 values as a pair of bf16 (first in the low half) and the pair
-  // of what the rounding left out
-  __device__ __forceinline__ static void split(float a, float b,
-                                               uint32_t& hi, uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 f = __bfloat1622float2(h);
-    const __nv_bfloat162 r = __floats2bfloat162_rn(a - f.x, b - f.y);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&r);
-  }
-  __device__ __forceinline__ static void mma(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-template <>
-struct Mma<__half> {
-  __device__ __forceinline__ static void split(float a, float b,
-                                               uint32_t& hi, uint32_t& lo) {
-    const __half2 h = __floats2half2_rn(a, b);
-    const float2 f = __half22float2(h);
-    const __half2 r = __floats2half2_rn(a - f.x, b - f.y);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = *reinterpret_cast<const uint32_t*>(&r);
-  }
-  __device__ __forceinline__ static void mma(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
-// reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(dst), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <int HD>
 __host__ __device__ constexpr int mma_ld() { return HD + 8; }  // row pitch
 

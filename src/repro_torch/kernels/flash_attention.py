@@ -12,7 +12,10 @@ of V over the keys of the blocks the reference runs for it.
 
 :func:`flash_attention` dispatches by the device of its tensors:
 
-  * CUDA — ``csrc/flash_attention.cu`` (hd 32, 64 or 128), or an error;
+  * CUDA — ``csrc/flash_attention.cu`` (hd 32, 64 or 128), or an error:
+    bf16 inputs on tensor cores (``mma.sync``, P fed as hi + lo bf16),
+    f32 inputs on the CUDA-core kernel; :func:`launch_shape` gives the
+    launch from host ints only, so a call can be captured in a CUDA graph;
   * CPU — :func:`flash_attention_plain`, the reference's grid of blocks
     walked in PyTorch, causal block skip included.
 
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +37,37 @@ from repro_torch.kernels import _build, ref
 NEG = ref.NEG
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KEY_TILE = 64         # keys of a tile, both kernels
+F32_ROWS = 64         # query rows of a block of the CUDA-core (f32) kernel
+MMA_ROWS = 64         # of the tensor-core (bf16) kernel: 4 warps x 16 rows
+MMA_STAGES = 2        # K / V tiles in flight in the tensor-core kernel
+
+
+class LaunchShape(NamedTuple):
+    """One launch of the kernel: ``rows`` query rows per block, ``threads``
+    per block, ``blocks`` along the query axis (times B*H along the other),
+    ``smem`` bytes of dynamic shared memory."""
+    rows: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def launch_shape(L: int, hd: int, dtype: torch.dtype) -> LaunchShape:
+    """The launch ``csrc/flash_attention.cu`` takes, from host ints only.
+
+    bf16: 4 warps of 16 query rows each, the Q tile and :data:`MMA_STAGES`
+    buffers of 64-key K and V tiles as bf16 rows padded by 8 elements.
+    f32: 256 threads on a 64-row tile, Q / K padded by 4 floats, V, the
+    logits [64][68], (m, l, rescale) and the run limits."""
+    if dtype == torch.bfloat16:
+        R = MMA_ROWS
+        smem = (R + 2 * MMA_STAGES * KEY_TILE) * (hd + 8) * 2
+        return LaunchShape(R, 128, -(-L // R), smem)
+    R = F32_ROWS
+    smem = ((R + KEY_TILE) * (hd + 4) + KEY_TILE * hd
+            + R * (KEY_TILE + 4) + 3 * R) * 4 + R * 4
+    return LaunchShape(R, 256, -(-L // R), smem)
 
 
 def plan_blocks(L: int, Lk: int, hd: int, itemsize: int = 4,
@@ -157,14 +191,16 @@ def flash_attention(q, k, v, causal: bool = True,
     bq, bk = _blocks(q, k, block_q, block_k)
     # a window past either end changes nothing further: keep it in an int
     w = 0 if window is None else min(max(int(window), -Lk), L + 1)
+    shape = launch_shape(L, hd, q.dtype)
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())          # noqa: E731
     err = lib.flash_attention(
         ptr(q), ptr(k), ptr(v), ptr(out), B * H, L, Lk, hd, int(causal),
-        int(window is not None), w, bq, bk, DTYPES[q.dtype],
-        ctypes.c_float(float(softcap or 0.0)), ctypes.c_void_p(stream))
+        int(window is not None), w, bq, bk, DTYPES[q.dtype], shape.rows,
+        shape.smem, ctypes.c_float(float(softcap or 0.0)),
+        ctypes.c_void_p(stream))
     _build.check("flash_attention", err)
     flash_attention.launches += 1
     return out

@@ -48,10 +48,19 @@ FIELDS = ("body", "dtype", "staged", "nbuf", "stage_bytes", "out_off",
               for f in ("rows", "cols", "ax0", "ax1", "ld", "prow", "pcol",
                         "soff"))
 MAX_THREADS = 512
-MAX_WARPS = MAX_THREADS // 32
-FRAG_ROWS, FRAG_COLS = 16, 32   # one warp's gemm fragment (mma layout)
-# fragments a warp holds in registers; a larger output tile takes passes
-FPW = (1, 2, 4)
+FRAG_ROWS, FRAG_COLS = 16, 32   # one gemm fragment (mma layout)
+# a warp's gemm sub-tile is WR fragments down one column of them (field
+# fpw), WR in FPW; a gemm block holds at most 8 warps (the kernel's launch
+# bound of 256 threads lets a thread keep 255 registers: the step's
+# product and the output tile, 2 x 16 WR accumulators, and the fragments
+# of several k-steps in flight)
+FPW = (4, 2, 1)
+MAX_GEMM_WARPS = 8
+# the fewest warps a block should have to work with (below it, the next
+# smaller sub-tile is taken); warps past the sub-tiles only stage. On the
+# H100, 8 ran faster than 4 at gemm 2048³ and darknet in every mode but
+# paper, whose tile takes 8 warps either way
+MIN_WARPS = 8
 MATVEC_THREADS = 256
 ELTWISE_THREADS = 256
 # unmodified plans run unstaged on the kernel's own grid of output tiles:
@@ -62,9 +71,11 @@ UNSTAGED_TILE = {"gemm_mxu": 64, "gemm_vpu": 64, "gemm_loop": 64,
                  "matvec": MATVEC_THREADS // 32, "matvec_t": 32}
 # row-pitch skew, in 4-byte words, that keeps the gemm fragment loads from
 # shared memory free of bank conflicts: an array read along its rows (the
-# reduction axis on its columns, gemm's A) takes the first, one read down
-# its columns (the reduction axis on its rows: B, and gram's A) the second
-SKEW_WORDS = (4, 8)
+# reduction axis on its columns, gemm's A: ldmatrix) takes the first; one
+# read down its columns (the reduction axis on its rows: B, and gram's A)
+# the second, by dtype: f32 is read a 32-bit element a lane at (k = q,
+# n = g), 8 words apart row to row; bf16 by ldmatrix.trans, 16-byte rows
+SKEW_WORDS = {torch.float32: (4, 8), torch.bfloat16: (4, 4)}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -86,6 +97,21 @@ def _family(body_name: str) -> str:
     if body_name in GEMM_BODIES + ("gram",):
         return "gemm"
     return "eltwise" if body_name in ELTWISE_BODIES else "matvec"
+
+
+def warp_layout(nrg: int, ncg: int) -> tuple:
+    """(fpw, warps, npass) for an output tile of ``nrg`` x ``ncg`` gemm
+    fragments: the sub-tile of ``fpw`` fragments (a column of them) that
+    covers the tile in the fewest passes with at least :data:`MIN_WARPS`
+    sub-tiles, the largest such. Sub-tile ``w`` of pass ``p`` belongs to warp
+    ``w - p * warps``; the sub-tiles are row-major over the tile."""
+    def cost(wr):
+        tiles = -(-nrg // wr) * ncg
+        warps = min(max(tiles, MIN_WARPS), MAX_GEMM_WARPS)
+        return (-(-tiles // warps), tiles < MIN_WARPS, -wr), warps
+    wr = min(FPW, key=lambda w: cost(w)[0])
+    (npass, _, _), warps = cost(wr)
+    return wr, warps, npass
 
 
 def _plan_key(plan_: autodma.Plan) -> tuple:
@@ -157,7 +183,7 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
         if family == "gemm":   # zero padding to whole fragments, plus skew
             prow = _round_up(e0, FRAG_ROWS)
             pcol = _round_up(e1, FRAG_COLS)
-            ld = pcol + SKEW_WORDS[ax0 == red] * 4 // item
+            ld = pcol + SKEW_WORDS[dtype][ax0 == red] * 4 // item
         else:   # the other bodies stop at the extents; rows of 16 bytes
             prow, pcol = e0, _round_up(e1, 8)
             ld = pcol
@@ -185,11 +211,9 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
     if family == "gemm":
         nrg = -(-min(tile[out_ax0], out_rows) // FRAG_ROWS)
         ncg = -(-min(tile[out_ax1], out_cols) // FRAG_COLS)
-        nfrag = nrg * ncg
-        fpw = next((n for n in FPW if -(-nfrag // n) <= MAX_WARPS), FPW[-1])
-        warps = max(4, min(MAX_WARPS, -(-nfrag // fpw)))
+        fpw, warps, npass = warp_layout(nrg, ncg)
         f.update(nrg=nrg, ncg=ncg, fpw=fpw, threads=32 * warps,
-                 npass=-(-nfrag // (warps * fpw)))
+                 npass=npass)
         out_bytes = 0
     elif family == "eltwise":   # stores straight from the staged blocks
         f.update(nrg=0, ncg=0, fpw=0, npass=1, threads=ELTWISE_THREADS)

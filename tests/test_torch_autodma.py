@@ -186,10 +186,10 @@ def test_layout_fields_and_refusals():
     with pytest.raises(ValueError, match="may use 232448"):
         tiled.layout("gemm_mxu", tad.plan(tad.matmul_spec(1024, 1024, 1024),
                                           budget=1 << 20))
-    # an output tile past 16 warps x 4 fragments is covered in passes
+    # an output tile past 8 warps x 4 fragments is covered in passes
     f = tiled.layout("gemm_mxu", _plan_with_tiles(
         tad.matmul_spec(1024, 1024, 32), (256, 256, 32)))
-    assert (f["fpw"], f["threads"], f["npass"]) == (4, 512, 2)
+    assert (f["fpw"], f["threads"], f["npass"]) == (4, 256, 4)
     with pytest.raises(ValueError, match="does not fit"):
         tiled.layout("matvec", tad.plan(spec))
     with pytest.raises(ValueError, match="does not fit the axis maps"):

@@ -113,7 +113,8 @@ def test_center_and_gram_layouts(dtype, mode):
     """covar's two plans at N=2048 (bench_tiling's shape) as the kernel's
     fields: center is a reduction-free spec run as one step over a virtual
     axis of bound 1; gram reads D1 through (k, i), its staged rows skewed
-    for reads down the columns; both fit a block's shared memory."""
+    for reads down the columns (by dtype); both fit a block's shared
+    memory."""
     N = 2048
     p1 = tad.plan(tad.elementwise_spec((N, N), n_in=2, dtype=dtype,
                                        name="center"), mode=mode)
@@ -136,9 +137,11 @@ def test_center_and_gram_layouts(dtype, mode):
         2, 0, 2, 1)
     assert f["smem"] <= 232_448 and f["threads"] <= 512
     if f["staged"]:
-        item = dtype.itemsize
-        assert (f["in0_ld"] - f["in0_pcol"]) * item == 32   # skew 8 words
-        assert (f["in1_ld"] - f["in1_pcol"]) * item == 32
+        # row skew for reads down the columns: f32 8 words (a 32-bit element
+        # a lane), bf16 16 bytes (ldmatrix.trans rows)
+        item, skew = dtype.itemsize, (32 if dtype == torch.float32 else 16)
+        assert (f["in0_ld"] - f["in0_pcol"]) * item == skew
+        assert (f["in1_ld"] - f["in1_pcol"]) * item == skew
         assert f["in0_prow"] % 16 == 0 and f["in0_pcol"] % 32 == 0
 
 
