@@ -26,7 +26,11 @@ Phases, each printed on its own line, none catching its own failure:
                against the walker at 2048² in every mode and a ragged
                1000×600; tolerances as relative Frobenius error (mxu f32
                and covar 5e-3: TF32; vpu / loop / matvec / conv2d f32
-               1e-5; bf16 1e-2); kernel, plain, yardstick (``torch.matmul``
+               1e-5; bf16 1e-2); each matvec / matvec_t case also captured
+               in a CUDA graph and replayed twice, bit for bit equal to the
+               eager call, and logged with its layout (ks, blocks, shared
+               memory) and its kernel instance's registers and spills;
+               kernel, plain, yardstick (``torch.matmul``
                / ``torch.mv`` / ``F.conv2d`` with a [1,1,3,3] weight and
                padding 1, cuDNN TF32 off / ``torch.cov(D.T)`` under TF32)
                and bound times at the main shapes;
@@ -327,11 +331,26 @@ def hold(rows, out, ref, tol, what):
         f"|kernel - plain| {abs_err:.3e}")
 
 
+def replay_equals_eager(call, eager, what):
+    """Fail unless ``call()`` captured in a CUDA graph and replayed twice
+    gives ``eager`` bit for bit (graph safety, run-to-run determinism)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), (what, "graph replay")
+    log("suite kernels", f"{what}: two graph replays equal the eager call "
+        "bit for bit")
+
+
 def check_suite_kernels(results):
     import functools
     from repro_torch.core import autodma
     from repro_torch.kernels import gemm as tg
     from repro_torch.kernels import polybench as pb
+    from repro_torch.kernels import tiled
     from repro_torch.launch.kernel_suite import HANDWRITTEN_TILES
     g = torch.Generator(device="cuda").manual_seed(2)
     builder = results["autodma_tiled"]
@@ -392,10 +411,20 @@ def check_suite_kernels(results):
                 y, plan = getattr(pb, name)(A, v, mode=mode)
                 torch.cuda.synchronize()
                 plain = autodma.walk(bodies[name], plan, A, v)
+                what = f"{name} {M}x{N} {str(dt)[6:]} {mode}"
                 hold([builder, results[name]], y, plain,
                      BF16_TOL if dt == bf16 else F32_TOL,
-                     f"{name} {M}x{N} {str(dt)[6:]} {mode} tiles "
-                     f"{plan.tiles}")
+                     f"{what} tiles {plan.tiles}")
+                replay_equals_eager(lambda: getattr(pb, name)(A, v,
+                                                              mode=mode)[0],
+                                    y, what)
+                lay = tiled.layout(name, plan)
+                inst = (f"{name} {'f32' if dt == f32 else 'bf16'} "
+                        f"{'staged' if lay['staged'] else 'unstaged'}")
+                log("suite kernels", f"{what}: {lay['blocks']} tiles x ks "
+                    f"{lay['ks']} = {lay['blocks'] * lay['ks']} blocks of "
+                    f"{lay['threads']} threads, {lay['smem']} B shared "
+                    f"memory; {inst}: {INSTANCES.get(inst, 'not built here')}")
     c = torch.randn(3, 3, generator=g, device="cuda")
     for (H, W), dt, modes in [((2048, 2048), f32, SUITE_MODES[:3]),
                               ((2048, 2048), bf16, ("autodma",)),
@@ -890,14 +919,18 @@ KERNEL_NAMES = (
     (r"GemmBodyILi(\d)ELi(\d)E(f|13__nv_bfloat16)Lb(\d)E",
      lambda m: f"gemm {('mxu', 'vpu', 'loop')[int(m[1])]} fpw {m[2]} "
      f"{'f32' if m[3] == 'f' else 'bf16'}{' gram' if m[4] == '1' else ''}"),
-    (r"MatvecBodyILb(\d)E(f|13__nv_bfloat16)",
+    (r"MatvecBodyILb(\d)E(f|13__nv_bfloat16)Lb(\d)E",
      lambda m: f"matvec{'_t' if m[1] == '1' else ''} "
-     f"{'f32' if m[2] == 'f' else 'bf16'}"),
+     f"{'f32' if m[2] == 'f' else 'bf16'} "
+     f"{'staged' if m[3] == '1' else 'unstaged'}"),
     (r"CenterBodyI(f|13__nv_bfloat16)E",
      lambda m: f"center {'f32' if m[1] == 'f' else 'bf16'}"),
     (r"flash_mmaILi(\d+)E", lambda m: f"flash_mma hd {m[1]} (tensor cores)"),
     (r"flash_kernelIfLi(\d+)E",
      lambda m: f"flash_kernel hd {m[1]} (CUDA cores, f32)"))
+
+
+INSTANCES = {}   # short kernel instance name -> "N registers; spills"
 
 
 def build_kernels() -> None:
@@ -923,6 +956,7 @@ def build_kernels() -> None:
                 spill = line.strip()
             elif "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line)
+                INSTANCES[fn] = f"{regs[1]} registers; {spill}"
                 log("build", f"{name}: {fn[-60:]}: {regs[1]} registers; "
                     f"{spill}")
 

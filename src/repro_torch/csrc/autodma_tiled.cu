@@ -23,24 +23,40 @@
 //
 // Design. Tiles, grid and axis maps are runtime ints from the Plan (laid
 // out by kernels/tiled.py), so one build serves every plan.
-//   * One block per tile of the parallel axes (blockIdx.x, row-major over
-//     them). The reduction axis, a sequential grid dimension on the TPU,
-//     is a loop inside the block; the gemm output tile stays in registers
-//     across it, the matvec output vector in shared memory.
+//   * gemm and center: one block per tile of the parallel axes (blockIdx.x,
+//     row-major over them). The reduction axis, a sequential grid dimension
+//     on the TPU, is a loop inside the block; the gemm output tile stays in
+//     registers across it.
+//   * matvec and matvec_t: a plan tile's reduction steps are spread over
+//     the `ks` (<= 8) blocks of one thread-block cluster (blockIdx.x / ks is
+//     the tile, blockIdx.x % ks the block's rank). Block c runs steps
+//     c*per .. c*per + per - 1 (per = ceil(nk / ks)) in order and writes
+//     the f32 partial of each, unrounded, through distributed shared memory
+//     into slot s of block 0's shared memory; after a cluster barrier,
+//     block 0 folds the slots in step order 0 .. nk-1, y = in_dtype(y +
+//     p_s), so the reference's rounding after every step is kept, and
+//     stores y. (Writing into block 0, rather than block 0 reading every
+//     block's slots, lets the other blocks leave at the barrier: one
+//     cluster barrier at the end, not two; it was the faster of the two on
+//     the H100.) No atomics, no global scratch: the result is the same run
+//     to run and under CUDA-graph replay. One launch (cudaLaunchKernelEx
+//     with a cluster dimension).
 //   * Each input block is staged from device memory into dynamic shared
 //     memory at the offsets its dims give (blockIdx -> grid position ->
 //     element origin per array dimension): this is AutoDMA's inferred
 //     transfer schedule. Blocks move with 16-byte cp.async where rows are
 //     16-byte aligned (else f32 element by element with 4-byte cp.async,
 //     bf16 synchronously), double buffered when the plan counted two
-//     buffers (step s+1 loads while step s computes). gemm blocks are
-//     padded to 16 rows and 32 columns with zeros, so ragged edges (a tile
-//     that does not divide the bound) cost no branch in the bodies; the
-//     output store is masked.
+//     buffers and the block runs more than one step (step s+1 loads while
+//     step s computes). gemm blocks are padded to 16 rows and 32 columns
+//     with zeros, so ragged edges (a tile that does not divide the bound)
+//     cost no branch in the bodies; the output store is masked.
 //   * `unmodified` plans (one whole-array block, which shared memory cannot
 //     hold) run unstaged: the kernel covers the output with its own grid of
 //     blocks and every operand is read from device memory at each use, the
-//     paper's SPM-less baseline.
+//     paper's SPM-less baseline. matvec_t's own grid also splits the rows
+//     (its reduction) over a cluster; those chunks make up one plan step,
+//     so block 0 adds them in f32 and rounds once.
 //   * Bodies: gemm_mxu uses tensor cores, mma.sync m16n8k8 TF32 (f32
 //     operands, rounded to TF32) or m16n8k16 bf16, f32 accumulation;
 //     gemm_vpu multiplies and adds on CUDA cores with __fmul_rn/__fadd_rn,
@@ -48,10 +64,12 @@
 //     runs FFMA in a k-loop over 8-deep slices kept rolled (#pragma unroll
 //     1, a software loop); gram is gemm_mxu reading its A fragments through
 //     a transposed view of the staged [k, m] block (no transpose pass; the
-//     block's row pitch is skewed for that access); matvec/matvec_t reduce
-//     on CUDA cores (matvec a warp per row; matvec_t lanes across columns,
-//     warps down the rows, the warps' sums added in a fixed order); center
-//     subtracts element by element and stores.
+//     block's row pitch is skewed for that access); matvec / matvec_t read
+//     16 bytes a lane (4 f32 or 8 bf16) and keep kLoads = 8 such loads in
+//     flight per lane, staged or not (matvec: a warp per row, one shuffle
+//     reduction; matvec_t: lanes across column vectors, row groups down
+//     the rows, the groups' sums added in a fixed order, one barrier pair
+//     per step); center subtracts element by element and stores.
 //   * The gemm bodies (mxu, vpu, loop, gram) share one register-blocked
 //     warp layout: each warp owns a sub-tile of WR (1, 2 or 4) fragments of
 //     16 rows by one of 32 columns in the mma accumulator layout, so each A
@@ -70,21 +88,29 @@
 //
 // What bounds it on the H100. gemm at the suite's shapes is bound by
 // operations (2MNK flops against 495 TFLOP/s TF32; ~0.035 ms at 2048^3);
-// matvec, matvec_t and center by bytes (each array once at 3.35 TB/s).
-// mma.sync (no wgmma, no TMA) and one block per SM at the plans' shared
-// memory keep gemm from the tensor cores' rate; the matvec bodies stage x
-// and A through shared memory although each element of A is used once
-// (PERF.md has the times).
+// matvec, matvec_t and center by bytes (each array once at 3.35 TB/s:
+// 16.8 MB, 0.0050 ms, for matvec at 2048^2 f32). mma.sync (no wgmma, no
+// TMA) and one block per SM at the plans' shared memory keep gemm from the
+// tensor cores' rate. matvec / matvec_t use each element of A once, so
+// only bytes in flight matter: the plans' 16-32 tiles at 2048^2 would leave
+// most SMs idle with one block per tile, so their steps are spread over
+// clusters (128-256 blocks at 2048^2 in every mode) and read 16 bytes a
+// lane (PERF.md has the times).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int MAX_SMEM = 232448;  // shared memory one block may use (H100)
 constexpr int MAX_THREADS = 512;
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 
 enum BodyId { GEMM_MXU = 0, GEMM_VPU = 1, GEMM_LOOP = 2, MATVEC = 3,
               MATVEC_T = 4, CENTER = 5, GRAM = 6 };
@@ -93,7 +119,7 @@ enum DtypeId { F32 = 0, BF16 = 1 };
 // The int fields laid out by kernels/tiled.py (FIELDS there), in order.
 enum Field {
   F_BODY, F_DTYPE, F_STAGED, F_NBUF, F_STAGE_BYTES, F_OUT_OFF, F_SMEM,
-  F_THREADS, F_BLOCKS, F_FPW, F_NPASS, F_NRG, F_NCG,
+  F_THREADS, F_BLOCKS, F_KS, F_FPW, F_NPASS, F_NRG, F_NCG,
   F_BOUND, F_TILE = F_BOUND + 3, F_NTILE = F_TILE + 3,
   F_PAR0 = F_NTILE + 3, F_PAR1, F_RED, F_OUT_ROWS, F_OUT_COLS, F_OUT_AX0,
   F_OUT_AX1, F_IN0, F_IN_FIELDS = 8, F_COUNT = F_IN0 + 2 * F_IN_FIELDS
@@ -118,6 +144,7 @@ struct Params {
   int staged, nbuf, stage_bytes, out_off;
   int nrg, ncg;     // gemm: 16-row x 32-col fragments of the output tile
   int npass;        // gemm: passes over the fragments (register capacity)
+  int ks;           // blocks (one cluster) a plan tile's steps are spread over
   float alpha;
 };
 
@@ -133,12 +160,14 @@ __device__ __forceinline__ Ctx at_step(const Params& P, Ctx c, int s) {
   return c;
 }
 
+// (the block's plan tile is blockIdx.x / ks: a cluster's blocks share one)
 __device__ __forceinline__ Ctx block_ctx(const Params& P) {
   Ctx c;
   int pos[3] = {0, 0, 0};
   const int n1 = P.par1 >= 0 ? P.ntile[P.par1] : 1;
-  pos[P.par0] = blockIdx.x / n1;
-  if (P.par1 >= 0) pos[P.par1] = blockIdx.x % n1;
+  const int tile = blockIdx.x / P.ks;
+  pos[P.par0] = tile / n1;
+  if (P.par1 >= 0) pos[P.par1] = tile % n1;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     c.org[a] = pos[a] * P.tile[a];
@@ -177,6 +206,22 @@ __device__ __forceinline__ uint16_t bits16(T v) {
   return *reinterpret_cast<const uint16_t*>(&v);
 }
 
+// 16 bytes of a row, as V = 16 / sizeof(T) elements, and their f32 values
+// (bf16 to f32 is exact: the bits move up by 16)
+template <typename T>
+__device__ __forceinline__ void unpack(uint4 u, float (&f)[16 / sizeof(T)]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      f[i] = __uint_as_float(w[i]);
+    } else {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+}
+
 // A staged block in shared memory (zero padded: no bounds to check).
 template <typename T>
 struct SView {
@@ -189,14 +234,21 @@ struct SView {
   __device__ __forceinline__ uint16_t raw(int r, int c) const {
     return bits16(p[r * ld + c]);
   }
+  // the 16 bytes from column c (a multiple of 16 / sizeof(T)); staged rows
+  // are 16-byte aligned and zero padded
+  __device__ __forceinline__ uint4 vec(int r, int c) const {
+    return *reinterpret_cast<const uint4*>(p + r * ld + c);
+  }
 };
 
 // A block read straight from device memory (unmodified mode), masked.
 template <typename T>
 struct GView {
   static constexpr int kStaged = 0;
+  static constexpr int V = 16 / sizeof(T);
   const T* p;
   int ld, r0, c0, er, ec;
+  bool v16;  // rows start 16-byte aligned at c0: whole vectors load at once
   __device__ __forceinline__ bool in(int r, int c) const {
     return r < er && c < ec;
   }
@@ -205,6 +257,24 @@ struct GView {
   }
   __device__ __forceinline__ uint16_t raw(int r, int c) const {
     return in(r, c) ? bits16(p[(size_t)(r0 + r) * ld + c0 + c]) : 0;
+  }
+  // the 16 bytes from column c (a multiple of V) of row r < er: one load,
+  // or, for a ragged last vector or unaligned rows, element by element
+  // with zeros past ec
+  __device__ __forceinline__ uint4 vec(int r, int c) const {
+    const T* q = p + (size_t)(r0 + r) * ld + c0 + c;
+    if (v16 && c + V <= ec) return __ldg(reinterpret_cast<const uint4*>(q));
+    uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (c + i < ec) {
+        if constexpr (std::is_same<T, float>::value)
+          w[i] = __float_as_uint(q[i]);
+        else
+          w[i >> 1] |= static_cast<uint32_t>(bits16(q[i])) << (16 * (i & 1));
+      }
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
 
@@ -235,9 +305,11 @@ __device__ __forceinline__ SView<T> sview(const Arr& a,
 
 template <typename T>
 __device__ __forceinline__ GView<T> gview(const Arr& a, const Ctx& c) {
-  return {static_cast<const T*>(a.ptr), a.cols, origin(a.ax0, c),
-          origin(a.ax1, c), extent(a.ax0, a.rows, c),
-          extent(a.ax1, a.cols, c)};
+  const int c0 = origin(a.ax1, c);
+  return {static_cast<const T*>(a.ptr), a.cols, origin(a.ax0, c), c0,
+          extent(a.ax0, a.rows, c), extent(a.ax1, a.cols, c),
+          a.cols % GView<T>::V == 0 && c0 % GView<T>::V == 0 &&
+              reinterpret_cast<uintptr_t>(a.ptr) % 16 == 0};
 }
 
 // --- staging ---------------------------------------------------------------
@@ -552,6 +624,9 @@ __device__ __forceinline__ void warp_product(float (&p)[WR][4][4],
 template <int ISA, int WR, typename T, bool TA = false>
 struct GemmBody {
   static constexpr int kMaxThreads = 256;   // up to 255 registers a thread
+  static constexpr int kMinBlocks = 1;
+  static constexpr int kStaged = -1;        // staged or not: P.staged
+  static constexpr bool kCluster = false;
   float c[WR][4][4];
   int wt;  // this warp's sub-tile in this pass
 
@@ -636,58 +711,200 @@ struct GemmBody {
   }
 };
 
-// matvec / matvec_t: the resident y tile is f32 in shared memory.
-template <bool TRANSPOSED, typename T>
+// The reduction steps a block of a cluster runs, when a plan tile's nk steps
+// are spread over P.ks blocks: per = ceil(nk / ks) each, in step order.
+__device__ __forceinline__ int steps_per_block(const Params& P) {
+  return (P.ntile[P.red] + P.ks - 1) / P.ks;
+}
+
+template <typename T>
+__device__ __forceinline__ float dot16(uint4 a, uint4 x, float s) {
+  float af[16 / sizeof(T)], xf[16 / sizeof(T)];
+  unpack<T>(a, af);
+  unpack<T>(x, xf);
+#pragma unroll
+  for (int e = 0; e < 16 / (int)sizeof(T); ++e) s = fmaf(af[e], xf[e], s);
+  return s;
+}
+
+// matvec / matvec_t: step s's f32 partial of the output tile goes,
+// unrounded, to slot s of block 0's shared memory ([nk][tout] floats at
+// out_off in every block; block 0's are used); finish() folds them there in
+// step order. Loads are 16 bytes a lane, kLoads of them issued before they
+// are used. STAGED: an instance for staged plans and one for unmodified
+// ones (fewer registers each).
+template <bool TRANSPOSED, typename T, bool STAGED>
 struct MatvecBody {
-  static constexpr int kMaxThreads = MAX_THREADS;
-  float* y;
+  static constexpr int kMaxThreads = 256;
+  static constexpr int kStaged = STAGED;
+  // 3 blocks an SM (85 registers a thread): at 2, at most 30 clusters of
+  // 8 were resident on the H100, and autodma's 32 at 2048^2 took 2 waves;
+  // unstaged matvec (ks = 1) keeps 2, for the registers of its 8 + 8
+  // loads of A and x a lane
+  static constexpr int kMinBlocks = TRANSPOSED || STAGED ? 3 : 2;
+  static constexpr bool kCluster = true;
+  static constexpr int V = 16 / sizeof(T);   // elements in 16 bytes
+  static constexpr int kLoads = 8;           // 16-byte loads in flight a lane
+  float* part;   // [nk][tout]: every step's partial (block 0's are read)
+  float* red;    // matvec_t: [row groups][columns] of one step's sums
+  int tout, slot, first;
 
   __device__ void init(const Params& P, unsigned char* smem, int) {
-    y = reinterpret_cast<float*>(smem + P.out_off);
-    for (int i = threadIdx.x; i < P.tile[P.out_ax1]; i += blockDim.x)
-      y[i] = 0.f;
+    tout = (P.tile[P.out_ax1] + 3) & ~3;
+    part = reinterpret_cast<float*>(smem + P.out_off);
+    red = part + P.ntile[P.red] * tout;
+    first = slot = blockIdx.x % P.ks * steps_per_block(P);
+    // the cluster's blocks have started before any writes into block 0's
+    // shared memory: arrive here, wait before the first step's partial
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  }
+
+  // matvec: RB = kLoads / U rows of the warp at a time (rows r0 + nw b),
+  // each lane U vectors of each (vectors j0 + 32 u): kLoads 16-byte loads
+  // of A in flight a lane, then each x vector, used by the RB rows
+  template <int U, class VA, class VX>
+  __device__ __forceinline__ void rows(const VA& A, const VX& X, float* y,
+                                       int ni, int nv) {
+    constexpr int RB = kLoads / U;
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    for (int r0 = threadIdx.x >> 5; r0 < ni; r0 += nw * RB) {
+      float s[RB][U];
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+#pragma unroll
+        for (int u = 0; u < U; ++u) s[b][u] = 0.f;
+      for (int j0 = lane; j0 < nv; j0 += 32 * U) {
+        uint4 a[RB][U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int b = 0; b < RB; ++b) {
+            const int r = r0 + nw * b, j = j0 + 32 * u;
+            a[b][u] = r < ni && j < nv ? A.vec(r, j * V)
+                                       : make_uint4(0, 0, 0, 0);
+          }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + 32 * u;
+          const uint4 x = j < nv ? X.vec(0, j * V) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+          for (int b = 0; b < RB; ++b) s[b][u] = dot16<T>(a[b][u], x, s[b][u]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {  // a lane's U sums, then the warp's
+        float t = s[b][0];
+#pragma unroll
+        for (int u = 1; u < U; ++u) t += s[b][u];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+        if (lane == 0 && r0 + nw * b < ni) y[r0 + nw * b] = t;
+      }
+    }
   }
 
   template <class VA, class VX>
   __device__ void step(const Params& P, const Ctx& cx, const VA& A,
                        const VX& X) {
     const int ni = cx.ext[P.out_ax1], kext = cx.ext[P.red];
-    if constexpr (!TRANSPOSED) {  // A block [i, j]: a warp per row
-      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-      for (int r = warp; r < ni; r += blockDim.x >> 5) {
-        float s = 0.f;
-        for (int j = lane; j < kext; j += 32) s = fmaf(A.f(r, j), X.f(0, j), s);
+    if (slot == first)
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    // step s's partial goes to slot s of block 0's shared memory
+    float* y = cg::this_cluster().map_shared_rank(part, 0) + slot++ * tout;
+    if constexpr (!TRANSPOSED) {
+      // A block [i, j]: a warp per row; u vectors a lane cover a row in
+      // one pass of 32 lanes (the fewest, a power of 2 up to kLoads), and
+      // kLoads / u of the warp's rows go at once
+      const int nv = (kext + V - 1) / V;
+      if (nv <= 32)
+        rows<1>(A, X, y, ni, nv);
+      else if (nv <= 64)
+        rows<2>(A, X, y, ni, nv);
+      else if (nv <= 128)
+        rows<4>(A, X, y, ni, nv);
+      else
+        rows<8>(A, X, y, ni, nv);
+    } else {  // A block [j, i]: lanes across column vectors, groups down rows
+      const int nvo = (ni + V - 1) / V;
+      const int nvb = min(nvo, (int)blockDim.x);  // column vectors a pass
+      const int groups = blockDim.x / nvb;
+      const int cv = threadIdx.x % nvb, rg = threadIdx.x / nvb;
+      // where nvb divides 32, a warp's 32 / nvb row groups are added by
+      // shuffles first, and the block adds its warps' sums
+      const bool in_warp = nvb < 32 && 32 % nvb == 0;
+      const int ng = in_warp ? blockDim.x >> 5 : groups;
+      for (int v0 = 0; v0 < nvo; v0 += nvb) {
+        float acc[V];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane == 0) y[r] = in_dtype<T>(y[r] + s);
-      }
-    } else {  // A block [j, i]: lanes across 32 columns, warps down rows
-      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-      const int nw = blockDim.x >> 5;
-      float* part = y + ((P.tile[P.out_ax1] + 31) & ~31);  // [nw][32]
-      for (int i0 = 0; i0 < ni; i0 += 32) {
-        const int i = i0 + lane;
-        float s = 0.f;
-        if (i < ni)
-          for (int j = warp; j < kext; j += nw) s = fmaf(A.f(j, i), X.f(0, j), s);
-        part[warp * 32 + lane] = s;
+        for (int e = 0; e < V; ++e) acc[e] = 0.f;
+        const int c = (v0 + cv) * V;
+        if (rg < groups && v0 + cv < nvo) {
+          for (int r0 = rg; r0 < kext; r0 += groups * kLoads) {
+            uint4 a[kLoads];
+            float xs[kLoads];
+#pragma unroll
+            for (int u = 0; u < kLoads; ++u) {
+              const int r = r0 + groups * u;
+              a[u] = make_uint4(0, 0, 0, 0);
+              xs[u] = 0.f;
+              if (r < kext) {
+                a[u] = A.vec(r, c);
+                xs[u] = X.f(0, r);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kLoads; ++u) {
+              float af[V];
+              unpack<T>(a[u], af);
+#pragma unroll
+              for (int e = 0; e < V; ++e) acc[e] = fmaf(af[e], xs[u], acc[e]);
+            }
+          }
+        }
+        if (in_warp) {
+          for (int o = nvb; o < 32; o <<= 1)
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+        }
+        if (in_warp ? (threadIdx.x & 31) < nvb : rg < groups) {
+          const int g = in_warp ? threadIdx.x >> 5 : rg;
+#pragma unroll
+          for (int e = 0; e < V; ++e) red[(g * nvb + cv) * V + e] = acc[e];
+        }
         __syncthreads();
-        if (warp == 0 && i < ni) {  // the warps' sums in a fixed order
-          float t = 0.f;
-          for (int w = 0; w < nw; ++w) t += part[w * 32 + lane];
-          y[i] = in_dtype<T>(y[i] + t);
+        for (int k = threadIdx.x; k < nvb * V; k += blockDim.x) {
+          if (v0 * V + k < ni) {  // the groups' sums in a fixed order
+            float t = 0.f;
+            for (int g = 0; g < ng; ++g) t += red[g * nvb * V + k];
+            y[v0 * V + k] = t;
+          }
         }
         __syncthreads();
       }
     }
   }
 
+  // Block 0 of the cluster folds the partials of steps 0 .. nk-1, which
+  // every block wrote into its shared memory, in step order: staged,
+  // y = in_dtype(y + p_s) (the plan's steps); unstaged matvec_t, the row
+  // chunks of its one plan step, added in f32 and rounded once. The other
+  // blocks arrive at the cluster barrier (release: their writes are seen
+  // after block 0's wait) and leave: no block reads their shared memory.
   __device__ void finish(const Params& P, const Ctx& cx) {
-    __syncthreads();
-    T* out = static_cast<T*>(P.out);
-    const int o = cx.org[P.out_ax1];
-    for (int i = threadIdx.x; i < cx.ext[P.out_ax1]; i += blockDim.x)
-      out[o + i] = from_f<T>(y[i]);
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+    if (blockIdx.x % P.ks != 0) return;
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    const int ni = cx.ext[P.out_ax1], nk = P.ntile[P.red];
+    T* out = static_cast<T*>(P.out) + cx.org[P.out_ax1];
+    for (int i = threadIdx.x; i < ni; i += blockDim.x) {
+      float y = 0.f;
+      for (int s = 0; s < nk; ++s) {
+        const float p = part[s * tout + i];
+        y = STAGED ? in_dtype<T>(y + p) : y + p;
+      }
+      out[i] = from_f<T>(y);
+    }
   }
 };
 
@@ -696,6 +913,9 @@ struct MatvecBody {
 template <typename T>
 struct CenterBody {
   static constexpr int kMaxThreads = MAX_THREADS;
+  static constexpr int kMinBlocks = 1;
+  static constexpr int kStaged = -1;
+  static constexpr bool kCluster = false;
   __device__ void init(const Params&, unsigned char*, int) {}
 
   template <class VA, class VB>
@@ -715,39 +935,43 @@ struct CenterBody {
 };
 
 // One pass of a block: the reduction loop over the staged (or, unmodified,
-// the device-memory) blocks, then the output tile's store.
+// the device-memory) blocks, then the output tile's store. A block runs
+// every step of its tile, or, where a tile's steps are spread over a
+// cluster (matvec family), its share of them in order.
 template <class Body, typename T>
 __device__ __forceinline__ void run_pass(const Params& P, const Ctx& cx,
                                          unsigned char* smem, int pass) {
-  const int nk = P.ntile[P.red];
+  const int per = steps_per_block(P);
+  const int s0 = blockIdx.x % P.ks * per;
+  const int s1 = min(P.ntile[P.red], s0 + per);
   Body body;
   body.init(P, smem, pass);
   __syncthreads();
-  if (P.staged) {
-    stage<T>(P, cx, smem);
+  if (Body::kStaged < 0 ? P.staged : Body::kStaged) {
+    stage<T>(P, at_step(P, cx, s0), smem);
     cp_async_commit();
-    for (int s = 0; s < nk; ++s) {
+    for (int s = s0; s < s1; ++s) {
       const Ctx cs = at_step(P, cx, s);
-      if (P.nbuf == 2 && s + 1 < nk) {  // load step s+1 while s computes
+      if (P.nbuf == 2 && s + 1 < s1) {  // load step s+1 while s computes
         stage<T>(P, at_step(P, cx, s + 1),
-                 smem + ((s + 1) & 1) * P.stage_bytes);
+                 smem + ((s + 1 - s0) & 1) * P.stage_bytes);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const unsigned char* buf = smem + (P.nbuf == 2 ? (s & 1) : 0) *
+      const unsigned char* buf = smem + (P.nbuf == 2 ? ((s - s0) & 1) : 0) *
                                             P.stage_bytes;
       body.step(P, cs, sview<T>(P.in[0], buf), sview<T>(P.in[1], buf));
       __syncthreads();
-      if (P.nbuf == 1 && s + 1 < nk) {
+      if (P.nbuf == 1 && s + 1 < s1) {
         stage<T>(P, at_step(P, cx, s + 1), smem);
         cp_async_commit();
       }
     }
   } else {
-    for (int s = 0; s < nk; ++s) {
+    for (int s = s0; s < s1; ++s) {
       const Ctx cs = at_step(P, cx, s);
       body.step(P, cs, gview<T>(P.in[0], cs), gview<T>(P.in[1], cs));
     }
@@ -756,10 +980,10 @@ __device__ __forceinline__ void run_pass(const Params& P, const Ctx& cx,
   __syncthreads();  // a next pass restages the buffers
 }
 
-// (min. 1 block an SM: without it ptxas held some gemm instances to 80 or
-// 128 registers and spilled)
+// (gemm: min. 1 block an SM: without it ptxas held some instances to 80 or
+// 128 registers and spilled; matvec: Body::kMinBlocks)
 template <class Body, typename T>
-__global__ void __launch_bounds__(Body::kMaxThreads, 1)
+__global__ void __launch_bounds__(Body::kMaxThreads, Body::kMinBlocks)
     tiled_kernel(const Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Ctx cx = block_ctx(P);
@@ -779,7 +1003,24 @@ cudaError_t launch(const Params& P, int blocks, int threads, int smem,
     if (e != cudaSuccess) return e;
     opted_in = smem;
   }
-  kern<<<blocks, threads, smem, stream>>>(P);
+  if constexpr (Body::kCluster) {  // a cluster of P.ks blocks a plan tile
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks * P.ks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = P.ks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t e = cudaLaunchKernelEx(&cfg, kern, P);
+    if (e != cudaSuccess) return e;
+  } else {
+    kern<<<blocks, threads, smem, stream>>>(P);
+  }
   return cudaGetLastError();
 }
 
@@ -798,6 +1039,16 @@ cudaError_t launch_gemm(const Params& P, int fpw, int blocks, int threads,
   }
 }
 
+template <bool TRANSPOSED, typename T>
+cudaError_t launch_matvec(const Params& P, int blocks, int threads, int smem,
+                          cudaStream_t s) {
+  if (P.staged)
+    return launch<MatvecBody<TRANSPOSED, T, true>, T>(P, blocks, threads,
+                                                      smem, s);
+  return launch<MatvecBody<TRANSPOSED, T, false>, T>(P, blocks, threads, smem,
+                                                     s);
+}
+
 template <typename T>
 cudaError_t dispatch(const Params& P, const int* f, cudaStream_t s) {
   const int blocks = f[F_BLOCKS], threads = f[F_THREADS], smem = f[F_SMEM];
@@ -809,9 +1060,9 @@ cudaError_t dispatch(const Params& P, const int* f, cudaStream_t s) {
     case GEMM_LOOP:
       return launch_gemm<GEMM_LOOP, T>(P, f[F_FPW], blocks, threads, smem, s);
     case MATVEC:
-      return launch<MatvecBody<false, T>, T>(P, blocks, threads, smem, s);
+      return launch_matvec<false, T>(P, blocks, threads, smem, s);
     case MATVEC_T:
-      return launch<MatvecBody<true, T>, T>(P, blocks, threads, smem, s);
+      return launch_matvec<true, T>(P, blocks, threads, smem, s);
     case CENTER:
       return launch<CenterBody<T>, T>(P, blocks, threads, smem, s);
     case GRAM:
@@ -833,7 +1084,8 @@ int autodma_tiled(const void* in0, const void* in1, void* out, const int* f,
                   int n_fields, float alpha, void* stream) {
   if (n_fields != F_COUNT) return cudaErrorInvalidValue;
   if (f[F_SMEM] > MAX_SMEM || f[F_THREADS] > MAX_THREADS ||
-      f[F_THREADS] % 32 != 0 || f[F_RED] < 0)
+      f[F_THREADS] % 32 != 0 || f[F_RED] < 0 || f[F_KS] < 1 ||
+      f[F_KS] > MAX_CLUSTER)
     return cudaErrorInvalidConfiguration;
   if (f[F_BLOCKS] == 0) return cudaSuccess;
   Params P;
@@ -862,6 +1114,7 @@ int autodma_tiled(const void* in0, const void* in1, void* out, const int* f,
   P.nrg = f[F_NRG];
   P.ncg = f[F_NCG];
   P.npass = f[F_NPASS];
+  P.ks = f[F_KS];
   P.alpha = alpha;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (f[F_DTYPE]) {

@@ -15,6 +15,15 @@ covar's DcᵀDc reads Dc), matvec (``matvec``, ``matvec_t``), and the
 elementwise family for specs without a reduction axis (``center``: y =
 x0 − x1), which runs as one reduction step over a virtual axis of bound 1.
 
+gemm and ``center`` run one block per plan tile. The matvec family is
+bound by bytes (A is read once: 0.0050 ms at 2048² f32 on the H100), and
+its plans have few tiles (32 for autodma at 2048² f32), so a tile's
+reduction steps are spread over the ``ks`` blocks of one thread-block
+cluster (field ``ks``, at most 8; ``blocks`` stays the plan's tile count):
+each block runs ⌈nk / ks⌉ steps in order, block 0 folds every step's f32
+partial in step order with the reference's rounding after each. The
+unmodified plans' own grid splits matvec_t's rows over a cluster too.
+
 ``launch.launches`` counts the builder's launches. The plain version is the
 grid walker :func:`repro_torch.core.autodma.walk`, which
 :func:`~repro_torch.core.autodma.tiled_call` takes for CPU tensors.
@@ -40,7 +49,7 @@ ELTWISE_BODIES = ("center",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's int fields, in the order of enum Field in the source
 FIELDS = ("body", "dtype", "staged", "nbuf", "stage_bytes", "out_off",
-          "smem", "threads", "blocks", "fpw", "npass", "nrg", "ncg",
+          "smem", "threads", "blocks", "ks", "fpw", "npass", "nrg", "ncg",
           "bound0", "bound1", "bound2", "tile0", "tile1", "tile2",
           "ntile0", "ntile1", "ntile2", "par0", "par1", "red",
           "out_rows", "out_cols", "out_ax0", "out_ax1") + tuple(
@@ -63,12 +72,23 @@ MAX_GEMM_WARPS = 8
 MIN_WARPS = 8
 MATVEC_THREADS = 256
 ELTWISE_THREADS = 256
+# the matvec family spreads a plan tile's reduction steps over the blocks of
+# one thread-block cluster, at most the portable 8 (field ks); each lane
+# keeps LOADS 16-byte loads in flight (MatvecBody::kLoads in the source)
+MAX_CLUSTER = 8
+LOADS = 8
 # unmodified plans run unstaged on the kernel's own grid of output tiles:
-# 64x64 gemm and elementwise tiles, a row per warp (matvec), 32 columns a
-# block (matvec_t)
+# 64x64 gemm and elementwise tiles, a row per warp (matvec), 128 bytes of
+# columns a block (matvec_t: 32 f32, 64 bf16)
 UNSTAGED_TILE = {"gemm_mxu": 64, "gemm_vpu": 64, "gemm_loop": 64,
-                 "gram": 64, "center": 64,
-                 "matvec": MATVEC_THREADS // 32, "matvec_t": 32}
+                 "gram": 64, "center": 64, "matvec": MATVEC_THREADS // 32}
+UNSTAGED_ROW_BYTES = 128
+# matvec_t's own grid also splits A's rows (its reduction) over a cluster,
+# in chunks of at least one load of every lane's LOADS (row groups of the
+# block, threads over the 16-byte vectors of a row, x LOADS rows), and to
+# about SPLIT_BLOCKS blocks in all: about two an SM, all resident at once
+UNSTAGED_SPLIT_ROWS = MATVEC_THREADS // (UNSTAGED_ROW_BYTES // 16) * LOADS
+SPLIT_BLOCKS = 256
 # row-pitch skew, in 4-byte words, that keeps the gemm fragment loads from
 # shared memory free of bank conflicts: an array read along its rows (the
 # reduction axis on its columns, gemm's A: ldmatrix) takes the first; one
@@ -91,6 +111,18 @@ def _as_2d(a: autodma.ArrayAccess):
         return a.shape[0], a.shape[1], ax[0], ax[1]
     raise ValueError(f"tiled: {a.name} has rank {len(a.shape)}; the builder "
                      "takes 1-D and 2-D arrays")
+
+
+def red_floats(ext: int, item: int) -> int:
+    """f32 slots of matvec_t's row-group sums for an output tile of ``ext``
+    columns (as ``MatvecBody::step`` lays them out): 16-byte vectors of
+    columns across the threads, ``nvb`` of them a pass; the sums of a warp's
+    row groups are added by shuffles first where ``nvb`` divides 32."""
+    v = 16 // item
+    nvb = min(-(-ext // v), MATVEC_THREADS)
+    in_warp = nvb < 32 and 32 % nvb == 0
+    groups = MATVEC_THREADS // 32 if in_warp else MATVEC_THREADS // nvb
+    return groups * nvb * v
 
 
 def _family(body_name: str) -> str:
@@ -159,18 +191,29 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
     bound = list(spec.loop_bounds) + [1] * (3 - naxes)
     staged = mode != "unmodified"
     tile = list(tiles) + [1] * (3 - naxes)
+    item = dtype.itemsize
     if not staged:                       # the kernel's own grid, one k-step
         for ax in par:
-            tile[ax] = min(bound[ax], UNSTAGED_TILE[body_name])
+            tile[ax] = min(bound[ax], UNSTAGED_ROW_BYTES // item
+                           if body_name == "matvec_t"
+                           else UNSTAGED_TILE[body_name])
+        if body_name == "matvec_t":      # its rows in chunks over a cluster
+            tiles_out = -(-bound[par[0]] // tile[par[0]])
+            chunks = max(1, min(MAX_CLUSTER, SPLIT_BLOCKS // tiles_out,
+                                -(-bound[red] // UNSTAGED_SPLIT_ROWS)))
+            tile[red] = -(-bound[red] // chunks)
     ntile = [-(-b // t) for b, t in zip(bound, tile)]
-    item = dtype.itemsize
+    # a plan tile's steps over a cluster of ks blocks, per = ceil(nk / ks)
+    # each in step order (every block runs at least one)
+    per = -(-ntile[red] // MAX_CLUSTER) if family == "matvec" else ntile[red]
+    ks = -(-ntile[red] // per)
     f = dict(body=BODIES[body_name], dtype=DTYPES[dtype], staged=int(staged),
              nbuf=2 if double_buffered else 1, bound0=bound[0],
              bound1=bound[1], bound2=bound[2], tile0=tile[0], tile1=tile[1],
              tile2=tile[2], ntile0=ntile[0], ntile1=ntile[1],
              ntile2=ntile[2], par0=par[0],
              par1=par[1] if len(par) > 1 else -1, red=red,
-             blocks=math.prod(ntile[a] for a in par))
+             blocks=math.prod(ntile[a] for a in par), ks=ks)
     soff = 0
     for k, a in enumerate(ins):
         rows, cols, ax0, ax1 = _as_2d(a)
@@ -208,6 +251,8 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
     f.update(out_rows=out_rows, out_cols=out_cols, out_ax0=out_ax0,
              out_ax1=out_ax1)
     f["out_off"] = f["nbuf"] * f["stage_bytes"]
+    if family == "matvec":   # the stage buffers a block uses
+        f["out_off"] = min(f["nbuf"], per) * f["stage_bytes"]
     if family == "gemm":
         nrg = -(-min(tile[out_ax0], out_rows) // FRAG_ROWS)
         ncg = -(-min(tile[out_ax1], out_cols) // FRAG_COLS)
@@ -220,9 +265,14 @@ def _fields(body_name: str, spec: autodma.KernelSpec, tiles: tuple,
         out_bytes = 0
     else:
         f.update(nrg=0, ncg=0, fpw=0, npass=1, threads=MATVEC_THREADS)
-        # the resident y tile (f32), and matvec_t's per-warp partial sums
-        out_bytes = _round_up(tile[out_ax1], 32) * 4 + (
-            MATVEC_THREADS * 4 if body_name == "matvec_t" else 0)
+        # the f32 partial of every step of the tile (block 0's are folded),
+        # and matvec_t's row-group sums of one step, for a whole tile or the
+        # ragged last one
+        ext = min(tile[out_ax1], out_cols)
+        last = out_cols - (ntile[out_ax1] - 1) * tile[out_ax1]
+        out_bytes = ntile[red] * _round_up(tile[out_ax1], 4) * 4 + (
+            4 * max(red_floats(ext, item), red_floats(last, item))
+            if body_name == "matvec_t" else 0)
     f["smem"] = f["out_off"] + out_bytes
     if f["smem"] > SMEM_PER_BLOCK:
         raise ValueError(

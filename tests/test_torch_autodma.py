@@ -169,7 +169,7 @@ def test_layout_fields_and_refusals():
     from repro_torch.kernels.gemm import _plan_with_tiles
     spec = tad.matmul_spec(200, 300, 170)
     f = tiled.layout("gemm_mxu", _plan_with_tiles(spec, (64, 128, 64)))
-    assert len(tiled.FIELDS) == 45 and set(f) == set(tiled.FIELDS)
+    assert len(tiled.FIELDS) == 46 and set(f) == set(tiled.FIELDS)
     # ragged: 4 x 3 blocks, tiles padded to the fragment granules
     assert (f["blocks"], f["ntile2"], f["nrg"], f["ncg"]) == (12, 3, 4, 4)
     assert f["in0_prow"] == 64 and f["in0_pcol"] == 64
