@@ -20,16 +20,19 @@ Phases, each printed on its own line, none catching its own failure:
                loop), matvec and matvec_t against the plain grid walker on
                the same CUDA tensors: gemm 2048³ and 1024×1024×4608, matvec
                2048², every mode, bf16, and a ragged shape with a tile that
-               does not divide; then conv2d (its own kernel) against its
-               row-tile walk at 2048² in every mode, bf16, and a ragged
-               1001×1500, and covar (the builder's center and gram bodies)
-               against the walker at 2048² in every mode and a ragged
-               1000×600; tolerances as relative Frobenius error (mxu f32
-               and covar 5e-3: TF32; vpu / loop / matvec / conv2d f32
-               1e-5; bf16 1e-2); each matvec / matvec_t case also captured
-               in a CUDA graph and replayed twice, bit for bit equal to the
-               eager call, and logged with its layout (ks, blocks, shared
-               memory) and its kernel instance's registers and spills;
+               does not divide; then conv2d (its own kernel, in its own
+               bands) against its row-tile walk at 2048² in every mode,
+               bf16, and ragged shapes on the 16-byte path (1001×1500 f32)
+               and the scalar path (1001×1500 bf16, 999×1001 f32), f32 bit
+               for bit, each path run at least once; and covar (the
+               builder's center and gram bodies) against the walker at
+               2048² in every mode and a ragged 1000×600; tolerances as
+               relative Frobenius error (mxu f32 and covar 5e-3: TF32; vpu
+               / loop / matvec f32 1e-5; bf16 1e-2); each matvec / matvec_t
+               case also captured in a CUDA graph and replayed twice, bit
+               for bit equal to the eager call, and logged with its layout
+               (ks, blocks, shared memory) and its kernel instance's
+               registers and spills;
                kernel, plain, yardstick (``torch.matmul``
                / ``torch.mv`` / ``F.conv2d`` with a [1,1,3,3] weight and
                padding 1, cuDNN TF32 off / ``torch.cov(D.T)`` under TF32)
@@ -38,7 +41,10 @@ Phases, each printed on its own line, none catching its own failure:
                (B 8, H 14, K 2, S 2048, hd 64, bf16; ragged lengths from
                the serving mix, a length-0 slot, which must return the
                mean of V, and a full one) and at the reference tests'
-               shapes in f32; flash_attention at qwen2-0.5b's full width
+               shapes in f32, then captured in a CUDA graph at the main
+               shape and replayed twice, bit for bit equal to the eager
+               call (its one launch, split grid and in-kernel merge
+               logged); flash_attention at qwen2-0.5b's full width
                (B 1, H 14, L 2048, hd 64, bf16, causal), gemma3-27b's
                local layer (B 1, H 32, L 4096, hd 128, bf16, causal,
                window 1024) and small softcap / window / no-key-row /
@@ -309,6 +315,7 @@ SUITE_MODES = ("unmodified", "paper", "autodma", "handwritten")
 RAGGED_MODES = ("unmodified", "autodma", "handwritten")
 RAGGED_GEMM, RAGGED_MATVEC = (1000, 600, 1100), (1000, 1500)
 RAGGED_CONV, RAGGED_COVAR = (1001, 1500), (1000, 600)
+RAGGED_CONV_SCALAR = (999, 1001)   # f32 W % 4 = 1; RAGGED_CONV bf16 W % 8 = 4
 BODIES = ("mxu", "vpu", "loop")
 BF16_TOL = 1e-2                 # bf16 output rounded every reduction step
 MXU_F32_TOL = 5e-3              # TF32 operands: a 10-bit mantissa
@@ -331,7 +338,7 @@ def hold(rows, out, ref, tol, what):
         f"|kernel - plain| {abs_err:.3e}")
 
 
-def replay_equals_eager(call, eager, what):
+def replay_equals_eager(call, eager, what, phase="suite kernels"):
     """Fail unless ``call()`` captured in a CUDA graph and replayed twice
     gives ``eager`` bit for bit (graph safety, run-to-run determinism)."""
     graph = torch.cuda.CUDAGraph()
@@ -341,8 +348,8 @@ def replay_equals_eager(call, eager, what):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager), (what, "graph replay")
-    log("suite kernels", f"{what}: two graph replays equal the eager call "
-        "bit for bit")
+    log(phase, f"{what}: two graph replays equal the eager call bit for "
+        "bit")
 
 
 def check_suite_kernels(results):
@@ -426,18 +433,33 @@ def check_suite_kernels(results):
                     f"{lay['threads']} threads, {lay['smem']} B shared "
                     f"memory; {inst}: {INSTANCES.get(inst, 'not built here')}")
     c = torch.randn(3, 3, generator=g, device="cuda")
+    paths = set()
     for (H, W), dt, modes in [((2048, 2048), f32, SUITE_MODES[:3]),
                               ((2048, 2048), bf16, ("autodma",)),
-                              (RAGGED_CONV, f32, ("autodma",))]:
+                              (RAGGED_CONV, f32, ("autodma",)),
+                              (RAGGED_CONV, bf16, ("autodma",)),
+                              (RAGGED_CONV_SCALAR, f32, ("autodma",))]:
         A = torch.randn(H, W, generator=g, device="cuda").to(dt)
         plain = pb.conv2d_plain(A, c, pb.conv2d_row_tile(H, W))
+        shape = pb.conv2d_launch(H, W, dt)
+        path = "16-byte" if shape.vec > 1 else "scalar"
+        paths.add(path)
+        inst = f"conv2d {'f32' if dt == f32 else 'bf16'} vec {shape.vec}"
         for mode in modes:   # one kernel in every mode: the plan changes
             out, plan = pb.conv2d(A, c, mode=mode)
             torch.cuda.synchronize()
+            what = (f"conv2d {H}x{W} {str(dt)[6:]} {mode} (row tile "
+                    f"{pb.conv2d_row_tile(H, W)}, plan tiles {plan.tiles}; "
+                    f"{path} path: bands of {shape.band} rows, "
+                    f"{shape.blocks} blocks; {inst}: "
+                    f"{INSTANCES.get(inst, 'not built here')})")
             hold([results["conv2d"]], out, plain,
-                 BF16_TOL if dt == bf16 else F32_TOL,
-                 f"conv2d {H}x{W} {str(dt)[6:]} {mode} (row tile "
-                 f"{pb.conv2d_row_tile(H, W)}, plan tiles {plan.tiles})")
+                 BF16_TOL if dt == bf16 else F32_TOL, what)
+            if dt == f32:    # the same products and sums: the same bits
+                assert torch.equal(out, plain), (what, "not bit for bit")
+                log("suite kernels", f"conv2d {H}x{W} f32 {mode}: equal to "
+                    "the row-tile walk bit for bit")
+    assert paths == {"16-byte", "scalar"}, paths
     for (M, N), modes in [((2048, 2048), SUITE_MODES[:3]),
                           (RAGGED_COVAR, RAGGED_MODES[:2])]:
         D = torch.randn(M, N, generator=g, device="cuda")
@@ -546,7 +568,9 @@ def time_suite_kernels(results):
         lambda: F.conv2d(next(cycle)[None, None], w, padding=1), 20)
     nbytes = 2 * M * N * 4 + 9 * 4
     res["bound_ms"], res["bound_by"] = bound(nbytes, 18 * M * N)
-    log("suite kernels", f"conv2d {M}x{N} f32 row tile {bh}: kernel "
+    shape = pb.conv2d_launch(M, N)
+    log("suite kernels", f"conv2d {M}x{N} f32 row tile {bh} (kernel: bands "
+        f"of {shape.band} rows, {shape.blocks} blocks): kernel "
         f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, F.conv2d "
         f"(cuDNN, TF32 off) yardstick {res['library_ms']:.4f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {nbytes} B at 3.35 "
@@ -610,6 +634,7 @@ def check_attention_kernels(results):
     g = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     dec, att = results["flash_decode"], results["flash_attention"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     B, H, K, S, hd = DECODE
     main_lens = decode_lengths(B, S)
     cases = [((B, H, K, S, hd), bf16, main_lens),
@@ -630,9 +655,23 @@ def check_attention_kernels(results):
             mean_v = vc[b].float().mean(dim=1).repeat_interleave(H_ // K_, 0)
             close(out[b], mean_v.to(dt))
         dec["max_abs_err"] = max(dec["max_abs_err"], err)
+        launch = da.decode_launch(B_, H_, K_, S_, hd_, n_sm)
         log("attention kernels", f"flash_decode B {B_} H {H_} K {K_} S {S_} "
-            f"hd {hd_} {str(dt)[6:]} lengths {lens}: max |kernel - plain| "
-            f"{err:.3e}")
+            f"hd {hd_} {str(dt)[6:]} lengths {lens}: one launch of "
+            f"{launch.nsplit} splits of {launch.chunk} keys x {B_ * K_} "
+            f"(slot, kv head) x {launch.groups} row groups = "
+            f"{launch.blocks} blocks, merged by the last block of each; "
+            f"max |kernel - plain| {err:.3e}")
+        if (B_, H_, K_, S_, hd_) == DECODE and dt == bf16:
+            inst = f"flash_decode bf16 hd {hd_}"
+            n0 = da.flash_decode.launches
+            replay_equals_eager(lambda: da.flash_decode(q, kc, vc, lengths),
+                                out, f"flash_decode main shape bf16 "
+                                f"({launch.blocks} blocks, "
+                                f"{launch.blocks / n_sm:.2f} an SM; {inst}: "
+                                f"{INSTANCES.get(inst, 'not built here')})",
+                                "attention kernels")
+            assert da.flash_decode.launches == n0 + 1, "one launch a call"
     time_decode_dense(dec, DECODE, main_lens, g)
     small = [  # (B, H, L, Lk, hd), causal, window, softcap; bf16 and f32
         ((2, 4, 256, 256, 32), False, None, 20.0),
@@ -925,6 +964,10 @@ KERNEL_NAMES = (
      f"{'staged' if m[3] == '1' else 'unstaged'}"),
     (r"CenterBodyI(f|13__nv_bfloat16)E",
      lambda m: f"center {'f32' if m[1] == 'f' else 'bf16'}"),
+    (r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+     lambda m: f"flash_decode {'f32' if m[1] == 'f' else 'bf16'} hd {m[2]}"),
+    (r"conv2d_bandI(f|13__nv_bfloat16)Li(\d+)E",
+     lambda m: f"conv2d {'f32' if m[1] == 'f' else 'bf16'} vec {m[2]}"),
     (r"flash_mmaILi(\d+)E", lambda m: f"flash_mma hd {m[1]} (tensor cores)"),
     (r"flash_kernelIfLi(\d+)E",
      lambda m: f"flash_kernel hd {m[1]} (CUDA cores, f32)"))

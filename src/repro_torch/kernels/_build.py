@@ -30,7 +30,7 @@ SIGNATURES = {
     "paged_prefill_attention": [_P] * 9 + [_I] * 10 + [_P],
     "autodma_tiled": [_P] * 3 + [ctypes.POINTER(_I), _I, ctypes.c_float, _P],
     "conv2d_3x3": [_P] * 3 + [_I] * 5 + [_P],
-    "decode_attention": [_P] * 7 + [_I] * 8 + [_P],
+    "decode_attention": [_P] * 8 + [_I] * 8 + [_P],
     "flash_attention": [_P] * 4 + [_I] * 12 + [ctypes.c_float, _P],
 }
 

@@ -11,8 +11,9 @@ there instead).
 
 :func:`flash_decode` dispatches by the device of its tensors:
 
-  * CUDA — the hand-written kernel ``csrc/decode_attention.cu`` (split over
-    the key axis, then a merge of the splits), or an error;
+  * CUDA — the hand-written kernel ``csrc/decode_attention.cu``, or an
+    error: one launch that splits the key axis over blocks, the last block
+    of each (slot, kv head) merging the splits;
   * CPU — :func:`flash_decode_plain`, the reference's online softmax over
     ``block_k`` tiles written out in PyTorch.
 
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, List, NamedTuple
 
 import torch
 
@@ -30,7 +32,10 @@ from repro_torch.kernels import _build, ref
 NEG = ref.NEG
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SPLIT_TILE = 64        # keys the kernel stages at a time; a split holds whole tiles
+ROWS_PER_BLOCK = 8     # query rows of one kv head a block takes
+BLOCKS_PER_SM = 2      # the split's target (2, 4, 8 timed: 2 was fastest)
+MIN_SPLIT = 64         # keys; a split holds a whole number of them
+MAX_SPLITS = 256       # the merge keeps its weights in shared memory
 
 
 def decode_block_k(S: int, block_k: int = 512) -> int:
@@ -42,14 +47,60 @@ def decode_block_k(S: int, block_k: int = 512) -> int:
     return block_k
 
 
-def decode_splits(pairs: int, S: int, n_sm: int) -> tuple:
-    """(splits, keys per split) of the kernel's key axis: enough splits that
-    the ``pairs`` (slot, kv head) blocks come to two per SM, in whole
-    ``SPLIT_TILE``-key tiles."""
-    tiles = -(-S // SPLIT_TILE)
-    want = min(tiles, max(1, -(-2 * n_sm // pairs)))
-    chunk = -(-tiles // want) * SPLIT_TILE
-    return -(-S // chunk), chunk
+class DecodeLaunch(NamedTuple):
+    nsplit: int        # splits of the key axis (grid x)
+    chunk: int         # keys per split
+    groups: int        # row groups of ROWS_PER_BLOCK query rows (grid z)
+    blocks: int
+    counters: int      # int32 arrival counters, one per (slot, kv head, group)
+    part_ml: int       # f32 scratch: m and l of every (slot, head, split)
+    part_acc: int      # f32 scratch: acc of every (slot, head, split)
+
+
+def decode_launch(B: int, H: int, K: int, S: int, hd: int,
+                  n_sm: int) -> DecodeLaunch:
+    """The kernel's launch shape from host ints only (``lengths`` lives on
+    the device: reading it would sync and break CUDA-graph capture): split
+    the key axis, in whole ``MIN_SPLIT``-key runs and at most
+    ``MAX_SPLITS`` splits, until the blocks come to ``BLOCKS_PER_SM`` per
+    SM; a split past a slot's length exits at once."""
+    groups = -(-(H // K) // ROWS_PER_BLOCK)
+    pairs = max(1, B * K * groups)                       # B = 0: no launch
+    runs = -(-S // MIN_SPLIT)
+    want = min(runs, MAX_SPLITS, max(1, -(-BLOCKS_PER_SM * n_sm // pairs)))
+    chunk = -(-runs // want) * MIN_SPLIT
+    nsplit = -(-S // chunk)
+    return DecodeLaunch(nsplit, chunk, groups, nsplit * B * K * groups,
+                        B * K * groups, 2 * B * H * nsplit,
+                        B * H * nsplit * hd)
+
+
+# device -> the kernel's int32 arrival counters, zero between calls. Every
+# buffer ever made is kept: a captured CUDA graph holds its address.
+_COUNTERS: Dict[torch.device, List[torch.Tensor]] = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device``, made on an eager
+    call and reused by every later one, graph captures included (a buffer
+    made inside a capture would belong to the graph's memory pool).
+
+    One stream at a time: every call on a device shares these counters, so
+    two calls whose kernels overlap in time (on two streams, or graph
+    replays on two streams) would count each other's blocks. A block could
+    then take itself for the last of its (slot, kv head) and merge partials
+    not yet written, and the counters would not return to 0, spoiling the
+    calls after. Calls and replays on one stream are ordered and safe."""
+    bufs = _COUNTERS.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_decode: make one eager call at this shape before "
+                "capturing it in a CUDA graph (its arrival counters are "
+                "made outside any graph)")
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths):
@@ -134,17 +185,18 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512):
     B, H, hd = q.shape
     _, K, S, _ = k_cache.shape
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit, chunk = decode_splits(B * K, S, n_sm)
+    shape = decode_launch(B, H, K, S, hd, n_sm)
+    counters = arrival_counters(q.device, shape.counters)
     out = torch.empty_like(q)
-    part_ml = torch.empty(2 * B * H * nsplit, device=q.device)
-    part_acc = torch.empty(B * H * nsplit * hd, device=q.device)
+    part_ml = torch.empty(shape.part_ml, device=q.device)
+    part_acc = torch.empty(shape.part_acc, device=q.device)
     lib = _build.load("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())          # noqa: E731
     err = lib.decode_attention(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(out),
-        ptr(part_ml), ptr(part_acc), B, H, K, S, hd, nsplit, chunk,
-        DTYPES[q.dtype], ctypes.c_void_p(stream))
+        ptr(part_ml), ptr(part_acc), ptr(counters), B, H, K, S, hd,
+        shape.nsplit, shape.chunk, DTYPES[q.dtype], ctypes.c_void_p(stream))
     _build.check("decode_attention", err)
     flash_decode.launches += 1
     return out

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -113,7 +113,18 @@ def bicg(A, p_vec, r, mode="autodma", budget=None):
 # conv2d — 3×3 stencil, row-tiled, halo rows from the ±1 neighbour tiles
 # --------------------------------------------------------------------------
 CONV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-CONV_COL_TILE = 256     # the kernel's column tile, where shared memory holds it
+CONV_WARPS = 4          # warps of a kernel block, side by side along a row
+CONV_DEPTH = 4          # rows a lane loads ahead; a band is a multiple
+CONV_BAND = {torch.float32: 16, torch.bfloat16: 8}   # rows a warp walks
+CONV_MAX_GRID_Y = 65535
+
+
+class ConvLaunch(NamedTuple):
+    vec: int            # columns a lane owns: 16 bytes, or 1 (scalar path)
+    band: int           # rows a warp walks
+    grid_x: int         # blocks along a row, CONV_WARPS segments each
+    grid_y: int         # bands
+    blocks: int
 
 
 def conv2d_row_tile(H: int, W: int, row_tile: Optional[int] = None) -> int:
@@ -127,18 +138,21 @@ def conv2d_row_tile(H: int, W: int, row_tile: Optional[int] = None) -> int:
     return bh
 
 
-def conv2d_col_tile(W: int, bh: int) -> int:
-    """The kernel's column tile: ``CONV_COL_TILE`` columns (whole warps),
-    fewer where the staged (bh + 2) × (tile + 2) f32 block would pass a
-    block's shared memory. Raises where not even one warp's 32 columns
-    fit."""
-    tw = min(CONV_COL_TILE, -(-W // 32) * 32)
-    fit = (heromem.SMEM_PER_BLOCK // (4 * (bh + 2)) - 2) // 32 * 32
-    if fit < 32:
-        raise ValueError(f"conv2d: a row tile of {bh} rows (+2 halo) does "
-                         "not fit a block's shared memory at 32 columns; "
-                         "pass a smaller row_tile")
-    return min(tw, fit)
+def conv2d_launch(H: int, W: int, dtype=torch.float32,
+                  aligned: bool = True) -> ConvLaunch:
+    """The kernel's own tiling (every output is the same nine products in
+    the same order whatever the tiling, so it need not be the reference's
+    row tile): a warp walks a band of ``CONV_BAND[dtype]`` rows (more where
+    the grid would pass 65535 bands) down a segment of 32 lanes; a lane
+    owns 16 bytes of a row where W is a multiple of that and the rows
+    start 16-byte ``aligned``, else one column."""
+    full = 128 // torch.finfo(dtype).bits
+    vec = full if aligned and W % full == 0 else 1
+    rows = -(-H // CONV_MAX_GRID_Y)        # the least band the grid allows
+    band = max(CONV_BAND[dtype], -(-rows // CONV_DEPTH) * CONV_DEPTH)
+    gx = -(-W // (CONV_WARPS * 32 * vec))
+    gy = -(-H // band)
+    return ConvLaunch(vec, band, gx, gy, gx * gy)
 
 
 def conv2d_plain(A: torch.Tensor, c: torch.Tensor, bh: int) -> torch.Tensor:
@@ -171,17 +185,17 @@ def conv2d(A: torch.Tensor, c3x3, mode: str = "autodma",
     in the reference, the row tile comes from ``row_tile`` or the L1
     capacity, and ``mode`` changes only the returned plan
     (``autodma.plan`` of ``conv2d_3x3_spec``), never the kernel; ``budget``
-    is read by neither. CUDA tensors launch ``csrc/conv2d_3x3.cu`` or
-    raise; CPU tensors take :func:`conv2d_plain`.
+    is read by neither. CUDA tensors launch ``csrc/conv2d_3x3.cu`` (in its
+    own bands, :func:`conv2d_launch`: the row tile changes no bit) or
+    raise; CPU tensors take :func:`conv2d_plain` over the row tiles.
     """
     H, W = A.shape
-    bh = conv2d_row_tile(H, W, row_tile)
     c = torch.as_tensor(c3x3, dtype=torch.float32, device=A.device)
     if tuple(c.shape) != (3, 3):
         raise ValueError(f"conv2d: c3x3 must be [3, 3], got {tuple(c.shape)}")
     plan = autodma.plan(autodma.conv2d_3x3_spec(H, W, A.dtype), mode=mode)
     if A.device.type == "cpu":
-        return conv2d_plain(A, c, bh), plan
+        return conv2d_plain(A, c, conv2d_row_tile(H, W, row_tile)), plan
     if A.device.type != "cuda":
         raise ValueError(f"conv2d: unsupported device {A.device}")
     if A.dtype not in CONV_DTYPES:
@@ -190,14 +204,16 @@ def conv2d(A: torch.Tensor, c3x3, mode: str = "autodma",
     if not A.is_contiguous():
         raise ValueError("conv2d: A must be contiguous")
     c = c.contiguous()
-    tw = conv2d_col_tile(W, bh)
     out = torch.empty_like(A)
+    shape = conv2d_launch(H, W, A.dtype, A.data_ptr() % 16 == 0
+                          and out.data_ptr() % 16 == 0)
     lib = _build.load("conv2d_3x3")
     stream = torch.cuda.current_stream(A.device).cuda_stream
     err = lib.conv2d_3x3(ctypes.c_void_p(A.data_ptr()),
                          ctypes.c_void_p(c.data_ptr()),
-                         ctypes.c_void_p(out.data_ptr()), H, W, bh, tw,
-                         CONV_DTYPES[A.dtype], ctypes.c_void_p(stream))
+                         ctypes.c_void_p(out.data_ptr()), H, W, shape.band,
+                         shape.vec, CONV_DTYPES[A.dtype],
+                         ctypes.c_void_p(stream))
     _build.check("conv2d_3x3", err)
     conv2d.launches += 1
     return out, plan

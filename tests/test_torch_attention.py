@@ -184,16 +184,19 @@ def test_flash_decode_bf16_matches_jax():
 
 def test_block_k_and_splits():
     """The plain version's tile follows the reference's shrink rule; the
-    kernel's splits cover S in whole 64-key tiles and give the (slot, kv
+    kernel's splits cover S in whole 64-key runs and give the (slot, kv
     head) pairs about two blocks per SM."""
     assert [tda.decode_block_k(S, b) for S, b in
             ((2048, 512), (384, 128), (100, 512), (96, 64), (97, 64))] == \
         [512, 128, 100, 48, 1]
-    assert tda.decode_splits(16, 2048, 132) == (16, 128)
-    assert tda.decode_splits(1, 64, 132) == (1, 64)
-    for pairs in (1, 2, 7, 16, 300):
+    launch = tda.decode_launch(8, 14, 2, 2048, 64, 132)   # 16 pairs
+    assert (launch.nsplit, launch.chunk) == (16, 128)
+    launch = tda.decode_launch(1, 1, 1, 64, 64, 132)      # 1 pair
+    assert (launch.nsplit, launch.chunk) == (1, 64)
+    for B, K in ((1, 1), (2, 1), (7, 1), (8, 2), (150, 2)):
         for S in (1, 63, 64, 100, 2048, 5000):
-            n, chunk = tda.decode_splits(pairs, S, 132)
+            launch = tda.decode_launch(B, 2 * K, K, S, 64, 132)
+            n, chunk = launch.nsplit, launch.chunk
             assert chunk % 64 == 0 and (n - 1) * chunk < S <= n * chunk
 
 

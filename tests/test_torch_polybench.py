@@ -67,17 +67,25 @@ def test_conv2d_bf16_matches_jax():
 
 def test_conv2d_tiles_and_modes():
     """The row tile follows the reference's rule at the port's L1 capacity
-    (8 rows at W 2048, shrunk until it divides H); the kernel's column tile
-    fits shared memory or raises; the mode changes only the plan."""
+    (8 rows at W 2048, shrunk until it divides H); the kernel tiles for
+    itself in bands of whole 16-byte lanes, whatever the row tile, so a row
+    tile of any height is taken (the reference takes any); the mode changes
+    only the plan."""
     assert tpb.conv2d_row_tile(2048, 2048) == 8
     assert tpb.conv2d_row_tile(1001, 1500) == 7
     assert tpb.conv2d_row_tile(96, 128, 32) == 32
     assert tpb.conv2d_row_tile(100, 128, 32) == 25
-    assert tpb.conv2d_col_tile(2048, 8) == 256
-    assert tpb.conv2d_col_tile(100, 8) == 128
-    assert tpb.conv2d_col_tile(4096, 400) == 128
-    with pytest.raises(ValueError, match="smaller row_tile"):
-        tpb.conv2d_col_tile(4096, 2048)
+    assert tpb.conv2d_launch(2048, 2048) == (4, 16, 4, 128, 512)
+    assert tpb.conv2d_launch(2048, 2048, torch.bfloat16) == (8, 8, 2, 256,
+                                                             512)
+    assert tpb.conv2d_launch(100, 128).vec == 4
+    assert tpb.conv2d_launch(4096, 4096).band == 16    # no row tile in it
+    rng = np.random.default_rng(8)
+    A, c = _t(rand(rng, 48, 40), rand(rng, 3, 3))
+    out, _ = tpb.conv2d(A, c, row_tile=48)   # a whole-image row tile
+    np.testing.assert_allclose(out.numpy(), jref.conv2d(A.numpy(),
+                                                        c.numpy()),
+                               **CONV_TOL)
     rng = np.random.default_rng(6)
     A, c = _t(rand(rng, 64, 96), rand(rng, 3, 3))
     outs = {}
@@ -88,6 +96,55 @@ def test_conv2d_tiles_and_modes():
         assert jplan.mode == mode
     assert torch.equal(outs["paper"], outs["unmodified"])
     assert torch.equal(outs["autodma"], outs["unmodified"])
+
+
+CONV_BAND_SHAPES = [(2048, 2048, torch.float32), (2048, 2048, torch.bfloat16),
+                    (1001, 1500, torch.float32), (1001, 1500, torch.bfloat16),
+                    (37, 333, torch.float32), (64, 256, torch.float32),
+                    (1, 1, torch.float32), (1, 1, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("H,W,dtype", CONV_BAND_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_conv2d_bands_cover_every_output_once(H, W, dtype, aligned):
+    """The kernel's index math written out: block (bx, by), warp w, lane l
+    writes columns (bx·WARPS + w)·32·vec + l·vec .. + vec − 1 of rows
+    by·band .. by·band + band − 1, inside the image; every output is written
+    exactly once. A lane's 16-byte vector lies wholly inside or outside a
+    row (vec divides W), and a ragged W, or rows that do not start 16-byte
+    aligned, take the scalar path (vec 1)."""
+    shape = tpb.conv2d_launch(H, W, dtype, aligned)
+    full = 16 // torch.empty(0, dtype=dtype).element_size()
+    assert shape.vec == (full if aligned and W % full == 0 else 1)
+    assert shape.band % tpb.CONV_DEPTH == 0
+    assert shape.band >= tpb.CONV_BAND[dtype]
+    assert shape.grid_y <= tpb.CONV_MAX_GRID_Y
+    lanes = shape.grid_x * tpb.CONV_WARPS * 32
+    first = np.arange(lanes) * shape.vec          # a lane's first column
+    assert (first[first < W] + shape.vec <= W).all()
+    cols = np.zeros(W, np.int64)
+    for j in range(shape.vec):
+        np.add.at(cols, first[first + j < W] + j, 1)
+    rows = np.zeros(H, np.int64)
+    for by in range(shape.grid_y):
+        rows[by * shape.band:min(H, (by + 1) * shape.band)] += 1
+    assert (cols == 1).all() and (rows == 1).all()
+    assert shape.blocks == shape.grid_x * shape.grid_y
+    assert (shape.grid_x - 1) * tpb.CONV_WARPS * 32 * shape.vec < W
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_plain_bits_do_not_depend_on_the_row_tile(dtype):
+    """Every output is the same nine products summed in the same order
+    whatever the row tile: conv2d_plain gives the same bits for row tiles
+    1, 7, 8, 25 and H, so the kernel may walk bands of its own height."""
+    rng = np.random.default_rng(9)
+    H, W = 1400, 33               # 1400 = 7 · 8 · 25: every tile divides it
+    A = torch.from_numpy(rand(rng, H, W)).to(dtype)
+    c = torch.from_numpy(rand(rng, 3, 3))
+    ref = tpb.conv2d_plain(A, c, H)
+    for bh in (1, 7, 8, 25):
+        assert torch.equal(tpb.conv2d_plain(A, c, bh), ref), bh
 
 
 @pytest.mark.parametrize("mode", ["autodma", "paper", "unmodified"])
@@ -222,11 +279,12 @@ def _rel(a, b):
 
 @pytest.mark.cuda
 def test_cuda_conv2d_and_covar_match_their_plain_versions():
-    """On the card: conv2d (f32 and bf16, a ragged shape, every mode) and
-    covar (every mode) against their plain versions on the same tensors,
-    each launch counted. Tolerances (relative Frobenius error): conv2d
-    1e-5 (the same products and sums, rounded one by one), covar 5e-3
-    (the gram's operands rounded to TF32)."""
+    """On the card: conv2d (f32 and bf16, ragged shapes on the vector and
+    the scalar path, every mode) and covar (every mode) against their plain
+    versions on the same tensors, each launch counted. conv2d equals its
+    plain version bit for bit (the same products and sums, rounded one by
+    one, then one rounding to the dtype); covar within a relative Frobenius
+    error of 5e-3 (the gram's operands rounded to TF32)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card: python -m pytest "
                     "-m cuda tests/test_torch_polybench.py)")
@@ -234,6 +292,8 @@ def test_cuda_conv2d_and_covar_match_their_plain_versions():
     c = torch.randn(3, 3, generator=g, device="cuda")
     for (H, W), dt in (((512, 384), torch.float32),
                        ((1001, 1500), torch.float32),
+                       ((999, 1001), torch.float32),
+                       ((1001, 1500), torch.bfloat16),
                        ((512, 384), torch.bfloat16)):
         A = torch.randn(H, W, generator=g, device="cuda").to(dt)
         for mode in ("autodma", "paper", "unmodified"):
@@ -242,7 +302,7 @@ def test_cuda_conv2d_and_covar_match_their_plain_versions():
             torch.cuda.synchronize()
             assert tpb.conv2d.launches == n0 + 1
             plain = tpb.conv2d_plain(A, c, tpb.conv2d_row_tile(H, W))
-            assert _rel(out, plain) <= 1e-5, (H, W, dt, mode)
+            assert torch.equal(out, plain), (H, W, dt, mode)
     # ragged: no tile divides 600 x 300, so autodma degrades to granule
     # tiles (short last blocks); paper's rule falls back to whole axes,
     # which shared memory cannot hold, and raises
