@@ -9,13 +9,18 @@ Phases, each printed on its own line, none catching its own failure:
                parallel; each kernel instance's registers and spills;
   3. kernels   each paged attention kernel against its plain PyTorch version
                on the same CUDA tensors (atol 2e-3) at the main path's
-               shapes, the smoke shapes, int8 pages, f16 pages and pt 8 /
-               hd 128 (bf16), each kernel's grid logged; kernel and
-               yardstick times (``scaled_dot_product_attention`` over
-               already-gathered dense K/V: it leaves the page walk out and
-               is not the same function) from CUDA-graph replays, plain
-               times from CUDA events, beside the least time the card could
-               take;
+               shapes, the smoke shapes, int8 pages at the main path's
+               lengths and at other ones (prefill on tensor cores, like
+               bf16 and f16), f16 pages and pt 8 / hd 128 (bf16 and int8),
+               each int8 pool with a page whose scales are 0,
+               each kernel's grid logged; kernel and yardstick times
+               (``scaled_dot_product_attention`` over already-gathered
+               dense K/V, int8 pages dequantized to bf16 beforehand: it
+               leaves the page walk out and is not the same function) from
+               CUDA-graph replays, plain times from CUDA events, beside the
+               least time the card could take, for bf16 and for int8 pages
+               (decode at the serving decode shape, prefill at C 256 /
+               start 1500);
   4. suite kernels  the AutoDMA builder with each gemm body (mxu, vpu,
                loop), matvec and matvec_t against the plain grid walker on
                the same CUDA tensors: gemm 2048³ and 1024×1024×4608, matvec
@@ -63,9 +68,23 @@ Phases, each printed on its own line, none catching its own failure:
   7. serve     full-width qwen2-0.5b (random weights, seed 0, bf16) through
                the chunked paged engine: 8 requests, prompts of 128-1536
                tokens, 64 new tokens each; every kernel launch counted;
+  7b. serve int8+prefix  the same model on int8 pages with the prefix
+               layer: request 0 (a 1024-token system prompt and a suffix of
+               64-512 tokens) alone, then six requests sharing the system
+               prompt and one exact copy of request 0's prompt, 64 new
+               tokens each; gates: 7 prefix hits, 1 of them full, shared
+               and chunk-prefilled tokens that add up to the prompts, every
+               kernel launch counted, every page free after clear(), the
+               same streams from a second run; logged, not gated: the
+               share of tokens equal to a bf16-page run without the prefix
+               layer and to an f32 run (compute and pages), beside two
+               controls: bf16 against f32, bf16 + prefix against bf16;
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
-               for explicitly) gives equal greedy streams;
-  9. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+               for explicitly) gives equal greedy streams, on the paged
+               stack and on the int8 + prefix stack;
+  9. a ``{"kernels": [...]}`` line (the paged kernels twice: bf16 pages with
+     phase 7's launches, int8 pages with phase 7b's), then the card's name
+     and power limit,
      then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line. Without a card, or run
@@ -74,6 +93,7 @@ from a directory that lacks the repository's ``src/``, it fails too.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -155,7 +175,8 @@ def check_kernels(results):
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import paged_prefill_attention as ppa
     g = torch.Generator(device="cuda").manual_seed(0)
-    dec, pre = results["paged_flash_decode"], results["paged_flash_prefill"]
+    timed = {"main": ("paged_flash_decode", "paged_flash_prefill"),
+             "int8": ("paged_flash_decode_int8", "paged_flash_prefill_int8")}
     cases = [  # name, H, K, hd, pt, page dtype, lengths, max_pages, chunks
         ("main", 14, 2, 64, 16, torch.bfloat16,
          [0, 1, 16, 17, 255, 256, 1000, 2048], 128,
@@ -163,6 +184,9 @@ def check_kernels(results):
         ("smoke", 4, 2, 16, 8, torch.float32, [0, 3, 8, 9, 31, 40, 63, 17],
          8, [(1, 0), (3, 5), (8, 56)]),
         ("int8", 14, 2, 64, 16, torch.int8,
+         [0, 1, 16, 17, 255, 256, 1000, 2048], 128,
+         [(1, 2047), (37, 100), (256, 1500)]),
+        ("int8-ragged", 14, 2, 64, 16, torch.int8,
          [0, 7, 16, 33, 512, 513, 1999, 2048], 128,
          [(1, 2047), (37, 100), (256, 1500)]),
         ("f16", 14, 2, 64, 16, torch.float16,
@@ -171,14 +195,26 @@ def check_kernels(results):
         ("pt8-hd128", 14, 2, 128, 8, torch.bfloat16,
          [0, 5, 8, 9, 300, 1001, 1777, 2048], 256,
          [(1, 2047), (37, 100), (256, 1500), (64, 3)]),
+        ("int8-pt8-hd128", 14, 2, 128, 8, torch.int8,
+         [0, 5, 8, 9, 300, 1001, 1777, 2048], 256,
+         [(1, 2047), (37, 100), (256, 1500), (64, 3)]),
     ]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for name, H, K, hd, pt, dt, lengths, max_pages, chunks in cases:
+        dec, pre = (results[n] for n in
+                    timed["int8" if dt == torch.int8 else "main"])
         B = len(lengths)
         P = sum(-(-n // pt) for n in lengths) + 4
-        layers = LAYERS if name == "main" else 1
+        layers = LAYERS if name in timed else 1
         kp, ks, vp, vs = make_pool(g, P, K, pt, hd, dt, layers)
         table = make_tables(lengths, pt, max_pages, P, g)
+        if dt == torch.int8:
+            # a page whose scales are 0 (its payload left as it is): its
+            # keys get logit 0 and value 0, in the kernels as in the plain
+            # versions
+            zero = int(table[int(np.argmax(lengths)), 1])
+            ks[:, zero] = 0.0
+            vs[:, zero] = 0.0
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         q = torch.randn(B, H, hd, generator=g, device="cuda")
         sc = (lambda x, i: None if x is None else x[i % layers])
@@ -201,9 +237,9 @@ def check_kernels(results):
             f"{B * H}, max |kernel - plain| {err:.3e}")
         if name == "main":
             assert grid.blocks >= n_sm, grid
-        if name == "main":
-            time_decode(dec, dec_call, q, kp, vp, table, lens, lengths, K,
-                        pt, hd, layers)
+        if name in timed:
+            time_decode(dec, dec_call, q, kp, vp, ks, vs, table, lens,
+                        lengths, K, pt, hd, layers)
         row = table[int(np.argmax(lengths))]  # the longest sequence's pages
         for C, start in chunks:
             q2 = torch.randn(C, H, hd, generator=g, device="cuda")
@@ -227,17 +263,28 @@ def check_kernels(results):
                 f"{grid.blocks} blocks"
                 f"{f' + merge {C * H}' if grid.nsplit > 1 else ''}, max "
                 f"|kernel - plain| {err:.3e}")
-            if name == "main" and (C, start) == (256, 1500):
-                assert grid.blocks >= n_sm, grid
-                time_prefill(pre, pre_call, q2, kp, vp, row, start, K, pt,
-                             hd, layers)
+            if (C, start) == (256, 1500):
+                assert dt == torch.float32 or grid.blocks >= n_sm, grid
+                if name in timed:
+                    time_prefill(pre, pre_call, q2, kp, vp, ks, vs, row,
+                                 start, K, pt, hd, layers)
 
 
-def time_decode(res, call, q, kp, vp, table, lens, lengths, K, pt, hd,
-                layers):
+def dense_pool(pages, scales, layer):
+    """One layer's pool as the SDPA yardstick reads it: bf16 / f16 pages
+    as they are, int8 pages dequantized to bf16 beforehand."""
+    from repro_torch.kernels import paged_decode_attention as pda
+    if scales is None:
+        return pages[layer]
+    return pda.dequant_pages(pages[layer], scales[layer]).bfloat16()
+
+
+def time_decode(res, call, q, kp, vp, ks, vs, table, lens, lengths, K, pt,
+                hd, layers):
     """Kernel and the SDPA yardstick: device time of 20 calls replayed from
     one CUDA graph (kernel_suite.graph_ms), cycling the layer pools; plain:
-    CUDA events around eager calls."""
+    CUDA events around eager calls. int8 pages: the yardstick reads K / V
+    dequantized to bf16 beforehand, and the bytes count the scale rows."""
     import itertools
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.launch.kernel_suite import graph_ms
@@ -248,9 +295,11 @@ def time_decode(res, call, q, kp, vp, table, lens, lengths, K, pt, hd,
     res["plain_ms"] = cuda_ms(lambda i: call(i, pda.paged_flash_decode_plain))
     # yardstick: SDPA over K/V gathered dense beforehand (no page walk)
     S = table.shape[1] * pt
-    kd = [pda.gather_pages(kp[i], table) for i in range(layers)]
-    vd = [pda.gather_pages(vp[i], table) for i in range(layers)]
-    qb = q.to(kp.dtype)[:, :, None]                        # [B, H, 1, hd]
+    kd = [pda.gather_pages(dense_pool(kp, ks, i), table)
+          for i in range(layers)]
+    vd = [pda.gather_pages(dense_pool(vp, vs, i), table)
+          for i in range(layers)]
+    qb = q.to(kd[0].dtype)[:, :, None]                     # [B, H, 1, hd]
     mask = (torch.arange(S, device="cuda")[None] <
             lens[:, None])[:, None, None]
 
@@ -262,18 +311,23 @@ def time_decode(res, call, q, kp, vp, table, lens, lengths, K, pt, hd,
     page_rows = sum(-(-n // pt) * pt for n in lengths)
     nbytes = (K * page_rows * hd * 2 * kp.element_size()
               + 2 * q.numel() * 4 + table.numel() * 4 + lens.numel() * 4)
+    if ks is not None:
+        nbytes += 2 * K * (page_rows // pt) * 4
     flops = 4 * G * K * hd * sum(lengths)
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
-    log("kernels", f"decode main timing: kernel (graph) {res['ms']:.4f} "
+    log("kernels", f"decode {str(kp.dtype)[6:]} pages timing: kernel "
+        f"(graph) {res['ms']:.4f} "
         f"ms, plain {res['plain_ms']:.4f} ms, sdpa yardstick (graph) "
         f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']}: {nbytes} B at 3.35 TB/s, {flops} flop at 67 "
         "TFLOP/s f32)")
 
 
-def time_prefill(res, call, q, kp, vp, row, start, K, pt, hd, layers):
+def time_prefill(res, call, q, kp, vp, ks, vs, row, start, K, pt, hd,
+                 layers):
     """Timed as :func:`time_decode`; the bound takes the bf16 tensor-core
-    rate for bf16 pages, which the kernel multiplies on tensor cores."""
+    rate, at which the kernel multiplies bf16 and int8 pages (int8 widened
+    to bf16)."""
     import itertools
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import paged_prefill_attention as ppa
@@ -283,10 +337,12 @@ def time_prefill(res, call, q, kp, vp, row, start, K, pt, hd, layers):
     res["ms"] = graph_ms(lambda: call(next(cyc)), 20)
     res["plain_ms"] = cuda_ms(lambda i: call(i,
                                              ppa.paged_flash_prefill_plain))
-    kd = [pda.gather_pages(kp[i], row[None]) for i in range(layers)]
-    vd = [pda.gather_pages(vp[i], row[None]) for i in range(layers)]
+    kd = [pda.gather_pages(dense_pool(kp, ks, i), row[None])
+          for i in range(layers)]
+    vd = [pda.gather_pages(dense_pool(vp, vs, i), row[None])
+          for i in range(layers)]
     S = row.shape[0] * pt
-    qb = q.to(kp.dtype).transpose(0, 1)[None]              # [1, H, C, hd]
+    qb = q.to(kd[0].dtype).transpose(0, 1)[None]           # [1, H, C, hd]
     mask = (torch.arange(S, device="cuda")[None] <=
             start + torch.arange(C, device="cuda")[:, None])
 
@@ -298,10 +354,13 @@ def time_prefill(res, call, q, kp, vp, row, start, K, pt, hd, layers):
     rows = -(-(start + C) // pt) * pt
     nbytes = (K * rows * hd * 2 * kp.element_size() + 2 * q.numel() * 4
               + row.numel() * 4)
+    if ks is not None:
+        nbytes += 2 * K * (rows // pt) * 4
     flops = 4 * H * hd * sum(start + c + 1 for c in range(C))
-    assert kp.dtype == torch.bfloat16, "the rate below is bf16's"
+    assert kp.dtype in (torch.bfloat16, torch.int8), "the rate is bf16's"
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
-    log("kernels", f"prefill main timing (C {C}, start {start}): kernel "
+    log("kernels", f"prefill {str(kp.dtype)[6:]} pages timing (C {C}, "
+        f"start {start}): kernel "
         f"(graph) {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, sdpa "
         f"yardstick (graph) {res['library_ms']:.4f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {nbytes} B at 3.35 "
@@ -932,6 +991,131 @@ def full_width_serve(results, card: str):
         f"{cfg.n_layers()} x {s['prefill_chunks']} prompt chunks")
 
 
+SYSTEM_PROMPT = 1024     # tokens of the shared system prompt (phase 7b)
+
+
+def prefix_int8_serve(results, card: str):
+    """Full-width qwen2-0.5b on the int8 + prefix stack: request 0 alone,
+    then six requests sharing its system prompt and one exact copy of its
+    prompt; then the same traffic again after clear(), and once each on
+    bf16 pages, bf16 pages with the prefix layer and in f32 (the shares of
+    equal tokens are reported, not gated)."""
+    from repro_torch import configs
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.launch.serve import warm_up
+    from repro_torch.models import transformer
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    cfg = configs.get_config("qwen2-0.5b")                 # bf16 compute
+    model = transformer.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    conf = EngineConfig(n_slots=8, max_seq=2048, chunked=True,
+                        token_budget=256,
+                        cache=CacheConfig(page_tokens=16, kv_dtype="int8",
+                                          prefix=True))
+    warm_up(cfg, model, conf, "cuda")
+    eng = Engine(cfg, model, config=conf, device="cuda")
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab, SYSTEM_PROMPT)
+    prompts = [np.concatenate([system, rng.integers(
+        0, cfg.vocab, int(n))]).astype(np.int32)
+        for n in rng.integers(64, 513, 7)]
+    prompts.append(prompts[0].copy())              # an exact repeat of 0
+
+    def waves(engine):
+        """Request 0 alone to completion, then the other seven at once."""
+        engine.submit(Request(seq_id=0, prompt=prompts[0].copy(),
+                              max_new=64))
+        done = engine.run(max_steps=100000)
+        for i, p in enumerate(prompts[1:], 1):
+            engine.submit(Request(seq_id=i, prompt=p.copy(), max_new=64))
+        done += engine.run(max_steps=100000)
+        torch.cuda.synchronize()
+        assert engine.idle and len(done) == len(prompts)
+        return {r.seq_id: list(r.tokens_out) for r in done}
+
+    pda.paged_flash_decode.launches = 0
+    ppa.paged_flash_prefill.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streams = waves(eng)
+    wall = time.perf_counter() - t0
+    n_dec = pda.paged_flash_decode.launches
+    n_pre = ppa.paged_flash_prefill.launches
+    s = eng.stats_summary()
+    peak = torch.cuda.max_memory_allocated()
+    lens = [len(p) for p in prompts]
+    assert all(len(t) == 64 for t in streams.values())
+    assert s["prefix_hits"] == 7 and s["prefix_full_hits"] == 1, s
+    assert s["prefix_shared_tokens"] == 6 * SYSTEM_PROMPT + lens[0], s
+    assert s["evictions_reprefill"] == 0, s
+    assert s["prefill_chunk_tokens"] == sum(lens) - \
+        s["prefix_shared_tokens"], s
+    assert s["max_iter_tokens"] <= s["token_budget"]
+    assert n_dec == cfg.n_layers() * s["decode_steps"] > 0, (n_dec, s)
+    assert n_pre == cfg.n_layers() * s["prefill_chunks"] > 0, (n_pre, s)
+    results["paged_flash_decode_int8"]["launches"] = n_dec
+    results["paged_flash_prefill_int8"]["launches"] = n_pre
+    pool, a = eng.pool, eng.pool.alloc
+    assert a._seq_pages == {}
+    cached = eng.prefix.cached_pages()
+    assert all(a.refcount(p) == 1 for p in cached)
+    assert a.free_pages == a.n_pages - len(cached)
+    a.audit()
+    eng.prefix.clear()
+    assert a.free_pages == a.n_pages
+    a.audit()
+    toks = sum(len(t) for t in streams.values())
+    log("serve int8+prefix", f"{card}: {len(streams)} requests (1, then 7), "
+        f"prompts {lens} ({sum(lens)} tok, a {SYSTEM_PROMPT}-token system "
+        f"prompt), {toks} new tokens in {wall:.3f} s ({toks / wall:.1f} "
+        f"tok/s), ttft p50/p99 {s['ttft_p50_s']:.4f}/{s['ttft_p99_s']:.4f} "
+        f"s, itl p50/p99 {s['itl_p50_s'] * 1e3:.2f}/"
+        f"{s['itl_p99_s'] * 1e3:.2f} ms, peak memory {peak / 2**30:.2f} GiB, "
+        f"pool {pool.footprint_bytes()} B ({pool.page_nbytes()} B a page, "
+        f"int8 + scales)")
+    log("serve int8+prefix", f"prefix hits {s['prefix_hits']} "
+        f"({s['prefix_full_hits']} full), shared tokens "
+        f"{s['prefix_shared_tokens']}, prefill chunk tokens "
+        f"{s['prefill_chunk_tokens']} = {sum(lens)} - "
+        f"{s['prefix_shared_tokens']}, cow forks {s['cow_forks']}, cached "
+        f"pages {len(cached)}; launches: paged_flash_decode {n_dec} = "
+        f"{cfg.n_layers()} x {s['decode_steps']} decode steps, "
+        f"paged_flash_prefill {n_pre} = {cfg.n_layers()} x "
+        f"{s['prefill_chunks']} prompt chunks; after clear() every page "
+        "free, audit clean")
+    again = waves(eng)
+    assert again == streams, "a second run of the same traffic differs"
+    # controls for the token match: how far greedy streams at this width
+    # part under changes that are not int8 pages
+    bf16 = waves(Engine(cfg, model, config=dataclasses.replace(
+        conf, cache=CacheConfig(page_tokens=16)), device="cuda"))
+    bf16_prefix = waves(Engine(cfg, model, config=dataclasses.replace(
+        conf, cache=CacheConfig(page_tokens=16, prefix=True)), device="cuda"))
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    f32 = waves(Engine(cfg32, copy.deepcopy(model).float(),
+                       config=dataclasses.replace(
+                           conf, cache=CacheConfig(page_tokens=16)),
+                       device="cuda"))
+
+    def match(a, b, what):
+        same = sum(x == y for i in a for x, y in zip(a[i], b[i]))
+        first = sum(a[i][0] == b[i][0] for i in a)
+        common = [next((j for j, (x, y) in enumerate(zip(a[i], b[i]))
+                        if x != y), len(a[i])) for i in a]
+        log("serve int8+prefix", f"token match, {what}: {same}/{toks} "
+            f"({same / toks:.3f}), first tokens equal in {first}/{len(a)} "
+            f"streams, common prefixes {common} tokens (reported, not gated)")
+
+    log("serve int8+prefix", "a second run of the same traffic gives the "
+        "same streams")
+    match(streams, bf16, "int8 + prefix against bf16 pages")
+    match(streams, f32, "int8 + prefix against f32 (compute and pages)")
+    match(bf16, f32, "control: bf16 against f32 (compute and pages)")
+    match(bf16_prefix, bf16, "control: bf16 + prefix against bf16 pages")
+
+
 def card_vs_cpu():
     from repro_torch import configs
     from repro_torch.models import transformer
@@ -939,21 +1123,34 @@ def card_vs_cpu():
     from repro_torch.serve.engine import Engine, EngineConfig
     cfg = configs.get_smoke_config("qwen2-0.5b", compute_dtype=torch.float32)
     model = transformer.init_model(cfg, torch.Generator().manual_seed(0))
-    conf = EngineConfig(n_slots=3, max_seq=64, chunked=True, token_budget=8,
-                        cache=CacheConfig(page_tokens=8))
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
                for n in (6, 13, 3, 9, 30, 1)]
-    on_cpu = serve(Engine(cfg, copy.deepcopy(model), config=conf,
-                          device="cpu"), prompts, 8)
-    on_card = serve(Engine(cfg, model, config=conf, device="cuda"),
-                    prompts, 8)
-    assert on_card == on_cpu, (on_card, on_cpu)
-    log("card/cpu", f"smoke config f32: {len(on_card)} greedy streams equal "
-        "on cuda and cpu")
+    system = rng.integers(0, cfg.vocab, 12)
+    shared = [np.concatenate([system, p[:5]]).astype(np.int32)
+              for p in prompts]
+    for stack, cache, reqs in (
+            ("paged", CacheConfig(page_tokens=8), prompts),
+            ("int8+prefix", CacheConfig(page_tokens=8, kv_dtype="int8",
+                                        prefix=True), shared)):
+        conf = EngineConfig(n_slots=3, max_seq=64, chunked=True,
+                            token_budget=8, cache=cache)
+        cpu_eng = Engine(cfg, copy.deepcopy(model), config=conf,
+                         device="cpu")
+        on_cpu = serve(cpu_eng, reqs, 8)
+        card_eng = Engine(cfg, copy.deepcopy(model), config=conf,
+                          device="cuda")
+        on_card = serve(card_eng, reqs, 8)
+        assert on_card == on_cpu, (stack, on_card, on_cpu)
+        hits = card_eng.stats["prefix_hits"]
+        assert hits == cpu_eng.stats["prefix_hits"]
+        assert cache.prefix is False or hits > 0
+        log("card/cpu", f"smoke config f32, {stack} stack: {len(on_card)} "
+            f"greedy streams equal on cuda and cpu (prefix hits {hits})")
 
 
 # the kernel templates' mangled names, as ptxas prints them, shortened
+PAGE_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "a": "int8"}
 KERNEL_NAMES = (
     (r"GemmBodyILi(\d)ELi(\d)E(f|13__nv_bfloat16)Lb(\d)E",
      lambda m: f"gemm {('mxu', 'vpu', 'loop')[int(m[1])]} fpw {m[2]} "
@@ -968,6 +1165,9 @@ KERNEL_NAMES = (
      lambda m: f"flash_decode {'f32' if m[1] == 'f' else 'bf16'} hd {m[2]}"),
     (r"conv2d_bandI(f|13__nv_bfloat16)Li(\d+)E",
      lambda m: f"conv2d {'f32' if m[1] == 'f' else 'bf16'} vec {m[2]}"),
+    (r"paged_prefill_mmaI(13__nv_bfloat16|6__half)(a|S\d*_)Li(\d+)E",
+     lambda m: f"paged_prefill_mma {PAGE_TYPES.get(m[2], PAGE_TYPES[m[1]])} "
+     f"pages hd {m[3]} (tensor cores)"),
     (r"flash_mmaILi(\d+)E", lambda m: f"flash_mma hd {m[1]} (tensor cores)"),
     (r"flash_kernelIfLi(\d+)E",
      lambda m: f"flash_kernel hd {m[1]} (CUDA cores, f32)"))
@@ -1031,6 +1231,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/paged_prefill_attention.py:46",
             "launches": 0, "max_abs_err": 0.0},
     }
+    for name in ("paged_flash_decode", "paged_flash_prefill"):
+        results[name + "_int8"] = dict(results[name], name=name + "_int8")
     for name, replaces in (
             ("autodma_tiled", "src/repro/core/autodma.py:321"),
             ("gemm", "src/repro/kernels/gemm.py:62"),
@@ -1060,6 +1262,7 @@ def main() -> int:
     suite_main_path(results)
     torch.cuda.synchronize()
     full_width_serve(results, card)
+    prefix_int8_serve(results, card)
     card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

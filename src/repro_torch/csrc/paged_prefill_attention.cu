@@ -18,20 +18,20 @@
 //
 // Two kernels, chosen by the page dtype:
 //
-// * bf16 / f16 pages: paged_prefill_mma, tensor cores. A block owns 64 of
-//   the C*G query rows of one kv head, 16 per warp, in the FlashAttention-2
-//   shape: Q.K^T and P.V are mma.sync.m16n8k16 with f32 accumulators, K and
-//   V fragments come from shared memory through ldmatrix (V transposed), the
-//   row max and sum stay in registers, and P is re-packed from the S
-//   accumulators as the A operand of P.V without a trip through shared
-//   memory. q arrives as f32 and P is f32, neither exact in 16 bits: each
-//   is fed as a hi + lo pair of page-dtype values, two products into one
-//   f32 accumulator (error about 2^-16 relative, where one bf16 product
-//   would move a short row's output by ~5e-3). Key tiles are 64 keys, i.e.
-//   64 / pt pages gathered through the table, staged by 16-byte cp.async
-//   into two buffers (rows padded by 16 bytes so that ldmatrix is free of
-//   bank conflicts), the next tile in flight while the tensor cores work on
-//   this one. Keys at or past the block's causal frontier are not read
+// * bf16 / f16 / int8 pages: paged_prefill_mma, tensor cores. A block owns
+//   64 of the C*G query rows of one kv head, 16 per warp, in the
+//   FlashAttention-2 shape: Q.K^T and P.V are mma.sync.m16n8k16 with f32
+//   accumulators, K and V fragments come from shared memory through
+//   ldmatrix (V transposed), the row max and sum stay in registers, and P
+//   is re-packed from the S accumulators as the A operand of P.V without a
+//   trip through shared memory. q arrives as f32 and P is f32, neither
+//   exact in 16 bits: each is fed as a hi + lo pair of operand-type values,
+//   two products into one f32 accumulator (error about 2^-16 relative,
+//   where one bf16 product would move a short row's output by ~5e-3). Key
+//   tiles are 64 keys, i.e. 64 / pt pages gathered through the table,
+//   staged by 16-byte cp.async into two buffers (rows padded by 16 bytes so
+//   that ldmatrix is free of bank conflicts), the next tile in flight while
+//   the tensor cores work on this one. Keys at or past the block's causal frontier are not read
 //   (their rows are zero-filled); keys past a row's own limit are masked
 //   per row (the rows of one fragment span up to three chunk positions). A
 //   warp skips tiles past its own rows' frontier.
@@ -45,10 +45,24 @@
 //   writes its rows' (m, l, acc) and merge_splits
 //   (paged_attention_common.cuh) combines them; with one split the kernel
 //   writes the output itself.
-// * f32 / int8 pages: paged_prefill_cuda_core, one block per (kv head, 64
-//   rows), pages staged one at a time as f32 in shared memory (int8 x scale
-//   dequantises there), products on CUDA cores. f32 pages are not exact in
-//   16 bits, and int8 on tensor cores goes with int8 KV through the engine.
+//   int8 pages (with f32 [P, K] scales) take the same kernel with bf16
+//   operands. Every int8 value (-127..127) is exact in bf16, and a scale is
+//   constant over one page and one kv head, so it factors out of the
+//   products exactly: int8 rows are staged through the table by the same
+//   16-byte cp.async (half the bytes of bf16 pages) into a two-buffer ring,
+//   widened to bf16 in shared memory once per tile (the f32 conversion is
+//   exact, so its top 16 bits are the bf16 value), and fed to the unchanged
+//   ldmatrix / m16n8k16 path. Column j of S is then multiplied by
+//   k_scale[page(j), kh] before the mask and the softmax, and column j of P
+//   by v_scale[page(j), kh] before its hi + lo split (the row sum l takes P
+//   unscaled), the per-key scales of a tile staged beside its rows. A zero
+//   scale gives its page logits 0 and values 0, as the reference's
+//   int8 x scale does. The split and the merge are bf16's. On the H100 the
+//   widening and its extra barrier cost ~6 % against bf16 pages at C 256 /
+//   start 1500; the CUDA-core walk this replaces took 40x as long.
+// * f32 pages: paged_prefill_cuda_core, one block per (kv head, 64 rows),
+//   pages staged one at a time in shared memory, products on CUDA cores;
+//   f32 pages are not exact in 16 bits.
 #include "paged_attention_common.cuh"
 
 using namespace paged_attn;
@@ -56,7 +70,7 @@ using namespace paged_attn;
 namespace {
 
 // ---------------------------------------------------------------------------
-// bf16 / f16 pages: tensor cores
+// bf16 / f16 / int8 pages: tensor cores
 // ---------------------------------------------------------------------------
 constexpr int MMA_THREADS = 128;       // 4 warps x 16 query rows
 constexpr int BM = 64;                 // query rows per block
@@ -65,9 +79,27 @@ constexpr int BN = 64;                 // keys per tile
 template <int HD>
 __host__ __device__ constexpr int mma_ld() { return HD + 8; }  // row pitch
 
-template <int HD>
+// Shared memory of one block. 16-bit pages: K and V tiles in a two-buffer
+// ring. int8 pages: the int8 ring, one widened bf16 K and V tile, and the
+// per-key scales of the ring's two tiles.
+template <int HD, bool QUANT>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
-  return 2 * 2 * (size_t)BN * mma_ld<HD>() * 2;   // K, V x two buffers
+  return QUANT ? 2 * (size_t)BN * mma_ld<HD>() * 2 + 2 * 2 * (size_t)BN * HD +
+                     2 * 2 * (size_t)BN * sizeof(float)
+               : 2 * 2 * (size_t)BN * mma_ld<HD>() * 2;
+}
+
+// Four int8 values (one 32-bit word) as two pairs of bf16, exactly: the
+// f32 conversion of an int8 is exact in bf16, so its top 16 bits are it.
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const int x = static_cast<int>(w);
+  const float f0 = static_cast<float>((x << 24) >> 24);
+  const float f1 = static_cast<float>((x << 16) >> 24);
+  const float f2 = static_cast<float>((x << 8) >> 24);
+  const float f3 = static_cast<float>(x >> 24);
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 // Keys visible to query row rr: positions < lim (0 for rows past C*G).
@@ -82,22 +114,33 @@ __device__ __forceinline__ size_t out_row(int rr, int G, int H, int kh) {
   return (size_t)c * H + (size_t)kh * G + g;
 }
 
-template <typename T, int HD>
+// T: the operand type of the products (bf16 / f16); P: the page type (T,
+// or int8 with T = bf16 and scales ks / vs [P, K]).
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(MMA_THREADS)
-    paged_prefill_mma(const float* __restrict__ q, const T* __restrict__ kp,
-                      const T* __restrict__ vp,
+    paged_prefill_mma(const float* __restrict__ q, const P* __restrict__ kp,
+                      const P* __restrict__ vp,
+                      const float* __restrict__ ks,
+                      const float* __restrict__ vs,
                       const int* __restrict__ table, float* __restrict__ out,
                       float* __restrict__ part_m, float* __restrict__ part_l,
                       float* __restrict__ part_acc, int C, int H, int K,
                       int pt, int max_pages, int start, int tiles_per_split,
                       float scale) {
+  constexpr bool QUANT = sizeof(P) == 1;
   constexpr int LD = mma_ld<HD>();
   constexpr int KS = HD / 16;            // k-steps of Q.K^T
   constexpr int NV = HD / 8;             // 8-wide blocks of the output
-  constexpr int CPR = HD / 8;            // 16-byte chunks per key row
+  constexpr int CPR = HD * sizeof(P) / 16;  // 16-byte chunks per page row
+  constexpr int NBUF = QUANT ? 1 : 2;    // bf16 K / V tiles the MMAs read
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sk = reinterpret_cast<T*>(smem_raw);           // [2][BN][LD]
-  T* sv = sk + 2 * BN * LD;                         // [2][BN][LD]
+  T* sk = reinterpret_cast<T*>(smem_raw);           // [NBUF][BN][LD]
+  T* sv = sk + NBUF * BN * LD;                      // [NBUF][BN][LD]
+  // int8 pages only: the staged rows and their keys' scales, two buffers
+  int8_t* rk = reinterpret_cast<int8_t*>(sv + NBUF * BN * LD);  // [2][BN][HD]
+  int8_t* rv = rk + 2 * BN * HD;                                // [2][BN][HD]
+  float* sks = reinterpret_cast<float*>(rv + 2 * BN * HD);      // [2][BN]
+  float* svs = sks + 2 * BN;                                    // [2][BN]
 
   const int kh = blockIdx.y, split = blockIdx.z, nsplit = gridDim.z;
   const int G = H / K, NR = C * G, S = max_pages * pt;
@@ -139,24 +182,63 @@ __global__ void __launch_bounds__(MMA_THREADS)
     }
   }
 
-  // stage key tile t of this split into buffer `buf`
+  // stage key tile t of this split into buffer `buf` (int8 pages: into the
+  // int8 ring, with the scale of each key's page)
   auto load_tile = [&](int t, int buf) {
     const int kb = klo + t * BN;
-    const uint32_t dk = smem_addr(sk + buf * BN * LD);
-    const uint32_t dv = smem_addr(sv + buf * BN * LD);
+    const uint32_t dk =
+        QUANT ? smem_addr(rk + buf * BN * HD) : smem_addr(sk + buf * BN * LD);
+    const uint32_t dv =
+        QUANT ? smem_addr(rv + buf * BN * HD) : smem_addr(sv + buf * BN * LD);
+    constexpr int PITCH = QUANT ? HD : LD;           // elements of a row
     for (int i = threadIdx.x; i < BN * CPR; i += MMA_THREADS) {
       const int key = i / CPR, ch = i - key * CPR;
       const int kpos = kb + key;
-      const uint32_t off = (uint32_t)(key * LD + ch * 8) * sizeof(T);
+      const uint32_t off = (uint32_t)(key * PITCH * sizeof(P) + ch * 16);
       if (kpos < khi) {
         const int pid = max(table[kpos / pt], 0);
-        const size_t src =
-            (((size_t)pid * K + kh) * pt + kpos % pt) * HD + ch * 8;
+        const size_t src = (((size_t)pid * K + kh) * pt + kpos % pt) * HD +
+                           ch * (16 / sizeof(P));
         cp_async16(dk + off, kp + src, 16);
         cp_async16(dv + off, vp + src, 16);
       } else {  // past the frontier: zeros, nothing read
         cp_async16(dk + off, kp, 0);
         cp_async16(dv + off, vp, 0);
+      }
+    }
+    if constexpr (QUANT) {
+      for (int i = threadIdx.x; i < BN; i += MMA_THREADS) {
+        const int kpos = kb + i;
+        float a = 0.f, b = 0.f;
+        if (kpos < khi) {
+          const size_t pk = (size_t)max(table[kpos / pt], 0) * K + kh;
+          a = ks[pk];
+          b = vs[pk];
+        }
+        sks[buf * BN + i] = a;
+        svs[buf * BN + i] = b;
+      }
+    }
+  };
+
+  // int8 pages: widen ring buffer `buf` into the bf16 K / V tiles
+  auto widen_tile = [&](int buf) {
+    for (int i = threadIdx.x; i < BN * CPR; i += MMA_THREADS) {
+      const int key = i / CPR, ch = i - key * CPR;
+      const int8_t* src[2] = {rk + buf * BN * HD, rv + buf * BN * HD};
+      T* dst[2] = {sk, sv};
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint4 w =
+            *reinterpret_cast<const uint4*>(src[m] + key * HD + ch * 16);
+        uint4 a, b;
+        widen4(w.x, a.x, a.y);
+        widen4(w.y, a.z, a.w);
+        widen4(w.z, b.x, b.y);
+        widen4(w.w, b.z, b.w);
+        uint4* d = reinterpret_cast<uint4*>(dst[m] + key * LD + ch * 16);
+        d[0] = a;
+        d[1] = b;
       }
     }
   };
@@ -177,10 +259,14 @@ __global__ void __launch_bounds__(MMA_THREADS)
       cp_async_wait<0>();
     }
     __syncthreads();
+    if constexpr (QUANT) {
+      widen_tile(t & 1);
+      __syncthreads();
+    }
     const int kb = klo + t * BN;
     if (kb < warp_lim) {
-      const T* kt = sk + (t & 1) * BN * LD;
-      const T* vt = sv + (t & 1) * BN * LD;
+      const T* kt = sk + (QUANT ? 0 : (t & 1) * BN * LD);
+      const T* vt = sv + (QUANT ? 0 : (t & 1) * BN * LD);
       // S = Q K^T: 8 blocks of 8 keys, two at a time from one ldmatrix.x4
       float s[8][4];
 #pragma unroll
@@ -198,6 +284,18 @@ __global__ void __launch_bounds__(MMA_THREADS)
           Mma<T>::mma(s[2 * np], ql[ks], b[0], b[1]);
           Mma<T>::mma(s[2 * np + 1], qh[ks], b[2], b[3]);
           Mma<T>::mma(s[2 * np + 1], ql[ks], b[2], b[3]);
+        }
+      }
+      // int8 pages: each key's logit times its page's k scale
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 sc = *reinterpret_cast<const float2*>(
+              sks + (t & 1) * BN + j * 8 + tid4 * 2);
+          s[j][0] *= sc.x;
+          s[j][1] *= sc.y;
+          s[j][2] *= sc.x;
+          s[j][3] *= sc.y;
         }
       }
       // mask per row, online softmax; c0,c1 belong to row a, c2,c3 to b
@@ -236,6 +334,18 @@ __global__ void __launch_bounds__(MMA_THREADS)
       }
       l_a = l_a * corr_a + sum_a;
       l_b = l_b * corr_b + sum_b;
+      // int8 pages: each key's probability times its page's v scale
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 sc = *reinterpret_cast<const float2*>(
+              svs + (t & 1) * BN + j * 8 + tid4 * 2);
+          s[j][0] *= sc.x;
+          s[j][1] *= sc.y;
+          s[j][2] *= sc.x;
+          s[j][3] *= sc.y;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         o[j][0] *= corr_a;
@@ -300,14 +410,15 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
-template <typename T, int HD>
+template <typename T, typename P, int HD>
 cudaError_t launch_mma_hd(const float* q, const void* kp, const void* vp,
+                          const float* ks, const float* vs,
                           const int* table, float* out, float* pm, float* pl,
                           float* pa, int C, int H, int K, int pt,
                           int max_pages, int start, int nsplit, int tps,
                           cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<HD>();
-  auto kern = paged_prefill_mma<T, HD>;
+  constexpr size_t smem = mma_smem_bytes<HD, sizeof(P) == 1>();
+  auto kern = paged_prefill_mma<T, P, HD>;
   static bool opted_in = false;   // set once, so launches can be graphed
   if (smem > 48 * 1024 && !opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -318,8 +429,8 @@ cudaError_t launch_mma_hd(const float* q, const void* kp, const void* vp,
   const int G = H / K;
   const dim3 grid((C * G + BM - 1) / BM, K, nsplit);
   kern<<<grid, MMA_THREADS, smem, stream>>>(
-      q, static_cast<const T*>(kp), static_cast<const T*>(vp), table, out,
-      pm, pl, pa, C, H, K, pt, max_pages, start, tps,
+      q, static_cast<const P*>(kp), static_cast<const P*>(vp), ks, vs, table,
+      out, pm, pl, pa, C, H, K, pt, max_pages, start, tps,
       1.0f / sqrtf(static_cast<float>(HD)));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
@@ -327,39 +438,42 @@ cudaError_t launch_mma_hd(const float* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch_mma(int hd, const float* q, const void* kp,
-                       const void* vp, const int* table, float* out,
-                       float* pm, float* pl, float* pa, int C, int H, int K,
-                       int pt, int max_pages, int start, int nsplit, int tps,
-                       cudaStream_t s) {
+                       const void* vp, const float* ks, const float* vs,
+                       const int* table, float* out, float* pm, float* pl,
+                       float* pa, int C, int H, int K, int pt, int max_pages,
+                       int start, int nsplit, int tps, cudaStream_t s) {
   switch (hd) {
     case 16:
-      return launch_mma_hd<T, 16>(q, kp, vp, table, out, pm, pl, pa, C, H, K,
-                                  pt, max_pages, start, nsplit, tps, s);
+      return launch_mma_hd<T, P, 16>(q, kp, vp, ks, vs, table, out, pm, pl,
+                                     pa, C, H, K, pt, max_pages, start,
+                                     nsplit, tps, s);
     case 32:
-      return launch_mma_hd<T, 32>(q, kp, vp, table, out, pm, pl, pa, C, H, K,
-                                  pt, max_pages, start, nsplit, tps, s);
+      return launch_mma_hd<T, P, 32>(q, kp, vp, ks, vs, table, out, pm, pl,
+                                     pa, C, H, K, pt, max_pages, start,
+                                     nsplit, tps, s);
     case 64:
-      return launch_mma_hd<T, 64>(q, kp, vp, table, out, pm, pl, pa, C, H, K,
-                                  pt, max_pages, start, nsplit, tps, s);
+      return launch_mma_hd<T, P, 64>(q, kp, vp, ks, vs, table, out, pm, pl,
+                                     pa, C, H, K, pt, max_pages, start,
+                                     nsplit, tps, s);
     case 128:
-      return launch_mma_hd<T, 128>(q, kp, vp, table, out, pm, pl, pa, C, H,
-                                   K, pt, max_pages, start, nsplit, tps, s);
+      return launch_mma_hd<T, P, 128>(q, kp, vp, ks, vs, table, out, pm, pl,
+                                      pa, C, H, K, pt, max_pages, start,
+                                      nsplit, tps, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // ---------------------------------------------------------------------------
-// f32 / int8 pages: CUDA cores
+// f32 pages: CUDA cores
 // ---------------------------------------------------------------------------
 //
 // One block walks the sequence's page table and keeps an online softmax per
 // query row in shared memory (m, l, acc [R, hd] f32). A query row r sees key
 // position kpos iff kpos < lim[r]; masked logits are NEG and their
-// probabilities exactly 0. Pages are staged in shared memory as f32, int8
-// multiplied by its per-(page, kv-head) scale.
+// probabilities exactly 0. Pages are staged in shared memory.
 constexpr int CORE_THREADS = 256;
 constexpr int CORE_ROWS = 64;
 
@@ -407,20 +521,15 @@ __device__ inline void init_state(const Smem& sm, int R, int hd) {
   }
 }
 
-// Stage page `pid`, kv-head `kh` of a [P, K, pt, hd] pool as f32 rows of
-// stride `ld` (scale = 1 unless the pool is int8).
-template <typename PageT>
-__device__ inline void load_tile(const PageT* __restrict__ pages,
-                                 const float* __restrict__ scales, int pid,
+// Stage page `pid`, kv-head `kh` of a [P, K, pt, hd] pool as rows of
+// stride `ld`.
+__device__ inline void load_tile(const float* __restrict__ pages, int pid,
                                  int kh, int K, int pt, int hd, float* dst,
                                  int ld) {
   const size_t base = ((size_t)pid * K + kh) * (size_t)pt * hd;
-  const float sc = scales ? scales[(size_t)pid * K + kh] : 1.f;
   for (int i = threadIdx.x; i < pt * hd; i += blockDim.x) {
     const int t = i / hd, d = i - t * hd;
-    float x = to_f32(pages[base + i]);
-    if (scales) x *= sc;
-    dst[t * ld + d] = x;
+    dst[t * ld + d] = pages[base + i];
   }
 }
 
@@ -478,30 +587,25 @@ __device__ inline void page_step(const Smem& sm, int j, int R, int pt, int hd,
 }
 
 // Walk pages 0 .. n_pages-1 of one page-table row for kv-head kh.
-template <typename PageT>
-__device__ inline void walk_pages(const Smem& sm, const PageT* kp,
-                                  const PageT* vp, const float* ks,
-                                  const float* vs, const int* table_row,
+__device__ inline void walk_pages(const Smem& sm, const float* kp,
+                                  const float* vp, const int* table_row,
                                   int n_pages, int kh, int K, int R, int pt,
                                   int hd, float scale) {
   for (int j = 0; j < n_pages; ++j) {
     // -1 entries never reach here (n_pages stops at the row's length); the
     // clamp mirrors the reference for a table that is shorter than its length
     const int pid = max(table_row[j], 0);
-    load_tile(kp, ks, pid, kh, K, pt, hd, sm.k, hd + 1);
-    load_tile(vp, vs, pid, kh, K, pt, hd, sm.v, hd);
+    load_tile(kp, pid, kh, K, pt, hd, sm.k, hd + 1);
+    load_tile(vp, pid, kh, K, pt, hd, sm.v, hd);
     __syncthreads();
     page_step(sm, j, R, pt, hd, scale);
   }
 }
 
-template <typename PageT>
 __global__ void __launch_bounds__(CORE_THREADS)
     paged_prefill_cuda_core(const float* __restrict__ q,
-                            const PageT* __restrict__ kp,
-                            const PageT* __restrict__ vp,
-                            const float* __restrict__ ks,
-                            const float* __restrict__ vs,
+                            const float* __restrict__ kp,
+                            const float* __restrict__ vp,
                             const int* __restrict__ table,
                             float* __restrict__ out, int C, int H, int K,
                             int hd, int pt, int max_pages, int start,
@@ -521,7 +625,7 @@ __global__ void __launch_bounds__(CORE_THREADS)
   init_state(sm, R, hd);
   const int frontier = start + (r0 + R - 1) / G + 1;   // keys the tile needs
   const int n_pages = min((frontier + pt - 1) / pt, max_pages);
-  walk_pages(sm, kp, vp, ks, vs, table, n_pages, kh, K, R, pt, hd, scale);
+  walk_pages(sm, kp, vp, table, n_pages, kh, K, R, pt, hd, scale);
   __syncthreads();
   for (int i = threadIdx.x; i < R * hd; i += blockDim.x) {
     const int r = i / hd, d = i - r * hd;
@@ -531,9 +635,7 @@ __global__ void __launch_bounds__(CORE_THREADS)
   }
 }
 
-template <typename PageT>
 cudaError_t launch_cuda_core(const float* q, const void* kp, const void* vp,
-                             const float* ks, const float* vs,
                              const int* table, float* out, int C, int H,
                              int K, int hd, int pt, int max_pages, int start,
                              cudaStream_t stream) {
@@ -541,7 +643,7 @@ cudaError_t launch_cuda_core(const float* q, const void* kp, const void* vp,
   const int rows = min(CORE_ROWS, C * G);
   const size_t smem = smem_bytes(rows, pt, hd);
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidConfiguration;
-  auto kern = paged_prefill_cuda_core<PageT>;
+  auto kern = paged_prefill_cuda_core;
   static size_t opted_in = 48 * 1024;  // set once, so launches can be graphed
   if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -551,8 +653,8 @@ cudaError_t launch_cuda_core(const float* q, const void* kp, const void* vp,
   }
   const dim3 grid(K, (C * G + rows - 1) / rows);
   kern<<<grid, CORE_THREADS, smem, stream>>>(
-      q, static_cast<const PageT*>(kp), static_cast<const PageT*>(vp), ks, vs,
-      table, out, C, H, K, hd, pt, max_pages, start, rows,
+      q, static_cast<const float*>(kp), static_cast<const float*>(vp), table,
+      out, C, H, K, hd, pt, max_pages, start, rows,
       1.0f / sqrtf(static_cast<float>(hd)));
   return cudaGetLastError();
 }
@@ -561,12 +663,13 @@ cudaError_t launch_cuda_core(const float* q, const void* kp, const void* vp,
 
 extern "C" {
 
-// Chunk attention over the page pool. bf16 / f16 pages run on tensor cores
-// in `nsplit` splits of `tiles_per_split` 64-key tiles (nsplit *
-// tiles_per_split * 64 >= min(start + C, max_pages * pt)); with nsplit > 1
-// part_ml holds 2 * C*H*nsplit floats and part_acc C*H*nsplit*hd. f32 /
-// int8 pages take the CUDA-core kernel and need nsplit = 1 and no
-// partials. Returns a cudaError_t value: 0 on a launch that was accepted.
+// Chunk attention over the page pool. bf16 / f16 / int8 pages (int8 with
+// k_scale / v_scale [P, K]) run on tensor cores in `nsplit` splits of
+// `tiles_per_split` 64-key tiles (nsplit * tiles_per_split * 64 >=
+// min(start + C, max_pages * pt)); with nsplit > 1 part_ml holds
+// 2 * C*H*nsplit floats and part_acc C*H*nsplit*hd. f32 pages take the
+// CUDA-core kernel and need nsplit = 1 and no partials. Returns a
+// cudaError_t value: 0 on a launch that was accepted.
 int paged_prefill_attention(const void* q, const void* k_pages,
                             const void* v_pages, const void* k_scale,
                             const void* v_scale, const void* page_table,
@@ -595,21 +698,22 @@ int paged_prefill_attention(const void* q, const void* k_pages,
     return cudaErrorInvalidValue;
   switch (page_dtype) {
     case BF16:
-      return launch_mma<__nv_bfloat16>(hd, qf, k_pages, v_pages, tbl, o, pm,
-                                       pl, pa, C, H, K, pt, max_pages, start,
-                                       nsplit, tiles_per_split, s);
+      return launch_mma<__nv_bfloat16, __nv_bfloat16>(
+          hd, qf, k_pages, v_pages, nullptr, nullptr, tbl, o, pm, pl, pa, C,
+          H, K, pt, max_pages, start, nsplit, tiles_per_split, s);
     case F16:
-      return launch_mma<__half>(hd, qf, k_pages, v_pages, tbl, o, pm, pl, pa,
-                                C, H, K, pt, max_pages, start, nsplit,
-                                tiles_per_split, s);
+      return launch_mma<__half, __half>(
+          hd, qf, k_pages, v_pages, nullptr, nullptr, tbl, o, pm, pl, pa, C,
+          H, K, pt, max_pages, start, nsplit, tiles_per_split, s);
+    case I8:
+      if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
+      return launch_mma<__nv_bfloat16, int8_t>(
+          hd, qf, k_pages, v_pages, ks, vs, tbl, o, pm, pl, pa, C, H, K, pt,
+          max_pages, start, nsplit, tiles_per_split, s);
     case F32:
       if (nsplit != 1) return cudaErrorInvalidValue;
-      return launch_cuda_core<float>(qf, k_pages, v_pages, ks, vs, tbl, o, C,
-                                     H, K, hd, pt, max_pages, start, s);
-    case I8:
-      if (nsplit != 1) return cudaErrorInvalidValue;
-      return launch_cuda_core<int8_t>(qf, k_pages, v_pages, ks, vs, tbl, o, C,
-                                      H, K, hd, pt, max_pages, start, s);
+      return launch_cuda_core(qf, k_pages, v_pages, tbl, o, C, H, K, hd, pt,
+                              max_pages, start, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -10,10 +10,12 @@ scattered in before the call).
 :func:`paged_flash_prefill` dispatches by device as paged_flash_decode
 does: CUDA tensors launch ``csrc/paged_prefill_attention.cu`` or raise, CPU
 tensors take :func:`paged_flash_prefill_plain`. On the card the page dtype
-picks the kernel: bf16 / f16 pages the tensor-core one (split over keys as
-:func:`prefill_grid` says, with a merge launch when it splits), f32 / int8
-pages the CUDA-core one. ``paged_flash_prefill.launches`` counts wrapper
-calls that launched a kernel.
+picks the kernel: bf16 / f16 / int8 pages the tensor-core one (split over
+keys as :func:`prefill_grid` says, with a merge launch when it splits; int8
+rows widened to bf16 in shared memory, each page's scales applied to the
+logits and the probabilities), f32 pages the CUDA-core one.
+``paged_flash_prefill.launches`` counts wrapper calls that launched a
+kernel.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch.kernels.paged_decode_attention import (
 
 ROW_TILE = 64           # query rows per block (4 warps x 16)
 KEY_TILE = 64           # keys per tile of the tensor-core kernel
-TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16, torch.int8)
 SPLIT_BLOCKS_PER_SM = 2  # split the key axis until blocks come to this
 
 
@@ -48,11 +50,11 @@ class PrefillGrid(NamedTuple):
 
 def prefill_grid(C: int, H: int, K: int, hd: int, pt: int, max_pages: int,
                  start: int, n_sm: int, dtype: torch.dtype) -> PrefillGrid:
-    """Tensor-core pages (bf16 / f16): 64-row tiles, and the key axis split
-    into runs of whole 64-key tiles until the blocks reach
+    """Tensor-core pages (bf16 / f16 / int8): 64-row tiles, and the key axis
+    split into runs of whole 64-key tiles until the blocks reach
     ``SPLIT_BLOCKS_PER_SM`` per SM where the keys allow, from host ints
-    only. f32 / int8 pages: the CUDA-core kernel's grid, one block
-    per (kv head, 64 rows), no split."""
+    only. f32 pages: the CUDA-core kernel's grid, one block per (kv head,
+    64 rows), no split."""
     rows = max(1, C * (H // K))      # C = 0 launches nothing
     keys = min(start + C, max_pages * pt)
     tiles = max(1, -(-keys // KEY_TILE))

@@ -1,5 +1,5 @@
 """Launch-shape sweeps and a time breakdown of dense flash_decode and conv2d,
-measured on the card.
+and int8 paged prefill, measured on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_sweep [--out PATH]
 
@@ -18,7 +18,14 @@ one CUDA graph, inputs cycled past the 50 MB L2):
     cut out (a launch of the same grid that returns at once), which split
     its time into the launch, the split walk and the merge;
   * ``conv2d`` at 2048² f32 and bf16 (4 matrices) for each band of
-    :data:`CONV_BANDS`.
+    :data:`CONV_BANDS`;
+  * ``paged_flash_prefill`` on int8 pages at the serving chunk (C 256 at
+    start 1500, H 14, K 2, hd 64, pt 16, 24 layer pools), held against
+    its plain version within 2e-3.
+
+The int8 prefill row calls only the wrapper's public functions, so this
+file run against another tree's package (``PYTHONPATH=<tree>/src python
+src/repro_torch/launch/kernel_sweep.py``) times that tree's kernel.
 
 Each timing runs three times; the rows print the card's name and power
 limit beside them, and ``--out`` takes them as JSON. Without a card it
@@ -38,6 +45,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import paged_prefill_attention as ppa
 from repro_torch.kernels import polybench as pb
 from repro_torch.launch import kernel_suite as ks
 
@@ -156,6 +164,58 @@ def conv_rows(log) -> List[dict]:
     return rows
 
 
+PREFILL_INT8 = dict(C=256, start=1500, H=14, K=2, hd=64, pt=16, pages=128,
+                    layers=24)
+
+
+def _int8_prefill_inputs(g):
+    """24 int8 layer pools of one 2048-token sequence, its page-table row
+    and the chunk's queries (chip_smoke.py phase 3's int8 prefill case)."""
+    c = PREFILL_INT8
+    P = c["pages"] + 4
+    pools = []
+    for _ in range(c["layers"]):
+        layer = []
+        for _ in range(2):
+            x = torch.randn(P, c["K"], c["pt"], c["hd"], generator=g,
+                            device="cuda")
+            s = x.abs().amax(dim=(-1, -2)) / 127.0
+            layer += [torch.round(x / s[..., None, None]).clamp(-127, 127)
+                      .to(torch.int8).contiguous(), s.contiguous()]
+        pools.append(layer)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(1))
+    row = perm[:c["pages"]].int().cuda()
+    q = torch.randn(c["C"], c["H"], c["hd"], generator=g, device="cuda")
+    return q, pools, row
+
+
+def prefill_int8_rows(log) -> List[dict]:
+    """int8 prefill at the serving chunk, on the split grid the wrapper
+    chooses, held against its plain version, then timed."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, pools, row = _int8_prefill_inputs(g)
+    start = PREFILL_INT8["start"]
+    grid = ppa.prefill_grid(256, 14, 2, 64, 16, 128, start,
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count, torch.int8)
+    what = f"{grid.nsplit} splits, {grid.blocks} blocks"
+    cyc = itertools.cycle(pools)
+
+    def call(fn=ppa.paged_flash_prefill):
+        kq, ks_, vq, vs_ = next(cyc)
+        return fn(q, kq, vq, row, start, k_scale=ks_, v_scale=vs_)
+
+    out = call()
+    cyc = itertools.cycle(pools)
+    err = (out - call(ppa.paged_flash_prefill_plain)).abs().max().item()
+    assert err <= 2e-3, (what, err)
+    log(f"paged_flash_prefill int8 {what}: max |kernel - plain| {err:.3e}")
+    t = _times(call)
+    log(f"paged_flash_prefill int8 C 256 start 1500, {what}: {_fmt(t)} ms")
+    return [{"kernel": "paged_flash_prefill", "dtype": "int8",
+             "grid": what, "ms": t}]
+
+
 def _fmt(t: List[float]) -> str:
     return " / ".join(f"{x:.4f}" for x in t)
 
@@ -174,7 +234,8 @@ def main(argv=None) -> int:
         print(f"[kernel_sweep] {card}: {msg}", flush=True)
 
     rows: Dict[str, List[dict]] = {"decode": decode_rows(log),
-                                   "conv2d": conv_rows(log)}
+                                   "conv2d": conv_rows(log),
+                                   "prefill_int8": prefill_int8_rows(log)}
     Path(args.out).write_text(json.dumps({"card": card, **rows}, indent=1))
     return 0
 

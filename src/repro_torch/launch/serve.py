@@ -7,6 +7,9 @@ Usage (from the repository root; the script puts ``src`` on ``sys.path``)::
       --max-new 64                                   # on the card
   python -m repro_torch.launch.serve --device cpu --requests 4 --slots 2 \\
       --max-seq 32 --max-new 3 --page-tokens 8 --token-budget 6
+  python -m repro_torch.launch.serve --device cpu --kv-dtype int8 \\
+      --prefix-cache --shared-prefix-len 8 --prompt-len 2 --requests 6 \\
+      --slots 2 --max-seq 32 --max-new 3 --page-tokens 8 --token-budget 8
 
 ``--full`` serves the published configuration (qwen2-0.5b at its full
 width); without it the reduced smoke configuration. Weights are random,
@@ -14,6 +17,14 @@ drawn from a ``torch.Generator`` seeded with 0 (bf16 compute). The run prints th
 same ``[serve:chunked]`` lines as the reference driver. ``--device``
 defaults to ``cuda`` and the run fails without a card unless ``--device
 cpu`` is given.
+
+``--kv-dtype int8`` stores the KV pages in int8 with per-(page, kv head)
+scales; ``--prefix-cache`` adds the shared-prefix layer (``--prefix-cache-
+pages`` caps the pages its cache may pin), and ``--shared-prefix-len N``
+puts the same N-token system prompt in front of every request, so later
+arrivals reuse its pages. A prefix run prints a ``prefix hits H (F full),
+shared tokens S ...`` line; prefill chunk tokens then equal the prompts'
+total less S.
 """
 from __future__ import annotations
 
@@ -49,7 +60,10 @@ def build_engine(args) -> Engine:
         n_slots=args.slots, max_seq=args.max_seq, chunked=True,
         token_budget=args.token_budget, overlap=not args.no_overlap,
         trace=args.trace is not None,
-        cache=CacheConfig(page_tokens=args.page_tokens, n_pages=args.pages))
+        cache=CacheConfig(page_tokens=args.page_tokens, n_pages=args.pages,
+                          prefix=args.prefix_cache,
+                          prefix_pages=args.prefix_cache_pages,
+                          kv_dtype=args.kv_dtype))
     warm_up(cfg, model, econf, device)
     return Engine(cfg, model, config=econf, device=device)
 
@@ -111,6 +125,20 @@ def main(argv=None):
     ap.add_argument("--page-tokens", type=int, default=16)
     ap.add_argument("--pages", type=int, default=None,
                     help="physical page-pool size (default: slots × max-seq)")
+    ap.add_argument("--kv-dtype", choices=("compute", "int8"),
+                    default="compute",
+                    help="KV page storage: 'compute' keeps pages at the "
+                         "compute dtype; 'int8' quantizes them with "
+                         "per-(page, kv-head) f32 scales")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="shared-prefix KV reuse: radix prompt index + "
+                         "ref-counted copy-on-write pages")
+    ap.add_argument("--prefix-cache-pages", type=int, default=None,
+                    help="most pages the prefix cache may pin "
+                         "(default: half the pool)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="put the same system prompt of this many tokens in "
+                         "front of every request")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="tokens per engine iteration (decode first, prompt "
                          "chunks fill the remainder)")
@@ -131,11 +159,12 @@ def main(argv=None):
     eng = build_engine(args)
     cfg = eng.cfg
     rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, args.shared_prefix_len)
     lens = rng.integers(args.prompt_len,
                         (args.prompt_len_max or args.prompt_len) + 1,
                         args.requests)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
-               for n in lens]
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, int(n))])
+               .astype(np.int32) for n in lens]
     if args.profile and eng.device.type != "cuda":
         raise ValueError("--profile traces the card; it needs --device cuda")
     prof = _profiler() if args.profile else contextlib.nullcontext()
@@ -156,19 +185,30 @@ def main(argv=None):
     total_new = sum(len(r.tokens_out) for r in done)
     s = eng.stats_summary()
     a = eng.pool.alloc
-    print(f"[serve:chunked] {len(done)} requests, {total_new} tokens in "
+    mode = "chunked"
+    if args.prefix_cache:
+        mode = "prefix+" + mode
+    if args.kv_dtype != "compute":
+        mode = f"{args.kv_dtype}+" + mode
+    print(f"[serve:{mode}] {len(done)} requests, {total_new} tokens in "
           f"{wall:.2f}s ({total_new / wall:.1f} tok/s), decode steps "
           f"{s['decode_steps']}, mean batch occupancy "
           f"{s['mean_occupancy']:.2f}")
-    print(f"[serve:chunked] pool {a.n_pages} pages × {a.page_tokens} tok "
+    print(f"[serve:{mode}] pool {a.n_pages} pages × {a.page_tokens} tok "
           f"({eng.pool.footprint_bytes()} B), free {a.free_pages}, "
           f"admission refusals {s['admission_refusals']}")
-    print(f"[serve:chunked] token budget {s['token_budget']} "
+    if args.prefix_cache:
+        print(f"[serve:{mode}] prefix hits {s['prefix_hits']} "
+              f"({s['prefix_full_hits']} full), shared tokens "
+              f"{s['prefix_shared_tokens']}, cached pages "
+              f"{s['prefix_held_pages']}, cow forks {s['cow_forks']}, "
+              f"evicted pages {s['prefix_evicted_pages']}")
+    print(f"[serve:{mode}] token budget {s['token_budget']} "
           f"(max iter {s['max_iter_tokens']}), prefill chunks "
           f"{s['prefill_chunks']} ({s['prefill_chunk_tokens']} tok), "
           f"decode tokens {s['decode_tokens']}, ttft p50/p99 "
           f"{s['ttft_p50_s']:.3f}/{s['ttft_p99_s']:.3f} s")
-    print(f"[serve:chunked] device {eng.device}"
+    print(f"[serve:{mode}] device {eng.device}"
           + (f" ({torch.cuda.get_device_name(eng.device)})"
              if eng.device.type == "cuda" else ""))
     if args.profile:

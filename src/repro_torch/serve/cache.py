@@ -1,28 +1,41 @@
 """CacheManager: the one cache surface the scheduler programs against.
 
-Counterpart of ``repro/serve/cache.py``, paged-only. The port's stack is
-the bottom layer alone, :class:`~repro_torch.serve.kvcache.PagedCachePool`;
-the swap tier, the prefix layer and int8 pages are later slices, and
-:func:`build_cache_manager` refuses them by name. The protocol lists its
-members explicitly, so ``isinstance(pool, CacheManager)`` holds by static
-lookup (no ``__getattr__`` delegation).
+Counterpart of ``repro/serve/cache.py`` without the swap tier. A stack is
+composed bottom-up from a declarative :class:`CacheConfig`::
+
+    PrefixCachingPool        (this module — radix reuse + COW refs)
+      └─ PagedCachePool      (serve/kvcache.py — vmm pages + reservations,
+                              compute-dtype or int8 pages)
+
+so :func:`build_cache_manager` builds four stacks: paged, prefix, int8 and
+int8 + prefix. The host swap tier is a later slice and is refused by name.
+
+Unlike the reference, the prefix layer is a subclass of the pool, not a
+wrapper delegating through ``__getattr__``: a ``runtime_checkable``
+``isinstance`` looks members up statically on Python 3.12, so
+``isinstance(pool, CacheManager)`` holds for every stack here.
+
+Ownership: this module owns stack composition only. Page accounting stays
+in kvcache.py, prefix lookup in prefix_cache.py, policy in scheduler.py.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Protocol, runtime_checkable
+from typing import List, Optional, Protocol, runtime_checkable
 
 import numpy as np
 
 from repro_torch.models import transformer
 from repro_torch.serve.kvcache import PagedCachePool
+from repro_torch.serve.prefix_cache import PrefixCache, PrefixMatch
 
 
 @runtime_checkable
 class CacheManager(Protocol):
     """The paged serving-cache surface the chunked scheduler uses. Every
-    implementation upholds never-fails-mid-decode: ``ensure`` on a
-    sequence holding a decode reservation cannot raise."""
+    implementation upholds never-fails-mid-decode: ``ensure`` and
+    ``cow_unshare`` on a sequence holding a decode reservation cannot
+    raise."""
 
     page_tokens: int
     max_batch: int
@@ -30,11 +43,17 @@ class CacheManager(Protocol):
     seq_ids: np.ndarray
     lengths: np.ndarray
     pages: list
+    prefix: Optional[PrefixCache]
 
     def pages_for(self, n_tokens: int) -> int: ...
     def admissible_ever(self, prompt_len: int, max_new: int) -> bool: ...
-    def can_admit_prefill(self, prompt_len: int, max_new: int) -> bool: ...
-    def admit_prefill(self, seq_id: int, prompt_len: int) -> int: ...
+    def can_admit_prefill(self, prompt_len: int, max_new: int,
+                          n_shared_pages: int = 0,
+                          match_len: int = 0) -> bool: ...
+    def admit_prefill(self, seq_id: int, prompt_len: int,
+                      shared_pages: Optional[List[int]] = None,
+                      match_len: int = 0) -> int: ...
+    def reserve_extra(self, seq_id: int, n: int = 1) -> bool: ...
     def can_reserve_decode(self, seq_id: int, prompt_len: int,
                            max_new: int) -> bool: ...
     def reserve_decode(self, seq_id: int, prompt_len: int,
@@ -42,6 +61,7 @@ class CacheManager(Protocol):
     def has_decode_reservation(self, seq_id: int, prompt_len: int,
                                max_new: int) -> bool: ...
     def ensure(self, slot: int, n_tokens: int) -> None: ...
+    def cow_unshare(self, slot: int, pos: int) -> bool: ...
     def release(self, slot: int) -> None: ...
     def device_page_tables(self) -> np.ndarray: ...
     def page_table_row(self, slot: int) -> np.ndarray: ...
@@ -51,16 +71,62 @@ class CacheManager(Protocol):
     def bind_tracer(self, tracer) -> None: ...
 
 
+class PrefixCachingPool(PagedCachePool):
+    """Shared-prefix reuse layer: a paged pool with a radix prompt index.
+
+    Adds the :class:`PrefixCache` and its surface: ``match`` before
+    admission, ``insert`` at prefill completion, ``evict_cached`` under
+    page pressure. The cache holds page *references* (vmm retain), never
+    pages, so every no-leak property of the pool survives. Every protocol
+    member is the pool's own.
+    """
+
+    def __init__(self, cfg: transformer.ModelConfig, *args,
+                 max_pages: int, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        self.prefix = PrefixCache(self.alloc, self.page_tokens,
+                                  max_pages=max_pages)
+
+    def match(self, prompt: np.ndarray) -> PrefixMatch:
+        """Longest cached prefix of ``prompt`` (pages stay cache-owned until
+        the admitting sequence adopts them)."""
+        return self.prefix.match(prompt)
+
+    def insert(self, seq_id: int, prompt: np.ndarray,
+               first_token: int) -> int:
+        """Index a completed prefill; returns pages newly cached."""
+        return self.prefix.insert(self, seq_id, prompt, first_token)
+
+    def evict_cached(self, n_pages: int = 1,
+                     require_free: bool = False) -> int:
+        """Release up to ``n_pages`` cache references (LRU leaves first)."""
+        return self.prefix.evict_lru(n_pages, require_free=require_free)
+
+    def publish_metrics(self, bus) -> None:
+        """The pool's gauges, then the index's: held pages, insertions,
+        evictions (the scheduler publishes the hit counters it owns)."""
+        super().publish_metrics(bus)
+        s = self.prefix.stats()
+        bus.set("prefix_held_pages", s["prefix_held_pages"])
+        bus.set_total("prefix_insertions", s["prefix_insertions"])
+        bus.set_total("prefix_evicted_pages", s["prefix_evicted_pages"])
+
+
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
     """Declarative description of one cache stack (always paged here).
+
     ``n_pages=None`` sizes the pool at n_slots × max_seq tokens of pages.
-    ``tiered``, ``prefix`` and ``kv_dtype="int8"`` are fields as in the
+    ``prefix`` adds the radix reuse layer, whose cache may pin at most
+    ``prefix_pages`` pages (default: half the pool). ``kv_dtype`` is
+    ``"compute"`` (pages at the compute dtype) or ``"int8"`` (pages with
+    per-(page, kv head) f32 scales). ``tiered`` is a field as in the
     reference, refused by :func:`build_cache_manager` until ported."""
     page_tokens: int = 16
     n_pages: Optional[int] = None
     tiered: bool = False
     prefix: bool = False
+    prefix_pages: Optional[int] = None
     kv_dtype: str = "compute"
 
     def resolved_pages(self, n_slots: int, max_seq: int) -> int:
@@ -72,19 +138,17 @@ class CacheConfig:
 def build_cache_manager(cfg: transformer.ModelConfig, cache: CacheConfig,
                         n_slots: int, max_seq: int,
                         device="cpu") -> CacheManager:
-    """The paged pool described by ``cache``, on ``device``."""
+    """Compose the stack described by ``cache``, bottom-up, on ``device``."""
     if cache.tiered:
         raise NotImplementedError(
             "repro_torch: the host-DRAM swap tier is not ported yet "
             "(ROADMAP queue 1, item 9: Tiering)")
+    n_pages = cache.resolved_pages(n_slots, max_seq)
+    kwargs = dict(max_batch=n_slots, max_seq=max_seq, n_pages=n_pages,
+                  page_tokens=cache.page_tokens, device=device,
+                  kv_dtype=cache.kv_dtype)
     if cache.prefix:
-        raise NotImplementedError(
-            "repro_torch: the prefix layer is not ported yet "
-            "(ROADMAP queue 1, item 10: Prefix sharing)")
-    if cache.kv_dtype != "compute":
-        raise NotImplementedError(
-            f"repro_torch: kv_dtype={cache.kv_dtype!r} is not ported yet "
-            "(ROADMAP queue 1, item 8: int8 KV through the engine)")
-    return PagedCachePool(cfg, max_batch=n_slots, max_seq=max_seq,
-                          n_pages=cache.resolved_pages(n_slots, max_seq),
-                          page_tokens=cache.page_tokens, device=device)
+        max_pages = (cache.prefix_pages if cache.prefix_pages is not None
+                     else max(1, n_pages // 2))
+        return PrefixCachingPool(cfg, max_pages=max_pages, **kwargs)
+    return PagedCachePool(cfg, **kwargs)

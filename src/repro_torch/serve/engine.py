@@ -5,11 +5,13 @@ Counterpart of ``repro/serve/engine.py`` on the chunked paged path::
     from repro_torch.serve.engine import Engine, EngineConfig
     eng = Engine(cfg, model, config=EngineConfig(
         n_slots=8, max_seq=2048, chunked=True, token_budget=256,
-        cache=CacheConfig(page_tokens=16)))
+        cache=CacheConfig(page_tokens=16, kv_dtype="int8", prefix=True)))
 
-The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card and without that request it raises instead of falling back
-to the CPU. This module owns nothing but the wiring.
+``cache`` picks one of four stacks (serve/cache.py): paged or int8 pages,
+with or without the shared-prefix layer. The engine runs on ``cuda``
+unless the caller passes ``device="cpu"``; without a card and without that
+request it raises instead of falling back to the CPU. This module owns
+nothing but the wiring.
 """
 from __future__ import annotations
 
@@ -121,3 +123,9 @@ class Engine:
     @property
     def stats(self):
         return self.scheduler.stats
+
+    @property
+    def prefix(self):
+        """The stack's :class:`~repro_torch.serve.prefix_cache.PrefixCache`,
+        or None without a prefix layer."""
+        return self.scheduler.prefix

@@ -13,6 +13,13 @@ group position, serve/kvcache.py). A decode step, per layer,
 A prefill chunk writes the chunk's K/V at ``[start, start+C)`` of one
 sequence's pages and attends through the paged flash-prefill kernel.
 
+An int8 pool (``kv_dtype="int8"``, serve/kvquant.py) carries
+``k_scale`` / ``v_scale`` leaves beside its pages; the steps branch on
+``"k_scale" in pages`` as the reference does, write through
+:func:`scatter_chunk_q` / :func:`_scatter_token_q` (monotone-max scales,
+the page's rows requantized in the same step) and hand the scales to both
+kernels, which dequantize inside.
+
 Pages are written **in place** (the reference returned new arrays): every
 step returns the same ``pages`` object it was given, updated. The steps are
 plain functions over a :class:`~repro_torch.models.transformer.Transformer`
@@ -30,6 +37,7 @@ import torch
 from repro_torch.kernels.paged_decode_attention import paged_flash_decode
 from repro_torch.kernels.paged_prefill_attention import paged_flash_prefill
 from repro_torch.models import blocks, transformer
+from repro_torch.serve import kvquant
 
 
 def copy_page(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
@@ -67,6 +75,100 @@ def _scatter_token(pool: torch.Tensor, tok: torch.Tensor,
     return pool
 
 
+def scatter_chunk_q(pool: torch.Tensor, scale: torch.Tensor,
+                    rows: torch.Tensor, page_table: torch.Tensor, start: int,
+                    page_tokens: int) -> torch.Tensor:
+    """Quantized counterpart of :func:`scatter_chunk`: land a prefill
+    chunk's K/V rows ([C, K, hd]) in an int8 layer pool ([P, K, pt, hd])
+    with per-page scales ([P, K]), both in place. For every page the chunk
+    touches, ``scale' = max(scale, absmax(new rows)/127)``, the page's
+    existing rows are requantized by ``scale/scale'`` and the new rows
+    quantize at ``scale'`` (serve/kvquant.py). Pages the chunk does not
+    touch are not read or written. Returns ``pool``.
+
+    The chunk's positions are contiguous, so the pages it touches are the
+    contiguous logical range ``lp0 .. lp1`` of the table; the per-page max
+    is one exact ``scatter_reduce`` (the reference takes a one-hot segment
+    max)."""
+    C = rows.shape[0]
+    pt = page_tokens
+    dev = pool.device
+    pos = start + torch.arange(C, device=dev)
+    lp0, lp1 = start // pt, (start + C - 1) // pt
+    rel = pos // pt - lp0                            # touched page per row
+    rows_f = rows.float()                            # [C, K, hd]
+    amax_c = rows_f.abs().amax(dim=-1)               # [C, K]
+    amax_p = torch.zeros(lp1 - lp0 + 1, rows.shape[1], device=dev)
+    amax_p.scatter_reduce_(0, rel[:, None].expand_as(amax_c), amax_c,
+                           "amax")                   # [n, K]
+    pid_t = page_table[lp0:lp1 + 1].clamp_min(0).long()
+    s_old = scale[pid_t]                             # [n, K]
+    s_new = torch.maximum(s_old, amax_p / kvquant.Q_MAX)
+    pool[pid_t] = kvquant.requantize(pool[pid_t],
+                                     kvquant.rescale_ratio(s_old, s_new))
+    scale[pid_t] = s_new
+    q_c = kvquant.quantize(rows_f[:, :, None, :], s_new[rel])[:, :, 0, :]
+    pool[pid_t[rel], :, pos % pt] = q_c
+    return pool
+
+
+def _scatter_token_q(pool: torch.Tensor, scale: torch.Tensor,
+                     tok: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor, active: torch.Tensor,
+                     page_tokens: int) -> torch.Tensor:
+    """Quantized counterpart of :func:`_scatter_token`: write tok[b]
+    ([B, K, hd]) at logical position lengths[b] of each active slot's int8
+    page, in place, widening that page's per-head scale monotonically and
+    requantizing its rows in the same step. Inactive slots are not part of
+    the write, so their pages and scale rows stay bit-untouched; an active
+    write whose scale does not change requantizes at ratio exactly 1.0 (a
+    bit-exact no-op on the rows already there). Active slots write distinct
+    pages (a shared page is COW-forked before the write). Returns
+    ``pool``."""
+    pt = page_tokens
+    pos = lengths[active].long()
+    pids = page_table[active, pos // pt].clamp_min(0).long()
+    tok_f = tok[active].float()                      # [n, K, hd]
+    s_old = scale[pids]                              # [n, K]
+    s_new = torch.maximum(s_old, tok_f.abs().amax(dim=-1) / kvquant.Q_MAX)
+    pages = kvquant.requantize(pool[pids],
+                               kvquant.rescale_ratio(s_old, s_new))
+    pages[torch.arange(len(pids), device=pool.device), :, pos % pt] = \
+        kvquant.quantize(tok_f[:, :, None, :], s_new)[:, :, 0, :]
+    pool[pids] = pages
+    scale[pids] = s_new
+    return pool
+
+
+def _write_chunk(kv, k, v, page_table, start: int, page_tokens: int):
+    """One layer's chunk K/V ([C, K, hd]) into its pool views ``kv``."""
+    if "k_scale" in kv:
+        scatter_chunk_q(kv["k"], kv["k_scale"], k, page_table, start,
+                        page_tokens)
+        scatter_chunk_q(kv["v"], kv["v_scale"], v, page_table, start,
+                        page_tokens)
+    else:
+        scatter_chunk(kv["k"], k, page_table, start, page_tokens)
+        scatter_chunk(kv["v"], v, page_table, start, page_tokens)
+
+
+def _write_token(kv, k, v, page_table, lengths, active, page_tokens: int):
+    """One layer's decode K/V ([B, K, hd]) into its pool views ``kv``."""
+    if "k_scale" in kv:
+        _scatter_token_q(kv["k"], kv["k_scale"], k, page_table, lengths,
+                         active, page_tokens)
+        _scatter_token_q(kv["v"], kv["v_scale"], v, page_table, lengths,
+                         active, page_tokens)
+    else:
+        _scatter_token(kv["k"], k, page_table, lengths, active, page_tokens)
+        _scatter_token(kv["v"], v, page_table, lengths, active, page_tokens)
+
+
+def _scales(kv):
+    """The kernels' ``k_scale`` / ``v_scale`` arguments (None unless int8)."""
+    return {"k_scale": kv.get("k_scale"), "v_scale": kv.get("v_scale")}
+
+
 def _layer_pre(p, x, positions, cfg: transformer.ModelConfig):
     """Norm, QKV projections with bias, RoPE: x [B, L, d] → q [B, L, H, hd],
     k, v [B, L, K, hd]."""
@@ -97,14 +199,14 @@ def _layer_post(p, x, att, ffn: str, cfg: transformer.ModelConfig):
 
 
 def _units(model: transformer.Transformer, pages):
-    """Walk every layer in order: (kind, layer weights, that layer's
-    {"k", "v"} [P, K, pt, hd] pool views)."""
+    """Walk every layer in order: (kind, layer weights, that layer's pool
+    views: {"k", "v"} [P, K, pt, hd], and on an int8 pool {"k_scale",
+    "v_scale"} [P, K])."""
     for gi, (pattern, count) in enumerate(model.cfg.groups):
         for u in range(count):
             for i, kind in enumerate(pattern):
-                kv = pages[gi][i]
-                yield (kind, model.groups[gi][i].unit(u), kv["k"][u],
-                       kv["v"][u])
+                yield (kind, model.groups[gi][i].unit(u),
+                       {name: arr[u] for name, arr in pages[gi][i].items()})
 
 
 def _embed(model: transformer.Transformer, tokens):
@@ -138,15 +240,14 @@ def make_paged_decode_step(cfg: transformer.ModelConfig, page_tokens: int):
         kv_len[active] = lengths[active].to(torch.int32) + 1
         positions = lengths.long()[:, None]                     # [B, 1]
         x = _embed(model, tokens)                               # [B, 1, d]
-        for kind, p, k_pool, v_pool in _units(model, pages):
+        for kind, p, kv in _units(model, pages):
             _, ffn = transformer.parse_kind(kind)
             q, k, v = _layer_pre(p, x, positions, cfg)
-            _scatter_token(k_pool, k[:, 0], page_table, lengths, active,
-                           page_tokens)
-            _scatter_token(v_pool, v[:, 0], page_table, lengths, active,
-                           page_tokens)
-            att = paged_flash_decode(q[:, 0].float().contiguous(), k_pool,
-                                     v_pool, page_table, kv_len)
+            _write_token(kv, k[:, 0], v[:, 0], page_table, lengths, active,
+                         page_tokens)
+            att = paged_flash_decode(q[:, 0].float().contiguous(), kv["k"],
+                                     kv["v"], page_table, kv_len,
+                                     **_scales(kv))
             x = _layer_post(p, x, att[:, None], ffn, cfg)
         return _logits(model, x)[:, 0], pages
 
@@ -169,13 +270,13 @@ def make_paged_prefill_chunk_step(cfg: transformer.ModelConfig,
         C = tokens.shape[1]
         positions = (start + torch.arange(C, device=tokens.device))[None]
         x = _embed(model, tokens)                               # [1, C, d]
-        for kind, p, k_pool, v_pool in _units(model, pages):
+        for kind, p, kv in _units(model, pages):
             _, ffn = transformer.parse_kind(kind)
             q, k, v = _layer_pre(p, x, positions, cfg)
-            scatter_chunk(k_pool, k[0], page_table, start, page_tokens)
-            scatter_chunk(v_pool, v[0], page_table, start, page_tokens)
-            att = paged_flash_prefill(q[0].float().contiguous(), k_pool,
-                                      v_pool, page_table, start)
+            _write_chunk(kv, k[0], v[0], page_table, start, page_tokens)
+            att = paged_flash_prefill(q[0].float().contiguous(), kv["k"],
+                                      kv["v"], page_table, start,
+                                      **_scales(kv))
             x = _layer_post(p, x, att[None], ffn, cfg)
         return _logits(model, x[:, -1:])[:, -1], pages
 

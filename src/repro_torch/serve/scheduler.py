@@ -1,13 +1,20 @@
 """Serving scheduler: the chunked, token-budgeted step loop over a paged pool.
 
 Counterpart of the chunked branch of ``repro/serve/scheduler.py`` (no swap
-tier, no prefix layer, no policy: later slices). Requests land in a
+tier, no policy: later slices; greedy only). Requests land in a
 :class:`~repro_torch.core.offload.Mailbox`; each ``step()`` drains it,
 decides which sequences admit, chunk, promote, or decode, and dispatches
 the executor's regions. Each iteration packs one decode token per stream
 first and fair-shares the remainder of the token budget over mid-prefill
 residents as prompt chunks, in admission order. Admission reserves prompt
 pages only; the decode worst case tops up at promotion.
+
+Prefix reuse (a stack with a prefix layer, serve/cache.py): admission
+looks up the longest cached prefix of the prompt, adopts its pages and
+prefills only the rest; an exact full-prompt hit emits the cached first
+token and skips prefill. A shared page is COW-forked before the first write
+into it (a decode at its write position, a chunk at its start), and a
+completed prompt is inserted into the cache when its first token lands.
 
 Token movement: dispatches return device-resident sampled ids; the
 scheduler queues them with their completion logic and materialises the
@@ -18,9 +25,12 @@ runs the *shadow phase* (the admission drain) while the previous step's
 dispatches are still running on the device, then the one blocking fetch
 commits the previous iteration's tokens, then promotion, packing and the
 new dispatches run against exact post-commit state. Streams equal the
-synchronous loop's (``overlap=False``). On the card the shadow phase
-really overlaps: CUDA launches return at once, and the host→device moves
-are non-blocking copies from pinned memory (serve/executor.py).
+synchronous loop's (``overlap=False``). With a prefix layer the shadow
+phase also pre-forks the shared page each in-flight decode will write
+next (``_cow_prefork``), so fork counts match the synchronous loop's. On
+the card the shadow phase really overlaps: CUDA launches return at once,
+and the host→device moves are non-blocking copies from pinned memory
+(serve/executor.py).
 
 Invariants (held against the reference in tests/test_torch_engine.py):
 
@@ -41,6 +51,7 @@ from repro_torch.models import transformer
 from repro_torch.serve import trace
 from repro_torch.serve.executor import Executor
 from repro_torch.serve.metrics import MetricsBus, percentiles
+from repro_torch.serve.prefix_cache import PrefixMatch
 
 
 @dataclasses.dataclass
@@ -69,6 +80,7 @@ class Scheduler:
         self.overlap = bool(overlap)
         self.bus = metrics if metrics is not None else MetricsBus(enabled=False)
         self.tracer = tracer if tracer is not None else trace.null_tracer()
+        self.prefix = pool.prefix
         self.mailbox = Mailbox(depth=256)
         self.active: Dict[int, Request] = {}       # slot -> decoding request
         self.prefilling: Dict[int, Request] = {}   # slot -> mid-prompt req
@@ -88,6 +100,7 @@ class Scheduler:
         self._fetch_queue: List[Tuple[Any, Callable]] = []
         self._commit_queue: List[Tuple[Any, Callable]] = []
         self._finished: List[Request] = []
+        self._inflight_decode: Dict[int, Request] = {}  # last dispatch
         self._admit_stalled = False
         self._admitted_at = np.zeros(n_slots, np.int64)
         self._admit_clock = 0
@@ -169,6 +182,9 @@ class Scheduler:
                   "cow_forks", "prefix_hits", "prefix_full_hits",
                   "prefix_shared_tokens"):
             bus.set_total(k, s.get(k, 0))
+        n_admitted = len(s["admission_order"])
+        if self.prefix is not None and n_admitted:
+            bus.set("prefix_hit_rate", s["prefix_hits"] / n_admitted)
         self.pool.publish_metrics(bus)
 
     def _publish_stall(self) -> None:
@@ -205,6 +221,9 @@ class Scheduler:
         vals = self.executor.fetch_token_ids([a for a, _ in queue])
         for (_, consumer), v in zip(queue, vals):
             consumer(v)
+        # the in-flight map means something only between a dispatch and its
+        # commit (the shadow COW pre-fork keys on it)
+        self._inflight_decode = {}
 
     def _emit(self, req: Request, tok: int) -> None:
         req.tokens_out.append(tok)
@@ -241,7 +260,13 @@ class Scheduler:
         the pool cannot take (requeued at the front, FIFO preserved), and a
         refusal stalls admission until a release frees capacity. Admission
         reserves only the *prompt* pages: the request enters
-        ``prefilling`` and the step loop slices its prompt into chunks."""
+        ``prefilling`` and the step loop slices its prompt into chunks.
+
+        With a prefix layer the request adopts the pages of its longest
+        cached prefix and prefills only the rest. A page shortage first
+        evicts cache entries whose page would really free, re-matching
+        after each (an evicted page may have been part of the match); a
+        slot shortage never evicts."""
         if self._admit_stalled:
             return
         while True:
@@ -254,13 +279,44 @@ class Scheduler:
                 # could never fit even on an idle pool: reject outright
                 self.stats["rejected"] = self.stats.get("rejected", 0) + 1
                 continue
-            if not self.pool.can_admit_prefill(L, req.max_new):
+            while True:
+                match = self._prefix_match(req)
+                if self.pool.can_admit_prefill(
+                        L, req.max_new, len(match.pages), match.length):
+                    break
+                if self.prefix is not None and \
+                        np.any(self.pool.seq_ids < 0) and \
+                        self.pool.evict_cached(1, require_free=True):
+                    continue            # reclaimed a cache-pinned page
+                match = None
+                break
+            if match is None:
                 self.mailbox.requeue(req)
                 self.stats["admission_refusals"] += 1
                 self._admit_stalled = True
                 break
-            slot = self.pool.admit_prefill(req.seq_id, L)
+            slot = self.pool.admit_prefill(req.seq_id, L,
+                                           shared_pages=match.pages,
+                                           match_len=match.length)
+            if match.length:
+                req.prefill_pos = match.length
+                self.pool.lengths[slot] = match.length
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_shared_tokens"] += match.length
+            if match.first_token is not None:
+                # an exact full-prompt hit: the cached greedy continuation
+                # is this request's first token, and prefill is skipped
+                self.stats["prefix_full_hits"] += 1
+                self._emit(req, match.first_token)
             self._activate(slot, req)
+
+    def _prefix_match(self, req: Request) -> PrefixMatch:
+        """Prefix-cache lookup for a fresh request (no KV written yet). The
+        port is greedy only, so a full hit's cached first token always
+        holds."""
+        if self.prefix is None or req.prefill_pos or req.tokens_out:
+            return PrefixMatch(length=0, pages=[])
+        return self.pool.match(req.prompt)
 
     # -- decode ---------------------------------------------------------------
     def _dispatch_decode_paged(self, slots: List[int]):
@@ -268,6 +324,13 @@ class Scheduler:
         toks = np.zeros(B, np.int32)
         for slot in slots:
             toks[slot] = self.active[slot].tokens_out[-1]
+            # a shared page at the write position is COW-forked before the
+            # divergent write (the first decode after a full hit, or a
+            # donor writing into its cache-shared tail page); the fork page
+            # was reserved, so neither call can fail
+            if self.prefix is not None and self.pool.cow_unshare(
+                    slot, int(self.pool.lengths[slot])):
+                self.stats["cow_forks"] += 1
             # map the write position before dispatch; the decode
             # reservation guarantees this never fails
             self.pool.ensure(slot, int(self.pool.lengths[slot]) + 1)
@@ -285,6 +348,8 @@ class Scheduler:
         self.stats["peak_in_system"] = max(
             self.stats.get("peak_in_system", 0), self._in_system())
         pairs = [(slot, self.active[slot]) for slot in slots]
+        if self.overlap:
+            self._inflight_decode = dict(pairs)
         self._queue_fetch(
             ids_dev, lambda v, pairs=pairs: self._finish_decode_paged(pairs, v))
 
@@ -323,6 +388,8 @@ class Scheduler:
         if self.overlap:
             with self.tracer.span("schedule"):
                 self._admit_paged()             # shadow phase
+                if self.prefix is not None:
+                    self._cow_prefork()
             self._flush_commit()                # the one blocking fetch
             with self.tracer.span("schedule"):
                 decode_slots, mid_prefill, budget_left, chunks = \
@@ -348,6 +415,24 @@ class Scheduler:
             # this iteration's consumers become the NEXT iteration's commit
             self._commit_queue = self._fetch_queue
             self._fetch_queue = []
+
+    def _cow_prefork(self) -> None:
+        """Shadow-phase COW pre-fork (overlapped loop, prefix stack): fork
+        the shared page each in-flight decode slot will write at its next
+        dispatch (post-commit position ``lengths + 1``) while the device
+        step is still running. Slots that finish at the commit are skipped:
+        the synchronous loop never forks them. The dispatch-time
+        ``cow_unshare`` then finds the page private, so fork counts match
+        the synchronous loop's."""
+        for slot, req in self.active.items():
+            if self._inflight_decode.get(slot) is not req:
+                continue          # no token in flight: lengths not advancing
+            L = int(self.pool.lengths[slot])
+            if len(req.tokens_out) + 1 >= req.max_new or \
+                    L + 1 >= self.pool.max_seq - 2:
+                continue          # finishes at commit
+            if self.pool.cow_unshare(slot, L + 1):
+                self.stats["cow_forks"] += 1
 
     def _pack_chunks(self, budget_left: int
                      ) -> List[Tuple[int, Request, int, int]]:
@@ -381,6 +466,10 @@ class Scheduler:
         iteration's fetch."""
         with self.tracer.span("prefill_chunk", seq_id=int(req.seq_id),
                               start=int(start), size=int(size)):
+            if self.prefix is not None and self.pool.cow_unshare(slot, start):
+                # the first chunk after a mid-page prefix match writes
+                # inside the shared partly filled page: fork it first
+                self.stats["cow_forks"] += 1
             toks, table_row = self.executor.to_device(
                 req.prompt[start:start + size][None, :],
                 self.pool.page_table_row(slot))
@@ -397,12 +486,16 @@ class Scheduler:
                     self._finish_chunk_prefill(slot, req, int(v[0])))
 
     def _finish_chunk_prefill(self, slot: int, req: Request, tok: int):
-        """Prompt completed: stream the first token and try promotion."""
+        """Prompt completed: stream the first token, index the prompt in the
+        prefix cache (its pages become claimable by later arrivals, its first
+        token lets an exact re-arrival skip prefill) and try promotion."""
         self._emit(req, tok)
         self.stats["prefills"] += 1
         if self.prefilling.get(slot) is not req:
             return
         del self.prefilling[slot]
+        if self.prefix is not None:
+            self.pool.insert(req.seq_id, req.prompt, tok)
         if self.pool.reserve_decode(req.seq_id, len(req.prompt),
                                     req.max_new):
             self.active[slot] = req
@@ -421,8 +514,15 @@ class Scheduler:
                 return
             head = order[0]
             req = self.prefilled_wait[head]
-            ok = self.pool.reserve_decode(req.seq_id, len(req.prompt),
-                                          req.max_new)
+            L = len(req.prompt)
+            ok = self.pool.reserve_decode(req.seq_id, L, req.max_new)
+            if not ok and self.prefix is not None:
+                # reclaim cache-pinned pages that would really free
+                while not self.pool.can_reserve_decode(
+                        req.seq_id, L, req.max_new) and \
+                        self.pool.evict_cached(1, require_free=True):
+                    pass
+                ok = self.pool.reserve_decode(req.seq_id, L, req.max_new)
             if not ok and not self.active and not self.prefilling and \
                     len(order) > 1:
                 self._evict_reprefill(order[-1])
@@ -476,6 +576,8 @@ class Scheduler:
         out["max_iter_tokens"] = max(
             (e["decode_tokens"] + e["prefill_tokens"] for e in iters),
             default=0)
+        if self.prefix is not None:
+            out.update(self.prefix.stats())
         out["shed"] = s.get("shed", 0)
         out.update(percentiles(s.get("queue_lat_s") or [],
                                prefix="queue_lat_", suffix="_s"))

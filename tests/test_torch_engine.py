@@ -4,7 +4,9 @@ port's boundaries: no JAX inside it, no silent CPU, kernels on the card.
 The main-path gate: the same weights and prompts through the JAX chunked
 ``Engine`` (Pallas in interpret mode) and the port's chunked ``Engine`` on
 the CPU, both at the smoke config in f32, give equal greedy streams and
-equal scheduling counters, with the overlapped loop on and off.
+equal scheduling counters, with the overlapped loop on and off, on pages
+at the compute dtype and on int8 pages (the port's int8 streams equal the
+reference's int8 streams, not its f32 ones).
 """
 import ast
 import functools
@@ -36,7 +38,8 @@ from repro_torch.serve import engine as tengine
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 COUNTERS = ("prefill_chunks", "prefill_chunk_tokens", "decode_tokens",
             "decode_steps", "admission_refusals", "evictions_reprefill",
-            "prefills")
+            "prefills", "prefix_hits", "prefix_full_hits",
+            "prefix_shared_tokens", "cow_forks")
 
 # name -> (prompt lengths, prompt seed, max_new, n_slots, max_seq,
 #          page_tokens, n_pages, token_budget)
@@ -81,7 +84,7 @@ def _run(eng, request_cls, mix):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(mix):
+def _jax_run(mix, kv_dtype="compute"):
     cfg, tree = _weights()
     _, _, _, slots, max_seq, pt, pages, budget = MIXES[mix]
     eng = JEngine(cfg, jax.tree_util.tree_map(jnp.asarray, tree),
@@ -89,12 +92,12 @@ def _jax_run(mix):
                       n_slots=slots, max_seq=max_seq, chunked=True,
                       token_budget=budget,
                       cache=JCacheConfig(paged=True, page_tokens=pt,
-                                         n_pages=pages)))
+                                         n_pages=pages, kv_dtype=kv_dtype)))
     streams = _run(eng, JRequest, mix)
     return streams, {k: eng.stats[k] for k in COUNTERS}
 
 
-def _port_engine(mix, overlap=True):
+def _port_engine(mix, overlap=True, kv_dtype="compute"):
     _, tree = _weights()
     tcfg = tconfigs.get_smoke_config("qwen2-0.5b", compute_dtype=torch.float32)
     _, _, _, slots, max_seq, pt, pages, budget = MIXES[mix]
@@ -103,14 +106,37 @@ def _port_engine(mix, overlap=True):
         config=tengine.EngineConfig(
             n_slots=slots, max_seq=max_seq, chunked=True, token_budget=budget,
             overlap=overlap,
-            cache=tcache.CacheConfig(page_tokens=pt, n_pages=pages)))
+            cache=tcache.CacheConfig(page_tokens=pt, n_pages=pages,
+                                     kv_dtype=kv_dtype)))
 
 
 @pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "sync"])
 @pytest.mark.parametrize("mix", sorted(MIXES))
 def test_chunked_engine_matches_jax_engine(mix, overlap):
-    streams, counters = _jax_run(mix)
-    eng = _port_engine(mix, overlap)
+    _check_engine_parity(mix, overlap, "compute")
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "sync"])
+@pytest.mark.parametrize("mix", sorted(MIXES))
+def test_int8_engine_matches_jax_engine(mix, overlap):
+    """int8 pages: the port's streams and counters equal the reference
+    engine's on its own int8 stack, and the pool's gauges count the scale
+    rows."""
+    eng = _check_engine_parity(mix, overlap, "int8")
+    pool = eng.pool
+    leaf = pool.pages[0][0]
+    assert leaf["k"].dtype == torch.int8
+    assert set(leaf) == {"k", "v", "k_scale", "v_scale"}
+    count, P, K, pt, hd = leaf["k"].shape
+    assert pool.page_nbytes() == count * 2 * K * (pt * hd + 4)
+    snap = eng.metrics_snapshot()["gauges"]
+    assert snap["kv_quantized"] == 1
+    assert snap["kv_page_nbytes"] == pool.page_nbytes()
+
+
+def _check_engine_parity(mix, overlap, kv_dtype):
+    streams, counters = _jax_run(mix, kv_dtype)
+    eng = _port_engine(mix, overlap, kv_dtype)
     got = _run(eng, tengine.Request, mix)
     assert got == streams
     assert {k: eng.stats[k] for k in COUNTERS} == counters
@@ -127,16 +153,31 @@ def test_chunked_engine_matches_jax_engine(mix, overlap):
     if mix == "tight":
         assert counters["admission_refusals"] > 0
         assert counters["evictions_reprefill"] > 0
+    return eng
 
 
 def test_cache_manager_protocol_and_unported_layers():
+    """The four stacks the port builds (paged, prefix, int8, int8 + prefix)
+    satisfy the protocol by static lookup; the swap tier is refused, naming
+    its ROADMAP item, alone and under every other layer."""
     eng = _port_engine("system")
     assert isinstance(eng.pool, tcache.CacheManager)
     cfg = eng.cfg
-    for kw in (dict(tiered=True), dict(prefix=True), dict(kv_dtype="int8")):
-        with pytest.raises(NotImplementedError):
-            tcache.build_cache_manager(
-                cfg, tcache.CacheConfig(**kw), 2, 32)
+    for prefix in (False, True):
+        for kv_dtype in ("compute", "int8"):
+            pool = tcache.build_cache_manager(
+                cfg, tcache.CacheConfig(prefix=prefix, kv_dtype=kv_dtype),
+                2, 32)
+            assert isinstance(pool, tcache.CacheManager)
+            assert (pool.prefix is not None) == prefix
+            assert isinstance(pool, tcache.PrefixCachingPool) == prefix
+            with pytest.raises(NotImplementedError, match="item 9"):
+                tcache.build_cache_manager(
+                    cfg, tcache.CacheConfig(tiered=True, prefix=prefix,
+                                            kv_dtype=kv_dtype), 2, 32)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tcache.build_cache_manager(cfg, tcache.CacheConfig(kv_dtype="fp8"),
+                                   2, 32)
 
 
 # --------------------------------------------------------------------------

@@ -228,12 +228,13 @@ def test_decode_grid(B, H, K, hd, max_pages, n_sm):
 @pytest.mark.parametrize("C,start,dtype,blocks", [
     (256, 1500, torch.bfloat16, 280), (37, 100, torch.bfloat16, 30),
     (256, 0, torch.float16, 224), (1, 2047, torch.bfloat16, 64),
-    (256, 1500, torch.int8, 56), (37, 100, torch.float32, 10)])
+    (256, 1500, torch.int8, 280), (37, 100, torch.float32, 10)])
 def test_prefill_grid(C, start, dtype, blocks):
     """At the serving shape (H 14, K 2, hd 64, pt 16, 128 pages): the
-    tensor-core kernel's key split puts two blocks on every SM at C 256; the
-    split covers the keys in whole 64-key tiles, and f32 / int8 pages keep
-    the CUDA-core grid without a split or scratch."""
+    tensor-core kernel's key split (bf16, f16 and int8 pages alike) puts two
+    blocks on every SM at C 256; the split covers the keys in whole 64-key
+    tiles, and f32 pages keep the CUDA-core grid without a split or
+    scratch."""
     H, K, hd, pt, max_pages = 14, 2, 64, 16, 128
     g = tppa.prefill_grid(C, H, K, hd, pt, max_pages, start, H100_SMS, dtype)
     keys = min(start + C, max_pages * pt)
@@ -386,7 +387,7 @@ def test_prefill_mma_split_matches_jax(C, start, pt, hd):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32", "int8"])
 def test_cuda_paged_kernels_every_page_dtype(dtype):
     """On the card: decode (every page dtype takes the split kernel) and
-    prefill (bf16 / f16 on tensor cores, f32 / int8 on CUDA cores) at
+    prefill (bf16 / f16 / int8 on tensor cores, f32 on CUDA cores) at
     pt 8 / hd 128 against their plain versions within 2e-3, a length-0
     slot exactly 0, and both wrappers captured in a CUDA graph."""
     if not torch.cuda.is_available():
