@@ -79,9 +79,26 @@ Phases, each printed on its own line, none catching its own failure:
                share of tokens equal to a bf16-page run without the prefix
                layer and to an f32 run (compute and pages), beside two
                controls: bf16 against f32, bf16 + prefix against bf16;
+  7c. serve tiered  phase 7's model, engine and traffic over a hot tier of
+               160 pages (30 MiB, ~2.1x oversubscribed) above host DRAM
+               (the default budget); gates: at least one preemption, swap
+               counts and bytes balanced, no cold sequence, every hot page
+               free, the L3 arena empty, the allocator audit clean, every
+               kernel launch counted, the same streams and counters from a
+               second (traced) run, and a full-width swap round trip of a
+               1500-token sequence that restores every leaf bit for bit on
+               bf16 pages and on int8 pages with their scales; logged, not
+               gated: preemptions, swap counts and bytes, tok/s, TTFT and
+               ITL, the tracer's dma windows and stall share, each way's
+               GB/s on the copy stream beside the PCIe link, and the share
+               of tokens equal to phase 7's untiered streams;
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
-               for explicitly) gives equal greedy streams, on the paged
-               stack and on the int8 + prefix stack;
+               for explicitly) gives equal greedy streams and equal
+               preemption, swap, refusal and prefix-hit counters, on the
+               paged, int8 + prefix, tiered and int8 + tiered + prefix
+               stacks (a 6-page hot tier: the tiered ones must preempt),
+               and the same shed verdicts on the chunked shedding mix
+               behind ``PolicyConfig(max_in_system=2, max_queue=4)``;
   9. a ``{"kernels": [...]}`` line (the paged kernels twice: bf16 pages with
      phase 7's launches, int8 pages with phase 7b's), then the card's name
      and power limit,
@@ -920,14 +937,19 @@ def suite_main_path(results):
 # --------------------------------------------------------------------------
 # phases 6 and 7: the engine
 # --------------------------------------------------------------------------
-def serve(engine, prompts, max_new):
+def serve(engine, prompts, max_new, classes=None):
+    """Submit the prompts (with ``(priority, deadline_s)`` classes, if
+    given) and run to idle; every request finishes or is shed."""
     from repro_torch.serve.engine import Request
     for i, p in enumerate(prompts):
+        pri, deadline = classes[i] if classes else (0, None)
         assert engine.submit(Request(seq_id=i, prompt=p.copy(),
-                                     max_new=max_new))
+                                     max_new=max_new, priority=pri,
+                                     deadline_s=deadline))
     done = engine.run(max_steps=100000)
     torch.cuda.synchronize()
-    assert engine.idle and len(done) == len(prompts), "requests unfinished"
+    assert engine.idle and len(done) + len(engine.shed) == len(prompts), \
+        "requests unfinished"
     return {r.seq_id: list(r.tokens_out) for r in done}
 
 
@@ -989,6 +1011,184 @@ def full_width_serve(results, card: str):
         f"{cfg.n_layers()} x {s['decode_steps']} decode steps, "
         f"paged_flash_prefill {n_pre} = "
         f"{cfg.n_layers()} x {s['prefill_chunks']} prompt chunks")
+    return streams
+
+
+HOT_PAGES = 160          # phase 7c's hot tier: ~2.1x oversubscribed
+TIER_COUNTERS = ("preemptions", "preempted_mid_prefill", "swap_out_count",
+                 "swap_in_count", "swap_out_bytes", "swap_in_bytes",
+                 "admission_refusals", "evictions_reprefill", "decode_steps",
+                 "prefill_chunks", "prefill_chunk_tokens", "shed")
+
+
+def swap_trace(tracer):
+    """The tracer's ``dma``-track windows and ``swap_wait`` spans: (windows,
+    their total ms, waits, their total ms)."""
+    begin, win, n_win, wait, n_wait = {}, 0.0, 0, 0.0, 0
+    for ev in tracer.chrome_trace()["traceEvents"]:
+        if ev["ph"] == "X" and ev["name"] == "swap_wait":
+            wait += ev["dur"]
+            n_wait += 1
+        elif ev.get("cat") == "dma" and ev["ph"] == "b":
+            begin[ev["id"]] = ev["ts"]
+        elif ev.get("cat") == "dma" and ev["ph"] == "e":
+            win += ev["ts"] - begin.pop(ev["id"])
+            n_win += 1
+    return n_win, win / 1e3, n_wait, wait / 1e3
+
+
+def swap_round_trip(cfg, kv_dtype: str):
+    """One resident 1500-token sequence of a full-width pool with random
+    page contents: swap it out, let another sequence take pages, swap it
+    back, and hold every leaf (scale rows too) bit for bit. Returns the
+    bytes moved and the copy stream's ms each way."""
+    from repro_torch.core import dma
+    from repro_torch.serve.cache import CacheConfig, build_cache_manager
+    pool = build_cache_manager(
+        cfg, CacheConfig(page_tokens=16, n_pages=HOT_PAGES, tiered=True,
+                         kv_dtype=kv_dtype), 8, 2048, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    slot = pool.admit_prefill(0, 1500)
+    pool.lengths[slot] = 1500
+    old = list(pool.alloc._seq_pages[0])
+    idx = torch.tensor(old, device="cuda")
+    before = []
+    for per_pos in pool.pages:
+        for kv in per_pos:
+            for arr in kv.values():
+                shape = (arr.shape[0], len(old)) + tuple(arr.shape[2:])
+                if arr.dtype == torch.int8:
+                    rows = torch.randint(-127, 128, shape, generator=g,
+                                         device="cuda", dtype=torch.int8)
+                else:
+                    rows = torch.rand(shape, generator=g, device="cuda")
+                arr[:, idx] = rows.to(arr.dtype)
+                before.append(arr[:, idx].clone())
+    torch.cuda.synchronize()
+    pool.swap_out(slot)
+    out_ms = dma.device_window_ms(pool.last_transfers)
+    assert pool.host_used_bytes() == pool.swap_out_bytes > 0
+    other = pool.admit_prefill(1, 320)          # takes 20 of the freed pages
+    slot = pool.swap_in(0)
+    torch.cuda.synchronize()
+    in_ms = dma.device_window_ms(pool.last_transfers)
+    new = list(pool.alloc._seq_pages[0])
+    assert new != old and int(pool.lengths[slot]) == 1500
+    idx = torch.tensor(new, device="cuda")
+    after = [arr[:, idx] for per_pos in pool.pages for kv in per_pos
+             for arr in kv.values()]
+    assert len(after) == len(before) == (4 if kv_dtype == "int8" else 2)
+    assert all(torch.equal(a, b) for a, b in zip(after, before)), kv_dtype
+    assert pool.swap_in_bytes == pool.swap_out_bytes
+    pool.release(slot)
+    pool.release(other)
+    assert pool.alloc.free_pages == pool.alloc.n_pages
+    assert pool.hero.levels[3].in_use() == 0
+    return pool.swap_out_bytes, len(new), out_ms, in_ms
+
+
+def tiered_serve(results, card: str, untiered):
+    """Phase 7's traffic through a 160-page hot tier over host DRAM; then
+    the same traffic again, traced; then full-width swap round trips."""
+    import subprocess
+    from repro_torch import configs
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.launch.serve import warm_up
+    from repro_torch.models import transformer
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import Engine, EngineConfig
+    cfg = configs.get_config("qwen2-0.5b")                 # bf16 compute
+    model = transformer.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    conf = EngineConfig(n_slots=8, max_seq=2048, chunked=True,
+                        token_budget=256,
+                        cache=CacheConfig(page_tokens=16, n_pages=HOT_PAGES,
+                                          tiered=True))
+    warm_up(cfg, model, conf, "cuda")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1537, 8)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in lens]
+
+    def run(config):
+        eng = Engine(cfg, model, config=config, device="cuda")
+        pda.paged_flash_decode.launches = 0
+        ppa.paged_flash_prefill.launches = 0
+        t0 = time.perf_counter()
+        streams = serve(eng, prompts, 64)
+        wall = time.perf_counter() - t0
+        s = eng.stats_summary()
+        n_dec = pda.paged_flash_decode.launches
+        n_pre = ppa.paged_flash_prefill.launches
+        assert n_dec == cfg.n_layers() * s["decode_steps"] > 0, (n_dec, s)
+        assert n_pre == cfg.n_layers() * s["prefill_chunks"] > 0, (n_pre, s)
+        pool, a = eng.pool, eng.pool.alloc
+        assert all(len(t) == 64 for t in streams.values())
+        assert s["preemptions"] >= 1, s
+        assert s["swap_out_count"] == s["swap_in_count"] > 0, s
+        assert s["swap_out_bytes"] == s["swap_in_bytes"] > 0, s
+        assert not pool.cold_seqs() and pool.host_used_bytes() == 0
+        assert a.free_pages == a.n_pages and a._seq_pages == {}
+        # the arena is empty again; its largest guaranteed allocation
+        # (host_free_bytes) need not return: o1heap never merges its bins
+        assert pool.hero.levels[3].in_use() == 0
+        a.audit()
+        assert s["max_iter_tokens"] <= s["token_budget"]
+        return eng, streams, wall, s, n_dec, n_pre
+
+    eng, streams, wall, s, n_dec, n_pre = run(conf)
+    toks = sum(len(t) for t in streams.values())
+    log("serve tiered", f"{card}: {len(streams)} requests, prompts "
+        f"{sorted(lens.tolist())} ({int(lens.sum())} tok), hot tier "
+        f"{HOT_PAGES} pages x {eng.pool.page_nbytes()} B = "
+        f"{eng.pool.footprint_bytes()} B, host budget "
+        f"{eng.pool.hero.levels[3].arena} B; {toks} new tokens in "
+        f"{wall:.3f} s ({toks / wall:.1f} tok/s), ttft p50/p99 "
+        f"{s['ttft_p50_s']:.4f}/{s['ttft_p99_s']:.4f} s, itl p50/p99 "
+        f"{s['itl_p50_s'] * 1e3:.2f}/{s['itl_p99_s'] * 1e3:.2f} ms, decode "
+        f"steps {s['decode_steps']}, prefill chunks {s['prefill_chunks']}")
+    log("serve tiered", f"preemptions {s['preemptions']} (mid-prefill "
+        f"{s['preempted_mid_prefill']}), swap out {s['swap_out_count']}x/"
+        f"{s['swap_out_bytes']} B, swap in {s['swap_in_count']}x/"
+        f"{s['swap_in_bytes']} B, peak host {s['peak_host_bytes']} B, "
+        f"admission refusals {s['admission_refusals']}; launches: "
+        f"paged_flash_decode {n_dec} = {cfg.n_layers()} x "
+        f"{s['decode_steps']}, paged_flash_prefill {n_pre} = "
+        f"{cfg.n_layers()} x {s['prefill_chunks']}; every hot page free, no "
+        "cold sequence, the L3 arena empty (its largest free block "
+        f"{eng.pool.host_free_bytes()} B), audit clean")
+    traced, again, _, s2, _, _ = run(dataclasses.replace(conf, trace=True))
+    assert again == streams, "a second run of the same traffic differs"
+    assert {k: s2[k] for k in TIER_COUNTERS} == \
+        {k: s[k] for k in TIER_COUNTERS}, (s, s2)
+    n_win, win_ms, n_wait, wait_ms = swap_trace(traced.tracer)
+    assert n_win == n_wait == s2["swap_out_count"] + s2["swap_in_count"]
+    ts = traced.trace_summary()
+    log("serve tiered", f"a second run (traced) gives the same streams and "
+        f"counters; dma windows {n_win}, {win_ms:.2f} ms in all; swap_wait "
+        f"spans {n_wait}, {wait_ms:.2f} ms in all; stall% dma "
+        f"{ts['stall_pct_dma']:.2f}, schedule "
+        f"{ts['stall_pct_schedule']:.1f}, fetch {ts['stall_pct_fetch']:.1f},"
+        f" shadowed {ts['stall_pct_shadowed']:.1f}, other "
+        f"{ts['stall_pct_other']:.1f}")
+    same = sum(x == y for i in streams for x, y in zip(streams[i],
+                                                      untiered[i]))
+    log("serve tiered", f"token match against phase 7's untiered streams: "
+        f"{same}/{toks} ({same / toks:.3f}) (reported, not gated)")
+    link = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.gen.max,pcie.link.width.current",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    for kv_dtype in ("compute", "int8"):
+        nbytes, n_pages, out_ms, in_ms = swap_round_trip(cfg, kv_dtype)
+        log("serve tiered", f"swap round trip, {kv_dtype} pages: a "
+            f"1500-token sequence, {n_pages} pages, {nbytes} B, every leaf "
+            f"bit for bit on other pages; dev->host {out_ms:.3f} ms "
+            f"({nbytes / out_ms / 1e6:.2f} GB/s), host->dev {in_ms:.3f} ms "
+            f"({nbytes / in_ms / 1e6:.2f} GB/s) on the copy stream; PCIe "
+            f"link gen current, max, width: {link}")
 
 
 SYSTEM_PROMPT = 1024     # tokens of the shared system prompt (phase 7b)
@@ -1117,10 +1317,14 @@ def prefix_int8_serve(results, card: str):
 
 
 def card_vs_cpu():
+    """The smoke config in f32, each stack on the card and on the CPU: the
+    same streams, scheduling counters and shed verdicts."""
     from repro_torch import configs
     from repro_torch.models import transformer
     from repro_torch.serve.cache import CacheConfig
     from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.kvcache import token_bytes
+    from repro_torch.serve.policy import PolicyConfig
     cfg = configs.get_smoke_config("qwen2-0.5b", compute_dtype=torch.float32)
     model = transformer.init_model(cfg, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(4)
@@ -1129,24 +1333,57 @@ def card_vs_cpu():
     system = rng.integers(0, cfg.vocab, 12)
     shared = [np.concatenate([system, p[:5]]).astype(np.int32)
               for p in prompts]
-    for stack, cache, reqs in (
-            ("paged", CacheConfig(page_tokens=8), prompts),
-            ("int8+prefix", CacheConfig(page_tokens=8, kv_dtype="int8",
-                                        prefix=True), shared)):
-        conf = EngineConfig(n_slots=3, max_seq=64, chunked=True,
-                            token_budget=8, cache=cache)
-        cpu_eng = Engine(cfg, copy.deepcopy(model), config=conf,
-                         device="cpu")
-        on_cpu = serve(cpu_eng, reqs, 8)
-        card_eng = Engine(cfg, copy.deepcopy(model), config=conf,
-                          device="cuda")
-        on_card = serve(card_eng, reqs, 8)
-        assert on_card == on_cpu, (stack, on_card, on_cpu)
-        hits = card_eng.stats["prefix_hits"]
-        assert hits == cpu_eng.stats["prefix_hits"]
-        assert cache.prefix is False or hits > 0
-        log("card/cpu", f"smoke config f32, {stack} stack: {len(on_card)} "
-            f"greedy streams equal on cuda and cpu (prefix hits {hits})")
+    # the chunked shedding mix: 12 six-token requests over a 4-page hot
+    # tier, every third one class 1, two with a deadline already lapsed
+    rng = np.random.default_rng(0)
+    shedding = [rng.integers(0, cfg.vocab, 6).astype(np.int32)
+                for _ in range(12)]
+    classes = [(1 if i % 3 == 0 else 0, None) for i in range(12)]
+    for i in (10, 11):
+        classes[i] = (0, 1e-6)
+    budget = 16 * 2 * 12 * token_bytes(cfg) * 8
+    small = dict(n_slots=3, max_seq=64, chunked=True, token_budget=8)
+    tight = dict(page_tokens=8, n_pages=6, tiered=True)
+    counters = ("preemptions", "preempted_mid_prefill", "swap_out_count",
+                "swap_in_count", "swap_out_bytes", "swap_in_bytes",
+                "admission_refusals", "prefix_hits", "decode_steps")
+    for stack, conf, reqs, new, cls in (
+            ("paged", EngineConfig(cache=CacheConfig(page_tokens=8),
+                                   **small), prompts, 8, None),
+            ("int8+prefix", EngineConfig(cache=CacheConfig(
+                page_tokens=8, kv_dtype="int8", prefix=True), **small),
+             shared, 8, None),
+            ("tiered", EngineConfig(cache=CacheConfig(**tight), **small),
+             prompts, 8, None),
+            ("int8+tiered+prefix", EngineConfig(cache=CacheConfig(
+                kv_dtype="int8", prefix=True, prefix_pages=2, **tight),
+                **small), shared, 8, None),
+            ("tiered, policy (the shedding mix)", EngineConfig(
+                n_slots=2, max_seq=64, chunked=True, token_budget=6,
+                policy=PolicyConfig(max_in_system=2, max_queue=4),
+                cache=CacheConfig(page_tokens=8, n_pages=4, tiered=True,
+                                  host_budget_bytes=budget)),
+             shedding, 6, classes)):
+        runs = []
+        for device in ("cpu", "cuda"):
+            eng = Engine(cfg, copy.deepcopy(model), config=conf,
+                         device=device)
+            streams = serve(eng, reqs, new, cls)
+            runs.append((streams, {k: eng.stats[k] for k in counters},
+                         [(r.seq_id, r.verdict.code) for r in eng.shed]))
+        assert runs[1] == runs[0], (stack, runs)
+        streams, count, shed = runs[1]
+        if conf.cache.tiered and conf.policy is None:
+            # every request arrives at once, so the churn leaves the tiered
+            # prefix stack no completed prefill to hit: preemption is gated
+            assert count["preemptions"] >= 1, (stack, count)
+        elif conf.cache.prefix:
+            assert count["prefix_hits"] > 0, (stack, count)
+        if conf.policy is not None:
+            assert count["admission_refusals"] == 0 and len(shed) == 6
+        log("card/cpu", f"smoke config f32, {stack} stack: {len(streams)} "
+            f"greedy streams equal on cuda and cpu, and the counters "
+            f"{count}" + (f", shed {shed}" if shed else ""))
 
 
 # the kernel templates' mangled names, as ptxas prints them, shortened
@@ -1261,8 +1498,9 @@ def main() -> int:
     torch.cuda.synchronize()
     suite_main_path(results)
     torch.cuda.synchronize()
-    full_width_serve(results, card)
+    untiered = full_width_serve(results, card)
     prefix_int8_serve(results, card)
+    tiered_serve(results, card, untiered)
     card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

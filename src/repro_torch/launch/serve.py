@@ -25,6 +25,20 @@ puts the same N-token system prompt in front of every request, so later
 arrivals reuse its pages. A prefix run prints a ``prefix hits H (F full),
 shared tokens S ...`` line; prefill chunk tokens then equal the prompts'
 total less S.
+
+``--tiered`` puts a host-DRAM swap tier under the page pool: when the hot
+tier (``--pages``) is full, the least recently decoded resident swaps out
+and resumes later at its chunk offset; ``--host-budget-mb`` bounds the
+cold tier and ``--preempt-quantum`` sets how many decode steps a resident
+is exempt. The run prints a ``[serve:tiered] preemptions ...`` line.
+``--max-in-system`` / ``--max-queue`` attach the SLO policy's admission
+gate and load shedding, ``--itl-target-ms`` its decode-latency budget
+shaping, and ``--priorities N`` cycles the requests through N priority
+classes; a policy run prints ``[serve:slo] shed N (code: n, ...)``::
+
+  python -m repro_torch.launch.serve --device cpu --tiered --pages 6 \\
+      --page-tokens 8 --requests 6 --slots 2 --max-seq 32 --max-new 3 \\
+      --token-budget 6 --priorities 2 --max-in-system 2 --max-queue 2
 """
 from __future__ import annotations
 
@@ -47,6 +61,7 @@ from repro_torch.models import transformer
 from repro_torch.serve.cache import CacheConfig
 from repro_torch.serve.engine import Engine, EngineConfig, Request, \
     resolve_device
+from repro_torch.serve.policy import PolicyConfig
 
 
 def build_engine(args) -> Engine:
@@ -56,11 +71,23 @@ def build_engine(args) -> Engine:
     cfg = get(args.arch)
     gen = torch.Generator(device=device).manual_seed(0)
     model = transformer.init_model(cfg, gen, device)
+    policy = None
+    if (args.max_in_system is not None or args.max_queue is not None
+            or args.itl_target_ms is not None):
+        policy = PolicyConfig(
+            max_in_system=args.max_in_system, max_queue=args.max_queue,
+            itl_target_s=(args.itl_target_ms / 1000.0
+                          if args.itl_target_ms is not None else None))
     econf = EngineConfig(
         n_slots=args.slots, max_seq=args.max_seq, chunked=True,
-        token_budget=args.token_budget, overlap=not args.no_overlap,
+        token_budget=args.token_budget, preempt_quantum=args.preempt_quantum,
+        overlap=not args.no_overlap, policy=policy,
         trace=args.trace is not None,
         cache=CacheConfig(page_tokens=args.page_tokens, n_pages=args.pages,
+                          tiered=args.tiered,
+                          host_budget_bytes=(args.host_budget_mb * 2**20
+                                             if args.host_budget_mb
+                                             else None),
                           prefix=args.prefix_cache,
                           prefix_pages=args.prefix_cache_pages,
                           kv_dtype=args.kv_dtype))
@@ -139,6 +166,27 @@ def main(argv=None):
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="put the same system prompt of this many tokens in "
                          "front of every request")
+    ap.add_argument("--tiered", action="store_true",
+                    help="host-DRAM swap tier under the page pool "
+                         "(preemptive scheduling)")
+    ap.add_argument("--host-budget-mb", type=int, default=None,
+                    help="cold-tier budget in MiB (HeroMemory L3; default: "
+                         "eight hot pools)")
+    ap.add_argument("--preempt-quantum", type=int, default=1,
+                    help="decode steps a resident is exempt from eviction")
+    ap.add_argument("--max-in-system", type=int, default=None,
+                    help="SLO policy: cap concurrently resident requests "
+                         "(admission gate)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="SLO policy: cap the waiting line; the lowest-"
+                         "priority tail beyond it is shed with a typed "
+                         "verdict")
+    ap.add_argument("--itl-target-ms", type=float, default=None,
+                    help="SLO policy: decode inter-token-latency p99 target; "
+                         "prefill's budget share is squeezed while over it")
+    ap.add_argument("--priorities", type=int, default=0,
+                    help="cycle the requests through this many priority "
+                         "classes (0: all in the default class)")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="tokens per engine iteration (decode first, prompt "
                          "chunks fill the remainder)")
@@ -171,7 +219,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     with prof:
         for i, p in enumerate(prompts):
-            eng.submit(Request(seq_id=i, max_new=args.max_new, prompt=p))
+            eng.submit(Request(
+                seq_id=i, max_new=args.max_new, prompt=p,
+                priority=i % args.priorities if args.priorities else 0))
         done, it = [], 0
         while not eng.idle and it < 100000:
             done.extend(eng.step())
@@ -185,7 +235,7 @@ def main(argv=None):
     total_new = sum(len(r.tokens_out) for r in done)
     s = eng.stats_summary()
     a = eng.pool.alloc
-    mode = "chunked"
+    mode = "chunked+tiered" if args.tiered else "chunked"
     if args.prefix_cache:
         mode = "prefix+" + mode
     if args.kv_dtype != "compute":
@@ -208,6 +258,22 @@ def main(argv=None):
           f"{s['prefill_chunks']} ({s['prefill_chunk_tokens']} tok), "
           f"decode tokens {s['decode_tokens']}, ttft p50/p99 "
           f"{s['ttft_p50_s']:.3f}/{s['ttft_p99_s']:.3f} s")
+    if eng.scheduler.policy is not None:
+        by_code = {}
+        for r in eng.shed:
+            by_code[r.verdict.code] = by_code.get(r.verdict.code, 0) + 1
+        codes = ", ".join(f"{c}: {n}" for c, n in sorted(by_code.items()))
+        print(f"[serve:slo] shed {s['shed']} ({codes or 'none'}), "
+              f"itl p50/p99 "
+              f"{s['itl_p50_s'] * 1e3:.1f}/{s['itl_p99_s'] * 1e3:.1f} ms")
+    if args.tiered:
+        print(f"[serve:tiered] preemptions {s['preemptions']}, swap out "
+              f"{s['swap_out_count']}×/{s['swap_out_bytes']} B, swap in "
+              f"{s['swap_in_count']}×/{s['swap_in_bytes']} B, peak host "
+              f"{s['peak_host_bytes']} B, peak in-system "
+              f"{s['peak_in_system']} seqs, queue p50/p90/p99 "
+              f"{s['queue_lat_p50_s']:.3f}/{s['queue_lat_p90_s']:.3f}/"
+              f"{s['queue_lat_p99_s']:.3f} s")
     print(f"[serve:{mode}] device {eng.device}"
           + (f" ({torch.cuda.get_device_name(eng.device)})"
              if eng.device.type == "cuda" else ""))

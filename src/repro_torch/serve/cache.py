@@ -1,22 +1,28 @@
 """CacheManager: the one cache surface the scheduler programs against.
 
-Counterpart of ``repro/serve/cache.py`` without the swap tier. A stack is
-composed bottom-up from a declarative :class:`CacheConfig`::
+Counterpart of ``repro/serve/cache.py``. A stack is composed bottom-up
+from a declarative :class:`CacheConfig`, in the reference's layer order::
 
-    PrefixCachingPool        (this module — radix reuse + COW refs)
-      └─ PagedCachePool      (serve/kvcache.py — vmm pages + reservations,
-                              compute-dtype or int8 pages)
+    PrefixCachingPool            (this module — radix reuse + COW refs)
+      └─ TieredCachePool         (serve/tiering.py — host-DRAM swap tier)
+           └─ PagedCachePool     (serve/kvcache.py — vmm pages +
+                                  reservations, compute-dtype or int8)
 
-so :func:`build_cache_manager` builds four stacks: paged, prefix, int8 and
-int8 + prefix. The host swap tier is a later slice and is refused by name.
+so :func:`build_cache_manager` builds eight stacks: {paged, int8} ×
+{±tiered} × {±prefix}. The prefix layer sees the tier-aware pool, so
+adopted pages survive a swap-out; the tier sees raw page accounting to
+budget its copies.
 
-Unlike the reference, the prefix layer is a subclass of the pool, not a
-wrapper delegating through ``__getattr__``: a ``runtime_checkable``
-``isinstance`` looks members up statically on Python 3.12, so
-``isinstance(pool, CacheManager)`` holds for every stack here.
+Unlike the reference, each layer is a subclass of the one below, not a
+wrapper delegating through ``__getattr__`` (tiered + prefix is
+:class:`TieredPrefixCachingPool`, whose method order puts the prefix layer
+over the tier): a ``runtime_checkable`` ``isinstance`` looks members up
+statically on Python 3.12, so ``isinstance(pool, CacheManager)`` holds for
+every stack here.
 
 Ownership: this module owns stack composition only. Page accounting stays
-in kvcache.py, prefix lookup in prefix_cache.py, policy in scheduler.py.
+in kvcache.py, tier movement in tiering.py, prefix lookup in
+prefix_cache.py, policy in scheduler.py.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import numpy as np
 from repro_torch.models import transformer
 from repro_torch.serve.kvcache import PagedCachePool
 from repro_torch.serve.prefix_cache import PrefixCache, PrefixMatch
+from repro_torch.serve.tiering import TieredCachePool
 
 
 @runtime_checkable
@@ -112,19 +119,27 @@ class PrefixCachingPool(PagedCachePool):
         bus.set_total("prefix_evicted_pages", s["prefix_evicted_pages"])
 
 
+class TieredPrefixCachingPool(PrefixCachingPool, TieredCachePool):
+    """The prefix layer over the swap tier over the pool. Construction and
+    ``publish_metrics`` run through both layers by ``super()``: the pool's
+    gauges, then the tier's, then the index's."""
+
+
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
     """Declarative description of one cache stack (always paged here).
 
     ``n_pages=None`` sizes the pool at n_slots × max_seq tokens of pages.
+    ``tiered`` adds the host-DRAM swap tier, whose cold tier may hold
+    ``host_budget_bytes`` (default: eight hot pools of page bytes).
     ``prefix`` adds the radix reuse layer, whose cache may pin at most
     ``prefix_pages`` pages (default: half the pool). ``kv_dtype`` is
     ``"compute"`` (pages at the compute dtype) or ``"int8"`` (pages with
-    per-(page, kv head) f32 scales). ``tiered`` is a field as in the
-    reference, refused by :func:`build_cache_manager` until ported."""
+    per-(page, kv head) f32 scales)."""
     page_tokens: int = 16
     n_pages: Optional[int] = None
     tiered: bool = False
+    host_budget_bytes: Optional[int] = None
     prefix: bool = False
     prefix_pages: Optional[int] = None
     kv_dtype: str = "compute"
@@ -139,16 +154,19 @@ def build_cache_manager(cfg: transformer.ModelConfig, cache: CacheConfig,
                         n_slots: int, max_seq: int,
                         device="cpu") -> CacheManager:
     """Compose the stack described by ``cache``, bottom-up, on ``device``."""
-    if cache.tiered:
-        raise NotImplementedError(
-            "repro_torch: the host-DRAM swap tier is not ported yet "
-            "(ROADMAP queue 1, item 9: Tiering)")
     n_pages = cache.resolved_pages(n_slots, max_seq)
     kwargs = dict(max_batch=n_slots, max_seq=max_seq, n_pages=n_pages,
                   page_tokens=cache.page_tokens, device=device,
                   kv_dtype=cache.kv_dtype)
+    if cache.tiered:
+        kwargs["host_budget_bytes"] = cache.host_budget_bytes
     if cache.prefix:
-        max_pages = (cache.prefix_pages if cache.prefix_pages is not None
-                     else max(1, n_pages // 2))
-        return PrefixCachingPool(cfg, max_pages=max_pages, **kwargs)
-    return PagedCachePool(cfg, **kwargs)
+        # the cap bounds how many hot pages the cache may pin; admission
+        # evicts LRU entries when it needs them back
+        kwargs["max_pages"] = (cache.prefix_pages
+                               if cache.prefix_pages is not None
+                               else max(1, n_pages // 2))
+    cls = {(False, False): PagedCachePool, (True, False): TieredCachePool,
+           (False, True): PrefixCachingPool,
+           (True, True): TieredPrefixCachingPool}[cache.tiered, cache.prefix]
+    return cls(cfg, **kwargs)

@@ -7,16 +7,18 @@ Counterpart of ``repro/serve/engine.py`` on the chunked paged path::
         n_slots=8, max_seq=2048, chunked=True, token_budget=256,
         cache=CacheConfig(page_tokens=16, kv_dtype="int8", prefix=True)))
 
-``cache`` picks one of four stacks (serve/cache.py): paged or int8 pages,
-with or without the shared-prefix layer. The engine runs on ``cuda``
-unless the caller passes ``device="cpu"``; without a card and without that
-request it raises instead of falling back to the CPU. This module owns
-nothing but the wiring.
+``cache`` picks one of eight stacks (serve/cache.py): paged or int8
+pages, with or without the host-DRAM swap tier (``tiered``: preemption),
+with or without the shared-prefix layer. ``policy`` attaches an SLO
+:class:`~repro_torch.serve.policy.SchedulerPolicy`. The engine runs on
+``cuda`` unless the caller passes ``device="cpu"``; without a card and
+without that request it raises instead of falling back to the CPU. This
+module owns nothing but the wiring.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -25,6 +27,7 @@ from repro_torch.serve import trace
 from repro_torch.serve.cache import CacheConfig, build_cache_manager
 from repro_torch.serve.executor import Executor
 from repro_torch.serve.metrics import MetricsBus
+from repro_torch.serve.policy import PolicyConfig, SchedulerPolicy
 from repro_torch.serve.scheduler import Request, Scheduler  # noqa: F401
 
 
@@ -43,16 +46,23 @@ def resolve_device(device=None) -> torch.device:
 class EngineConfig:
     """Declarative engine configuration (fields as in the reference, for
     the ported path). ``chunked`` must be True: only the chunked paged loop
-    is ported. ``overlap`` (default True) runs the overlapped step loop;
-    streams are identical either way. ``trace`` enables the execution
-    tracer (``Engine.trace_export``)."""
+    is ported. ``preempt_quantum``: decode steps a resident of a tiered
+    stack is exempt from preemption. ``overlap`` (default True) runs the
+    overlapped step loop; streams are identical either way. ``policy``
+    builds the SLO policy (None: policy-free FIFO). ``trace`` enables the
+    execution tracer (``Engine.trace_export``). ``clock`` injects the
+    engine's one time source (default ``time.perf_counter``): the tracer,
+    every scheduler timestamp and the swap copies' stamps read it."""
     n_slots: int = 4
     max_seq: int = 256
     chunked: bool = False
     token_budget: Optional[int] = None
+    preempt_quantum: int = 1
     overlap: bool = True
     cache: CacheConfig = CacheConfig()
+    policy: Optional[PolicyConfig] = None
     trace: bool = False
+    clock: Optional[Callable[[], float]] = None
 
 
 class Engine:
@@ -81,13 +91,18 @@ class Engine:
                                    config.max_seq, device=self.device)
         self.bus = MetricsBus()
         self.executor.bind_metrics(self.bus)
-        self.tracer = trace.Tracer(enabled=config.trace)
+        # a real Tracer even when disabled: its clock is the time source
+        self.tracer = trace.Tracer(enabled=config.trace, clock=config.clock)
         self.executor.bind_tracer(self.tracer)
         pool.bind_tracer(self.tracer)
+        policy = None
+        if config.policy is not None:
+            policy = SchedulerPolicy(config.policy, bus=self.bus)
         self.scheduler = Scheduler(
             cfg, pool, self.executor, n_slots=config.n_slots,
-            token_budget=config.token_budget, overlap=config.overlap,
-            metrics=self.bus, tracer=self.tracer)
+            token_budget=config.token_budget, tiered=config.cache.tiered,
+            preempt_quantum=config.preempt_quantum, overlap=config.overlap,
+            metrics=self.bus, policy=policy, tracer=self.tracer)
 
     # -- host API (delegates to the scheduler) -----------------------------
     def submit(self, req: Request) -> bool:
@@ -114,6 +129,12 @@ class Engine:
 
     def trace_summary(self) -> Dict[str, Any]:
         return self.tracer.stall_summary()
+
+    @property
+    def shed(self) -> List[Request]:
+        """Requests the policy rejected, each with a typed
+        :class:`~repro_torch.serve.policy.ShedVerdict` on ``.verdict``."""
+        return self.scheduler.shed
 
     # -- introspection ------------------------------------------------------
     @property

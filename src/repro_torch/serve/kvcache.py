@@ -291,7 +291,7 @@ class PagedCachePool:
         (``admit_prefill``, ``ensure``) comes through here."""
         if not self.quantized or not page_ids:
             return
-        ids = torch.tensor(page_ids, dtype=torch.long, device=self.device)
+        ids = paged_step.page_index(page_ids, self.device)
         for per_pos in self.pages:
             for kv in per_pos:
                 for name in kvquant.SCALE_OF.values():

@@ -21,12 +21,15 @@ the page's rows requantized in the same step) and hand the scales to both
 kernels, which dequantize inside.
 
 Pages are written **in place** (the reference returned new arrays): every
-step returns the same ``pages`` object it was given, updated. The steps are
-plain functions over a :class:`~repro_torch.models.transformer.Transformer`
-and run on whatever device its tensors live on; its weights must already
-be at the compute dtype (serve/executor.py casts them once). Queries enter
-attention in f32 and the attention output returns to the compute dtype, as
-in the reference.
+step returns the same ``pages`` object it was given, updated. The steps
+are plain functions over a
+:class:`~repro_torch.models.transformer.Transformer` and run on whatever
+device its tensors live on; its weights must already be at the compute
+dtype (serve/executor.py casts them once). Queries enter attention in f32
+and the attention output returns to the compute dtype, as in the
+reference. The swap tier (serve/tiering.py) moves whole pages:
+:func:`gather_pages` copies a sequence's pages out, :func:`scatter_pages`
+writes them back in place.
 """
 from __future__ import annotations
 
@@ -38,6 +41,31 @@ from repro_torch.kernels.paged_decode_attention import paged_flash_decode
 from repro_torch.kernels.paged_prefill_attention import paged_flash_prefill
 from repro_torch.models import blocks, transformer
 from repro_torch.serve import kvquant
+
+
+def page_index(page_ids, device) -> torch.Tensor:
+    """Page ids as an int64 index tensor on ``device``. On the card the ids
+    travel in one non-blocking copy from pinned memory: a pageable copy
+    would make the host wait for every step already queued."""
+    ids = torch.tensor(list(page_ids), dtype=torch.long)
+    if torch.device(device).type == "cuda":
+        return ids.pin_memory().to(device, non_blocking=True)
+    return ids
+
+
+def gather_pages(pool: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
+    """Pull a sequence's pages out of a ``[count, P, ...]`` pool leaf into a
+    new contiguous ``[count, n, ...]`` tensor (swap-out's gather phase;
+    the caller starts a dev→host copy of the result)."""
+    return pool[:, page_ids]
+
+
+def scatter_pages(pool: torch.Tensor, rows: torch.Tensor,
+                  page_ids: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`gather_pages`: land ``[count, n, ...]`` rows on the
+    given page ids of a pool leaf, in place, cast to the pool's dtype
+    (swap-in's store phase). Returns ``pool``."""
+    return pool.index_copy_(1, page_ids, rows.to(pool.dtype))
 
 
 def copy_page(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:

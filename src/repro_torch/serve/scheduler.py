@@ -1,13 +1,13 @@
 """Serving scheduler: the chunked, token-budgeted step loop over a paged pool.
 
-Counterpart of the chunked branch of ``repro/serve/scheduler.py`` (no swap
-tier, no policy: later slices; greedy only). Requests land in a
-:class:`~repro_torch.core.offload.Mailbox`; each ``step()`` drains it,
-decides which sequences admit, chunk, promote, or decode, and dispatches
-the executor's regions. Each iteration packs one decode token per stream
-first and fair-shares the remainder of the token budget over mid-prefill
-residents as prompt chunks, in admission order. Admission reserves prompt
-pages only; the decode worst case tops up at promotion.
+Counterpart of the chunked branch of ``repro/serve/scheduler.py`` (greedy
+only). Requests land in a :class:`~repro_torch.core.offload.Mailbox`; each
+``step()`` drains it, decides which sequences admit, chunk, promote,
+preempt, or decode, and dispatches the executor's regions. Each iteration
+packs one decode token per stream first and fair-shares the remainder of
+the token budget over mid-prefill residents as prompt chunks, in admission
+order. Admission reserves prompt pages only; the decode worst case tops up
+at promotion.
 
 Prefix reuse (a stack with a prefix layer, serve/cache.py): admission
 looks up the longest cached prefix of the prompt, adopts its pages and
@@ -16,27 +16,52 @@ token and skips prefill. A shared page is COW-forked before the first write
 into it (a decode at its write position, a chunk at its start), and a
 completed prompt is inserted into the cache when its first token lands.
 
+Preemption (a tiered stack, ``tiered=True``, serve/tiering.py): a request
+the hot tier refuses may enter by swapping the least recently decoded
+resident out to host DRAM; the victim goes to the back of the mailbox and
+resumes at its chunk offset with its KV and tokens intact. A resident is
+exempt until it has decoded ``preempt_quantum`` steps (a mid-prefill one
+until it has landed a chunk), so the rotation terminates. A resume's
+host→device copies start right after a decode step is dispatched
+(``_start_prefetch``) and land at the next admission pass.
+
+Policy (an optional :class:`~repro_torch.serve.policy.SchedulerPolicy`)
+acts at three points: a mailbox reorder / shed pass at the top of each step
+(priority classes with aging, typed verdicts on ``self.shed``), an
+admission-concurrency gate in the drain (a quiet "not yet"), and a
+prefill-allowance clamp when packing chunks (ITL-target shaping, floored at
+one token per mid-prefill resident). Policy never touches pages and never
+changes which tokens an admitted request streams.
+
 Token movement: dispatches return device-resident sampled ids; the
 scheduler queues them with their completion logic and materialises the
 whole iteration's ids in ONE ``Executor.fetch_token_ids`` transfer.
 
 Overlapped execution (``overlap=True``, the default): each ``step()`` first
-runs the *shadow phase* (the admission drain) while the previous step's
-dispatches are still running on the device, then the one blocking fetch
-commits the previous iteration's tokens, then promotion, packing and the
-new dispatches run against exact post-commit state. Streams equal the
-synchronous loop's (``overlap=False``). With a prefix layer the shadow
-phase also pre-forks the shared page each in-flight decode will write
-next (``_cow_prefork``), so fork counts match the synchronous loop's. On
-the card the shadow phase really overlaps: CUDA launches return at once,
-and the host→device moves are non-blocking copies from pinned memory
-(serve/executor.py).
+runs the *shadow phase* (swap-in landings, the admission drain, where cold
+resumes only start their copies, the COW pre-fork and the mailbox-head
+prefetch) while the previous step's dispatches are still running on the
+device, then the one blocking fetch commits the previous iteration's
+tokens, then promotion, packing and the new dispatches run against exact
+post-commit state. Streams equal the synchronous loop's (``overlap=False``).
+Consumers carry identity guards: a request preempted while its step was in
+flight discards that token, and greedy resume re-derives it. On the card
+this holds because a shadow-phase swap-out queues its gathers on the
+compute stream behind the in-flight step, and ``lengths`` advance only at
+commit. With a prefix layer the shadow phase also pre-forks the shared
+page each in-flight decode will write next (``_cow_prefork``), so fork
+counts match the synchronous loop's.
 
-Invariants (held against the reference in tests/test_torch_engine.py):
+Invariants (held against the reference in tests/test_torch_engine.py,
+tests/test_torch_prefix.py, tests/test_torch_tiering.py and
+tests/test_torch_policy.py):
 
   * greedy streams equal the reference engine's on the same weights;
+  * a request is in exactly one of: mailbox, prefilling, prefilled_wait,
+    active, cold (tiered), shed, or finished;
   * decode + prefill-chunk tokens per iteration never exceed the budget;
-  * accounting closes at drain: every page free, the allocator audit clean;
+  * accounting closes at drain: every page free, no cold sequence, the
+    allocator audit clean;
   * exactly one host transfer of token ids per iteration.
 """
 from __future__ import annotations
@@ -51,6 +76,7 @@ from repro_torch.models import transformer
 from repro_torch.serve import trace
 from repro_torch.serve.executor import Executor
 from repro_torch.serve.metrics import MetricsBus, percentiles
+from repro_torch.serve.policy import SchedulerPolicy
 from repro_torch.serve.prefix_cache import PrefixMatch
 
 
@@ -59,27 +85,40 @@ class Request:
     seq_id: int
     prompt: np.ndarray          # [L] int32
     max_new: int = 16
+    priority: int = 0           # SLO class (larger = more urgent; policy-read)
+    deadline_s: Optional[float] = None  # admission deadline after t_submit
     t_submit: float = 0.0
     t_first: float = 0.0        # time of the first emitted token (TTFT)
     prefill_pos: int = 0        # prompt tokens whose KV has been written
     tokens_out: Optional[List[int]] = None
     t_tokens: Optional[List[float]] = None
     done: bool = False
+    verdict: Optional[object] = None    # ShedVerdict when policy rejected it
 
 
 class Scheduler:
-    """Mailbox-batched continuous scheduling over one paged cache stack."""
+    """Mailbox-batched continuous scheduling over one paged cache stack.
+
+    ``tiered`` mirrors the stack (a :class:`TieredCachePool` below) and
+    turns on preemption; the Engine derives it from its cache config."""
 
     def __init__(self, cfg: transformer.ModelConfig, pool, executor: Executor,
                  *, n_slots: int, token_budget: Optional[int] = None,
+                 tiered: bool = False, preempt_quantum: int = 1,
                  overlap: bool = True, metrics: Optional[MetricsBus] = None,
+                 policy: Optional[SchedulerPolicy] = None,
                  tracer: Optional[trace.Tracer] = None):
         self.cfg = cfg
         self.pool = pool
         self.executor = executor
+        self.tiered = bool(tiered)
+        self.preempt_quantum = max(1, preempt_quantum)
         self.overlap = bool(overlap)
         self.bus = metrics if metrics is not None else MetricsBus(enabled=False)
         self.tracer = tracer if tracer is not None else trace.null_tracer()
+        self.policy = policy
+        self.shed: List[Request] = []              # policy-rejected requests
+        self._ever_admitted: set = set()           # seq_ids that held pages
         self.prefix = pool.prefix
         self.mailbox = Mailbox(depth=256)
         self.active: Dict[int, Request] = {}       # slot -> decoding request
@@ -101,8 +140,13 @@ class Scheduler:
         self._commit_queue: List[Tuple[Any, Callable]] = []
         self._finished: List[Request] = []
         self._inflight_decode: Dict[int, Request] = {}  # last dispatch
+        self._pending_swapins: List[Tuple[Request, Any]] = []
+        self._shadow_activated: set = set()  # slots resumed this shadow
         self._admit_stalled = False
         self._admitted_at = np.zeros(n_slots, np.int64)
+        self._last_decoded = np.zeros(n_slots, np.int64)
+        self._resident_since = np.zeros(n_slots, np.int64)
+        self._chunks_done = np.zeros(n_slots, np.int64)
         self._admit_clock = 0
         if token_budget is None:
             token_budget = n_slots + 4 * pool.page_tokens
@@ -120,6 +164,7 @@ class Scheduler:
         req.prefill_pos = 0
         req.tokens_out = []
         req.t_tokens = []
+        req.verdict = None
         self.bus.inc("requests_submitted")
         self.tracer.request_state(req.seq_id, "queued")
         return self.mailbox.put(req)
@@ -129,17 +174,25 @@ class Scheduler:
         """True when nothing is resident, queued, or in flight."""
         return (not self.active and not self.prefilling
                 and not self.prefilled_wait and len(self.mailbox) == 0
+                and not self._pending_swapins
                 and not self._fetch_queue and not self._commit_queue)
 
     def step(self) -> List[Request]:
-        """One engine iteration: the unified token-budgeted step, with
-        exactly one host transfer of sampled ids. Returns the requests that
-        finished this iteration."""
+        """One engine iteration: the policy pass, then the unified
+        token-budgeted step, with exactly one host transfer of sampled ids.
+        Returns the requests that finished this iteration."""
         self._finished = []
         with self.tracer.iteration():
-            self._step_chunked()
+            self._policy_pass()
+            decoded = self._step_chunked()
             if not self.overlap:
                 self._flush_tokens()
+                if self.tiered and decoded:
+                    # with this step's releases applied, start the mailbox
+                    # head's resume now: its copies overlap the next
+                    # admission pass and land at the top of the next step
+                    # (the overlapped loop prefetches in its shadow phase)
+                    self._start_prefetch()
             self._publish_metrics()
         self._publish_stall()
         return self._finished
@@ -152,17 +205,58 @@ class Scheduler:
             finished.extend(self.step())
         return finished
 
+    # -- SLO policy hooks ---------------------------------------------------
     def _in_system(self) -> int:
-        return len(self.active) + len(self.prefilling) + \
-            len(self.prefilled_wait)
+        """Residents the admission gate counts: hot, plus the cold set (an
+        in-flight resume stays cold until it lands)."""
+        n = len(self.active) + len(self.prefilling) + len(self.prefilled_wait)
+        if self.tiered:
+            n += len(self.pool.cold_seqs())
+        return n
+
+    def _sheddable(self, req: Request) -> bool:
+        """Only requests that hold no engine state may shed: never-admitted
+        mailbox entries (not cold residents, not evicted re-prefillers)."""
+        if req.seq_id in self._ever_admitted:
+            return False
+        return not (self.tiered and self.pool.is_cold(req.seq_id))
+
+    def _policy_pass(self) -> None:
+        """Reorder / shed the mailbox under the policy, once per step,
+        before any drain. The admission stall clears when the head changed
+        or anything shed, so the new head is tried."""
+        if self.policy is None or len(self.mailbox) == 0:
+            return
+        with self.tracer.span("policy"):
+            pending = self.mailbox.drain(len(self.mailbox))
+            if not pending:
+                return
+            head_before = pending[0]
+            keep, shed = self.policy.plan(
+                pending, now=self.tracer.now(), in_system=self._in_system(),
+                sheddable=self._sheddable)
+            for req, verdict in shed:
+                req.verdict = verdict
+                req.done = True
+                self.shed.append(req)
+                self.stats["shed"] += 1
+                self.tracer.request_state(req.seq_id, "shed")
+            for req in reversed(keep):
+                self.mailbox.requeue(req)
+            if self._admit_stalled and \
+                    (shed or not keep or keep[0] is not head_before):
+                self._admit_stalled = False
 
     def _note_first_admit(self, req: Request) -> None:
+        self._ever_admitted.add(req.seq_id)
         self.stats["admission_order"].append(int(req.seq_id))
         lat = self.tracer.now() - req.t_submit
         self.stats["queue_lat_s"].append(lat)
         self.bus.observe("queue_lat_s", lat)
         self.bus.inc("admissions")
         self.tracer.request_instant(req.seq_id, "admitted")
+        if self.policy is not None:
+            self.policy.note_admitted(req)
 
     def _publish_metrics(self) -> None:
         """End-of-step bus publication (observe-only)."""
@@ -239,9 +333,14 @@ class Scheduler:
         req.t_tokens.append(now)
 
     # -- admission ------------------------------------------------------------
-    def _activate(self, slot: int, req: Request) -> None:
+    def _activate(self, slot: int, req: Request, first_admit: bool) -> None:
         self._admit_clock += 1
         self._admitted_at[slot] = self._admit_clock
+        self._last_decoded[slot] = self.stats["decode_steps"]
+        self._resident_since[slot] = self.stats["decode_steps"]
+        self._chunks_done[slot] = 0
+        if self.overlap:
+            self._shadow_activated.add(slot)
         if req.prefill_pos < len(req.prompt):
             self.prefilling[slot] = req
             state = "prefill"
@@ -252,21 +351,113 @@ class Scheduler:
         else:
             self.active[slot] = req
             state = "decode"
-        self._note_first_admit(req)
+        if first_admit:
+            self._note_first_admit(req)
         self.tracer.request_state(req.seq_id, state)
+
+    def _pick_victim(self, exclude: Optional[int] = None) -> Optional[int]:
+        """LRU preemption victim: the least recently decoded resident, the
+        oldest admission breaking ties. A decoding resident is exempt until
+        it has decoded ``preempt_quantum`` steps in this residency, a
+        mid-prefill one until it has landed a chunk: every admitted
+        sequence progresses before it can be evicted again, so the rotation
+        terminates."""
+        candidates = dict(self.active)
+        candidates.update(self.prefilled_wait)
+        candidates.update(self.prefilling)
+        best, best_key = None, None
+        for slot in candidates:
+            if slot == exclude:
+                continue
+            if self.overlap and slot in self._shadow_activated:
+                # resumed in this shadow phase: evicting it before its first
+                # dispatch would re-queue a paid swap-in with no progress,
+                # and with the one-step commit lag every resume would be
+                # stolen by the same pass (the synchronous loop's "the last
+                # resumes survive the admission pass", made explicit)
+                continue
+            if slot in self.active:
+                quantum = self.preempt_quantum
+                if self.overlap and \
+                        self._inflight_decode.get(slot) is self.active[slot]:
+                    # the token in flight would be discarded by a preemption
+                    # now: it is not progress yet (else a quantum of 1
+                    # livelocks, every residency's only token dying)
+                    quantum += 1
+                if self.stats["decode_steps"] - self._resident_since[slot] \
+                        < quantum:
+                    continue
+            if slot in self.prefilling and self._chunks_done[slot] == 0:
+                continue
+            if not self.pool.can_swap_out(slot):
+                continue
+            key = (self._last_decoded[slot], self._admitted_at[slot])
+            if best_key is None or key < best_key:
+                best, best_key = slot, key
+        return best
+
+    def _preempt_until(self, can_fit, exclude: Optional[int] = None) -> bool:
+        """Swap LRU residents out to host DRAM until ``can_fit()`` passes.
+        False (partial evictions stay: their capacity stays freed) when no
+        eligible victim remains."""
+        while not can_fit():
+            victim = self._pick_victim(exclude)
+            if victim is None:
+                return False
+            vreq = self.active.pop(victim, None)
+            if vreq is None:
+                vreq = self.prefilling.pop(victim, None)
+                if vreq is not None:
+                    self.stats["preempted_mid_prefill"] += 1
+                else:
+                    vreq = self.prefilled_wait.pop(victim)
+            self.pool.swap_out(victim)
+            self.tracer.request_state(vreq.seq_id, "preempted")
+            # back of the queue: the waiting request goes first and the
+            # victim resumes in FIFO turn (front only if the mailbox is full)
+            if not self.mailbox.put(vreq):
+                self.mailbox.requeue(vreq)
+            self.stats["preemptions"] += 1
+            self._sync_swap_stats()
+        return True
+
+    def _sync_swap_stats(self) -> None:
+        for k in ("swap_out_count", "swap_in_count", "swap_out_bytes",
+                  "swap_in_bytes"):
+            self.stats[k] = getattr(self.pool, k)
+
+    def _finish_pending_swapin(self) -> None:
+        while self._pending_swapins:
+            req, token = self._pending_swapins.pop(0)
+            slot = self.pool.swap_in_finish(token)
+            self.tracer.request_instant(req.seq_id, "resumed")
+            self._activate(slot, req, first_admit=False)
+            self._sync_swap_stats()
 
     def _admit_paged(self):
         """Admit by page availability: the drain stops at the first request
-        the pool cannot take (requeued at the front, FIFO preserved), and a
-        refusal stalls admission until a release frees capacity. Admission
-        reserves only the *prompt* pages: the request enters
+        the pool cannot take (requeued at the front, FIFO preserved).
+        Admission reserves only the *prompt* pages: the request enters
         ``prefilling`` and the step loop slices its prompt into chunks.
+
+        Untiered, a refusal stalls admission until a release frees
+        capacity. Tiered, a refusal first preempts LRU residents to host
+        DRAM, and the stall clears every pass (decode steps expire
+        residency quanta, so a retry can progress). A cold request at the
+        head resumes instead of admitting: synchronously, or in the
+        overlapped loop by starting its copies and draining on.
 
         With a prefix layer the request adopts the pages of its longest
         cached prefix and prefills only the rest. A page shortage first
         evicts cache entries whose page would really free, re-matching
         after each (an evicted page may have been part of the match); a
         slot shortage never evicts."""
+        if self.tiered:
+            if not self.active:
+                # no decode step will run to land the prefetch: finish it
+                # here so the loop always makes progress
+                self._finish_pending_swapin()
+            self._admit_stalled = False
         if self._admit_stalled:
             return
         while True:
@@ -274,6 +465,33 @@ class Scheduler:
             if not reqs:
                 break
             req = reqs[0]
+            if self.tiered and self.pool.is_cold(req.seq_id):
+                if not self.pool.can_resume(req.seq_id) and \
+                        not self._preempt_until(
+                            lambda: self.pool.can_resume(req.seq_id)):
+                    self.mailbox.requeue(req)
+                    self.stats["admission_refusals"] += 1
+                    self._admit_stalled = True
+                    break
+                if self.overlap:
+                    # shadow phase: claim the slot and pages now (capacity
+                    # stays exact) and start the copies; the wait and the
+                    # scatter land at the top of the next step's shadow
+                    self._pending_swapins.append(
+                        (req, self.pool.swap_in_start(req.seq_id)))
+                    self._sync_swap_stats()
+                    continue
+                slot = self.pool.swap_in(req.seq_id)
+                self.tracer.request_instant(req.seq_id, "resumed")
+                self._activate(slot, req, first_admit=False)
+                self._sync_swap_stats()
+                continue
+            if self.policy is not None and \
+                    not self.policy.may_admit(self._in_system()):
+                # concurrency gate: a quiet "not yet", no refusal stat (cold
+                # resumes above are exempt: they are in the system already)
+                self.mailbox.requeue(req)
+                break
             L = len(req.prompt)
             if not self.pool.admissible_ever(L, req.max_new):
                 # could never fit even on an idle pool: reject outright
@@ -288,6 +506,11 @@ class Scheduler:
                         np.any(self.pool.seq_ids < 0) and \
                         self.pool.evict_cached(1, require_free=True):
                     continue            # reclaimed a cache-pinned page
+                if self.tiered and self._preempt_until(
+                        lambda: self.pool.can_admit_prefill(
+                            L, req.max_new, len(match.pages),
+                            match.length)):
+                    continue
                 match = None
                 break
             if match is None:
@@ -308,7 +531,7 @@ class Scheduler:
                 # is this request's first token, and prefill is skipped
                 self.stats["prefix_full_hits"] += 1
                 self._emit(req, match.first_token)
-            self._activate(slot, req)
+            self._activate(slot, req, first_admit=True)
 
     def _prefix_match(self, req: Request) -> PrefixMatch:
         """Prefix-cache lookup for a fresh request (no KV written yet). The
@@ -320,6 +543,10 @@ class Scheduler:
 
     # -- decode ---------------------------------------------------------------
     def _dispatch_decode_paged(self, slots: List[int]):
+        if self.tiered and not self.overlap:
+            # land the prefetch started at the end of the previous step (the
+            # overlapped loop lands prefetches in its shadow phase instead)
+            self._finish_pending_swapin()
         B = self.pool.max_batch
         toks = np.zeros(B, np.int32)
         for slot in slots:
@@ -342,9 +569,15 @@ class Scheduler:
         self.stats["decode_steps"] += 1
         self.stats["decode_tokens"] += len(slots)
         self.stats["batch_occupancy"].append(len(slots) / B)
+        for slot in slots:
+            self._last_decoded[slot] = self.stats["decode_steps"]
         used = self.pool.used_bytes()
         self.stats["peak_used_bytes"] = max(
             self.stats.get("peak_used_bytes", 0), used)
+        if self.tiered:
+            self.stats["peak_host_bytes"] = max(
+                self.stats.get("peak_host_bytes", 0),
+                self.pool.host_used_bytes())
         self.stats["peak_in_system"] = max(
             self.stats.get("peak_in_system", 0), self._in_system())
         pairs = [(slot, self.active[slot]) for slot in slots]
@@ -357,6 +590,9 @@ class Scheduler:
                              vals: np.ndarray):
         for slot, req in pairs:
             if self.active.get(slot) is not req:
+                # preempted while its step was in flight: the swap-out took
+                # the pre-decode KV, and the greedy resume re-derives this
+                # token
                 continue
             self._emit(req, int(vals[slot]))
             self.pool.lengths[slot] += 1
@@ -370,32 +606,68 @@ class Scheduler:
                 self.tracer.request_state(req.seq_id, "finished")
                 self._admit_stalled = False       # capacity freed: retry
 
+    def _start_prefetch(self) -> None:
+        """If the mailbox head is a cold sequence the hot tier can take now,
+        start its host→device copies; they land at the next admission pass,
+        so the transfer overlaps the host work in between."""
+        if self._pending_swapins or not self.pool.cold_seqs():
+            return
+        head = self.mailbox.drain(1)
+        if not head:
+            return
+        req = head[0]
+        if self.pool.is_cold(req.seq_id) and self.pool.can_resume(req.seq_id):
+            self._pending_swapins.append(
+                (req, self.pool.swap_in_start(req.seq_id)))
+        else:
+            self.mailbox.requeue(req)
+
     # -- the unified token-budgeted step --------------------------------------
     def _pack_and_promote(self):
         self._promote_waiters()
         decode_slots = sorted(self.active)
         mid_prefill = sorted(int(r.seq_id) for r in self.prefilling.values())
         budget_left = self.token_budget - len(decode_slots)
+        if self.policy is not None:
+            # ITL-target shaping: squeeze the prefill share to its floor
+            # (one token per mid-prefill resident) while decode latency is
+            # over target
+            budget_left = self.policy.prefill_allowance(
+                budget_left, len(self.prefilling))
         return decode_slots, mid_prefill, budget_left, \
             self._pack_chunks(budget_left)
 
-    def _step_chunked(self) -> None:
-        """One iteration: admission, promotion of prefilled waiters, budget
-        packing (decode tokens first, then fair-shared prompt chunks), the
-        chunk dispatches, then one decode step. In overlap mode admission
-        runs in the shadow of the previous iteration's device step and the
-        commit fetch sits between it and the packing."""
+    def _step_chunked(self) -> bool:
+        """One iteration: swap-in landings (tiered), admission, promotion of
+        prefilled waiters, budget packing (decode tokens first, then
+        fair-shared prompt chunks), the chunk dispatches, then one decode
+        step. In overlap mode the landings, admission, COW pre-fork and
+        prefetch run in the shadow of the previous iteration's device step,
+        and the commit fetch sits between them and the packing. Returns
+        True iff a decode step was dispatched."""
         if self.overlap:
             with self.tracer.span("schedule"):
+                self._shadow_activated.clear()
+                if self.tiered:
+                    self._finish_pending_swapin()
                 self._admit_paged()             # shadow phase
                 if self.prefix is not None:
                     self._cow_prefork()
+                if self.tiered:
+                    self._start_prefetch()
+                    if not self.active and not self.prefilling:
+                        # nothing will dispatch this step, so the copies
+                        # have no device window to hide behind: land them
+                        # now and let this step decode instead of idling
+                        self._finish_pending_swapin()
             self._flush_commit()                # the one blocking fetch
             with self.tracer.span("schedule"):
                 decode_slots, mid_prefill, budget_left, chunks = \
                     self._pack_and_promote()
         else:
             with self.tracer.span("schedule"):
+                if self.tiered:
+                    self._finish_pending_swapin()
                 self._admit_paged()
                 decode_slots, mid_prefill, budget_left, chunks = \
                     self._pack_and_promote()
@@ -415,6 +687,7 @@ class Scheduler:
             # this iteration's consumers become the NEXT iteration's commit
             self._commit_queue = self._fetch_queue
             self._fetch_queue = []
+        return bool(decode_slots)
 
     def _cow_prefork(self) -> None:
         """Shadow-phase COW pre-fork (overlapped loop, prefix stack): fork
@@ -477,6 +750,7 @@ class Scheduler:
                 toks, self.pool.pages, table_row, int(start))
         req.prefill_pos = start + size
         self.pool.lengths[slot] = req.prefill_pos
+        self._chunks_done[slot] += 1
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_chunk_tokens"] += size
         if req.prefill_pos >= len(req.prompt):
@@ -492,6 +766,9 @@ class Scheduler:
         self._emit(req, tok)
         self.stats["prefills"] += 1
         if self.prefilling.get(slot) is not req:
+            # preempted while the completing chunk was in flight: the
+            # swap-out took the whole prompt's KV and tokens_out now ends in
+            # this token, so the resume activates straight past prefill
             return
         del self.prefilling[slot]
         if self.prefix is not None:
@@ -504,9 +781,10 @@ class Scheduler:
             self.prefilled_wait[slot] = req
 
     def _promote_waiters(self):
-        """FIFO promotion of prefilled waiters into the decode set. When
-        nothing is decoding or prefilling (so no release can come) the
-        youngest waiter is evicted and re-prefills later."""
+        """FIFO promotion of prefilled waiters into the decode set. Tiered,
+        a blocked head may preempt LRU residents. When nothing is decoding
+        or prefilling (so no release can come) the youngest waiter is
+        evicted and re-prefills later."""
         while True:
             order = sorted(self.prefilled_wait,
                            key=lambda s: self._admitted_at[s])
@@ -523,6 +801,12 @@ class Scheduler:
                         self.pool.evict_cached(1, require_free=True):
                     pass
                 ok = self.pool.reserve_decode(req.seq_id, L, req.max_new)
+            if not ok and self.tiered:
+                ok = self._preempt_until(
+                    lambda: self.pool.can_reserve_decode(
+                        req.seq_id, L, req.max_new),
+                    exclude=head) and \
+                    self.pool.reserve_decode(req.seq_id, L, req.max_new)
             if not ok and not self.active and not self.prefilling and \
                     len(order) > 1:
                 self._evict_reprefill(order[-1])

@@ -157,24 +157,33 @@ def _check_engine_parity(mix, overlap, kv_dtype):
 
 
 def test_cache_manager_protocol_and_unported_layers():
-    """The four stacks the port builds (paged, prefix, int8, int8 + prefix)
-    satisfy the protocol by static lookup; the swap tier is refused, naming
-    its ROADMAP item, alone and under every other layer."""
+    """All eight stacks ({paged, int8} × {±tiered} × {±prefix}) build and
+    satisfy the protocol by static lookup; the tiered ones are subclasses
+    of the pool with the prefix layer over the tier, as in the reference's
+    layer order. (Every layer of the reference's stack is ported now.)"""
     eng = _port_engine("system")
     assert isinstance(eng.pool, tcache.CacheManager)
     cfg = eng.cfg
-    for prefix in (False, True):
-        for kv_dtype in ("compute", "int8"):
-            pool = tcache.build_cache_manager(
-                cfg, tcache.CacheConfig(prefix=prefix, kv_dtype=kv_dtype),
-                2, 32)
-            assert isinstance(pool, tcache.CacheManager)
-            assert (pool.prefix is not None) == prefix
-            assert isinstance(pool, tcache.PrefixCachingPool) == prefix
-            with pytest.raises(NotImplementedError, match="item 9"):
-                tcache.build_cache_manager(
-                    cfg, tcache.CacheConfig(tiered=True, prefix=prefix,
+    from repro_torch.serve.kvcache import PagedCachePool
+    from repro_torch.serve.tiering import TieredCachePool
+    for tiered in (False, True):
+        for prefix in (False, True):
+            for kv_dtype in ("compute", "int8"):
+                pool = tcache.build_cache_manager(
+                    cfg, tcache.CacheConfig(tiered=tiered, prefix=prefix,
                                             kv_dtype=kv_dtype), 2, 32)
+                assert isinstance(pool, tcache.CacheManager)
+                assert isinstance(pool, PagedCachePool)
+                assert (pool.prefix is not None) == prefix
+                assert isinstance(pool, tcache.PrefixCachingPool) == prefix
+                assert isinstance(pool, TieredCachePool) == tiered
+                assert pool.quantized == (kv_dtype == "int8")
+                if tiered and prefix:
+                    mro = type(pool).__mro__
+                    assert mro.index(tcache.PrefixCachingPool) < \
+                        mro.index(TieredCachePool) < mro.index(PagedCachePool)
+                if tiered:
+                    assert pool.host_free_bytes() > 0 and not pool.cold_seqs()
     with pytest.raises(ValueError, match="kv_dtype"):
         tcache.build_cache_manager(cfg, tcache.CacheConfig(kv_dtype="fp8"),
                                    2, 32)

@@ -5,17 +5,21 @@ Three layers of the same property, all on the CPU at the smoke config:
   * ``PrefixCache`` (a copy of the reference's radix index) gives the
     reference's results on the same insert / match / evict sequences:
     match lengths, pages, first tokens, evicted pages, fingerprints;
-  * the four cache stacks the port builds (paged, prefix, int8,
-    int8 + prefix) satisfy ``CacheManager`` by static lookup, and seeded
-    random admit / reserve / ensure / COW / insert / release sequences leave
-    the allocator exactly as the reference's stack leaves it, never leak,
-    keep ``audit()`` clean and close the refcounts (one reference per cached
+  * the eight cache stacks the port builds ({paged, int8} × {±tiered} ×
+    {±prefix}) satisfy ``CacheManager`` by static lookup, and seeded
+    random admit / reserve / ensure / COW / insert / release sequences (on
+    a tiered stack also page writes, swap-out, swap-in start and finish)
+    leave the allocator, the cold tier, the L3 arena and the swap counters
+    exactly as the reference's stack leaves them, and the resumed pages'
+    bytes equal the reference's after every swap-in; they never leak, keep
+    ``audit()`` clean and close the refcounts (one reference per cached
     page after every sequence releases; ``clear()`` restores the pool);
   * the port's engine on a prefix stack (and on int8 + prefix) gives the
     JAX engine's greedy streams and counters on shared-prefix schedules,
     with the overlapped loop on and off.
 """
 import functools
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -122,7 +126,16 @@ def test_prefix_cache_equals_the_reference(seed):
 STACKS = {   # name -> CacheConfig fields shared by both packages
     "paged": dict(), "prefix": dict(prefix=True, prefix_pages=4),
     "int8": dict(kv_dtype="int8"),
-    "int8_prefix": dict(prefix=True, prefix_pages=4, kv_dtype="int8")}
+    "int8_prefix": dict(prefix=True, prefix_pages=4, kv_dtype="int8"),
+    # a host budget that refuses some swap-outs (2 KiB f32 pages, 544 B
+    # int8 pages; o1heap rounds each record up to a power of two)
+    "tiered": dict(tiered=True, host_budget_bytes=16384),
+    "tiered_prefix": dict(tiered=True, host_budget_bytes=16384,
+                          prefix=True, prefix_pages=4),
+    "int8_tiered": dict(tiered=True, host_budget_bytes=4096,
+                        kv_dtype="int8"),
+    "int8_tiered_prefix": dict(tiered=True, prefix=True, prefix_pages=4,
+                               kv_dtype="int8")}
 
 
 def _stacks(name, n_slots=3, max_seq=16):
@@ -137,18 +150,82 @@ def _stacks(name, n_slots=3, max_seq=16):
 
 def _state(pool):
     a = pool.alloc
-    return (sorted((s, list(p)) for s, p in a._seq_pages.items()),
-            sorted(a._refcount.items()), sorted(a._free),
-            list(np.asarray(pool.seq_ids)), list(np.asarray(pool.lengths)),
-            None if pool.prefix is None else sorted(pool.prefix.cached_pages()))
+    state = (sorted((s, list(p)) for s, p in a._seq_pages.items()),
+             sorted(a._refcount.items()), sorted(a._free),
+             list(np.asarray(pool.seq_ids)), list(np.asarray(pool.lengths)),
+             None if pool.prefix is None
+             else sorted(pool.prefix.cached_pages()))
+    if not hasattr(pool, "swap_out"):
+        return state
+    return state + (sorted(pool.cold_seqs()), pool.host_used_bytes(),
+                    pool.host_free_bytes(), pool.swap_out_count,
+                    pool.swap_in_count, pool.swap_out_bytes,
+                    pool.swap_in_bytes)
 
 
-def _op_sequence(case, n_ops=70):
+def _page_rows(pool, ids):
+    """Pages ``ids`` of every leaf as (name, f32 numpy) pairs, either
+    package."""
+    out = []
+    for per_pos in pool.pages:
+        for kv in per_pos:
+            for name in sorted(kv):
+                arr = kv[name]
+                if isinstance(arr, torch.Tensor):
+                    out.append((name, arr[:, torch.tensor(ids, dtype=torch.long)]
+                                .float().numpy()))
+                else:
+                    out.append((name, np.asarray(
+                        arr[:, jnp.asarray(ids)].astype(jnp.float32))))
+    return out
+
+
+def _digest(rows) -> str:
+    h = hashlib.sha1()
+    for name, r in rows:
+        h.update(name.encode() + np.ascontiguousarray(r).tobytes())
+    return h.hexdigest()
+
+
+def _write_pages(pool, ids, seed):
+    """Seeded contents on pages ``ids`` of every leaf, either package."""
+    rng = np.random.default_rng(seed)
+    new_pages = []
+    for per_pos in pool.pages:
+        new_pos = []
+        for kv in per_pos:
+            leaf = {}
+            for name in sorted(kv):
+                arr = kv[name]
+                shape = (arr.shape[0], len(ids)) + tuple(arr.shape[2:])
+                if "int8" in str(arr.dtype):
+                    rows = rng.integers(-127, 128, shape).astype(np.int8)
+                else:
+                    rows = rng.uniform(0.01, 1.0, shape).astype(np.float32)
+                if isinstance(arr, torch.Tensor):
+                    arr[:, torch.tensor(ids, dtype=torch.long)] = \
+                        torch.from_numpy(rows).to(arr.dtype)
+                    leaf[name] = arr
+                else:
+                    leaf[name] = arr.at[:, jnp.asarray(ids)].set(
+                        jnp.asarray(rows).astype(arr.dtype))
+            new_pos.append({n: leaf[n] for n in kv})
+        new_pages.append(tuple(new_pos))
+    pool.pages = new_pages
+
+
+def _valid_ids(pool, slot):
+    sid = int(pool.seq_ids[slot])
+    pages = list(pool.alloc._seq_pages[sid])
+    return pages[:pool.pages_for(max(int(pool.lengths[slot]), 1))]
+
+
+def _op_sequence(case, n_ops=70, n_kinds=6):
     rng = np.random.default_rng(100 + case)
     bases = [rng.integers(0, 64, 9) for _ in range(2)]
     ops = []
     for _ in range(n_ops):
-        op = int(rng.integers(0, 6))
+        op = int(rng.integers(0, n_kinds))
         b = bases[int(rng.integers(0, 2))]
         prompt = np.concatenate([b[:int(rng.integers(1, 10))],
                                  rng.integers(0, 64, int(rng.integers(0, 4)))])
@@ -157,11 +234,15 @@ def _op_sequence(case, n_ops=70):
     return ops
 
 
-def _apply(pool, op, prompt, new, pick, tok, live):
+def _apply(pool, op, prompt, new, pick, tok, live, tier=None):
     """One op on a stack; returns what it returned (compared across the two
-    packages). ``live``: slot -> (seq_id, prompt, max_new)."""
+    packages). ``live``: slot -> (seq_id, prompt, max_new); ``tier`` (a
+    tiered stack): the cold requests, the pending resumes and the page
+    bytes each cold sequence left with."""
     acts = sorted(live)
     slot = acts[pick % len(acts)] if acts else None
+    if op >= 6:
+        return _apply_tier(pool, op, pick, tok, live, slot, tier)
     if op == 0:                                    # admit, prefix-matched
         L = len(prompt)
         m = pool.match(prompt) if pool.prefix is not None else None
@@ -169,7 +250,7 @@ def _apply(pool, op, prompt, new, pick, tok, live):
         if not pool.can_admit_prefill(L, new, len(shared), mlen):
             return ("refused",)
         sid = 1000 + len(live) + pick
-        if sid in pool.alloc._seq_pages:
+        if sid in pool.alloc._seq_pages or (tier and sid in tier["cold"]):
             return ("dup",)
         s = pool.admit_prefill(sid, L, shared_pages=shared, match_len=mlen)
         pool.lengths[s] = L
@@ -204,8 +285,48 @@ def _apply(pool, op, prompt, new, pick, tok, live):
     return ("noop",)
 
 
+def _apply_tier(pool, op, pick, tok, live, slot, tier):
+    """The swap ops: page writes, swap-out, swap-in start and finish. A
+    finish checks that the resumed pages hold the bytes the sequence left
+    with and returns their digest (compared across the packages)."""
+    if op == 6:                                    # write, then swap out
+        if slot is None:
+            return ("idle",)
+        ids = _valid_ids(pool, slot)
+        _write_pages(pool, ids, tok)
+        if not pool.can_swap_out(slot):
+            return ("no-budget", _digest(_page_rows(pool, ids)))
+        saved = _page_rows(pool, ids)
+        sid = pool.swap_out(slot)
+        tier["cold"][sid] = (live.pop(slot), saved)
+        return ("swap_out", sid, _digest(saved))
+    if op == 7:                                    # start a resume
+        pending = {p.seq_id for p in tier["pending"]}
+        cold = sorted(set(tier["cold"]) - pending)
+        if not cold:
+            return ("no-cold",)
+        sid = cold[pick % len(cold)]
+        if not pool.can_resume(sid):
+            return ("no-room", sid)
+        tier["pending"].append(pool.swap_in_start(sid))
+        return ("start", sid, tier["pending"][-1].slot)
+    if op == 8 and tier["pending"]:                # land the oldest resume
+        p = tier["pending"].pop(0)
+        slot = pool.swap_in_finish(p)
+        entry, saved = tier["cold"].pop(p.seq_id)
+        live[slot] = entry
+        rows = _page_rows(pool, _valid_ids(pool, slot))
+        for (n0, r0), (n1, r1) in zip(saved, rows):
+            assert n0 == n1
+            np.testing.assert_array_equal(r0, r1)
+        return ("finish", slot, _digest(rows))
+    return ("noop",)
+
+
 @pytest.mark.parametrize("name", sorted(STACKS))
 def test_stacks_conform_and_close_like_the_reference(name):
+    tiered = "tiered" in name
+    swaps = 0
     for case in range(3):
         tpool, jpool = _stacks(name)
         assert isinstance(tpool, tcache.CacheManager)
@@ -217,11 +338,23 @@ def test_stacks_conform_and_close_like_the_reference(name):
         else:
             assert set(leaf) == {"k", "v"}
         tlive, jlive = {}, {}
-        for op in _op_sequence(case):
-            got = _apply(tpool, *op, tlive)
-            assert got == _apply(jpool, *op, jlive), (case, op)
+        ttier, jtier = [dict(cold={}, pending=[]) if tiered else None
+                        for _ in range(2)]
+        for op in _op_sequence(case, n_kinds=9 if tiered else 6):
+            got = _apply(tpool, *op, tlive, ttier)
+            assert got == _apply(jpool, *op, jlive, jtier), (case, op)
             tpool.alloc.audit()
             assert _state(tpool) == _state(jpool)
+        if tiered:
+            swaps += tpool.swap_in_count
+            for p in ttier["pending"]:
+                tlive[tpool.swap_in_finish(p)] = None
+            for sid in list(ttier["cold"]):
+                if not tpool.is_cold(sid):
+                    continue
+                tpool.drop_cold(sid)
+            assert not tpool.cold_seqs() and tpool.host_used_bytes() == 0
+            assert tpool.hero.levels[3].in_use() == 0
         for slot in sorted(tlive):
             tpool.release(slot)
         a = tpool.alloc
@@ -237,6 +370,7 @@ def test_stacks_conform_and_close_like_the_reference(name):
         tpool.prefix.clear()
         assert tpool.prefix.held_pages == 0 and a.free_pages == a.n_pages
         a.audit()
+    assert swaps > 0 or not tiered
 
 
 def test_cow_fork_copies_payload_and_scales():
