@@ -46,16 +46,17 @@ Phases, each printed on its own line, none catching its own failure:
                (B 8, H 14, K 2, S 2048, hd 64, bf16; ragged lengths from
                the serving mix, a length-0 slot, which must return the
                mean of V, and a full one) and at the reference tests'
-               shapes in f32, then captured in a CUDA graph at the main
-               shape and replayed twice, bit for bit equal to the eager
+               shapes in f32 (and hd 16, the smoke width), then captured
+               in a CUDA graph at the main shape and replayed twice, bit for bit equal to the eager
                call (its one launch, split grid and in-kernel merge
                logged); flash_attention at qwen2-0.5b's full width
                (B 1, H 14, L 2048, hd 64, bf16, causal), gemma3-27b's
                local layer (B 1, H 32, L 4096, hd 128, bf16, causal,
                window 1024) and small softcap / window / no-key-row /
                ragged cases at hd 32, 64 and 128, each in bf16 (the
-               tensor-core kernel) and f32 (the CUDA-core kernel); each
-               against its plain version on the same CUDA tensors within
+               tensor-core kernel) and f32 (the CUDA-core kernel), and at
+               hd 16 in f32 (the smoke width, which phase 8's dense
+               prefill takes); each against its plain version on the same CUDA tensors within
                atol 2e-3, plus one bf16 rounding step of the value for bf16
                outputs (both sides round an f32 result to bf16); kernel,
                plain, ``scaled_dot_product_attention`` yardstick (mask
@@ -92,16 +93,54 @@ Phases, each printed on its own line, none catching its own failure:
                ITL, the tracer's dma windows and stall share, each way's
                GB/s on the copy stream beside the PCIe link, and the share
                of tokens equal to phase 7's untiered streams;
+  7d. serve fleet  two replicas of phase 7's model (one set of weights)
+               behind the fleet router, each a chunked engine on bf16
+               pages with the prefix layer: two 1024-token system prompts,
+               A0 and B0 (suffixes of 64-512 tokens) stepped until both
+               prefills land, then 12 followers in pairs, A A B B ...,
+               64 new tokens each; gates: every request finishes, all 12
+               followers routed by prefix (12 x 1024 matched tokens), 6
+               prefix hits a replica, every kernel launch counted, every
+               page free and each allocator's audit clean after clear()
+               and a drain; then the same traffic under round robin (it
+               splits each pair: no prefix-routed request, at most 10
+               hits), and
+               under the prefix router with r1 killed while it decodes
+               (its requests finish on r0, none lost; respawn, drain,
+               audits clean); logged, not gated: tok/s, TTFT and ITL per
+               run and the share of tokens equal to the un-killed run;
+  7e. serve dense  phase 7's model and traffic through the dense engine (a
+               slot pool of 8 x 2048 x 12,288 B) and the monolithic paged
+               engine (bf16 pages); gates: every request finishes, the
+               dense run launches flash_decode 24 x decode steps and
+               flash_attention 24 x prefills times, the monolithic run
+               paged_flash_decode 24 x decode steps and flash_attention
+               24 x prefills times and paged_flash_prefill never, every
+               slot or page free at the end; logged: tok/s, TTFT, ITL and
+               the share of tokens equal to phase 7's chunked streams;
+               then flash_decode at the dense decode step's shape (each
+               slot at its last step's length) and flash_attention at the
+               longest prompt's prefill, each held against its plain
+               version and timed for its serving entries;
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams and equal
                preemption, swap, refusal and prefix-hit counters, on the
                paged, int8 + prefix, tiered and int8 + tiered + prefix
                stacks (a 6-page hot tier: the tiered ones must preempt),
                and the same shed verdicts on the chunked shedding mix
-               behind ``PolicyConfig(max_in_system=2, max_queue=4)``;
+               behind ``PolicyConfig(max_in_system=2, max_queue=4)``; the
+               dense engine and the monolithic paged engine (paged, and
+               int8 + tiered on a 4-page hot tier, which must preempt) on
+               prompts of 3, 9, 5 and 12 tokens; a two-replica prefix
+               fleet with one kill and one respawn, whose streams, fleet
+               counters and placements also equal on both devices, and
+               whose streams equal one chunked engine's;
   9. a ``{"kernels": [...]}`` line (the paged kernels twice: bf16 pages with
-     phase 7's launches, int8 pages with phase 7b's), then the card's name
-     and power limit,
+     phase 7's launches, int8 pages with phase 7b's; flash_decode and
+     flash_attention with phase 5's suite launches, and again as
+     flash_decode_dense, flash_attention_dense and
+     flash_attention_monolithic, each with the launches of its own 7e run
+     and timed at 7e's shapes), then the card's name and power limit,
      then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line. Without a card, or run
@@ -718,7 +757,8 @@ def check_attention_kernels(results):
              ((2, 8, 2, 256, 64), f32, [0, 200]),
              ((1, 4, 4, 512, 128), f32, [512]),
              ((3, 6, 3, 384, 64), f32, [383, 0, 17]),
-             ((2, 4, 2, 100, 32), bf16, [0, 99])]
+             ((2, 4, 2, 100, 32), bf16, [0, 99]),
+             ((4, 4, 2, 64, 16), f32, [4, 0, 13, 64])]   # the smoke width
     for (B_, H_, K_, S_, hd_), dt, lens in cases:
         q = torch.randn(B_, H_, hd_, generator=g, device="cuda").to(dt)
         kc, vc = (torch.randn(B_, K_, S_, hd_, generator=g, device="cuda")
@@ -760,6 +800,9 @@ def check_attention_kernels(results):
     main = [((B_, H_, L, L, hd_), causal, window, None, bf16)
             for B_, H_, L, hd_, causal, window in ATTENTION.values()]
     cases = main + [c + (dt,) for c in small for dt in (bf16, f32)]
+    # hd 16 (the smoke configuration's width; the f32 kernel only)
+    cases += [((3, 4, 45, 45, 16), True, None, None, f32),
+              ((1, 4, 200, 200, 16), False, 48, 5.0, f32)]
     for (B_, H_, L, Lk, hd_), causal, window, softcap, dt in cases:
         q = torch.randn(B_, H_, L, hd_, generator=g, device="cuda").to(dt)
         k, v = (torch.randn(B_, H_, Lk, hd_, generator=g, device="cuda")
@@ -1316,6 +1359,283 @@ def prefix_int8_serve(results, card: str):
     match(bf16_prefix, bf16, "control: bf16 + prefix against bf16 pages")
 
 
+def _latency(reqs):
+    """TTFT and ITL p50 / p99 (s) over finished requests' own stamps."""
+    from repro_torch.serve.metrics import percentiles
+    ttft = [r.t_first - r.t_submit for r in reqs]
+    itl = [b - a for r in reqs for a, b in zip(r.t_tokens, r.t_tokens[1:])]
+    out = percentiles(ttft, (50, 99), prefix="ttft_", suffix="_s")
+    out.update(percentiles(itl, (50, 99), prefix="itl_", suffix="_s"))
+    return out
+
+
+def _match(a, b) -> float:
+    """The share of tokens of streams ``a`` equal, position for position,
+    to streams ``b``."""
+    same = sum(x == y for i in a for x, y in zip(a[i], b[i]))
+    return same / sum(len(t) for t in a.values())
+
+
+def fleet_serve(card: str):
+    """Two full-width replicas sharing one model, each a chunked engine on
+    bf16 pages with the prefix layer: two 1024-token system prompts, A0
+    and B0 first (stepped until both prefills land), then six followers of
+    each, in pairs A A B B ...; under the prefix router, under round robin,
+    and
+    under the prefix router again with r1 killed while it decodes."""
+    from repro_torch import configs
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.launch.serve import warm_up
+    from repro_torch.models import transformer
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import EngineConfig, Request
+    from repro_torch.serve.replica import DEAD
+    from repro_torch.serve.router import Fleet
+    cfg = configs.get_config("qwen2-0.5b")                 # bf16 compute
+    model = transformer.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    conf = EngineConfig(n_slots=8, max_seq=2048, chunked=True,
+                        token_budget=256,
+                        cache=CacheConfig(page_tokens=16, prefix=True))
+    warm_up(cfg, model, conf, "cuda")
+    rng = np.random.default_rng(7)
+    system = [rng.integers(0, cfg.vocab, SYSTEM_PROMPT) for _ in range(2)]
+    first = [np.concatenate([system[i], rng.integers(
+        0, cfg.vocab, int(rng.integers(64, 513)))]).astype(np.int32)
+        for i in range(2)]
+    # followers in pairs, A A B B ...: round robin splits each pair over
+    # both replicas, the prefix router sends both to the one holding it
+    followers = [np.concatenate([system[i // 2 % 2], rng.integers(
+        0, cfg.vocab, int(rng.integers(64, 513)))]).astype(np.int32)
+        for i in range(12)]
+    prompts = first + followers
+    n_req = len(prompts)
+
+    def run(router, kill_after=None):
+        fleet = Fleet(cfg, model, conf, replicas=2, router=router,
+                      device="cuda")
+        pda.paged_flash_decode.launches = 0
+        ppa.paged_flash_prefill.launches = 0
+        t0 = time.perf_counter()
+        reqs = [Request(seq_id=i, prompt=p.copy(), max_new=64)
+                for i, p in enumerate(prompts)]
+        done = []
+        for r in reqs[:2]:
+            fleet.submit(r)
+        while not all(r.tokens_out for r in reqs[:2]):
+            done += fleet.step()
+        for r in reqs[2:]:
+            fleet.submit(r)
+        steps, killed = 0, None
+        while not fleet.idle:
+            if kill_after is not None and steps == kill_after:
+                r1 = fleet._by_name["r1"]
+                assert r1.engine.scheduler.active, "r1 is not decoding"
+                r1.fail_after(1)
+            done += fleet.step()
+            steps += 1
+            if killed is None and fleet._by_name["r1"].state == DEAD:
+                killed = fleet._finished_by["r1"]
+            assert steps < 100000
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_dec = pda.paged_flash_decode.launches
+        n_pre = ppa.paged_flash_prefill.launches
+        streams = {int(r.seq_id): list(r.tokens_out) for r in done}
+        assert sorted(streams) == list(range(n_req)), "requests lost"
+        assert all(len(t) == 64 for t in streams.values())
+        assert not fleet.shed and not fleet._pending and not fleet._inflight
+        summ = fleet.stats_summary()
+        per = summ["per_replica"]
+        steps_dec = sum(s["decode_steps"] for s in per.values())
+        chunks = sum(s["prefill_chunks"] for s in per.values())
+        if kill_after is None:
+            assert n_dec == cfg.n_layers() * steps_dec > 0, (n_dec, per)
+            assert n_pre == cfg.n_layers() * chunks > 0, (n_pre, per)
+        return fleet, streams, wall, summ, (n_dec, n_pre), killed, done
+
+    def report(what, fleet, streams, wall, summ, launches, done):
+        fs, per = summ["fleet"], summ["per_replica"]
+        toks = sum(len(t) for t in streams.values())
+        lat = _latency(done)
+        log("serve fleet", f"{card}: {what}: {n_req} requests (prompts "
+            f"{[len(p) for p in prompts]}), "
+            f"{toks} new tokens in {wall:.3f} s ({toks / wall:.1f} tok/s), "
+            f"ttft p50/p99 {lat['ttft_p50_s']:.4f}/{lat['ttft_p99_s']:.4f} "
+            f"s, itl p50/p99 {lat['itl_p50_s'] * 1e3:.2f}/"
+            f"{lat['itl_p99_s'] * 1e3:.2f} ms; routed {fs['routed']} "
+            f"({fs['routed_prefix']} prefix-affine, "
+            f"{fs['routed_prefix_tokens']} matched tok), requeued "
+            f"{fs['requeued_kill']} on a kill; launches: paged_flash_decode "
+            f"{launches[0]}, paged_flash_prefill {launches[1]}")
+        for name, s in sorted(per.items()):
+            log("serve fleet", f"  {name} ({fs['replicas'][name]['state']},"
+                f" gen {fs['replicas'][name]['generation']}): finished "
+                f"{fs['replicas'][name]['finished']}, prefix hits "
+                f"{s['prefix_hits']}, shared tokens "
+                f"{s['prefix_shared_tokens']}, prefill chunk tokens "
+                f"{s['prefill_chunk_tokens']}, decode steps "
+                f"{s['decode_steps']}")
+
+    def drain_and_audit(fleet):
+        for rep in fleet.replicas:
+            if rep.engine is not None and rep.engine.prefix is not None:
+                rep.engine.prefix.clear()
+            if rep.state == "ready":
+                fleet.drain(rep.name)
+        fleet.run(50)
+        for rep in fleet.replicas:
+            a = rep.engine.pool.alloc
+            assert rep.state == DEAD and a.free_pages == a.n_pages
+            assert a._seq_pages == {}
+            a.audit()
+
+    fleet, streams, wall, summ, launches, _, done = run("prefix")
+    fs = summ["fleet"]
+    assert fs["routed"] == n_req and fs["routed_prefix"] == 12, fs
+    assert fs["routed_prefix_tokens"] == 12 * SYSTEM_PROMPT, fs
+    assert {r: s["prefix_hits"] for r, s in summ["per_replica"].items()} \
+        == {"r0": 6, "r1": 6}, summ["per_replica"]
+    report("prefix router", fleet, streams, wall, summ, launches, done)
+    drain_and_audit(fleet)
+    log("serve fleet", "prefix router: every follower on the replica that "
+        "holds its system prompt (12 prefix-routed, 12 x 1024 matched "
+        "tokens), 6 hits a replica; after clear() and a drain of both, every"
+        " page free, audits clean")
+    t_rr = run("round_robin")
+    report("round_robin router", *t_rr[:5], t_rr[6])
+    rr_hits = sum(s["prefix_hits"] for s in t_rr[3]["per_replica"].values())
+    # the first A on r1 and the first B on r0 find nothing to share
+    assert t_rr[3]["fleet"]["routed_prefix"] == 0 and rr_hits <= 10, rr_hits
+    drain_and_audit(t_rr[0])
+    k = run("prefix", kill_after=8)
+    kfleet, kstreams, killed = k[0], k[1], k[5]
+    ks = k[3]["fleet"]
+    assert kfleet._by_name["r1"].state == DEAD and killed is not None
+    assert ks["requeued_kill"] > 0, ks
+    assert ks["replicas"]["r0"]["finished"] == n_req - killed, ks
+    report("prefix router, r1 killed while decoding", *k[:5], k[6])
+    kfleet.respawn("r1")
+    drain_and_audit(kfleet)
+    log("serve fleet", f"kill: r1 failed at the top of a step after "
+        f"{killed} of its requests finished; {ks['requeued_kill']} requeued "
+        f"requests finished on r0, none lost; respawn('r1') (generation "
+        f"{kfleet._by_name['r1'].generation}), drain, audits clean; token "
+        f"match against the un-killed run {_match(kstreams, streams):.3f}, "
+        f"round robin against the prefix router "
+        f"{_match(t_rr[1], streams):.3f} (reported, not gated); prefix hits "
+        f"12 under the prefix router, {rr_hits} under round robin")
+
+
+def dense_serve(results, card: str, chunked):
+    """Phase 7's model and traffic through the dense engine and through the
+    monolithic paged engine (bf16 pages): both attention kernels of the
+    dense path counted, from 0, in each run."""
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.launch.serve import warm_up
+    from repro_torch.models import transformer
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.kvcache import CachePool
+    cfg = configs.get_config("qwen2-0.5b")                 # bf16 compute
+    model = transformer.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1537, 8)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in lens]
+    counters = (da.flash_decode, fa.flash_attention, pda.paged_flash_decode,
+                ppa.paged_flash_prefill)
+    for name, cache in (("dense", CacheConfig()),
+                        ("monolithic paged", CacheConfig(paged=True,
+                                                         page_tokens=16))):
+        conf = EngineConfig(n_slots=8, max_seq=2048, cache=cache)
+        warm_up(cfg, model, conf, "cuda")
+        eng = Engine(cfg, model, config=conf, device="cuda")
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        streams = serve(eng, prompts, 64)
+        wall = time.perf_counter() - t0
+        n_dd, n_fa, n_pd, n_pp = (fn.launches for fn in counters)
+        s = eng.stats_summary()
+        L = cfg.n_layers()
+        assert all(len(t) == 64 for t in streams.values())
+        assert s["prefills"] == len(prompts), s
+        assert n_fa == L * s["prefills"], (n_fa, s)
+        if cache.paged:
+            assert n_pd == L * s["decode_steps"] > 0 and n_dd == 0, \
+                (n_pd, n_dd, s)
+            assert n_pp == 0, n_pp
+            a = eng.pool.alloc
+            assert a.free_pages == a.n_pages and eng.pool._reserved == {}
+            a.audit()
+            pool = (f"pool {a.n_pages} pages ({eng.pool.footprint_bytes()} "
+                    "B), every page free, audit clean")
+        else:
+            assert isinstance(eng.pool, CachePool)
+            assert eng.pool.footprint_bytes() == 8 * 2048 * 12_288
+            assert n_dd == L * s["decode_steps"] > 0 and n_pd == n_pp == 0, \
+                (n_dd, n_pd, n_pp, s)
+            assert (eng.pool.seq_ids < 0).all()
+            pool = (f"slot pool {eng.pool.footprint_bytes()} B, every slot "
+                    "free")
+            results["flash_decode_dense"]["launches"] = n_dd
+        key = "monolithic" if cache.paged else "dense"
+        results[f"flash_attention_{key}"]["launches"] = n_fa
+        toks = sum(len(t) for t in streams.values())
+        dec = "paged_flash_decode" if cache.paged else "flash_decode"
+        log("serve dense", f"{card}: {name}: {len(streams)} requests, "
+            f"{toks} new tokens in {wall:.3f} s ({toks / wall:.1f} tok/s), "
+            f"ttft p50/p99 {s['ttft_p50_s']:.4f}/{s['ttft_p99_s']:.4f} s, "
+            f"itl p50/p99 {s['itl_p50_s'] * 1e3:.2f}/"
+            f"{s['itl_p99_s'] * 1e3:.2f} ms, decode steps "
+            f"{s['decode_steps']}, prefills {s['prefills']}; {pool}; "
+            f"launches: flash_attention {n_fa} = {L} x {s['prefills']} "
+            f"prefills, {dec} {max(n_dd, n_pd)} = {L} x "
+            f"{s['decode_steps']} decode steps (flash_decode {n_dd}, "
+            f"paged_flash_decode {n_pd}, paged_flash_prefill {n_pp}); token "
+            f"match against phase 7's chunked streams "
+            f"{_match(streams, chunked):.3f} (reported, not gated)")
+    time_serving_attention(results, lens)
+
+
+def time_serving_attention(results, lens):
+    """The serving entries of flash_decode and flash_attention, checked
+    against their plain versions and timed at 7e's shapes: the dense decode
+    step at the lengths of each request's last step (prompt + 63), the
+    prefill of its longest prompt (B 1, 14 heads, kv heads repeated)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.kernel_suite import DECODE
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf16 = torch.bfloat16
+    B, H, K, S, hd = DECODE
+    dec_lens = [int(n) + 63 for n in lens]
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(bf16)
+    kc, vc = (torch.randn(B, K, S, hd, generator=g, device="cuda").to(bf16)
+              for _ in range(2))
+    lengths = torch.tensor(dec_lens, dtype=torch.int32, device="cuda")
+    res = results["flash_decode_dense"]
+    res["max_abs_err"] = close(da.flash_decode(q, kc, vc, lengths),
+                               da.flash_decode_plain(q, kc, vc, lengths))
+    time_decode_dense(res, DECODE, dec_lens, g)
+    L = int(max(lens))
+    q, k, v = (torch.randn(1, H, L, hd, generator=g, device="cuda").to(bf16)
+               for _ in range(3))
+    err = close(fa.flash_attention(q, k, v, causal=True),
+                fa.flash_attention_plain(q, k, v, causal=True))
+    for key in ("dense", "monolithic"):
+        res = results[f"flash_attention_{key}"]
+        res["max_abs_err"] = err
+        time_flash(res, q, k, v, True, None)
+
+
 def card_vs_cpu():
     """The smoke config in f32, each stack on the card and on the CPU: the
     same streams, scheduling counters and shed verdicts."""
@@ -1384,6 +1704,109 @@ def card_vs_cpu():
         log("card/cpu", f"smoke config f32, {stack} stack: {len(streams)} "
             f"greedy streams equal on cuda and cpu, and the counters "
             f"{count}" + (f", shed {shed}" if shed else ""))
+    # the dense and monolithic paged loops on a ragged mix: the dense
+    # engine keeps each slot at its own position
+    rng = np.random.default_rng(1)
+    ragged = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+              for n in (3, 9, 5, 12)]
+    four = dict(n_slots=4, max_seq=64)
+    for stack, conf in (
+            ("dense", EngineConfig(**four)),
+            ("monolithic paged", EngineConfig(
+                cache=CacheConfig(paged=True, page_tokens=8), **four)),
+            ("monolithic int8+tiered", EngineConfig(cache=CacheConfig(
+                paged=True, page_tokens=8, kv_dtype="int8", tiered=True,
+                n_pages=4), **four))):
+        runs = []
+        for device in ("cpu", "cuda"):
+            eng = Engine(cfg, copy.deepcopy(model), config=conf,
+                         device=device)
+            runs.append((serve(eng, ragged, 6),
+                         {k: eng.stats[k] for k in counters}))
+        assert runs[1] == runs[0], (stack, runs)
+        streams, count = runs[1]
+        if conf.cache.tiered:
+            assert count["preemptions"] >= 1, (stack, count)
+        log("card/cpu", f"smoke config f32, {stack} engine, prompts of 3, 9,"
+            f" 5 and 12 tokens: {len(streams)} greedy streams equal on cuda "
+            f"and cpu, and the counters {count}")
+    fleet_vs_single(cfg, model)
+
+
+def fleet_vs_single(cfg, model):
+    """A two-replica prefix fleet of chunked engines with r0 killed at
+    iteration 4 and respawned at 9, on the card and on the CPU: the same
+    streams, placements and fleet counters, and the streams of one chunked
+    engine."""
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    from repro_torch.serve.replica import DEAD, READY
+    from repro_torch.serve.router import Fleet
+    conf = EngineConfig(n_slots=2, max_seq=64, token_budget=12,
+                        cache=CacheConfig(page_tokens=8, n_pages=24,
+                                          prefix=True, prefix_pages=6))
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, cfg.vocab, 12)
+    mix = []          # (arrival iteration, seq_id, prompt, max_new)
+    for i in range(8):
+        suffix = rng.integers(0, cfg.vocab, 2 + int(rng.integers(0, 4)))
+        mix.append((2 * i, i,
+                    np.concatenate([shared, suffix]).astype(np.int32),
+                    3 + int(rng.integers(0, 4))))
+
+    def drive(target, hook=None):
+        pending, done, it = list(mix), [], 0
+        while True:
+            while pending and pending[0][0] <= it:
+                _, sid, p, new = pending.pop(0)
+                assert target.submit(Request(seq_id=sid, prompt=p.copy(),
+                                             max_new=new))
+            if hook is not None:
+                hook(it)
+            if not pending and target.idle:
+                return {int(r.seq_id): list(r.tokens_out) for r in done}
+            done += target.step()
+            it += 1
+            assert it < 2000, "the mix did not drain"
+
+    runs = []
+    for device in ("cpu", "cuda"):
+        single = drive(Engine(cfg, copy.deepcopy(model), config=conf,
+                              device=device))
+        fleet = Fleet(cfg, copy.deepcopy(model), conf, replicas=2,
+                      device=device)
+        placements = []
+        for rep in fleet.replicas:
+            def submit(req, rep=rep, inner=rep.submit):
+                ok = inner(req)
+                placements.append((int(req.seq_id), rep.name))
+                return ok
+            rep.submit = submit
+
+        def hook(it):
+            if it == 4:
+                fleet.kill("r0")
+            elif it == 9:
+                assert fleet.respawn("r0").state == READY
+
+        streams = drive(fleet, hook)
+        assert streams == single, (device, streams, single)
+        for rep in fleet.replicas:
+            fleet.drain(rep.name)
+        fleet.run(50)
+        for rep in fleet.replicas:
+            assert rep.state == DEAD
+            a = rep.engine.pool.alloc
+            assert a._seq_pages == {}
+            a.audit()
+        runs.append((streams, dict(fleet.stats), placements))
+    assert runs[1] == runs[0], runs
+    stats = runs[1][1]
+    assert stats["requeued_kill"] > 0 and stats["respawns"] == 1, stats
+    log("card/cpu", f"smoke config f32, a two-replica prefix fleet with r0 "
+        f"killed at iteration 4 and respawned at 9: {len(runs[1][0])} greedy"
+        f" streams equal on cuda and cpu and equal to one chunked engine's, "
+        f"the same {len(runs[1][2])} placements and fleet counters {stats}")
 
 
 # the kernel templates' mangled names, as ptxas prints them, shortened
@@ -1490,6 +1913,12 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}", "launches": 0,
             "max_abs_err": 0.0}
+    # the serving paths' own entries: launches from phase 7e's runs alone,
+    # times at their shapes (the entries above carry the suite's)
+    for name, base in (("flash_decode_dense", "flash_decode"),
+                       ("flash_attention_dense", "flash_attention"),
+                       ("flash_attention_monolithic", "flash_attention")):
+        results[name] = dict(results[base], name=name)
     check_kernels(results)
     torch.cuda.synchronize()
     check_suite_kernels(results)
@@ -1501,7 +1930,15 @@ def main() -> int:
     untiered = full_width_serve(results, card)
     prefix_int8_serve(results, card)
     tiered_serve(results, card, untiered)
+    t0 = time.perf_counter()
+    fleet_serve(card)
+    log("serve fleet", f"phase 7d in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dense_serve(results, card, untiered)
+    log("serve dense", f"phase 7e in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     card_vs_cpu()
+    log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in results.values()]

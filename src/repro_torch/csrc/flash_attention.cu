@@ -58,7 +58,8 @@
 //   and leaves in 16-byte stores. Blocks take the query tiles last first,
 //   so that under a causal mask the longest start first.
 // * f32: flash_kernel, CUDA cores, the first design, kept because
-//   f32 inputs are not exact in bf16. One block per (64-row query tile,
+//   f32 inputs are not exact in bf16 (hd 16, 32, 64 and 128; the
+//   tensor-core kernel takes hd 32, 64 and 128). One block per (64-row query tile,
 //   batch x head), 256 threads, a loop over 64-key tiles inside. Q, K and V
 //   tiles are staged as f32 in shared memory (16-byte loads); each thread
 //   computes a 4 x 4 register tile of the logits from float4 reads (row
@@ -165,9 +166,11 @@ __device__ __forceinline__ void load_vec(const float* p, float (&x)[W]) {
   if constexpr (W == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-  } else {
+  } else if constexpr (W == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     x[0] = t.x; x[1] = t.y;
+  } else {
+    x[0] = *p;
   }
 }
 
@@ -176,7 +179,8 @@ __global__ void __launch_bounds__(THREADS)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, const Mask mk) {
   constexpr int LD = HD + 4;               // q / k row pitch (floats)
-  constexpr int VW = HD >= 64 ? 4 : 2;     // output columns per vector
+  constexpr int VW = HD >= 64 ? 4 : HD >= 32 ? 2 : 1;  // output columns a
+                                                       // vector
   constexpr int NV = HD / (16 * VW);       // vectors per thread and row
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                        // [BQ][LD]
@@ -632,6 +636,9 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                 1.0f / sqrtf(static_cast<float>(hd)), softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16:   // f32 only (the smoke configurations' width)
+      if (dtype != F32 || rows != BQ) return cudaErrorInvalidValue;
+      return launch_f32<16>(q, k, v, out, BH, mk, smem, s);
     case 32: return dispatch_hd<32>(q, k, v, out, BH, mk, dtype, rows, smem, s);
     case 64: return dispatch_hd<64>(q, k, v, out, BH, mk, dtype, rows, smem, s);
     case 128:

@@ -12,10 +12,11 @@ of V over the keys of the blocks the reference runs for it.
 
 :func:`flash_attention` dispatches by the device of its tensors:
 
-  * CUDA — ``csrc/flash_attention.cu`` (hd 32, 64 or 128), or an error:
-    bf16 inputs on tensor cores (``mma.sync``, P fed as hi + lo bf16),
-    f32 inputs on the CUDA-core kernel; :func:`launch_shape` gives the
-    launch from host ints only, so a call can be captured in a CUDA graph;
+  * CUDA — ``csrc/flash_attention.cu``, or an error: bf16 inputs on
+    tensor cores (``mma.sync``, P fed as hi + lo bf16; hd 32, 64 or 128),
+    f32 inputs on the CUDA-core kernel (hd 16, 32, 64 or 128);
+    :func:`launch_shape` gives the launch from host ints only, so a call
+    can be captured in a CUDA graph;
   * CPU — :func:`flash_attention_plain`, the reference's grid of blocks
     walked in PyTorch, causal block skip included.
 
@@ -35,7 +36,8 @@ from repro_torch.core import heromem
 from repro_torch.kernels import _build, ref
 
 NEG = ref.NEG
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)           # both kernels
+F32_HEAD_DIMS = (16,) + HEAD_DIMS   # the CUDA-core kernel also takes 16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KEY_TILE = 64         # keys of a tile, both kernels
 F32_ROWS = 64         # query rows of a block of the CUDA-core (f32) kernel
@@ -166,8 +168,9 @@ def _check_cuda(q, k, v) -> None:
             or k.shape[3] != hd or k.shape[2] == 0:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)}/{tuple(v.shape)} do not fit")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: hd {hd} not in {HEAD_DIMS}")
+    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    if hd not in dims:
+        raise ValueError(f"{name}: hd {hd} not in {dims} for {q.dtype}")
     if max(L, k.shape[2]) > 2**30 or B * H > 65535:
         raise ValueError(f"{name}: sizes past the kernel's int fields")
 

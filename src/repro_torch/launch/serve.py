@@ -1,22 +1,42 @@
-"""Serving driver: the chunked paged engine on random weights.
+"""Serving driver: the dense, monolithic paged or chunked engine, or a fleet.
 
 Usage (from the repository root; the script puts ``src`` on ``sys.path``)::
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --full --requests 8 \\
-      --slots 8 --max-seq 2048 --token-budget 256 --prompt-len 512 \\
-      --max-new 64                                   # on the card
+      --slots 8 --max-seq 2048 --chunked-prefill --token-budget 256 \\
+      --prompt-len 512 --max-new 64                  # on the card
   python -m repro_torch.launch.serve --device cpu --requests 4 --slots 2 \\
-      --max-seq 32 --max-new 3 --page-tokens 8 --token-budget 6
+      --max-seq 32 --max-new 3                       # dense
+  python -m repro_torch.launch.serve --device cpu --requests 4 --slots 2 \\
+      --max-seq 32 --max-new 3 --paged --page-tokens 8   # monolithic paged
+  python -m repro_torch.launch.serve --device cpu --requests 4 --slots 2 \\
+      --max-seq 32 --max-new 3 --chunked-prefill --page-tokens 8 \\
+      --token-budget 6                               # chunked
   python -m repro_torch.launch.serve --device cpu --kv-dtype int8 \\
       --prefix-cache --shared-prefix-len 8 --prompt-len 2 --requests 6 \\
       --slots 2 --max-seq 32 --max-new 3 --page-tokens 8 --token-budget 8
 
-``--full`` serves the published configuration (qwen2-0.5b at its full
-width); without it the reduced smoke configuration. Weights are random,
-drawn from a ``torch.Generator`` seeded with 0 (bf16 compute). The run prints the
-same ``[serve:chunked]`` lines as the reference driver. ``--device``
+As in the reference driver, the engine is the **dense** one unless a flag
+asks for pages: ``--paged`` (or ``--tiered``, or ``--kv-dtype int8``) serves
+the monolithic paged engine (whole prompts prefilled, then scattered into
+pages), ``--chunked-prefill`` (implied by ``--prefix-cache``) the chunked
+one (token-budgeted prompt chunks and decode in one loop). ``--full``
+serves the published configuration (qwen2-0.5b at its full width);
+without it the reduced smoke configuration. Weights are random, drawn from
+a ``torch.Generator`` seeded with 0 (bf16 compute). The run prints the
+same ``[serve:<mode>]`` lines as the reference driver. ``--device``
 defaults to ``cuda`` and the run fails without a card unless ``--device
 cpu`` is given.
+
+``--replicas N`` routes the requests through a fleet of N engines
+(serve/router.py) sharing the weights: placement by the longest prefix
+fingerprint match, then the least loaded (``--router round_robin``: in
+turn). The run prints the reference's ``[serve:fleet]`` lines::
+
+  python -m repro_torch.launch.serve --device cpu --prefix-cache \\
+      --shared-prefix-len 8 --prompt-len 2 --requests 6 --slots 2 \\
+      --max-seq 32 --max-new 3 --page-tokens 8 --token-budget 8 \\
+      --replicas 2 --router prefix
 
 ``--kv-dtype int8`` stores the KV pages in int8 with per-(page, kv head)
 scales; ``--prefix-cache`` adds the shared-prefix layer (``--prefix-cache-
@@ -66,6 +86,13 @@ from repro_torch.serve.policy import PolicyConfig
 
 def build_engine(args) -> Engine:
     """The engine the arguments describe, warmed up (see :func:`warm_up`)."""
+    cfg, model, econf, device = build_config(args)
+    return Engine(cfg, model, config=econf, device=device)
+
+
+def build_config(args):
+    """(model config, model, engine config, device) for the arguments, the
+    model warmed up on a throwaway engine (see :func:`warm_up`)."""
     device = resolve_device(args.device)
     get = configs.get_config if args.full else configs.get_smoke_config
     cfg = get(args.arch)
@@ -79,11 +106,13 @@ def build_engine(args) -> Engine:
             itl_target_s=(args.itl_target_ms / 1000.0
                           if args.itl_target_ms is not None else None))
     econf = EngineConfig(
-        n_slots=args.slots, max_seq=args.max_seq, chunked=True,
-        token_budget=args.token_budget, preempt_quantum=args.preempt_quantum,
+        n_slots=args.slots, max_seq=args.max_seq,
+        chunked=args.chunked_prefill, token_budget=args.token_budget,
+        preempt_quantum=args.preempt_quantum,
         overlap=not args.no_overlap, policy=policy,
         trace=args.trace is not None,
-        cache=CacheConfig(page_tokens=args.page_tokens, n_pages=args.pages,
+        cache=CacheConfig(paged=args.paged, page_tokens=args.page_tokens,
+                          n_pages=args.pages,
                           tiered=args.tiered,
                           host_budget_bytes=(args.host_budget_mb * 2**20
                                              if args.host_budget_mb
@@ -92,7 +121,7 @@ def build_engine(args) -> Engine:
                           prefix_pages=args.prefix_cache_pages,
                           kv_dtype=args.kv_dtype))
     warm_up(cfg, model, econf, device)
-    return Engine(cfg, model, config=econf, device=device)
+    return cfg, model, econf, device
 
 
 def warm_up(cfg, model, config: EngineConfig, device) -> None:
@@ -110,6 +139,47 @@ def warm_up(cfg, model, config: EngineConfig, device) -> None:
     eng.run(max_steps=10000)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
+
+
+def _serve_fleet(args) -> None:
+    """``--replicas N``: the requests through a fleet of N engines sharing
+    the weights (serve/router.py), then the reference's fleet lines."""
+    from repro_torch.serve.router import Fleet
+    cfg, model, econf, device = build_config(args)
+    prompts = _prompts(args, cfg)
+    fleet = Fleet(cfg, model, econf, replicas=args.replicas,
+                  router=args.router, device=device)
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        fleet.submit(Request(
+            seq_id=i, max_new=args.max_new, prompt=p,
+            priority=i % args.priorities if args.priorities else 0))
+    done, it = [], 0
+    while not fleet.idle and it < 100000:
+        done.extend(fleet.step())
+        it += 1
+        if args.metrics_log > 0 and it % args.metrics_log == 0:
+            print(f"[metrics] {json.dumps(fleet.metrics_snapshot())}",
+                  flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    total_new = sum(len(r.tokens_out) for r in done)
+    ss = fleet.stats_summary()
+    fs = ss["fleet"]
+    print(f"[serve:fleet] {args.replicas} replicas ({args.router} router): "
+          f"{len(done)} requests, {total_new} tokens in {wall:.2f}s "
+          f"({total_new / wall:.1f} tok/s); routed {fs['routed']} "
+          f"({fs['routed_prefix']} prefix-affine, "
+          f"{fs['routed_prefix_tokens']} matched tok), backpressure waits "
+          f"{fs['backpressure_waits']}, shed {fs['shed']}")
+    for name, s in sorted(ss["per_replica"].items()):
+        rinfo = fs["replicas"][name]
+        print(f"[serve:fleet]   {name} ({rinfo['state']}, gen "
+              f"{rinfo['generation']}): finished {rinfo['finished']}, "
+              f"decode steps {s['decode_steps']}, prefill chunk tokens "
+              f"{s.get('prefill_chunk_tokens', 0)}, prefix shared tokens "
+              f"{s.get('prefix_shared_tokens', 0)}")
 
 
 def _profiler():
@@ -149,6 +219,11 @@ def main(argv=None):
     ap.add_argument("--prompt-len-max", type=int, default=None,
                     help="draw each prompt length uniformly from "
                          "[prompt-len, prompt-len-max] (default: fixed)")
+    ap.add_argument("--paged", action="store_true",
+                    help="the monolithic paged engine (default: dense)")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="the chunked engine: token-budgeted prompt chunks "
+                         "and decode in one step loop (implies --paged)")
     ap.add_argument("--page-tokens", type=int, default=16)
     ap.add_argument("--pages", type=int, default=None,
                     help="physical page-pool size (default: slots × max-seq)")
@@ -159,7 +234,8 @@ def main(argv=None):
                          "per-(page, kv-head) f32 scales")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="shared-prefix KV reuse: radix prompt index + "
-                         "ref-counted copy-on-write pages")
+                         "ref-counted copy-on-write pages (implies "
+                         "--chunked-prefill)")
     ap.add_argument("--prefix-cache-pages", type=int, default=None,
                     help="most pages the prefix cache may pin "
                          "(default: half the pool)")
@@ -188,14 +264,21 @@ def main(argv=None):
                     help="cycle the requests through this many priority "
                          "classes (0: all in the default class)")
     ap.add_argument("--token-budget", type=int, default=None,
-                    help="tokens per engine iteration (decode first, prompt "
-                         "chunks fill the remainder)")
+                    help="tokens per chunked iteration (decode first, "
+                         "prompt chunks fill the remainder)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="the synchronous step loop (streams are identical)")
     ap.add_argument("--metrics-log", type=int, default=0, metavar="N",
                     help="print a [metrics] JSON line every N iterations")
     ap.add_argument("--trace", type=str, default=None, metavar="PATH",
                     help="export a Chrome trace-event JSON timeline")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a fleet of this many engines "
+                         "(serve/router.py); 1: one engine")
+    ap.add_argument("--router", choices=("prefix", "round_robin"),
+                    default="prefix",
+                    help="fleet placement: longest prefix-fingerprint match "
+                         "(least-loaded tie-break) or round robin")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="on the card: trace the run with torch.profiler and "
                          "print the N kernels with the most device time")
@@ -204,15 +287,15 @@ def main(argv=None):
     # f32 products in full f32 on the card (no TF32), as the reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.replicas > 1:
+        if args.profile or args.trace is not None:
+            ap.error("--profile and --trace follow one engine; they do not "
+                     "combine with --replicas > 1")
+        _serve_fleet(args)
+        return
     eng = build_engine(args)
     cfg = eng.cfg
-    rng = np.random.default_rng(0)
-    shared = rng.integers(0, cfg.vocab, args.shared_prefix_len)
-    lens = rng.integers(args.prompt_len,
-                        (args.prompt_len_max or args.prompt_len) + 1,
-                        args.requests)
-    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, int(n))])
-               .astype(np.int32) for n in lens]
+    prompts = _prompts(args, cfg)
     if args.profile and eng.device.type != "cuda":
         raise ValueError("--profile traces the card; it needs --device cuda")
     prof = _profiler() if args.profile else contextlib.nullcontext()
@@ -234,8 +317,10 @@ def main(argv=None):
     wall = time.perf_counter() - t0
     total_new = sum(len(r.tokens_out) for r in done)
     s = eng.stats_summary()
-    a = eng.pool.alloc
-    mode = "chunked+tiered" if args.tiered else "chunked"
+    chunked, paged = eng.config.chunked, eng.config.cache.paged
+    mode = "tiered" if args.tiered else ("paged" if paged else "dense")
+    if chunked:
+        mode = "chunked+tiered" if args.tiered else "chunked"
     if args.prefix_cache:
         mode = "prefix+" + mode
     if args.kv_dtype != "compute":
@@ -244,20 +329,27 @@ def main(argv=None):
           f"{wall:.2f}s ({total_new / wall:.1f} tok/s), decode steps "
           f"{s['decode_steps']}, mean batch occupancy "
           f"{s['mean_occupancy']:.2f}")
-    print(f"[serve:{mode}] pool {a.n_pages} pages × {a.page_tokens} tok "
-          f"({eng.pool.footprint_bytes()} B), free {a.free_pages}, "
-          f"admission refusals {s['admission_refusals']}")
+    if paged:
+        a = eng.pool.alloc
+        print(f"[serve:{mode}] pool {a.n_pages} pages × {a.page_tokens} tok "
+              f"({eng.pool.footprint_bytes()} B), free {a.free_pages}, "
+              f"admission refusals {s['admission_refusals']}")
+    else:
+        print(f"[serve:{mode}] pool {eng.pool.n_slots} slots × "
+              f"{eng.pool.max_seq} tok ({eng.pool.footprint_bytes()} B), "
+              f"ttft p50/p99 {s['ttft_p50_s']:.3f}/{s['ttft_p99_s']:.3f} s")
     if args.prefix_cache:
         print(f"[serve:{mode}] prefix hits {s['prefix_hits']} "
               f"({s['prefix_full_hits']} full), shared tokens "
               f"{s['prefix_shared_tokens']}, cached pages "
               f"{s['prefix_held_pages']}, cow forks {s['cow_forks']}, "
               f"evicted pages {s['prefix_evicted_pages']}")
-    print(f"[serve:{mode}] token budget {s['token_budget']} "
-          f"(max iter {s['max_iter_tokens']}), prefill chunks "
-          f"{s['prefill_chunks']} ({s['prefill_chunk_tokens']} tok), "
-          f"decode tokens {s['decode_tokens']}, ttft p50/p99 "
-          f"{s['ttft_p50_s']:.3f}/{s['ttft_p99_s']:.3f} s")
+    if chunked:
+        print(f"[serve:{mode}] token budget {s['token_budget']} "
+              f"(max iter {s['max_iter_tokens']}), prefill chunks "
+              f"{s['prefill_chunks']} ({s['prefill_chunk_tokens']} tok), "
+              f"decode tokens {s['decode_tokens']}, ttft p50/p99 "
+              f"{s['ttft_p50_s']:.3f}/{s['ttft_p99_s']:.3f} s")
     if eng.scheduler.policy is not None:
         by_code = {}
         for r in eng.shed:
@@ -286,6 +378,19 @@ def main(argv=None):
               f"shadowed/other {ts['stall_pct_schedule']:.1f}/"
               f"{ts['stall_pct_fetch']:.1f}/{ts['stall_pct_dma']:.1f}/"
               f"{ts['stall_pct_shadowed']:.1f}/{ts['stall_pct_other']:.1f}")
+
+
+def _prompts(args, cfg):
+    """The requests' prompts, drawn from ``default_rng(0)``: a shared system
+    prompt of ``--shared-prefix-len`` tokens, then a suffix of
+    ``--prompt-len`` (up to ``--prompt-len-max``) tokens."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, args.shared_prefix_len)
+    lens = rng.integers(args.prompt_len,
+                        (args.prompt_len_max or args.prompt_len) + 1,
+                        args.requests)
+    return [np.concatenate([shared, rng.integers(0, cfg.vocab, int(n))])
+            .astype(np.int32) for n in lens]
 
 
 if __name__ == "__main__":

@@ -1,0 +1,108 @@
+"""Grouped-query attention over a dense slot cache: the dense serving path.
+
+Counterpart of the serving half of ``repro/models/attention.py``
+(``gqa_forward`` with a cache, ``attention.py:120``): QKV projections with
+bias, RoPE, the new K/V written into a ``[B, K, S, hd]`` slot cache, the
+attention, and the output projection. Query head ``h = k·G + g`` attends kv
+head ``k`` (G = H/K).
+
+Two cases, each on a hand-written kernel on the card and on its plain
+PyTorch version on the CPU (the wrappers dispatch by the tensors' device;
+nothing here does):
+
+  * **decode** (one token a slot): slot b writes at its own position
+    ``cache_pos[b]``, rotates its query at that position and attends the
+    first ``cache_pos[b] + 1`` rows of its cache through
+    :func:`~repro_torch.kernels.decode_attention.flash_decode`. The
+    reference runs every slot at one shared position, the largest length
+    less one (``repro/serve/scheduler.py:466-469``), so a slot shorter than
+    the longest attends empty rows and rotates at the wrong position; the
+    port keeps each slot at its own length, and its streams equal the
+    reference's paged engine's (tests/test_torch_dense.py pins the
+    difference).
+  * **prefill** from position 0: the L new keys, causal, through
+    :func:`~repro_torch.kernels.flash_attention.flash_attention` (kv heads
+    repeated to the query heads), after the K/V land in cache rows
+    ``[0, L)``. The reference attends the cache masked to its first L rows,
+    which are these keys.
+
+Sliding windows, logit softcaps, MLA and cross-attention are not ported
+(ROADMAP queue 1, item 16).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.decode_attention import flash_decode
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import blocks
+
+
+def check_dense(cfg) -> None:
+    """Raise unless the dense path covers ``cfg``'s attention."""
+    if cfg.window or cfg.logit_softcap:
+        raise NotImplementedError(
+            f"repro_torch: {cfg.name}: sliding-window and softcap attention "
+            "are not ported yet (ROADMAP queue 1, item 16)")
+
+
+def qkv(m: Dict[str, torch.Tensor], h: torch.Tensor, positions: torch.Tensor,
+        cfg):
+    """QKV projections with bias and RoPE: h [B, L, d] (already normed),
+    positions [B, L] absolute → q [B, L, H, hd], k, v [B, L, K, hd]."""
+    B, L, _ = h.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q, k, v = h @ m["wq"], h @ m["wk"], h @ m["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + m["bq"], k + m["bk"], v + m["bv"]
+    q = q.reshape(B, L, H, hd)
+    k = k.reshape(B, L, K, hd)
+    v = v.reshape(B, L, K, hd)
+    if cfg.rope_theta is not None:
+        q = blocks.apply_rope(q, positions, cfg.rope_theta)
+        k = blocks.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
+                positions: torch.Tensor, cfg, cache: Dict[str, torch.Tensor],
+                cache_pos) -> torch.Tensor:
+    """One layer's attention over its slot cache; returns y [B, L, d].
+
+    h: [B, L, d] normed input; positions: [B, L] absolute; cache: ``{"k",
+    "v"}`` [B, K, S, hd], written in place. ``cache_pos`` selects the
+    case: a [B] int tensor is a decode step (L = 1, slot b writes at
+    ``cache_pos[b]`` and attends ``cache_pos[b] + 1`` rows); the int 0 is a
+    prefill of every slot from position 0.
+    """
+    check_dense(cfg)
+    B, L, _ = h.shape
+    H, K = cfg.n_heads, cfg.n_kv
+    q, k, v = qkv(m, h, positions, cfg)
+    kc, vc = cache["k"], cache["v"]
+    if isinstance(cache_pos, torch.Tensor):
+        if L != 1:
+            raise ValueError(f"gqa_forward: a decode step takes one token a "
+                             f"slot, got L={L}")
+        pos = cache_pos.long()
+        slots = torch.arange(B, device=h.device)
+        kc[slots, :, pos] = k[:, 0].to(kc.dtype)
+        vc[slots, :, pos] = v[:, 0].to(vc.dtype)
+        att = flash_decode(q[:, 0].contiguous(), kc, vc,
+                           (cache_pos + 1).to(torch.int32))[:, None]
+    elif cache_pos == 0:
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)         # [B, K, L, hd]
+        kc[:, :, :L] = kt.to(kc.dtype)
+        vc[:, :, :L] = vt.to(vc.dtype)
+        G = H // K
+        att = flash_attention(
+            q.transpose(1, 2).contiguous(),
+            kt.repeat_interleave(G, dim=1).contiguous(),
+            vt.repeat_interleave(G, dim=1).contiguous(),
+            causal=True).transpose(1, 2)                      # [B, L, H, hd]
+    else:
+        raise ValueError(f"gqa_forward: cache_pos must be a [B] tensor "
+                         f"(decode) or 0 (prefill), got {cache_pos!r}")
+    return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]

@@ -1,9 +1,13 @@
-"""Model configuration and weights for the paged serving path.
+"""Model configuration, weights and the dense forward pass for serving.
 
-Counterpart of ``repro/models/transformer.py``, limited to what the chunked
-paged serving path runs: groups of full-attention GQA layers with dense
-MLPs. :class:`ModelConfig` keeps every field of the reference so that the
-configs read the same, with torch dtypes in place of jnp ones
+Counterpart of ``repro/models/transformer.py``, limited to what the
+serving paths run: groups of full-attention GQA layers with dense MLPs.
+:func:`forward` runs prefill and decode over dense slot caches
+(:func:`init_caches`, models/attention.py); the paged steps
+(serve/paged_step.py) walk the same layers with the same pieces
+(:func:`embed`, :func:`layer_pre`, :func:`layer_post`, :func:`logits`)
+over a page pool. :class:`ModelConfig` keeps every field of the reference
+so that the configs read the same, with torch dtypes in place of jnp ones
 (``compute_dtype=torch.float32`` works as the reference override does).
 
 Weights keep the reference layout: ``y = x @ w`` with ``w`` of shape
@@ -28,7 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models import blocks
+from repro_torch.models import attention, blocks
 
 Pattern = Tuple[str, ...]
 Group = Tuple[Pattern, int]
@@ -219,7 +223,7 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 # --------------------------------------------------------------------------
-# layer pieces used by serve/paged_step.py
+# layer pieces: the dense forward below and serve/paged_step.py
 # --------------------------------------------------------------------------
 def _norm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return blocks.rms_norm(p["scale"], x, zero_centered=cfg.zero_centered_norm)
@@ -229,3 +233,108 @@ def _ffn_apply(p, ffn: str, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if ffn != "mlp" or cfg.mlp != "swiglu":
         raise NotImplementedError(f"repro_torch: ffn {ffn!r}/{cfg.mlp!r}")
     return blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
+
+
+def units(model: Transformer, caches):
+    """Walk every layer in order: (kind, layer weights, that layer's views
+    of ``caches``). Cache leaves carry a leading ``[count]`` axis per group
+    position (dense slot caches from :func:`init_caches`, or page pools);
+    a layer's view drops it."""
+    for gi, (pattern, count) in enumerate(model.cfg.groups):
+        for u in range(count):
+            for i, kind in enumerate(pattern):
+                yield (kind, model.groups[gi][i].unit(u),
+                       {name: arr[u] for name, arr in caches[gi][i].items()})
+
+
+def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    x = blocks.embed_lookup(model.embed, tokens)
+    if model.cfg.embed_scale:
+        x = x * math.sqrt(model.cfg.d_model)
+    return x
+
+
+def logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    h = _norm_apply({"scale": model.final_norm}, x, model.cfg)
+    return h @ model.head()
+
+
+def layer_pre(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Norm, QKV projections with bias, RoPE: x [B, L, d] → q [B, L, H, hd],
+    k, v [B, L, K, hd]."""
+    return attention.qkv(p["mixer"], _norm_apply(p["ln1"], x, cfg),
+                         positions, cfg)
+
+
+def _ffn_residual(p, ffn: str, x: torch.Tensor, cfg: ModelConfig):
+    if ffn == "none":
+        return x
+    return x + _ffn_apply(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg)
+
+
+def layer_post(p, x: torch.Tensor, att: torch.Tensor, ffn: str,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Output projection, residual, MLP: att [B, L, H, hd]."""
+    B, L = x.shape[:2]
+    x = x + att.reshape(B, L, -1).to(x.dtype) @ p["mixer"]["wo"]
+    return _ffn_residual(p, ffn, x, cfg)
+
+
+# --------------------------------------------------------------------------
+# the dense forward pass over slot caches
+# --------------------------------------------------------------------------
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                device=None):
+    """Zeroed slot caches aligned with ``cfg.groups``: per group, a tuple
+    per pattern position of ``{"k", "v"}`` [count, batch, K, max_seq, hd]
+    at ``dtype`` (default: the compute dtype)."""
+    check_supported(cfg)
+    dtype = dtype or cfg.compute_dtype
+    shape = (cfg.n_kv, max_seq, cfg.hd)
+    return [tuple({name: torch.zeros((count, batch) + shape, dtype=dtype,
+                                     device=device) for name in ("k", "v")}
+                  for _ in pattern)
+            for pattern, count in cfg.groups]
+
+
+def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
+           mode: str) -> torch.Tensor:
+    """The final hidden state [B, L, d] (before the final norm); see
+    :func:`forward`."""
+    cfg = model.cfg
+    B, L = tokens.shape
+    if mode == "decode":
+        if not isinstance(cache_pos, torch.Tensor) or L != 1:
+            raise ValueError("decode: one token a slot and a [B] cache_pos "
+                             "tensor")
+        positions = cache_pos.long()[:, None]
+    elif mode == "prefill":
+        if isinstance(cache_pos, torch.Tensor) or cache_pos != 0:
+            raise ValueError("prefill runs every slot from position 0")
+        positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
+    else:
+        raise ValueError(f"mode {mode!r}: expected 'prefill' or 'decode'")
+    x = embed(model, tokens)
+    for kind, p, cache in units(model, caches):
+        _, ffn = parse_kind(kind)
+        x = x + attention.gqa_forward(p["mixer"],
+                                      _norm_apply(p["ln1"], x, cfg),
+                                      positions, cfg, cache, cache_pos)
+        x = _ffn_residual(p, ffn, x, cfg)
+    return x
+
+
+def forward(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
+            mode: str):
+    """tokens [B, L] int over ``caches`` from :func:`init_caches` (written
+    in place) → (logits [B, L, vocab], caches).
+
+    ``mode="prefill"``: ``cache_pos`` 0, every slot's prompt from position
+    0. ``mode="decode"``: L = 1 and ``cache_pos`` a [B] int tensor, slot b
+    writing and reading at its own position ``cache_pos[b]`` (the
+    reference's decode takes one shared position; see models/attention.py).
+    The model's weights must be at the compute dtype (serve/executor.py
+    casts them once).
+    """
+    return logits(model, hidden(model, tokens, caches, cache_pos, mode)), \
+        caches

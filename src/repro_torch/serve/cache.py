@@ -39,10 +39,10 @@ from repro_torch.serve.tiering import TieredCachePool
 
 @runtime_checkable
 class CacheManager(Protocol):
-    """The paged serving-cache surface the chunked scheduler uses. Every
-    implementation upholds never-fails-mid-decode: ``ensure`` and
-    ``cow_unshare`` on a sequence holding a decode reservation cannot
-    raise."""
+    """The paged serving-cache surface the scheduler uses (the chunked and
+    the monolithic loops). Every implementation upholds
+    never-fails-mid-decode: ``ensure`` and ``cow_unshare`` on a sequence
+    holding a decode reservation cannot raise."""
 
     page_tokens: int
     max_batch: int
@@ -53,7 +53,10 @@ class CacheManager(Protocol):
     prefix: Optional[PrefixCache]
 
     def pages_for(self, n_tokens: int) -> int: ...
+    def padded_len(self, n_tokens: int) -> int: ...
     def admissible_ever(self, prompt_len: int, max_new: int) -> bool: ...
+    def can_admit(self, prompt_len: int, max_new: int) -> bool: ...
+    def admit(self, seq_id: int, prompt_len: int, max_new: int) -> int: ...
     def can_admit_prefill(self, prompt_len: int, max_new: int,
                           n_shared_pages: int = 0,
                           match_len: int = 0) -> bool: ...
@@ -70,6 +73,7 @@ class CacheManager(Protocol):
     def ensure(self, slot: int, n_tokens: int) -> None: ...
     def cow_unshare(self, slot: int, pos: int) -> bool: ...
     def release(self, slot: int) -> None: ...
+    def write_prefill(self, slot: int, caches, length: int) -> None: ...
     def device_page_tables(self) -> np.ndarray: ...
     def page_table_row(self, slot: int) -> np.ndarray: ...
     def footprint_bytes(self) -> int: ...
@@ -127,15 +131,20 @@ class TieredPrefixCachingPool(PrefixCachingPool, TieredCachePool):
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
-    """Declarative description of one cache stack (always paged here).
+    """Declarative description of one cache stack.
 
-    ``n_pages=None`` sizes the pool at n_slots × max_seq tokens of pages.
+    ``paged`` selects the page pool at the bottom (``EngineConfig.
+    normalized()`` sets it where a layer above or the chunked loop implies
+    it; without it the engine serves from the dense slot pool,
+    serve/kvcache.py ``CachePool``). ``n_pages=None`` sizes the pool at
+    n_slots × max_seq tokens of pages.
     ``tiered`` adds the host-DRAM swap tier, whose cold tier may hold
     ``host_budget_bytes`` (default: eight hot pools of page bytes).
     ``prefix`` adds the radix reuse layer, whose cache may pin at most
     ``prefix_pages`` pages (default: half the pool). ``kv_dtype`` is
     ``"compute"`` (pages at the compute dtype) or ``"int8"`` (pages with
     per-(page, kv head) f32 scales)."""
+    paged: bool = False
     page_tokens: int = 16
     n_pages: Optional[int] = None
     tiered: bool = False

@@ -1,13 +1,22 @@
 """Serving engine façade: scheduler ∘ cache manager ∘ executor wiring.
 
-Counterpart of ``repro/serve/engine.py`` on the chunked paged path::
+Counterpart of ``repro/serve/engine.py`` at tp = 1::
 
     from repro_torch.serve.engine import Engine, EngineConfig
     eng = Engine(cfg, model, config=EngineConfig(
         n_slots=8, max_seq=2048, chunked=True, token_budget=256,
         cache=CacheConfig(page_tokens=16, kv_dtype="int8", prefix=True)))
 
-``cache`` picks one of eight stacks (serve/cache.py): paged or int8
+Three loops, as in the reference: the **dense** engine (the default: no
+page pool, one ``[n_slots, max_seq]`` slot cache per layer, a whole prompt
+prefilled at admission), the **monolithic paged** engine
+(``CacheConfig(paged=True)``: a whole prompt prefilled densely, then
+scattered into its pages) and the **chunked** engine (``chunked=True``:
+token-budgeted prompt chunks and decode in one step loop).
+:meth:`EngineConfig.normalized` resolves what implies what: a prefix layer
+implies the chunked loop, the chunked loop a page pool.
+
+``cache`` picks one of eight paged stacks (serve/cache.py): paged or int8
 pages, with or without the host-DRAM swap tier (``tiered``: preemption),
 with or without the shared-prefix layer. ``policy`` attaches an SLO
 :class:`~repro_torch.serve.policy.SchedulerPolicy`. The engine runs on
@@ -26,6 +35,7 @@ from repro_torch.models import transformer
 from repro_torch.serve import trace
 from repro_torch.serve.cache import CacheConfig, build_cache_manager
 from repro_torch.serve.executor import Executor
+from repro_torch.serve.kvcache import CachePool
 from repro_torch.serve.metrics import MetricsBus
 from repro_torch.serve.policy import PolicyConfig, SchedulerPolicy
 from repro_torch.serve.scheduler import Request, Scheduler  # noqa: F401
@@ -44,15 +54,21 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Declarative engine configuration (fields as in the reference, for
-    the ported path). ``chunked`` must be True: only the chunked paged loop
-    is ported. ``preempt_quantum``: decode steps a resident of a tiered
-    stack is exempt from preemption. ``overlap`` (default True) runs the
-    overlapped step loop; streams are identical either way. ``policy``
-    builds the SLO policy (None: policy-free FIFO). ``trace`` enables the
-    execution tracer (``Engine.trace_export``). ``clock`` injects the
-    engine's one time source (default ``time.perf_counter``): the tracer,
-    every scheduler timestamp and the swap copies' stamps read it."""
+    """Declarative engine configuration (the reference's fields, less
+    ``tp``, ``greedy`` and ``trace_buffer``). ``chunked`` selects the
+    token-budgeted step loop; without it the engine runs the dense loop,
+    or the monolithic paged one when ``cache`` is paged.
+    ``preempt_quantum``: decode steps a resident of a tiered stack is
+    exempt from preemption. ``overlap`` (default True) runs the overlapped
+    step loop of the chunked engine (the other loops are synchronous);
+    streams are identical either way. ``metrics`` enables the metrics bus
+    (a disabled bus leaves streams unchanged); ``metrics_namespace`` stamps
+    its snapshots with a replica's name, so the engines of one fleet
+    (serve/router.py) do not collide. ``policy`` builds the SLO policy
+    (None: policy-free FIFO). ``trace`` enables the execution tracer
+    (``Engine.trace_export``). ``clock`` injects the engine's one time
+    source (default ``time.perf_counter``): the tracer, every scheduler
+    timestamp and the swap copies' stamps read it."""
     n_slots: int = 4
     max_seq: int = 256
     chunked: bool = False
@@ -60,9 +76,25 @@ class EngineConfig:
     preempt_quantum: int = 1
     overlap: bool = True
     cache: CacheConfig = CacheConfig()
+    metrics: bool = True
+    metrics_namespace: Optional[str] = None
     policy: Optional[PolicyConfig] = None
     trace: bool = False
     clock: Optional[Callable[[], float]] = None
+
+    def normalized(self) -> "EngineConfig":
+        """Resolve implied layers once: a prefix layer implies the chunked
+        loop (insertion happens at chunk completion); the chunked loop, the
+        swap tier and int8 pages imply a page pool; the overlapped loop
+        exists on the chunked loop only. Everything below reads the
+        resolved ``chunked``, ``cache.paged`` and ``overlap``."""
+        cache = self.cache
+        chunked = self.chunked or cache.prefix
+        paged = (cache.paged or chunked or cache.tiered
+                 or cache.kv_dtype != "compute")
+        return dataclasses.replace(
+            self, chunked=chunked, overlap=self.overlap and chunked,
+            cache=dataclasses.replace(cache, paged=paged))
 
 
 class Engine:
@@ -75,11 +107,7 @@ class Engine:
     def __init__(self, cfg: transformer.ModelConfig,
                  model: transformer.Transformer,
                  config: Optional[EngineConfig] = None, device=None):
-        config = config or EngineConfig()
-        if not config.chunked:
-            raise NotImplementedError(
-                "repro_torch: only the chunked paged engine is ported; the "
-                "dense and monolithic paths are ROADMAP queue 1, item 14")
+        config = (config or EngineConfig()).normalized()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.config = config
@@ -87,19 +115,26 @@ class Engine:
                                  page_tokens=config.cache.page_tokens,
                                  device=self.device)
         self.model = self.executor.model
-        pool = build_cache_manager(cfg, config.cache, config.n_slots,
-                                   config.max_seq, device=self.device)
-        self.bus = MetricsBus()
+        if config.cache.paged:
+            pool = build_cache_manager(cfg, config.cache, config.n_slots,
+                                       config.max_seq, device=self.device)
+        else:
+            pool = CachePool(cfg, config.n_slots, config.max_seq,
+                             device=self.device)
+        self.bus = MetricsBus(enabled=config.metrics,
+                              namespace=config.metrics_namespace)
         self.executor.bind_metrics(self.bus)
         # a real Tracer even when disabled: its clock is the time source
         self.tracer = trace.Tracer(enabled=config.trace, clock=config.clock)
         self.executor.bind_tracer(self.tracer)
-        pool.bind_tracer(self.tracer)
+        if config.cache.paged:  # the dense pool has no instrumented work
+            pool.bind_tracer(self.tracer)
         policy = None
         if config.policy is not None:
             policy = SchedulerPolicy(config.policy, bus=self.bus)
         self.scheduler = Scheduler(
             cfg, pool, self.executor, n_slots=config.n_slots,
+            paged=config.cache.paged, chunked=config.chunked,
             token_budget=config.token_budget, tiered=config.cache.tiered,
             preempt_quantum=config.preempt_quantum, overlap=config.overlap,
             metrics=self.bus, policy=policy, tracer=self.tracer)
@@ -144,6 +179,10 @@ class Engine:
     @property
     def stats(self):
         return self.scheduler.stats
+
+    @property
+    def mailbox(self):
+        return self.scheduler.mailbox
 
     @property
     def prefix(self):

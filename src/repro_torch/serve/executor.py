@@ -1,7 +1,10 @@
 """Serving executor: model steps, device-side sampling, host↔device moves.
 
-Counterpart of ``repro/serve/executor.py`` on the chunked paged path at
-tp = 1. Everything that touches the device lives here:
+Counterpart of ``repro/serve/executor.py`` at tp = 1. Everything that
+touches the device lives here: the paged regions (a decode step, a prompt
+chunk) and the dense ones (a B = 1 prefill into a page-padded cache for
+the monolithic paged engine, a decode step and a one-slot prefill over the
+dense engine's slot caches, models/transformer.py ``forward``).
 
   * **Token selection runs on the device.** Both regions return sampled
     token ids (greedy argmax), never logits, so the [vocab]-sized
@@ -34,7 +37,7 @@ from repro_torch.serve import paged_step, trace
 
 
 class Executor:
-    """Paged decode / prefill-chunk dispatch for one Engine.
+    """Paged and dense step dispatch for one Engine.
 
     ``model`` is cast once to the config's compute dtype and must already
     live on ``device``.
@@ -64,9 +67,35 @@ class Executor:
             logits, pages = prefill(model, tokens, pages, table_row, start)
             return logits[0].argmax().to(torch.int32), pages
 
+        def sampled_prefill_dense(model, tokens, caches):
+            x = transformer.hidden(model, tokens, caches, 0, "prefill")
+            return transformer.logits(model, x[:, -1:])[0, -1].argmax().to(
+                torch.int32), caches
+
+        def sampled_decode_dense(model, tokens, caches, cache_pos):
+            x = transformer.hidden(model, tokens, caches, cache_pos, "decode")
+            return transformer.logits(model, x)[:, -1].argmax(dim=-1).to(
+                torch.int32), caches
+
+        def sampled_prefill_slot(model, tokens, caches, slot, length):
+            # only the slot's row runs (the reference runs every slot's row
+            # and keeps one: rows are independent, so the result is the
+            # same); the row views write into the slot's caches in place
+            rows = [tuple({n: a[:, slot:slot + 1] for n, a in kv.items()}
+                          for kv in per_pos) for per_pos in caches]
+            x = transformer.hidden(model, tokens, rows, 0, "prefill")
+            return transformer.logits(model, x[:, length - 1:length])[
+                0, 0].argmax().to(torch.int32), caches
+
         self._decode = TargetRegion(sampled_decode, name="paged_decode")
         self._prefill_chunk = TargetRegion(sampled_chunk,
                                            name="paged_prefill_chunk")
+        self._prefill_dense = TargetRegion(sampled_prefill_dense,
+                                           name="paged_prefill")
+        self._decode_dense = TargetRegion(sampled_decode_dense,
+                                          name="dense_decode")
+        self._prefill_slot = TargetRegion(sampled_prefill_slot,
+                                          name="dense_prefill_slot")
 
     # -- host → device -------------------------------------------------------
     def to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
@@ -106,6 +135,31 @@ class Executor:
             out = self._prefill_chunk(self.model, tokens, pages, table_row,
                                       start)
             self._note_dispatch("prefill_chunk")
+            return out
+
+    def prefill_dense(self, tokens, caches):
+        """B = 1 prefill of a whole prompt ([1, L]) into dense ``caches``
+        (the monolithic paged engine's; the pool scatters them into
+        pages). Returns (sampled id, caches)."""
+        with self.tracer.span("dispatch", kind="prefill_dense"):
+            out = self._prefill_dense(self.model, tokens, caches)
+            self._note_dispatch("prefill_dense")
+            return out
+
+    def decode_dense(self, tokens, caches, cache_pos):
+        """One decode step of every slot ([B, 1] tokens) at its own position
+        ``cache_pos`` ([B] int tensor). Returns ([B] sampled ids, caches)."""
+        with self.tracer.span("dispatch", kind="decode_dense"):
+            out = self._decode_dense(self.model, tokens, caches, cache_pos)
+            self._note_dispatch("decode_dense")
+            return out
+
+    def prefill_slot(self, tokens, caches, slot: int, length: int):
+        """Prefill one slot's prompt ([1, L]) into its rows of the dense
+        slot caches. Returns (sampled id, caches)."""
+        with self.tracer.span("dispatch", kind="prefill_slot"):
+            out = self._prefill_slot(self.model, tokens, caches, slot, length)
+            self._note_dispatch("prefill_slot")
             return out
 
     def bind_metrics(self, bus) -> None:

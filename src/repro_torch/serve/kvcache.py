@@ -1,6 +1,9 @@
-"""Paged KV pool: sequences own page lists over a physical page pool.
+"""KV pools for serving: dense slot caches and a page pool.
 
-Counterpart of ``PagedCachePool`` in ``repro/serve/kvcache.py``. The pool
+Counterpart of ``repro/serve/kvcache.py``. :class:`CachePool` is the dense
+engine's pool: ``n_slots`` decode slots, each a ``[K, max_seq, hd]`` cache
+row per layer (``transformer.init_caches``), whatever its sequence's
+length. :class:`PagedCachePool` is the page pool: the pool
 holds ``n_pages`` physical pages of ``page_tokens`` rows per layer,
 ``[count, P, K, pt, hd]`` per group position, so one *logical* page id maps
 into every layer's pool at once and each layer's ``[P, K, pt, hd]`` slice
@@ -50,6 +53,46 @@ from repro_torch.serve import kvquant, paged_step, trace
 _PAGEABLE = ("gqa", "global", "shared")
 
 
+class CachePool:
+    """Slot-based dense pool: ``n_slots`` decode slots over the model's slot
+    caches (``[count, n_slots, K, max_seq, hd]`` leaves at the compute
+    dtype). ``lengths[slot]`` counts the slot's KV rows plus the token it
+    will decode next; ``seq_ids[slot]`` is -1 when the slot is free."""
+
+    prefix = None       # no prefix index under the dense engine
+
+    def __init__(self, cfg: transformer.ModelConfig, n_slots: int,
+                 max_seq: int, device="cpu"):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.caches = transformer.init_caches(cfg, n_slots, max_seq,
+                                              device=device)
+        self.lengths = np.zeros(n_slots, np.int64)
+        self.seq_ids = np.full(n_slots, -1, np.int64)
+
+    def alloc_slot(self, seq_id: int) -> int:
+        free = np.where(self.seq_ids < 0)[0]
+        if len(free) == 0:
+            raise MemoryError("no free decode slots")
+        s = int(free[0])
+        self.seq_ids[s] = seq_id
+        self.lengths[s] = 0
+        return s
+
+    def free_slot(self, slot: int) -> None:
+        self.seq_ids[slot] = -1
+        self.lengths[slot] = 0
+
+    def token_bytes(self) -> int:
+        return token_bytes(self.cfg)
+
+    def footprint_bytes(self) -> int:
+        """Device memory the pool holds at the reference's 2-byte estimate:
+        n_slots × max_seq rows, however short the resident sequences."""
+        return self.n_slots * self.max_seq * token_bytes(self.cfg)
+
+
 def token_bytes(cfg: transformer.ModelConfig) -> int:
     """Per-token cache footprint (all layers) for capacity planning, at
     the reference's 2-byte estimate per element."""
@@ -70,6 +113,8 @@ class PagedCachePool:
     any shared prefix pages), promotion tops the reservation up to the
     decode worst case (``reserve_decode``), and decode grows the page list
     on demand (``ensure``), which the reservation guarantees never fails.
+    Monolithic admission (``admit``) reserves the decode worst case at
+    once, and ``write_prefill`` lands a whole dense prefill in the pages.
     Reservations count *private* pages: shared prefix pages cost the sharer
     nothing, a COW fork counts as one of its own.
     """
@@ -129,6 +174,10 @@ class PagedCachePool:
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_tokens)
 
+    def padded_len(self, n_tokens: int) -> int:
+        """n_tokens rounded up to whole pages (a dense prefill's cache)."""
+        return self.pages_for(n_tokens) * self.page_tokens
+
     def _worst_pages(self, prompt_len: int, max_new: int) -> int:
         """Worst-case page need: at least one decoded token's KV lands at
         position prompt_len, so the floor on generated tokens is 1."""
@@ -154,6 +203,32 @@ class PagedCachePool:
         return (worst <= self.max_pages_per_seq
                 and worst <= self.alloc.n_pages
                 and prompt_len < self.max_seq)
+
+    def can_admit(self, prompt_len: int, max_new: int) -> bool:
+        """Monolithic admission: a slot, and the decode worst case coverable
+        now (prompt and every decoded token)."""
+        if not np.any(self.seq_ids < 0):
+            return False                               # no slot
+        if not self.admissible_ever(prompt_len, max_new):
+            return False
+        return self._worst_pages(prompt_len, max_new) <= \
+            self.alloc.free_pages - self._reservation_debt()
+
+    def admit(self, seq_id: int, prompt_len: int, max_new: int) -> int:
+        """Reserve the worst case, allocate the prompt's pages, claim a slot
+        (the monolithic engine; :meth:`write_prefill` fills the pages)."""
+        if seq_id in self.alloc._seq_pages or seq_id in self._reserved:
+            raise ValueError(f"paged KV: seq_id {seq_id} already resident "
+                             "(page lists would silently merge)")
+        if not self.can_admit(prompt_len, max_new):
+            raise MemoryError("paged KV: admission refused (out of pages/"
+                              "slots)")
+        slot = int(np.where(self.seq_ids < 0)[0][0])
+        self._reserved[seq_id] = self._worst_pages(prompt_len, max_new)
+        self.reset_pages(self.alloc.alloc_seq(seq_id, prompt_len))
+        self.seq_ids[slot] = seq_id
+        self.lengths[slot] = 0
+        return slot
 
     def _private_prompt_need(self, prompt_len: int, n_shared_pages: int,
                              match_len: int) -> int:
@@ -308,6 +383,31 @@ class PagedCachePool:
         self._shared_base.pop(sid, None)
         self.seq_ids[slot] = -1
         self.lengths[slot] = 0
+
+    def write_prefill(self, slot: int, caches, length: int) -> None:
+        """Scatter a dense B = 1 prefill cache (``transformer.init_caches``
+        leaves [count, 1, K, S, hd], S a whole number of pages covering the
+        slot's page list) into the slot's pages, one indexed copy per leaf.
+        An int8 pool quantizes each page whole through
+        ``kvquant.quantize_pages``: the same bytes and scales a chunk
+        scatter writes into fresh pages."""
+        sid = int(self.seq_ids[slot])
+        pages = self.alloc._seq_pages[sid]
+        ids = paged_step.page_index(pages, self.device)
+        npg, pt = len(pages), self.page_tokens
+        for per_pos, dense_pos in zip(self.pages, caches):
+            for kv, dense in zip(per_pos, dense_pos):
+                for name in kvquant.PAYLOAD:
+                    count, _, K, _, hd = dense[name].shape
+                    rows = dense[name][:, 0, :, :npg * pt].reshape(
+                        count, K, npg, pt, hd).transpose(1, 2)
+                    if self.quantized:
+                        q, scale = kvquant.quantize_pages(rows)
+                        kv[name].index_copy_(1, ids, q)
+                        kv[kvquant.SCALE_OF[name]].index_copy_(1, ids, scale)
+                    else:
+                        kv[name].index_copy_(1, ids, rows.to(kv[name].dtype))
+        self.lengths[slot] = length
 
     # -- host views of the page tables ---------------------------------------
     def device_page_tables(self) -> np.ndarray:

@@ -33,13 +33,11 @@ writes them back in place.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.kernels.paged_decode_attention import paged_flash_decode
 from repro_torch.kernels.paged_prefill_attention import paged_flash_prefill
-from repro_torch.models import blocks, transformer
+from repro_torch.models import transformer
 from repro_torch.serve import kvquant
 
 
@@ -197,58 +195,6 @@ def _scales(kv):
     return {"k_scale": kv.get("k_scale"), "v_scale": kv.get("v_scale")}
 
 
-def _layer_pre(p, x, positions, cfg: transformer.ModelConfig):
-    """Norm, QKV projections with bias, RoPE: x [B, L, d] → q [B, L, H, hd],
-    k, v [B, L, K, hd]."""
-    B, L, _ = x.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    m = p["mixer"]
-    h = transformer._norm_apply(p["ln1"], x, cfg)
-    q, k, v = h @ m["wq"], h @ m["wk"], h @ m["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + m["bq"], k + m["bk"], v + m["bv"]
-    q = q.reshape(B, L, H, hd)
-    k = k.reshape(B, L, K, hd)
-    v = v.reshape(B, L, K, hd)
-    if cfg.rope_theta is not None:
-        q = blocks.apply_rope(q, positions, cfg.rope_theta)
-        k = blocks.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
-def _layer_post(p, x, att, ffn: str, cfg: transformer.ModelConfig):
-    """Output projection, residual, MLP: att [B, L, H, hd] f32."""
-    B, L = x.shape[:2]
-    x = x + att.reshape(B, L, -1).to(x.dtype) @ p["mixer"]["wo"]
-    if ffn != "none":
-        h2 = transformer._norm_apply(p["ln2"], x, cfg)
-        x = x + transformer._ffn_apply(p["ffn"], ffn, h2, cfg)
-    return x
-
-
-def _units(model: transformer.Transformer, pages):
-    """Walk every layer in order: (kind, layer weights, that layer's pool
-    views: {"k", "v"} [P, K, pt, hd], and on an int8 pool {"k_scale",
-    "v_scale"} [P, K])."""
-    for gi, (pattern, count) in enumerate(model.cfg.groups):
-        for u in range(count):
-            for i, kind in enumerate(pattern):
-                yield (kind, model.groups[gi][i].unit(u),
-                       {name: arr[u] for name, arr in pages[gi][i].items()})
-
-
-def _embed(model: transformer.Transformer, tokens):
-    x = blocks.embed_lookup(model.embed, tokens)
-    if model.cfg.embed_scale:
-        x = x * math.sqrt(model.cfg.d_model)
-    return x
-
-
-def _logits(model: transformer.Transformer, x):
-    h = transformer._norm_apply({"scale": model.final_norm}, x, model.cfg)
-    return h @ model.head()
-
-
 def make_paged_decode_step(cfg: transformer.ModelConfig, page_tokens: int):
     """Returns decode_step(model, tokens, pages, page_table, lengths, active)
     -> (logits [B, vocab], pages updated in place).
@@ -267,17 +213,17 @@ def make_paged_decode_step(cfg: transformer.ModelConfig, page_tokens: int):
         kv_len = torch.zeros(B, dtype=torch.int32, device=tokens.device)
         kv_len[active] = lengths[active].to(torch.int32) + 1
         positions = lengths.long()[:, None]                     # [B, 1]
-        x = _embed(model, tokens)                               # [B, 1, d]
-        for kind, p, kv in _units(model, pages):
+        x = transformer.embed(model, tokens)                    # [B, 1, d]
+        for kind, p, kv in transformer.units(model, pages):
             _, ffn = transformer.parse_kind(kind)
-            q, k, v = _layer_pre(p, x, positions, cfg)
+            q, k, v = transformer.layer_pre(p, x, positions, cfg)
             _write_token(kv, k[:, 0], v[:, 0], page_table, lengths, active,
                          page_tokens)
             att = paged_flash_decode(q[:, 0].float().contiguous(), kv["k"],
                                      kv["v"], page_table, kv_len,
                                      **_scales(kv))
-            x = _layer_post(p, x, att[:, None], ffn, cfg)
-        return _logits(model, x)[:, 0], pages
+            x = transformer.layer_post(p, x, att[:, None], ffn, cfg)
+        return transformer.logits(model, x)[:, 0], pages
 
     return decode_step
 
@@ -297,15 +243,15 @@ def make_paged_prefill_chunk_step(cfg: transformer.ModelConfig,
     def prefill_chunk(model, tokens, pages, page_table, start):
         C = tokens.shape[1]
         positions = (start + torch.arange(C, device=tokens.device))[None]
-        x = _embed(model, tokens)                               # [1, C, d]
-        for kind, p, kv in _units(model, pages):
+        x = transformer.embed(model, tokens)                    # [1, C, d]
+        for kind, p, kv in transformer.units(model, pages):
             _, ffn = transformer.parse_kind(kind)
-            q, k, v = _layer_pre(p, x, positions, cfg)
+            q, k, v = transformer.layer_pre(p, x, positions, cfg)
             _write_chunk(kv, k[0], v[0], page_table, start, page_tokens)
             att = paged_flash_prefill(q[0].float().contiguous(), kv["k"],
                                       kv["v"], page_table, start,
                                       **_scales(kv))
-            x = _layer_post(p, x, att[None], ffn, cfg)
-        return _logits(model, x[:, -1:])[:, -1], pages
+            x = transformer.layer_post(p, x, att[None], ffn, cfg)
+        return transformer.logits(model, x[:, -1:])[:, -1], pages
 
     return prefill_chunk

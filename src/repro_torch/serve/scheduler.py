@@ -1,13 +1,29 @@
-"""Serving scheduler: the chunked, token-budgeted step loop over a paged pool.
+"""Serving scheduler: the dense, monolithic paged and chunked step loops.
 
-Counterpart of the chunked branch of ``repro/serve/scheduler.py`` (greedy
-only). Requests land in a :class:`~repro_torch.core.offload.Mailbox`; each
-``step()`` drains it, decides which sequences admit, chunk, promote,
-preempt, or decode, and dispatches the executor's regions. Each iteration
-packs one decode token per stream first and fair-shares the remainder of
-the token budget over mid-prefill residents as prompt chunks, in admission
-order. Admission reserves prompt pages only; the decode worst case tops up
-at promotion.
+Counterpart of ``repro/serve/scheduler.py`` (greedy only). Requests land
+in a :class:`~repro_torch.core.offload.Mailbox`; each ``step()`` drains
+it, decides which sequences admit, chunk, promote, preempt, or decode, and
+dispatches the executor's regions. Three loops, chosen by the engine's
+config:
+
+  * **dense** (no page pool, ``paged=False``): admission takes a free slot
+    and prefills the whole prompt into the slot's rows of the dense caches;
+    one decode step a step over every slot, each at its own position (the
+    reference's shared ``cache_pos`` is a fault: models/attention.py);
+  * **monolithic paged** (``paged=True, chunked=False``): admission
+    reserves the decode worst case, prefills the whole prompt into a dense
+    B = 1 cache padded to whole pages and scatters it into the sequence's
+    pages (``write_prefill``); a synchronous paged decode step follows;
+    under a tiered stack a refused request preempts, as in the chunked loop;
+  * **chunked** (``chunked=True``): each iteration packs one decode token
+    per stream first and fair-shares the remainder of the token budget over
+    mid-prefill residents as prompt chunks, in admission order. Admission
+    reserves prompt pages only; the decode worst case tops up at
+    promotion.
+
+The dense and monolithic loops flush the sampled ids once a phase
+(admission, then decode); the chunked loop once an iteration, and it alone
+overlaps (below).
 
 Prefix reuse (a stack with a prefix layer, serve/cache.py): admission
 looks up the longest cached prefix of the prompt, adopts its pages and
@@ -34,10 +50,12 @@ one token per mid-prefill resident). Policy never touches pages and never
 changes which tokens an admitted request streams.
 
 Token movement: dispatches return device-resident sampled ids; the
-scheduler queues them with their completion logic and materialises the
-whole iteration's ids in ONE ``Executor.fetch_token_ids`` transfer.
+scheduler queues them with their completion logic and materialises them in
+ONE ``Executor.fetch_token_ids`` transfer an iteration (a phase, off the
+chunked loop).
 
-Overlapped execution (``overlap=True``, the default): each ``step()`` first
+Overlapped execution (``overlap=True``, the default, chunked loop only):
+each ``step()`` first
 runs the *shadow phase* (swap-in landings, the admission drain, where cold
 resumes only start their copies, the COW pre-fork and the mailbox-head
 prefetch) while the previous step's dispatches are still running on the
@@ -62,7 +80,10 @@ tests/test_torch_policy.py):
   * decode + prefill-chunk tokens per iteration never exceed the budget;
   * accounting closes at drain: every page free, no cold sequence, the
     allocator audit clean;
-  * exactly one host transfer of token ids per iteration.
+  * exactly one host transfer of token ids per chunked iteration (at most
+    one per phase on the dense and monolithic loops).
+
+``extract_unadmitted`` is the fleet's drain hook (serve/router.py).
 """
 from __future__ import annotations
 
@@ -97,13 +118,17 @@ class Request:
 
 
 class Scheduler:
-    """Mailbox-batched continuous scheduling over one paged cache stack.
+    """Mailbox-batched continuous scheduling over one cache stack.
 
-    ``tiered`` mirrors the stack (a :class:`TieredCachePool` below) and
-    turns on preemption; the Engine derives it from its cache config."""
+    ``pool`` is a paged stack (serve/cache.py) or, with ``paged=False``, the
+    dense :class:`~repro_torch.serve.kvcache.CachePool`. ``paged``,
+    ``chunked``, ``tiered`` and ``overlap`` are taken as given: the Engine
+    passes the flags ``EngineConfig.normalized()`` resolved (a
+    :class:`TieredCachePool` below turns on preemption)."""
 
     def __init__(self, cfg: transformer.ModelConfig, pool, executor: Executor,
-                 *, n_slots: int, token_budget: Optional[int] = None,
+                 *, n_slots: int, paged: bool = True, chunked: bool = True,
+                 token_budget: Optional[int] = None,
                  tiered: bool = False, preempt_quantum: int = 1,
                  overlap: bool = True, metrics: Optional[MetricsBus] = None,
                  policy: Optional[SchedulerPolicy] = None,
@@ -111,9 +136,11 @@ class Scheduler:
         self.cfg = cfg
         self.pool = pool
         self.executor = executor
-        self.tiered = bool(tiered)
+        self.paged = paged
+        self.chunked = chunked
+        self.tiered = tiered
         self.preempt_quantum = max(1, preempt_quantum)
-        self.overlap = bool(overlap)
+        self.overlap = overlap
         self.bus = metrics if metrics is not None else MetricsBus(enabled=False)
         self.tracer = tracer if tracer is not None else trace.null_tracer()
         self.policy = policy
@@ -148,14 +175,16 @@ class Scheduler:
         self._resident_since = np.zeros(n_slots, np.int64)
         self._chunks_done = np.zeros(n_slots, np.int64)
         self._admit_clock = 0
-        if token_budget is None:
-            token_budget = n_slots + 4 * pool.page_tokens
-        if token_budget <= n_slots:
-            raise ValueError(
-                f"token_budget ({token_budget}) must exceed n_slots "
-                f"({n_slots}): decode tokens are packed first, so a "
-                "smaller budget could never schedule a prefill chunk")
-        self.token_budget = int(token_budget)
+        self.token_budget = None
+        if self.chunked:
+            if token_budget is None:
+                token_budget = n_slots + 4 * pool.page_tokens
+            if token_budget <= n_slots:
+                raise ValueError(
+                    f"token_budget ({token_budget}) must exceed n_slots "
+                    f"({n_slots}): decode tokens are packed first, so a "
+                    "smaller budget could never schedule a prefill chunk")
+            self.token_budget = int(token_budget)
 
     # -- host API ----------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -177,22 +206,56 @@ class Scheduler:
                 and not self._pending_swapins
                 and not self._fetch_queue and not self._commit_queue)
 
+    def extract_unadmitted(self) -> List[Request]:
+        """Take every mailbox request that holds no engine state out of the
+        mailbox (the fleet's drain hook: a draining replica hands its
+        never-admitted queue to its siblings). Requests that held pages
+        (cold residents, evicted re-prefillers) stay, in their order: moving
+        them would strand the pool's accounting."""
+        pending = self.mailbox.drain(len(self.mailbox))
+        keep: List[Request] = []
+        out: List[Request] = []
+        for req in pending:
+            (out if self._sheddable(req) else keep).append(req)
+        for req in reversed(keep):
+            self.mailbox.requeue(req)
+        return out
+
     def step(self) -> List[Request]:
-        """One engine iteration: the policy pass, then the unified
-        token-budgeted step, with exactly one host transfer of sampled ids.
-        Returns the requests that finished this iteration."""
+        """One engine iteration: the policy pass, then the chunked loop's
+        token-budgeted step (one host transfer of sampled ids), or the
+        dense / monolithic loop's admission pass and decode step (one
+        transfer each). Returns the requests that finished this
+        iteration."""
         self._finished = []
         with self.tracer.iteration():
             self._policy_pass()
-            decoded = self._step_chunked()
-            if not self.overlap:
+            decoded = False
+            if self.chunked:
+                decoded = self._step_chunked()
+                if not self.overlap:
+                    self._flush_tokens()
+            elif self.paged:
+                with self.tracer.span("schedule"):
+                    self._admit_paged()
                 self._flush_tokens()
-                if self.tiered and decoded:
-                    # with this step's releases applied, start the mailbox
-                    # head's resume now: its copies overlap the next
-                    # admission pass and land at the top of the next step
-                    # (the overlapped loop prefetches in its shadow phase)
-                    self._start_prefetch()
+                if self.active:
+                    self._dispatch_decode_paged()
+                    self._flush_tokens()
+                    decoded = True
+            else:
+                with self.tracer.span("schedule"):
+                    self._admit()
+                self._flush_tokens()
+                if self.active:
+                    self._dispatch_decode_dense()
+                    self._flush_tokens()
+            if self.tiered and decoded and not self.overlap:
+                # with this step's releases applied, start the mailbox
+                # head's resume now: its copies overlap the next admission
+                # pass and land at the top of the next step (the overlapped
+                # loop prefetches in its shadow phase)
+                self._start_prefetch()
             self._publish_metrics()
         self._publish_stall()
         return self._finished
@@ -279,7 +342,8 @@ class Scheduler:
         n_admitted = len(s["admission_order"])
         if self.prefix is not None and n_admitted:
             bus.set("prefix_hit_rate", s["prefix_hits"] / n_admitted)
-        self.pool.publish_metrics(bus)
+        if self.paged:          # the dense pool publishes nothing
+            self.pool.publish_metrics(bus)
 
     def _publish_stall(self) -> None:
         """Publish the just-closed iteration's stall buckets (tracing only)."""
@@ -437,8 +501,10 @@ class Scheduler:
     def _admit_paged(self):
         """Admit by page availability: the drain stops at the first request
         the pool cannot take (requeued at the front, FIFO preserved).
-        Admission reserves only the *prompt* pages: the request enters
-        ``prefilling`` and the step loop slices its prompt into chunks.
+        The chunked loop reserves only the *prompt* pages: the request
+        enters ``prefilling`` and the step loop slices its prompt into
+        chunks. The monolithic loop reserves the decode worst case and
+        prefills the whole prompt here (``_prefill_whole``).
 
         Untiered, a refusal stalls admission until a release frees
         capacity. Tiered, a refusal first preempts LRU residents to host
@@ -497,6 +563,16 @@ class Scheduler:
                 # could never fit even on an idle pool: reject outright
                 self.stats["rejected"] = self.stats.get("rejected", 0) + 1
                 continue
+            if not self.chunked:
+                if not self.pool.can_admit(L, req.max_new) and not (
+                        self.tiered and self._preempt_until(
+                            lambda: self.pool.can_admit(L, req.max_new))):
+                    self.mailbox.requeue(req)
+                    self.stats["admission_refusals"] += 1
+                    self._admit_stalled = True
+                    break
+                self._prefill_whole(req, L)
+                continue
             while True:
                 match = self._prefix_match(req)
                 if self.pool.can_admit_prefill(
@@ -533,6 +609,23 @@ class Scheduler:
                 self._emit(req, match.first_token)
             self._activate(slot, req, first_admit=True)
 
+    def _prefill_whole(self, req: Request, L: int) -> None:
+        """Monolithic admission: reserve the decode worst case, prefill the
+        whole prompt into a dense B = 1 cache padded to whole pages, and
+        scatter it into the sequence's pages."""
+        slot = self.pool.admit(req.seq_id, L, req.max_new)
+        caches = transformer.init_caches(self.cfg, 1,
+                                         self.pool.padded_len(L),
+                                         device=self.executor.device)
+        toks, = self.executor.to_device(req.prompt[None, :])
+        tok_dev, caches = self.executor.prefill_dense(toks, caches)
+        self.pool.write_prefill(slot, caches, L)
+        self._queue_fetch(
+            tok_dev, lambda v, req=req: self._emit(req, int(v[0])))
+        req.prefill_pos = L
+        self._activate(slot, req, first_admit=True)
+        self.stats["prefills"] += 1
+
     def _prefix_match(self, req: Request) -> PrefixMatch:
         """Prefix-cache lookup for a fresh request (no KV written yet). The
         port is greedy only, so a full hit's cached first token always
@@ -541,12 +634,74 @@ class Scheduler:
             return PrefixMatch(length=0, pages=[])
         return self.pool.match(req.prompt)
 
-    # -- decode ---------------------------------------------------------------
-    def _dispatch_decode_paged(self, slots: List[int]):
+    # -- the dense loop -------------------------------------------------------
+    def _admit(self) -> None:
+        """Dense admission: each free slot takes the mailbox head and
+        prefills its whole prompt into the slot's cache rows."""
+        while np.any(self.pool.seq_ids < 0):
+            if self.policy is not None and \
+                    not self.policy.may_admit(len(self.active)):
+                break
+            reqs = self.mailbox.drain(1)
+            if not reqs:
+                break
+            req = reqs[0]
+            slot = self.pool.alloc_slot(req.seq_id)
+            L = len(req.prompt)
+            toks, = self.executor.to_device(req.prompt[None, :])
+            tok_dev, self.pool.caches = self.executor.prefill_slot(
+                toks, self.pool.caches, slot, L)
+            self._queue_fetch(
+                tok_dev, lambda v, req=req: self._emit(req, int(v[0])))
+            req.prefill_pos = L
+            self.pool.lengths[slot] = L + 1
+            self.active[slot] = req
+            self._note_first_admit(req)
+            self.tracer.request_state(req.seq_id, "decode")
+            self.stats["prefills"] += 1
+
+    def _dispatch_decode_dense(self) -> None:
+        """One decode step over every slot. Slot b writes and attends at its
+        own position ``lengths[b] - 1`` (a free slot at 0; its output is
+        dropped). The reference passes one shared position, the largest
+        length less one, to every slot (models/attention.py)."""
+        B = self.pool.n_slots
+        toks = np.zeros((B, 1), np.int32)
+        for slot, req in self.active.items():
+            toks[slot, 0] = req.tokens_out[-1]
+        toks_d, pos_d = self.executor.to_device(
+            toks, np.maximum(self.pool.lengths - 1, 0))
+        ids_dev, self.pool.caches = self.executor.decode_dense(
+            toks_d, self.pool.caches, pos_d)
+        self.stats["decode_steps"] += 1
+        self.stats["decode_tokens"] += len(self.active)
+        self.stats["batch_occupancy"].append(len(self.active) / B)
+        slots = list(self.active)
+        self._queue_fetch(
+            ids_dev, lambda v, slots=slots: self._finish_decode_dense(slots, v))
+
+    def _finish_decode_dense(self, slots: List[int], vals: np.ndarray):
+        for slot in slots:
+            req = self.active[slot]
+            self._emit(req, int(vals[slot]))
+            self.pool.lengths[slot] += 1
+            # dense lengths count KV rows plus the pending token
+            if len(req.tokens_out) >= req.max_new or \
+               self.pool.lengths[slot] >= self.pool.max_seq - 1:
+                req.done = True
+                self._finished.append(req)
+                del self.active[slot]
+                self.pool.free_slot(slot)
+                self.tracer.request_state(req.seq_id, "finished")
+
+    # -- paged decode ---------------------------------------------------------
+    def _dispatch_decode_paged(self, slots: Optional[List[int]] = None):
         if self.tiered and not self.overlap:
             # land the prefetch started at the end of the previous step (the
             # overlapped loop lands prefetches in its shadow phase instead)
             self._finish_pending_swapin()
+        if slots is None:            # the monolithic loop: every decoder
+            slots = sorted(self.active)
         B = self.pool.max_batch
         toks = np.zeros(B, np.int32)
         for slot in slots:
@@ -855,11 +1010,12 @@ class Scheduler:
         out["token_fetches"] = self.executor.stats.get("token_fetches", 0)
         out["tokens_fetched"] = self.executor.stats.get("tokens_fetched", 0)
         out["tp"] = self.executor.tp
-        iters = s.get("iter_log") or []
-        out["token_budget"] = self.token_budget
-        out["max_iter_tokens"] = max(
-            (e["decode_tokens"] + e["prefill_tokens"] for e in iters),
-            default=0)
+        if self.chunked:
+            iters = s.get("iter_log") or []
+            out["token_budget"] = self.token_budget
+            out["max_iter_tokens"] = max(
+                (e["decode_tokens"] + e["prefill_tokens"] for e in iters),
+                default=0)
         if self.prefix is not None:
             out.update(self.prefix.stats())
         out["shed"] = s.get("shed", 0)

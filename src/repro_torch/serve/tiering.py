@@ -113,7 +113,13 @@ class TieredCachePool(PagedCachePool):
         self.swap_in_bytes = 0
         self.last_transfers: List[dma.TransferHandle] = []
 
-    # -- cold-tier admission guard -----------------------------------------
+    # -- cold-tier admission guards ----------------------------------------
+    def admit(self, seq_id: int, prompt_len: int, max_new: int) -> int:
+        if seq_id in self._cold:
+            raise ValueError(f"tiered KV: seq_id {seq_id} is resident in the "
+                             "cold tier (resume it, don't re-admit)")
+        return super().admit(seq_id, prompt_len, max_new)
+
     def admit_prefill(self, seq_id: int, prompt_len: int,
                       shared_pages: Optional[List[int]] = None,
                       match_len: int = 0) -> int:

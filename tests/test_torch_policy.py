@@ -342,8 +342,8 @@ def test_chunked_shedding_mix_matches_jax(overlap):
 # --------------------------------------------------------------------------
 def test_serve_cli_tier_and_policy_flags_on_the_cpu(capsys):
     from repro_torch.launch import serve
-    common = ["--device", "cpu", "--tiered", "--pages", "6",
-              "--page-tokens", "8", "--requests", "6", "--slots", "2",
+    common = ["--device", "cpu", "--chunked-prefill", "--tiered",
+              "--pages", "6", "--page-tokens", "8", "--requests", "6", "--slots", "2",
               "--max-seq", "32", "--max-new", "3", "--token-budget", "6",
               "--prompt-len", "8", "--prompt-len-max", "20"]
     serve.main(common + ["--priorities", "2", "--max-in-system", "2",
