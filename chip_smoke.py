@@ -20,7 +20,11 @@ Phases, each printed on its own line, none catching its own failure:
                CUDA-graph replays, plain times from CUDA events, beside the
                least time the card could take, for bf16 and for int8 pages
                (decode at the serving decode shape, prefill at C 256 /
-               start 1500);
+               start 1500); then at yi-34b's decode step and chunk (B 8,
+               H 56, K 8, hd 128: G 7; bf16, timed, and int8), at
+               minitron-4b's (H 24, K 8: G 3; timed) and at one rank's
+               shard of qwen2-0.5b at tp = 2 (H 7, K 1, hd 64; timed),
+               whose split must equal the unsharded call's;
   4. suite kernels  the AutoDMA builder with each gemm body (mxu, vpu,
                loop), matvec and matvec_t against the plain grid walker on
                the same CUDA tensors: gemm 2048³ and 1024×1024×4608, matvec
@@ -122,6 +126,31 @@ Phases, each printed on its own line, none catching its own failure:
                slot at its last step's length) and flash_attention at the
                longest prompt's prefill, each held against its plain
                version and timed for its serving entries;
+  7f. serve yi-34b  yi-34b at full width (60 layers, d_model 7168, 56/8
+               heads, hd 128, d_ff 20480, vocab 64000, untied; 34.4 B
+               parameters drawn at bf16, seed 0) through phase 7's
+               chunked engine and traffic (a pool of 1024 pages x
+               3,932,160 B), run after every earlier model and pool is
+               freed; gates: every request finishes, 8 x 64 tokens, the
+               prompt tokens all chunk-prefilled, every page free, audit
+               clean, each paged kernel launched layers x steps (chunks)
+               times; logged: free memory before the weights, peak
+               memory, tok/s, TTFT and ITL p50 / p99, decode steps and
+               chunks; then a second run, gated to the same streams,
+               with iterations 8-40 under torch.profiler: the device's
+               busy share of that window and its top kernels;
+  7g. serve minitron-4b  minitron-4b at full width (32 layers, d_model
+               3072, 24/8 heads, squared-ReLU MLP, a 256,000-wide untied
+               head) on the same engine, traffic and gates;
+  7h. serve tp  phase 7's model, engine and traffic at tp = 2: two ranks
+               (parallel/launch.py) on this one card over gloo, which
+               stages CUDA tensors through the host (NCCL refuses two
+               ranks on one GPU), so the run is for correctness only;
+               each rank holds one of the two kv heads; gates: every
+               rank's streams equal phase 7's tp = 1 streams, each paged
+               kernel launched layers x steps (chunks) times a rank, the
+               rank-consistency check on after every iteration, every
+               page free;
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams and equal
                preemption, swap, refusal and prefix-hit counters, on the
@@ -134,14 +163,19 @@ Phases, each printed on its own line, none catching its own failure:
                prompts of 3, 9, 5 and 12 tokens; a two-replica prefix
                fleet with one kill and one respawn, whose streams, fleet
                counters and placements also equal on both devices, and
-               whose streams equal one chunked engine's;
-  9. a ``{"kernels": [...]}`` line (the paged kernels twice: bf16 pages with
-     phase 7's launches, int8 pages with phase 7b's; flash_decode and
+               whose streams equal one chunked engine's; and the
+               yi-34b and minitron-4b smoke configs through the chunked
+               engine, whose streams and counters equal on both devices;
+  9. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
+     launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
+     ``_minitron4b`` and ``_tp`` with phases 7f, 7g and 7h's (rank 0's),
+     each timed at its own phase 3 shape; flash_decode and
      flash_attention with phase 5's suite launches, and again as
      flash_decode_dense, flash_attention_dense and
      flash_attention_monolithic, each with the launches of its own 7e run
-     and timed at 7e's shapes), then the card's name and power limit,
-     then ``{"ok": true, "device": {...}}`` as the last line.
+     and timed at 7e's shapes; every entry launched at least once), then
+     the card's name and power limit, then ``{"ok": true, "device":
+     {...}}`` as the last line.
 
 Any failure exits non-zero before the last line. Without a card, or run
 from a directory that lacks the repository's ``src/``, it fails too.
@@ -233,10 +267,27 @@ def check_kernels(results):
     g = torch.Generator(device="cuda").manual_seed(0)
     timed = {"main": ("paged_flash_decode", "paged_flash_prefill"),
              "int8": ("paged_flash_decode_int8", "paged_flash_prefill_int8")}
+    for name, suffix in (("yi-34b", "_yi34b"), ("minitron-4b", "_minitron4b"),
+                         ("tp2-shard", "_tp")):
+        timed[name] = ("paged_flash_decode" + suffix,
+                       "paged_flash_prefill" + suffix)
+    serving = [0, 1, 16, 17, 255, 256, 1000, 2048]
     cases = [  # name, H, K, hd, pt, page dtype, lengths, max_pages, chunks
+        #        [, shards: the tp degree of a kv-head shard]
         ("main", 14, 2, 64, 16, torch.bfloat16,
          [0, 1, 16, 17, 255, 256, 1000, 2048], 128,
          [(1, 2047), (37, 100), (256, 1500), (256, 0)]),
+        # yi-34b's decode step and chunk (G 7, hd 128), minitron-4b's (G 3)
+        ("yi-34b", 56, 8, 128, 16, torch.bfloat16, serving, 128,
+         [(1, 2047), (37, 100), (256, 1500)]),
+        ("yi-34b-int8", 56, 8, 128, 16, torch.int8, serving, 128,
+         [(1, 2047), (37, 100), (256, 1500)]),
+        ("minitron-4b", 24, 8, 128, 16, torch.bfloat16, serving, 128,
+         [(1, 2047), (256, 1500)]),
+        # one rank's kv-head shard of qwen2-0.5b at tp = 2 (K_local 1),
+        # split as the unsharded call does
+        ("tp2-shard", 7, 1, 64, 16, torch.bfloat16, serving, 128,
+         [(1, 2047), (37, 100), (256, 1500)], 2),
         ("smoke", 4, 2, 16, 8, torch.float32, [0, 3, 8, 9, 31, 40, 63, 17],
          8, [(1, 0), (3, 5), (8, 56)]),
         ("int8", 14, 2, 64, 16, torch.int8,
@@ -256,9 +307,10 @@ def check_kernels(results):
          [(1, 2047), (37, 100), (256, 1500), (64, 3)]),
     ]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, H, K, hd, pt, dt, lengths, max_pages, chunks in cases:
-        dec, pre = (results[n] for n in
-                    timed["int8" if dt == torch.int8 else "main"])
+    for name, H, K, hd, pt, dt, lengths, max_pages, chunks, *tp in cases:
+        shards = tp[0] if tp else 1
+        dec, pre = (results[n] for n in timed.get(
+            name, timed["int8" if dt == torch.int8 else "main"]))
         B = len(lengths)
         P = sum(-(-n // pt) for n in lengths) + 4
         layers = LAYERS if name in timed else 1
@@ -276,8 +328,9 @@ def check_kernels(results):
         sc = (lambda x, i: None if x is None else x[i % layers])
 
         def dec_call(i, fn=pda.paged_flash_decode):
+            kw = {"shards": shards} if fn is pda.paged_flash_decode else {}
             return fn(q, kp[i % layers], vp[i % layers], table, lens,
-                      k_scale=sc(ks, i), v_scale=sc(vs, i))
+                      k_scale=sc(ks, i), v_scale=sc(vs, i), **kw)
 
         out = dec_call(0)
         torch.cuda.synchronize()
@@ -286,7 +339,11 @@ def check_kernels(results):
         assert torch.isfinite(out).all() and err <= TOL, (name, err)
         assert out[0].abs().max().item() == 0.0, "length-0 slot not zero"
         dec["max_abs_err"] = max(dec["max_abs_err"], err)
-        grid = pda.decode_grid(B, H, K, hd, max_pages, n_sm)
+        grid = pda.decode_grid(B, H, K, hd, max_pages, n_sm, shards)
+        if shards > 1:     # the shard splits as the unsharded call does
+            whole = pda.decode_grid(B, H * shards, K * shards, hd, max_pages,
+                                    n_sm)
+            assert grid[:2] == whole[:2], (grid, whole)
         log("kernels", f"decode {name}: B {B} H {H} K {K} hd {hd} pt {pt} "
             f"{str(dt)[6:]} pages, {grid.nsplit} splits of "
             f"{grid.pages_per_split} pages, {grid.blocks} blocks + merge "
@@ -301,8 +358,10 @@ def check_kernels(results):
             q2 = torch.randn(C, H, hd, generator=g, device="cuda")
 
             def pre_call(i, fn=ppa.paged_flash_prefill):
+                kw = {"shards": shards} \
+                    if fn is ppa.paged_flash_prefill else {}
                 return fn(q2, kp[i % layers], vp[i % layers], row, start,
-                          k_scale=sc(ks, i), v_scale=sc(vs, i))
+                          k_scale=sc(ks, i), v_scale=sc(vs, i), **kw)
 
             out = pre_call(0)
             torch.cuda.synchronize()
@@ -311,7 +370,7 @@ def check_kernels(results):
             assert torch.isfinite(out).all() and err <= TOL, (name, C, err)
             pre["max_abs_err"] = max(pre["max_abs_err"], err)
             grid = ppa.prefill_grid(C, H, K, hd, pt, max_pages, start, n_sm,
-                                    dt)
+                                    dt, shards)
             kind = ("tensor cores" if dt in ppa.TENSOR_CORE_DTYPES
                     else "CUDA cores")
             log("kernels", f"prefill {name}: C {C} start {start}, {kind}, "
@@ -1636,6 +1695,188 @@ def time_serving_attention(results, lens):
         time_flash(res, q, k, v, True, None)
 
 
+ZOO = {"yi-34b": "_yi34b", "minitron-4b": "_minitron4b"}
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def free_card(phase: str, when: str = "before the weights are drawn"):
+    """Let go of every earlier model and pool, and log what is free."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(phase, f"device memory {when}: {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB")
+
+
+def phase7_prompts(vocab: int):
+    """Phase 7's traffic: 8 prompts of 128-1536 tokens from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1537, 8)
+    return lens, [rng.integers(0, vocab, int(n)).astype(np.int32)
+                  for n in lens]
+
+
+def device_busy(eng, prompts, window=(8, 40)):
+    """Serve ``prompts`` again, tracing iterations ``window`` with
+    torch.profiler: the device's busy share of that window's wall time
+    (kernel time summed by name; the profiler's own cost lengthens the
+    wall time) and the kernels with the most device time. Returns the
+    streams."""
+    from repro_torch.launch.serve import profile_rows, profiler
+    from repro_torch.serve.engine import Request
+    for i, p in enumerate(prompts):
+        assert eng.submit(Request(seq_id=i, prompt=p.copy(), max_new=64))
+    done, it = [], 0
+    prof = profiler()
+    while not eng.idle:
+        if it == window[0]:
+            torch.cuda.synchronize()
+            prof.start()
+            t0 = time.perf_counter()
+        done.extend(eng.step())
+        it += 1
+        if it == window[1]:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.stop()
+    assert it > window[1], it
+    busy_us, rows = profile_rows(prof)
+    busy_ms = busy_us / 1e3
+    top = "; ".join(f"{us / 1e3:.1f} ms {n}x {key[:48]}"
+                    for us, n, key in rows[:5])
+    return ({r.seq_id: list(r.tokens_out) for r in done},
+            busy_ms, wall * 1e3, top)
+
+
+def zoo_serve(results, card: str, arch: str, profile: bool):
+    """Phases 7f / 7g: ``arch`` at its published width (random weights,
+    seed 0, drawn at bf16) through the chunked engine on phase 7's traffic
+    and pool shape, each paged kernel counted from 0."""
+    from repro_torch import configs
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.launch.serve import warm_up
+    from repro_torch.models import transformer
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import Engine, EngineConfig
+    phase = f"serve {arch}"
+    free_card(phase)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(arch, param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = transformer.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    conf = EngineConfig(n_slots=8, max_seq=2048, chunked=True,
+                        token_budget=256, cache=CacheConfig(page_tokens=16))
+    warm_up(cfg, model, conf, "cuda")
+    eng = Engine(cfg, model, config=conf, device="cuda")
+    torch.cuda.synchronize()
+    n_par = transformer.count_params(eng.model)
+    pool = eng.pool
+    log(phase, f"set-up {time.perf_counter() - t0:.2f} s: {arch} "
+        f"{cfg.n_layers()} layers d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv} hd {cfg.hd} d_ff {cfg.d_ff} "
+        f"({cfg.mlp}) vocab {cfg.vocab} untied, {n_par} parameters in "
+        f"{eng.model.embed.dtype} ({2 * n_par} B); pool "
+        f"{pool.alloc.n_pages} pages x {pool.page_nbytes()} B = "
+        f"{pool.footprint_bytes()} B")
+    lens, prompts = phase7_prompts(cfg.vocab)
+    pda.paged_flash_decode.launches = 0
+    ppa.paged_flash_prefill.launches = 0
+    t0 = time.perf_counter()
+    streams = serve(eng, prompts, 64)
+    wall = time.perf_counter() - t0
+    n_dec = pda.paged_flash_decode.launches
+    n_pre = ppa.paged_flash_prefill.launches
+    s = eng.stats_summary()
+    L = cfg.n_layers()
+    toks = sum(len(t) for t in streams.values())
+    assert len(streams) == 8 and toks == 8 * 64, (len(streams), toks)
+    assert s["prefill_chunk_tokens"] == int(lens.sum()), s
+    assert s["max_iter_tokens"] <= s["token_budget"]
+    assert pool.alloc.free_pages == pool.alloc.n_pages and \
+        pool._reserved == {}
+    pool.alloc.audit()
+    assert n_dec == L * s["decode_steps"] > 0, (n_dec, s)
+    assert n_pre == L * s["prefill_chunks"] > 0, (n_pre, s)
+    suffix = ZOO[arch]
+    results["paged_flash_decode" + suffix]["launches"] = n_dec
+    results["paged_flash_prefill" + suffix]["launches"] = n_pre
+    log(phase, f"{card}: {len(streams)} requests, prompts "
+        f"{sorted(lens.tolist())} ({int(lens.sum())} tok), {toks} new "
+        f"tokens in {wall:.3f} s ({toks / wall:.1f} tok/s), ttft p50/p99 "
+        f"{s['ttft_p50_s']:.4f}/{s['ttft_p99_s']:.4f} s, itl p50/p99 "
+        f"{s['itl_p50_s'] * 1e3:.2f}/{s['itl_p99_s'] * 1e3:.2f} ms, decode "
+        f"steps {s['decode_steps']}, prefill chunks {s['prefill_chunks']}, "
+        f"max iter tokens {s['max_iter_tokens']}, every page free, audit "
+        f"clean, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; launches: paged_flash_decode {n_dec} = {L} x "
+        f"{s['decode_steps']} decode steps, paged_flash_prefill {n_pre} = "
+        f"{L} x {s['prefill_chunks']} prompt chunks")
+    if profile:
+        del eng
+        free_card(phase, "with the weights, before a second pool")
+        eng = Engine(cfg, model, config=conf, device="cuda")
+        again, busy, wall_ms, top = device_busy(eng, prompts)
+        assert again == streams, "a second run gave other streams"
+        log(phase, f"{card}: profiled second run (iterations 8-40, the "
+            f"same streams): device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+            f"wall ({100 * busy / wall_ms:.1f} %); top kernels: {top}")
+
+
+def tp_serve(results, card: str, chunked):
+    """Phase 7h: phase 7's model, engine and traffic at tp = 2, two ranks
+    on this one card over gloo (NCCL refuses two ranks on one GPU; gloo
+    stages CUDA tensors through the host, so its speed means nothing
+    here). Each rank holds one of qwen2-0.5b's two kv heads; the streams
+    must equal phase 7's at tp = 1 on the card."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.parallel import launch
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import EngineConfig
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_tp_job import ServeJob, replicated, serve_schedule
+    free_card("serve tp")
+    cfg = configs.get_config("qwen2-0.5b")
+    lens, prompts = phase7_prompts(cfg.vocab)
+    job = ServeJob(
+        cfg=cfg, weights=0, schedule=[(0, p, 64) for p in prompts],
+        devices=("cuda:0", "cuda:0"),
+        config=EngineConfig(n_slots=8, max_seq=2048, chunked=True,
+                            token_budget=256, tp=2, check_ranks=True,
+                            cache=CacheConfig(page_tokens=16)))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        out = launch.spawn(serve_schedule, 2, (job,), store_dir=store,
+                           backend="gloo", timeout_s=600.0)
+    spawn_s = time.perf_counter() - t0
+    r = replicated(out, ("streams", "stats", "launches", "pool"))
+    s, n = r["summary"], r["launches"]
+    L = cfg.n_layers()
+    assert r["streams"] == chunked, "tp = 2 streams differ from tp = 1's"
+    assert r["pool"]["kv_heads"] == 1 and r["pool"]["seq_pages"] == {}
+    assert r["pool"]["free_pages"] == r["pool"]["n_pages"]
+    assert n["paged_flash_decode"] == L * s["decode_steps"] > 0, (n, s)
+    assert n["paged_flash_prefill"] == L * s["prefill_chunks"] > 0, (n, s)
+    assert r["executor"]["rank_checks"] > 0
+    results["paged_flash_decode_tp"]["launches"] = n["paged_flash_decode"]
+    results["paged_flash_prefill_tp"]["launches"] = n["paged_flash_prefill"]
+    toks = sum(len(t) for t in r["streams"].values())
+    log("serve tp", f"{card}: tp = 2 as two ranks on cuda:0 over gloo (the "
+        "one card; gloo is the transport here for correctness only, its "
+        f"speed means nothing): {len(r['streams'])} requests, {toks} new "
+        f"tokens, the same streams as phase 7's tp = 1 run on every rank, "
+        f"{r['executor']['rank_checks']} rank-consistency checks, each rank "
+        f"1 of 2 kv heads ({r['pool']['page_nbytes']} B a whole page), every "
+        f"page free, audit clean; launches per rank: paged_flash_decode "
+        f"{n['paged_flash_decode']} = {L} x {s['decode_steps']} decode "
+        f"steps, paged_flash_prefill {n['paged_flash_prefill']} = {L} x "
+        f"{s['prefill_chunks']} prompt chunks; ranks' serve "
+        f"{r['wall_s']:.1f} s, the whole spawn {spawn_s:.1f} s")
+
+
 def card_vs_cpu():
     """The smoke config in f32, each stack on the card and on the CPU: the
     same streams, scheduling counters and shed verdicts."""
@@ -1731,6 +1972,23 @@ def card_vs_cpu():
             f" 5 and 12 tokens: {len(streams)} greedy streams equal on cuda "
             f"and cpu, and the counters {count}")
     fleet_vs_single(cfg, model)
+    for arch in ZOO:
+        zcfg = configs.get_smoke_config(arch, compute_dtype=torch.float32)
+        zmodel = transformer.init_model(zcfg, torch.Generator().manual_seed(0))
+        zrng = np.random.default_rng(4)
+        zprompts = [zrng.integers(0, zcfg.vocab, n).astype(np.int32)
+                    for n in (6, 13, 3, 9, 30, 1)]
+        runs = []
+        for device in ("cpu", "cuda"):
+            eng = Engine(zcfg, copy.deepcopy(zmodel), device=device,
+                         config=EngineConfig(cache=CacheConfig(page_tokens=8),
+                                             **small))
+            runs.append((serve(eng, zprompts, 8),
+                         {k: eng.stats[k] for k in counters}))
+        assert runs[1] == runs[0], (arch, runs)
+        log("card/cpu", f"smoke config f32, {arch} ({zcfg.mlp}, untied), "
+            f"chunked engine: {len(runs[1][0])} greedy streams equal on cuda "
+            f"and cpu, and the counters {runs[1][1]}")
 
 
 def fleet_vs_single(cfg, model):
@@ -1864,21 +2122,9 @@ def build_kernels() -> None:
                     f"{spill}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
-              file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.launch.kernel_suite import card_line
-    card = card_line()
-    log("card", f"{card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
-        f"{torch.cuda.device_count()}; tf32 matmul "
-        f"{torch.backends.cuda.matmul.allow_tf32}, tf32 cudnn "
-        f"{torch.backends.cudnn.allow_tf32}")
-    build_kernels()
+def kernel_entries():
+    """The ``kernels`` line's entries, by name: every hand-written kernel,
+    and again for each serving path that runs it at other shapes."""
     results = {
         "paged_flash_decode": {
             "name": "paged_flash_decode", "route": "cuda",
@@ -1919,6 +2165,30 @@ def main() -> int:
                        ("flash_attention_dense", "flash_attention"),
                        ("flash_attention_monolithic", "flash_attention")):
         results[name] = dict(results[base], name=name)
+    # the paged kernels on phases 7f-7h's paths: launches from each run,
+    # times at its shapes (phase 3)
+    for suffix in (*ZOO.values(), "_tp"):
+        for base in ("paged_flash_decode", "paged_flash_prefill"):
+            results[base + suffix] = dict(results[base], name=base + suffix)
+    return results
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.kernel_suite import card_line
+    card = card_line()
+    log("card", f"{card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}; tf32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, tf32 cudnn "
+        f"{torch.backends.cudnn.allow_tf32}")
+    build_kernels()
+    results = kernel_entries()
     check_kernels(results)
     torch.cuda.synchronize()
     check_suite_kernels(results)
@@ -1936,6 +2206,14 @@ def main() -> int:
     t0 = time.perf_counter()
     dense_serve(results, card, untiered)
     log("serve dense", f"phase 7e in {time.perf_counter() - t0:.1f} s")
+    for arch, profile in (("yi-34b", True), ("minitron-4b", False)):
+        t0 = time.perf_counter()
+        zoo_serve(results, card, arch, profile)
+        log(f"serve {arch}", f"phase {'7f' if profile else '7g'} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_serve(results, card, untiered)
+    log("serve tp", f"phase 7h in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     card_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")
@@ -1943,6 +2221,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in results.values()]
     assert all(math.isfinite(r["ms"]) for r in kernels)
+    assert all(r["launches"] > 0 for r in kernels), \
+        [r["name"] for r in kernels if not r["launches"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

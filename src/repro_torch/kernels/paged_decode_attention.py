@@ -50,13 +50,21 @@ class DecodeGrid(NamedTuple):
 
 
 def decode_grid(B: int, H: int, K: int, hd: int, max_pages: int,
-                n_sm: int) -> DecodeGrid:
+                n_sm: int, shards: int = 1) -> DecodeGrid:
     """Split the page axis until the blocks come to about
     ``SPLIT_BLOCKS_PER_SM`` per SM. Host ints only: ``lengths`` lives on the
     device, and reading it would sync and break CUDA-graph capture; a split
-    past a slot's length exits at once instead."""
-    pairs = max(1, B * K * -(-(H // K) // ROWS_PER_BLOCK))  # B = 0: no launch
-    want = min(max_pages, max(1, -(-SPLIT_BLOCKS_PER_SM * n_sm // pairs)))
+    past a slot's length exits at once instead.
+
+    ``H`` and ``K`` are this call's heads, one of ``shards`` equal kv-head
+    shards (tensor parallelism). The split is chosen from the unsharded
+    ``K·shards`` kv heads, so each head's page walk splits, and its splits
+    merge, in the same order at any tp: the shards' heads are the same bits
+    as the unsharded call's."""
+    G = -(-(H // K) // ROWS_PER_BLOCK)
+    pairs = max(1, B * K * G)                                 # B = 0: no launch
+    whole = max(1, B * K * shards * G)
+    want = min(max_pages, max(1, -(-SPLIT_BLOCKS_PER_SM * n_sm // whole)))
     pps = -(-max_pages // want)
     nsplit = -(-max_pages // pps)
     return DecodeGrid(nsplit, pps, nsplit * pairs, 2 * B * H * nsplit,
@@ -162,7 +170,8 @@ def _ptr(t) -> ctypes.c_void_p:
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_table, lengths,
-                       k_scale=None, v_scale=None) -> torch.Tensor:
+                       k_scale=None, v_scale=None,
+                       shards: int = 1) -> torch.Tensor:
     """One-token attention over a paged KV cache.
 
     q:          [B, H, hd] (f32 on CUDA)
@@ -173,6 +182,9 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths,
     k_scale:    optional [P, K] f32 per-(page, kv-head) scales of an int8
                 pool, dequantised inside the kernel
     v_scale:    optional [P, K] f32 (must accompany ``k_scale``)
+    shards:     the tp degree when q and the pages hold one kv-head shard;
+                the launch splits as the unsharded call does
+                (:func:`decode_grid`)
     Returns [B, H, hd] in q's dtype.
     """
     check_scales("paged_flash_decode", k_scale, v_scale)
@@ -191,7 +203,7 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths,
                          "max_pages] and lengths [B]")
     max_pages = page_table.shape[1]
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    grid = decode_grid(B, H, K, hd, max_pages, n_sm)
+    grid = decode_grid(B, H, K, hd, max_pages, n_sm, shards)
     out = torch.empty_like(q)
     part_ml = torch.empty(grid.part_ml, device=q.device)
     part_acc = torch.empty(grid.part_acc, device=q.device)

@@ -49,12 +49,18 @@ class PrefillGrid(NamedTuple):
 
 
 def prefill_grid(C: int, H: int, K: int, hd: int, pt: int, max_pages: int,
-                 start: int, n_sm: int, dtype: torch.dtype) -> PrefillGrid:
+                 start: int, n_sm: int, dtype: torch.dtype,
+                 shards: int = 1) -> PrefillGrid:
     """Tensor-core pages (bf16 / f16 / int8): 64-row tiles, and the key axis
     split into runs of whole 64-key tiles until the blocks reach
     ``SPLIT_BLOCKS_PER_SM`` per SM where the keys allow, from host ints
     only. f32 pages: the CUDA-core kernel's grid, one block per (kv head,
-    64 rows), no split."""
+    64 rows), no split.
+
+    ``H`` and ``K`` are one of ``shards`` equal kv-head shards; the split
+    is chosen from the unsharded ``K·shards`` kv heads, so each head
+    reduces its keys in the same order at any tp (see
+    ``paged_decode_attention.decode_grid``)."""
     rows = max(1, C * (H // K))      # C = 0 launches nothing
     keys = min(start + C, max_pages * pt)
     tiles = max(1, -(-keys // KEY_TILE))
@@ -62,10 +68,11 @@ def prefill_grid(C: int, H: int, K: int, hd: int, pt: int, max_pages: int,
         return PrefillGrid(1, tiles, K * -(-rows // min(ROW_TILE, rows)), 0,
                            0)
     base = K * -(-rows // ROW_TILE)
+    whole = base * shards
     target = SPLIT_BLOCKS_PER_SM * n_sm
-    want = min(tiles, max(1, -(-target // base)))
+    want = min(tiles, max(1, -(-target // whole)))
     tps = -(-tiles // want)
-    while tps > 1 and base * -(-tiles // tps) < target:  # ceil cut a split
+    while tps > 1 and whole * -(-tiles // tps) < target:  # ceil cut a split
         tps -= 1
     nsplit = -(-tiles // tps)
     scratch = C * H * nsplit if nsplit > 1 else 0
@@ -120,7 +127,8 @@ def paged_flash_prefill_plain(q, k_pages, v_pages, page_table, start,
 
 
 def paged_flash_prefill(q, k_pages, v_pages, page_table, start,
-                        k_scale=None, v_scale=None) -> torch.Tensor:
+                        k_scale=None, v_scale=None,
+                        shards: int = 1) -> torch.Tensor:
     """Chunk attention over a paged KV cache with cross-chunk causal masking.
 
     q:          [C, H, hd] chunk queries at positions ``start .. start+C-1``
@@ -131,6 +139,8 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, start,
     start:      host int — KV rows that precede this chunk
     k_scale:    optional [P, K] f32 scales of an int8 pool
     v_scale:    optional [P, K] f32 (must accompany ``k_scale``)
+    shards:     the tp degree when q and the pages hold one kv-head shard
+                (:func:`prefill_grid`)
     Returns [C, H, hd] in q's dtype.
     """
     check_scales("paged_flash_prefill", k_scale, v_scale)
@@ -151,7 +161,7 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, start,
     max_pages = page_table.shape[0]
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     grid = prefill_grid(C, H, K, hd, pt, max_pages, start, n_sm,
-                        k_pages.dtype)
+                        k_pages.dtype, shards)
     out = torch.empty_like(q)
     part_ml = torch.empty(grid.part_ml, device=q.device) \
         if grid.part_ml else None

@@ -21,7 +21,7 @@ asks for pages: ``--paged`` (or ``--tiered``, or ``--kv-dtype int8``) serves
 the monolithic paged engine (whole prompts prefilled, then scattered into
 pages), ``--chunked-prefill`` (implied by ``--prefix-cache``) the chunked
 one (token-budgeted prompt chunks and decode in one loop). ``--full``
-serves the published configuration (qwen2-0.5b at its full width);
+serves the published configuration (the arch at its full width);
 without it the reduced smoke configuration. Weights are random, drawn from
 a ``torch.Generator`` seeded with 0 (bf16 compute). The run prints the
 same ``[serve:<mode>]`` lines as the reference driver. ``--device``
@@ -37,6 +37,22 @@ turn). The run prints the reference's ``[serve:fleet]`` lines::
       --shared-prefix-len 8 --prompt-len 2 --requests 6 --slots 2 \\
       --max-seq 32 --max-new 3 --page-tokens 8 --token-budget 8 \\
       --replicas 2 --router prefix
+
+``--arch`` picks yi-34b or minitron-4b as well as qwen2-0.5b; with
+``--full`` the weights are drawn at bf16 (yi-34b's 68.8 GB fit one 80 GB
+card beside a 4 GB pool). ``--tp N`` serves with tensor parallelism (it
+implies the paged engine, as the reference's flag does): N ranks start
+with ``torch.multiprocessing``, each holding ``n_kv / N`` kv heads of
+every KV page and the whole weights; on the card rank r takes ``cuda:r``
+over NCCL (the run needs N cards), on the CPU the ranks talk gloo. The
+kernels are built before the ranks start, and only rank 0 prints::
+
+  python -m repro_torch.launch.serve --device cpu --tp 2 --chunked-prefill \
+      --requests 4 --slots 2 --max-seq 32 --max-new 3 --page-tokens 8 \
+      --token-budget 6
+  python -m repro_torch.launch.serve --arch yi-34b --full --chunked-prefill \
+      --requests 8 --slots 8 --max-seq 2048 --token-budget 256 \
+      --prompt-len 128 --prompt-len-max 1536 --max-new 64   # one card
 
 ``--kv-dtype int8`` stores the KV pages in int8 with per-(page, kv head)
 scales; ``--prefix-cache`` adds the shared-prefix layer (``--prefix-cache-
@@ -68,6 +84,7 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 
 if __package__ in (None, ""):          # run as a file: find the package
@@ -94,8 +111,10 @@ def build_config(args):
     """(model config, model, engine config, device) for the arguments, the
     model warmed up on a throwaway engine (see :func:`warm_up`)."""
     device = resolve_device(args.device)
-    get = configs.get_config if args.full else configs.get_smoke_config
-    cfg = get(args.arch)
+    if args.full:       # bf16 leaves: the executor's cast copies nothing
+        cfg = configs.get_config(args.arch, param_dtype=torch.bfloat16)
+    else:
+        cfg = configs.get_smoke_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(0)
     model = transformer.init_model(cfg, gen, device)
     policy = None
@@ -109,7 +128,7 @@ def build_config(args):
         n_slots=args.slots, max_seq=args.max_seq,
         chunked=args.chunked_prefill, token_budget=args.token_budget,
         preempt_quantum=args.preempt_quantum,
-        overlap=not args.no_overlap, policy=policy,
+        overlap=not args.no_overlap, policy=policy, tp=args.tp,
         trace=args.trace is not None,
         cache=CacheConfig(paged=args.paged, page_tokens=args.page_tokens,
                           n_pages=args.pages,
@@ -182,21 +201,30 @@ def _serve_fleet(args) -> None:
               f"{s.get('prefix_shared_tokens', 0)}")
 
 
-def _profiler():
+def profiler():
+    """A torch.profiler that traces the card's kernels (used as a context
+    manager, or started and stopped around a window of iterations)."""
     from torch.profiler import ProfilerActivity, profile
-    return profile(activities=[ProfilerActivity.CUDA])
+    return profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+
+
+def profile_rows(prof):
+    """``(busy_us, rows)`` of a finished :func:`profiler`: the device's
+    kernel time summed (its busy time), and ``(device µs, count, name)``
+    a kernel name, most device time first."""
+    from torch.autograd import DeviceType
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total), reverse=True)
+    return sum(r[0] for r in rows), rows
 
 
 def _print_profile(prof, wall: float, top: int) -> None:
     """Device time by kernel over the traced run, and the device's busy
     share of the run's wall time (kernels only; the profiler's own cost
     lengthens the wall time)."""
-    from torch.autograd import DeviceType
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
+    busy_us, rows = profile_rows(prof)
     print(f"[serve:profile] device busy {busy_us / 1e3:.1f} ms of "
           f"{wall * 1e3:.1f} ms wall ({100 * busy_us / 1e3 / (wall * 1e3):.1f}"
           "%, profiled run)")
@@ -205,9 +233,39 @@ def _print_profile(prof, wall: float, top: int) -> None:
               f"{dev_us / 1e3:9.2f} ms {count:6d}x  {key[:90]}")
 
 
+def _tp_rank(rank: int, args) -> None:
+    """One rank of ``--tp N``: this rank's device, then the same run as one
+    process; ranks other than 0 print nothing."""
+    if args.device.startswith("cuda"):
+        args.device = f"cuda:{rank}"
+        torch.cuda.set_device(args.device)
+    with contextlib.ExitStack() as stack:
+        if rank:
+            devnull = stack.enter_context(open(os.devnull, "w"))
+            stack.enter_context(contextlib.redirect_stdout(devnull))
+        _serve(args)
+
+
+def _spawn_tp(args) -> None:
+    """``--tp N``: N ranks over gloo on the CPU or NCCL on N cards."""
+    from repro_torch.parallel import launch
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        resolve_device(args.device)
+        if torch.cuda.device_count() < args.tp:
+            raise RuntimeError(
+                f"--tp {args.tp} takes one card a rank; "
+                f"{torch.cuda.device_count()} visible")
+        from repro_torch.kernels import _build
+        _build.build_all()      # before the ranks: none races on the build
+    with tempfile.TemporaryDirectory() as store:
+        launch.spawn(_tp_rank, args.tp, (args,), store_dir=store,
+                     backend="nccl" if cuda else "gloo", timeout_s=3600.0)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=configs.ARCHS)
     ap.add_argument("--full", action="store_true",
                     help="the published configuration, not the smoke one")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -282,15 +340,28 @@ def main(argv=None):
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="on the card: trace the run with torch.profiler and "
                          "print the N kernels with the most device time")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (kv heads sharded over "
+                         "them; implies --paged); one card a rank")
     args = ap.parse_args(argv)
+    if args.replicas > 1 and (args.profile or args.trace is not None):
+        ap.error("--profile and --trace follow one engine; they do not "
+                 "combine with --replicas > 1")
+    if args.tp > 1 and args.itl_target_ms is not None:
+        ap.error("--itl-target-ms does not combine with --tp > 1: each rank "
+                 "reads its own clock, so the ranks would shape their "
+                 "budgets differently")
+    if args.tp > 1:
+        _spawn_tp(args)
+    else:
+        _serve(args)
 
+
+def _serve(args) -> None:
     # f32 products in full f32 on the card (no TF32), as the reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.replicas > 1:
-        if args.profile or args.trace is not None:
-            ap.error("--profile and --trace follow one engine; they do not "
-                     "combine with --replicas > 1")
         _serve_fleet(args)
         return
     eng = build_engine(args)
@@ -298,7 +369,7 @@ def main(argv=None):
     prompts = _prompts(args, cfg)
     if args.profile and eng.device.type != "cuda":
         raise ValueError("--profile traces the card; it needs --device cuda")
-    prof = _profiler() if args.profile else contextlib.nullcontext()
+    prof = profiler() if args.profile else contextlib.nullcontext()
     t0 = time.perf_counter()
     with prof:
         for i, p in enumerate(prompts):
@@ -323,6 +394,8 @@ def main(argv=None):
         mode = "chunked+tiered" if args.tiered else "chunked"
     if args.prefix_cache:
         mode = "prefix+" + mode
+    if args.tp > 1:
+        mode = f"tp{args.tp}+" + mode
     if args.kv_dtype != "compute":
         mode = f"{args.kv_dtype}+" + mode
     print(f"[serve:{mode}] {len(done)} requests, {total_new} tokens in "

@@ -1,4 +1,4 @@
-"""Model blocks on torch tensors: RMS norm, rotary embedding, SwiGLU, embedding.
+"""Model blocks on torch tensors: RMS norm, rotary embedding, the MLPs, embedding.
 
 Counterpart of ``repro/models/blocks.py`` for the blocks the paged serving
 path runs. Numerics follow the reference: the norm and the rotary angles
@@ -47,6 +47,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def swiglu(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
            x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def relu2_mlp(w_in: torch.Tensor, w_out: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """Squared-ReLU MLP (nemotron / minitron): ``relu(x @ w_in)² @ w_out``."""
+    return torch.square(F.relu(x @ w_in)) @ w_out
 
 
 def embed_lookup(table: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:

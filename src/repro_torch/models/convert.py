@@ -31,8 +31,11 @@ def _map(tree, device) -> Any:
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> Transformer:
     """Reference tree (numpy leaves: ``embed``, ``final_norm``,
     ``groups[gi][pos]`` with ``ln1``, ``mixer.{wq,wk,wv,wo,bq,bk,bv}``,
-    ``ln2``, ``ffn.{w_gate,w_up,w_down}``) → the port's module on
-    ``device``."""
+    ``ln2``, ``ffn.{w_gate,w_up,w_down}`` or ``ffn.{w_in,w_out}`` for a
+    squared-ReLU MLP, and ``lm_head`` when the embedding is untied) → the
+    port's module on ``device``."""
+    if not cfg.tie_embeddings and "lm_head" not in tree:
+        raise ValueError(f"{cfg.name}: an untied model needs its lm_head")
     keep = {k: tree[k] for k in ("embed", "final_norm", "groups", "lm_head")
             if k in tree}
     return Transformer(cfg, _map(keep, torch.device(device)))

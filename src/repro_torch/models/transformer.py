@@ -21,7 +21,8 @@ holds the reference's parameter tree leaf for leaf::
 
 where each pattern position holds ``{"ln1": {"scale"}, "mixer": {wq, wk,
 wv, wo[, bq, bk, bv]}, "ln2": {"scale"}, "ffn": {w_gate, w_up, w_down}}``
-with a leading ``count`` axis on every leaf.
+(``{w_in, w_out}`` for ``mlp="relu2"``) with a leading ``count`` axis on
+every leaf.
 """
 from __future__ import annotations
 
@@ -81,7 +82,8 @@ def parse_kind(kind: str) -> Tuple[str, str]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is on this port's path: full-attention mixers
-    with dense swiglu MLPs, RMS norm, no shared block, no softcap."""
+    with dense swiglu or squared-ReLU MLPs, RMS norm, no shared block, no
+    softcap."""
     for pattern, _ in cfg.groups:
         for kind in pattern:
             mixer, ffn = parse_kind(kind)
@@ -93,7 +95,8 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"repro_torch: ffn {ffn!r} is not ported yet "
                     "(ROADMAP queue 1, item 16)")
-    if cfg.mlp != "swiglu" or cfg.norm != "rms" or cfg.sandwich_norm or \
+    if cfg.mlp not in ("swiglu", "relu2") or cfg.norm != "rms" or \
+            cfg.sandwich_norm or \
             cfg.logit_softcap or cfg.window:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} needs blocks not ported yet "
@@ -104,18 +107,27 @@ def check_supported(cfg: ModelConfig) -> None:
 # init: same distributions as the reference (not the same numbers)
 # --------------------------------------------------------------------------
 def _normal(shape, std: float, generator, device, dtype):
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    if w.device.type != "meta":
-        w.normal_(0.0, 1.0, generator=generator)
-    return (w * std).to(dtype)
+    """N(0, std²) at ``dtype``, drawn in f32 one ``[count]`` slice of a
+    stacked leaf at a time: a whole f32 draw of yi-34b's ``[60, 7168,
+    20480]`` MLP leaves would need a 35 GB temporary beside the weights."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
+    for part in (out if len(shape) > 2 else (out,)):
+        w = torch.empty(part.shape, dtype=torch.float32, device=device)
+        part.copy_(w.normal_(0.0, 1.0, generator=generator).mul_(std))
+    return out
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device=None) -> "Transformer":
     """Random weights drawn from the reference's distributions
-    (``transformer.py:217-255`` and ``attention.init_gqa``): dense weights
-    N(0, 1/fan_in), ``wo`` N(0, 1/(H·hd)), the embedding N(0, 0.02²), norm
-    scales 1 and QKV biases 0. ``generator`` must live on ``device`` (a
+    (``transformer.py:165-167, 217-255`` and ``attention.init_gqa``):
+    dense weights N(0, 1/fan_in), ``wo`` N(0, 1/(H·hd)), the embedding
+    N(0, 0.02²), norm scales 1 and QKV biases 0. Leaves are made at
+    ``cfg.param_dtype`` (a full-width model at bf16 passes
+    ``param_dtype=torch.bfloat16``, so the executor's cast to the compute
+    dtype copies nothing). ``generator`` must live on ``device`` (a
     ``meta`` device allocates nothing, for counting parameters)."""
     check_supported(cfg)
     device = torch.device(device if device is not None else "cpu")
@@ -143,10 +155,13 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             layer = {"ln1": {"scale": ones((count, d))}, "mixer": mixer}
             if ffn != "none":
                 layer["ln2"] = {"scale": ones((count, d))}
-                layer["ffn"] = {
-                    "w_gate": normal((count, d, f), 1 / math.sqrt(d)),
-                    "w_up": normal((count, d, f), 1 / math.sqrt(d)),
-                    "w_down": normal((count, f, d), 1 / math.sqrt(f))}
+                layer["ffn"] = (
+                    {"w_in": normal((count, d, f), 1 / math.sqrt(d)),
+                     "w_out": normal((count, f, d), 1 / math.sqrt(f))}
+                    if cfg.mlp == "relu2" else
+                    {"w_gate": normal((count, d, f), 1 / math.sqrt(d)),
+                     "w_up": normal((count, d, f), 1 / math.sqrt(d)),
+                     "w_down": normal((count, f, d), 1 / math.sqrt(f))})
             per_pos.append(layer)
         groups.append(tuple(per_pos))
     params: Dict[str, Any] = {
@@ -230,9 +245,11 @@ def _norm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _ffn_apply(p, ffn: str, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if ffn != "mlp" or cfg.mlp != "swiglu":
-        raise NotImplementedError(f"repro_torch: ffn {ffn!r}/{cfg.mlp!r}")
-    return blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
+    if ffn == "mlp" and cfg.mlp == "swiglu":
+        return blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
+    if ffn == "mlp" and cfg.mlp == "relu2":
+        return blocks.relu2_mlp(p["w_in"], p["w_out"], x)
+    raise NotImplementedError(f"repro_torch: ffn {ffn!r}/{cfg.mlp!r}")
 
 
 def units(model: Transformer, caches):

@@ -160,13 +160,14 @@ class CacheConfig:
 
 
 def build_cache_manager(cfg: transformer.ModelConfig, cache: CacheConfig,
-                        n_slots: int, max_seq: int,
-                        device="cpu") -> CacheManager:
-    """Compose the stack described by ``cache``, bottom-up, on ``device``."""
+                        n_slots: int, max_seq: int, device="cpu",
+                        tp: int = 1, rank: int = 0) -> CacheManager:
+    """Compose the stack described by ``cache``, bottom-up, on ``device``;
+    under tp the pages hold rank ``rank``'s kv-head shard."""
     n_pages = cache.resolved_pages(n_slots, max_seq)
     kwargs = dict(max_batch=n_slots, max_seq=max_seq, n_pages=n_pages,
                   page_tokens=cache.page_tokens, device=device,
-                  kv_dtype=cache.kv_dtype)
+                  kv_dtype=cache.kv_dtype, tp=tp, rank=rank)
     if cache.tiered:
         kwargs["host_budget_bytes"] = cache.host_budget_bytes
     if cache.prefix:

@@ -1,6 +1,6 @@
 """Serving engine façade: scheduler ∘ cache manager ∘ executor wiring.
 
-Counterpart of ``repro/serve/engine.py`` at tp = 1::
+Counterpart of ``repro/serve/engine.py``::
 
     from repro_torch.serve.engine import Engine, EngineConfig
     eng = Engine(cfg, model, config=EngineConfig(
@@ -18,7 +18,9 @@ implies the chunked loop, the chunked loop a page pool.
 
 ``cache`` picks one of eight paged stacks (serve/cache.py): paged or int8
 pages, with or without the host-DRAM swap tier (``tiered``: preemption),
-with or without the shared-prefix layer. ``policy`` attaches an SLO
+with or without the shared-prefix layer. ``tp`` shards the paged steps'
+kv heads over that many ranks, one engine a process (serve/executor.py,
+parallel/launch.py). ``policy`` attaches an SLO
 :class:`~repro_torch.serve.policy.SchedulerPolicy`. The engine runs on
 ``cuda`` unless the caller passes ``device="cpu"``; without a card and
 without that request it raises instead of falling back to the CPU. This
@@ -52,10 +54,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_TP_CLOCK = ("tp > 1 cannot take {}: each rank's scheduler reads its own "
+             "clock, so the ranks would decide differently and their "
+             "collectives would part")
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Declarative engine configuration (the reference's fields, less
-    ``tp``, ``greedy`` and ``trace_buffer``). ``chunked`` selects the
+    ``greedy`` and ``trace_buffer``). ``chunked`` selects the
     token-budgeted step loop; without it the engine runs the dense loop,
     or the monolithic paged one when ``cache`` is paged.
     ``preempt_quantum``: decode steps a resident of a tiered stack is
@@ -68,13 +75,18 @@ class EngineConfig:
     (None: policy-free FIFO). ``trace`` enables the execution tracer
     (``Engine.trace_export``). ``clock`` injects the engine's one time
     source (default ``time.perf_counter``): the tracer, every scheduler
-    timestamp and the swap copies' stamps read it."""
+    timestamp and the swap copies' stamps read it. ``tp``: the tensor-
+    parallel degree; this process is one rank of a group of that many
+    (parallel/sharding.py), and ``check_ranks`` makes its executor hold the
+    ranks' page tables equal after every iteration (a debug check)."""
     n_slots: int = 4
     max_seq: int = 256
     chunked: bool = False
     token_budget: Optional[int] = None
     preempt_quantum: int = 1
     overlap: bool = True
+    tp: int = 1
+    check_ranks: bool = False
     cache: CacheConfig = CacheConfig()
     metrics: bool = True
     metrics_namespace: Optional[str] = None
@@ -84,13 +96,27 @@ class EngineConfig:
 
     def normalized(self) -> "EngineConfig":
         """Resolve implied layers once: a prefix layer implies the chunked
-        loop (insertion happens at chunk completion); the chunked loop, the
-        swap tier and int8 pages imply a page pool; the overlapped loop
-        exists on the chunked loop only. Everything below reads the
-        resolved ``chunked``, ``cache.paged`` and ``overlap``."""
+        loop (insertion happens at chunk completion); the chunked loop, tp
+        > 1, the swap tier and int8 pages imply a page pool; the overlapped
+        loop exists on the chunked loop only. Everything below reads the
+        resolved ``chunked``, ``cache.paged`` and ``overlap``.
+
+        The reference's ``normalized()`` lets only the chunked loop and tp
+        set ``paged``; its ``paged`` property adds the swap tier through
+        ``cache.any_paged``, and int8 pages without ``paged=True`` leave its
+        engine dense. Here int8 pages imply the pool too (no dense int8
+        slot cache exists in either package).
+
+        Under tp > 1 every rank runs its own scheduler on its own clock, so
+        nothing the scheduler decides may read the clock: an ITL target is
+        refused here and a request with a deadline at :meth:`Engine.submit`
+        (the reference is one controller with one clock)."""
         cache = self.cache
+        if (self.tp > 1 and self.policy is not None
+                and self.policy.itl_target_s is not None):
+            raise ValueError(_TP_CLOCK.format("an ITL target (itl_target_s)"))
         chunked = self.chunked or cache.prefix
-        paged = (cache.paged or chunked or cache.tiered
+        paged = (cache.paged or chunked or self.tp > 1 or cache.tiered
                  or cache.kv_dtype != "compute")
         return dataclasses.replace(
             self, chunked=chunked, overlap=self.overlap and chunked,
@@ -113,11 +139,15 @@ class Engine:
         self.config = config
         self.executor = Executor(cfg, model.to(self.device),
                                  page_tokens=config.cache.page_tokens,
-                                 device=self.device)
+                                 device=self.device,
+                                 paged=config.cache.paged, tp=config.tp,
+                                 check_ranks=config.check_ranks)
         self.model = self.executor.model
         if config.cache.paged:
             pool = build_cache_manager(cfg, config.cache, config.n_slots,
-                                       config.max_seq, device=self.device)
+                                       config.max_seq, device=self.device,
+                                       tp=config.tp,
+                                       rank=self.executor.rank)
         else:
             pool = CachePool(cfg, config.n_slots, config.max_seq,
                              device=self.device)
@@ -141,6 +171,9 @@ class Engine:
 
     # -- host API (delegates to the scheduler) -----------------------------
     def submit(self, req: Request) -> bool:
+        if self.config.tp > 1 and req.deadline_s is not None:
+            raise ValueError(_TP_CLOCK.format(
+                f"request {req.seq_id}'s deadline (deadline_s)"))
         return self.scheduler.submit(req)
 
     @property

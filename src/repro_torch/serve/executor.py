@@ -1,6 +1,6 @@
-"""Serving executor: model steps, device-side sampling, host↔device moves.
+"""Serving executor: model steps, device-side sampling, host↔device moves, tp.
 
-Counterpart of ``repro/serve/executor.py`` at tp = 1. Everything that
+Counterpart of ``repro/serve/executor.py``. Everything that
 touches the device lives here: the paged regions (a decode step, a prompt
 chunk) and the dense ones (a B = 1 prefill into a page-padded cache for
 the monolithic paged engine, a decode step and a one-slot prefill over the
@@ -20,12 +20,27 @@ dense engine's slot caches, models/transformer.py ``forward``).
     hide the overlap of the scheduler's next iteration with this one's
     device step. PyTorch's pinned-memory cache keeps each buffer until its
     copy has run, so a buffer is never rewritten under a pending copy.
+  * **Tensor parallelism** (``tp > 1``, the paged steps only). The
+    reference is one controller running its paged steps under
+    ``shard_map``; here each of ``tp`` processes runs one executor (and the
+    same scheduler over the same requests), over the group of
+    parallel/sharding.py. KV pages shard along their kv-head axis
+    (serve/kvcache.py); weights, tokens, page tables and every host-side
+    structure are whole on each rank, and the gathered attention heads make
+    every rank sample the same ids, which alone drive the schedulers. The
+    ranks' host state must therefore stay equal: with ``check_ranks`` the
+    executor gathers a hash of the page tables after every iteration and
+    raises when the ranks differ (:meth:`Executor.check_ranks`, a debug
+    check the tests turn on). Each rank reads its own clock, so the engine
+    refuses tp > 1 with the two policy inputs that decide from it (an ITL
+    target, a request's deadline; serve/engine.py).
 
 The executor owns no scheduling state and no page accounting; pages are
 updated in place by the steps and handed back to the caller.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +48,7 @@ import torch
 
 from repro_torch.core.offload import TargetRegion
 from repro_torch.models import transformer
+from repro_torch.parallel import sharding
 from repro_torch.serve import paged_step, trace
 
 
@@ -40,23 +56,40 @@ class Executor:
     """Paged and dense step dispatch for one Engine.
 
     ``model`` is cast once to the config's compute dtype and must already
-    live on ``device``.
+    live on ``device``. ``tp`` > 1 shards the paged steps' kv heads over
+    the process group of that many ranks (``paged`` must be set: the dense
+    slot caches are not head-sharded); ``self.rank`` is this process's
+    place in it. ``check_ranks`` turns :meth:`check_ranks` on.
     """
 
     def __init__(self, cfg: transformer.ModelConfig,
                  model: transformer.Transformer, *, page_tokens: int = 16,
-                 device="cpu"):
+                 device="cpu", paged: bool = True, tp: int = 1,
+                 check_ranks: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.model = model.to(dtype=cfg.compute_dtype)
         self.page_tokens = page_tokens
-        self.tp = 1
-        self.stats = {"token_fetches": 0, "tokens_fetched": 0}
+        self.tp = int(tp)
+        if self.tp > 1 and not paged:
+            raise ValueError("tensor parallelism requires the paged serving "
+                             "path (dense slot caches are not head-sharded)")
+        if self.tp > 1 and cfg.n_kv % self.tp != 0:
+            raise ValueError(
+                f"tp={self.tp} must divide the kv-head count ({cfg.n_kv}): "
+                "KV pages shard along the kv-head axis")
+        self.group = sharding.tp_group(self.tp)
+        self.rank = sharding.rank_of(self.group)
+        self.check_ranks_on = check_ranks and self.group is not None
+        self.model = model.to(dtype=cfg.compute_dtype)
+        self.stats = {"token_fetches": 0, "tokens_fetched": 0,
+                      "rank_checks": 0}
         self.bus = None
         self.tracer = trace.null_tracer()
         self._inflight: List[Tuple[str, float]] = []
-        decode = paged_step.make_paged_decode_step(cfg, page_tokens)
-        prefill = paged_step.make_paged_prefill_chunk_step(cfg, page_tokens)
+        decode = paged_step.make_paged_decode_step(cfg, page_tokens,
+                                                   self.group)
+        prefill = paged_step.make_paged_prefill_chunk_step(cfg, page_tokens,
+                                                           self.group)
 
         def sampled_decode(model, tokens, pages, page_table, lengths, active):
             logits, pages = decode(model, tokens, pages, page_table, lengths,
@@ -161,6 +194,27 @@ class Executor:
             out = self._prefill_slot(self.model, tokens, caches, slot, length)
             self._note_dispatch("prefill_slot")
             return out
+
+    def check_ranks(self, pool) -> None:
+        """The tp ranks' host state is equal, or raise: every rank hashes
+        its page tables, slot lengths and free-page count, and the hashes
+        are gathered (one collective, which waits for the device). No-op
+        unless ``check_ranks`` was asked for under a process group."""
+        if not self.check_ranks_on:
+            return
+        h = hashlib.blake2b(digest_size=8)
+        for a in (pool.device_page_tables(), pool.lengths, pool.seq_ids,
+                  np.array([pool.alloc.free_pages])):
+            h.update(np.ascontiguousarray(a, dtype=np.int64).tobytes())
+        mine = torch.tensor([int.from_bytes(h.digest(), "little",
+                                            signed=True)],
+                            dtype=torch.int64, device=self.device)
+        every = sharding.all_gather_cat(mine, self.group, 0).tolist()
+        self.stats["rank_checks"] += 1
+        if len(set(every)) != 1:
+            raise RuntimeError(
+                f"tp ranks diverged at check {self.stats['rank_checks']}: "
+                f"page-table hashes by rank {every}")
 
     def bind_metrics(self, bus) -> None:
         """Attach the engine's MetricsBus (observe-only)."""

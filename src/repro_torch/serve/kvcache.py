@@ -22,6 +22,13 @@ adopt ref-counted pages of a cached prefix at admission; its reservation
 counts only the pages it draws itself, and a shared page is COW-forked
 (:meth:`PagedCachePool.cow_unshare`) before any write lands in it.
 
+Under tensor parallelism (``tp`` ranks, serve/executor.py) a rank's pool
+holds kv heads ``[rank·K/tp, (rank+1)·K/tp)`` on axis 2 of every leaf, the
+int8 scale leaves included. Everything else is host state and stays whole
+and equal on every rank: page ids, tables, lengths, reservations. Byte
+counts are whole too (:meth:`PagedCachePool.page_nbytes` counts a page
+across all ranks), so budgets and counters read as at tp = 1.
+
 Unlike the reference, page contents are updated **in place**: the paged
 steps write into the pool tensors the pool owns, and the executor hands the
 same ``pages`` object back, so the scheduler's ``pool.pages = ...`` reads
@@ -125,7 +132,8 @@ class PagedCachePool:
 
     def __init__(self, cfg: transformer.ModelConfig, max_batch: int,
                  max_seq: int, n_pages: int, page_tokens: int = 16,
-                 device="cpu", kv_dtype: str = kvquant.COMPUTE):
+                 device="cpu", kv_dtype: str = kvquant.COMPUTE,
+                 tp: int = 1, rank: int = 0):
         for pattern, _ in cfg.groups:
             for kind in pattern:
                 mixer, _ = transformer.parse_kind(kind)
@@ -136,6 +144,9 @@ class PagedCachePool:
         if cfg.logit_softcap:
             raise ValueError("PagedCachePool: the paged attention kernels "
                              "have no logit-softcap path")
+        if cfg.n_kv % tp or not 0 <= rank < tp:
+            raise ValueError(f"PagedCachePool: rank {rank} of tp={tp} does "
+                             f"not shard {cfg.n_kv} kv heads evenly")
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -146,8 +157,9 @@ class PagedCachePool:
         self.device = torch.device(device)
         self.kv_dtype = kvquant.validate_kv_dtype(kv_dtype)
         self.quantized = self.kv_dtype == kvquant.INT8
+        self.tp, self.rank = tp, rank
         dtype = torch.int8 if self.quantized else cfg.compute_dtype
-        K, hd = cfg.n_kv, cfg.hd
+        K, hd = cfg.n_kv // tp, cfg.hd          # this rank's kv heads
         self.pages = []
         for pattern, count in cfg.groups:
             per_pos = []
@@ -390,7 +402,8 @@ class PagedCachePool:
         slot's page list) into the slot's pages, one indexed copy per leaf.
         An int8 pool quantizes each page whole through
         ``kvquant.quantize_pages``: the same bytes and scales a chunk
-        scatter writes into fresh pages."""
+        scatter writes into fresh pages. Under tp the dense cache holds
+        every kv head and the rank keeps its own."""
         sid = int(self.seq_ids[slot])
         pages = self.alloc._seq_pages[sid]
         ids = paged_step.page_index(pages, self.device)
@@ -398,8 +411,10 @@ class PagedCachePool:
         for per_pos, dense_pos in zip(self.pages, caches):
             for kv, dense in zip(per_pos, dense_pos):
                 for name in kvquant.PAYLOAD:
-                    count, _, K, _, hd = dense[name].shape
-                    rows = dense[name][:, 0, :, :npg * pt].reshape(
+                    count, _, _, _, hd = dense[name].shape
+                    K = kv[name].shape[2]
+                    rows = dense[name][:, 0, self.rank * K:(self.rank + 1) * K,
+                                       :npg * pt].reshape(
                         count, K, npg, pt, hd).transpose(1, 2)
                     if self.quantized:
                         q, scale = kvquant.quantize_pages(rows)
@@ -431,10 +446,10 @@ class PagedCachePool:
     def page_nbytes(self) -> int:
         """Real bytes one logical page occupies across every pool leaf:
         the payload at its own itemsize plus, on an int8 pool, the scale
-        rows."""
-        return sum(arr.numel() // arr.shape[1] * arr.element_size()
-                   for per_pos in self.pages for kv in per_pos
-                   for arr in kv.values())
+        rows; under tp, across every rank's shard."""
+        return self.tp * sum(arr.numel() // arr.shape[1] * arr.element_size()
+                             for per_pos in self.pages for kv in per_pos
+                             for arr in kv.values())
 
     def footprint_bytes(self) -> int:
         """Device memory held by the page pool."""

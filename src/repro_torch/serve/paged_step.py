@@ -1,8 +1,8 @@
 """Paged serving steps: transformer decode and prefill chunks over a page pool.
 
-Counterpart of ``repro/serve/paged_step.py`` at tp = 1 on compute-dtype
-pages. Caches live in a physical page pool (``[count, P, K, pt, hd]`` per
-group position, serve/kvcache.py). A decode step, per layer,
+Counterpart of ``repro/serve/paged_step.py``. Caches live in a physical
+page pool (``[count, P, K, pt, hd]`` per group position,
+serve/kvcache.py). A decode step, per layer,
 
   1. computes the new token's K/V,
   2. writes it at logical position ``lengths[b]`` of each active slot's
@@ -12,6 +12,15 @@ group position, serve/kvcache.py). A decode step, per layer,
 
 A prefill chunk writes the chunk's K/V at ``[start, start+C)`` of one
 sequence's pages and attends through the paged flash-prefill kernel.
+
+Under tensor parallelism (a ``group`` of tp ranks, parallel/sharding.py)
+each rank's pool holds one contiguous block of ``K/tp`` kv heads. The
+QKV projections run whole from replicated weights and are then cut to
+the rank's heads (:func:`tp_head_slice`); the rank writes and attends
+over its own heads, and one ``all_gather`` of the heads before ``wo``
+rebuilds the whole attention output, as the reference's ``shard_map``
+step does. The kernels split as the unsharded call would, so the streams
+are the same at any tp.
 
 An int8 pool (``kv_dtype="int8"``, serve/kvquant.py) carries
 ``k_scale`` / ``v_scale`` leaves beside its pages; the steps branch on
@@ -38,6 +47,7 @@ import torch
 from repro_torch.kernels.paged_decode_attention import paged_flash_decode
 from repro_torch.kernels.paged_prefill_attention import paged_flash_prefill
 from repro_torch.models import transformer
+from repro_torch.parallel import sharding
 from repro_torch.serve import kvquant
 
 
@@ -195,7 +205,20 @@ def _scales(kv):
     return {"k_scale": kv.get("k_scale"), "v_scale": kv.get("v_scale")}
 
 
-def make_paged_decode_step(cfg: transformer.ModelConfig, page_tokens: int):
+def tp_head_slice(q, k, v, kv, rank: int):
+    """This rank's contiguous head block of the replicated q / k / v
+    projections (axis 2): ``kv["k"]`` (a layer's ``[P, K_local, pt, hd]``
+    pool view) holds the local kv-head count, and query head ``h = k·G +
+    g`` follows its kv head."""
+    k_local = kv["k"].shape[1]
+    g = q.shape[2] // k.shape[2]
+    kv0 = rank * k_local
+    return (q[:, :, kv0 * g:(kv0 + k_local) * g],
+            k[:, :, kv0:kv0 + k_local], v[:, :, kv0:kv0 + k_local])
+
+
+def make_paged_decode_step(cfg: transformer.ModelConfig, page_tokens: int,
+                           group=None):
     """Returns decode_step(model, tokens, pages, page_table, lengths, active)
     -> (logits [B, vocab], pages updated in place).
 
@@ -205,8 +228,10 @@ def make_paged_decode_step(cfg: transformer.ModelConfig, page_tokens: int):
     decoding slots' indices, an int64 tensor (the reference took a [B] bool
     mask; indices let the KV write touch active slots only without a
     device→host read). Active slots attend over lengths+1 rows, the others
-    over 0 rows.
+    over 0 rows. ``group``: the tp process group (None: one rank).
     """
+    rank = sharding.rank_of(group)
+    shards = sharding.size_of(group)
 
     def decode_step(model, tokens, pages, page_table, lengths, active):
         B = tokens.shape[0]
@@ -217,11 +242,15 @@ def make_paged_decode_step(cfg: transformer.ModelConfig, page_tokens: int):
         for kind, p, kv in transformer.units(model, pages):
             _, ffn = transformer.parse_kind(kind)
             q, k, v = transformer.layer_pre(p, x, positions, cfg)
+            if group is not None:
+                q, k, v = tp_head_slice(q, k, v, kv, rank)
             _write_token(kv, k[:, 0], v[:, 0], page_table, lengths, active,
                          page_tokens)
             att = paged_flash_decode(q[:, 0].float().contiguous(), kv["k"],
                                      kv["v"], page_table, kv_len,
-                                     **_scales(kv))
+                                     **_scales(kv), shards=shards)
+            if group is not None:
+                att = sharding.all_gather_cat(att, group, dim=1)
             x = transformer.layer_post(p, x, att[:, None], ffn, cfg)
         return transformer.logits(model, x)[:, 0], pages
 
@@ -229,7 +258,7 @@ def make_paged_decode_step(cfg: transformer.ModelConfig, page_tokens: int):
 
 
 def make_paged_prefill_chunk_step(cfg: transformer.ModelConfig,
-                                  page_tokens: int):
+                                  page_tokens: int, group=None):
     """Returns prefill_chunk(model, tokens, pages, page_table, start)
     -> (last_logits [1, vocab], pages updated in place).
 
@@ -237,8 +266,11 @@ def make_paged_prefill_chunk_step(cfg: transformer.ModelConfig,
     [max_pages] int32 (the sequence's row, every prompt page reserved);
     start: host int chunk offset. Only the chunk's last position goes
     through the final norm and the LM head: the same numbers as slicing
-    after the product, without a [C, vocab] product.
+    after the product, without a [C, vocab] product. ``group``: the tp
+    process group (None: one rank).
     """
+    rank = sharding.rank_of(group)
+    shards = sharding.size_of(group)
 
     def prefill_chunk(model, tokens, pages, page_table, start):
         C = tokens.shape[1]
@@ -247,10 +279,14 @@ def make_paged_prefill_chunk_step(cfg: transformer.ModelConfig,
         for kind, p, kv in transformer.units(model, pages):
             _, ffn = transformer.parse_kind(kind)
             q, k, v = transformer.layer_pre(p, x, positions, cfg)
+            if group is not None:
+                q, k, v = tp_head_slice(q, k, v, kv, rank)
             _write_chunk(kv, k[0], v[0], page_table, start, page_tokens)
             att = paged_flash_prefill(q[0].float().contiguous(), kv["k"],
                                       kv["v"], page_table, start,
-                                      **_scales(kv))
+                                      **_scales(kv), shards=shards)
+            if group is not None:
+                att = sharding.all_gather_cat(att, group, dim=1)
             x = transformer.layer_post(p, x, att[None], ffn, cfg)
         return transformer.logits(model, x[:, -1:])[:, -1], pages
 

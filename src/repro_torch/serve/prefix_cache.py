@@ -34,6 +34,10 @@ Ownership boundaries & invariants:
   * ``held_pages`` is bounded by ``max_pages``; overflow evicts
     least-recently-matched leaves bottom-up, so an interior page is never
     evicted while a descendant still extends it.
+  * The index is host state only (page ids, tokens, a tick). Under tensor
+    parallelism every rank builds the same index from the same requests,
+    and the page ids it holds name each rank's own kv-head shard of those
+    pages (serve/executor.py's rank check holds the tables equal).
   * Insertion only happens for *completed* prefills (the scheduler calls
     :meth:`insert` through serve/cache.PrefixCachingPool when a prompt's
     last chunk lands), so every advertised page holds fully written KV rows

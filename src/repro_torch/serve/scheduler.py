@@ -257,6 +257,8 @@ class Scheduler:
                 # loop prefetches in its shadow phase)
                 self._start_prefetch()
             self._publish_metrics()
+        if self.paged:
+            self.executor.check_ranks(self.pool)
         self._publish_stall()
         return self._finished
 

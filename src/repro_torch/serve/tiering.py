@@ -41,6 +41,10 @@ Ownership boundaries & invariants (tests/test_torch_tiering.py):
     a page shared with the prefix cache is never yanked from a reader; its
     bits were copied to host first, and resume re-materialises them into
     private pages with the reservation widened to cover the former share.
+  * Under tensor parallelism each rank's tier holds its own kv-head shard
+    of the swapped pages, and every rank takes the same swap decisions:
+    the budget and the byte counters count whole pages
+    (``page_nbytes``), as at tp = 1.
   * ``can_swap_out`` True guarantees ``swap_out`` cannot fail mid-eviction
     (the o1heap probe), and a round trip restores every leaf (int8 scales
     included) bit for bit at the same chunk offset.

@@ -19,8 +19,10 @@ and each keeps the reference's own assertions (streams equal to a single
 engine's, zero loss, the allocator audit clean on every replica).
 
 The reference's tensor-parallel case (``test_fleet_streams_bit_identical_tp``,
-``tests/test_router.py:167``) waits for the port's tensor parallelism
-(ROADMAP queue 1, item 12).
+``tests/test_router.py:167``) runs the port's fleet at tp = 2: two gloo
+ranks, each stepping the same two replicas over one process group
+(parallel/launch.py), held against the JAX single engine and fleet at
+tp = 1, whose tp path raises on the installed JAX (ROADMAP.md §3).
 """
 import functools
 import types
@@ -239,6 +241,43 @@ def test_fleet_streams_match_jax_fleet_and_single(stack, router):
     got = _both(run)
     assert got["streams"] == single, f"{stack}/{router}: routed streams " \
         "diverged from one engine's"
+
+
+@pytest.mark.parametrize("tp", [2])
+def test_fleet_streams_bit_identical_tp(tp, tmp_path):
+    """``tests/test_router.py:166`` at tp = 2: a two-replica fleet whose
+    engines shard their kv heads over the same two ranks gives one JAX
+    engine's streams at tp = 1 and the JAX fleet's counters; every request
+    finishes, and each replica drains dead with a clean allocator on
+    every rank."""
+    from repro_torch.parallel import launch
+    from test_torch_tp_job import ServeJob, replicated, serve_schedule
+
+    def econf(side, tp):
+        return side.EngineConfig(
+            n_slots=2, max_seq=64, chunked=True, token_budget=10,
+            cache=side.CacheConfig(paged=True, page_tokens=8, n_pages=16),
+            **({"tp": tp, "check_ranks": True} if side is PORT else {}))
+
+    ref = _streams(_drive(JAX.engine(econf(JAX, 1)), _mix(JAX, 1, n=6)))
+    jfleet = JAX.fleet(econf(JAX, 1), replicas=2)
+    _drive(jfleet, _mix(JAX, 1, n=6))
+    sched = [(at, req.prompt, req.max_new) for at, req in _mix(PORT, 1, n=6)]
+    job = ServeJob(cfg=_TCFG, weights=_tree(), config=econf(PORT, tp),
+                          schedule=sched, replicas=2)
+    out = launch.spawn(serve_schedule, tp, (job,),
+                       store_dir=str(tmp_path), backend="gloo",
+                       timeout_s=90.0)
+    got = replicated(out, ("streams", "fleet", "states"))
+    assert got["streams"] == ref
+    assert got["fleet"] == jfleet.stats
+    assert got["finished"] == list(range(6)) and not got["shed"]
+    assert got["pending"] == 0
+    assert set(got["states"].values()) == {treplica.DEAD}
+    for state in got["replicas"].values():
+        assert state["pool"]["seq_pages"] == {}
+        assert state["pool"]["kv_heads"] == _TCFG.n_kv // tp
+        assert state["executor"]["rank_checks"] > 0
 
 
 # --------------------------------------------------------------------------
