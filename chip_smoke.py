@@ -64,7 +64,16 @@ Phases, each printed on its own line, none catching its own failure:
                atol 2e-3, plus one bf16 rounding step of the value for bf16
                outputs (both sides round an f32 result to bf16); kernel,
                plain, ``scaled_dot_product_attention`` yardstick (mask
-               stated in the log) and bound times;
+               stated in the log) and bound times; then both at
+               gemma3-27b's serving shapes (phase 7i's traffic):
+               flash_attention at the longest prompt's prefill (B 1, H
+               32, L 1326, hd 128, bf16, causal) with window 1024 (a
+               local layer; SDPA with a bool window mask) and without (a
+               global one), flash_decode at the decode step (B 8, H 32, K
+               16, hd 128) over 1024-row rings (lengths ≤ 1024, two
+               wrapped; again with a free slot at length 1) and 2048-row
+               global caches (SDPA with a length mask), each held and
+               timed;
   6. suite     the paper's kernel suite through ``kernels/ops.py``
                (``launch/kernel_suite.py``: Fig. 7 at N=2048 with conv2d
                and covar, darknet, the ISA study, the attention rows),
@@ -151,6 +160,21 @@ Phases, each printed on its own line, none catching its own failure:
                kernel launched layers x steps (chunks) times a rank, the
                rank-consistency check on after every iteration, every
                page free;
+  7i. serve gemma3-27b  gemma3-27b at full width (62 layers: 52 local
+               with window 1024 on ring caches, 10 global; d_model 5376,
+               32/16 heads, hd 128, d_ff 21504, vocab 262144, tied,
+               zero-centred and sandwich norms, the embedding scaled;
+               27,008,986,368 parameters drawn at bf16, seed 0; nothing
+               cut) through the dense engine (8 slots x 2048; its local
+               layers are not pageable) on phase 7's traffic, after every
+               earlier model is freed; gates: every request finishes with
+               64 tokens, every slot free, the cache leaves 4,831,838,208
+               B, no warm-up pool left resident, flash_attention 62 x 8 =
+               496 calls, flash_decode 62 x decode steps; logged: free
+               memory before the weights, peak memory, tok/s, TTFT and ITL
+               p50 / p99; then a second run, gated to the same streams,
+               with iterations 8-40 under torch.profiler: the device's
+               busy share and its top kernels;
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams and equal
                preemption, swap, refusal and prefix-hit counters, on the
@@ -160,7 +184,9 @@ Phases, each printed on its own line, none catching its own failure:
                behind ``PolicyConfig(max_in_system=2, max_queue=4)``; the
                dense engine and the monolithic paged engine (paged, and
                int8 + tiered on a 4-page hot tier, which must preempt) on
-               prompts of 3, 9, 5 and 12 tokens; a two-replica prefix
+               prompts of 3, 9, 5 and 12 tokens, and gemma3-27b's smoke
+               config (window 8: two of them wrap their rings) through
+               the dense engine on the same prompts; a two-replica prefix
                fleet with one kill and one respawn, whose streams, fleet
                counters and placements also equal on both devices, and
                whose streams equal one chunked engine's; and the
@@ -173,7 +199,9 @@ Phases, each printed on its own line, none catching its own failure:
      flash_attention with phase 5's suite launches, and again as
      flash_decode_dense, flash_attention_dense and
      flash_attention_monolithic, each with the launches of its own 7e run
-     and timed at 7e's shapes; every entry launched at least once), then
+     and timed at 7e's shapes, and flash_decode_gemma3 and
+     flash_attention_gemma3 with phase 7i's, timed at its local layers'
+     shapes in phase 5; every entry launched at least once), then
      the card's name and power limit, then ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -882,6 +910,57 @@ def check_attention_kernels(results):
             time_flash(att, q, k, v, causal, window)
         elif Lk == L and L >= 4096:
             time_flash({}, q, k, v, causal, window)
+    check_gemma3_attention(results, g)
+
+
+GEMMA3 = dict(H=32, K=16, hd=128, window=1024)   # gemma3-27b's attention
+
+
+def check_gemma3_attention(results, g):
+    """Both attention kernels at gemma3-27b's serving shapes (phase 7i's
+    traffic): flash_attention at the longest prompt's prefill (B 1, H 32,
+    L 1326, hd 128, bf16, causal) with window 1024 (a local layer) and
+    without (a global one, kv heads repeated: G 2); flash_decode at the
+    decode step (B 8, H 32, K 16, hd 128) over the rings (S 1024: lengths
+    min(prompt + 63, 1024), the two prompts past the window wrapped; and a
+    free slot at length 1) and the global caches (S 2048). Each against
+    its plain version, timed beside SDPA; the local shapes give the
+    ``_gemma3`` entries their times."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = torch.bfloat16
+    H, K, hd, W = GEMMA3["H"], GEMMA3["K"], GEMMA3["hd"], GEMMA3["window"]
+    lens, _ = phase7_prompts(16)
+    L = int(max(lens))
+    q, k, v = (torch.randn(1, H, L, hd, generator=g, device="cuda").to(bf16)
+               for _ in range(3))
+    for window, res in ((W, results["flash_attention_gemma3"]), (None, {})):
+        kw = dict(causal=True, window=window)
+        err = close(fa.flash_attention(q, k, v, **kw),
+                    fa.flash_attention_plain(q, k, v, **kw))
+        res["max_abs_err"] = err
+        log("attention kernels", f"gemma3-27b {'local' if window else 'global'}"
+            f" prefill: flash_attention B 1 H {H} L {L} hd {hd} bf16 causal "
+            f"window {window}: max |kernel - plain| {err:.3e}")
+        time_flash(res, q, k, v, True, window)
+    B = 8
+    ring = [min(int(n) + 63, W) for n in lens]
+    assert ring.count(W) >= 1, ring              # a wrapped ring
+    for S, lengths, res in ((W, ring, results["flash_decode_gemma3"]),
+                            (W, ring[:-1] + [1], {}),
+                            (2 * W, [int(n) + 63 for n in lens], {})):
+        qd = torch.randn(B, H, hd, generator=g, device="cuda").to(bf16)
+        kc, vc = (torch.randn(B, K, S, hd, generator=g, device="cuda")
+                  .to(bf16) for _ in range(2))
+        lt = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        err = close(da.flash_decode(qd, kc, vc, lt),
+                    da.flash_decode_plain(qd, kc, vc, lt))
+        res["max_abs_err"] = err
+        log("attention kernels", f"gemma3-27b decode: flash_decode B {B} H "
+            f"{H} K {K} S {S} hd {hd} bf16 lengths {lengths}: max |kernel - "
+            f"plain| {err:.3e}")
+        if lengths[-1] != 1:
+            time_decode_dense(res, (B, H, K, S, hd), lengths, g)
 
 
 def time_decode_dense(res, shape, lens, g):
@@ -1877,6 +1956,85 @@ def tp_serve(results, card: str, chunked):
         f"{r['wall_s']:.1f} s, the whole spawn {spawn_s:.1f} s")
 
 
+def gemma3_serve(results, card: str):
+    """Phase 7i: gemma3-27b at its published width (random weights, seed 0,
+    drawn at bf16; nothing cut) through the dense engine, the only one
+    that serves it (its local layers are not pageable), on phase 7's
+    traffic: 52 local layers on 1024-row rings, 10 global ones on 2048-row
+    slots. Both attention kernels counted from 0; then a second, profiled
+    run with the same streams."""
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import warm_up
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.kvcache import CachePool
+    phase = "serve gemma3-27b"
+    free_card(phase)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config("gemma3-27b", param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = transformer.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    conf = EngineConfig(n_slots=8, max_seq=2048)
+    weights = sum(p.nbytes for p in model.parameters())
+    warm_up(cfg, model, conf, "cuda")
+    after_warm_up = torch.cuda.memory_allocated()
+    eng = Engine(cfg, model, config=conf, device="cuda")
+    torch.cuda.synchronize()
+    n_par = transformer.count_params(eng.model)
+    pool = eng.pool
+    assert isinstance(pool, CachePool) and n_par == 27_008_986_368, n_par
+    leaves = pool.leaf_nbytes()
+    assert leaves == 4_831_838_208, leaves
+    # the warm-up's throwaway pool is gone before the timed one is made
+    assert after_warm_up - weights < leaves // 8, (after_warm_up, weights)
+    log(phase, f"set-up {time.perf_counter() - t0:.2f} s: gemma3-27b "
+        f"{cfg.n_layers()} layers (52 local, window {cfg.window}; 10 "
+        f"global) d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv} hd "
+        f"{cfg.hd} d_ff {cfg.d_ff} vocab {cfg.vocab} tied, {n_par} "
+        f"parameters in {eng.model.embed.dtype} ({2 * n_par} B); dense "
+        f"pool 8 slots x 2048: cache leaves {leaves} B (the reference's "
+        f"estimate, rings uncounted: {pool.footprint_bytes()} B); memory "
+        f"after the warm-up {after_warm_up / 2**30:.2f} GiB, with the pool "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    lens, prompts = phase7_prompts(cfg.vocab)
+    da.flash_decode.launches = 0
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    streams = serve(eng, prompts, 64)
+    wall = time.perf_counter() - t0
+    n_dec, n_fa = da.flash_decode.launches, fa.flash_attention.launches
+    s = eng.stats_summary()
+    L = cfg.n_layers()
+    toks = sum(len(t) for t in streams.values())
+    assert len(streams) == 8 and toks == 8 * 64, (len(streams), toks)
+    assert all(len(t) == 64 for t in streams.values())
+    assert s["prefills"] == 8 and (pool.seq_ids < 0).all(), s
+    assert n_fa == L * 8 == 496, (n_fa, s)
+    assert n_dec == L * s["decode_steps"] > 0, (n_dec, s)
+    results["flash_attention_gemma3"]["launches"] = n_fa
+    results["flash_decode_gemma3"]["launches"] = n_dec
+    log(phase, f"{card}: {len(streams)} requests, prompts "
+        f"{sorted(lens.tolist())} ({int(lens.sum())} tok), {toks} new "
+        f"tokens in {wall:.3f} s ({toks / wall:.1f} tok/s), ttft p50/p99 "
+        f"{s['ttft_p50_s']:.4f}/{s['ttft_p99_s']:.4f} s, itl p50/p99 "
+        f"{s['itl_p50_s'] * 1e3:.2f}/{s['itl_p99_s'] * 1e3:.2f} ms, decode "
+        f"steps {s['decode_steps']}, prefills {s['prefills']}, every slot "
+        f"free, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; launches: flash_attention {n_fa} = {L} x 8 prefills, "
+        f"flash_decode {n_dec} = {L} x {s['decode_steps']} decode steps")
+    del eng
+    free_card(phase, "with the weights, before a second pool")
+    eng = Engine(cfg, model, config=conf, device="cuda")
+    again, busy, wall_ms, top = device_busy(eng, prompts)
+    assert again == streams, "a second run gave other streams"
+    log(phase, f"{card}: profiled second run (iterations 8-40, the same "
+        f"streams): device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
+        f"({100 * busy / wall_ms:.1f} %); top kernels: {top}")
+
+
 def card_vs_cpu():
     """The smoke config in f32, each stack on the card and on the CPU: the
     same streams, scheduling counters and shed verdicts."""
@@ -1971,6 +2129,22 @@ def card_vs_cpu():
         log("card/cpu", f"smoke config f32, {stack} engine, prompts of 3, 9,"
             f" 5 and 12 tokens: {len(streams)} greedy streams equal on cuda "
             f"and cpu, and the counters {count}")
+    gcfg = configs.get_smoke_config("gemma3-27b", compute_dtype=torch.float32)
+    gmodel = transformer.init_model(gcfg, torch.Generator().manual_seed(0))
+    grng = np.random.default_rng(1)
+    gprompts = [grng.integers(0, gcfg.vocab, n).astype(np.int32)
+                for n in (3, 9, 5, 12)]
+    runs = []
+    for device in ("cpu", "cuda"):
+        eng = Engine(gcfg, copy.deepcopy(gmodel), device=device,
+                     config=EngineConfig(**four))
+        runs.append((serve(eng, gprompts, 6),
+                     {k: eng.stats[k] for k in counters}))
+    assert runs[1] == runs[0], ("gemma3-27b", runs)
+    log("card/cpu", f"smoke config f32, gemma3-27b (window {gcfg.window}: "
+        f"the 9- and 12-token prompts wrap their rings), dense engine, "
+        f"prompts of 3, 9, 5 and 12 tokens: {len(runs[1][0])} greedy streams "
+        f"equal on cuda and cpu, and the counters {runs[1][1]}")
     fleet_vs_single(cfg, model)
     for arch in ZOO:
         zcfg = configs.get_smoke_config(arch, compute_dtype=torch.float32)
@@ -2159,11 +2333,14 @@ def kernel_entries():
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}", "launches": 0,
             "max_abs_err": 0.0}
-    # the serving paths' own entries: launches from phase 7e's runs alone,
-    # times at their shapes (the entries above carry the suite's)
+    # the serving paths' own entries: launches from phase 7e's runs alone
+    # (``_gemma3``: phase 7i's, timed at its local layers' shapes, phase
+    # 5), times at their shapes (the entries above carry the suite's)
     for name, base in (("flash_decode_dense", "flash_decode"),
                        ("flash_attention_dense", "flash_attention"),
-                       ("flash_attention_monolithic", "flash_attention")):
+                       ("flash_attention_monolithic", "flash_attention"),
+                       ("flash_decode_gemma3", "flash_decode"),
+                       ("flash_attention_gemma3", "flash_attention")):
         results[name] = dict(results[base], name=name)
     # the paged kernels on phases 7f-7h's paths: launches from each run,
     # times at its shapes (phase 3)
@@ -2214,6 +2391,9 @@ def main() -> int:
     t0 = time.perf_counter()
     tp_serve(results, card, untiered)
     log("serve tp", f"phase 7h in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemma3_serve(results, card)
+    log("serve gemma3-27b", f"phase 7i in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     card_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")

@@ -38,11 +38,21 @@ turn). The run prints the reference's ``[serve:fleet]`` lines::
       --max-seq 32 --max-new 3 --page-tokens 8 --token-budget 8 \\
       --replicas 2 --router prefix
 
-``--arch`` picks yi-34b or minitron-4b as well as qwen2-0.5b; with
-``--full`` the weights are drawn at bf16 (yi-34b's 68.8 GB fit one 80 GB
-card beside a 4 GB pool). ``--tp N`` serves with tensor parallelism (it
-implies the paged engine, as the reference's flag does): N ranks start
-with ``torch.multiprocessing``, each holding ``n_kv / N`` kv heads of
+``--arch`` picks yi-34b, minitron-4b or gemma3-27b as well as
+qwen2-0.5b; with ``--full`` the weights are drawn at bf16 (yi-34b's 68.8
+GB fit one 80 GB card beside a 4 GB pool; gemma3-27b's 54.0 GB beside 8 ×
+2048-token slots, 4.8 GB with its sliding-window rings). gemma3-27b serves
+through the dense engine only, as in the reference: its local layers are
+not pageable, so ``--paged``, ``--chunked-prefill``, int8 pages and
+``--tp`` refuse it::
+
+  python -m repro_torch.launch.serve --arch gemma3-27b --full --requests 8 \\
+      --slots 8 --max-seq 2048 --prompt-len 128 --prompt-len-max 1536 \\
+      --max-new 64                                   # one card
+
+``--tp N`` serves with tensor parallelism (it implies the paged engine,
+as the reference's flag does): N ranks start with
+``torch.multiprocessing``, each holding ``n_kv / N`` kv heads of
 every KV page and the whole weights; on the card rank r takes ``cuda:r``
 over NCCL (the run needs N cards), on the CPU the ranks talk gloo. The
 kernels are built before the ranks start, and only rank 0 prints::
@@ -81,6 +91,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import sys
@@ -146,7 +157,10 @@ def build_config(args):
 def warm_up(cfg, model, config: EngineConfig, device) -> None:
     """Build the kernels and serve one short request on a throwaway engine
     with a small pool, so that a timed run that follows excludes the nvcc
-    build and first-call costs (cuBLAS set-up, allocator growth)."""
+    build and first-call costs (cuBLAS set-up, allocator growth). The
+    throwaway engine (a dense one holds its whole slot pool: 4.8 GB for
+    gemma3-27b) is let go before this returns, so the timed engine's pool
+    is the only one resident."""
     if torch.device(device).type == "cuda":
         from repro_torch.kernels import _build
         _build.build_all()
@@ -156,8 +170,13 @@ def warm_up(cfg, model, config: EngineConfig, device) -> None:
     eng.submit(Request(seq_id=0, max_new=4,
                        prompt=np.arange(n, dtype=np.int32) % cfg.vocab))
     eng.run(max_steps=10000)
-    if eng.device.type == "cuda":
+    cuda = eng.device.type == "cuda"
+    if cuda:
         torch.cuda.synchronize(eng.device)
+    del eng
+    gc.collect()              # the engine's scheduler callbacks form cycles
+    if cuda:
+        torch.cuda.empty_cache()
 
 
 def _serve_fleet(args) -> None:
@@ -409,7 +428,8 @@ def _serve(args) -> None:
               f"admission refusals {s['admission_refusals']}")
     else:
         print(f"[serve:{mode}] pool {eng.pool.n_slots} slots × "
-              f"{eng.pool.max_seq} tok ({eng.pool.footprint_bytes()} B), "
+              f"{eng.pool.max_seq} tok ({eng.pool.footprint_bytes()} B "
+              f"estimated, {eng.pool.leaf_nbytes()} B of leaves), "
               f"ttft p50/p99 {s['ttft_p50_s']:.3f}/{s['ttft_p99_s']:.3f} s")
     if args.prefix_cache:
         print(f"[serve:{mode}] prefix hits {s['prefix_hits']} "
@@ -440,7 +460,8 @@ def _serve(args) -> None:
               f"{s['queue_lat_p50_s']:.3f}/{s['queue_lat_p90_s']:.3f}/"
               f"{s['queue_lat_p99_s']:.3f} s")
     print(f"[serve:{mode}] device {eng.device}"
-          + (f" ({torch.cuda.get_device_name(eng.device)})"
+          + (f" ({torch.cuda.get_device_name(eng.device)}), peak memory "
+             f"{torch.cuda.max_memory_allocated(eng.device) / 2**30:.2f} GiB"
              if eng.device.type == "cuda" else ""))
     if args.profile:
         _print_profile(prof, wall, args.profile)

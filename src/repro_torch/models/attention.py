@@ -26,12 +26,26 @@ nothing here does):
     ``[0, L)``. The reference attends the cache masked to its first L rows,
     which are these keys.
 
-Sliding windows, logit softcaps, MLA and cross-attention are not ported
-(ROADMAP queue 1, item 16).
+A sliding-window layer (``window``: gemma3's ``local`` layers) keeps a
+**ring** of ``W = min(max_seq, window)`` rows a slot, position p in row
+``p % W`` (the reference's ``_ring_update``). Prefill attends the L new
+keys through ``flash_attention(..., window=window)``, masked by position
+(``kpos > qpos - window``) as the reference's no-cache forward is, then
+writes only the last ``min(L, W)`` keys into the ring, each row once.
+The reference scatters all L keys into the W rows, so for L > W rows
+collide, and it attends the ring as if row i held position i: its dense
+engine parts from its own forward on a prompt past the window
+(tests/test_torch_gemma3.py pins it); for L ≤ W the rows are the same.
+A decode step writes row ``cache_pos[b] % W`` and attends
+``min(cache_pos[b] + 1, W)`` rows: the softmax does not care in which
+order the ring holds them.
+
+Logit softcaps, MLA and cross-attention are not ported (ROADMAP queue 1,
+item 16).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -42,10 +56,10 @@ from repro_torch.models import blocks
 
 def check_dense(cfg) -> None:
     """Raise unless the dense path covers ``cfg``'s attention."""
-    if cfg.window or cfg.logit_softcap:
+    if cfg.logit_softcap:
         raise NotImplementedError(
-            f"repro_torch: {cfg.name}: sliding-window and softcap attention "
-            "are not ported yet (ROADMAP queue 1, item 16)")
+            f"repro_torch: {cfg.name}: softcap attention is not ported yet "
+            "(ROADMAP queue 1, item 16)")
 
 
 def qkv(m: Dict[str, torch.Tensor], h: torch.Tensor, positions: torch.Tensor,
@@ -66,42 +80,70 @@ def qkv(m: Dict[str, torch.Tensor], h: torch.Tensor, positions: torch.Tensor,
     return q, k, v
 
 
+def ring_write(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """Land a prefill's L keys ``new`` [B, K, L, hd] (positions 0..L-1)
+    in a ring ``cache`` [B, K, W, hd], in place: only the last ``min(L,
+    W)`` positions, position p in row ``p % W``, so no row is written
+    twice. Two slice copies, from host ints only."""
+    W, L = cache.shape[2], new.shape[2]
+    n = min(L, W)
+    first = L - n
+    r0 = first % W
+    head = min(n, W - r0)
+    cache[:, :, r0:r0 + head] = new[:, :, first:first + head].to(cache.dtype)
+    if n > head:                                      # wraps to row 0
+        cache[:, :, :n - head] = new[:, :, first + head:].to(cache.dtype)
+
+
 def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
                 positions: torch.Tensor, cfg, cache: Dict[str, torch.Tensor],
-                cache_pos) -> torch.Tensor:
+                cache_pos, window: Optional[int] = None) -> torch.Tensor:
     """One layer's attention over its slot cache; returns y [B, L, d].
 
     h: [B, L, d] normed input; positions: [B, L] absolute; cache: ``{"k",
     "v"}`` [B, K, S, hd], written in place. ``cache_pos`` selects the
     case: a [B] int tensor is a decode step (L = 1, slot b writes at
     ``cache_pos[b]`` and attends ``cache_pos[b] + 1`` rows); the int 0 is a
-    prefill of every slot from position 0.
+    prefill of every slot from position 0. ``window``: the layer's
+    sliding window (``cfg.window_of(mixer)``); its cache is then a ring of
+    S ≤ window rows (see the module docstring).
     """
     check_dense(cfg)
     B, L, _ = h.shape
     H, K = cfg.n_heads, cfg.n_kv
     q, k, v = qkv(m, h, positions, cfg)
     kc, vc = cache["k"], cache["v"]
+    S = kc.shape[2]
+    if window is not None and S > window:
+        raise ValueError(f"gqa_forward: a window-{window} layer keeps a ring "
+                         f"of at most {window} rows, got {S}")
     if isinstance(cache_pos, torch.Tensor):
         if L != 1:
             raise ValueError(f"gqa_forward: a decode step takes one token a "
                              f"slot, got L={L}")
         pos = cache_pos.long()
+        lengths = cache_pos + 1
+        if window is not None:
+            pos, lengths = pos % S, lengths.clamp(max=S)
         slots = torch.arange(B, device=h.device)
         kc[slots, :, pos] = k[:, 0].to(kc.dtype)
         vc[slots, :, pos] = v[:, 0].to(vc.dtype)
         att = flash_decode(q[:, 0].contiguous(), kc, vc,
-                           (cache_pos + 1).to(torch.int32))[:, None]
+                           lengths.to(torch.int32))[:, None]
     elif cache_pos == 0:
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)         # [B, K, L, hd]
-        kc[:, :, :L] = kt.to(kc.dtype)
-        vc[:, :, :L] = vt.to(vc.dtype)
+        if window is None:
+            kc[:, :, :L] = kt.to(kc.dtype)
+            vc[:, :, :L] = vt.to(vc.dtype)
+        else:
+            ring_write(kc, kt)
+            ring_write(vc, vt)
         G = H // K
         att = flash_attention(
             q.transpose(1, 2).contiguous(),
             kt.repeat_interleave(G, dim=1).contiguous(),
             vt.repeat_interleave(G, dim=1).contiguous(),
-            causal=True).transpose(1, 2)                      # [B, L, H, hd]
+            causal=True, window=window).transpose(1, 2)       # [B, L, H, hd]
     else:
         raise ValueError(f"gqa_forward: cache_pos must be a [B] tensor "
                          f"(decode) or 0 (prefill), got {cache_pos!r}")

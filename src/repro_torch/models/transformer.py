@@ -1,7 +1,11 @@
 """Model configuration, weights and the dense forward pass for serving.
 
 Counterpart of ``repro/models/transformer.py``, limited to what the
-serving paths run: groups of full-attention GQA layers with dense MLPs.
+serving paths run: groups of GQA layers, full-attention (``gqa``,
+``global``) or sliding-window (``local``, a ring of ``min(max_seq,
+window)`` cache rows), with dense MLPs, RMS norms (zero-centred scales and
+sandwich post-norms where the config asks) and an optionally scaled
+embedding.
 :func:`forward` runs prefill and decode over dense slot caches
 (:func:`init_caches`, models/attention.py); the paged steps
 (serve/paged_step.py) walk the same layers with the same pieces
@@ -21,12 +25,13 @@ holds the reference's parameter tree leaf for leaf::
 
 where each pattern position holds ``{"ln1": {"scale"}, "mixer": {wq, wk,
 wv, wo[, bq, bk, bv]}, "ln2": {"scale"}, "ffn": {w_gate, w_up, w_down}}``
-(``{w_in, w_out}`` for ``mlp="relu2"``) with a leading ``count`` axis on
-every leaf.
+(``{w_in, w_out}`` for ``mlp="relu2"``; ``ln1_post`` / ``ln2_post`` beside
+them under ``sandwich_norm``) with a leading ``count`` axis on every leaf.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -74,6 +79,11 @@ class ModelConfig:
     def n_layers(self) -> int:
         return sum(len(p) * c for p, c in self.groups)
 
+    def window_of(self, mixer: str) -> Optional[int]:
+        """The reference's per-kind window (``attn_cfg(kind)``): the
+        config's sliding window for ``local`` layers, none for others."""
+        return self.window if mixer == "local" else None
+
 
 def parse_kind(kind: str) -> Tuple[str, str]:
     mixer, _, ffn = kind.partition(":")
@@ -81,13 +91,13 @@ def parse_kind(kind: str) -> Tuple[str, str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is on this port's path: full-attention mixers
-    with dense swiglu or squared-ReLU MLPs, RMS norm, no shared block, no
-    softcap."""
+    """Raise unless ``cfg`` is on this port's path: full-attention or
+    sliding-window mixers with dense swiglu or squared-ReLU MLPs, RMS norm,
+    no shared block, no softcap."""
     for pattern, _ in cfg.groups:
         for kind in pattern:
             mixer, ffn = parse_kind(kind)
-            if mixer not in ("gqa", "global"):
+            if mixer not in ("gqa", "global", "local"):
                 raise NotImplementedError(
                     f"repro_torch: mixer {mixer!r} is not ported yet "
                     "(ROADMAP queue 1, item 16)")
@@ -96,8 +106,7 @@ def check_supported(cfg: ModelConfig) -> None:
                     f"repro_torch: ffn {ffn!r} is not ported yet "
                     "(ROADMAP queue 1, item 16)")
     if cfg.mlp not in ("swiglu", "relu2") or cfg.norm != "rms" or \
-            cfg.sandwich_norm or \
-            cfg.logit_softcap or cfg.window:
+            cfg.logit_softcap:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} needs blocks not ported yet "
             "(ROADMAP queue 1, item 4 and 16)")
@@ -106,14 +115,26 @@ def check_supported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 # init: same distributions as the reference (not the same numbers)
 # --------------------------------------------------------------------------
+DRAW_ELEMS = 2**28    # most elements of a 2-D leaf drawn in one f32 piece
+
+
 def _normal(shape, std: float, generator, device, dtype):
     """N(0, std²) at ``dtype``, drawn in f32 one ``[count]`` slice of a
     stacked leaf at a time: a whole f32 draw of yi-34b's ``[60, 7168,
-    20480]`` MLP leaves would need a 35 GB temporary beside the weights."""
+    20480]`` MLP leaves would need a 35 GB temporary beside the weights.
+    A 2-D leaf of more than ``DRAW_ELEMS`` elements is drawn in runs of
+    whole rows of at most that many (gemma3-27b's ``[262144, 5376]``
+    embedding whole would be a 5.6 GB temporary)."""
     out = torch.empty(shape, dtype=dtype, device=device)
     if out.device.type == "meta":
         return out
-    for part in (out if len(shape) > 2 else (out,)):
+    if len(shape) > 2:
+        parts = out
+    elif len(shape) == 2:
+        parts = out.split(max(1, DRAW_ELEMS // max(1, shape[1])))
+    else:
+        parts = (out,)
+    for part in parts:
         w = torch.empty(part.shape, dtype=torch.float32, device=device)
         part.copy_(w.normal_(0.0, 1.0, generator=generator).mul_(std))
     return out
@@ -124,8 +145,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random weights drawn from the reference's distributions
     (``transformer.py:165-167, 217-255`` and ``attention.init_gqa``):
     dense weights N(0, 1/fan_in), ``wo`` N(0, 1/(H·hd)), the embedding
-    N(0, 0.02²), norm scales 1 and QKV biases 0. Leaves are made at
-    ``cfg.param_dtype`` (a full-width model at bf16 passes
+    N(0, 0.02²), norm scales 1 (0 when zero-centred: the norm multiplies
+    by 1 + scale), sandwich post-norms beside them, and QKV biases 0.
+    Leaves are made at ``cfg.param_dtype`` (a full-width model at bf16 passes
     ``param_dtype=torch.bfloat16``, so the executor's cast to the compute
     dtype copies nothing). ``generator`` must live on ``device`` (a
     ``meta`` device allocates nothing, for counting parameters)."""
@@ -137,8 +159,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     def normal(shape, std):
         return _normal(shape, std, generator, device, dt)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dt, device=device)
+    def norm(shape):
+        fill = torch.zeros if cfg.zero_centered_norm else torch.ones
+        return {"scale": fill(shape, dtype=dt, device=device)}
 
     groups = []
     for pattern, count in cfg.groups:
@@ -152,9 +175,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             if cfg.qkv_bias:
                 for b, n in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
                     mixer[b] = torch.zeros((count, n), dtype=dt, device=device)
-            layer = {"ln1": {"scale": ones((count, d))}, "mixer": mixer}
+            layer = {"ln1": norm((count, d)), "mixer": mixer}
             if ffn != "none":
-                layer["ln2"] = {"scale": ones((count, d))}
+                layer["ln2"] = norm((count, d))
                 layer["ffn"] = (
                     {"w_in": normal((count, d, f), 1 / math.sqrt(d)),
                      "w_out": normal((count, f, d), 1 / math.sqrt(f))}
@@ -162,11 +185,15 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                     {"w_gate": normal((count, d, f), 1 / math.sqrt(d)),
                      "w_up": normal((count, d, f), 1 / math.sqrt(d)),
                      "w_down": normal((count, f, d), 1 / math.sqrt(f))})
+            if cfg.sandwich_norm:
+                layer["ln1_post"] = norm((count, d))
+                if ffn != "none":
+                    layer["ln2_post"] = norm((count, d))
             per_pos.append(layer)
         groups.append(tuple(per_pos))
     params: Dict[str, Any] = {
         "embed": normal((cfg.vocab, d), 0.02),
-        "final_norm": {"scale": ones((d,))},
+        "final_norm": norm((d,)),
         "groups": groups,
     }
     if not cfg.tie_embeddings:
@@ -184,7 +211,10 @@ def count_params(model: "Transformer") -> int:
 class LayerStack(nn.Module):
     """One pattern position of a group: ``count`` layers' weights stacked
     along axis 0, named as in the reference tree (``ln1``, ``mixer.*``,
-    ``ln2``, ``ffn.*``). ``unit(u)`` gives layer ``u``'s views."""
+    ``ln2``, ``ffn.*``, and the sandwich post-norms ``ln1_post`` /
+    ``ln2_post`` where the tree has them). ``unit(u)`` gives layer ``u``'s
+    views."""
+    POST = ("ln1_post", "ln2_post")
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -196,6 +226,9 @@ class LayerStack(nn.Module):
             self.ln2 = _frozen(tree["ln2"]["scale"])
             self.ffn = nn.ParameterDict(
                 {k: _frozen(v) for k, v in tree["ffn"].items()})
+        self.post = tuple(n for n in self.POST if n in tree)
+        for name in self.post:
+            setattr(self, name, _frozen(tree[name]["scale"]))
 
     @property
     def count(self) -> int:
@@ -207,6 +240,8 @@ class LayerStack(nn.Module):
         if self.has_ffn:
             out["ln2"] = {"scale": self.ln2[u]}
             out["ffn"] = {k: v[u] for k, v in self.ffn.items()}
+        for name in self.post:
+            out[name] = {"scale": getattr(self, name)[u]}
         return out
 
 
@@ -264,10 +299,18 @@ def units(model: Transformer, caches):
                        {name: arr[u] for name, arr in caches[gi][i].items()})
 
 
+@functools.lru_cache(maxsize=None)
+def embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """√d_model rounded to ``dtype`` first, as the reference's
+    ``jnp.asarray(sqrt(d), compute_dtype)``: in bf16 √5376 = 73.32 is
+    73.5. The product with it is then one rounding, as in the reference."""
+    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
+
+
 def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     x = blocks.embed_lookup(model.embed, tokens)
     if model.cfg.embed_scale:
-        x = x * math.sqrt(model.cfg.d_model)
+        x = x * embed_scale(model.cfg.d_model, x.dtype)
     return x
 
 
@@ -283,18 +326,28 @@ def layer_pre(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
                          positions, cfg)
 
 
+def _residual(p, post: str, x: torch.Tensor, y: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """x + y, y through the sandwich post-norm ``post`` when the config
+    has them (the reference's ``_apply_layer``)."""
+    if cfg.sandwich_norm:
+        y = _norm_apply(p[post], y, cfg)
+    return x + y
+
+
 def _ffn_residual(p, ffn: str, x: torch.Tensor, cfg: ModelConfig):
     if ffn == "none":
         return x
-    return x + _ffn_apply(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg)
+    y = _ffn_apply(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg)
+    return _residual(p, "ln2_post", x, y, cfg)
 
 
 def layer_post(p, x: torch.Tensor, att: torch.Tensor, ffn: str,
                cfg: ModelConfig) -> torch.Tensor:
     """Output projection, residual, MLP: att [B, L, H, hd]."""
     B, L = x.shape[:2]
-    x = x + att.reshape(B, L, -1).to(x.dtype) @ p["mixer"]["wo"]
-    return _ffn_residual(p, ffn, x, cfg)
+    y = att.reshape(B, L, -1).to(x.dtype) @ p["mixer"]["wo"]
+    return _ffn_residual(p, ffn, _residual(p, "ln1_post", x, y, cfg), cfg)
 
 
 # --------------------------------------------------------------------------
@@ -303,15 +356,23 @@ def layer_post(p, x: torch.Tensor, att: torch.Tensor, ffn: str,
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 device=None):
     """Zeroed slot caches aligned with ``cfg.groups``: per group, a tuple
-    per pattern position of ``{"k", "v"}`` [count, batch, K, max_seq, hd]
-    at ``dtype`` (default: the compute dtype)."""
+    per pattern position of ``{"k", "v"}`` [count, batch, K, S, hd] at
+    ``dtype`` (default: the compute dtype), S = max_seq, or the ring of
+    ``min(max_seq, window)`` rows of a sliding-window layer (the
+    reference's ``_init_cache_one``)."""
     check_supported(cfg)
     dtype = dtype or cfg.compute_dtype
-    shape = (cfg.n_kv, max_seq, cfg.hd)
-    return [tuple({name: torch.zeros((count, batch) + shape, dtype=dtype,
-                                     device=device) for name in ("k", "v")}
-                  for _ in pattern)
-            for pattern, count in cfg.groups]
+    out = []
+    for pattern, count in cfg.groups:
+        per_pos = []
+        for kind in pattern:
+            window = cfg.window_of(parse_kind(kind)[0])
+            S = min(max_seq, window) if window else max_seq
+            per_pos.append({name: torch.zeros(
+                (count, batch, cfg.n_kv, S, cfg.hd), dtype=dtype,
+                device=device) for name in ("k", "v")})
+        out.append(tuple(per_pos))
+    return out
 
 
 def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
@@ -333,11 +394,11 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
         raise ValueError(f"mode {mode!r}: expected 'prefill' or 'decode'")
     x = embed(model, tokens)
     for kind, p, cache in units(model, caches):
-        _, ffn = parse_kind(kind)
-        x = x + attention.gqa_forward(p["mixer"],
-                                      _norm_apply(p["ln1"], x, cfg),
-                                      positions, cfg, cache, cache_pos)
-        x = _ffn_residual(p, ffn, x, cfg)
+        mixer, ffn = parse_kind(kind)
+        y = attention.gqa_forward(p["mixer"], _norm_apply(p["ln1"], x, cfg),
+                                  positions, cfg, cache, cache_pos,
+                                  window=cfg.window_of(mixer))
+        x = _ffn_residual(p, ffn, _residual(p, "ln1_post", x, y, cfg), cfg)
     return x
 
 

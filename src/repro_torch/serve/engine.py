@@ -37,7 +37,7 @@ from repro_torch.models import transformer
 from repro_torch.serve import trace
 from repro_torch.serve.cache import CacheConfig, build_cache_manager
 from repro_torch.serve.executor import Executor
-from repro_torch.serve.kvcache import CachePool
+from repro_torch.serve.kvcache import CachePool, check_pageable
 from repro_torch.serve.metrics import MetricsBus
 from repro_torch.serve.policy import PolicyConfig, SchedulerPolicy
 from repro_torch.serve.scheduler import Request, Scheduler  # noqa: F401
@@ -134,6 +134,8 @@ class Engine:
                  model: transformer.Transformer,
                  config: Optional[EngineConfig] = None, device=None):
         config = (config or EngineConfig()).normalized()
+        if config.cache.paged:    # before a tp executor joins its group
+            check_pageable(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.config = config

@@ -63,7 +63,8 @@ _PAGEABLE = ("gqa", "global", "shared")
 class CachePool:
     """Slot-based dense pool: ``n_slots`` decode slots over the model's slot
     caches (``[count, n_slots, K, max_seq, hd]`` leaves at the compute
-    dtype). ``lengths[slot]`` counts the slot's KV rows plus the token it
+    dtype; a sliding-window layer's leaves hold a ring of ``min(max_seq,
+    window)`` rows). ``lengths[slot]`` counts the slot's KV rows plus the token it
     will decode next; ``seq_ids[slot]`` is -1 when the slot is free."""
 
     prefix = None       # no prefix index under the dense engine
@@ -96,13 +97,21 @@ class CachePool:
 
     def footprint_bytes(self) -> int:
         """Device memory the pool holds at the reference's 2-byte estimate:
-        n_slots × max_seq rows, however short the resident sequences."""
+        n_slots × max_seq rows, however short the resident sequences (the
+        reference's estimate leaves ring layers out; :meth:`leaf_nbytes`
+        counts what the leaves hold)."""
         return self.n_slots * self.max_seq * token_bytes(self.cfg)
+
+    def leaf_nbytes(self) -> int:
+        """The bytes the cache leaves really hold, rings included."""
+        return sum(a.nbytes for per_pos in self.caches for kv in per_pos
+                   for a in kv.values())
 
 
 def token_bytes(cfg: transformer.ModelConfig) -> int:
     """Per-token cache footprint (all layers) for capacity planning, at
-    the reference's 2-byte estimate per element."""
+    the reference's 2-byte estimate per element; sliding-window rings are
+    constant in the sequence length and, as in the reference, uncounted."""
     total = 0
     for pattern, count in cfg.groups:
         for kind in pattern:
@@ -110,6 +119,21 @@ def token_bytes(cfg: transformer.ModelConfig) -> int:
             if mixer in _PAGEABLE:
                 total += count * 2 * cfg.n_kv * cfg.hd * 2
     return total
+
+
+def check_pageable(cfg: transformer.ModelConfig) -> None:
+    """Raise, in the reference's words, unless a page pool can hold every
+    layer of ``cfg``: the engine asks before it builds anything else."""
+    for pattern, _ in cfg.groups:
+        for kind in pattern:
+            mixer, _ = transformer.parse_kind(kind)
+            if mixer not in _PAGEABLE:
+                raise ValueError(
+                    f"PagedCachePool: mixer {mixer!r} is not pageable "
+                    f"(supported: {_PAGEABLE}); use the dense CachePool")
+    if cfg.logit_softcap:
+        raise ValueError("PagedCachePool: the paged attention kernels "
+                         "have no logit-softcap path; use the dense pool")
 
 
 class PagedCachePool:
@@ -134,16 +158,7 @@ class PagedCachePool:
                  max_seq: int, n_pages: int, page_tokens: int = 16,
                  device="cpu", kv_dtype: str = kvquant.COMPUTE,
                  tp: int = 1, rank: int = 0):
-        for pattern, _ in cfg.groups:
-            for kind in pattern:
-                mixer, _ = transformer.parse_kind(kind)
-                if mixer not in _PAGEABLE:
-                    raise ValueError(
-                        f"PagedCachePool: mixer {mixer!r} is not pageable "
-                        f"(supported: {_PAGEABLE})")
-        if cfg.logit_softcap:
-            raise ValueError("PagedCachePool: the paged attention kernels "
-                             "have no logit-softcap path")
+        check_pageable(cfg)
         if cfg.n_kv % tp or not 0 <= rank < tp:
             raise ValueError(f"PagedCachePool: rank {rank} of tp={tp} does "
                              f"not shard {cfg.n_kv} kv heads evenly")

@@ -136,10 +136,17 @@ def test_gqa_forward_refuses_what_is_not_ported():
     h = torch.zeros(1, 2, tcfg.d_model)
     pos = torch.zeros(1, 2, dtype=torch.long)
     import dataclasses
-    for kw in (dict(window=4), dict(logit_softcap=30.0)):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tattention.gqa_forward(m, h, pos, dataclasses.replace(tcfg, **kw),
-                                   cache, 0)
+    # a sliding window runs now: a config's window leaves a gqa layer as it
+    # is (the reference's attn_cfg gives it to local layers only), and a
+    # windowed layer attends over its ring of at most window rows
+    plain = tattention.gqa_forward(m, h, pos, tcfg, cache, 0)
+    for kw, window in ((dict(window=4), None), ({}, 8)):
+        y = tattention.gqa_forward(m, h, pos, dataclasses.replace(tcfg, **kw),
+                                   cache, 0, window=window)
+        assert y.shape == (1, 2, tcfg.d_model) and torch.equal(y, plain)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tattention.gqa_forward(
+            m, h, pos, dataclasses.replace(tcfg, logit_softcap=30.0), cache, 0)
     with pytest.raises(ValueError, match="cache_pos"):
         tattention.gqa_forward(m, h, pos, tcfg, cache, 3)
     with pytest.raises(ValueError, match="one token"):
