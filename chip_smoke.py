@@ -22,9 +22,10 @@ Phases, each printed on its own line, none catching its own failure:
                (decode at the serving decode shape, prefill at C 256 /
                start 1500); then at yi-34b's decode step and chunk (B 8,
                H 56, K 8, hd 128: G 7; bf16, timed, and int8), at
-               minitron-4b's (H 24, K 8: G 3; timed) and at one rank's
-               shard of qwen2-0.5b at tp = 2 (H 7, K 1, hd 64; timed),
-               whose split must equal the unsharded call's;
+               minitron-4b's (H 24, K 8: G 3; timed), at
+               granite-moe-3b-a800m's (H 24, K 8, hd 64: G 3; timed) and
+               at one rank's shard of qwen2-0.5b at tp = 2 (H 7, K 1, hd
+               64; timed), whose split must equal the unsharded call's;
   4. suite kernels  the AutoDMA builder with each gemm body (mxu, vpu,
                loop), matvec and matvec_t against the plain grid walker on
                the same CUDA tensors: gemm 2048³ and 1024×1024×4608, matvec
@@ -175,6 +176,16 @@ Phases, each printed on its own line, none catching its own failure:
                p50 / p99; then a second run, gated to the same streams,
                with iterations 8-40 under torch.profiler: the device's
                busy share and its top kernels;
+  7j. serve granite-moe-3b-a800m  granite-moe at full width (32 layers,
+               d_model 1536, 24/8 heads, hd 64, 40 experts of d_ff 512,
+               top-8 with capacity dispatch, vocab 49155, tied;
+               3,298,793,472 parameters drawn at bf16, seed 0; nothing
+               cut) through phase 7f's chunked engine, traffic and gates;
+               logged besides: the (token, expert) assignments the
+               capacity drops on one 256-token chunk at each layer
+               (request 0's first 256 tokens, counted with the port's
+               own route / select on the layer's input), and the profiled
+               second run's top 15 kernels (the MoE's ops among them);
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams and equal
                preemption, swap, refusal and prefix-hit counters, on the
@@ -189,14 +200,17 @@ Phases, each printed on its own line, none catching its own failure:
                the dense engine on the same prompts; a two-replica prefix
                fleet with one kill and one respawn, whose streams, fleet
                counters and placements also equal on both devices, and
-               whose streams equal one chunked engine's; and the
-               yi-34b and minitron-4b smoke configs through the chunked
-               engine, whose streams and counters equal on both devices;
+               whose streams equal one chunked engine's; the yi-34b,
+               minitron-4b and granite-moe-3b-a800m smoke configs through
+               the chunked engine, and granite's through the monolithic
+               paged and dense engines on prompts of 3, 9, 5 and 12
+               tokens, whose streams and counters equal on both devices;
   9. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
      launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
-     ``_minitron4b`` and ``_tp`` with phases 7f, 7g and 7h's (rank 0's),
-     each timed at its own phase 3 shape; flash_decode and
-     flash_attention with phase 5's suite launches, and again as
+     ``_minitron4b``, ``_tp`` and ``_granite`` with phases 7f, 7g, 7h
+     (rank 0's) and 7j's, each timed at its own phase 3 shape;
+     flash_decode and flash_attention with phase 5's suite launches, and
+     again as
      flash_decode_dense, flash_attention_dense and
      flash_attention_monolithic, each with the launches of its own 7e run
      and timed at 7e's shapes, and flash_decode_gemma3 and
@@ -296,7 +310,7 @@ def check_kernels(results):
     timed = {"main": ("paged_flash_decode", "paged_flash_prefill"),
              "int8": ("paged_flash_decode_int8", "paged_flash_prefill_int8")}
     for name, suffix in (("yi-34b", "_yi34b"), ("minitron-4b", "_minitron4b"),
-                         ("tp2-shard", "_tp")):
+                         ("tp2-shard", "_tp"), ("granite-moe", "_granite")):
         timed[name] = ("paged_flash_decode" + suffix,
                        "paged_flash_prefill" + suffix)
     serving = [0, 1, 16, 17, 255, 256, 1000, 2048]
@@ -312,6 +326,9 @@ def check_kernels(results):
          [(1, 2047), (37, 100), (256, 1500)]),
         ("minitron-4b", 24, 8, 128, 16, torch.bfloat16, serving, 128,
          [(1, 2047), (256, 1500)]),
+        # granite-moe-3b-a800m's (H 24, K 8: G 3 at hd 64)
+        ("granite-moe", 24, 8, 64, 16, torch.bfloat16, serving, 128,
+         [(1, 2047), (37, 100), (256, 1500)]),
         # one rank's kv-head shard of qwen2-0.5b at tp = 2 (K_local 1),
         # split as the unsharded call does
         ("tp2-shard", 7, 1, 64, 16, torch.bfloat16, serving, 128,
@@ -1774,7 +1791,8 @@ def time_serving_attention(results, lens):
         time_flash(res, q, k, v, True, None)
 
 
-ZOO = {"yi-34b": "_yi34b", "minitron-4b": "_minitron4b"}
+ZOO = {"yi-34b": "_yi34b", "minitron-4b": "_minitron4b",
+       "granite-moe-3b-a800m": "_granite"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1796,7 +1814,7 @@ def phase7_prompts(vocab: int):
                   for n in lens]
 
 
-def device_busy(eng, prompts, window=(8, 40)):
+def device_busy(eng, prompts, window=(8, 40), n_top=5):
     """Serve ``prompts`` again, tracing iterations ``window`` with
     torch.profiler: the device's busy share of that window's wall time
     (kernel time summed by name; the profiler's own cost lengthens the
@@ -1823,15 +1841,43 @@ def device_busy(eng, prompts, window=(8, 40)):
     busy_us, rows = profile_rows(prof)
     busy_ms = busy_us / 1e3
     top = "; ".join(f"{us / 1e3:.1f} ms {n}x {key[:48]}"
-                    for us, n, key in rows[:5])
+                    for us, n, key in rows[:n_top])
     return ({r.seq_id: list(r.tokens_out) for r in done},
             busy_ms, wall * 1e3, top)
 
 
+def capacity_drops(model, cfg, prompt):
+    """(assignments dropped, routed) at each layer's MoE on one 256-token
+    chunk (the prompt's first 256 tokens, a prefill from position 0 over a
+    one-slot dense cache), counted with the port's own ``route`` /
+    ``select`` on the layer's input, intercepted for this call alone."""
+    from repro_torch.models import moe, transformer
+    inner, seen = moe.dispatch_compute, []
+
+    def counting(xf, router_w, *weights):
+        gates, idx, _ = moe.route(router_w, xf, cfg.moe)
+        sel = moe.select(gates, idx, cfg.moe)
+        seen.append((moe.dropped(idx, *sel[1:], cfg.moe.n_experts),
+                     idx.numel()))
+        return inner(xf, router_w, *weights)
+
+    device = model.embed.device
+    caches = transformer.init_caches(cfg, 1, 256, device=device)
+    toks = torch.from_numpy(prompt[:256]).to(device)[None]
+    moe.dispatch_compute = counting
+    try:
+        with torch.no_grad():
+            transformer.hidden(model, toks, caches, 0, "prefill")
+    finally:
+        moe.dispatch_compute = inner
+    return [(int(d), n) for d, n in seen]
+
+
 def zoo_serve(results, card: str, arch: str, profile: bool):
-    """Phases 7f / 7g: ``arch`` at its published width (random weights,
-    seed 0, drawn at bf16) through the chunked engine on phase 7's traffic
-    and pool shape, each paged kernel counted from 0."""
+    """Phases 7f / 7g / 7j: ``arch`` at its published width (random
+    weights, seed 0, drawn at bf16) through the chunked engine on phase
+    7's traffic and pool shape, each paged kernel counted from 0. A MoE
+    arch also logs its capacity drops on one 256-token chunk."""
     from repro_torch import configs
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import paged_prefill_attention as ppa
@@ -1853,11 +1899,13 @@ def zoo_serve(results, card: str, arch: str, profile: bool):
     torch.cuda.synchronize()
     n_par = transformer.count_params(eng.model)
     pool = eng.pool
+    ffn = (f"MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff "
+           f"{cfg.d_ff}" if cfg.moe else f"d_ff {cfg.d_ff} ({cfg.mlp})")
     log(phase, f"set-up {time.perf_counter() - t0:.2f} s: {arch} "
         f"{cfg.n_layers()} layers d_model {cfg.d_model} heads "
-        f"{cfg.n_heads}/{cfg.n_kv} hd {cfg.hd} d_ff {cfg.d_ff} "
-        f"({cfg.mlp}) vocab {cfg.vocab} untied, {n_par} parameters in "
-        f"{eng.model.embed.dtype} ({2 * n_par} B); pool "
+        f"{cfg.n_heads}/{cfg.n_kv} hd {cfg.hd} {ffn} vocab {cfg.vocab} "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}, {n_par} parameters "
+        f"in {eng.model.embed.dtype} ({2 * n_par} B); pool "
         f"{pool.alloc.n_pages} pages x {pool.page_nbytes()} B = "
         f"{pool.footprint_bytes()} B")
     lens, prompts = phase7_prompts(cfg.vocab)
@@ -1893,15 +1941,28 @@ def zoo_serve(results, card: str, arch: str, profile: bool):
         f" GiB; launches: paged_flash_decode {n_dec} = {L} x "
         f"{s['decode_steps']} decode steps, paged_flash_prefill {n_pre} = "
         f"{L} x {s['prefill_chunks']} prompt chunks")
+    if cfg.moe:
+        from repro_torch.models import moe
+        drops = capacity_drops(eng.model, cfg, prompts[0])
+        log(phase, f"capacity drops on one 256-token chunk (request 0's "
+            f"first 256 tokens; C {moe.capacity(256, cfg.moe)} an expert of "
+            f"{cfg.moe.n_experts}): layer 0 {drops[0][0]} of {drops[0][1]} "
+            f"assignments, all {len(drops)} layers {sum(d for d, _ in drops)}"
+            f" of {sum(n for _, n in drops)}, most in a layer "
+            f"{max(d for d, _ in drops)}")
     if profile:
         del eng
         free_card(phase, "with the weights, before a second pool")
         eng = Engine(cfg, model, config=conf, device="cuda")
-        again, busy, wall_ms, top = device_busy(eng, prompts)
+        t0 = time.perf_counter()
+        again, busy, wall_ms, top = device_busy(
+            eng, prompts, n_top=15 if cfg.moe else 5)
         assert again == streams, "a second run gave other streams"
         log(phase, f"{card}: profiled second run (iterations 8-40, the "
-            f"same streams): device busy {busy:.1f} ms of {wall_ms:.1f} ms "
-            f"wall ({100 * busy / wall_ms:.1f} %); top kernels: {top}")
+            f"same streams; {time.perf_counter() - t0:.1f} s with the "
+            f"profile's analysis): device busy {busy:.1f} ms of "
+            f"{wall_ms:.1f} ms wall ({100 * busy / wall_ms:.1f} %); top "
+            f"kernels: {top}")
 
 
 def tp_serve(results, card: str, chunked):
@@ -2160,9 +2221,34 @@ def card_vs_cpu():
             runs.append((serve(eng, zprompts, 8),
                          {k: eng.stats[k] for k in counters}))
         assert runs[1] == runs[0], (arch, runs)
-        log("card/cpu", f"smoke config f32, {arch} ({zcfg.mlp}, untied), "
-            f"chunked engine: {len(runs[1][0])} greedy streams equal on cuda "
-            f"and cpu, and the counters {runs[1][1]}")
+        kind = "MoE" if zcfg.moe else zcfg.mlp
+        log("card/cpu", f"smoke config f32, {arch} ({kind}, "
+            f"{'tied' if zcfg.tie_embeddings else 'untied'}), chunked "
+            f"engine: {len(runs[1][0])} greedy streams equal on cuda and "
+            f"cpu, and the counters {runs[1][1]}")
+    # granite-moe through the monolithic paged and dense engines too: its
+    # rows share expert capacity, and the dense prefill routes every slot's
+    mcfg = configs.get_smoke_config("granite-moe-3b-a800m",
+                                    compute_dtype=torch.float32)
+    mmodel = transformer.init_model(mcfg, torch.Generator().manual_seed(0))
+    mrng = np.random.default_rng(1)
+    mprompts = [mrng.integers(0, mcfg.vocab, n).astype(np.int32)
+                for n in (3, 9, 5, 12)]
+    for stack, conf in (
+            ("monolithic paged", EngineConfig(
+                cache=CacheConfig(paged=True, page_tokens=8), **four)),
+            ("dense", EngineConfig(**four))):
+        runs = []
+        for device in ("cpu", "cuda"):
+            eng = Engine(mcfg, copy.deepcopy(mmodel), device=device,
+                         config=conf)
+            runs.append((serve(eng, mprompts, 6),
+                         {k: eng.stats[k] for k in counters}))
+        assert runs[1] == runs[0], ("granite-moe-3b-a800m", stack, runs)
+        log("card/cpu", f"smoke config f32, granite-moe-3b-a800m (MoE), "
+            f"{stack} engine, prompts of 3, 9, 5 and 12 tokens: "
+            f"{len(runs[1][0])} greedy streams equal on cuda and cpu, and "
+            f"the counters {runs[1][1]}")
 
 
 def fleet_vs_single(cfg, model):
@@ -2342,8 +2428,8 @@ def kernel_entries():
                        ("flash_decode_gemma3", "flash_decode"),
                        ("flash_attention_gemma3", "flash_attention")):
         results[name] = dict(results[base], name=name)
-    # the paged kernels on phases 7f-7h's paths: launches from each run,
-    # times at its shapes (phase 3)
+    # the paged kernels on phases 7f-7h and 7j's paths: launches from each
+    # run, times at its shapes (phase 3)
     for suffix in (*ZOO.values(), "_tp"):
         for base in ("paged_flash_decode", "paged_flash_prefill"):
             results[base + suffix] = dict(results[base], name=base + suffix)
@@ -2394,6 +2480,10 @@ def main() -> int:
     t0 = time.perf_counter()
     gemma3_serve(results, card)
     log("serve gemma3-27b", f"phase 7i in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zoo_serve(results, card, "granite-moe-3b-a800m", True)
+    log("serve granite-moe-3b-a800m",
+        f"phase 7j in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     card_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")

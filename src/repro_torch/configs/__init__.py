@@ -3,7 +3,8 @@
 Each ``<arch>.py`` exposes ``config()`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family config for the CPU tests). Only
 the architectures the ported serving path runs are registered here
-(GQA with swiglu or squared-ReLU MLPs, full-attention or sliding-window);
+(GQA with swiglu or squared-ReLU MLPs or a capacity-dispatched MoE,
+full-attention or sliding-window);
 the others arrive with the model zoo (ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ import importlib
 from typing import Tuple
 
 ARCHS: Tuple[str, ...] = ("qwen2-0.5b", "yi-34b", "minitron-4b",
-                           "gemma3-27b")
+                           "gemma3-27b", "granite-moe-3b-a800m")
 
 
 def _module(arch: str):

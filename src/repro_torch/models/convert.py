@@ -31,9 +31,12 @@ def _map(tree, device) -> Any:
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> Transformer:
     """Reference tree (numpy leaves: ``embed``, ``final_norm``,
     ``groups[gi][pos]`` with ``ln1``, ``mixer.{wq,wk,wv,wo,bq,bk,bv}``,
-    ``ln2``, ``ffn.{w_gate,w_up,w_down}`` or ``ffn.{w_in,w_out}`` for a
-    squared-ReLU MLP, and ``lm_head`` when the embedding is untied) → the
-    port's module on ``device``."""
+    ``ln2``, ``ffn.{w_gate,w_up,w_down}``, ``ffn.{w_in,w_out}`` for a
+    squared-ReLU MLP or ``ffn.{router,w_gate,w_up,w_down}`` (with
+    ``ffn.shared.{w_gate,w_up,w_down}`` when the config has shared
+    experts) for a MoE, and ``lm_head`` when the embedding is untied) →
+    the port's module on ``device``. Every leaf keeps its dtype (a MoE
+    router stays f32)."""
     if not cfg.tie_embeddings and "lm_head" not in tree:
         raise ValueError(f"{cfg.name}: an untied model needs its lm_head")
     keep = {k: tree[k] for k in ("embed", "final_norm", "groups", "lm_head")

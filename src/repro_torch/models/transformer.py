@@ -3,9 +3,9 @@
 Counterpart of ``repro/models/transformer.py``, limited to what the
 serving paths run: groups of GQA layers, full-attention (``gqa``,
 ``global``) or sliding-window (``local``, a ring of ``min(max_seq,
-window)`` cache rows), with dense MLPs, RMS norms (zero-centred scales and
-sandwich post-norms where the config asks) and an optionally scaled
-embedding.
+window)`` cache rows), with dense MLPs or a capacity-dispatched MoE
+(models/moe.py), RMS norms (zero-centred scales and sandwich post-norms
+where the config asks) and an optionally scaled embedding.
 :func:`forward` runs prefill and decode over dense slot caches
 (:func:`init_caches`, models/attention.py); the paged steps
 (serve/paged_step.py) walk the same layers with the same pieces
@@ -25,8 +25,10 @@ holds the reference's parameter tree leaf for leaf::
 
 where each pattern position holds ``{"ln1": {"scale"}, "mixer": {wq, wk,
 wv, wo[, bq, bk, bv]}, "ln2": {"scale"}, "ffn": {w_gate, w_up, w_down}}``
-(``{w_in, w_out}`` for ``mlp="relu2"``; ``ln1_post`` / ``ln2_post`` beside
-them under ``sandwich_norm``) with a leading ``count`` axis on every leaf.
+(``{w_in, w_out}`` for ``mlp="relu2"``; ``{router, w_gate, w_up, w_down[,
+shared: {w_gate, w_up, w_down}]}`` for a ``moe`` ffn, the experts on an
+``[E, ...]`` axis; ``ln1_post`` / ``ln2_post`` beside them under
+``sandwich_norm``) with a leading ``count`` axis on every leaf.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention, blocks
+from repro_torch.models import moe as moe_lib
 
 Pattern = Tuple[str, ...]
 Group = Tuple[Pattern, int]
@@ -64,6 +67,7 @@ class ModelConfig:
     sandwich_norm: bool = False
     embed_scale: bool = False
     tie_embeddings: bool = False
+    moe: Optional[moe_lib.MoeConfig] = None
     # compute policy
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
@@ -90,10 +94,17 @@ def parse_kind(kind: str) -> Tuple[str, str]:
     return mixer, ffn or "mlp"
 
 
+def couples_rows(cfg: ModelConfig) -> bool:
+    """True when a layer's ffn is a MoE: the rows of one call then share
+    expert capacity, so a row's output depends on the others."""
+    return any(parse_kind(kind)[1] == "moe"
+               for pattern, _ in cfg.groups for kind in pattern)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is on this port's path: full-attention or
-    sliding-window mixers with dense swiglu or squared-ReLU MLPs, RMS norm,
-    no shared block, no softcap."""
+    sliding-window mixers with dense swiglu or squared-ReLU MLPs or a MoE
+    (with ``cfg.moe`` set), RMS norm, no shared block, no softcap."""
     for pattern, _ in cfg.groups:
         for kind in pattern:
             mixer, ffn = parse_kind(kind)
@@ -101,7 +112,8 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"repro_torch: mixer {mixer!r} is not ported yet "
                     "(ROADMAP queue 1, item 16)")
-            if ffn not in ("mlp", "none"):
+            if ffn not in ("mlp", "none") and not (
+                    ffn == "moe" and cfg.moe is not None):
                 raise NotImplementedError(
                     f"repro_torch: ffn {ffn!r} is not ported yet "
                     "(ROADMAP queue 1, item 16)")
@@ -146,7 +158,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     (``transformer.py:165-167, 217-255`` and ``attention.init_gqa``):
     dense weights N(0, 1/fan_in), ``wo`` N(0, 1/(H·hd)), the embedding
     N(0, 0.02²), norm scales 1 (0 when zero-centred: the norm multiplies
-    by 1 + scale), sandwich post-norms beside them, and QKV biases 0.
+    by 1 + scale), sandwich post-norms beside them, QKV biases 0, and a
+    MoE's leaves as ``moe.leaf_shapes`` says (the router f32 whatever
+    ``param_dtype``).
     Leaves are made at ``cfg.param_dtype`` (a full-width model at bf16 passes
     ``param_dtype=torch.bfloat16``, so the executor's cast to the compute
     dtype copies nothing). ``generator`` must live on ``device`` (a
@@ -176,7 +190,11 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 for b, n in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
                     mixer[b] = torch.zeros((count, n), dtype=dt, device=device)
             layer = {"ln1": norm((count, d)), "mixer": mixer}
-            if ffn != "none":
+            if ffn == "moe":
+                layer["ln2"] = norm((count, d))
+                layer["ffn"] = _init_moe(cfg.moe, count, generator, device,
+                                         dt)
+            elif ffn != "none":
                 layer["ln2"] = norm((count, d))
                 layer["ffn"] = (
                     {"w_in": normal((count, d, f), 1 / math.sqrt(d)),
@@ -201,6 +219,16 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return Transformer(cfg, params)
 
 
+def _init_moe(cfg: moe_lib.MoeConfig, count: int, generator, device, dt):
+    out: Dict[str, Any] = {}
+    for name, shape in moe_lib.leaf_shapes(cfg).items():
+        w = _normal((count,) + shape, 1 / math.sqrt(shape[0]), generator,
+                    device, torch.float32 if name == "router" else dt)
+        head, _, leaf = name.rpartition(".")
+        (out.setdefault(head, {}) if head else out)[leaf] = w
+    return out
+
+
 def count_params(model: "Transformer") -> int:
     return sum(p.numel() for p in model.parameters())
 
@@ -212,8 +240,9 @@ class LayerStack(nn.Module):
     """One pattern position of a group: ``count`` layers' weights stacked
     along axis 0, named as in the reference tree (``ln1``, ``mixer.*``,
     ``ln2``, ``ffn.*``, and the sandwich post-norms ``ln1_post`` /
-    ``ln2_post`` where the tree has them). ``unit(u)`` gives layer ``u``'s
-    views."""
+    ``ln2_post`` where the tree has them). A MoE's shared experts
+    (``ffn.shared.*`` in the tree) sit in ``ffn_shared``. ``unit(u)``
+    gives layer ``u``'s views."""
     POST = ("ln1_post", "ln2_post")
 
     def __init__(self, tree: Dict[str, Any]):
@@ -224,8 +253,12 @@ class LayerStack(nn.Module):
         self.has_ffn = "ffn" in tree
         if self.has_ffn:
             self.ln2 = _frozen(tree["ln2"]["scale"])
+            ffn = dict(tree["ffn"])
+            shared = ffn.pop("shared", None)
             self.ffn = nn.ParameterDict(
-                {k: _frozen(v) for k, v in tree["ffn"].items()})
+                {k: _frozen(v) for k, v in ffn.items()})
+            self.ffn_shared = None if shared is None else nn.ParameterDict(
+                {k: _frozen(v) for k, v in shared.items()})
         self.post = tuple(n for n in self.POST if n in tree)
         for name in self.post:
             setattr(self, name, _frozen(tree[name]["scale"]))
@@ -240,6 +273,9 @@ class LayerStack(nn.Module):
         if self.has_ffn:
             out["ln2"] = {"scale": self.ln2[u]}
             out["ffn"] = {k: v[u] for k, v in self.ffn.items()}
+            if self.ffn_shared is not None:
+                out["ffn"]["shared"] = {k: v[u] for k, v in
+                                        self.ffn_shared.items()}
         for name in self.post:
             out[name] = {"scale": getattr(self, name)[u]}
         return out
@@ -280,6 +316,8 @@ def _norm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _ffn_apply(p, ffn: str, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if ffn == "moe":    # aux dropped, as the reference's serving steps do
+        return moe_lib.moe_forward(p, x, cfg.moe)[0]
     if ffn == "mlp" and cfg.mlp == "swiglu":
         return blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
     if ffn == "mlp" and cfg.mlp == "relu2":

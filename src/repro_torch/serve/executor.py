@@ -4,7 +4,10 @@ Counterpart of ``repro/serve/executor.py``. Everything that
 touches the device lives here: the paged regions (a decode step, a prompt
 chunk) and the dense ones (a B = 1 prefill into a page-padded cache for
 the monolithic paged engine, a decode step and a one-slot prefill over the
-dense engine's slot caches, models/transformer.py ``forward``).
+dense engine's slot caches, models/transformer.py ``forward``). Under a
+MoE the tokens of one call share expert capacity, so each region routes
+exactly the tokens the reference's does: every slot's row of a decode
+step, a chunk's C tokens, and every slot's row of a dense prefill.
 
   * **Token selection runs on the device.** Both regions return sampled
     token ids (greedy argmax), never logits, so the [vocab]-sized
@@ -86,6 +89,7 @@ class Executor:
         self.bus = None
         self.tracer = trace.null_tracer()
         self._inflight: List[Tuple[str, float]] = []
+        coupled = transformer.couples_rows(cfg)
         decode = paged_step.make_paged_decode_step(cfg, page_tokens,
                                                    self.group)
         prefill = paged_step.make_paged_prefill_chunk_step(cfg, page_tokens,
@@ -111,13 +115,31 @@ class Executor:
                 torch.int32), caches
 
         def sampled_prefill_slot(model, tokens, caches, slot, length):
-            # only the slot's row runs (the reference runs every slot's row
-            # and keeps one: rows are independent, so the result is the
-            # same); the row views write into the slot's caches in place
-            rows = [tuple({n: a[:, slot:slot + 1] for n, a in kv.items()}
-                          for kv in per_pos) for per_pos in caches]
-            x = transformer.hidden(model, tokens, rows, 0, "prefill")
-            return transformer.logits(model, x[:, length - 1:length])[
+            # The reference runs every slot's row (the others token 0) and
+            # keeps the slot's. Without a MoE the rows are independent, so
+            # only the slot's row runs, its views writing into the slot's
+            # caches in place. A MoE's rows compete for expert capacity, so
+            # there every row runs, as in the reference, over scratch
+            # caches of L rows (prefill attends only the new keys), and the
+            # slot's rows are copied into its caches.
+            if not coupled:
+                rows = [tuple({n: a[:, slot:slot + 1] for n, a in kv.items()}
+                              for kv in per_pos) for per_pos in caches]
+                x = transformer.hidden(model, tokens, rows, 0, "prefill")
+                return transformer.logits(model, x[:, length - 1:length])[
+                    0, 0].argmax().to(torch.int32), caches
+            B, L = caches[0][0]["k"].shape[1], tokens.shape[1]
+            every = tokens.new_zeros((B, L))
+            every[slot] = tokens[0]
+            scratch = transformer.init_caches(
+                cfg, B, L, dtype=caches[0][0]["k"].dtype, device=self.device)
+            x = transformer.hidden(model, every, scratch, 0, "prefill")
+            for per_pos, new_pos in zip(caches, scratch):
+                for kv, new in zip(per_pos, new_pos):
+                    for n, a in kv.items():
+                        a[:, slot, :, :new[n].shape[3]] = new[n][:, slot]
+            return transformer.logits(model, x[slot:slot + 1,
+                                               length - 1:length])[
                 0, 0].argmax().to(torch.int32), caches
 
         self._decode = TargetRegion(sampled_decode, name="paged_decode")

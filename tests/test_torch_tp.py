@@ -300,6 +300,49 @@ def test_tp_stacks_match_jax_tp1(stack, tmp_path):
         assert counters["swap_out_bytes"] == counters["swap_in_bytes"]
 
 
+@functools.lru_cache(maxsize=None)
+def _granite():
+    """granite-moe-3b-a800m's f32 smoke config and its ``PRNGKey(0)``
+    weights as numpy leaves."""
+    cfg = jconfigs.get_smoke_config("granite-moe-3b-a800m",
+                                    compute_dtype=jnp.float32)
+    params = jblocks.split_params(
+        jtransformer.init_model(jax.random.PRNGKey(0), cfg))[0]
+    return cfg, jax.tree_util.tree_map(np.array, params)
+
+
+def test_tp_granite_matches_jax_tp1(tmp_path):
+    """granite-moe's smoke config at tp = 2 on the chunked stack, with a
+    budget of 16, so chunks reach 13-16 tokens, past an expert's capacity
+    of 8: each rank attends its kv head, gathers the heads, and runs the
+    MoE replicated on the gathered rows. Its routing is deterministic (stable sorts, a gather combine),
+    so both ranks sample the same ids, and they are the JAX engine's at
+    tp = 1."""
+    cfg, tree = _granite()
+    sched = _random_mix(31, cfg.vocab)
+    ekw = dict(n_slots=2, max_seq=64, chunked=True, token_budget=16)
+    ckw = dict(page_tokens=8, n_pages=16)
+    jeng = JEngine(cfg, jax.tree_util.tree_map(jnp.asarray, tree),
+                   config=JEngineConfig(cache=JCacheConfig(paged=True, **ckw),
+                                        **ekw))
+    streams = _jax_drive(jeng, sched)
+    job = ServeJob(
+        cfg=tconfigs.get_smoke_config("granite-moe-3b-a800m",
+                                      compute_dtype=torch.float32),
+        weights=tree, schedule=sched,
+        config=TEngineConfig(tp=2, check_ranks=True,
+                             cache=TCacheConfig(**ckw), **ekw))
+    out = launch.spawn(serve_schedule, 2, (job,), store_dir=str(tmp_path),
+                       backend="gloo", timeout_s=TIMEOUT_S)
+    res = replicated(out, ("streams", "stats", "iter_log", "executor",
+                           "pool"))
+    assert res["streams"] == streams
+    assert {k: res["stats"].get(k, 0) for k in COUNTERS} == \
+        {k: jeng.stats.get(k, 0) for k in COUNTERS}
+    assert res["pool"]["kv_heads"] == 1 and res["executor"]["rank_checks"] > 0
+    _check_invariants(res, sched)
+
+
 def test_stall_accounting_under_tensor_parallel(tmp_path):
     """tests/test_scheduler_properties.py:919 at tp = 2: the traced tiered
     engine's streams equal the JAX engine's, and its stall buckets close
