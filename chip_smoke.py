@@ -74,7 +74,20 @@ Phases, each printed on its own line, none catching its own failure:
                16, hd 128) over 1024-row rings (lengths ≤ 1024, two
                wrapped; again with a free slot at length 1) and 2048-row
                global caches (SDPA with a length mask), each held and
-               timed;
+               timed; then every attention call of phases 7k / 7l, bf16
+               (the calls ``train.step.attention_calls`` lists for their
+               runs, kv heads repeated as the path repeats them):
+               flash_attention non-causal over whisper's 1500 frames (B 8,
+               H 16, hd 64), at each arch's causal self prefill (8×32×256
+               ×128, G 4; 8×16×4×64) and its cross prefill (q 8×32×256×128
+               over k/v 8×32×1600×128, and q 8×16×4×64 over 8×16×1500×64:
+               Lq ≠ Lk); flash_decode at each decode step's lengths over
+               the self caches (B 8, H 32, K 8, S 2048, hd 128, lengths
+               257-319; B 8, H 16, K 16, S 448, hd 64, lengths 5-67) and
+               the cross caches, every slot at S (S 1600; S 1500: a ragged
+               last split); each held, and each entry timed beside SDPA
+               (no mask, is_causal or a length mask) and its bound (K/V
+               bytes counted once a kv head);
   6. suite     the paper's kernel suite through ``kernels/ops.py``
                (``launch/kernel_suite.py``: Fig. 7 at N=2048 with conv2d
                and covar, darknet, the ISA study, the attention rows),
@@ -147,8 +160,10 @@ Phases, each printed on its own line, none catching its own failure:
                times; logged: free memory before the weights, peak
                memory, tok/s, TTFT and ITL p50 / p99, decode steps and
                chunks; then a second run, gated to the same streams,
-               with iterations 8-40 under torch.profiler: the device's
-               busy share of that window and its top kernels;
+               with iterations 8-16 (``PROFILE_WINDOW``, as in every
+               profiled phase: the profile's analysis is slow) under
+               torch.profiler: the device's busy share of that window and
+               its top kernels;
   7g. serve minitron-4b  minitron-4b at full width (32 layers, d_model
                3072, 24/8 heads, squared-ReLU MLP, a 256,000-wide untied
                head) on the same engine, traffic and gates;
@@ -174,7 +189,7 @@ Phases, each printed on its own line, none catching its own failure:
                496 calls, flash_decode 62 x decode steps; logged: free
                memory before the weights, peak memory, tok/s, TTFT and ITL
                p50 / p99; then a second run, gated to the same streams,
-               with iterations 8-40 under torch.profiler: the device's
+               with iterations 8-16 under torch.profiler: the device's
                busy share and its top kernels;
   7j. serve granite-moe-3b-a800m  granite-moe at full width (32 layers,
                d_model 1536, 24/8 heads, hd 64, 40 experts of d_ff 512,
@@ -186,6 +201,34 @@ Phases, each printed on its own line, none catching its own failure:
                (request 0's first 256 tokens, counted with the port's
                own route / select on the layer's input), and the profiled
                second run's top 15 kernels (the MoE's ops among them);
+  7k. steps llama-3.2-vision-11b  at full width (40 layers: 8 units of 4
+               gqa + 1 cross layer; d_model 4096, 32/8 heads, hd 128,
+               d_ff 14336, vocab 128256, untied; 9,775,157,248
+               parameters drawn at bf16, seed 0; nothing cut) through
+               the prefill / decode steps (train/step.py), the path the
+               reference runs it on (no engine takes its image input),
+               after every earlier model is freed: 8 requests, each a
+               256-token prompt and 1600 stub patch embeddings (N(0, 1),
+               seed 0), max_seq 2048, a prefill and 63 decode steps;
+               gates: the parameter count, cache leaves of 2,147,483,648
+               B (self) and 419,430,400 B (cross), every logit finite and
+               every token in the vocabulary, flash_attention 40 calls (32
+               causal + 8 cross), flash_decode 40 x 63 = 2520, each kind
+               of layer's share (told apart by wrapping cross_forward and
+               encoder_forward for the run) equal to what
+               ``attention_calls`` lists, and a second run, profiled over
+               decode steps 8-16, with the same streams; logged: free
+               memory before the weights, peak memory, prefill ms, tok/s,
+               ITL p50 / p99, busy share and top kernels;
+  7l. steps whisper-medium  at full width (24 encoder + 2 x 24 decoder
+               layers, d_model 1024, 16 heads, hd 64, d_ff 4096, layer
+               norms, GELU, learned positions, vocab 51865; 813,500,416
+               parameters at bf16) on the same steps: 8 clips of 1500
+               stub frames and the 4-token start of transcript, max_seq
+               448 (its decoder's maximum), 64 new tokens; gates as 7k:
+               cache leaves of 352,321,536 B (self) and 1,179,648,000 B
+               (cross), flash_attention 24 encoder + 24 self + 24 cross =
+               72 calls, flash_decode 48 x 63 = 3024;
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams and equal
                preemption, swap, refusal and prefix-hit counters, on the
@@ -205,6 +248,11 @@ Phases, each printed on its own line, none catching its own failure:
                the chunked engine, and granite's through the monolithic
                paged and dense engines on prompts of 3, 9, 5 and 12
                tokens, whose streams and counters equal on both devices;
+               and the llama-3.2-vision-11b and whisper-medium smoke
+               configs (every bias and norm perturbed) through the
+               prefill / decode steps, 8-token prompts and 70 decode
+               steps (whisper past its 64 learned positions): equal
+               streams, logits within 1e-3 at every step;
   9. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
      launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
      ``_minitron4b``, ``_tp`` and ``_granite`` with phases 7f, 7g, 7h
@@ -215,7 +263,13 @@ Phases, each printed on its own line, none catching its own failure:
      flash_attention_monolithic, each with the launches of its own 7e run
      and timed at 7e's shapes, and flash_decode_gemma3 and
      flash_attention_gemma3 with phase 7i's, timed at its local layers'
-     shapes in phase 5; every entry launched at least once), then
+     shapes in phase 5; for 7k flash_attention_vlm_self,
+     flash_decode_vlm_self, flash_attention_cross and flash_decode_cross,
+     for 7l flash_attention_encoder, flash_attention_whisper_self,
+     flash_decode_whisper_self, flash_attention_whisper_cross and
+     flash_decode_whisper_cross, each with the launches of one kind of
+     layer in its phase and timed at that kind's shape in phase 5; every
+     entry launched at least once), then
      the card's name and power limit, then ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -224,6 +278,7 @@ from a directory that lacks the repository's ``src/``, it fails too.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
@@ -928,6 +983,7 @@ def check_attention_kernels(results):
         elif Lk == L and L >= 4096:
             time_flash({}, q, k, v, causal, window)
     check_gemma3_attention(results, g)
+    check_cross_attention(results, g)
 
 
 GEMMA3 = dict(H=32, K=16, hd=128, window=1024)   # gemma3-27b's attention
@@ -980,6 +1036,67 @@ def check_gemma3_attention(results, g):
             time_decode_dense(res, (B, H, K, S, hd), lengths, g)
 
 
+def check_cross_attention(results, g):
+    """Both attention kernels at every call of phases 7k / 7l (the calls
+    ``attention_calls`` lists for their runs), bf16, each against its plain
+    version on the same tensors: flash_attention at each prefill shape
+    (whisper's encoder over 1500 frames, the causal self prefills, the
+    cross prefills with Lq != Lk; the kv heads repeated as the path
+    repeats them), flash_decode at each decode step's lengths (the self
+    caches' 63; the cross caches at S 1600, and 1500, which is no multiple
+    of the 64-key split: the last is ragged). Then each entry is timed at
+    its shape (a decode entry at its middle step's lengths) beside SDPA
+    and its bound."""
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.step import attention_calls
+    bf16 = torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for arch, spec in CROSS_STEPS.items():
+        calls = attention_calls(configs.get_config(arch), CROSS_BATCH,
+                                spec["prompt"], spec["max_seq"], NEW_TOKENS)
+        for c in calls:
+            name = spec["entries"][(c.mixer, c.kernel)]
+            res = results[name]
+            q = torch.randn(c.q, generator=g, device="cuda").to(bf16)
+            if c.kernel == "flash_attention":
+                B, H, Lk, hd = c.kv
+                k, v = (torch.randn(B, H // c.group, Lk, hd, generator=g,
+                                    device="cuda").to(bf16)
+                        .repeat_interleave(c.group, 1) for _ in range(2))
+                kw = dict(causal=c.causal, window=c.window)
+                res["max_abs_err"] = close(
+                    fa.flash_attention(q, k, v, **kw),
+                    fa.flash_attention_plain(q, k, v, **kw))
+                log("attention kernels", f"{arch} {name}: flash_attention q "
+                    f"{list(c.q)} over k/v {list(c.kv)} (kv heads repeated, "
+                    f"G {c.group}) bf16 causal {c.causal}, {c.launches} "
+                    f"calls in phase {spec['phase']}: max |kernel - plain| "
+                    f"{res['max_abs_err']:.3e}")
+                time_flash(res, q, k, v, c.causal, c.window, c.group)
+                continue
+            B, K, S, hd = c.kv
+            kc, vc = (torch.randn(c.kv, generator=g, device="cuda").to(bf16)
+                      for _ in range(2))
+            res["max_abs_err"] = max(
+                close(da.flash_decode(q, kc, vc, lens),
+                      da.flash_decode_plain(q, kc, vc, lens))
+                for lens in (torch.full((B,), n, dtype=torch.int32,
+                                        device="cuda")
+                             for n in sorted(set(c.lengths))))
+            launch = da.decode_launch(B, c.q[1], K, S, hd, n_sm)
+            log("attention kernels", f"{arch} {name}: flash_decode B {B} H "
+                f"{c.q[1]} K {K} S {S} hd {hd} bf16 at each step's lengths "
+                f"{c.lengths[0]}-{c.lengths[-1]} (every slot at it; at S, "
+                f"{launch.nsplit} splits of {launch.chunk} keys, the last "
+                f"{S - (launch.nsplit - 1) * launch.chunk}), {c.launches} "
+                f"calls in phase {spec['phase']}: max |kernel - plain| "
+                f"{res['max_abs_err']:.3e}")
+            mid = c.lengths[len(c.lengths) // 2]
+            time_decode_dense(res, (B, c.q[1], K, S, hd), [mid] * B, g)
+
+
 def time_decode_dense(res, shape, lens, g):
     """Kernel and the SDPA yardstick: device time of 20 calls replayed from
     a CUDA graph, cycling 8 caches (67 MB > the 50 MB L2); plain: CUDA
@@ -1015,18 +1132,26 @@ def time_decode_dense(res, shape, lens, g):
         "TFLOP/s bf16)")
 
 
-def time_flash(res, q, k, v, causal, window):
+def time_flash(res, q, k, v, causal, window, G=1):
     """Kernel and the SDPA yardstick: device time of 20 calls replayed from
-    a CUDA graph; plain (the block walk): CUDA events around eager calls."""
+    a CUDA graph; plain (the block walk): CUDA events around eager calls.
+    Causal (with or without a window) over L keys, or non-causal over
+    every one of Lk keys. ``G``: k and v hold each kv head G times over
+    (repeated to the query heads); the bound reads each once."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.kernel_suite import graph_ms
     B, H, L, hd = q.shape
-    assert causal, "the pair count below is the causal one"
+    Lk = k.shape[2]
+    assert causal or window is None, "the pair counts below"
     res["ms"] = graph_ms(lambda: fa.flash_attention(
         q, k, v, causal=causal, window=window), 20)
     res["plain_ms"] = cuda_ms(lambda i: fa.flash_attention_plain(
         q, k, v, causal=causal, window=window), iters=2, warm=1)
-    if window is None:
+    if not causal:
+        what = f"no mask, Lq {L} x Lk {Lk}"
+        res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v), 20)
+    elif window is None:
         what = "is_causal=True"
         res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), 20)
@@ -1036,12 +1161,15 @@ def time_flash(res, q, k, v, causal, window):
         what = f"bool [L, L] mask, causal and window {window}"
         res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask), 20)
-    pairs = sum(min(n + 1, window or n + 1) for n in range(L))
+    pairs = (L * Lk if not causal else
+             sum(min(n + 1, window or n + 1) for n in range(L)))
     flops = 4 * hd * pairs * B * H
-    nbytes = 4 * q.numel() * q.element_size()
+    nbytes = ((2 * q.numel() + (k.numel() + v.numel()) // G)
+              * q.element_size())
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
-    log("attention kernels", f"flash_attention timing B {B} H {H} L {L} hd "
-        f"{hd} bf16 causal {causal} window {window}: kernel "
+    log("attention kernels", f"flash_attention timing B {B} H {H} L {L} Lk "
+        f"{Lk} hd {hd} bf16 causal {causal} window {window} (K/V bytes "
+        f"counted once a kv head: G {G}): kernel "
         f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, sdpa "
         f"yardstick (graph, {what}) {res['library_ms']:.4f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {flops} flop at 989 "
@@ -1793,6 +1921,8 @@ def time_serving_attention(results, lens):
 
 ZOO = {"yi-34b": "_yi34b", "minitron-4b": "_minitron4b",
        "granite-moe-3b-a800m": "_granite"}
+PROFILE_WINDOW = (8, 16)  # every profiled run's traced iterations / decode
+#                           steps (the profile's analysis is slow)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1814,7 +1944,7 @@ def phase7_prompts(vocab: int):
                   for n in lens]
 
 
-def device_busy(eng, prompts, window=(8, 40), n_top=5):
+def device_busy(eng, prompts, window=PROFILE_WINDOW, n_top=5):
     """Serve ``prompts`` again, tracing iterations ``window`` with
     torch.profiler: the device's busy share of that window's wall time
     (kernel time summed by name; the profiler's own cost lengthens the
@@ -1958,7 +2088,8 @@ def zoo_serve(results, card: str, arch: str, profile: bool):
         again, busy, wall_ms, top = device_busy(
             eng, prompts, n_top=15 if cfg.moe else 5)
         assert again == streams, "a second run gave other streams"
-        log(phase, f"{card}: profiled second run (iterations 8-40, the "
+        log(phase, f"{card}: profiled second run (iterations "
+            f"{PROFILE_WINDOW[0]}-{PROFILE_WINDOW[1]}, the "
             f"same streams; {time.perf_counter() - t0:.1f} s with the "
             f"profile's analysis): device busy {busy:.1f} ms of "
             f"{wall_ms:.1f} ms wall ({100 * busy / wall_ms:.1f} %); top "
@@ -2091,9 +2222,257 @@ def gemma3_serve(results, card: str):
     eng = Engine(cfg, model, config=conf, device="cuda")
     again, busy, wall_ms, top = device_busy(eng, prompts)
     assert again == streams, "a second run gave other streams"
-    log(phase, f"{card}: profiled second run (iterations 8-40, the same "
+    log(phase, f"{card}: profiled second run (iterations "
+        f"{PROFILE_WINDOW[0]}-{PROFILE_WINDOW[1]}, the same "
         f"streams): device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
         f"({100 * busy / wall_ms:.1f} %); top kernels: {top}")
+
+
+# phases 7k / 7l: each cross-attention arch at full width through the
+# prefill / decode steps; ``launches``: the gates on flash_attention's and
+# flash_decode's totals; ``entries``: the kernels line's entry for each
+# (mixer kind, kernel) of ``attention_calls``, with the launches of that
+# kind's layers and timed at their shape (phase 5)
+CROSS_STEPS = {
+    "llama-3.2-vision-11b": dict(
+        phase="7k", prompt=256, max_seq=2048, params=9_775_157_248,
+        self_bytes=2_147_483_648, cross_bytes=419_430_400,
+        launches=(40, 40 * 63),
+        entries={("gqa", "flash_attention"): "flash_attention_vlm_self",
+                 ("gqa", "flash_decode"): "flash_decode_vlm_self",
+                 ("cross", "flash_attention"): "flash_attention_cross",
+                 ("cross", "flash_decode"): "flash_decode_cross"}),
+    "whisper-medium": dict(
+        phase="7l", prompt=4, max_seq=448, params=813_500_416,
+        self_bytes=352_321_536, cross_bytes=1_179_648_000,
+        launches=(72, 48 * 63),
+        entries={("enc", "flash_attention"): "flash_attention_encoder",
+                 ("gqa", "flash_attention"): "flash_attention_whisper_self",
+                 ("gqa", "flash_decode"): "flash_decode_whisper_self",
+                 ("cross", "flash_attention"):
+                     "flash_attention_whisper_cross",
+                 ("cross", "flash_decode"): "flash_decode_whisper_cross"})}
+CROSS_BATCH = 8
+# whisper's start of transcript: <|startoftranscript|> <|en|> <|transcribe|>
+# <|notimestamps|> (ids of its multilingual vocabulary)
+WHISPER_SOT = (50258, 50259, 50359, 50363)
+NEW_TOKENS = 64
+
+
+def greedy(cfg, model, tokens, extra, caches, hook=None, n_new=NEW_TOKENS):
+    """The steps' greedy loop on the tensors' device: ``make_prefill_step``
+    on ``tokens`` [B, L], then ``n_new - 1`` ``make_decode_step`` calls at
+    the scalar positions L, L + 1, ..., each step on the card ending in a
+    synchronise (a server reads its tokens every step). Returns (streams
+    [B, n_new] on the host, each step's last-position logits [n_new, B,
+    vocab] on the device, prefill s, the decode steps' s); ``hook(i)`` runs
+    before decode step i."""
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, tokens, caches, extra)
+    out = [logits[:, -1]]
+    tok = out[-1].argmax(-1)
+    sync()
+    t_prefill, steps, toks = time.perf_counter() - t0, [], [tok]
+    L = tokens.shape[1]
+    for i in range(n_new - 1):
+        if hook is not None:
+            hook(i)
+        t0 = time.perf_counter()
+        logits, caches = decode(model, tok[:, None], caches, L + i)
+        out.append(logits[:, -1])
+        tok = out[-1].argmax(-1)
+        toks.append(tok)
+        sync()
+        steps.append(time.perf_counter() - t0)
+    return torch.stack(toks, 1).cpu(), torch.stack(out), t_prefill, steps
+
+
+def launches_by_mixer(run):
+    """``run()``'s launches of both attention kernels, counted from 0, by
+    the mixer kind of the layer that made them: "cross" inside
+    ``attention.cross_forward`` and "enc" inside ``encoder_forward`` (both
+    wrapped for this call alone, each call's launches the difference of
+    the wrappers' counts), "gqa" the rest. Returns (run's result, {(mixer,
+    kernel): launches} of those launched, {kernel: launches})."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    kernels = {"flash_attention": fa.flash_attention,
+               "flash_decode": da.flash_decode}
+    by_mixer = collections.Counter()
+
+    def counted(mixer, fn):
+        def call(*args, **kw):
+            before = {k: w.launches for k, w in kernels.items()}
+            try:
+                return fn(*args, **kw)
+            finally:
+                for k, w in kernels.items():
+                    by_mixer[(mixer, k)] += w.launches - before[k]
+        return call
+
+    saved = attention.cross_forward, attention.encoder_forward
+    for w in kernels.values():
+        w.launches = 0
+    attention.cross_forward = counted("cross", saved[0])
+    attention.encoder_forward = counted("enc", saved[1])
+    try:
+        out = run()
+    finally:
+        attention.cross_forward, attention.encoder_forward = saved
+    total = {k: w.launches for k, w in kernels.items()}
+    for k in kernels:
+        by_mixer[("gqa", k)] = (total[k] - by_mixer[("cross", k)]
+                                - by_mixer[("enc", k)])
+    return out, dict(+by_mixer), total
+
+
+def cross_steps(results, card: str, arch: str):
+    """Phases 7k / 7l: a cross-attention arch at its published width
+    (random weights, seed 0, drawn at bf16; nothing cut) through the
+    prefill / decode steps, the path the reference runs it on: 8 requests,
+    each with its stub encoder input (N(0, 1), seed 0: llama-vision's 1600
+    patch embeddings with a 256-token prompt, max_seq 2048; whisper's 1500
+    frames with the 4-token start of transcript, max_seq 448), a prefill
+    and 63 decode steps; both attention kernels counted from 0, by the
+    mixer kind of the layers that launch them. Then a second run,
+    profiled over decode steps ``PROFILE_WINDOW``, gated to the same
+    streams."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import profile_rows, profiler
+    from repro_torch.models import transformer
+    from repro_torch.train.step import attention_calls
+    spec = CROSS_STEPS[arch]
+    phase = f"steps {arch}"
+    free_card(phase)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(arch, param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = transformer.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_par = transformer.count_params(model)
+    assert n_par == spec["params"], n_par
+    B, max_seq = CROSS_BATCH, spec["max_seq"]
+    width = cfg.cross_kv_dim if cfg.family == "vlm" else cfg.d_model
+    extra = torch.randn(B, cfg.encoder_seq, width, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(0)).to(torch.bfloat16)
+    if arch == "whisper-medium":
+        tokens = torch.tensor([WHISPER_SOT] * B, device="cuda")
+    else:
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (B, spec["prompt"]))).to("cuda")
+    caches = transformer.init_caches(cfg, B, max_seq, device="cuda")
+    kinds = {"self": 0, "cross": 0}
+    for (pattern, _), group in zip(cfg.groups, caches):
+        for kind, leaves in zip(pattern, group):
+            mixer = transformer.parse_kind(kind)[0]
+            kinds["cross" if mixer == "cross" else "self"] += sum(
+                t.nbytes for t in leaves.values())
+    assert kinds == {"self": spec["self_bytes"],
+                     "cross": spec["cross_bytes"]}, kinds
+    greedy(cfg, model, tokens, extra, caches, n_new=3)    # first calls
+    torch.cuda.synchronize()
+    log(phase, f"set-up {time.perf_counter() - t0:.2f} s (with a warm-up "
+        f"run): {arch} {cfg.n_layers()} layers ({len(cfg.groups[0][0])} a "
+        f"unit: {', '.join(cfg.groups[0][0])}; encoder "
+        f"{cfg.encoder_groups or 'none'}) d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv} hd {cfg.hd} d_ff {cfg.d_ff} ({cfg.mlp}, "
+        f"{cfg.norm} norm) vocab {cfg.vocab}, {n_par} parameters in "
+        f"{model.embed.dtype} ({2 * n_par} B); caches of {B} x {max_seq} "
+        f"self rows and {B} x {cfg.encoder_seq} cross rows: self "
+        f"{kinds['self']} B, cross {kinds['cross']} B")
+    (streams, logits, t_pre, steps), by_mixer, total = launches_by_mixer(
+        lambda: greedy(cfg, model, tokens, extra, caches))
+    assert bool(torch.isfinite(logits).all()), "a logit is not finite"
+    assert streams.shape == (B, NEW_TOKENS), streams.shape
+    assert int(streams.min()) >= 0 and int(streams.max()) < cfg.vocab
+    n_fa, n_fd = total["flash_attention"], total["flash_decode"]
+    assert (n_fa, n_fd) == spec["launches"], (n_fa, n_fd)
+    calls = attention_calls(cfg, B, spec["prompt"], max_seq, NEW_TOKENS)
+    want = {(c.mixer, c.kernel): c.launches for c in calls}
+    assert by_mixer == want, (by_mixer, want)
+    for key, n in by_mixer.items():
+        results[spec["entries"][key]]["launches"] = n
+    wall = t_pre + sum(steps)
+    itl = np.sort(np.array(steps)) * 1e3
+    log(phase, f"{card}: {B} requests, prompts of {tokens.shape[1]} tokens "
+        f"with {cfg.encoder_seq} x {width} stub encoder rows each, "
+        f"{B * NEW_TOKENS} new tokens in {wall:.3f} s "
+        f"({B * NEW_TOKENS / wall:.1f} tok/s), prefill {t_pre * 1e3:.2f} "
+        f"ms, itl p50/p99 {np.percentile(itl, 50):.2f}/"
+        f"{np.percentile(itl, 99):.2f} ms, every logit finite, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches: "
+        f"flash_attention {n_fa}, flash_decode {n_fd} = "
+        f"{n_fd // (NEW_TOKENS - 1)} attention layers x {NEW_TOKENS - 1} "
+        f"decode steps; by layer kind "
+        f"{ {f'{m} {k}': n for (m, k), n in by_mixer.items()} }; request "
+        f"0's first tokens {streams[0, :12].tolist()}")
+    prof, mark = profiler(), {}
+    first, last = PROFILE_WINDOW
+
+    def hook(i):           # the window leaves out the profiler's start-up
+        if i == first:
+            torch.cuda.synchronize()
+            prof.start()
+            mark[i] = time.perf_counter()
+        elif i == last:
+            torch.cuda.synchronize()
+            mark[i] = time.perf_counter()
+            prof.stop()
+
+    again = greedy(cfg, model, tokens, extra, caches, hook)[0]
+    assert torch.equal(again, streams), "a second run gave other streams"
+    busy_us, rows = profile_rows(prof)
+    wall_ms = (mark[last] - mark[first]) * 1e3
+    top = "; ".join(f"{us / 1e3:.1f} ms {n}x {key[:48]}"
+                    for us, n, key in rows[:5])
+    log(phase, f"{card}: profiled second run (decode steps {first}-{last}, "
+        f"the same streams): device busy {busy_us / 1e3:.1f} ms of "
+        f"{wall_ms:.1f} ms wall ({100 * busy_us / 1e3 / wall_ms:.1f} %); "
+        f"top kernels: {top}")
+
+
+def steps_vs_cpu():
+    """Both cross-attention smoke configs in f32 through the prefill /
+    decode steps (``greedy``) on the card and on the CPU (asked for
+    explicitly): 2 prompts of 8 tokens with their stub encoder input, then
+    70 decode steps (whisper's past its 64 learned positions), every bias
+    and norm of the seed-0 weights perturbed (at init they are 0 and 1);
+    the same greedy streams and logits within 1e-3 at every step."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    for arch in CROSS_STEPS:
+        cfg = configs.get_smoke_config(arch, compute_dtype=torch.float32)
+        g = torch.Generator().manual_seed(1)
+        model = transformer.init_model(cfg, torch.Generator().manual_seed(0))
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith(("ln", "final_norm", "b")):
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+        width = cfg.cross_kv_dim if cfg.family == "vlm" else cfg.d_model
+        extra = torch.randn(2, cfg.encoder_seq, width, generator=g)
+        tokens = torch.randint(0, cfg.vocab, (2, 8), generator=g)
+        runs = []
+        for device in ("cpu", "cuda"):
+            caches = transformer.init_caches(cfg, 2, 80, device=device)
+            streams, logits = greedy(
+                cfg, copy.deepcopy(model).to(device), tokens.to(device),
+                extra.to(device), caches, n_new=71)[:2]
+            runs.append((streams, logits.cpu()))
+        err = (runs[1][1] - runs[0][1]).abs().max().item()
+        assert torch.equal(runs[1][0], runs[0][0]), arch
+        assert err <= 1e-3, (arch, err)
+        log("card/cpu", f"smoke config f32, {arch}: prefill of 8 tokens and "
+            f"70 decode steps (positions to 77; learned positions: "
+            f"{cfg.learned_pos or 'none'}): greedy streams equal on cuda and "
+            f"cpu, logits within {err:.2e} (tol 1e-3); stream 0 "
+            f"{runs[0][0][0, :16].tolist()}...")
 
 
 def card_vs_cpu():
@@ -2421,12 +2800,16 @@ def kernel_entries():
             "max_abs_err": 0.0}
     # the serving paths' own entries: launches from phase 7e's runs alone
     # (``_gemma3``: phase 7i's, timed at its local layers' shapes, phase
-    # 5), times at their shapes (the entries above carry the suite's)
+    # 5; CROSS_STEPS' entries: the launches of one mixer kind's layers in
+    # phase 7k or 7l, timed at their shape in phase 5), times at their
+    # shapes (the entries above carry the suite's)
     for name, base in (("flash_decode_dense", "flash_decode"),
                        ("flash_attention_dense", "flash_attention"),
                        ("flash_attention_monolithic", "flash_attention"),
                        ("flash_decode_gemma3", "flash_decode"),
-                       ("flash_attention_gemma3", "flash_attention")):
+                       ("flash_attention_gemma3", "flash_attention"),
+                       *((name, kernel) for spec in CROSS_STEPS.values()
+                         for (_, kernel), name in spec["entries"].items())):
         results[name] = dict(results[base], name=name)
     # the paged kernels on phases 7f-7h and 7j's paths: launches from each
     # run, times at its shapes (phase 3)
@@ -2484,8 +2867,14 @@ def main() -> int:
     zoo_serve(results, card, "granite-moe-3b-a800m", True)
     log("serve granite-moe-3b-a800m",
         f"phase 7j in {time.perf_counter() - t0:.1f} s")
+    for arch, spec in CROSS_STEPS.items():
+        t0 = time.perf_counter()
+        cross_steps(results, card, arch)
+        log(f"steps {arch}", f"phase {spec['phase']} in "
+            f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     card_vs_cpu()
+    steps_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

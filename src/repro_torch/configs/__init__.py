@@ -2,10 +2,13 @@
 
 Each ``<arch>.py`` exposes ``config()`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family config for the CPU tests). Only
-the architectures the ported serving path runs are registered here
-(GQA with swiglu or squared-ReLU MLPs or a capacity-dispatched MoE,
-full-attention or sliding-window);
-the others arrive with the model zoo (ROADMAP queue 1, item 16).
+the architectures the port runs are registered here: GQA with swiglu or
+squared-ReLU MLPs or a capacity-dispatched MoE, full-attention or
+sliding-window, served by the engines; and the cross-attention archs
+(llama-3.2-vision-11b, whisper-medium with its encoder), which run
+through the prefill / decode steps of ``train/step.py`` only, as in the
+reference. The others arrive with the model zoo (ROADMAP queue 1, item
+16).
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ import importlib
 from typing import Tuple
 
 ARCHS: Tuple[str, ...] = ("qwen2-0.5b", "yi-34b", "minitron-4b",
-                           "gemma3-27b", "granite-moe-3b-a800m")
+                           "gemma3-27b", "granite-moe-3b-a800m",
+                           "llama-3.2-vision-11b", "whisper-medium")
 
 
 def _module(arch: str):

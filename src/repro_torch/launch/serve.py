@@ -50,6 +50,11 @@ not pageable, so ``--paged``, ``--chunked-prefill``, int8 pages and
       --slots 8 --max-seq 2048 --prompt-len 128 --prompt-len-max 1536 \\
       --max-new 64                                   # one card
 
+llama-3.2-vision-11b and whisper-medium are registered, but no engine
+serves them (the reference's neither: they need encoder input at
+prefill), so ``--arch`` with either raises a ValueError that names the
+prefill / decode steps of ``train/step.py``, their entry point.
+
 ``--tp N`` serves with tensor parallelism (it implies the paged engine,
 as the reference's flag does): N ranks start with
 ``torch.multiprocessing``, each holding ``n_kv / N`` kv heads of
@@ -108,7 +113,7 @@ from repro_torch import configs
 from repro_torch.models import transformer
 from repro_torch.serve.cache import CacheConfig
 from repro_torch.serve.engine import Engine, EngineConfig, Request, \
-    resolve_device
+    check_servable, resolve_device
 from repro_torch.serve.policy import PolicyConfig
 
 
@@ -363,6 +368,7 @@ def main(argv=None):
                     help="tensor-parallel ranks (kv heads sharded over "
                          "them; implies --paged); one card a rank")
     args = ap.parse_args(argv)
+    check_servable(configs.get_smoke_config(args.arch))   # before any weight
     if args.replicas > 1 and (args.profile or args.trace is not None):
         ap.error("--profile and --trace follow one engine; they do not "
                  "combine with --replicas > 1")

@@ -40,8 +40,20 @@ A decode step writes row ``cache_pos[b] % W`` and attends
 ``min(cache_pos[b] + 1, W)`` rows: the softmax does not care in which
 order the ring holds them.
 
-Logit softcaps, MLA and cross-attention are not ported (ROADMAP queue 1,
-item 16).
+**Cross-attention** (:func:`cross_forward`: llama-3.2-vision-11b's image
+layers, whisper's decoder; ref ``cross_forward``, ``attention.py:214``)
+projects ``wq`` / ``wk`` / ``wv`` / ``wo`` with no bias whatever
+``cfg.qkv_bias`` says (the reference's ``init_cross`` makes none) and no
+RoPE. At prefill the K/V of the encoder states ``extra`` [B, S_enc, kv_dim]
+are projected once, written into the layer's cross cache [B, K, S_enc, hd]
+at its dtype, and the L queries attend the un-cast K/V through
+``flash_attention(causal=False)`` (Lq ≠ Lk, kv heads repeated); a decode
+step reads the cache through ``flash_decode`` with every slot's length
+S_enc and never projects again. The **encoder's** ``enc`` layers
+(:func:`encoder_forward`, whisper) attend their S_enc frames with no
+cache: QKV with bias, then ``flash_attention(causal=False)``.
+
+Logit softcaps and MLA are not ported (ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -95,6 +107,17 @@ def ring_write(cache: torch.Tensor, new: torch.Tensor) -> None:
         cache[:, :, :n - head] = new[:, :, first + head:].to(cache.dtype)
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, G: int,
+           causal: bool, window: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention`` of q [B, L, H, hd] over k, v [B, K, S, hd], kv
+    heads repeated to the G query heads of each → [B, L, H, hd]."""
+    return flash_attention(
+        q.transpose(1, 2).contiguous(),
+        k.repeat_interleave(G, dim=1).contiguous(),
+        v.repeat_interleave(G, dim=1).contiguous(),
+        causal=causal, window=window).transpose(1, 2)
+
+
 def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
                 positions: torch.Tensor, cfg, cache: Dict[str, torch.Tensor],
                 cache_pos, window: Optional[int] = None) -> torch.Tensor:
@@ -138,13 +161,55 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
         else:
             ring_write(kc, kt)
             ring_write(vc, vt)
-        G = H // K
-        att = flash_attention(
-            q.transpose(1, 2).contiguous(),
-            kt.repeat_interleave(G, dim=1).contiguous(),
-            vt.repeat_interleave(G, dim=1).contiguous(),
-            causal=True, window=window).transpose(1, 2)       # [B, L, H, hd]
+        att = attend(q, kt, vt, H // K, causal=True, window=window)
     else:
         raise ValueError(f"gqa_forward: cache_pos must be a [B] tensor "
                          f"(decode) or 0 (prefill), got {cache_pos!r}")
     return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
+
+
+def cross_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
+                  cache: Dict[str, torch.Tensor],
+                  extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One cross-attention layer; returns y [B, L, d].
+
+    h: [B, L, d] normed input; cache: ``{"k", "v"}`` [B, K, S_enc, hd].
+    With ``extra`` (the encoder states [B, S_enc, kv_dim], at h's dtype) a
+    prefill: K/V projected from it land in ``cache`` (in place, at the
+    cache's dtype) and the queries attend them un-cast. Without, a decode
+    step (L = 1) over the cache as it stands."""
+    B, L, _ = h.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q = (h @ m["wq"]).reshape(B, L, H, hd)
+    kc, vc = cache["k"], cache["v"]
+    S = kc.shape[2]
+    if extra is not None:
+        if tuple(extra.shape[:2]) != (B, S):
+            raise ValueError(f"cross_forward: encoder states "
+                             f"{tuple(extra.shape)} do not fill a cross "
+                             f"cache of {S} rows for {B} slots")
+        k = (extra @ m["wk"]).reshape(B, S, K, hd).transpose(1, 2)
+        v = (extra @ m["wv"]).reshape(B, S, K, hd).transpose(1, 2)
+        kc.copy_(k)
+        vc.copy_(v)
+        att = attend(q, k, v, H // K, causal=False)
+    elif L == 1:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)
+        att = flash_decode(q[:, 0].contiguous(), kc.to(q.dtype),
+                           vc.to(q.dtype), lengths)[:, None]
+    else:
+        raise ValueError(f"cross_forward: a prefill of {L} tokens needs the "
+                         "encoder states (extra)")
+    return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
+
+
+def encoder_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """One encoder (``enc``) layer's attention, no cache: h [B, S, d]
+    normed → y [B, S, d], every frame attending every frame."""
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    q, k, v = qkv(m, h, positions, cfg)
+    att = attend(q, k.transpose(1, 2), v.transpose(1, 2),
+                 cfg.n_heads // cfg.n_kv, causal=False)
+    return att.reshape(B, S, -1).to(h.dtype) @ m["wo"]

@@ -1,8 +1,9 @@
-"""Model blocks on torch tensors: RMS norm, rotary embedding, the MLPs, embedding.
+"""Model blocks on torch tensors: norms, rotary embedding, MLPs, embedding.
 
-Counterpart of ``repro/models/blocks.py`` for the blocks the paged serving
-path runs. Numerics follow the reference: the norm and the rotary angles
-are computed in float32 and cast back to the input dtype.
+Counterpart of ``repro/models/blocks.py`` for the blocks the port runs.
+Numerics follow the reference: the norms and the rotary angles are
+computed in float32 and cast back to the input dtype; the GELU is the tanh
+approximation (``jax.nn.gelu(approximate=True)``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,17 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
     if zero_centered:           # gemma convention: scale stored as (1 + s)
         s = 1.0 + s
     return (y * s).to(x.dtype)
+
+
+def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) / sqrt(var + eps) · scale + bias`` in float32 (the
+    variance about the mean, biased), cast back to x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,
@@ -53,6 +65,13 @@ def relu2_mlp(w_in: torch.Tensor, w_out: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
     """Squared-ReLU MLP (nemotron / minitron): ``relu(x @ w_in)² @ w_out``."""
     return torch.square(F.relu(x @ w_in)) @ w_out
+
+
+def gelu_mlp(w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+             b_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """GELU MLP with biases (whisper): ``gelu(x @ w_in + b_in) @ w_out +
+    b_out``, the tanh approximation as the reference's."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
 
 
 def embed_lookup(table: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:

@@ -32,13 +32,16 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> Transformer:
     """Reference tree (numpy leaves: ``embed``, ``final_norm``,
     ``groups[gi][pos]`` with ``ln1``, ``mixer.{wq,wk,wv,wo,bq,bk,bv}``,
     ``ln2``, ``ffn.{w_gate,w_up,w_down}``, ``ffn.{w_in,w_out}`` for a
-    squared-ReLU MLP or ``ffn.{router,w_gate,w_up,w_down}`` (with
+    squared-ReLU MLP, ``ffn.{w_in,b_in,w_out,b_out}`` for a GELU one or
+    ``ffn.{router,w_gate,w_up,w_down}`` (with
     ``ffn.shared.{w_gate,w_up,w_down}`` when the config has shared
-    experts) for a MoE, and ``lm_head`` when the embedding is untied) →
-    the port's module on ``device``. Every leaf keeps its dtype (a MoE
-    router stays f32)."""
+    experts) for a MoE, a layer norm's ``bias`` beside its ``scale``,
+    ``lm_head`` when the embedding is untied, ``pos_embed`` under learned
+    positions and the ``encoder`` subtree ``{groups, final_norm,
+    pos_embed}`` of an encoder-decoder) → the port's module on
+    ``device``. Every leaf keeps its dtype (a MoE router stays f32)."""
     if not cfg.tie_embeddings and "lm_head" not in tree:
         raise ValueError(f"{cfg.name}: an untied model needs its lm_head")
-    keep = {k: tree[k] for k in ("embed", "final_norm", "groups", "lm_head")
-            if k in tree}
+    keep = {k: tree[k] for k in ("embed", "final_norm", "groups", "lm_head",
+                                 "pos_embed", "encoder") if k in tree}
     return Transformer(cfg, _map(keep, torch.device(device)))

@@ -1,11 +1,15 @@
-"""Model configuration, weights and the dense forward pass for serving.
+"""Model configuration, weights and the dense forward pass.
 
-Counterpart of ``repro/models/transformer.py``, limited to what the
-serving paths run: groups of GQA layers, full-attention (``gqa``,
-``global``) or sliding-window (``local``, a ring of ``min(max_seq,
-window)`` cache rows), with dense MLPs or a capacity-dispatched MoE
-(models/moe.py), RMS norms (zero-centred scales and sandwich post-norms
-where the config asks) and an optionally scaled embedding.
+Counterpart of ``repro/models/transformer.py``, limited to what the port
+runs: groups of GQA layers, full-attention (``gqa``, ``global``) or
+sliding-window (``local``, a ring of ``min(max_seq, window)`` cache rows),
+and cross-attention layers (``cross``: llama-3.2-vision-11b, whisper's
+decoder) over encoder states, with dense MLPs (swiglu, squared-ReLU or
+whisper's GELU with biases) or a capacity-dispatched MoE (models/moe.py),
+RMS norms (zero-centred scales and sandwich post-norms where the config
+asks) or layer norms with biases, an optionally scaled embedding, learned
+positions, and whisper's encoder (``enc`` layers over stub frames,
+:func:`encode`).
 :func:`forward` runs prefill and decode over dense slot caches
 (:func:`init_caches`, models/attention.py); the paged steps
 (serve/paged_step.py) walk the same layers with the same pieces
@@ -20,15 +24,21 @@ leading ``[count, ...]`` axis, so carrying reference weights across
 (models/convert.py) is a copy, never a transpose. :class:`Transformer`
 holds the reference's parameter tree leaf for leaf::
 
-    {"embed": [vocab, d], "final_norm": {"scale": [d]},
-     "groups": [ (pos0, pos1, ...) per group ]}
+    {"embed": [vocab, d], "final_norm": {"scale": [d][, "bias": [d]]},
+     "groups": [ (pos0, pos1, ...) per group ][, "lm_head": [d, vocab]]
+     [, "pos_embed": [learned_pos, d]]
+     [, "encoder": {"groups": [...], "final_norm": {...},
+                    "pos_embed": [encoder_seq, d]}]}
 
-where each pattern position holds ``{"ln1": {"scale"}, "mixer": {wq, wk,
-wv, wo[, bq, bk, bv]}, "ln2": {"scale"}, "ffn": {w_gate, w_up, w_down}}``
-(``{w_in, w_out}`` for ``mlp="relu2"``; ``{router, w_gate, w_up, w_down[,
-shared: {w_gate, w_up, w_down}]}`` for a ``moe`` ffn, the experts on an
-``[E, ...]`` axis; ``ln1_post`` / ``ln2_post`` beside them under
-``sandwich_norm``) with a leading ``count`` axis on every leaf.
+where each pattern position holds ``{"ln1": {"scale"[, "bias"]},
+"mixer": {wq, wk, wv, wo[, bq, bk, bv]}, "ln2": {...}, "ffn": {w_gate,
+w_up, w_down}}`` (a norm's ``bias`` under ``norm="layer"``; a ``cross``
+mixer's ``wk`` / ``wv`` of fan-in ``cross_kv_dim`` and never a bias;
+``{w_in, w_out}`` for ``mlp="relu2"``, ``{w_in, b_in, w_out, b_out}``
+for ``mlp="gelu"``; ``{router, w_gate, w_up, w_down[, shared: {w_gate,
+w_up, w_down}]}`` for a ``moe`` ffn, the experts on an ``[E, ...]``
+axis; ``ln1_post`` / ``ln2_post`` beside them under ``sandwich_norm``)
+with a leading ``count`` axis on every leaf.
 """
 from __future__ import annotations
 
@@ -67,7 +77,12 @@ class ModelConfig:
     sandwich_norm: bool = False
     embed_scale: bool = False
     tie_embeddings: bool = False
+    learned_pos: Optional[int] = None  # whisper: learned positional embed size
     moe: Optional[moe_lib.MoeConfig] = None
+    # encoder (whisper) / cross-kv (vlm) stubs
+    encoder_groups: Tuple[Group, ...] = ()
+    encoder_seq: int = 0             # stub frontend sequence length
+    cross_kv_dim: Optional[int] = None
     # compute policy
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
@@ -81,7 +96,8 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def n_layers(self) -> int:
-        return sum(len(p) * c for p, c in self.groups)
+        return sum(len(p) * c for p, c in self.groups) + \
+            sum(len(p) * c for p, c in self.encoder_groups)
 
     def window_of(self, mixer: str) -> Optional[int]:
         """The reference's per-kind window (``attn_cfg(kind)``): the
@@ -101,27 +117,39 @@ def couples_rows(cfg: ModelConfig) -> bool:
                for pattern, _ in cfg.groups for kind in pattern)
 
 
+def has_cross(cfg: ModelConfig) -> bool:
+    """True when a layer cross-attends encoder states (``extra``)."""
+    return any(parse_kind(kind)[0] == "cross"
+               for pattern, _ in cfg.groups for kind in pattern)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is on this port's path: full-attention or
-    sliding-window mixers with dense swiglu or squared-ReLU MLPs or a MoE
-    (with ``cfg.moe`` set), RMS norm, no shared block, no softcap."""
-    for pattern, _ in cfg.groups:
-        for kind in pattern:
-            mixer, ffn = parse_kind(kind)
-            if mixer not in ("gqa", "global", "local"):
-                raise NotImplementedError(
-                    f"repro_torch: mixer {mixer!r} is not ported yet "
-                    "(ROADMAP queue 1, item 16)")
-            if ffn not in ("mlp", "none") and not (
-                    ffn == "moe" and cfg.moe is not None):
-                raise NotImplementedError(
-                    f"repro_torch: ffn {ffn!r} is not ported yet "
-                    "(ROADMAP queue 1, item 16)")
-    if cfg.mlp not in ("swiglu", "relu2") or cfg.norm != "rms" or \
-            cfg.logit_softcap:
+    """Raise unless ``cfg`` is on this port's path: full-attention,
+    sliding-window or cross-attention mixers (``enc`` ones in the encoder
+    alone) with dense swiglu, squared-ReLU or GELU MLPs or a MoE (with
+    ``cfg.moe`` set), RMS or layer norms, no shared block, no softcap."""
+    for groups, mixers in ((cfg.groups, ("gqa", "global", "local", "cross")),
+                           (cfg.encoder_groups, ("enc",))):
+        for pattern, _ in groups:
+            for kind in pattern:
+                mixer, ffn = parse_kind(kind)
+                if mixer not in mixers:
+                    raise NotImplementedError(
+                        f"repro_torch: mixer {mixer!r} is not ported yet "
+                        "(ROADMAP queue 1, item 16)")
+                if ffn not in ("mlp", "none") and not (
+                        ffn == "moe" and cfg.moe is not None):
+                    raise NotImplementedError(
+                        f"repro_torch: ffn {ffn!r} is not ported yet "
+                        "(ROADMAP queue 1, item 16)")
+    if cfg.mlp not in ("swiglu", "relu2", "gelu") or \
+            cfg.norm not in ("rms", "layer") or cfg.logit_softcap:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} needs blocks not ported yet "
             "(ROADMAP queue 1, item 4 and 16)")
+    if has_cross(cfg) and cfg.encoder_seq <= 0:
+        raise ValueError(f"{cfg.name}: cross-attention layers need "
+                         "encoder_seq > 0 (the cross cache's rows)")
 
 
 # --------------------------------------------------------------------------
@@ -155,12 +183,14 @@ def _normal(shape, std: float, generator, device, dtype):
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device=None) -> "Transformer":
     """Random weights drawn from the reference's distributions
-    (``transformer.py:165-167, 217-255`` and ``attention.init_gqa``):
-    dense weights N(0, 1/fan_in), ``wo`` N(0, 1/(H·hd)), the embedding
-    N(0, 0.02²), norm scales 1 (0 when zero-centred: the norm multiplies
-    by 1 + scale), sandwich post-norms beside them, QKV biases 0, and a
-    MoE's leaves as ``moe.leaf_shapes`` says (the router f32 whatever
-    ``param_dtype``).
+    (``transformer.py:113-246`` and ``attention.init_gqa`` /
+    ``init_cross``): dense weights N(0, 1/fan_in) (a cross layer's ``wk``
+    / ``wv`` of fan-in ``cross_kv_dim``), ``wo`` N(0, 1/(H·hd)), the
+    embedding N(0, 0.02²), learned positions (``pos_embed``, the
+    encoder's too) N(0, 0.02²), norm scales 1 (0 when zero-centred: the
+    norm multiplies by 1 + scale) and layer-norm biases 0, sandwich
+    post-norms beside them, QKV and GELU biases 0, and a MoE's leaves as
+    ``moe.leaf_shapes`` says (the router f32 whatever ``param_dtype``).
     Leaves are made at ``cfg.param_dtype`` (a full-width model at bf16 passes
     ``param_dtype=torch.bfloat16``, so the executor's cast to the compute
     dtype copies nothing). ``generator`` must live on ``device`` (a
@@ -173,49 +203,72 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     def normal(shape, std):
         return _normal(shape, std, generator, device, dt)
 
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     def norm(shape):
+        if cfg.norm == "layer":
+            return {"scale": torch.ones(shape, dtype=dt, device=device),
+                    "bias": zeros(shape)}
         fill = torch.zeros if cfg.zero_centered_norm else torch.ones
         return {"scale": fill(shape, dtype=dt, device=device)}
 
-    groups = []
-    for pattern, count in cfg.groups:
-        per_pos = []
-        for kind in pattern:
-            _, ffn = parse_kind(kind)
-            mixer = {"wq": normal((count, d, H * hd), 1 / math.sqrt(d)),
-                     "wk": normal((count, d, K * hd), 1 / math.sqrt(d)),
-                     "wv": normal((count, d, K * hd), 1 / math.sqrt(d)),
-                     "wo": normal((count, H * hd, d), 1 / math.sqrt(H * hd))}
-            if cfg.qkv_bias:
-                for b, n in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
-                    mixer[b] = torch.zeros((count, n), dtype=dt, device=device)
-            layer = {"ln1": norm((count, d)), "mixer": mixer}
-            if ffn == "moe":
-                layer["ln2"] = norm((count, d))
-                layer["ffn"] = _init_moe(cfg.moe, count, generator, device,
-                                         dt)
-            elif ffn != "none":
-                layer["ln2"] = norm((count, d))
-                layer["ffn"] = (
-                    {"w_in": normal((count, d, f), 1 / math.sqrt(d)),
-                     "w_out": normal((count, f, d), 1 / math.sqrt(f))}
-                    if cfg.mlp == "relu2" else
-                    {"w_gate": normal((count, d, f), 1 / math.sqrt(d)),
-                     "w_up": normal((count, d, f), 1 / math.sqrt(d)),
-                     "w_down": normal((count, f, d), 1 / math.sqrt(f))})
-            if cfg.sandwich_norm:
-                layer["ln1_post"] = norm((count, d))
+    def mixer_tree(mixer, count):
+        kvd = (cfg.cross_kv_dim or d) if mixer == "cross" else d
+        out = {"wq": normal((count, d, H * hd), 1 / math.sqrt(d)),
+               "wk": normal((count, kvd, K * hd), 1 / math.sqrt(kvd)),
+               "wv": normal((count, kvd, K * hd), 1 / math.sqrt(kvd)),
+               "wo": normal((count, H * hd, d), 1 / math.sqrt(H * hd))}
+        if cfg.qkv_bias and mixer != "cross":
+            for b, n in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
+                out[b] = zeros((count, n))
+        return out
+
+    def mlp_tree(count):
+        if cfg.mlp == "relu2":
+            return {"w_in": normal((count, d, f), 1 / math.sqrt(d)),
+                    "w_out": normal((count, f, d), 1 / math.sqrt(f))}
+        if cfg.mlp == "gelu":
+            return {"w_in": normal((count, d, f), 1 / math.sqrt(d)),
+                    "b_in": zeros((count, f)),
+                    "w_out": normal((count, f, d), 1 / math.sqrt(f)),
+                    "b_out": zeros((count, d))}
+        return {"w_gate": normal((count, d, f), 1 / math.sqrt(d)),
+                "w_up": normal((count, d, f), 1 / math.sqrt(d)),
+                "w_down": normal((count, f, d), 1 / math.sqrt(f))}
+
+    def groups_tree(groups):
+        out = []
+        for pattern, count in groups:
+            per_pos = []
+            for kind in pattern:
+                mixer, ffn = parse_kind(kind)
+                layer = {"ln1": norm((count, d)),
+                         "mixer": mixer_tree(mixer, count)}
                 if ffn != "none":
-                    layer["ln2_post"] = norm((count, d))
-            per_pos.append(layer)
-        groups.append(tuple(per_pos))
-    params: Dict[str, Any] = {
-        "embed": normal((cfg.vocab, d), 0.02),
-        "final_norm": norm((d,)),
-        "groups": groups,
-    }
+                    layer["ln2"] = norm((count, d))
+                    layer["ffn"] = (_init_moe(cfg.moe, count, generator,
+                                              device, dt)
+                                    if ffn == "moe" else mlp_tree(count))
+                if cfg.sandwich_norm:
+                    layer["ln1_post"] = norm((count, d))
+                    if ffn != "none":
+                        layer["ln2_post"] = norm((count, d))
+                per_pos.append(layer)
+            out.append(tuple(per_pos))
+        return out
+
+    params: Dict[str, Any] = {"groups": groups_tree(cfg.groups)}
+    params["embed"] = normal((cfg.vocab, d), 0.02)
+    params["final_norm"] = norm((d,))
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab), 1 / math.sqrt(d))
+    if cfg.learned_pos:
+        params["pos_embed"] = normal((cfg.learned_pos, d), 0.02)
+    if cfg.encoder_groups:
+        params["encoder"] = {"groups": groups_tree(cfg.encoder_groups),
+                             "final_norm": norm((d,)),
+                             "pos_embed": normal((cfg.encoder_seq, d), 0.02)}
     return Transformer(cfg, params)
 
 
@@ -240,19 +293,20 @@ class LayerStack(nn.Module):
     """One pattern position of a group: ``count`` layers' weights stacked
     along axis 0, named as in the reference tree (``ln1``, ``mixer.*``,
     ``ln2``, ``ffn.*``, and the sandwich post-norms ``ln1_post`` /
-    ``ln2_post`` where the tree has them). A MoE's shared experts
-    (``ffn.shared.*`` in the tree) sit in ``ffn_shared``. ``unit(u)``
-    gives layer ``u``'s views."""
+    ``ln2_post`` where the tree has them). A norm's scale sits under its
+    name and a layer norm's bias beside it as ``<name>_bias``. A MoE's
+    shared experts (``ffn.shared.*`` in the tree) sit in ``ffn_shared``.
+    ``unit(u)`` gives layer ``u``'s views."""
     POST = ("ln1_post", "ln2_post")
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
-        self.ln1 = _frozen(tree["ln1"]["scale"])
+        _set_norm(self, "ln1", tree["ln1"])
         self.mixer = nn.ParameterDict(
             {k: _frozen(v) for k, v in tree["mixer"].items()})
         self.has_ffn = "ffn" in tree
         if self.has_ffn:
-            self.ln2 = _frozen(tree["ln2"]["scale"])
+            _set_norm(self, "ln2", tree["ln2"])
             ffn = dict(tree["ffn"])
             shared = ffn.pop("shared", None)
             self.ffn = nn.ParameterDict(
@@ -261,43 +315,84 @@ class LayerStack(nn.Module):
                 {k: _frozen(v) for k, v in shared.items()})
         self.post = tuple(n for n in self.POST if n in tree)
         for name in self.post:
-            setattr(self, name, _frozen(tree[name]["scale"]))
+            _set_norm(self, name, tree[name])
 
     @property
     def count(self) -> int:
         return self.ln1.shape[0]
 
     def unit(self, u: int) -> Dict[str, Any]:
-        out = {"ln1": {"scale": self.ln1[u]},
+        out = {"ln1": _norm_leaf(self, "ln1", u),
                "mixer": {k: v[u] for k, v in self.mixer.items()}}
         if self.has_ffn:
-            out["ln2"] = {"scale": self.ln2[u]}
+            out["ln2"] = _norm_leaf(self, "ln2", u)
             out["ffn"] = {k: v[u] for k, v in self.ffn.items()}
             if self.ffn_shared is not None:
                 out["ffn"]["shared"] = {k: v[u] for k, v in
                                         self.ffn_shared.items()}
         for name in self.post:
-            out[name] = {"scale": getattr(self, name)[u]}
+            out[name] = _norm_leaf(self, name, u)
         return out
 
 
+def _set_norm(mod: nn.Module, name: str, leaf: Dict[str, Any]) -> None:
+    """A norm leaf onto ``mod``: its scale as ``<name>``, a layer norm's
+    bias as ``<name>_bias`` (None without one)."""
+    setattr(mod, name, _frozen(leaf["scale"]))
+    setattr(mod, name + "_bias",
+            _frozen(leaf["bias"]) if "bias" in leaf else None)
+
+
+def _norm_leaf(mod: nn.Module, name: str, u: Optional[int] = None):
+    """The reference's norm leaf ``{"scale"[, "bias"]}`` from ``mod`` (the
+    rows of layer ``u`` of a stack when given)."""
+    out = {"scale": getattr(mod, name), "bias": getattr(mod, name + "_bias")}
+    return {k: v if u is None else v[u] for k, v in out.items()
+            if v is not None}
+
+
+def _stacks(groups) -> nn.ModuleList:
+    return nn.ModuleList(nn.ModuleList(LayerStack(pos) for pos in group)
+                         for group in groups)
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder: its ``groups`` of ``enc`` layers, ``final_norm``
+    and learned ``pos_embed`` [encoder_seq, d] (the reference's
+    ``params["encoder"]``)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        self.groups = _stacks(tree["groups"])
+        _set_norm(self, "final_norm", tree["final_norm"])
+        self.pos_embed = _frozen(tree["pos_embed"])
+
+
 class Transformer(nn.Module):
-    """The serving model's weights (``embed``, ``final_norm``, ``groups``,
-    optional ``lm_head``) in the reference layout; the paged steps
-    (serve/paged_step.py) are plain functions over it. Weights carry no
-    gradient: this port serves, it does not train yet."""
+    """The model's weights (``embed``, ``final_norm``, ``groups``, optional
+    ``lm_head``, ``pos_embed`` and ``encoder``) in the reference layout;
+    the forward passes and the paged steps (serve/paged_step.py) are plain
+    functions over it. Weights carry no gradient: this port serves, it
+    does not train yet."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.embed = _frozen(tree["embed"])
-        self.final_norm = _frozen(tree["final_norm"]["scale"])
-        self.groups = nn.ModuleList(
-            nn.ModuleList(LayerStack(pos) for pos in group)
-            for group in tree["groups"])
+        _set_norm(self, "final_norm", tree["final_norm"])
+        self.groups = _stacks(tree["groups"])
         self.lm_head = (_frozen(tree["lm_head"]) if "lm_head" in tree
                         else None)
+        self.pos_embed = (_frozen(tree["pos_embed"]) if "pos_embed" in tree
+                          else None)
+        self.encoder = (Encoder(tree["encoder"]) if "encoder" in tree
+                        else None)
+        if bool(cfg.learned_pos) != (self.pos_embed is not None) or \
+                bool(cfg.encoder_groups) != (self.encoder is not None):
+            raise ValueError(f"{cfg.name}: pos_embed / encoder leaves do not "
+                             "match the config's learned_pos / "
+                             "encoder_groups")
 
     def head(self) -> torch.Tensor:
         """[d, vocab]: the tied embedding's transpose or the LM head."""
@@ -312,6 +407,8 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 # layer pieces: the dense forward below and serve/paged_step.py
 # --------------------------------------------------------------------------
 def _norm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm == "layer":
+        return blocks.layer_norm(p["scale"], p["bias"], x)
     return blocks.rms_norm(p["scale"], x, zero_centered=cfg.zero_centered_norm)
 
 
@@ -322,6 +419,8 @@ def _ffn_apply(p, ffn: str, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
     if ffn == "mlp" and cfg.mlp == "relu2":
         return blocks.relu2_mlp(p["w_in"], p["w_out"], x)
+    if ffn == "mlp" and cfg.mlp == "gelu":
+        return blocks.gelu_mlp(p["w_in"], p["b_in"], p["w_out"], p["b_out"], x)
     raise NotImplementedError(f"repro_torch: ffn {ffn!r}/{cfg.mlp!r}")
 
 
@@ -353,7 +452,7 @@ def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
-    h = _norm_apply({"scale": model.final_norm}, x, model.cfg)
+    h = _norm_apply(_norm_leaf(model, "final_norm"), x, model.cfg)
     return h @ model.head()
 
 
@@ -395,17 +494,21 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 device=None):
     """Zeroed slot caches aligned with ``cfg.groups``: per group, a tuple
     per pattern position of ``{"k", "v"}`` [count, batch, K, S, hd] at
-    ``dtype`` (default: the compute dtype), S = max_seq, or the ring of
-    ``min(max_seq, window)`` rows of a sliding-window layer (the
-    reference's ``_init_cache_one``)."""
+    ``dtype`` (default: the compute dtype), S = max_seq, the ring of
+    ``min(max_seq, window)`` rows of a sliding-window layer, or the
+    ``encoder_seq`` rows of a cross layer (the reference's
+    ``_init_cache_one``)."""
     check_supported(cfg)
     dtype = dtype or cfg.compute_dtype
     out = []
     for pattern, count in cfg.groups:
         per_pos = []
         for kind in pattern:
-            window = cfg.window_of(parse_kind(kind)[0])
+            mixer = parse_kind(kind)[0]
+            window = cfg.window_of(mixer)
             S = min(max_seq, window) if window else max_seq
+            if mixer == "cross":
+                S = cfg.encoder_seq
             per_pos.append({name: torch.zeros(
                 (count, batch, cfg.n_kv, S, cfg.hd), dtype=dtype,
                 device=device) for name in ("k", "v")})
@@ -413,8 +516,35 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     return out
 
 
+def _encoder_units(model: Transformer):
+    """Walk the encoder's layers in order: (kind, layer weights)."""
+    for gi, (pattern, count) in enumerate(model.cfg.encoder_groups):
+        for u in range(count):
+            for i, kind in enumerate(pattern):
+                yield kind, model.encoder.groups[gi][i].unit(u)
+
+
+def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings [B, S_enc, d] at the
+    model's dtype (the reference's ``_encode``): learned positions
+    ``pos_embed[:S_enc]`` added, the ``enc`` layers (no cache, every frame
+    attending every frame), the encoder's final norm."""
+    cfg, enc = model.cfg, model.encoder
+    S = frames.shape[1]
+    if S > cfg.encoder_seq:
+        raise ValueError(f"encode: {S} frames past the encoder's "
+                         f"{cfg.encoder_seq} learned positions")
+    x = frames + enc.pos_embed[None, :S]
+    for kind, p in _encoder_units(model):
+        y = attention.encoder_forward(p["mixer"],
+                                      _norm_apply(p["ln1"], x, cfg), cfg)
+        x = _ffn_residual(p, parse_kind(kind)[1],
+                          _residual(p, "ln1_post", x, y, cfg), cfg)
+    return _norm_apply(_norm_leaf(enc, "final_norm"), x, cfg)
+
+
 def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
-           mode: str) -> torch.Tensor:
+           mode: str, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The final hidden state [B, L, d] (before the final norm); see
     :func:`forward`."""
     cfg = model.cfg
@@ -431,17 +561,32 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
     else:
         raise ValueError(f"mode {mode!r}: expected 'prefill' or 'decode'")
     x = embed(model, tokens)
+    if cfg.learned_pos:     # past the table, the last row (the reference)
+        x = x + blocks.embed_lookup(
+            model.pos_embed, positions.clamp(max=cfg.learned_pos - 1))
+    if mode == "decode":    # cross layers read their caches
+        extra = None
+    elif has_cross(cfg):
+        if extra is None:
+            raise ValueError(f"{cfg.name}: a prefill needs the encoder input "
+                             "`extra` (stub image / audio embeddings)")
+        extra = extra.to(x.dtype)
+        if model.encoder is not None:
+            extra = encode(model, extra)
     for kind, p, cache in units(model, caches):
         mixer, ffn = parse_kind(kind)
-        y = attention.gqa_forward(p["mixer"], _norm_apply(p["ln1"], x, cfg),
-                                  positions, cfg, cache, cache_pos,
-                                  window=cfg.window_of(mixer))
+        h = _norm_apply(p["ln1"], x, cfg)
+        if mixer == "cross":
+            y = attention.cross_forward(p["mixer"], h, cfg, cache, extra)
+        else:
+            y = attention.gqa_forward(p["mixer"], h, positions, cfg, cache,
+                                      cache_pos, window=cfg.window_of(mixer))
         x = _ffn_residual(p, ffn, _residual(p, "ln1_post", x, y, cfg), cfg)
     return x
 
 
 def forward(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
-            mode: str):
+            mode: str, extra: Optional[torch.Tensor] = None):
     """tokens [B, L] int over ``caches`` from :func:`init_caches` (written
     in place) → (logits [B, L, vocab], caches).
 
@@ -449,8 +594,12 @@ def forward(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
     0. ``mode="decode"``: L = 1 and ``cache_pos`` a [B] int tensor, slot b
     writing and reading at its own position ``cache_pos[b]`` (the
     reference's decode takes one shared position; see models/attention.py).
+    ``extra``: a cross-attention model's encoder input at prefill (stub
+    image patches [B, encoder_seq, cross_kv_dim], or whisper's frames [B,
+    S_enc, d], which :func:`encode` runs first); a decode step reads the
+    cross caches and takes none.
     The model's weights must be at the compute dtype (serve/executor.py
     casts them once).
     """
-    return logits(model, hidden(model, tokens, caches, cache_pos, mode)), \
-        caches
+    return logits(model, hidden(model, tokens, caches, cache_pos, mode,
+                                extra)), caches

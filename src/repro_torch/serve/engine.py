@@ -23,8 +23,11 @@ kv heads over that many ranks, one engine a process (serve/executor.py,
 parallel/launch.py). ``policy`` attaches an SLO
 :class:`~repro_torch.serve.policy.SchedulerPolicy`. The engine runs on
 ``cuda`` unless the caller passes ``device="cpu"``; without a card and
-without that request it raises instead of falling back to the CPU. This
-module owns nothing but the wiring.
+without that request it raises instead of falling back to the CPU. A
+model with cross-attention or an encoder (llama-3.2-vision-11b,
+whisper-medium) is refused, as in the reference: it runs through the
+prefill / decode steps (train/step.py). This module owns nothing but the
+wiring.
 """
 from __future__ import annotations
 
@@ -52,6 +55,19 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch: CUDA is not available; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
     return dev
+
+
+def check_servable(cfg: transformer.ModelConfig) -> None:
+    """Raise unless an engine can serve ``cfg``: a model with cross-
+    attention or encoder layers needs encoder input (``extra``) at
+    prefill, which no engine takes, the reference's neither (its dense
+    prefill and paged pool refuse such a model)."""
+    if transformer.has_cross(cfg) or cfg.encoder_groups:
+        raise ValueError(
+            f"{cfg.name}: its cross-attention / encoder layers need encoder "
+            "input (extra), which no serving engine takes; run it through "
+            "the prefill / decode steps (repro_torch.train.step."
+            "make_prefill_step / make_decode_step)")
 
 
 _TP_CLOCK = ("tp > 1 cannot take {}: each rank's scheduler reads its own "
@@ -133,6 +149,7 @@ class Engine:
     def __init__(self, cfg: transformer.ModelConfig,
                  model: transformer.Transformer,
                  config: Optional[EngineConfig] = None, device=None):
+        check_servable(cfg)
         config = (config or EngineConfig()).normalized()
         if config.cache.paged:    # before a tp executor joins its group
             check_pageable(cfg)
