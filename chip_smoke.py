@@ -87,7 +87,13 @@ Phases, each printed on its own line, none catching its own failure:
                the cross caches, every slot at S (S 1600; S 1500: a ragged
                last split); each held, and each entry timed beside SDPA
                (no mask, is_causal or a length mask) and its bound (K/V
-               bytes counted once a kv head);
+               bytes counted once a kv head); then every attention call
+               of phase 7n (zamba2-1.2b's shared sites, MHA, H = K = 32,
+               hd 64, bf16): flash_attention at each of the 8 prefills
+               (B 1, causal, L 151-1326) and flash_decode at each of the
+               63 decode steps' lengths (B 8, S 2048, slot b at prompt +
+               1 + step), each held, the longest prefill and the middle
+               step timed;
   6. suite     the paper's kernel suite through ``kernels/ops.py``
                (``launch/kernel_suite.py``: Fig. 7 at N=2048 with conv2d
                and covar, darknet, the ISA study, the attention rows),
@@ -176,7 +182,8 @@ Phases, each printed on its own line, none catching its own failure:
                kernel launched layers x steps (chunks) times a rank, the
                rank-consistency check on after every iteration, every
                page free;
-  7i. serve gemma3-27b  gemma3-27b at full width (62 layers: 52 local
+  7i. serve gemma3-27b  (``dense_zoo_serve``, as 7m / 7n) gemma3-27b at
+               full width (62 layers: 52 local
                with window 1024 on ring caches, 10 global; d_model 5376,
                32/16 heads, hd 128, d_ff 21504, vocab 262144, tied,
                zero-centred and sandwich norms, the embedding scaled;
@@ -229,6 +236,25 @@ Phases, each printed on its own line, none catching its own failure:
                cache leaves of 352,321,536 B (self) and 1,179,648,000 B
                (cross), flash_attention 24 encoder + 24 self + 24 cross =
                72 calls, flash_decode 48 x 63 = 3024;
+  7m. serve xlstm-1.3b  at full width (48 layers = 6 x (7 mLSTM + 1
+               sLSTM), d_model 2048, 4 heads, vocab 50304, tied;
+               3,502,733,312 parameters drawn at bf16, seed 0; nothing
+               cut) through the dense engine, the only one that serves it
+               in either package (its layers are not pageable), 8 slots x
+               2048, on phase 7's traffic; gates as 7i: the parameter
+               count, cache leaves of 5,652,086,784 B (the mLSTM states,
+               42 x 8 x 4 x 1024 x 1025 x 4 B, with the conv and sLSTM
+               leaves; constant in max_seq), every request with 64
+               tokens, every slot free, both attention kernels launched
+               0 times (it has no attention layer), and a second,
+               profiled run with the same streams;
+  7n. serve zamba2-1.2b  at full width (38 layers = 6 x (5 Mamba2 + 1
+               shared attention site) + 2 Mamba2, d_model 2048, 32 heads
+               (MHA), d_ff 8192, d_state 64, head_dim 64, vocab 32000,
+               tied; 951,304,192 parameters) on the same engine, traffic
+               and gates: cache leaves of 1,080,229,888 B,
+               flash_attention 6 x 8 = 48 calls, flash_decode 6 x decode
+               steps;
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams and equal
                preemption, swap, refusal and prefix-hit counters, on the
@@ -252,7 +278,13 @@ Phases, each printed on its own line, none catching its own failure:
                configs (every bias and norm perturbed) through the
                prefill / decode steps, 8-token prompts and 70 decode
                steps (whisper past its 64 learned positions): equal
-               streams, logits within 1e-3 at every step;
+               streams, logits within 1e-3 at every step; and the
+               xlstm-1.3b and zamba2-1.2b smoke configs through the dense
+               engine on prompts of 3, 9, 5 and 12 tokens in 4 slots and
+               on six prompts of 33-70 tokens (past the smoke chunk of
+               32) in 2 slots, whose streams and counters equal on both
+               devices and whose slot-reuse streams each equal its
+               request served alone;
   9. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
      launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
      ``_minitron4b``, ``_tp`` and ``_granite`` with phases 7f, 7g, 7h
@@ -268,8 +300,13 @@ Phases, each printed on its own line, none catching its own failure:
      for 7l flash_attention_encoder, flash_attention_whisper_self,
      flash_decode_whisper_self, flash_attention_whisper_cross and
      flash_decode_whisper_cross, each with the launches of one kind of
-     layer in its phase and timed at that kind's shape in phase 5; every
-     entry launched at least once), then
+     layer in its phase and timed at that kind's shape in phase 5; and
+     flash_attention_zamba2 and flash_decode_zamba2 with phase 7n's
+     launches, timed in phase 5; every entry launched at least once).
+     The recurrent mixers of 7m / 7n (models/ssm.py) have no entry: the
+     reference computes them in plain jnp and reaches no pallas_call, so
+     the port runs them in plain PyTorch on the card by design (logged
+     beside the line). Then
      the card's name and power limit, then ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -984,6 +1021,7 @@ def check_attention_kernels(results):
             time_flash({}, q, k, v, causal, window)
     check_gemma3_attention(results, g)
     check_cross_attention(results, g)
+    check_zamba2_attention(results, g)
 
 
 GEMMA3 = dict(H=32, K=16, hd=128, window=1024)   # gemma3-27b's attention
@@ -1095,6 +1133,51 @@ def check_cross_attention(results, g):
                 f"{res['max_abs_err']:.3e}")
             mid = c.lengths[len(c.lengths) // 2]
             time_decode_dense(res, (B, c.q[1], K, S, hd), [mid] * B, g)
+
+
+def check_zamba2_attention(results, g):
+    """Both attention kernels at every call of phase 7n: zamba2-1.2b's 6
+    shared sites through the dense engine on phase 7's traffic, bf16, MHA
+    (H = K = 32, G 1) at hd 64. flash_attention at each request's prefill
+    (B 1, causal, L its prompt: 8 shapes); flash_decode at each of the 63
+    decode steps (B 8, S 2048; slot b at length prompt_b + 1 + i at step
+    i: every slot is admitted before the first step). Each against its
+    plain version on the same tensors; then the longest prefill and the
+    middle step timed beside SDPA."""
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = torch.bfloat16
+    cfg = configs.get_config("zamba2-1.2b")
+    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    lens, _ = phase7_prompts(cfg.vocab)
+    res = results["flash_attention_zamba2"]
+    for L in sorted(int(n) for n in lens):
+        q, k, v = (torch.randn(1, H, L, hd, generator=g, device="cuda")
+                   .to(bf16) for _ in range(3))
+        res["max_abs_err"] = max(res["max_abs_err"], close(
+            fa.flash_attention(q, k, v, causal=True),
+            fa.flash_attention_plain(q, k, v, causal=True)))
+    log("attention kernels", f"zamba2-1.2b shared-site prefills: "
+        f"flash_attention B 1 H {H} hd {hd} bf16 causal (G 1) at L "
+        f"{sorted(lens.tolist())}, 6 calls each in phase 7n: max |kernel - "
+        f"plain| {res['max_abs_err']:.3e}")
+    time_flash(res, q, k, v, True, None)
+    res, B, S = results["flash_decode_zamba2"], len(lens), 2048
+    steps = [[int(n) + 1 + i for n in lens] for i in range(NEW_TOKENS - 1)]
+    qd = torch.randn(B, H, hd, generator=g, device="cuda").to(bf16)
+    kc, vc = (torch.randn(B, K, S, hd, generator=g, device="cuda").to(bf16)
+              for _ in range(2))
+    for lengths in steps:
+        lt = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        res["max_abs_err"] = max(res["max_abs_err"], close(
+            da.flash_decode(qd, kc, vc, lt),
+            da.flash_decode_plain(qd, kc, vc, lt)))
+    log("attention kernels", f"zamba2-1.2b shared-site decode: flash_decode "
+        f"B {B} H {H} K {K} S {S} hd {hd} bf16 at each of the {len(steps)} "
+        f"steps' lengths ({steps[0]} to {steps[-1]}), 6 calls a step in "
+        f"phase 7n: max |kernel - plain| {res['max_abs_err']:.3e}")
+    time_decode_dense(res, (B, H, K, S, hd), steps[len(steps) // 2], g)
 
 
 def time_decode_dense(res, shape, lens, g):
@@ -2148,48 +2231,76 @@ def tp_serve(results, card: str, chunked):
         f"{r['wall_s']:.1f} s, the whole spawn {spawn_s:.1f} s")
 
 
-def gemma3_serve(results, card: str):
-    """Phase 7i: gemma3-27b at its published width (random weights, seed 0,
-    drawn at bf16; nothing cut) through the dense engine, the only one
-    that serves it (its local layers are not pageable), on phase 7's
-    traffic: 52 local layers on 1024-row rings, 10 global ones on 2048-row
-    slots. Both attention kernels counted from 0; then a second, profiled
-    run with the same streams."""
+# phases 7i / 7m / 7n: an arch at full width through the dense engine, the
+# only one that serves it in either package (its local or recurrent layers
+# are not pageable); ``params`` / ``leaves``: the gates on its parameter
+# count and its 8 x 2048 slot pool's bytes; ``entries``: the kernels line's
+# (flash_attention, flash_decode) entries for its attention layers, none
+# when it has none (xlstm-1.3b: both kernels gated at 0 launches)
+DENSE_ZOO = {
+    "gemma3-27b": dict(
+        phase="7i", params=27_008_986_368, leaves=4_831_838_208,
+        entries=("flash_attention_gemma3", "flash_decode_gemma3")),
+    "xlstm-1.3b": dict(
+        phase="7m", params=3_502_733_312, leaves=5_652_086_784,
+        entries=None),
+    "zamba2-1.2b": dict(
+        phase="7n", params=951_304_192, leaves=1_080_229_888,
+        entries=("flash_attention_zamba2", "flash_decode_zamba2"))}
+
+
+def dense_zoo_serve(results, card: str, arch: str):
+    """Phases 7i / 7m / 7n: ``arch`` at its published width (random
+    weights, seed 0, drawn at bf16; nothing cut) through the dense engine
+    (8 slots x 2048) on phase 7's traffic, after every earlier model is
+    freed. Both attention kernels counted from 0: one flash_attention a
+    prefill and one flash_decode a decode step in each attention layer
+    (gemma3-27b's 52 local layers on 1024-row rings and 10 global ones;
+    zamba2-1.2b's 6 shared sites; none in xlstm-1.3b, whose mLSTM / sLSTM
+    layers run models/ssm.py's plain PyTorch, as the reference's run plain
+    jnp). Then a second, profiled run with the same streams."""
     from repro_torch import configs
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import warm_up
-    from repro_torch.models import transformer
+    from repro_torch.models import ssm, transformer
     from repro_torch.serve.engine import Engine, EngineConfig
     from repro_torch.serve.kvcache import CachePool
-    phase = "serve gemma3-27b"
+    spec = DENSE_ZOO[arch]
+    phase = f"serve {arch}"
     free_card(phase)
     torch.cuda.reset_peak_memory_stats()
-    cfg = configs.get_config("gemma3-27b", param_dtype=torch.bfloat16)
+    cfg = configs.get_config(arch, param_dtype=torch.bfloat16)
     t0 = time.perf_counter()
     model = transformer.init_model(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     conf = EngineConfig(n_slots=8, max_seq=2048)
-    weights = sum(p.nbytes for p in model.parameters())
-    warm_up(cfg, model, conf, "cuda")
+    before_warm_up = torch.cuda.memory_allocated()   # the weights and what
+    warm_up(cfg, model, conf, "cuda")                # earlier phases keep
     after_warm_up = torch.cuda.memory_allocated()
     eng = Engine(cfg, model, config=conf, device="cuda")
     torch.cuda.synchronize()
     n_par = transformer.count_params(eng.model)
     pool = eng.pool
-    assert isinstance(pool, CachePool) and n_par == 27_008_986_368, n_par
+    assert isinstance(pool, CachePool) and n_par == spec["params"], n_par
     leaves = pool.leaf_nbytes()
-    assert leaves == 4_831_838_208, leaves
+    assert leaves == spec["leaves"], leaves
     # the warm-up's throwaway pool is gone before the timed one is made
-    assert after_warm_up - weights < leaves // 8, (after_warm_up, weights)
-    log(phase, f"set-up {time.perf_counter() - t0:.2f} s: gemma3-27b "
-        f"{cfg.n_layers()} layers (52 local, window {cfg.window}; 10 "
-        f"global) d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv} hd "
-        f"{cfg.hd} d_ff {cfg.d_ff} vocab {cfg.vocab} tied, {n_par} "
-        f"parameters in {eng.model.embed.dtype} ({2 * n_par} B); dense "
-        f"pool 8 slots x 2048: cache leaves {leaves} B (the reference's "
-        f"estimate, rings uncounted: {pool.footprint_bytes()} B); memory "
-        f"after the warm-up {after_warm_up / 2**30:.2f} GiB, with the pool "
+    assert after_warm_up - before_warm_up < leaves // 8, \
+        (after_warm_up, before_warm_up)
+    kinds = collections.Counter(k for pattern, count in cfg.groups
+                                for k in pattern for _ in range(count))
+    log(phase, f"set-up {time.perf_counter() - t0:.2f} s: {arch} "
+        f"{cfg.n_layers()} layers "
+        f"({', '.join(f'{n} {k}' for k, n in kinds.items())}; window "
+        f"{cfg.window}) d_model {cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv} hd {cfg.hd} d_ff {cfg.d_ff} vocab {cfg.vocab} "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}, {n_par} parameters "
+        f"in {eng.model.embed.dtype} ({2 * n_par} B); dense pool 8 slots x "
+        f"2048: cache leaves {leaves} B (the reference's estimate, rings "
+        f"and recurrent state uncounted: {pool.footprint_bytes()} B); "
+        f"memory before the warm-up {before_warm_up / 2**30:.2f} GiB, "
+        f"after it {after_warm_up / 2**30:.2f} GiB, with the pool "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     lens, prompts = phase7_prompts(cfg.vocab)
     da.flash_decode.launches = 0
@@ -2199,15 +2310,18 @@ def gemma3_serve(results, card: str):
     wall = time.perf_counter() - t0
     n_dec, n_fa = da.flash_decode.launches, fa.flash_attention.launches
     s = eng.stats_summary()
-    L = cfg.n_layers()
+    L = sum(n for k, n in kinds.items()
+            if transformer.parse_kind(k)[0] not in ssm.RECURRENT)
     toks = sum(len(t) for t in streams.values())
     assert len(streams) == 8 and toks == 8 * 64, (len(streams), toks)
     assert all(len(t) == 64 for t in streams.values())
     assert s["prefills"] == 8 and (pool.seq_ids < 0).all(), s
-    assert n_fa == L * 8 == 496, (n_fa, s)
-    assert n_dec == L * s["decode_steps"] > 0, (n_dec, s)
-    results["flash_attention_gemma3"]["launches"] = n_fa
-    results["flash_decode_gemma3"]["launches"] = n_dec
+    assert s["decode_steps"] > 0, s
+    assert n_fa == L * 8, (n_fa, L, s)
+    assert n_dec == L * s["decode_steps"], (n_dec, L, s)
+    if spec["entries"]:
+        results[spec["entries"][0]]["launches"] = n_fa
+        results[spec["entries"][1]]["launches"] = n_dec
     log(phase, f"{card}: {len(streams)} requests, prompts "
         f"{sorted(lens.tolist())} ({int(lens.sum())} tok), {toks} new "
         f"tokens in {wall:.3f} s ({toks / wall:.1f} tok/s), ttft p50/p99 "
@@ -2215,16 +2329,19 @@ def gemma3_serve(results, card: str):
         f"{s['itl_p50_s'] * 1e3:.2f}/{s['itl_p99_s'] * 1e3:.2f} ms, decode "
         f"steps {s['decode_steps']}, prefills {s['prefills']}, every slot "
         f"free, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB; launches: flash_attention {n_fa} = {L} x 8 prefills, "
-        f"flash_decode {n_dec} = {L} x {s['decode_steps']} decode steps")
+        f" GiB; launches: flash_attention {n_fa} = {L} attention layers x "
+        f"8 prefills, flash_decode {n_dec} = {L} x {s['decode_steps']} "
+        f"decode steps; request 0's first tokens {streams[0][:12]}")
     del eng
     free_card(phase, "with the weights, before a second pool")
     eng = Engine(cfg, model, config=conf, device="cuda")
-    again, busy, wall_ms, top = device_busy(eng, prompts)
+    t0 = time.perf_counter()
+    again, busy, wall_ms, top = device_busy(eng, prompts, n_top=8)
     assert again == streams, "a second run gave other streams"
     log(phase, f"{card}: profiled second run (iterations "
-        f"{PROFILE_WINDOW[0]}-{PROFILE_WINDOW[1]}, the same "
-        f"streams): device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
+        f"{PROFILE_WINDOW[0]}-{PROFILE_WINDOW[1]}, the same streams; "
+        f"{time.perf_counter() - t0:.1f} s with the profile's analysis): "
+        f"device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
         f"({100 * busy / wall_ms:.1f} %); top kernels: {top}")
 
 
@@ -2630,6 +2747,52 @@ def card_vs_cpu():
             f"the counters {runs[1][1]}")
 
 
+def recurrent_vs_cpu():
+    """The xlstm-1.3b and zamba2-1.2b smoke configs in f32 through the
+    dense engine on the card and on the CPU: the ragged mix in four slots,
+    then six prompts past the smoke chunk of 32 tokens in two slots
+    (gla_chunked carries state across chunks; four requests land in
+    reused slots, whose prefill starts from a zero state). The same
+    streams and counters, and each slot-reuse stream equal to its request
+    served alone on the card."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Engine, EngineConfig
+    counters = ("decode_steps", "decode_tokens", "prefills",
+                "admission_refusals")
+    four = dict(n_slots=4, max_seq=64)
+    for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+        rcfg = configs.get_smoke_config(arch, compute_dtype=torch.float32)
+        rmodel = transformer.init_model(rcfg,
+                                        torch.Generator().manual_seed(0))
+        rrng = np.random.default_rng(1)
+        mixes = (("prompts of 3, 9, 5 and 12 tokens in 4 slots", four,
+                  (3, 9, 5, 12)),
+                 ("six prompts of 33-70 tokens in 2 slots (slot reuse)",
+                  dict(n_slots=2, max_seq=96), (40, 70, 35, 66, 33, 50)))
+        for what, kw, lens in mixes:
+            rprompts = [rrng.integers(0, rcfg.vocab, n).astype(np.int32)
+                        for n in lens]
+            runs = []
+            for device in ("cpu", "cuda"):
+                eng = Engine(rcfg, copy.deepcopy(rmodel), device=device,
+                             config=EngineConfig(**kw))
+                runs.append((serve(eng, rprompts, 6),
+                             {k: eng.stats[k] for k in counters}))
+            assert runs[1] == runs[0], (arch, what, runs)
+            if kw["n_slots"] < len(lens):
+                for i, p in enumerate(rprompts):
+                    alone = serve(Engine(rcfg, copy.deepcopy(rmodel),
+                                         device="cuda",
+                                         config=EngineConfig(**kw)), [p], 6)
+                    assert alone[0] == runs[1][0][i], (arch, i)
+            log("card/cpu", f"smoke config f32, {arch}, dense engine, "
+                f"{what}: {len(runs[1][0])} greedy streams equal on cuda and "
+                f"cpu, and the counters {runs[1][1]}"
+                + (", each stream equal to its request alone"
+                   if kw["n_slots"] < len(lens) else ""))
+
+
 def fleet_vs_single(cfg, model):
     """A two-replica prefix fleet of chunked engines with r0 killed at
     iteration 4 and respawned at 9, on the card and on the CPU: the same
@@ -2808,6 +2971,8 @@ def kernel_entries():
                        ("flash_attention_monolithic", "flash_attention"),
                        ("flash_decode_gemma3", "flash_decode"),
                        ("flash_attention_gemma3", "flash_attention"),
+                       ("flash_attention_zamba2", "flash_attention"),
+                       ("flash_decode_zamba2", "flash_decode"),
                        *((name, kernel) for spec in CROSS_STEPS.values()
                          for (_, kernel), name in spec["entries"].items())):
         results[name] = dict(results[base], name=name)
@@ -2861,7 +3026,7 @@ def main() -> int:
     tp_serve(results, card, untiered)
     log("serve tp", f"phase 7h in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    gemma3_serve(results, card)
+    dense_zoo_serve(results, card, "gemma3-27b")
     log("serve gemma3-27b", f"phase 7i in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     zoo_serve(results, card, "granite-moe-3b-a800m", True)
@@ -2872,14 +3037,24 @@ def main() -> int:
         cross_steps(results, card, arch)
         log(f"steps {arch}", f"phase {spec['phase']} in "
             f"{time.perf_counter() - t0:.1f} s")
+    for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+        t0 = time.perf_counter()
+        dense_zoo_serve(results, card, arch)
+        log(f"serve {arch}", f"phase {DENSE_ZOO[arch]['phase']} in "
+            f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     card_vs_cpu()
+    recurrent_vs_cpu()
     steps_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in results.values()]
     assert all(math.isfinite(r["ms"]) for r in kernels)
+    log("kernels", "no entry for models/ssm.py's Mamba2 / mLSTM / sLSTM "
+        "(phases 7m, 7n): the reference computes them in plain jnp and "
+        "reaches no pallas_call, so they run plain PyTorch on the card by "
+        "design, not for want of a port")
     assert all(r["launches"] > 0 for r in kernels), \
         [r["name"] for r in kernels if not r["launches"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,11 +4,13 @@ Each ``<arch>.py`` exposes ``config()`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family config for the CPU tests). Only
 the architectures the port runs are registered here: GQA with swiglu or
 squared-ReLU MLPs or a capacity-dispatched MoE, full-attention or
-sliding-window, served by the engines; and the cross-attention archs
-(llama-3.2-vision-11b, whisper-medium with its encoder), which run
-through the prefill / decode steps of ``train/step.py`` only, as in the
-reference. The others arrive with the model zoo (ROADMAP queue 1, item
-16).
+sliding-window, served by the engines; the recurrent families
+(xlstm-1.3b's mLSTM / sLSTM, zamba2-1.2b's Mamba2 with its weight-shared
+attention block), served by the dense engine only, as in the reference;
+and the cross-attention archs (llama-3.2-vision-11b, whisper-medium with
+its encoder), which run through the prefill / decode steps of
+``train/step.py`` only, as in the reference. deepseek-v3-671b arrives
+with the model zoo (ROADMAP queue 1, item 16.7).
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from typing import Tuple
 
 ARCHS: Tuple[str, ...] = ("qwen2-0.5b", "yi-34b", "minitron-4b",
                            "gemma3-27b", "granite-moe-3b-a800m",
-                           "llama-3.2-vision-11b", "whisper-medium")
+                           "llama-3.2-vision-11b", "whisper-medium",
+                           "xlstm-1.3b", "zamba2-1.2b")
 
 
 def _module(arch: str):

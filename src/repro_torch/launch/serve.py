@@ -50,6 +50,16 @@ not pageable, so ``--paged``, ``--chunked-prefill``, int8 pages and
       --slots 8 --max-seq 2048 --prompt-len 128 --prompt-len-max 1536 \\
       --max-new 64                                   # one card
 
+xlstm-1.3b and zamba2-1.2b (recurrent layers, models/ssm.py; zamba2's
+weight-shared attention block) serve through the dense engine only, as in
+the reference: their recurrent layers are not pageable, so ``--paged``,
+``--chunked-prefill``, int8 pages and ``--tp`` refuse them with the page
+pool's message::
+
+  python -m repro_torch.launch.serve --arch xlstm-1.3b --full --requests 8 \\
+      --slots 8 --max-seq 2048 --prompt-len 128 --prompt-len-max 1536 \\
+      --max-new 64                                   # one card
+
 llama-3.2-vision-11b and whisper-medium are registered, but no engine
 serves them (the reference's neither: they need encoder input at
 prefill), so ``--arch`` with either raises a ValueError that names the
@@ -114,6 +124,7 @@ from repro_torch.models import transformer
 from repro_torch.serve.cache import CacheConfig
 from repro_torch.serve.engine import Engine, EngineConfig, Request, \
     check_servable, resolve_device
+from repro_torch.serve.kvcache import check_pageable
 from repro_torch.serve.policy import PolicyConfig
 
 
@@ -133,6 +144,13 @@ def build_config(args):
         cfg = configs.get_smoke_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(0)
     model = transformer.init_model(cfg, gen, device)
+    econf = engine_config(args)
+    warm_up(cfg, model, econf, device)
+    return cfg, model, econf, device
+
+
+def engine_config(args) -> EngineConfig:
+    """The engine configuration the arguments describe."""
     policy = None
     if (args.max_in_system is not None or args.max_queue is not None
             or args.itl_target_ms is not None):
@@ -140,7 +158,7 @@ def build_config(args):
             max_in_system=args.max_in_system, max_queue=args.max_queue,
             itl_target_s=(args.itl_target_ms / 1000.0
                           if args.itl_target_ms is not None else None))
-    econf = EngineConfig(
+    return EngineConfig(
         n_slots=args.slots, max_seq=args.max_seq,
         chunked=args.chunked_prefill, token_budget=args.token_budget,
         preempt_quantum=args.preempt_quantum,
@@ -155,8 +173,6 @@ def build_config(args):
                           prefix=args.prefix_cache,
                           prefix_pages=args.prefix_cache_pages,
                           kv_dtype=args.kv_dtype))
-    warm_up(cfg, model, econf, device)
-    return cfg, model, econf, device
 
 
 def warm_up(cfg, model, config: EngineConfig, device) -> None:
@@ -376,6 +392,8 @@ def main(argv=None):
         ap.error("--itl-target-ms does not combine with --tp > 1: each rank "
                  "reads its own clock, so the ranks would shape their "
                  "budgets differently")
+    if engine_config(args).normalized().cache.paged:    # before any weight
+        check_pageable(configs.get_smoke_config(args.arch))
     if args.tp > 1:
         _spawn_tp(args)
     else:

@@ -7,8 +7,19 @@ approximation (``jax.nn.gelu(approximate=True)``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` first, as JAX rounds a Python scalar
+    (``jnp.asarray(value, dtype)``, or a weak-typed scalar meeting an array
+    of that dtype): the product or quotient with it is then one rounding,
+    as in the reference."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,

@@ -37,11 +37,14 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> Transformer:
     ``ffn.shared.{w_gate,w_up,w_down}`` when the config has shared
     experts) for a MoE, a layer norm's ``bias`` beside its ``scale``,
     ``lm_head`` when the embedding is untied, ``pos_embed`` under learned
-    positions and the ``encoder`` subtree ``{groups, final_norm,
-    pos_embed}`` of an encoder-decoder) → the port's module on
-    ``device``. Every leaf keeps its dtype (a MoE router stays f32)."""
+    positions, the ``encoder`` subtree ``{groups, final_norm, pos_embed}``
+    of an encoder-decoder, a recurrent layer's ``mixer`` leaves of
+    models/ssm.py, and zamba2's unstacked ``shared_block.{mixer, ffn}``
+    beside its sites' norms) → the port's module on ``device``. Every leaf
+    keeps its dtype (a MoE router and an mLSTM's ``w_if`` stay f32)."""
     if not cfg.tie_embeddings and "lm_head" not in tree:
         raise ValueError(f"{cfg.name}: an untied model needs its lm_head")
     keep = {k: tree[k] for k in ("embed", "final_norm", "groups", "lm_head",
-                                 "pos_embed", "encoder") if k in tree}
+                                 "pos_embed", "encoder", "shared_block")
+            if k in tree}
     return Transformer(cfg, _map(keep, torch.device(device)))

@@ -8,8 +8,12 @@ decoder) over encoder states, with dense MLPs (swiglu, squared-ReLU or
 whisper's GELU with biases) or a capacity-dispatched MoE (models/moe.py),
 RMS norms (zero-centred scales and sandwich post-norms where the config
 asks) or layer norms with biases, an optionally scaled embedding, learned
-positions, and whisper's encoder (``enc`` layers over stub frames,
-:func:`encode`).
+positions, whisper's encoder (``enc`` layers over stub frames,
+:func:`encode`), and the recurrent mixers of models/ssm.py (``mamba``,
+``mlstm``, ``slstm``: xlstm-1.3b, zamba2-1.2b) beside zamba2's
+weight-shared attention block (``shared`` sites: one copy of an attention
+mixer and MLP at the model's top level, ``shared_block``, with each site's
+own norms and KV cache).
 :func:`forward` runs prefill and decode over dense slot caches
 (:func:`init_caches`, models/attention.py); the paged steps
 (serve/paged_step.py) walk the same layers with the same pieces
@@ -28,7 +32,8 @@ holds the reference's parameter tree leaf for leaf::
      "groups": [ (pos0, pos1, ...) per group ][, "lm_head": [d, vocab]]
      [, "pos_embed": [learned_pos, d]]
      [, "encoder": {"groups": [...], "final_norm": {...},
-                    "pos_embed": [encoder_seq, d]}]}
+                    "pos_embed": [encoder_seq, d]}]
+     [, "shared_block": {"mixer": {wq, wk, wv, wo}, "ffn": {...}}]}
 
 where each pattern position holds ``{"ln1": {"scale"[, "bias"]},
 "mixer": {wq, wk, wv, wo[, bq, bk, bv]}, "ln2": {...}, "ffn": {w_gate,
@@ -38,19 +43,21 @@ mixer's ``wk`` / ``wv`` of fan-in ``cross_kv_dim`` and never a bias;
 for ``mlp="gelu"``; ``{router, w_gate, w_up, w_down[, shared: {w_gate,
 w_up, w_down}]}`` for a ``moe`` ffn, the experts on an ``[E, ...]``
 axis; ``ln1_post`` / ``ln2_post`` beside them under ``sandwich_norm``)
-with a leading ``count`` axis on every leaf.
+with a leading ``count`` axis on every leaf. A recurrent layer's ``mixer``
+holds models/ssm.py's leaves and it has no ``ln2`` / ``ffn``; a ``shared``
+site holds only its norms ``ln1`` / ``ln2``, its mixer and MLP being the
+unstacked ``shared_block``'s (:func:`units` hands them over).
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, blocks
+from repro_torch.models import attention, blocks, ssm
 from repro_torch.models import moe as moe_lib
 
 Pattern = Tuple[str, ...]
@@ -79,6 +86,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     learned_pos: Optional[int] = None  # whisper: learned positional embed size
     moe: Optional[moe_lib.MoeConfig] = None
+    mamba: Optional[ssm.Mamba2Config] = None
+    mlstm: Optional[ssm.MlstmConfig] = None
+    slstm: Optional[ssm.SlstmConfig] = None
     # encoder (whisper) / cross-kv (vlm) stubs
     encoder_groups: Tuple[Group, ...] = ()
     encoder_seq: int = 0             # stub frontend sequence length
@@ -123,12 +133,24 @@ def has_cross(cfg: ModelConfig) -> bool:
                for pattern, _ in cfg.groups for kind in pattern)
 
 
+def has_shared(cfg: ModelConfig) -> bool:
+    """True when a layer is a site of the weight-shared block (zamba2)."""
+    return any(parse_kind(kind)[0] == "shared"
+               for pattern, _ in cfg.groups for kind in pattern)
+
+
+DECODER_MIXERS = ("gqa", "global", "local", "cross", "shared") + \
+    ssm.RECURRENT
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is on this port's path: full-attention,
-    sliding-window or cross-attention mixers (``enc`` ones in the encoder
-    alone) with dense swiglu, squared-ReLU or GELU MLPs or a MoE (with
-    ``cfg.moe`` set), RMS or layer norms, no shared block, no softcap."""
-    for groups, mixers in ((cfg.groups, ("gqa", "global", "local", "cross")),
+    sliding-window, cross-attention or weight-shared attention mixers
+    (``enc`` ones in the encoder alone) with dense swiglu, squared-ReLU or
+    GELU MLPs or a MoE (with ``cfg.moe`` set), or a recurrent mixer
+    (``mamba`` / ``mlstm`` / ``slstm`` with its config set) with no ffn; a
+    ``shared`` site with an MLP; RMS or layer norms, no softcap."""
+    for groups, mixers in ((cfg.groups, DECODER_MIXERS),
                            (cfg.encoder_groups, ("enc",))):
         for pattern, _ in groups:
             for kind in pattern:
@@ -142,6 +164,15 @@ def check_supported(cfg: ModelConfig) -> None:
                     raise NotImplementedError(
                         f"repro_torch: ffn {ffn!r} is not ported yet "
                         "(ROADMAP queue 1, item 16)")
+                if mixer in ssm.RECURRENT and (
+                        ffn != "none" or getattr(cfg, mixer) is None):
+                    raise NotImplementedError(
+                        f"repro_torch: a {mixer!r} layer takes no ffn and "
+                        f"needs cfg.{mixer} (got {kind!r})")
+                if mixer == "shared" and ffn != "mlp":
+                    raise NotImplementedError(
+                        f"repro_torch: a shared site carries the shared "
+                        f"MLP (got {kind!r})")
     if cfg.mlp not in ("swiglu", "relu2", "gelu") or \
             cfg.norm not in ("rms", "layer") or cfg.logit_softcap:
         raise NotImplementedError(
@@ -189,9 +220,12 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     embedding N(0, 0.02²), learned positions (``pos_embed``, the
     encoder's too) N(0, 0.02²), norm scales 1 (0 when zero-centred: the
     norm multiplies by 1 + scale) and layer-norm biases 0, sandwich
-    post-norms beside them, QKV and GELU biases 0, and a MoE's leaves as
-    ``moe.leaf_shapes`` says (the router f32 whatever ``param_dtype``).
-    Leaves are made at ``cfg.param_dtype`` (a full-width model at bf16 passes
+    post-norms beside them, QKV and GELU biases 0, a MoE's leaves as
+    ``moe.leaf_shapes`` says (the router f32 whatever ``param_dtype``), a
+    recurrent layer's as ``ssm.LEAVES`` says (the mLSTM's ``w_if`` f32),
+    and the unstacked ``shared_block`` (an attention mixer and an MLP)
+    when a layer is a ``shared`` site. Leaves are made at
+    ``cfg.param_dtype`` (a full-width model at bf16 passes
     ``param_dtype=torch.bfloat16``, so the executor's cast to the compute
     dtype copies nothing). ``generator`` must live on ``device`` (a
     ``meta`` device allocates nothing, for counting parameters)."""
@@ -213,29 +247,49 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         fill = torch.zeros if cfg.zero_centered_norm else torch.ones
         return {"scale": fill(shape, dtype=dt, device=device)}
 
-    def mixer_tree(mixer, count):
+    def mixer_tree(mixer, lead):
+        """An attention mixer's leaves, each with the leading axes
+        ``lead`` (``(count,)`` in a group, ``()`` in the shared block)."""
         kvd = (cfg.cross_kv_dim or d) if mixer == "cross" else d
-        out = {"wq": normal((count, d, H * hd), 1 / math.sqrt(d)),
-               "wk": normal((count, kvd, K * hd), 1 / math.sqrt(kvd)),
-               "wv": normal((count, kvd, K * hd), 1 / math.sqrt(kvd)),
-               "wo": normal((count, H * hd, d), 1 / math.sqrt(H * hd))}
+        out = {"wq": normal(lead + (d, H * hd), 1 / math.sqrt(d)),
+               "wk": normal(lead + (kvd, K * hd), 1 / math.sqrt(kvd)),
+               "wv": normal(lead + (kvd, K * hd), 1 / math.sqrt(kvd)),
+               "wo": normal(lead + (H * hd, d), 1 / math.sqrt(H * hd))}
         if cfg.qkv_bias and mixer != "cross":
             for b, n in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
-                out[b] = zeros((count, n))
+                out[b] = zeros(lead + (n,))
         return out
 
-    def mlp_tree(count):
+    def recurrent_tree(mixer, count):
+        out = {}
+        for name, (shape, init) in ssm.LEAVES[mixer](
+                getattr(cfg, mixer)).items():
+            shape = (count,) + shape
+            if init == ssm.ONES:
+                out[name] = torch.ones(shape, dtype=dt, device=device)
+            elif init == ssm.ZEROS:
+                out[name] = zeros(shape)
+            elif init == ssm.A_LOG:
+                a = torch.linspace(1.0, 16.0, shape[-1], device=device)
+                out[name] = torch.log(a).to(dt).expand(shape).clone()
+            else:
+                out[name] = _normal(shape, init, generator, device,
+                                    torch.float32 if name in ssm.F32_LEAVES
+                                    else dt)
+        return out
+
+    def mlp_tree(lead):
         if cfg.mlp == "relu2":
-            return {"w_in": normal((count, d, f), 1 / math.sqrt(d)),
-                    "w_out": normal((count, f, d), 1 / math.sqrt(f))}
+            return {"w_in": normal(lead + (d, f), 1 / math.sqrt(d)),
+                    "w_out": normal(lead + (f, d), 1 / math.sqrt(f))}
         if cfg.mlp == "gelu":
-            return {"w_in": normal((count, d, f), 1 / math.sqrt(d)),
-                    "b_in": zeros((count, f)),
-                    "w_out": normal((count, f, d), 1 / math.sqrt(f)),
-                    "b_out": zeros((count, d))}
-        return {"w_gate": normal((count, d, f), 1 / math.sqrt(d)),
-                "w_up": normal((count, d, f), 1 / math.sqrt(d)),
-                "w_down": normal((count, f, d), 1 / math.sqrt(f))}
+            return {"w_in": normal(lead + (d, f), 1 / math.sqrt(d)),
+                    "b_in": zeros(lead + (f,)),
+                    "w_out": normal(lead + (f, d), 1 / math.sqrt(f)),
+                    "b_out": zeros(lead + (d,))}
+        return {"w_gate": normal(lead + (d, f), 1 / math.sqrt(d)),
+                "w_up": normal(lead + (d, f), 1 / math.sqrt(d)),
+                "w_down": normal(lead + (f, d), 1 / math.sqrt(f))}
 
     def groups_tree(groups):
         out = []
@@ -243,13 +297,17 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             per_pos = []
             for kind in pattern:
                 mixer, ffn = parse_kind(kind)
-                layer = {"ln1": norm((count, d)),
-                         "mixer": mixer_tree(mixer, count)}
+                layer = {"ln1": norm((count, d))}
+                if mixer in ssm.RECURRENT:
+                    layer["mixer"] = recurrent_tree(mixer, count)
+                elif mixer != "shared":   # a site's weights: shared_block
+                    layer["mixer"] = mixer_tree(mixer, (count,))
                 if ffn != "none":
                     layer["ln2"] = norm((count, d))
+                if ffn != "none" and mixer != "shared":
                     layer["ffn"] = (_init_moe(cfg.moe, count, generator,
                                               device, dt)
-                                    if ffn == "moe" else mlp_tree(count))
+                                    if ffn == "moe" else mlp_tree((count,)))
                 if cfg.sandwich_norm:
                     layer["ln1_post"] = norm((count, d))
                     if ffn != "none":
@@ -269,6 +327,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["encoder"] = {"groups": groups_tree(cfg.encoder_groups),
                              "final_norm": norm((d,)),
                              "pos_embed": normal((cfg.encoder_seq, d), 0.02)}
+    if has_shared(cfg):
+        params["shared_block"] = {"mixer": mixer_tree("shared", ()),
+                                  "ffn": mlp_tree(())}
     return Transformer(cfg, params)
 
 
@@ -296,6 +357,7 @@ class LayerStack(nn.Module):
     ``ln2_post`` where the tree has them). A norm's scale sits under its
     name and a layer norm's bias beside it as ``<name>_bias``. A MoE's
     shared experts (``ffn.shared.*`` in the tree) sit in ``ffn_shared``.
+    A ``shared`` site has no ``mixer`` / ``ffn`` of its own (None here).
     ``unit(u)`` gives layer ``u``'s views."""
     POST = ("ln1_post", "ln2_post")
 
@@ -303,10 +365,13 @@ class LayerStack(nn.Module):
         super().__init__()
         _set_norm(self, "ln1", tree["ln1"])
         self.mixer = nn.ParameterDict(
-            {k: _frozen(v) for k, v in tree["mixer"].items()})
+            {k: _frozen(v) for k, v in tree["mixer"].items()}) \
+            if "mixer" in tree else None
+        self.has_ln2 = "ln2" in tree
+        if self.has_ln2:
+            _set_norm(self, "ln2", tree["ln2"])
         self.has_ffn = "ffn" in tree
         if self.has_ffn:
-            _set_norm(self, "ln2", tree["ln2"])
             ffn = dict(tree["ffn"])
             shared = ffn.pop("shared", None)
             self.ffn = nn.ParameterDict(
@@ -322,10 +387,12 @@ class LayerStack(nn.Module):
         return self.ln1.shape[0]
 
     def unit(self, u: int) -> Dict[str, Any]:
-        out = {"ln1": _norm_leaf(self, "ln1", u),
-               "mixer": {k: v[u] for k, v in self.mixer.items()}}
-        if self.has_ffn:
+        out = {"ln1": _norm_leaf(self, "ln1", u)}
+        if self.mixer is not None:
+            out["mixer"] = {k: v[u] for k, v in self.mixer.items()}
+        if self.has_ln2:
             out["ln2"] = _norm_leaf(self, "ln2", u)
+        if self.has_ffn:
             out["ffn"] = {k: v[u] for k, v in self.ffn.items()}
             if self.ffn_shared is not None:
                 out["ffn"]["shared"] = {k: v[u] for k, v in
@@ -368,9 +435,23 @@ class Encoder(nn.Module):
         self.pos_embed = _frozen(tree["pos_embed"])
 
 
+class SharedBlock(nn.Module):
+    """zamba2's weight-shared block (the reference's
+    ``params["shared_block"]``): one attention ``mixer`` and one MLP
+    ``ffn``, unstacked, that every ``shared`` site runs."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        self.mixer = nn.ParameterDict(
+            {k: _frozen(v) for k, v in tree["mixer"].items()})
+        self.ffn = nn.ParameterDict(
+            {k: _frozen(v) for k, v in tree["ffn"].items()})
+
+
 class Transformer(nn.Module):
     """The model's weights (``embed``, ``final_norm``, ``groups``, optional
-    ``lm_head``, ``pos_embed`` and ``encoder``) in the reference layout;
+    ``lm_head``, ``pos_embed``, ``encoder`` and ``shared_block``) in the
+    reference layout;
     the forward passes and the paged steps (serve/paged_step.py) are plain
     functions over it. Weights carry no gradient: this port serves, it
     does not train yet."""
@@ -388,11 +469,14 @@ class Transformer(nn.Module):
                           else None)
         self.encoder = (Encoder(tree["encoder"]) if "encoder" in tree
                         else None)
+        self.shared_block = (SharedBlock(tree["shared_block"])
+                             if "shared_block" in tree else None)
         if bool(cfg.learned_pos) != (self.pos_embed is not None) or \
-                bool(cfg.encoder_groups) != (self.encoder is not None):
-            raise ValueError(f"{cfg.name}: pos_embed / encoder leaves do not "
-                             "match the config's learned_pos / "
-                             "encoder_groups")
+                bool(cfg.encoder_groups) != (self.encoder is not None) or \
+                has_shared(cfg) != (self.shared_block is not None):
+            raise ValueError(f"{cfg.name}: pos_embed / encoder / "
+                             "shared_block leaves do not match the config's "
+                             "learned_pos / encoder_groups / shared sites")
 
     def head(self) -> torch.Tensor:
         """[d, vocab]: the tied embedding's transpose or the LM head."""
@@ -428,20 +512,24 @@ def units(model: Transformer, caches):
     """Walk every layer in order: (kind, layer weights, that layer's views
     of ``caches``). Cache leaves carry a leading ``[count]`` axis per group
     position (dense slot caches from :func:`init_caches`, or page pools);
-    a layer's view drops it."""
+    a layer's view drops it. A ``shared`` site's weights are its own norms
+    with the shared block's ``mixer`` and ``ffn``."""
+    shared = model.shared_block
     for gi, (pattern, count) in enumerate(model.cfg.groups):
         for u in range(count):
             for i, kind in enumerate(pattern):
-                yield (kind, model.groups[gi][i].unit(u),
+                p = model.groups[gi][i].unit(u)
+                if parse_kind(kind)[0] == "shared":
+                    p["mixer"], p["ffn"] = dict(shared.mixer), dict(shared.ffn)
+                yield (kind, p,
                        {name: arr[u] for name, arr in caches[gi][i].items()})
 
 
-@functools.lru_cache(maxsize=None)
 def embed_scale(d_model: int, dtype: torch.dtype) -> float:
     """√d_model rounded to ``dtype`` first, as the reference's
     ``jnp.asarray(sqrt(d), compute_dtype)``: in bf16 √5376 = 73.32 is
-    73.5. The product with it is then one rounding, as in the reference."""
-    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
+    73.5."""
+    return blocks.rounded(math.sqrt(d_model), dtype)
 
 
 def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -490,14 +578,28 @@ def layer_post(p, x: torch.Tensor, att: torch.Tensor, ffn: str,
 # --------------------------------------------------------------------------
 # the dense forward pass over slot caches
 # --------------------------------------------------------------------------
+def _state_one(mixer: str, cfg: ModelConfig, batch: int, dtype, device):
+    """A recurrent layer's zeroed state (the reference's
+    ``*_init_state``): f32 ``ssm`` / ``c`` / ``n`` / ``h``, the conv
+    history at ``dtype``."""
+    if mixer == "mamba":
+        return ssm.mamba2_init_state(cfg.mamba, batch, dtype, device)
+    if mixer == "mlstm":
+        return ssm.mlstm_init_state(cfg.mlstm, batch, dtype, device)
+    return ssm.slstm_init_state(cfg.slstm, batch, device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 device=None):
-    """Zeroed slot caches aligned with ``cfg.groups``: per group, a tuple
-    per pattern position of ``{"k", "v"}`` [count, batch, K, S, hd] at
-    ``dtype`` (default: the compute dtype), S = max_seq, the ring of
-    ``min(max_seq, window)`` rows of a sliding-window layer, or the
-    ``encoder_seq`` rows of a cross layer (the reference's
-    ``_init_cache_one``)."""
+    """Zeroed slot caches aligned with ``cfg.groups`` (the reference's
+    ``_init_cache_one``): per group, a tuple per pattern position of
+    ``{"k", "v"}`` [count, batch, K, S, hd] at ``dtype`` (default: the
+    compute dtype), S = max_seq, the ring of ``min(max_seq, window)`` rows
+    of a sliding-window layer, or the ``encoder_seq`` rows of a cross
+    layer; or a recurrent layer's state, ``{"ssm" [count, batch, H, N,
+    P] f32, "conv" [count, batch, conv_k - 1, D]}`` (Mamba2, mLSTM) or
+    ``{"c", "n", "h"}`` [count, batch, H, hd] f32 (sLSTM), constant in
+    ``max_seq``."""
     check_supported(cfg)
     dtype = dtype or cfg.compute_dtype
     out = []
@@ -505,6 +607,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
         per_pos = []
         for kind in pattern:
             mixer = parse_kind(kind)[0]
+            if mixer in ssm.RECURRENT:
+                one = _state_one(mixer, cfg, batch, dtype, device)
+                per_pos.append({name: a[None].expand(
+                    (count,) + a.shape).clone() for name, a in one.items()})
+                continue
             window = cfg.window_of(mixer)
             S = min(max_seq, window) if window else max_seq
             if mixer == "cross":
@@ -543,6 +650,25 @@ def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     return _norm_apply(_norm_leaf(enc, "final_norm"), x, cfg)
 
 
+def recurrent_forward(mixer: str, p: Dict[str, torch.Tensor],
+                      h: torch.Tensor, cfg: ModelConfig,
+                      state: Dict[str, torch.Tensor], mode: str
+                      ) -> torch.Tensor:
+    """One recurrent layer (models/ssm.py) over its slots' state views,
+    written in place with the new state; returns y [B, L, d]. A decode
+    step continues from the state. A prefill starts from a zero state and
+    zero conv history, whatever the views hold: a slot's earlier sequence
+    (or the free slot's decode steps) must not leak into the next one.
+    The reference's dense engine starts from the slot's state as it
+    stands (see tests/test_torch_xlstm.py)."""
+    start = state if mode == "decode" else \
+        {name: torch.zeros_like(a) for name, a in state.items()}
+    y, new = ssm.FORWARD[mixer](p, h, getattr(cfg, mixer), start)
+    for name, a in state.items():
+        a.copy_(new[name])
+    return y
+
+
 def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
            mode: str, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The final hidden state [B, L, d] (before the final norm); see
@@ -576,7 +702,9 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
     for kind, p, cache in units(model, caches):
         mixer, ffn = parse_kind(kind)
         h = _norm_apply(p["ln1"], x, cfg)
-        if mixer == "cross":
+        if mixer in ssm.RECURRENT:
+            y = recurrent_forward(mixer, p["mixer"], h, cfg, cache, mode)
+        elif mixer == "cross":
             y = attention.cross_forward(p["mixer"], h, cfg, cache, extra)
         else:
             y = attention.gqa_forward(p["mixer"], h, positions, cfg, cache,
@@ -591,7 +719,7 @@ def forward(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
     in place) → (logits [B, L, vocab], caches).
 
     ``mode="prefill"``: ``cache_pos`` 0, every slot's prompt from position
-    0. ``mode="decode"``: L = 1 and ``cache_pos`` a [B] int tensor, slot b
+    0 (a recurrent layer from a zero state). ``mode="decode"``: L = 1 and ``cache_pos`` a [B] int tensor, slot b
     writing and reading at its own position ``cache_pos[b]`` (the
     reference's decode takes one shared position; see models/attention.py).
     ``extra``: a cross-attention model's encoder input at prefill (stub

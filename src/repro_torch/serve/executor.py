@@ -128,16 +128,22 @@ class Executor:
                 x = transformer.hidden(model, tokens, rows, 0, "prefill")
                 return transformer.logits(model, x[:, length - 1:length])[
                     0, 0].argmax().to(torch.int32), caches
-            B, L = caches[0][0]["k"].shape[1], tokens.shape[1]
+            # scratch as CachePool builds its caches (init_caches' default
+            # dtype), one row a slot (axis 1 of every leaf, whatever its
+            # kind); a KV leaf's first L rows land, a state leaf whole
+            B = next(iter(caches[0][0].values())).shape[1]
+            L = tokens.shape[1]
             every = tokens.new_zeros((B, L))
             every[slot] = tokens[0]
-            scratch = transformer.init_caches(
-                cfg, B, L, dtype=caches[0][0]["k"].dtype, device=self.device)
+            scratch = transformer.init_caches(cfg, B, L, device=self.device)
             x = transformer.hidden(model, every, scratch, 0, "prefill")
             for per_pos, new_pos in zip(caches, scratch):
-                for kv, new in zip(per_pos, new_pos):
-                    for n, a in kv.items():
-                        a[:, slot, :, :new[n].shape[3]] = new[n][:, slot]
+                for leaves, new in zip(per_pos, new_pos):
+                    for n, a in leaves.items():
+                        rows = a[:, slot]
+                        if n in ("k", "v"):
+                            rows = rows[:, :, :new[n].shape[3]]
+                        rows.copy_(new[n][:, slot])
             return transformer.logits(model, x[slot:slot + 1,
                                                length - 1:length])[
                 0, 0].argmax().to(torch.int32), caches

@@ -64,8 +64,12 @@ class CachePool:
     """Slot-based dense pool: ``n_slots`` decode slots over the model's slot
     caches (``[count, n_slots, K, max_seq, hd]`` leaves at the compute
     dtype; a sliding-window layer's leaves hold a ring of ``min(max_seq,
-    window)`` rows). ``lengths[slot]`` counts the slot's KV rows plus the token it
-    will decode next; ``seq_ids[slot]`` is -1 when the slot is free."""
+    window)`` rows; a recurrent layer's, its state, constant in
+    ``max_seq``). ``lengths[slot]`` counts the slot's KV rows plus the token it
+    will decode next; ``seq_ids[slot]`` is -1 when the slot is free. A
+    freed slot keeps its rows and state; the next prefill into it writes
+    its KV rows and starts its recurrent state from zero
+    (models/transformer.py ``recurrent_forward``)."""
 
     prefix = None       # no prefix index under the dense engine
 
@@ -103,15 +107,17 @@ class CachePool:
         return self.n_slots * self.max_seq * token_bytes(self.cfg)
 
     def leaf_nbytes(self) -> int:
-        """The bytes the cache leaves really hold, rings included."""
+        """The bytes the cache leaves really hold, rings and recurrent
+        state included."""
         return sum(a.nbytes for per_pos in self.caches for kv in per_pos
                    for a in kv.values())
 
 
 def token_bytes(cfg: transformer.ModelConfig) -> int:
     """Per-token cache footprint (all layers) for capacity planning, at
-    the reference's 2-byte estimate per element; sliding-window rings are
-    constant in the sequence length and, as in the reference, uncounted."""
+    the reference's 2-byte estimate per element; sliding-window rings and
+    recurrent state are constant in the sequence length and, as in the
+    reference, uncounted (zamba2's ``shared`` sites count)."""
     total = 0
     for pattern, count in cfg.groups:
         for kind in pattern:

@@ -4,7 +4,9 @@ Counterpart of the serving half of ``repro/train/step.py``
 (``make_prefill_step`` / ``make_decode_step``, ``step.py:93-110``), which
 the reference's dry-run lowers for its prefill / decode cells and through
 which it runs llama-3.2-vision-11b and whisper-medium: no serving engine
-of either package takes their encoder input (``extra``). Both steps are
+of either package takes their encoder input (``extra``). They run the
+recurrent archs (xlstm-1.3b, zamba2-1.2b) as they stand, each layer's
+state in the caches. Both steps are
 plain functions over the port's
 :class:`~repro_torch.models.transformer.Transformer` and the dense slot
 caches of :func:`~repro_torch.models.transformer.init_caches` (written in
@@ -34,7 +36,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 
 
 def _check_dtype(cfg: transformer.ModelConfig, model) -> None:
@@ -107,7 +109,9 @@ def attention_calls(cfg: transformer.ModelConfig, batch: int, prompt: int,
     ``encoder_seq`` rows of encoder input) and ``n_new - 1``
     ``make_decode_step`` calls at the scalar positions ``prompt, prompt +
     1, ...``, over caches of ``max_seq`` rows: by mixer kind (the encoder's
-    first), the prefill's kernel before the decode's."""
+    first), the prefill's kernel before the decode's. A ``shared`` site
+    attends as a ``gqa`` layer does; a recurrent layer (models/ssm.py)
+    calls no attention kernel and is not listed."""
     B, H, K, hd = batch, cfg.n_heads, cfg.n_kv, cfg.hd
     G, S_enc = H // K, cfg.encoder_seq
     layers = Counter(transformer.parse_kind(kind)[0]
@@ -117,6 +121,8 @@ def attention_calls(cfg: transformer.ModelConfig, batch: int, prompt: int,
     steps = range(prompt, prompt + n_new - 1)
     out = []
     for mixer, n in layers.items():
+        if mixer in ssm.RECURRENT:
+            continue
         if mixer == "enc":
             out.append(AttentionCalls(mixer, "flash_attention",
                                       (B, H, S_enc, hd), (B, H, S_enc, hd),

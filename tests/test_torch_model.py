@@ -105,7 +105,7 @@ def test_compute_dtype_override_and_unported_arch():
     assert cfg.compute_dtype is torch.float32
     assert tconfigs.get_config("qwen2-0.5b").compute_dtype is torch.bfloat16
     with pytest.raises(NotImplementedError):
-        tconfigs.get_config("xlstm-1.3b")
+        tconfigs.get_config("deepseek-v3-671b")
 
 
 def test_convert_copies_every_leaf_and_init_draws_reference_scales():
