@@ -255,6 +255,22 @@ Phases, each printed on its own line, none catching its own failure:
                and gates: cache leaves of 1,080,229,888 B,
                flash_attention 6 x 8 = 48 calls, flash_decode 6 x decode
                steps;
+  7o. serve deepseek-v3-671b  every layer at full width (d_model 7168,
+               128 heads, MLA q_lora 1536 / kv_lora 512 / qk_nope 128 /
+               qk_rope 64 / v_dim 128, dense d_ff 18432, 256 experts of
+               d_ff 2048 top-8 with 1 shared expert and a sigmoid router,
+               vocab 129280, untied) but CUT IN DEPTH to 3 dense + 2 MoE
+               layers of the published 3 + 58, the MTP head undrawn (the
+               published 682,636,457,984 parameters fit no card):
+               26,618,387,456 parameters drawn at bf16, seed 0, on the
+               same engine, traffic and gates: cache leaves of 94,371,840
+               B (5 layers x 8 x 2048 x (512 + 64) x 2 B), 5,760 B a
+               token, 0 launches of each of the four attention kernels
+               (MLA runs plain PyTorch, as the reference's runs plain
+               jnp); logged besides: each MoE layer's capacity drops at
+               the engine's first prefill (request 0 in slot 0, token 0
+               in the other 7 rows) and the profiled run's top 12
+               kernels;
   8. card/cpu  the smoke config in f32 on the card and on the CPU (asked
                for explicitly) gives equal greedy streams and equal
                preemption, swap, refusal and prefix-hit counters, on the
@@ -284,7 +300,9 @@ Phases, each printed on its own line, none catching its own failure:
                on six prompts of 33-70 tokens (past the smoke chunk of
                32) in 2 slots, whose streams and counters equal on both
                devices and whose slot-reuse streams each equal its
-               request served alone;
+               request served alone; deepseek-v3-671b's smoke config on
+               the same two mixes, streams and counters equal on both
+               devices;
   9. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
      launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
      ``_minitron4b``, ``_tp`` and ``_granite`` with phases 7f, 7g, 7h
@@ -303,10 +321,10 @@ Phases, each printed on its own line, none catching its own failure:
      layer in its phase and timed at that kind's shape in phase 5; and
      flash_attention_zamba2 and flash_decode_zamba2 with phase 7n's
      launches, timed in phase 5; every entry launched at least once).
-     The recurrent mixers of 7m / 7n (models/ssm.py) have no entry: the
-     reference computes them in plain jnp and reaches no pallas_call, so
-     the port runs them in plain PyTorch on the card by design (logged
-     beside the line). Then
+     The recurrent mixers of 7m / 7n (models/ssm.py) and 7o's MLA have
+     no entry: the reference computes them in plain jnp and reaches no
+     pallas_call, so the port runs them in plain PyTorch on the card by
+     design (logged beside the line). Then
      the card's name and power limit, then ``{"ok": true, "device":
      {...}}`` as the last line.
 
@@ -2059,10 +2077,12 @@ def device_busy(eng, prompts, window=PROFILE_WINDOW, n_top=5):
             busy_ms, wall * 1e3, top)
 
 
-def capacity_drops(model, cfg, prompt):
-    """(assignments dropped, routed) at each layer's MoE on one 256-token
-    chunk (the prompt's first 256 tokens, a prefill from position 0 over a
-    one-slot dense cache), counted with the port's own ``route`` /
+def capacity_drops(model, cfg, tokens):
+    """(assignments dropped, routed) at each layer's MoE on one prefill of
+    ``tokens`` [B, L] (host ints) from position 0 over fresh dense caches
+    (phases 7f / 7g / 7j: a 256-token chunk, one row; 7o: the dense
+    engine's first prefill, request 0's prompt in slot 0 and token 0 in
+    the other seven rows), counted with the port's own ``route`` /
     ``select`` on the layer's input, intercepted for this call alone."""
     from repro_torch.models import moe, transformer
     inner, seen = moe.dispatch_compute, []
@@ -2075,8 +2095,8 @@ def capacity_drops(model, cfg, prompt):
         return inner(xf, router_w, *weights)
 
     device = model.embed.device
-    caches = transformer.init_caches(cfg, 1, 256, device=device)
-    toks = torch.from_numpy(prompt[:256]).to(device)[None]
+    caches = transformer.init_caches(cfg, *tokens.shape, device=device)
+    toks = torch.from_numpy(tokens).to(device)
     moe.dispatch_compute = counting
     try:
         with torch.no_grad():
@@ -2156,7 +2176,7 @@ def zoo_serve(results, card: str, arch: str, profile: bool):
         f"{L} x {s['prefill_chunks']} prompt chunks")
     if cfg.moe:
         from repro_torch.models import moe
-        drops = capacity_drops(eng.model, cfg, prompts[0])
+        drops = capacity_drops(eng.model, cfg, prompts[0][None, :256])
         log(phase, f"capacity drops on one 256-token chunk (request 0's "
             f"first 256 tokens; C {moe.capacity(256, cfg.moe)} an expert of "
             f"{cfg.moe.n_experts}): layer 0 {drops[0][0]} of {drops[0][1]} "
@@ -2231,37 +2251,54 @@ def tp_serve(results, card: str, chunked):
         f"{r['wall_s']:.1f} s, the whole spawn {spawn_s:.1f} s")
 
 
-# phases 7i / 7m / 7n: an arch at full width through the dense engine, the
-# only one that serves it in either package (its local or recurrent layers
-# are not pageable); ``params`` / ``leaves``: the gates on its parameter
-# count and its 8 x 2048 slot pool's bytes; ``entries``: the kernels line's
-# (flash_attention, flash_decode) entries for its attention layers, none
-# when it has none (xlstm-1.3b: both kernels gated at 0 launches)
+# phases 7i / 7m / 7n / 7o: an arch at full width through the dense
+# engine, the only one that serves it in either package (its local,
+# recurrent or MLA layers are not pageable); ``params`` / ``leaves`` /
+# ``token_bytes``: the gates on its parameter count, its 8 x 2048 slot
+# pool's bytes and the reference's per-token estimate (rings and state
+# uncounted); ``entries``: the kernels line's (flash_attention,
+# flash_decode) entries for its attention layers, none when it has none
+# (xlstm-1.3b, deepseek-v3-671b: both kernels gated at 0 launches);
+# ``cut``: config overrides that cut the depth (deepseek-v3-671b's 1.37
+# TB fit no card: 3 dense + 2 MoE layers, every one at full width, the
+# MTP head undrawn)
 DENSE_ZOO = {
     "gemma3-27b": dict(
         phase="7i", params=27_008_986_368, leaves=4_831_838_208,
+        token_bytes=81_920,
         entries=("flash_attention_gemma3", "flash_decode_gemma3")),
     "xlstm-1.3b": dict(
         phase="7m", params=3_502_733_312, leaves=5_652_086_784,
-        entries=None),
+        token_bytes=0, entries=None),
     "zamba2-1.2b": dict(
         phase="7n", params=951_304_192, leaves=1_080_229_888,
-        entries=("flash_attention_zamba2", "flash_decode_zamba2"))}
+        token_bytes=49_152,
+        entries=("flash_attention_zamba2", "flash_decode_zamba2")),
+    "deepseek-v3-671b": dict(
+        phase="7o", params=26_618_387_456, leaves=94_371_840,
+        token_bytes=5_760, entries=None,
+        cut=dict(groups=((("mla:mlp",), 3), (("mla:moe",), 2)), mtp=False))}
 
 
 def dense_zoo_serve(results, card: str, arch: str):
-    """Phases 7i / 7m / 7n: ``arch`` at its published width (random
-    weights, seed 0, drawn at bf16; nothing cut) through the dense engine
-    (8 slots x 2048) on phase 7's traffic, after every earlier model is
-    freed. Both attention kernels counted from 0: one flash_attention a
-    prefill and one flash_decode a decode step in each attention layer
-    (gemma3-27b's 52 local layers on 1024-row rings and 10 global ones;
-    zamba2-1.2b's 6 shared sites; none in xlstm-1.3b, whose mLSTM / sLSTM
-    layers run models/ssm.py's plain PyTorch, as the reference's run plain
-    jnp). Then a second, profiled run with the same streams."""
+    """Phases 7i / 7m / 7n / 7o: ``arch`` at its published width (random
+    weights, seed 0, drawn at bf16; nothing cut, but deepseek-v3-671b's
+    depth, ``DENSE_ZOO``) through the dense engine (8 slots x 2048) on
+    phase 7's traffic, after every earlier model is freed. Both attention
+    kernels counted from 0: one flash_attention a prefill and one
+    flash_decode a decode step in each attention layer (gemma3-27b's 52
+    local layers on 1024-row rings and 10 global ones; zamba2-1.2b's 6
+    shared sites; none in xlstm-1.3b, whose mLSTM / sLSTM layers run
+    models/ssm.py's plain PyTorch, nor in deepseek-v3-671b, whose MLA
+    layers run plain PyTorch, as the reference's run plain jnp); the
+    paged kernels too, at 0. A MoE arch logs the capacity drops of each
+    MoE layer at its first prefill. Then a second, profiled run with the
+    same streams."""
     from repro_torch import configs
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
     from repro_torch.launch.serve import warm_up
     from repro_torch.models import ssm, transformer
     from repro_torch.serve.engine import Engine, EngineConfig
@@ -2270,11 +2307,17 @@ def dense_zoo_serve(results, card: str, arch: str):
     phase = f"serve {arch}"
     free_card(phase)
     torch.cuda.reset_peak_memory_stats()
-    cfg = configs.get_config(arch, param_dtype=torch.bfloat16)
+    cfg = configs.get_config(arch, param_dtype=torch.bfloat16,
+                             **spec.get("cut", {}))
     t0 = time.perf_counter()
     model = transformer.init_model(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     conf = EngineConfig(n_slots=8, max_seq=2048)
+    # one product first: cuBLAS keeps a 32 MiB workspace from its first
+    # call on a stream, which is no pool (deepseek's is 94 MB, so the gate
+    # below has 11.8 MB of slack; run alone, 7o met the workspace there)
+    eye = torch.eye(8, device="cuda", dtype=torch.bfloat16)
+    (eye @ eye).sum().item()
     before_warm_up = torch.cuda.memory_allocated()   # the weights and what
     warm_up(cfg, model, conf, "cuda")                # earlier phases keep
     after_warm_up = torch.cuda.memory_allocated()
@@ -2285,33 +2328,57 @@ def dense_zoo_serve(results, card: str, arch: str):
     assert isinstance(pool, CachePool) and n_par == spec["params"], n_par
     leaves = pool.leaf_nbytes()
     assert leaves == spec["leaves"], leaves
+    assert pool.token_bytes() == spec["token_bytes"], pool.token_bytes()
     # the warm-up's throwaway pool is gone before the timed one is made
     assert after_warm_up - before_warm_up < leaves // 8, \
         (after_warm_up, before_warm_up)
-    kinds = collections.Counter(k for pattern, count in cfg.groups
-                                for k in pattern for _ in range(count))
+    def kinds_of(c):
+        return collections.Counter(k for pattern, count in c.groups
+                                   for k in pattern for _ in range(count))
+
+    kinds, cut = kinds_of(cfg), "; nothing cut"
+    if "cut" in spec:
+        full = configs.get_config(arch)
+        n_full = transformer.count_params(
+            transformer.init_model(full, None, "meta"))
+        per_kind = ", ".join(f"{n} of {kinds_of(full)[k]} {k}"
+                             for k, n in kinds.items())
+        cut = (f"; CUT IN DEPTH to {cfg.n_layers()} of the published "
+               f"{full.n_layers()} layers ({per_kind}), every layer at "
+               f"full width, the MTP head "
+               f"{'drawn' if cfg.mtp else 'undrawn'} (the published "
+               f"{n_full} parameters fit no card)")
+    mla = (f" MLA q_lora {cfg.mla.q_lora} kv_lora {cfg.mla.kv_lora} "
+           f"qk_nope {cfg.mla.qk_nope} qk_rope {cfg.mla.qk_rope} v_dim "
+           f"{cfg.mla.v_dim}" if cfg.mla else "")
+    moe_w = (f" MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff "
+             f"{cfg.moe.d_ff} shared {cfg.moe.n_shared} router "
+             f"{cfg.moe.router}" if cfg.moe else "")
     log(phase, f"set-up {time.perf_counter() - t0:.2f} s: {arch} "
         f"{cfg.n_layers()} layers "
         f"({', '.join(f'{n} {k}' for k, n in kinds.items())}; window "
         f"{cfg.window}) d_model {cfg.d_model} heads {cfg.n_heads}/"
-        f"{cfg.n_kv} hd {cfg.hd} d_ff {cfg.d_ff} vocab {cfg.vocab} "
-        f"{'tied' if cfg.tie_embeddings else 'untied'}, {n_par} parameters "
-        f"in {eng.model.embed.dtype} ({2 * n_par} B); dense pool 8 slots x "
-        f"2048: cache leaves {leaves} B (the reference's estimate, rings "
-        f"and recurrent state uncounted: {pool.footprint_bytes()} B); "
+        f"{cfg.n_kv}{mla or f' hd {cfg.hd}'} d_ff {cfg.d_ff}{moe_w} vocab "
+        f"{cfg.vocab} {'tied' if cfg.tie_embeddings else 'untied'}{cut}; "
+        f"{n_par} parameters in {eng.model.embed.dtype} ({2 * n_par} B); "
+        f"dense pool 8 slots x 2048: cache leaves {leaves} B (the "
+        f"reference's estimate, rings and recurrent state uncounted: "
+        f"{pool.footprint_bytes()} B, {pool.token_bytes()} B a token); "
         f"memory before the warm-up {before_warm_up / 2**30:.2f} GiB, "
         f"after it {after_warm_up / 2**30:.2f} GiB, with the pool "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     lens, prompts = phase7_prompts(cfg.vocab)
-    da.flash_decode.launches = 0
-    fa.flash_attention.launches = 0
+    kernels = (da.flash_decode, fa.flash_attention, pda.paged_flash_decode,
+               ppa.paged_flash_prefill)
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     streams = serve(eng, prompts, 64)
     wall = time.perf_counter() - t0
-    n_dec, n_fa = da.flash_decode.launches, fa.flash_attention.launches
+    n_dec, n_fa, n_pd, n_pp = (k.launches for k in kernels)
     s = eng.stats_summary()
-    L = sum(n for k, n in kinds.items()
-            if transformer.parse_kind(k)[0] not in ssm.RECURRENT)
+    L = sum(n for k, n in kinds.items() if transformer.parse_kind(k)[0]
+            not in ssm.RECURRENT + ("mla",))
     toks = sum(len(t) for t in streams.values())
     assert len(streams) == 8 and toks == 8 * 64, (len(streams), toks)
     assert all(len(t) == 64 for t in streams.values())
@@ -2319,6 +2386,7 @@ def dense_zoo_serve(results, card: str, arch: str):
     assert s["decode_steps"] > 0, s
     assert n_fa == L * 8, (n_fa, L, s)
     assert n_dec == L * s["decode_steps"], (n_dec, L, s)
+    assert n_pd == n_pp == 0, (n_pd, n_pp)
     if spec["entries"]:
         results[spec["entries"][0]]["launches"] = n_fa
         results[spec["entries"][1]]["launches"] = n_dec
@@ -2331,12 +2399,28 @@ def dense_zoo_serve(results, card: str, arch: str):
         f"free, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; launches: flash_attention {n_fa} = {L} attention layers x "
         f"8 prefills, flash_decode {n_dec} = {L} x {s['decode_steps']} "
-        f"decode steps; request 0's first tokens {streams[0][:12]}")
+        f"decode steps, paged_flash_decode {n_pd}, paged_flash_prefill "
+        f"{n_pp}; request 0's first tokens {streams[0][:12]}")
+    if cfg.moe:
+        from repro_torch.models import moe
+        first = np.zeros((8, len(prompts[0])), np.int32)
+        first[0] = prompts[0]
+        drops = capacity_drops(eng.model, cfg, first)
+        log(phase, f"capacity drops at the first prefill (request 0's "
+            f"{len(prompts[0])} tokens in slot 0, token 0 in the other 7 "
+            f"rows: {first.size} tokens, C "
+            f"{moe.capacity(first.size, cfg.moe)} an expert of "
+            f"{cfg.moe.n_experts}): "
+            + ", ".join(f"MoE layer {i} {d} of {n} assignments"
+                        for i, (d, n) in enumerate(drops))
+            + f"; a decode step's 8 tokens: C "
+            f"{moe.capacity(8, cfg.moe)}, none can drop")
     del eng
     free_card(phase, "with the weights, before a second pool")
     eng = Engine(cfg, model, config=conf, device="cuda")
     t0 = time.perf_counter()
-    again, busy, wall_ms, top = device_busy(eng, prompts, n_top=8)
+    again, busy, wall_ms, top = device_busy(eng, prompts,
+                                            n_top=12 if cfg.moe else 8)
     assert again == streams, "a second run gave other streams"
     log(phase, f"{card}: profiled second run (iterations "
         f"{PROFILE_WINDOW[0]}-{PROFILE_WINDOW[1]}, the same streams; "
@@ -2747,21 +2831,23 @@ def card_vs_cpu():
             f"the counters {runs[1][1]}")
 
 
-def recurrent_vs_cpu():
-    """The xlstm-1.3b and zamba2-1.2b smoke configs in f32 through the
-    dense engine on the card and on the CPU: the ragged mix in four slots,
-    then six prompts past the smoke chunk of 32 tokens in two slots
-    (gla_chunked carries state across chunks; four requests land in
-    reused slots, whose prefill starts from a zero state). The same
-    streams and counters, and each slot-reuse stream equal to its request
-    served alone on the card."""
+def dense_zoo_vs_cpu():
+    """The xlstm-1.3b, zamba2-1.2b and deepseek-v3-671b smoke configs in
+    f32 through the dense engine on the card and on the CPU: the ragged
+    mix in four slots, then six prompts past the smoke chunk of 32 tokens
+    in two slots (gla_chunked carries state across chunks; four requests
+    land in reused slots, whose prefill starts from a zero state, or over
+    the latents an earlier request left). The same streams and counters,
+    and for the recurrent archs each slot-reuse stream equal to its
+    request served alone on the card (deepseek's MoE couples a call's
+    rows, so alone is another computation)."""
     from repro_torch import configs
     from repro_torch.models import transformer
     from repro_torch.serve.engine import Engine, EngineConfig
     counters = ("decode_steps", "decode_tokens", "prefills",
                 "admission_refusals")
     four = dict(n_slots=4, max_seq=64)
-    for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+    for arch in ("xlstm-1.3b", "zamba2-1.2b", "deepseek-v3-671b"):
         rcfg = configs.get_smoke_config(arch, compute_dtype=torch.float32)
         rmodel = transformer.init_model(rcfg,
                                         torch.Generator().manual_seed(0))
@@ -2780,7 +2866,9 @@ def recurrent_vs_cpu():
                 runs.append((serve(eng, rprompts, 6),
                              {k: eng.stats[k] for k in counters}))
             assert runs[1] == runs[0], (arch, what, runs)
-            if kw["n_slots"] < len(lens):
+            alone = kw["n_slots"] < len(lens) and \
+                not transformer.couples_rows(rcfg)
+            if alone:
                 for i, p in enumerate(rprompts):
                     alone = serve(Engine(rcfg, copy.deepcopy(rmodel),
                                          device="cuda",
@@ -2789,8 +2877,8 @@ def recurrent_vs_cpu():
             log("card/cpu", f"smoke config f32, {arch}, dense engine, "
                 f"{what}: {len(runs[1][0])} greedy streams equal on cuda and "
                 f"cpu, and the counters {runs[1][1]}"
-                + (", each stream equal to its request alone"
-                   if kw["n_slots"] < len(lens) else ""))
+                + (", each stream equal to its request alone" if alone
+                   else ""))
 
 
 def fleet_vs_single(cfg, model):
@@ -3037,14 +3125,14 @@ def main() -> int:
         cross_steps(results, card, arch)
         log(f"steps {arch}", f"phase {spec['phase']} in "
             f"{time.perf_counter() - t0:.1f} s")
-    for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+    for arch in ("xlstm-1.3b", "zamba2-1.2b", "deepseek-v3-671b"):
         t0 = time.perf_counter()
         dense_zoo_serve(results, card, arch)
         log(f"serve {arch}", f"phase {DENSE_ZOO[arch]['phase']} in "
             f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     card_vs_cpu()
-    recurrent_vs_cpu()
+    dense_zoo_vs_cpu()
     steps_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3052,7 +3140,9 @@ def main() -> int:
     kernels = [{k: r[k] for k in keys} for r in results.values()]
     assert all(math.isfinite(r["ms"]) for r in kernels)
     log("kernels", "no entry for models/ssm.py's Mamba2 / mLSTM / sLSTM "
-        "(phases 7m, 7n): the reference computes them in plain jnp and "
+        "(phases 7m, 7n) nor for deepseek-v3-671b's MLA (phase 7o, "
+        "models/attention.py mla_forward; its MoE's experts are torch.bmm, "
+        "as since 7j): the reference computes them in plain jnp and "
         "reaches no pallas_call, so they run plain PyTorch on the card by "
         "design, not for want of a port")
     assert all(r["launches"] > 0 for r in kernels), \

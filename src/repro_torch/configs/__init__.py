@@ -7,10 +7,13 @@ squared-ReLU MLPs or a capacity-dispatched MoE, full-attention or
 sliding-window, served by the engines; the recurrent families
 (xlstm-1.3b's mLSTM / sLSTM, zamba2-1.2b's Mamba2 with its weight-shared
 attention block), served by the dense engine only, as in the reference;
-and the cross-attention archs (llama-3.2-vision-11b, whisper-medium with
+the cross-attention archs (llama-3.2-vision-11b, whisper-medium with
 its encoder), which run through the prefill / decode steps of
-``train/step.py`` only, as in the reference. deepseek-v3-671b arrives
-with the model zoo (ROADMAP queue 1, item 16.7).
+``train/step.py`` only, as in the reference; and deepseek-v3-671b (MLA
+over a latent cache, 256 experts with a shared one), served by the dense
+engine only, as in the reference. Every arch of the reference's zoo is
+registered; its training path (deepseek's MTP loss and the no-cache MLA
+forward among it) waits for ROADMAP queue 1, item 16.8.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Tuple
 ARCHS: Tuple[str, ...] = ("qwen2-0.5b", "yi-34b", "minitron-4b",
                            "gemma3-27b", "granite-moe-3b-a800m",
                            "llama-3.2-vision-11b", "whisper-medium",
-                           "xlstm-1.3b", "zamba2-1.2b")
+                           "xlstm-1.3b", "zamba2-1.2b", "deepseek-v3-671b")
 
 
 def _module(arch: str):

@@ -60,6 +60,18 @@ pool's message::
       --slots 8 --max-seq 2048 --prompt-len 128 --prompt-len-max 1536 \\
       --max-new 64                                   # one card
 
+deepseek-v3-671b (MLA over a latent cache, 256 experts top-8 with a
+shared one) serves through the dense engine only, as in the reference:
+its MLA layers are not pageable, so ``--paged``, ``--chunked-prefill``,
+int8 pages and ``--tp`` refuse it with the page pool's message before
+any weight is drawn. Its published config (61 layers, 1.37 TB at bf16)
+fits no card (``--full`` runs out of device memory while drawing it);
+``chip_smoke.py`` phase 7o serves it at full width cut in depth to 3
+dense + 2 MoE layers::
+
+  python -m repro_torch.launch.serve --device cpu --arch deepseek-v3-671b \
+      --requests 3 --slots 2 --max-seq 48 --max-new 3   # the smoke config
+
 llama-3.2-vision-11b and whisper-medium are registered, but no engine
 serves them (the reference's neither: they need encoder input at
 prefill), so ``--arch`` with either raises a ValueError that names the

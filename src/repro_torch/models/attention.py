@@ -53,11 +53,32 @@ S_enc and never projects again. The **encoder's** ``enc`` layers
 (:func:`encoder_forward`, whisper) attend their S_enc frames with no
 cache: QKV with bias, then ``flash_attention(causal=False)``.
 
-Logit softcaps and MLA are not ported (ROADMAP queue 1, item 16).
+**MLA** (:func:`mla_forward`: deepseek-v3's multi-head latent attention;
+ref ``mla_forward``, ``attention.py:275``) caches one latent ``ckv``
+[B, S, kv_lora] and one rotary key ``kr`` [B, S, qk_rope] a token, shared
+by every head, and attends in the latent space in the reference's
+absorbed form, its einsums in f32: ``q_lat = q_nope · w_uk``, logits
+``(q_lat · ckv + q_rope · kr) / sqrt(qk_nope + qk_rope)``, masked at
+-1e30, then ``(softmax · ckv) · w_uv`` cast back, then ``wo``. The cache
+is read through the cast to the input's dtype, as the reference reads it.
+The same two cases as GQA: a decode step writes slot b's latent at its
+own ``cache_pos[b]`` and attends its first ``cache_pos[b] + 1`` rows (the
+reference's cached MLA takes one shared position, its dense engine's
+fault again); a prefill from position 0 lands the L latents in rows
+``[0, L)`` and attends them causally, ``MLA_Q_BLOCK`` query rows at a
+time (at full width the logits of 8 coupled rows of 1536 tokens would
+be 9.7 GB of f32 at once). It calls no hand-written kernel: the
+reference computes it in plain ``jnp`` and reaches no ``pallas_call``.
+The no-cache form (K/V expanded, the training path) waits for ROADMAP
+queue 1, item 16.8.
+
+Logit softcaps are not ported (ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -213,3 +234,115 @@ def encoder_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     att = attend(q, k.transpose(1, 2), v.transpose(1, 2),
                  cfg.n_heads // cfg.n_kv, causal=False)
     return att.reshape(B, S, -1).to(h.dtype) @ m["wo"]
+
+
+# --------------------------------------------------------------------------
+# MLA: multi-head latent attention (deepseek-v3)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MlaConfig:
+    """The reference's ``MlaConfig``, every field (``q_chunk`` /
+    ``kv_chunk`` drive only its no-cache streaming path)."""
+    d_model: int = 7168
+    n_heads: int = 128
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_dim: int = 128
+    rope_theta: float = 10000.0
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+
+
+MLA_Q_BLOCK = 256    # query rows a block of an MLA prefill's attention
+
+
+def mla_leaves(cfg: MlaConfig) -> Dict[str, Tuple[Tuple[int, ...],
+                                                  Optional[float]]]:
+    """The reference's ``init_mla`` leaves: name → (shape, std), std None
+    for a norm scale of ones. ``dense_init`` draws N(0, 1/fan_in), ``wo``
+    N(0, 1/(H·v_dim))."""
+    d, H = cfg.d_model, cfg.n_heads
+    shapes = {"w_dq": (d, cfg.q_lora), "q_norm": (cfg.q_lora,),
+              "w_uq": (cfg.q_lora, H * (cfg.qk_nope + cfg.qk_rope)),
+              "w_dkv": (d, cfg.kv_lora), "kv_norm": (cfg.kv_lora,),
+              "w_kr": (d, cfg.qk_rope),
+              "w_uk": (cfg.kv_lora, H * cfg.qk_nope),
+              "w_uv": (cfg.kv_lora, H * cfg.v_dim),
+              "wo": (H * cfg.v_dim, d)}
+    return {name: (shape, None if name.endswith("_norm")
+                   else 1 / math.sqrt(shape[0]))
+            for name, shape in shapes.items()}
+
+
+def _mla_attend(q_nope, q_rope, ckv, kr, mask, w_uk, w_uv,
+                cfg: MlaConfig) -> torch.Tensor:
+    """The reference's ``_mla_absorbed_attend``: q_nope [B, L, H, nope],
+    q_rope [B, L, H, rope] over the latents ckv [B, S, c] and kr [B, S,
+    rope], ``mask`` broadcasting to [B, H, L, S] (True: attended), w_uk
+    [c, H, nope] and w_uv [c, H, v] in f32 → [B, L, H, v] at q's dtype."""
+    ckv32 = ckv.float()
+    q_lat = torch.einsum("blhn,chn->blhc", q_nope.float(), w_uk)
+    logits = torch.einsum("blhc,bsc->bhls", q_lat, ckv32)
+    logits += torch.einsum("blhr,bsr->bhls", q_rope.float(), kr.float())
+    logits /= math.sqrt(cfg.qk_nope + cfg.qk_rope)
+    logits.masked_fill_(~mask, -1e30)
+    pr = torch.softmax(logits, dim=-1)
+    lat = torch.einsum("bhls,bsc->blhc", pr, ckv32)
+    return torch.einsum("blhc,chv->blhv", lat, w_uv).to(q_nope.dtype)
+
+
+def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
+                positions: torch.Tensor, cfg: MlaConfig,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_pos=None) -> torch.Tensor:
+    """One MLA layer over its latent slot cache; returns y [B, L, d].
+
+    h: [B, L, d] normed input; positions: [B, L] absolute; cache: ``{"ckv"
+    [B, S, kv_lora], "kr" [B, S, qk_rope]}``, written in place.
+    ``cache_pos`` selects the case as in :func:`gqa_forward`: a [B] int
+    tensor is a decode step, the int 0 a prefill of every slot from
+    position 0 (see the module docstring)."""
+    if cache is None:
+        raise NotImplementedError(
+            "mla_forward: the no-cache MLA forward (K/V expanded to head "
+            "dim qk_nope + qk_rope, V padded) is the training path, not "
+            "ported yet (ROADMAP queue 1, item 16.8)")
+    B, L, _ = h.shape
+    H, nope = cfg.n_heads, cfg.qk_nope
+    cq = blocks.rms_norm(m["q_norm"], h @ m["w_dq"])
+    q = (cq @ m["w_uq"]).reshape(B, L, H, nope + cfg.qk_rope)
+    q_nope = q[..., :nope]
+    q_rope = blocks.apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv = blocks.rms_norm(m["kv_norm"], h @ m["w_dkv"])         # [B, L, c]
+    k_rope = blocks.apply_rope((h @ m["w_kr"]).reshape(B, L, 1, cfg.qk_rope),
+                               positions, cfg.rope_theta)[:, :, 0]
+    w_uk = m["w_uk"].reshape(cfg.kv_lora, H, nope).float()
+    w_uv = m["w_uv"].reshape(cfg.kv_lora, H, cfg.v_dim).float()
+    cc, kc = cache["ckv"], cache["kr"]
+    S = cc.shape[1]
+    if isinstance(cache_pos, torch.Tensor):
+        if L != 1:
+            raise ValueError(f"mla_forward: a decode step takes one token a "
+                             f"slot, got L={L}")
+        pos = cache_pos.long()
+        slots = torch.arange(B, device=h.device)
+        cc[slots, pos] = ckv[:, 0].to(cc.dtype)
+        kc[slots, pos] = k_rope[:, 0].to(kc.dtype)
+        valid = torch.arange(S, device=h.device)[None] <= pos[:, None]
+        out = _mla_attend(q_nope, q_rope, cc.to(h.dtype), kc.to(h.dtype),
+                          valid[:, None, None], w_uk, w_uv, cfg)
+    elif cache_pos == 0:
+        cc[:, :L] = ckv.to(cc.dtype)
+        kc[:, :L] = k_rope.to(kc.dtype)
+        ckv_l, kr_l = cc[:, :L].to(h.dtype), kc[:, :L].to(h.dtype)
+        keys = torch.arange(L, device=h.device)
+        out = torch.cat([_mla_attend(
+            q_nope[:, r:r + MLA_Q_BLOCK], q_rope[:, r:r + MLA_Q_BLOCK],
+            ckv_l, kr_l, keys[None] <= keys[r:r + MLA_Q_BLOCK, None],
+            w_uk, w_uv, cfg) for r in range(0, L, MLA_Q_BLOCK)], dim=1)
+    else:
+        raise ValueError(f"mla_forward: cache_pos must be a [B] tensor "
+                         f"(decode) or 0 (prefill), got {cache_pos!r}")
+    return out.reshape(B, L, H * cfg.v_dim) @ m["wo"]

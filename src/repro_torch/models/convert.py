@@ -39,12 +39,16 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> Transformer:
     ``lm_head`` when the embedding is untied, ``pos_embed`` under learned
     positions, the ``encoder`` subtree ``{groups, final_norm, pos_embed}``
     of an encoder-decoder, a recurrent layer's ``mixer`` leaves of
-    models/ssm.py, and zamba2's unstacked ``shared_block.{mixer, ffn}``
-    beside its sites' norms) → the port's module on ``device``. Every leaf
-    keeps its dtype (a MoE router and an mLSTM's ``w_if`` stay f32)."""
+    models/ssm.py, zamba2's unstacked ``shared_block.{mixer, ffn}``
+    beside its sites' norms, an MLA layer's ``mixer.{w_dq, q_norm, w_uq,
+    w_dkv, kv_norm, w_kr, w_uk, w_uv, wo}``, and deepseek-v3's ``mtp.{proj,
+    block, norm}`` with ``block`` one unstacked layer) → the port's module
+    on ``device``. Every leaf keeps its dtype (a MoE router and an mLSTM's
+    ``w_if`` stay f32)."""
     if not cfg.tie_embeddings and "lm_head" not in tree:
         raise ValueError(f"{cfg.name}: an untied model needs its lm_head")
     keep = {k: tree[k] for k in ("embed", "final_norm", "groups", "lm_head",
-                                 "pos_embed", "encoder", "shared_block")
+                                 "pos_embed", "encoder", "shared_block",
+                                 "mtp")
             if k in tree}
     return Transformer(cfg, _map(keep, torch.device(device)))

@@ -13,7 +13,9 @@ positions, whisper's encoder (``enc`` layers over stub frames,
 ``mlstm``, ``slstm``: xlstm-1.3b, zamba2-1.2b) beside zamba2's
 weight-shared attention block (``shared`` sites: one copy of an attention
 mixer and MLP at the model's top level, ``shared_block``, with each site's
-own norms and KV cache).
+own norms and KV cache), and deepseek-v3's MLA layers (``mla``: a latent
+cache, models/attention.py ``mla_forward``) with its multi-token
+prediction head (``mtp``: drawn and held, read only by training).
 :func:`forward` runs prefill and decode over dense slot caches
 (:func:`init_caches`, models/attention.py); the paged steps
 (serve/paged_step.py) walk the same layers with the same pieces
@@ -33,7 +35,9 @@ holds the reference's parameter tree leaf for leaf::
      [, "pos_embed": [learned_pos, d]]
      [, "encoder": {"groups": [...], "final_norm": {...},
                     "pos_embed": [encoder_seq, d]}]
-     [, "shared_block": {"mixer": {wq, wk, wv, wo}, "ffn": {...}}]}
+     [, "shared_block": {"mixer": {wq, wk, wv, wo}, "ffn": {...}}]
+     [, "mtp": {"proj": [2d, d], "block": {one unstacked layer},
+                "norm": {"scale": [d]}}]}
 
 where each pattern position holds ``{"ln1": {"scale"[, "bias"]},
 "mixer": {wq, wk, wv, wo[, bq, bk, bv]}, "ln2": {...}, "ffn": {w_gate,
@@ -43,8 +47,9 @@ mixer's ``wk`` / ``wv`` of fan-in ``cross_kv_dim`` and never a bias;
 for ``mlp="gelu"``; ``{router, w_gate, w_up, w_down[, shared: {w_gate,
 w_up, w_down}]}`` for a ``moe`` ffn, the experts on an ``[E, ...]``
 axis; ``ln1_post`` / ``ln2_post`` beside them under ``sandwich_norm``)
-with a leading ``count`` axis on every leaf. A recurrent layer's ``mixer``
-holds models/ssm.py's leaves and it has no ``ln2`` / ``ffn``; a ``shared``
+with a leading ``count`` axis on every leaf. An ``mla`` layer's ``mixer``
+holds ``attention.mla_leaves``; a recurrent layer's holds models/ssm.py's
+leaves and it has no ``ln2`` / ``ffn``; a ``shared``
 site holds only its norms ``ln1`` / ``ln2``, its mixer and MLP being the
 unstacked ``shared_block``'s (:func:`units` hands them over).
 """
@@ -86,6 +91,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     learned_pos: Optional[int] = None  # whisper: learned positional embed size
     moe: Optional[moe_lib.MoeConfig] = None
+    mla: Optional[attention.MlaConfig] = None
     mamba: Optional[ssm.Mamba2Config] = None
     mlstm: Optional[ssm.MlstmConfig] = None
     slstm: Optional[ssm.SlstmConfig] = None
@@ -93,6 +99,7 @@ class ModelConfig:
     encoder_groups: Tuple[Group, ...] = ()
     encoder_seq: int = 0             # stub frontend sequence length
     cross_kv_dim: Optional[int] = None
+    mtp: bool = False                # deepseek multi-token prediction head
     # compute policy
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
@@ -139,17 +146,19 @@ def has_shared(cfg: ModelConfig) -> bool:
                for pattern, _ in cfg.groups for kind in pattern)
 
 
-DECODER_MIXERS = ("gqa", "global", "local", "cross", "shared") + \
+DECODER_MIXERS = ("gqa", "global", "local", "cross", "shared", "mla") + \
     ssm.RECURRENT
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is on this port's path: full-attention,
-    sliding-window, cross-attention or weight-shared attention mixers
-    (``enc`` ones in the encoder alone) with dense swiglu, squared-ReLU or
-    GELU MLPs or a MoE (with ``cfg.moe`` set), or a recurrent mixer
-    (``mamba`` / ``mlstm`` / ``slstm`` with its config set) with no ffn; a
-    ``shared`` site with an MLP; RMS or layer norms, no softcap."""
+    sliding-window, cross-attention, weight-shared or latent (``mla``, with
+    ``cfg.mla`` set) attention mixers (``enc`` ones in the encoder alone)
+    with dense swiglu, squared-ReLU or GELU MLPs or a MoE (with ``cfg.moe``
+    set), or a recurrent mixer (``mamba`` / ``mlstm`` / ``slstm`` with its
+    config set) with no ffn; a ``shared`` site with an MLP; RMS or layer
+    norms, no softcap. Every mixer and ffn of the reference's zoo is here;
+    what is left is the training path (ROADMAP queue 1, item 16.8)."""
     for groups, mixers in ((cfg.groups, DECODER_MIXERS),
                            (cfg.encoder_groups, ("enc",))):
         for pattern, _ in groups:
@@ -159,6 +168,10 @@ def check_supported(cfg: ModelConfig) -> None:
                     raise NotImplementedError(
                         f"repro_torch: mixer {mixer!r} is not ported yet "
                         "(ROADMAP queue 1, item 16)")
+                if mixer == "mla" and cfg.mla is None:
+                    raise NotImplementedError(
+                        f"repro_torch: an 'mla' layer needs cfg.mla (got "
+                        f"{kind!r})")
                 if ffn not in ("mlp", "none") and not (
                         ffn == "moe" and cfg.moe is not None):
                     raise NotImplementedError(
@@ -189,23 +202,31 @@ def check_supported(cfg: ModelConfig) -> None:
 DRAW_ELEMS = 2**28    # most elements of a 2-D leaf drawn in one f32 piece
 
 
+def _pieces(t: torch.Tensor):
+    """The views :func:`_normal` draws ``t`` in, in order: a leaf of more
+    than two axes one slice of its first axis at a time, each slice of more
+    than ``DRAW_ELEMS`` elements split again the same way; a 2-D one in
+    runs of whole rows of at most ``DRAW_ELEMS`` elements."""
+    if t.dim() > 2:
+        return [p for s in t
+                for p in (_pieces(s) if s.numel() > DRAW_ELEMS else (s,))]
+    if t.dim() == 2:
+        return t.split(max(1, DRAW_ELEMS // max(1, t.shape[1])))
+    return (t,)
+
+
 def _normal(shape, std: float, generator, device, dtype):
     """N(0, std²) at ``dtype``, drawn in f32 one ``[count]`` slice of a
     stacked leaf at a time: a whole f32 draw of yi-34b's ``[60, 7168,
     20480]`` MLP leaves would need a 35 GB temporary beside the weights.
-    A 2-D leaf of more than ``DRAW_ELEMS`` elements is drawn in runs of
-    whole rows of at most that many (gemma3-27b's ``[262144, 5376]``
-    embedding whole would be a 5.6 GB temporary)."""
+    A slice or a 2-D leaf of more than ``DRAW_ELEMS`` elements is drawn in
+    smaller pieces (:func:`_pieces`): gemma3-27b's ``[262144, 5376]``
+    embedding whole would be a 5.6 GB temporary, one layer of
+    deepseek-v3's ``[256, 7168, 2048]`` experts 15 GB."""
     out = torch.empty(shape, dtype=dtype, device=device)
     if out.device.type == "meta":
         return out
-    if len(shape) > 2:
-        parts = out
-    elif len(shape) == 2:
-        parts = out.split(max(1, DRAW_ELEMS // max(1, shape[1])))
-    else:
-        parts = (out,)
-    for part in parts:
+    for part in _pieces(out):
         w = torch.empty(part.shape, dtype=torch.float32, device=device)
         part.copy_(w.normal_(0.0, 1.0, generator=generator).mul_(std))
     return out
@@ -223,8 +244,11 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     post-norms beside them, QKV and GELU biases 0, a MoE's leaves as
     ``moe.leaf_shapes`` says (the router f32 whatever ``param_dtype``), a
     recurrent layer's as ``ssm.LEAVES`` says (the mLSTM's ``w_if`` f32),
-    and the unstacked ``shared_block`` (an attention mixer and an MLP)
-    when a layer is a ``shared`` site. Leaves are made at
+    an ``mla`` layer's as ``attention.mla_leaves`` says, the unstacked
+    ``shared_block`` (an attention mixer and an MLP) when a layer is a
+    ``shared`` site, and under ``cfg.mtp`` the multi-token prediction head
+    ``mtp``: ``proj`` [2d, d] N(0, 1/(2d)), one unstacked layer of the last
+    kind (``block``) and a norm. Leaves are made at
     ``cfg.param_dtype`` (a full-width model at bf16 passes
     ``param_dtype=torch.bfloat16``, so the executor's cast to the compute
     dtype copies nothing). ``generator`` must live on ``device`` (a
@@ -249,7 +273,13 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     def mixer_tree(mixer, lead):
         """An attention mixer's leaves, each with the leading axes
-        ``lead`` (``(count,)`` in a group, ``()`` in the shared block)."""
+        ``lead`` (``(count,)`` in a group, ``()`` in the shared block or
+        the MTP head)."""
+        if mixer == "mla":
+            return {name: torch.ones(lead + shape, dtype=dt, device=device)
+                    if std is None else normal(lead + shape, std)
+                    for name, (shape, std) in
+                    attention.mla_leaves(cfg.mla).items()}
         kvd = (cfg.cross_kv_dim or d) if mixer == "cross" else d
         out = {"wq": normal(lead + (d, H * hd), 1 / math.sqrt(d)),
                "wk": normal(lead + (kvd, K * hd), 1 / math.sqrt(kvd)),
@@ -260,11 +290,11 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 out[b] = zeros(lead + (n,))
         return out
 
-    def recurrent_tree(mixer, count):
+    def recurrent_tree(mixer, lead):
         out = {}
         for name, (shape, init) in ssm.LEAVES[mixer](
                 getattr(cfg, mixer)).items():
-            shape = (count,) + shape
+            shape = lead + shape
             if init == ssm.ONES:
                 out[name] = torch.ones(shape, dtype=dt, device=device)
             elif init == ssm.ZEROS:
@@ -291,30 +321,28 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 "w_up": normal(lead + (d, f), 1 / math.sqrt(d)),
                 "w_down": normal(lead + (f, d), 1 / math.sqrt(f))}
 
+    def layer_tree(kind, lead):
+        """One layer's leaves, each with the leading axes ``lead``."""
+        mixer, ffn = parse_kind(kind)
+        layer = {"ln1": norm(lead + (d,))}
+        if mixer in ssm.RECURRENT:
+            layer["mixer"] = recurrent_tree(mixer, lead)
+        elif mixer != "shared":   # a site's weights: shared_block
+            layer["mixer"] = mixer_tree(mixer, lead)
+        if ffn != "none":
+            layer["ln2"] = norm(lead + (d,))
+        if ffn != "none" and mixer != "shared":
+            layer["ffn"] = (_init_moe(cfg.moe, lead, generator, device, dt)
+                            if ffn == "moe" else mlp_tree(lead))
+        if cfg.sandwich_norm:
+            layer["ln1_post"] = norm(lead + (d,))
+            if ffn != "none":
+                layer["ln2_post"] = norm(lead + (d,))
+        return layer
+
     def groups_tree(groups):
-        out = []
-        for pattern, count in groups:
-            per_pos = []
-            for kind in pattern:
-                mixer, ffn = parse_kind(kind)
-                layer = {"ln1": norm((count, d))}
-                if mixer in ssm.RECURRENT:
-                    layer["mixer"] = recurrent_tree(mixer, count)
-                elif mixer != "shared":   # a site's weights: shared_block
-                    layer["mixer"] = mixer_tree(mixer, (count,))
-                if ffn != "none":
-                    layer["ln2"] = norm((count, d))
-                if ffn != "none" and mixer != "shared":
-                    layer["ffn"] = (_init_moe(cfg.moe, count, generator,
-                                              device, dt)
-                                    if ffn == "moe" else mlp_tree((count,)))
-                if cfg.sandwich_norm:
-                    layer["ln1_post"] = norm((count, d))
-                    if ffn != "none":
-                        layer["ln2_post"] = norm((count, d))
-                per_pos.append(layer)
-            out.append(tuple(per_pos))
-        return out
+        return [tuple(layer_tree(kind, (count,)) for kind in pattern)
+                for pattern, count in groups]
 
     params: Dict[str, Any] = {"groups": groups_tree(cfg.groups)}
     params["embed"] = normal((cfg.vocab, d), 0.02)
@@ -330,13 +358,18 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if has_shared(cfg):
         params["shared_block"] = {"mixer": mixer_tree("shared", ()),
                                   "ffn": mlp_tree(())}
+    if cfg.mtp:
+        params["mtp"] = {"proj": normal((2 * d, d), 1 / math.sqrt(2 * d)),
+                         "block": layer_tree(cfg.groups[-1][0][-1], ()),
+                         "norm": norm((d,))}
     return Transformer(cfg, params)
 
 
-def _init_moe(cfg: moe_lib.MoeConfig, count: int, generator, device, dt):
+def _init_moe(cfg: moe_lib.MoeConfig, lead: Tuple[int, ...], generator,
+              device, dt):
     out: Dict[str, Any] = {}
     for name, shape in moe_lib.leaf_shapes(cfg).items():
-        w = _normal((count,) + shape, 1 / math.sqrt(shape[0]), generator,
+        w = _normal(lead + shape, 1 / math.sqrt(shape[0]), generator,
                     device, torch.float32 if name == "router" else dt)
         head, _, leaf = name.rpartition(".")
         (out.setdefault(head, {}) if head else out)[leaf] = w
@@ -448,10 +481,23 @@ class SharedBlock(nn.Module):
             {k: _frozen(v) for k, v in tree["ffn"].items()})
 
 
+class MtpHead(nn.Module):
+    """deepseek-v3's multi-token prediction head (the reference's
+    ``params["mtp"]``): ``proj`` [2d, d], one unstacked ``block`` of the
+    model's last layer kind, and ``norm``. Only the reference's training
+    forward reads it (16.8); serving holds it and never does."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        self.proj = _frozen(tree["proj"])
+        self.block = LayerStack(tree["block"])
+        _set_norm(self, "norm", tree["norm"])
+
+
 class Transformer(nn.Module):
     """The model's weights (``embed``, ``final_norm``, ``groups``, optional
-    ``lm_head``, ``pos_embed``, ``encoder`` and ``shared_block``) in the
-    reference layout;
+    ``lm_head``, ``pos_embed``, ``encoder``, ``shared_block`` and ``mtp``)
+    in the reference layout;
     the forward passes and the paged steps (serve/paged_step.py) are plain
     functions over it. Weights carry no gradient: this port serves, it
     does not train yet."""
@@ -471,12 +517,15 @@ class Transformer(nn.Module):
                         else None)
         self.shared_block = (SharedBlock(tree["shared_block"])
                              if "shared_block" in tree else None)
+        self.mtp = MtpHead(tree["mtp"]) if "mtp" in tree else None
         if bool(cfg.learned_pos) != (self.pos_embed is not None) or \
                 bool(cfg.encoder_groups) != (self.encoder is not None) or \
-                has_shared(cfg) != (self.shared_block is not None):
+                has_shared(cfg) != (self.shared_block is not None) or \
+                cfg.mtp != (self.mtp is not None):
             raise ValueError(f"{cfg.name}: pos_embed / encoder / "
-                             "shared_block leaves do not match the config's "
-                             "learned_pos / encoder_groups / shared sites")
+                             "shared_block / mtp leaves do not match the "
+                             "config's learned_pos / encoder_groups / shared "
+                             "sites / mtp")
 
     def head(self) -> torch.Tensor:
         """[d, vocab]: the tied embedding's transpose or the LM head."""
@@ -599,7 +648,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     layer; or a recurrent layer's state, ``{"ssm" [count, batch, H, N,
     P] f32, "conv" [count, batch, conv_k - 1, D]}`` (Mamba2, mLSTM) or
     ``{"c", "n", "h"}`` [count, batch, H, hd] f32 (sLSTM), constant in
-    ``max_seq``."""
+    ``max_seq``; or an MLA layer's latents ``{"ckv" [count, batch, S,
+    kv_lora], "kr" [count, batch, S, qk_rope]}``."""
     check_supported(cfg)
     dtype = dtype or cfg.compute_dtype
     out = []
@@ -612,6 +662,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 per_pos.append({name: a[None].expand(
                     (count,) + a.shape).clone() for name, a in one.items()})
                 continue
+            if mixer == "mla":
+                per_pos.append({name: torch.zeros(
+                    (count, batch, max_seq, width), dtype=dtype,
+                    device=device) for name, width in (
+                        ("ckv", cfg.mla.kv_lora), ("kr", cfg.mla.qk_rope))})
+                continue
             window = cfg.window_of(mixer)
             S = min(max_seq, window) if window else max_seq
             if mixer == "cross":
@@ -621,6 +677,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 device=device) for name in ("k", "v")})
         out.append(tuple(per_pos))
     return out
+
+
+def cache_seq_axis(mixer: str) -> Optional[int]:
+    """The sequence axis of a ``mixer`` layer's cache leaves as
+    :func:`init_caches` makes them: 3 for K/V [count, batch, K, S, hd], 2
+    for MLA's latents [count, batch, S, c], None for recurrent state."""
+    if mixer in ssm.RECURRENT:
+        return None
+    return 2 if mixer == "mla" else 3
 
 
 def _encoder_units(model: Transformer):
@@ -706,6 +771,9 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
             y = recurrent_forward(mixer, p["mixer"], h, cfg, cache, mode)
         elif mixer == "cross":
             y = attention.cross_forward(p["mixer"], h, cfg, cache, extra)
+        elif mixer == "mla":
+            y = attention.mla_forward(p["mixer"], h, positions, cfg.mla,
+                                      cache, cache_pos)
         else:
             y = attention.gqa_forward(p["mixer"], h, positions, cfg, cache,
                                       cache_pos, window=cfg.window_of(mixer))

@@ -130,19 +130,25 @@ class Executor:
                     0, 0].argmax().to(torch.int32), caches
             # scratch as CachePool builds its caches (init_caches' default
             # dtype), one row a slot (axis 1 of every leaf, whatever its
-            # kind); a KV leaf's first L rows land, a state leaf whole
+            # kind); a sequence-indexed leaf's first rows land (as many as
+            # the scratch holds, on the axis its layer kind gives), a
+            # state leaf whole
             B = next(iter(caches[0][0].values())).shape[1]
             L = tokens.shape[1]
             every = tokens.new_zeros((B, L))
             every[slot] = tokens[0]
             scratch = transformer.init_caches(cfg, B, L, device=self.device)
             x = transformer.hidden(model, every, scratch, 0, "prefill")
-            for per_pos, new_pos in zip(caches, scratch):
-                for leaves, new in zip(per_pos, new_pos):
+            for (pattern, _), per_pos, new_pos in zip(cfg.groups, caches,
+                                                      scratch):
+                for kind, leaves, new in zip(pattern, per_pos, new_pos):
+                    axis = transformer.cache_seq_axis(
+                        transformer.parse_kind(kind)[0])
                     for n, a in leaves.items():
-                        rows = a[:, slot]
-                        if n in ("k", "v"):
-                            rows = rows[:, :, :new[n].shape[3]]
+                        rows = a[:, slot]             # the batch axis goes
+                        if axis is not None:
+                            rows = rows.narrow(axis - 1, 0,
+                                               new[n].shape[axis])
                         rows.copy_(new[n][:, slot])
             return transformer.logits(model, x[slot:slot + 1,
                                                length - 1:length])[

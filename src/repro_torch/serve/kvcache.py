@@ -64,7 +64,8 @@ class CachePool:
     """Slot-based dense pool: ``n_slots`` decode slots over the model's slot
     caches (``[count, n_slots, K, max_seq, hd]`` leaves at the compute
     dtype; a sliding-window layer's leaves hold a ring of ``min(max_seq,
-    window)`` rows; a recurrent layer's, its state, constant in
+    window)`` rows; an MLA layer's, its latents ``[count, n_slots,
+    max_seq, c]``; a recurrent layer's, its state, constant in
     ``max_seq``). ``lengths[slot]`` counts the slot's KV rows plus the token it
     will decode next; ``seq_ids[slot]`` is -1 when the slot is free. A
     freed slot keeps its rows and state; the next prefill into it writes
@@ -117,13 +118,16 @@ def token_bytes(cfg: transformer.ModelConfig) -> int:
     """Per-token cache footprint (all layers) for capacity planning, at
     the reference's 2-byte estimate per element; sliding-window rings and
     recurrent state are constant in the sequence length and, as in the
-    reference, uncounted (zamba2's ``shared`` sites count)."""
+    reference, uncounted (zamba2's ``shared`` sites count, an MLA layer
+    its latent and rotary key: ``(kv_lora + qk_rope) × 2``)."""
     total = 0
     for pattern, count in cfg.groups:
         for kind in pattern:
             mixer, _ = transformer.parse_kind(kind)
             if mixer in _PAGEABLE:
                 total += count * 2 * cfg.n_kv * cfg.hd * 2
+            elif mixer == "mla":
+                total += count * (cfg.mla.kv_lora + cfg.mla.qk_rope) * 2
     return total
 
 

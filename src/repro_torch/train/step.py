@@ -6,7 +6,8 @@ the reference's dry-run lowers for its prefill / decode cells and through
 which it runs llama-3.2-vision-11b and whisper-medium: no serving engine
 of either package takes their encoder input (``extra``). They run the
 recurrent archs (xlstm-1.3b, zamba2-1.2b) as they stand, each layer's
-state in the caches. Both steps are
+state in the caches, and deepseek-v3's MLA layers over their latent
+caches. Both steps are
 plain functions over the port's
 :class:`~repro_torch.models.transformer.Transformer` and the dense slot
 caches of :func:`~repro_torch.models.transformer.init_caches` (written in
@@ -25,8 +26,9 @@ place), whose weights must already be at the config's compute dtype::
 shape by shape, so that each kernel can be held against its plain version
 at exactly those shapes.
 
-The training half of that module (``make_loss_fn``, ``make_train_step``)
-waits for the training slice of ROADMAP item 16.
+The training half of that module (``make_loss_fn`` with deepseek's MTP
+term, ``make_train_step``) waits for the training slice, ROADMAP queue 1,
+item 16.8.
 """
 from __future__ import annotations
 
@@ -110,8 +112,9 @@ def attention_calls(cfg: transformer.ModelConfig, batch: int, prompt: int,
     ``make_decode_step`` calls at the scalar positions ``prompt, prompt +
     1, ...``, over caches of ``max_seq`` rows: by mixer kind (the encoder's
     first), the prefill's kernel before the decode's. A ``shared`` site
-    attends as a ``gqa`` layer does; a recurrent layer (models/ssm.py)
-    calls no attention kernel and is not listed."""
+    attends as a ``gqa`` layer does; a recurrent layer (models/ssm.py) or
+    an MLA layer (plain PyTorch, as the reference's is plain ``jnp``) calls
+    no attention kernel and is not listed."""
     B, H, K, hd = batch, cfg.n_heads, cfg.n_kv, cfg.hd
     G, S_enc = H // K, cfg.encoder_seq
     layers = Counter(transformer.parse_kind(kind)[0]
@@ -121,7 +124,7 @@ def attention_calls(cfg: transformer.ModelConfig, batch: int, prompt: int,
     steps = range(prompt, prompt + n_new - 1)
     out = []
     for mixer, n in layers.items():
-        if mixer in ssm.RECURRENT:
+        if mixer in ssm.RECURRENT or mixer == "mla":
             continue
         if mixer == "enc":
             out.append(AttentionCalls(mixer, "flash_attention",
