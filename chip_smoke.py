@@ -303,7 +303,37 @@ Phases, each printed on its own line, none catching its own failure:
                request served alone; deepseek-v3-671b's smoke config on
                the same two mixes, streams and counters equal on both
                devices;
-  9. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
+  9a. train qwen2-0.5b  the training path (launch/train.py ``train()``:
+               train/step.py, the training forward with flash_xla, the
+               loss, AdamW, checkpoints) on qwen2-0.5b at its published
+               width (24 layers, d_model 896, 14/2 heads, d_ff 4864, vocab
+               151936; random weights, seed 0), f32 master weights, bf16
+               compute, remat ``full``, sequence 4096 (the reference's
+               train_4k), batch 4 in 2 microbatches: 3 steps with a
+               checkpoint at step 2, then a second ``train()`` that
+               restores it and runs step 3 again. Gates: finite losses,
+               the resumed step 3's loss within 1e-3 of the first run's
+               and resumed at data step 2, 0 launches of each of the ten
+               hand-written kernels (the training path reaches none, as
+               the reference's reaches no pallas_call). Logs each step's
+               loss and ms (host clock, ending in a synchronize), the step
+               time and tokens/s of the restarted step 3 (the one step run
+               without the profiler after the warm-up), the peak memory,
+               and the device's busy share over steps 2-3 (torch.profiler)
+               with its top kernels;
+  9b. train card/cpu  2 steps of ``make_train_step`` (``grad_accum`` 2,
+               AdamW's default config) at the f32 smoke configs of
+               qwen2-0.5b and deepseek-v3-671b (MLA, the MoE aux, MTP),
+               from the same weights on the card (TF32 off) and the CPU:
+               losses and grad norms within 1e-4 relative, every weight
+               within 1e-4 relative (plus 2 x the two steps' learning
+               rates), and the update itself: each element's change over
+               a step within 1e-3 of lr (plus 2 f32 spacings of the new
+               weight) and the moments within 1e-4 of each leaf's
+               largest, but for the elements (at most 2 %, counted in the
+               log) whose CPU gradient is nonzero and within 1e-4 of its
+               leaf's largest, where Adam's step is the rounding's;
+  10. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
      launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
      ``_minitron4b``, ``_tp`` and ``_granite`` with phases 7f, 7g, 7h
      (rank 0's) and 7j's, each timed at its own phase 3 shape;
@@ -322,7 +352,8 @@ Phases, each printed on its own line, none catching its own failure:
      flash_attention_zamba2 and flash_decode_zamba2 with phase 7n's
      launches, timed in phase 5; every entry launched at least once).
      The recurrent mixers of 7m / 7n (models/ssm.py) and 7o's MLA have
-     no entry: the reference computes them in plain jnp and reaches no
+     no entry, nor has phase 9's training attention (models/flash_xla.py):
+     the reference computes them in plain jnp / XLA and reaches no
      pallas_call, so the port runs them in plain PyTorch on the card by
      design (logged beside the line). Then
      the card's name and power limit, then ``{"ok": true, "device":
@@ -2957,6 +2988,237 @@ def fleet_vs_single(cfg, model):
         f"the same {len(runs[1][2])} placements and fleet counters {stats}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the training path
+# ---------------------------------------------------------------------------
+TRAIN = dict(arch="qwen2-0.5b", seq=4096, batch=4, grad_accum=2, steps=3,
+             ckpt_every=2, lr=3e-3)
+
+
+def hand_written_kernels():
+    """The launch counter of each of the ten hand-written kernels' wrappers
+    (``.launches``), by name."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import polybench as pb
+    from repro_torch.kernels import tiled
+    return {"paged_flash_decode": pda.paged_flash_decode,
+            "paged_flash_prefill": ppa.paged_flash_prefill,
+            "flash_decode": da.flash_decode,
+            "flash_attention": fa.flash_attention, "gemm": gemm.gemm,
+            "matvec": pb.matvec, "matvec_t": pb.matvec_t,
+            "conv2d": pb.conv2d, "covar": pb.covar,
+            "autodma_tiled": tiled.launch}
+
+
+def train_full(card: str):
+    """Phase 9a (see the module docstring)."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import MANIFEST, CheckpointManager
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.serve import profile_rows, profiler
+    from repro_torch.models import transformer
+    phase = f"train {TRAIN['arch']}"
+    free_card(phase)
+    cfg = configs.get_config(TRAIN["arch"])
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == (
+        torch.float32, torch.bfloat16, "full"), cfg
+    n_par = transformer.count_params(transformer.init_model(cfg, None,
+                                                            "meta"))
+    ckpt = os.path.join(ROOT, "build", "train_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kernels = hand_written_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    steps, prof = [], profiler()
+
+    def on_step(step, loss, dt, state):
+        steps.append((step, loss, dt, time.perf_counter()))
+        if step == 1:                  # profile steps 2-3
+            torch.cuda.synchronize()
+            prof.start()
+        elif step == 3:
+            torch.cuda.synchronize()
+            prof.stop()
+
+    args = (TRAIN["arch"], False, TRAIN["steps"], ckpt, TRAIN["batch"],
+            TRAIN["seq"], TRAIN["lr"])
+    kw = dict(ckpt_every=TRAIN["ckpt_every"], grad_accum=TRAIN["grad_accum"],
+              device="cuda", log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train_lib.train(*args, on_step=on_step, **kw)
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    # host-clock breakdown of the run around its three steps
+    setup = steps[0][3] - steps[0][2] - t0
+    between = steps[2][3] - steps[2][2] - steps[1][3]
+    tail = t_end - steps[2][3]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {n: k.launches for n, k in kernels.items()}
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses), losses
+    assert not any(launches.values()), launches
+    busy_us, rows = profile_rows(prof)
+    # the step-2 checkpoint's snapshot (device-to-host copies) falls between
+    # the two profiled steps, outside their step times: left out of both
+    snap_us = sum(us for us, _, key in rows if key.startswith("Memcpy DtoH"))
+    busy_ms = (busy_us - snap_us) / 1e3
+    step_ms = [st[2] * 1e3 for st in steps]
+    prof_ms = step_ms[1] + step_ms[2]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    top = "; ".join(f"{us / 1e3:.1f} ms {n}x {key[:48]}"
+                    for us, n, key in rows[:8])
+    log(phase, f"{card}: {cfg.n_layers()} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv} d_ff {cfg.d_ff} vocab {cfg.vocab} "
+        f"(nothing cut), {n_par} parameters, f32 master weights, bf16 "
+        f"compute, remat {cfg.remat}; batch {TRAIN['batch']} x seq "
+        f"{TRAIN['seq']} in {TRAIN['grad_accum']} microbatches; losses "
+        + ", ".join(f"step {st[0]} {st[1]:.4f}" for st in steps)
+        + "; step ms " + ", ".join(f"{m:.1f}" for m in step_ms)
+        + " (host clock, each ending in a synchronize; step 1 with the "
+        f"warm-up, steps 2-3 under the profiler, so not the step time: "
+        f"see the restart below); tokens/s "
+        + ", ".join(f"{tokens / m * 1e3:.0f}" for m in step_ms)
+        + f"; peak memory {peak:.2f} GiB; {wall:.1f} s in train(): "
+        f"{setup:.1f} s before step 1 (weights, state), {between:.1f} s "
+        f"between steps 2 and 3 (the step-2 checkpoint's snapshot), "
+        f"{tail:.1f} s after step 3 (the profiler's stop, the last "
+        f"checkpoint); launches of the ten hand-written kernels: "
+        f"{sum(launches.values())}")
+    log(phase, f"{card}: device busy over steps 2-3 {busy_ms:.1f} ms of "
+        f"{prof_ms:.1f} ms ({100 * busy_ms / prof_ms:.1f} %; the step-2 "
+        f"checkpoint's {snap_us / 1e3:.1f} ms of device-to-host copies "
+        f"left out); top device ops: {top}")
+    # the restart: step 3's checkpoint removed, a second train() resumes
+    shutil.rmtree(os.path.join(ckpt, "step_00000003"))
+    assert CheckpointManager(ckpt).latest_step() == 2
+    again = []
+    t0 = time.perf_counter()
+    resumed = train_lib.train(
+        *args, on_step=lambda step, loss, dt, state: again.append(
+            (step, loss, dt)), **kw)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(ckpt, "step_00000003", MANIFEST)) as f:
+        data_step = json.load(f)["extra"]["data_step"]
+    rel = abs(resumed[0] - losses[2]) / abs(losses[2])
+    assert len(resumed) == 1 and again[0][0] == 3 and data_step == 3, \
+        (resumed, again, data_step)
+    assert rel <= 1e-3, (resumed, losses)
+    assert not any(k.launches for k in kernels.values())
+    shutil.rmtree(ckpt)
+    step_s = again[0][2]
+    log(phase, f"{card}: restart from the step-2 checkpoint: resumed at "
+        f"data step 2, step 3 loss {resumed[0]:.6f} against "
+        f"{losses[2]:.6f} uninterrupted (rel {rel:.2e}); {wall:.1f} s with "
+        f"the restore and the last checkpoint")
+    log(phase, f"{card}: step time (the restarted step 3, no profiler, "
+        f"host clock ending in a synchronize) {step_s * 1e3:.1f} ms, "
+        f"{tokens / step_s:.0f} tokens/s")
+
+
+def snapshot(state):
+    """(weights, m, v) of a train state as host numpy trees."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.train import step as step_lib
+    t = step_lib.state_tree(state)
+    return tuple(tree_lib.tree_map(tree_lib.to_host, x)
+                 for x in (t.params, t.opt.m, t.opt.v))
+
+
+def train_vs_cpu():
+    """Phase 9b (see the module docstring)."""
+    from repro_torch import configs
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    phase = "train card/cpu"
+    for arch in ("qwen2-0.5b", "deepseek-v3-671b"):
+        cfg = configs.get_smoke_config(arch, compute_dtype=torch.float32)
+        tree = params_to_numpy(transformer.init_model(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+        opt = adamw.Config()
+        ts = step_lib.make_train_step(cfg, opt, grad_accum=2)
+        dcfg = dp.DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                             mtp=cfg.mtp)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            state = step_lib.init_state(params_from_numpy(tree, cfg, dev))
+            metrics, trail = [], [snapshot(state)]
+            for s in range(2):
+                state, m = ts(state, dp.to_device(dp.make_batch(dcfg, s),
+                                                  dev))
+                metrics.append({k: float(v) for k, v in m.items()})
+                trail.append(snapshot(state))
+            runs[dev] = (metrics, trail)
+        (gm, gt), (cm, ct) = runs["cuda"], runs["cpu"]
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for g, c in zip(gm, cm):
+            for k in worst:
+                worst[k] = max(worst[k], abs(g[k] - c[k]) / abs(c[k]))
+        assert max(worst.values()) <= 1e-4, (arch, worst, gm, cm)
+        floor = 2 * sum(m["lr"] for m in cm)
+        keys = [key for key, _ in tree_lib.paths(gt[0][0])]
+        flagged, worst_update, n_out = None, (0.0, ""), []
+        for s in range(2):
+            (g_p0, _, _), (g_p1, g_m, g_v) = gt[s], gt[s + 1]
+            (c_p0, c_m0, _), (c_p1, c_m, c_v) = ct[s], ct[s + 1]
+            # the CPU's gradient as the optimizer saw it, from its first
+            # moment: an element whose Adam step the rounding decides is
+            # left out of the update's check from then on
+            now = []
+            for m0, m1 in zip(tree_lib.leaves(c_m0), tree_lib.leaves(c_m)):
+                a = np.abs((m1 - opt.b1 * m0) / (1 - opt.b1))
+                now.append((a > 0) & (a <= 1e-4 * a.max()))
+            flagged = now if flagged is None else [
+                a | b for a, b in zip(flagged, now)]
+            n_out.append(sum(int(f.sum()) for f in flagged))
+            lr = cm[s]["lr"]
+            for key, q0, q1, p0, p1, f in zip(
+                    keys, tree_lib.leaves(g_p0), tree_lib.leaves(g_p1),
+                    tree_lib.leaves(c_p0), tree_lib.leaves(c_p1), flagged):
+                # in units of lr, less the new weights' f32 rounding
+                err = (np.abs((q1 - q0) - (p1 - p0))
+                       - 2 * np.spacing(np.abs(p1)))[~f] / lr
+                top = float(err.max(initial=0))
+                if top > worst_update[0]:
+                    worst_update = (top, f"{key} after step {s + 1}")
+            for part, got, ref in (("m", g_m, c_m), ("v", g_v, c_v)):
+                for key, a, b, f in zip(keys, tree_lib.leaves(got),
+                                        tree_lib.leaves(ref), flagged):
+                    err = np.abs(a - b)[~f]
+                    assert (err <= 1e-4 * (np.abs(b)[~f] + np.abs(b).max())
+                            ).all(), (arch, s, part, key)
+        n_all = sum(f.size for f in flagged)
+        assert n_out[-1] <= 0.02 * n_all, (arch, n_out, n_all)
+        assert worst_update[0] <= 1e-3, (arch, worst_update)
+        n_leaves = 0
+        for key, a, b in zip(keys, tree_lib.leaves(gt[-1][0]),
+                             tree_lib.leaves(ct[-1][0])):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=floor,
+                                       err_msg=f"{arch} {key}")
+            n_leaves += 1
+        log(phase, f"{arch} f32 smoke, 2 steps of grad_accum 2 on card and "
+            "CPU from the same weights: losses "
+            + ", ".join(f"{g['loss']:.6f}/{c['loss']:.6f}"
+                        for g, c in zip(gm, cm))
+            + f" (card/cpu), worst rel loss {worst['loss']:.2e}, grad_norm "
+            f"{worst['grad_norm']:.2e}; all {n_leaves} weight leaves within "
+            f"1e-4 (+ {floor:.1e} abs); each element's change over a step "
+            f"within 1e-3 of lr (+ 2 f32 spacings), worst "
+            f"{worst_update[0]:.2e} of lr ({worst_update[1]}), and m, v "
+            f"within 1e-4 of each leaf's largest, but for "
+            f"{n_out[0]} / {n_out[1]} of {n_all} elements after steps 1 / 2 "
+            "whose CPU gradient is nonzero and within 1e-4 of its leaf's "
+            "largest (Adam's step there is the rounding's)")
+
+
 # the kernel templates' mangled names, as ptxas prints them, shortened
 PAGE_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "a": "int8"}
 KERNEL_NAMES = (
@@ -3135,6 +3397,13 @@ def main() -> int:
     dense_zoo_vs_cpu()
     steps_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_full(card)
+    log(f"train {TRAIN['arch']}", f"phase 9a in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_vs_cpu()
+    log("train card/cpu", f"phase 9b in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in results.values()]
@@ -3142,7 +3411,9 @@ def main() -> int:
     log("kernels", "no entry for models/ssm.py's Mamba2 / mLSTM / sLSTM "
         "(phases 7m, 7n) nor for deepseek-v3-671b's MLA (phase 7o, "
         "models/attention.py mla_forward; its MoE's experts are torch.bmm, "
-        "as since 7j): the reference computes them in plain jnp and "
+        "as since 7j), nor for phase 9's training attention "
+        "(models/flash_xla.py, whose counterpart is plain XLA with a "
+        "custom VJP): the reference computes them in plain jnp and "
         "reaches no pallas_call, so they run plain PyTorch on the card by "
         "design, not for want of a port")
     assert all(r["launches"] > 0 for r in kernels), \

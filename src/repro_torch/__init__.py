@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the ``repro`` serving stack for one NVIDIA H100.
+"""PyTorch/CUDA port of the ``repro`` package (its serving stack, kernel
+suite and training path) for one NVIDIA H100.
 
 The layout mirrors ``repro`` module for module. This package imports
 ``torch`` and numpy only: it never imports ``jax`` or anything of ``repro``

@@ -12,8 +12,8 @@ its encoder), which run through the prefill / decode steps of
 ``train/step.py`` only, as in the reference; and deepseek-v3-671b (MLA
 over a latent cache, 256 experts with a shared one), served by the dense
 engine only, as in the reference. Every arch of the reference's zoo is
-registered; its training path (deepseek's MTP loss and the no-cache MLA
-forward among it) waits for ROADMAP queue 1, item 16.8.
+registered, and each one trains (train/step.py, launch/train.py) through
+the no-cache forward, deepseek's MLA and MTP head among it.
 """
 from __future__ import annotations
 

@@ -69,10 +69,22 @@ fault again); a prefill from position 0 lands the L latents in rows
 time (at full width the logits of 8 coupled rows of 1536 tokens would
 be 9.7 GB of f32 at once). It calls no hand-written kernel: the
 reference computes it in plain ``jnp`` and reaches no ``pallas_call``.
-The no-cache form (K/V expanded, the training path) waits for ROADMAP
-queue 1, item 16.8.
 
-Logit softcaps are not ported (ROADMAP queue 1, item 16).
+**No cache: the training forward.** Every attention layer that runs with
+no cache goes through :func:`~repro_torch.models.flash_xla.
+flash_attention_xla` (plain PyTorch with its own backward, as the
+reference's ``_attend_streaming`` goes through its plain-XLA
+``flash_attention_xla``), never through the serving kernels:
+:func:`gqa_forward` with ``cache=None`` (causal, a ``local`` layer's
+window; an encoder's ``enc`` layer with ``causal=False``),
+:func:`cross_forward` with ``cache=None`` (K/V from the
+encoder states, non-causal, every key valid) and :func:`mla_forward`
+with ``cache=None`` (K and V expanded from the latent, ``ckv @ w_uk`` and
+``ckv @ w_uv``, the rotary key broadcast to every head: head dim qk_nope
++ qk_rope, V zero-padded to it and sliced back after).
+
+Logit softcaps are not ported on the serving path (ROADMAP queue 1, item
+16); the training attention takes the config's.
 """
 from __future__ import annotations
 
@@ -85,6 +97,7 @@ import torch
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import blocks
+from repro_torch.models.flash_xla import flash_attention_xla
 
 
 def check_dense(cfg) -> None:
@@ -139,9 +152,24 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, G: int,
         causal=causal, window=window).transpose(1, 2)
 
 
+def attend_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
+                 causal: bool, window: Optional[int] = None,
+                 kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The no-cache attention (the reference's ``_attend_streaming``): q
+    [B, L, H, hd] over k, v [B, S, K, hd] through ``flash_attention_xla``
+    with ``cfg``'s chunks and softcap (an :class:`MlaConfig` has none) →
+    [B, L, H, hd]."""
+    return flash_attention_xla(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
+        window, getattr(cfg, "logit_softcap", None), cfg.q_chunk,
+        cfg.kv_chunk, 0, kv_len_mask).transpose(1, 2)
+
+
 def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
-                positions: torch.Tensor, cfg, cache: Dict[str, torch.Tensor],
-                cache_pos, window: Optional[int] = None) -> torch.Tensor:
+                positions: torch.Tensor, cfg,
+                cache: Optional[Dict[str, torch.Tensor]], cache_pos,
+                window: Optional[int] = None,
+                causal: bool = True) -> torch.Tensor:
     """One layer's attention over its slot cache; returns y [B, L, d].
 
     h: [B, L, d] normed input; positions: [B, L] absolute; cache: ``{"k",
@@ -150,11 +178,17 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     ``cache_pos[b]`` and attends ``cache_pos[b] + 1`` rows); the int 0 is a
     prefill of every slot from position 0. ``window``: the layer's
     sliding window (``cfg.window_of(mixer)``); its cache is then a ring of
-    S ≤ window rows (see the module docstring).
+    S ≤ window rows (see the module docstring). With ``cache=None`` the
+    training forward: the L keys attended through
+    :func:`attend_train` (``causal``, ``window``), ``cache_pos`` unused.
     """
-    check_dense(cfg)
     B, L, _ = h.shape
     H, K = cfg.n_heads, cfg.n_kv
+    if cache is None:
+        q, k, v = qkv(m, h, positions, cfg)
+        att = attend_train(q, k, v, cfg, causal, window)
+        return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
+    check_dense(cfg)
     q, k, v = qkv(m, h, positions, cfg)
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[2]
@@ -190,7 +224,7 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
 
 
 def cross_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
-                  cache: Dict[str, torch.Tensor],
+                  cache: Optional[Dict[str, torch.Tensor]],
                   extra: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One cross-attention layer; returns y [B, L, d].
 
@@ -198,10 +232,19 @@ def cross_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
     With ``extra`` (the encoder states [B, S_enc, kv_dim], at h's dtype) a
     prefill: K/V projected from it land in ``cache`` (in place, at the
     cache's dtype) and the queries attend them un-cast. Without, a decode
-    step (L = 1) over the cache as it stands."""
+    step (L = 1) over the cache as it stands. With ``cache=None`` the
+    training forward: K/V from ``extra``, non-causal, every key valid
+    (:func:`attend_train` with an all-true ``kv_len_mask``)."""
     B, L, _ = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     q = (h @ m["wq"]).reshape(B, L, H, hd)
+    if cache is None:
+        S = extra.shape[1]
+        k = (extra @ m["wk"]).reshape(B, S, K, hd)
+        v = (extra @ m["wv"]).reshape(B, S, K, hd)
+        valid = torch.ones(B, S, dtype=torch.bool, device=h.device)
+        att = attend_train(q, k, v, cfg, False, kv_len_mask=valid)
+        return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[2]
     if extra is not None:
@@ -303,12 +346,9 @@ def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     [B, S, kv_lora], "kr" [B, S, qk_rope]}``, written in place.
     ``cache_pos`` selects the case as in :func:`gqa_forward`: a [B] int
     tensor is a decode step, the int 0 a prefill of every slot from
-    position 0 (see the module docstring)."""
-    if cache is None:
-        raise NotImplementedError(
-            "mla_forward: the no-cache MLA forward (K/V expanded to head "
-            "dim qk_nope + qk_rope, V padded) is the training path, not "
-            "ported yet (ROADMAP queue 1, item 16.8)")
+    position 0 (see the module docstring). With ``cache=None`` the
+    training forward, K/V expanded (the reference's ``attention.py:
+    302-324``)."""
     B, L, _ = h.shape
     H, nope = cfg.n_heads, cfg.qk_nope
     cq = blocks.rms_norm(m["q_norm"], h @ m["w_dq"])
@@ -318,6 +358,8 @@ def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     ckv = blocks.rms_norm(m["kv_norm"], h @ m["w_dkv"])         # [B, L, c]
     k_rope = blocks.apply_rope((h @ m["w_kr"]).reshape(B, L, 1, cfg.qk_rope),
                                positions, cfg.rope_theta)[:, :, 0]
+    if cache is None:
+        return _mla_expanded(m, q_nope, q_rope, ckv, k_rope, cfg)
     w_uk = m["w_uk"].reshape(cfg.kv_lora, H, nope).float()
     w_uv = m["w_uv"].reshape(cfg.kv_lora, H, cfg.v_dim).float()
     cc, kc = cache["ckv"], cache["kr"]
@@ -345,4 +387,23 @@ def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     else:
         raise ValueError(f"mla_forward: cache_pos must be a [B] tensor "
                          f"(decode) or 0 (prefill), got {cache_pos!r}")
+    return out.reshape(B, L, H * cfg.v_dim) @ m["wo"]
+
+
+def _mla_expanded(m, q_nope, q_rope, ckv, k_rope, cfg: MlaConfig
+                  ) -> torch.Tensor:
+    """The no-cache MLA attention: K = [ckv·w_uk, k_rope on every head], V
+    = ckv·w_uv zero-padded from v_dim to qk_nope + qk_rope, causal, through
+    :func:`attend_train` with n_kv = H and the MLA config's chunks; V's
+    padding sliced off → y [B, L, d]."""
+    B, L, H = q_nope.shape[0], q_nope.shape[1], cfg.n_heads
+    dk = cfg.qk_nope + cfg.qk_rope
+    k_nope = (ckv @ m["w_uk"]).reshape(B, L, H, cfg.qk_nope)
+    v = (ckv @ m["w_uv"]).reshape(B, L, H, cfg.v_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, L, H, cfg.qk_rope)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    if cfg.v_dim != dk:
+        v = torch.nn.functional.pad(v, (0, dk - cfg.v_dim))
+    out = attend_train(q, k, v, cfg, True)[..., :cfg.v_dim]
     return out.reshape(B, L, H * cfg.v_dim) @ m["wo"]

@@ -1,10 +1,12 @@
-"""Carry reference weights into the port.
+"""Carry weights between the reference's tree and the port.
 
 ``params_from_numpy`` takes the reference parameter tree with its leaves
 already turned into numpy arrays (``blocks.split_params(init_model(...))[0]``
 mapped through ``np.asarray``) and builds the port's
-:class:`~repro_torch.models.transformer.Transformer`. Both sides use the
-same layout, so every leaf is a copy: no transpose, no reshape.
+:class:`~repro_torch.models.transformer.Transformer`; ``params_to_numpy``
+is the way back, the port's leaves as that numpy tree (checkpoints, the
+tests). Both sides use the same layout, so every leaf is a copy: no
+transpose, no reshape.
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import ModelConfig, Transformer
+from repro_torch.core import tree as tree_lib
+from repro_torch.models.transformer import (ModelConfig, Transformer,
+                                            param_tree)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -52,3 +56,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> Transformer:
                                  "mtp")
             if k in tree}
     return Transformer(cfg, _map(keep, torch.device(device)))
+
+
+def params_to_numpy(model: Transformer):
+    """The port's leaves as the reference's tree of numpy arrays (each a
+    host copy at its leaf's dtype; a bf16 leaf comes back as f32, numpy
+    having no bfloat16)."""
+    return tree_lib.tree_map(tree_lib.to_host, param_tree(model))

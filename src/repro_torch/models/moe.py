@@ -13,7 +13,8 @@ rounding of the f32 products):
 
   * router logits are f32 products of the input and the router; gates are
     cast back to the input's dtype;
-  * ``gate_mat`` [max(N, C), E] is f32; each expert selects its top C
+  * ``gate_mat`` [N, E] is f32 (``capacity`` keeps C ≤ N, so the
+    reference's rows past N never occur); each expert selects its top C
     tokens, equal gates in token order (``jax.lax.top_k``'s order: here a
     stable descending sort, since ``torch.topk`` leaves the order of ties
     undefined on CUDA); a selection with gate 0 maps to token 0 with zero
@@ -22,6 +23,11 @@ rounding of the f32 products):
     rounded at the compute dtype, as the reference's scatter-add does. It
     gathers, never scatters with atomics, so a second run gives the same
     bits.
+
+Every step is differentiable in the gates and the expert weights (the
+gate matrix is scattered out of place, the selections and the combine are
+index ops), so the training forward runs the same code, and
+:func:`moe_forward`'s aux term reaches its loss.
 
 Shapes are static (C from host ints): the path has no device→host read.
 The expert products are ``torch.bmm``, as the reference computes them
@@ -108,9 +114,9 @@ def select(gates: torch.Tensor, idx: torch.Tensor, cfg: MoeConfig
     points at token 0."""
     N = gates.shape[0]
     C = capacity(N, cfg)
-    gate_mat = torch.zeros(max(N, C), cfg.n_experts, dtype=torch.float32,
-                           device=gates.device)
-    gate_mat[:N].scatter_(1, idx.long(), gates.float())
+    gate_mat = torch.zeros(N, cfg.n_experts, dtype=torch.float32,
+                           device=gates.device).scatter(
+                               1, idx.long(), gates.float())   # C ≤ N
     sel_gates, sel_tok = _top_k(gate_mat.t(), C)               # [E, C]
     sel_valid = sel_gates > 0.0
     sel_tok = torch.where(sel_valid, sel_tok.clamp_max(N - 1),

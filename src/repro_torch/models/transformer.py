@@ -17,7 +17,9 @@ own norms and KV cache), and deepseek-v3's MLA layers (``mla``: a latent
 cache, models/attention.py ``mla_forward``) with its multi-token
 prediction head (``mtp``: drawn and held, read only by training).
 :func:`forward` runs prefill and decode over dense slot caches
-(:func:`init_caches`, models/attention.py); the paged steps
+(:func:`init_caches`, models/attention.py) and, with ``mode="train"``,
+the training forward (:func:`train_forward`: no caches, the reference's
+``forward(mode="train")``); the paged steps
 (serve/paged_step.py) walk the same layers with the same pieces
 (:func:`embed`, :func:`layer_pre`, :func:`layer_post`, :func:`logits`)
 over a page pool. :class:`ModelConfig` keeps every field of the reference
@@ -56,12 +58,15 @@ unstacked ``shared_block``'s (:func:`units` hands them over).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tree as tree_lib
 from repro_torch.models import attention, blocks, ssm
 from repro_torch.models import moe as moe_lib
 
@@ -157,8 +162,8 @@ def check_supported(cfg: ModelConfig) -> None:
     with dense swiglu, squared-ReLU or GELU MLPs or a MoE (with ``cfg.moe``
     set), or a recurrent mixer (``mamba`` / ``mlstm`` / ``slstm`` with its
     config set) with no ffn; a ``shared`` site with an MLP; RMS or layer
-    norms, no softcap. Every mixer and ffn of the reference's zoo is here;
-    what is left is the training path (ROADMAP queue 1, item 16.8)."""
+    norms, no softcap. Every mixer and ffn of the reference's zoo is here,
+    for serving and for the training forward alike."""
     for groups, mixers in ((cfg.groups, DECODER_MIXERS),
                            (cfg.encoder_groups, ("enc",))):
         for pattern, _ in groups:
@@ -398,7 +403,7 @@ class LayerStack(nn.Module):
         super().__init__()
         _set_norm(self, "ln1", tree["ln1"])
         self.mixer = nn.ParameterDict(
-            {k: _frozen(v) for k, v in tree["mixer"].items()}) \
+            {k: _leaf(v) for k, v in tree["mixer"].items()}) \
             if "mixer" in tree else None
         self.has_ln2 = "ln2" in tree
         if self.has_ln2:
@@ -408,9 +413,9 @@ class LayerStack(nn.Module):
             ffn = dict(tree["ffn"])
             shared = ffn.pop("shared", None)
             self.ffn = nn.ParameterDict(
-                {k: _frozen(v) for k, v in ffn.items()})
+                {k: _leaf(v) for k, v in ffn.items()})
             self.ffn_shared = None if shared is None else nn.ParameterDict(
-                {k: _frozen(v) for k, v in shared.items()})
+                {k: _leaf(v) for k, v in shared.items()})
         self.post = tuple(n for n in self.POST if n in tree)
         for name in self.post:
             _set_norm(self, name, tree[name])
@@ -418,6 +423,22 @@ class LayerStack(nn.Module):
     @property
     def count(self) -> int:
         return self.ln1.shape[0]
+
+    def tree(self) -> Dict[str, Any]:
+        """The position's leaves in the reference's layout (stacked, or the
+        MTP head's unstacked block)."""
+        out = {"ln1": _norm_leaf(self, "ln1")}
+        if self.mixer is not None:
+            out["mixer"] = dict(self.mixer)
+        if self.has_ln2:
+            out["ln2"] = _norm_leaf(self, "ln2")
+        if self.has_ffn:
+            out["ffn"] = dict(self.ffn)
+            if self.ffn_shared is not None:
+                out["ffn"]["shared"] = dict(self.ffn_shared)
+        for name in self.post:
+            out[name] = _norm_leaf(self, name)
+        return out
 
     def unit(self, u: int) -> Dict[str, Any]:
         out = {"ln1": _norm_leaf(self, "ln1", u)}
@@ -438,9 +459,9 @@ class LayerStack(nn.Module):
 def _set_norm(mod: nn.Module, name: str, leaf: Dict[str, Any]) -> None:
     """A norm leaf onto ``mod``: its scale as ``<name>``, a layer norm's
     bias as ``<name>_bias`` (None without one)."""
-    setattr(mod, name, _frozen(leaf["scale"]))
+    setattr(mod, name, _leaf(leaf["scale"]))
     setattr(mod, name + "_bias",
-            _frozen(leaf["bias"]) if "bias" in leaf else None)
+            _leaf(leaf["bias"]) if "bias" in leaf else None)
 
 
 def _norm_leaf(mod: nn.Module, name: str, u: Optional[int] = None):
@@ -465,7 +486,7 @@ class Encoder(nn.Module):
         super().__init__()
         self.groups = _stacks(tree["groups"])
         _set_norm(self, "final_norm", tree["final_norm"])
-        self.pos_embed = _frozen(tree["pos_embed"])
+        self.pos_embed = _leaf(tree["pos_embed"])
 
 
 class SharedBlock(nn.Module):
@@ -476,20 +497,21 @@ class SharedBlock(nn.Module):
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
         self.mixer = nn.ParameterDict(
-            {k: _frozen(v) for k, v in tree["mixer"].items()})
+            {k: _leaf(v) for k, v in tree["mixer"].items()})
         self.ffn = nn.ParameterDict(
-            {k: _frozen(v) for k, v in tree["ffn"].items()})
+            {k: _leaf(v) for k, v in tree["ffn"].items()})
 
 
 class MtpHead(nn.Module):
     """deepseek-v3's multi-token prediction head (the reference's
     ``params["mtp"]``): ``proj`` [2d, d], one unstacked ``block`` of the
-    model's last layer kind, and ``norm``. Only the reference's training
-    forward reads it (16.8); serving holds it and never does."""
+    model's last layer kind, and ``norm``. Only the training forward reads
+    it (:func:`train_forward` with ``next_tokens``); serving holds it and
+    never does."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
-        self.proj = _frozen(tree["proj"])
+        self.proj = _leaf(tree["proj"])
         self.block = LayerStack(tree["block"])
         _set_norm(self, "norm", tree["norm"])
 
@@ -497,21 +519,22 @@ class MtpHead(nn.Module):
 class Transformer(nn.Module):
     """The model's weights (``embed``, ``final_norm``, ``groups``, optional
     ``lm_head``, ``pos_embed``, ``encoder``, ``shared_block`` and ``mtp``)
-    in the reference layout;
-    the forward passes and the paged steps (serve/paged_step.py) are plain
-    functions over it. Weights carry no gradient: this port serves, it
-    does not train yet."""
+    in the reference layout (:func:`param_tree` gives them as the
+    reference's tree); the forward passes and the paged steps
+    (serve/paged_step.py) are plain functions over it. Weights are made
+    without gradients, as serving wants them; training turns them on with
+    ``model.requires_grad_(True)`` (train/step.py ``init_state``)."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.embed = _frozen(tree["embed"])
+        self.embed = _leaf(tree["embed"])
         _set_norm(self, "final_norm", tree["final_norm"])
         self.groups = _stacks(tree["groups"])
-        self.lm_head = (_frozen(tree["lm_head"]) if "lm_head" in tree
+        self.lm_head = (_leaf(tree["lm_head"]) if "lm_head" in tree
                         else None)
-        self.pos_embed = (_frozen(tree["pos_embed"]) if "pos_embed" in tree
+        self.pos_embed = (_leaf(tree["pos_embed"]) if "pos_embed" in tree
                           else None)
         self.encoder = (Encoder(tree["encoder"]) if "encoder" in tree
                         else None)
@@ -532,8 +555,38 @@ class Transformer(nn.Module):
         return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
+def _leaf(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def param_tree(model: Transformer) -> Dict[str, Any]:
+    """The module's parameters (the tensors themselves, no copy) as the
+    reference's tree: ``embed``, ``final_norm``, ``groups`` (a list of
+    tuples, one entry a pattern position), and ``lm_head``,
+    ``pos_embed``, ``encoder``, ``shared_block`` and ``mtp`` where the
+    model has them (models/convert.py, train/step.py, checkpoints)."""
+    def groups(stacks):
+        return [tuple(pos.tree() for pos in group) for group in stacks]
+
+    out: Dict[str, Any] = {"embed": model.embed,
+                           "final_norm": _norm_leaf(model, "final_norm"),
+                           "groups": groups(model.groups)}
+    if model.lm_head is not None:
+        out["lm_head"] = model.lm_head
+    if model.pos_embed is not None:
+        out["pos_embed"] = model.pos_embed
+    if model.encoder is not None:
+        enc = model.encoder
+        out["encoder"] = {"groups": groups(enc.groups),
+                          "final_norm": _norm_leaf(enc, "final_norm"),
+                          "pos_embed": enc.pos_embed}
+    if model.shared_block is not None:
+        out["shared_block"] = {"mixer": dict(model.shared_block.mixer),
+                               "ffn": dict(model.shared_block.ffn)}
+    if model.mtp is not None:
+        out["mtp"] = {"proj": model.mtp.proj, "block": model.mtp.block.tree(),
+                      "norm": _norm_leaf(model.mtp, "norm")}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -545,16 +598,25 @@ def _norm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return blocks.rms_norm(p["scale"], x, zero_centered=cfg.zero_centered_norm)
 
 
-def _ffn_apply(p, ffn: str, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if ffn == "moe":    # aux dropped, as the reference's serving steps do
-        return moe_lib.moe_forward(p, x, cfg.moe)[0]
+def _ffn(p, ffn: str, x: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(y, the MoE's aux · aux_weight, None for an MLP)."""
+    if ffn == "moe":
+        return moe_lib.moe_forward(p, x, cfg.moe)
     if ffn == "mlp" and cfg.mlp == "swiglu":
-        return blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
+        return blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x), None
     if ffn == "mlp" and cfg.mlp == "relu2":
-        return blocks.relu2_mlp(p["w_in"], p["w_out"], x)
+        return blocks.relu2_mlp(p["w_in"], p["w_out"], x), None
     if ffn == "mlp" and cfg.mlp == "gelu":
-        return blocks.gelu_mlp(p["w_in"], p["b_in"], p["w_out"], p["b_out"], x)
+        return blocks.gelu_mlp(p["w_in"], p["b_in"], p["w_out"], p["b_out"],
+                               x), None
     raise NotImplementedError(f"repro_torch: ffn {ffn!r}/{cfg.mlp!r}")
+
+
+def _ffn_apply(p, ffn: str, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """y alone: serving drops the MoE's aux, as the reference's serving
+    steps do."""
+    return _ffn(p, ffn, x, cfg)[0]
 
 
 def units(model: Transformer, caches):
@@ -781,10 +843,13 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
     return x
 
 
-def forward(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
-            mode: str, extra: Optional[torch.Tensor] = None):
+def forward(model: Transformer, tokens: torch.Tensor, caches=None,
+            cache_pos=0, mode: str = "train",
+            extra: Optional[torch.Tensor] = None,
+            next_tokens: Optional[torch.Tensor] = None):
     """tokens [B, L] int over ``caches`` from :func:`init_caches` (written
-    in place) → (logits [B, L, vocab], caches).
+    in place) → (logits [B, L, vocab], caches); with ``mode="train"`` (no
+    caches) → (logits, aux) from :func:`train_forward`.
 
     ``mode="prefill"``: ``cache_pos`` 0, every slot's prompt from position
     0 (a recurrent layer from a zero state). ``mode="decode"``: L = 1 and ``cache_pos`` a [B] int tensor, slot b
@@ -797,5 +862,160 @@ def forward(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
     The model's weights must be at the compute dtype (serve/executor.py
     casts them once).
     """
+    if mode == "train":
+        if caches is not None:
+            raise ValueError("forward: mode 'train' runs with no caches")
+        return train_forward(model, tokens, extra, next_tokens)
     return logits(model, hidden(model, tokens, caches, cache_pos, mode,
                                 extra)), caches
+
+
+# --------------------------------------------------------------------------
+# the training forward: no caches, each unit cast where the reference casts
+# --------------------------------------------------------------------------
+def _cast(tree, dtype):
+    """Every floating leaf of ``tree`` at ``dtype`` (the reference's
+    ``_cast``: the f32 router and ``w_if`` too); differentiable, a no-op
+    copy-free at its own dtype."""
+    return tree_lib.tree_map(
+        lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+def _train_layer(kind: str, p, x: torch.Tensor, positions: torch.Tensor,
+                 extra: Optional[torch.Tensor], cfg: ModelConfig,
+                 shared) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer with no cache (the reference's ``_apply_layer`` in train
+    mode): (x, the MoE's aux or None). A ``shared`` site takes ``shared``'s
+    mixer and MLP."""
+    mixer, ffn = parse_kind(kind)
+    if mixer == "shared":
+        p = dict(p, mixer=shared["mixer"], ffn=shared["ffn"])
+    h = _norm_apply(p["ln1"], x, cfg)
+    if mixer in ssm.RECURRENT:
+        y = ssm.FORWARD[mixer](p["mixer"], h, getattr(cfg, mixer))[0]
+    elif mixer == "cross":
+        y = attention.cross_forward(p["mixer"], h, cfg, None, extra)
+    elif mixer == "mla":
+        y = attention.mla_forward(p["mixer"], h, positions, cfg.mla)
+    else:
+        y = attention.gqa_forward(p["mixer"], h, positions, cfg, None, 0,
+                                  window=cfg.window_of(mixer),
+                                  causal=mixer != "enc")
+    x = _residual(p, "ln1_post", x, y, cfg)
+    if ffn == "none":
+        return x, None
+    y, aux = _ffn(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg)
+    return _residual(p, "ln2_post", x, y, cfg), aux
+
+
+def _train_unit(pattern: Pattern, unit_p, positions, extra, cfg, shared,
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One unit of a group: its layers' leaves cast to the compute dtype
+    (inside the remat region, as the reference casts inside its scan
+    body), then each layer; (x, Σ aux)."""
+    unit_p = _cast(unit_p, cfg.compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in zip(pattern, unit_p):
+        x, a = _train_layer(kind, p, x, positions, extra, cfg, shared)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _train_groups(stacks: nn.ModuleList, groups, x: torch.Tensor,
+                  positions: torch.Tensor, extra, cfg: ModelConfig, shared
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every unit of ``groups`` in order, each under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` is not ``"none"`` (the
+    reference's ``jax.checkpoint`` of its scan body: its ``"full"`` saves
+    nothing inside a unit, and so does this; ``"dots"``, which no config
+    sets, is taken as ``"full"``); (x, Σ aux in f32, a group at a time)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gi, (pattern, count) in enumerate(groups):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for u in range(count):
+            unit = functools.partial(
+                _train_unit, pattern,
+                [stacks[gi][i].unit(u) for i in range(len(pattern))],
+                positions, extra, cfg, shared)
+            if cfg.remat != "none":
+                x, a = checkpoint(unit, x, use_reentrant=False)
+            else:
+                x, a = unit(x)
+            aux = aux + a
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _train_encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder in the training forward (the reference's
+    ``_encode``): frames [B, S_enc, d] at the compute dtype."""
+    cfg, enc = model.cfg, model.encoder
+    S = frames.shape[1]
+    if S > cfg.encoder_seq:
+        raise ValueError(f"encode: {S} frames past the encoder's "
+                         f"{cfg.encoder_seq} learned positions")
+    x = frames + enc.pos_embed.to(cfg.compute_dtype)[None, :S]
+    pos = torch.arange(S, device=x.device)[None].expand(frames.shape[:2])
+    x, _ = _train_groups(enc.groups, cfg.encoder_groups, x, pos, None, cfg,
+                         None)
+    return _norm_apply(_cast(_norm_leaf(enc, "final_norm"),
+                             cfg.compute_dtype), x, cfg)
+
+
+def train_forward(model: Transformer, tokens: torch.Tensor,
+                  extra: Optional[torch.Tensor] = None,
+                  next_tokens: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``forward(mode="train")``: tokens [B, L] from
+    position 0, no caches → (logits [B, L, vocab], aux ``{"moe_aux"}``,
+    with ``"mtp_logits"`` when ``cfg.mtp`` and ``next_tokens`` are given).
+
+    The weights stay at their own dtype (f32 master weights) and are cast
+    to the compute dtype where the reference casts them: the embedding
+    (also the tied head), ``pos_embed``, the final norm, the shared block,
+    the encoder's positions and norm, the MTP head, and each unit's leaves
+    inside its remat region, so gradients land in the weights' dtype.
+    Every attention layer runs ``flash_xla`` (models/attention.py), never
+    a serving kernel. ``extra``: the encoder input of a cross-attention
+    model (stub patches [B, encoder_seq, cross_kv_dim], or whisper's frames
+    [B, S_enc, d], which the encoder runs first). The MTP head (deepseek):
+    the final normed hidden state beside ``embed[next_tokens]``, through
+    ``mtp.proj``, one layer of the last kind, the norm and the head."""
+    cfg = model.cfg
+    cd = cfg.compute_dtype
+    B, L = tokens.shape
+    positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
+    embed_w = model.embed.to(cd)
+    x = blocks.embed_lookup(embed_w, tokens)
+    if cfg.embed_scale:
+        x = x * embed_scale(cfg.d_model, cd)
+    if cfg.learned_pos:
+        x = x + blocks.embed_lookup(model.pos_embed.to(cd),
+                                    positions.clamp(0, cfg.learned_pos - 1))
+    if cfg.encoder_groups:
+        if extra is None:
+            raise ValueError(f"{cfg.name}: the training forward needs the "
+                             "encoder input `extra`")
+        extra = _train_encode(model, extra.to(cd))
+    elif extra is not None:
+        extra = extra.to(cd)
+    if has_cross(cfg) and extra is None:
+        raise ValueError(f"{cfg.name}: the training forward needs the "
+                         "encoder input `extra` (stub image embeddings)")
+    shared = (None if model.shared_block is None else
+              _cast(param_tree(model)["shared_block"], cd))
+    x, moe_aux = _train_groups(model.groups, cfg.groups, x, positions, extra,
+                               cfg, shared)
+    h_final = _norm_apply(_cast(_norm_leaf(model, "final_norm"), cd), x, cfg)
+    head = embed_w.t() if cfg.tie_embeddings else model.lm_head.to(cd)
+    aux = {"moe_aux": moe_aux}
+    if cfg.mtp and next_tokens is not None:
+        mtp_p = _cast(param_tree(model)["mtp"], cd)
+        e_next = blocks.embed_lookup(embed_w, next_tokens)
+        h_mtp = torch.cat([h_final, e_next], dim=-1) @ mtp_p["proj"]
+        h_mtp, _ = _train_layer(cfg.groups[-1][0][-1], mtp_p["block"], h_mtp,
+                                positions, extra, cfg, shared)
+        h_mtp = _norm_apply(mtp_p["norm"], h_mtp, cfg)
+        aux["mtp_logits"] = h_mtp @ head
+    return h_final @ head, aux

@@ -154,14 +154,17 @@ class Executor:
                                                length - 1:length])[
                 0, 0].argmax().to(torch.int32), caches
 
-        self._decode = TargetRegion(sampled_decode, name="paged_decode")
-        self._prefill_chunk = TargetRegion(sampled_chunk,
+        # serving builds no autograd graph, even over a model that trained
+        serve = torch.no_grad()
+        self._decode = TargetRegion(serve(sampled_decode),
+                                    name="paged_decode")
+        self._prefill_chunk = TargetRegion(serve(sampled_chunk),
                                            name="paged_prefill_chunk")
-        self._prefill_dense = TargetRegion(sampled_prefill_dense,
+        self._prefill_dense = TargetRegion(serve(sampled_prefill_dense),
                                            name="paged_prefill")
-        self._decode_dense = TargetRegion(sampled_decode_dense,
+        self._decode_dense = TargetRegion(serve(sampled_decode_dense),
                                           name="dense_decode")
-        self._prefill_slot = TargetRegion(sampled_prefill_slot,
+        self._prefill_slot = TargetRegion(serve(sampled_prefill_slot),
                                           name="dense_prefill_slot")
 
     # -- host → device -------------------------------------------------------

@@ -1,1 +1,2 @@
-"""The serving steps of the reference's ``repro/train``: prefill and decode."""
+"""The training path (train step, loss) and the serving steps of the
+reference's ``repro/train``."""

@@ -1,7 +1,25 @@
-"""The prefill and decode steps: the path the cross-attention archs run.
+"""The train step, and the prefill and decode steps.
 
-Counterpart of the serving half of ``repro/train/step.py``
-(``make_prefill_step`` / ``make_decode_step``, ``step.py:93-110``), which
+Counterpart of ``repro/train/step.py``. **Training**: :class:`TrainState`
+(the model, its f32 master weights trainable, the AdamW moments and the
+step), :func:`make_loss_fn` (the training forward, models/transformer.py
+``train_forward``, then train/loss.py's ``lm_loss`` with the MoE aux and
+deepseek's MTP term) and :func:`make_train_step` (forward and backward,
+``grad_accum`` microbatches with their gradients summed in f32 and
+averaged, an optional gradient compressor, then optim/adamw.py)::
+
+    state = init_state(transformer.init_model(cfg, gen, "cuda"))
+    train_step = make_train_step(cfg, adamw.Config(lr=3e-4), grad_accum=2)
+    state, metrics = train_step(state, {"tokens": t, "labels": y})
+
+The step writes the new weights into the model's parameters in place and
+returns the state with its new moments and step; ``metrics`` holds the
+loss terms, ``grad_norm``, ``lr`` and ``tokens`` (0-d tensors but
+``tokens``). :func:`state_tree` / :func:`load_state` carry a state to and
+from the reference's tree (checkpoint/manager.py).
+
+**Serving**: ``make_prefill_step`` / ``make_decode_step``
+(``step.py:93-110``), which
 the reference's dry-run lowers for its prefill / decode cells and through
 which it runs llama-3.2-vision-11b and whisper-medium: no serving engine
 of either package takes their encoder input (``extra``). They run the
@@ -11,7 +29,8 @@ caches. Both steps are
 plain functions over the port's
 :class:`~repro_torch.models.transformer.Transformer` and the dense slot
 caches of :func:`~repro_torch.models.transformer.init_caches` (written in
-place), whose weights must already be at the config's compute dtype::
+place), whose weights must already be at the config's compute dtype; both
+run under ``torch.no_grad()``::
 
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
@@ -25,20 +44,135 @@ place), whose weights must already be at the config's compute dtype::
 :func:`attention_calls` lists the attention-kernel calls such a run makes,
 shape by shape, so that each kernel can be held against its plain version
 at exactly those shapes.
-
-The training half of that module (``make_loss_fn`` with deepseek's MTP
-term, ``make_train_step``) waits for the training slice, ROADMAP queue 1,
-item 16.8.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import Counter
-from typing import List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import tree as tree_lib
 from repro_torch.models import ssm, transformer
+from repro_torch.optim import adamw
+from repro_torch.train import loss as loss_lib
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``params``: the :class:`~repro_torch.models.transformer.Transformer`
+    (master weights at ``param_dtype``, trainable); ``opt``: the AdamW
+    moments as trees of the reference's layout; ``step``: a 0-d int32
+    tensor on the model's device."""
+    params: Any
+    opt: adamw.OptState
+    step: torch.Tensor
+
+
+def init_state(model) -> TrainState:
+    """A fresh state over ``model``: its weights made trainable, zero
+    moments, step 0."""
+    model.requires_grad_(True)
+    return TrainState(params=model,
+                      opt=adamw.init(transformer.param_tree(model)),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=model.embed.device))
+
+
+def state_tree(state: TrainState) -> TrainState:
+    """The state as the reference's ``TrainState`` tree (the model as its
+    parameter tree), tensor leaves: what a checkpoint holds, keyed
+    ``.params/...``, ``.opt/.m/...``, ``.opt/.v/...``, ``.step``."""
+    return TrainState(params=transformer.param_tree(state.params),
+                      opt=state.opt, step=state.step)
+
+
+@torch.no_grad()
+def load_state(state: TrainState, host: TrainState) -> TrainState:
+    """Copy ``host`` (a :func:`state_tree` of numpy leaves, as
+    ``CheckpointManager.restore`` gives it) into ``state``'s tensors in
+    place; returns ``state``."""
+    for t, a in zip(tree_lib.leaves(state_tree(state)),
+                    tree_lib.leaves(host)):
+        t.copy_(torch.from_numpy(np.asarray(a)))
+    return state
+
+
+def make_loss_fn(cfg: transformer.ModelConfig, mtp_weight: float = 0.3):
+    """``loss_fn(model, batch) -> (loss, metrics)``: batch ``tokens`` /
+    ``labels`` [B, L], optional ``extra`` (encoder input),
+    ``next_tokens`` / ``mtp_labels`` (deepseek's MTP head)."""
+    def loss_fn(model, batch):
+        nxt = batch.get("next_tokens")
+        logits, aux = transformer.forward(
+            model, batch["tokens"], mode="train", extra=batch.get("extra"),
+            next_tokens=nxt)
+        if cfg.mtp and nxt is not None:
+            aux["mtp_labels"] = batch.get("mtp_labels")
+        return loss_lib.lm_loss(logits, batch["labels"], aux,
+                                mtp_weight=mtp_weight)
+    return loss_fn
+
+
+def make_train_step(cfg: transformer.ModelConfig, opt_cfg: adamw.Config,
+                    grad_accum: int = 1, compressor=None
+                    ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+    """``train_step(state, batch) -> (state', metrics)``.
+
+    ``grad_accum`` > 1 cuts the batch into that many microbatches of
+    consecutive rows (the reference's ``reshape((grad_accum, B /
+    grad_accum) + ...)``), one forward and backward each, their gradients
+    summed into the f32 leaves' ``.grad`` and divided by ``grad_accum``;
+    the loss and each metric are the microbatches' mean. ``compressor``
+    (parallel/compression.py) takes the gradient tree before the
+    optimizer."""
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
+                                                            Dict]:
+        model = state.params
+        params = transformer.param_tree(model)
+        leaves = tree_lib.leaves(params)
+        for p in leaves:
+            p.grad = None
+        B = batch["tokens"].shape[0]
+        if grad_accum <= 1:
+            loss, metrics = loss_fn(model, batch)
+            loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            if B % grad_accum:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{grad_accum} microbatches")
+            mb, runs = B // grad_accum, []
+            for i in range(grad_accum):
+                loss, m = loss_fn(model, {k: v[i * mb:(i + 1) * mb]
+                                          for k, v in batch.items()})
+                loss.backward()
+                runs.append({k: v.detach() for k, v in m.items()})
+            metrics = {k: torch.stack([r[k] for r in runs]).mean()
+                       for k in runs[0]}
+        grads = tree_lib.unflatten(params, [
+            None if p.grad is None else
+            (p.grad if grad_accum <= 1 else p.grad / grad_accum)
+            for p in leaves])
+        if compressor is not None:
+            grads = compressor(grads)
+        new_p, new_opt, opt_metrics = adamw.update(
+            grads, state.opt, params, state.step, opt_cfg)
+        with torch.no_grad():
+            for p, new in zip(leaves, tree_lib.leaves(new_p)):
+                p.copy_(new)
+        for p in leaves:
+            p.grad = None
+        metrics = dict(metrics, **opt_metrics,
+                       tokens=float(batch["tokens"].numel()))
+        return TrainState(params=model, opt=new_opt,
+                          step=state.step + 1), metrics
+
+    return train_step
 
 
 def _check_dtype(cfg: transformer.ModelConfig, model) -> None:
@@ -54,6 +188,7 @@ def make_prefill_step(cfg: transformer.ModelConfig):
     of one length, every slot from position 0, and a cross-attention
     model's encoder input ``extra`` → (the last position's logits [B, 1,
     vocab], caches)."""
+    @torch.no_grad()
     def prefill_step(model, tokens, caches, extra=None):
         _check_dtype(cfg, model)
         h = transformer.hidden(model, tokens, caches, 0, "prefill", extra)
@@ -66,6 +201,7 @@ def make_decode_step(cfg: transformer.ModelConfig):
     ``cache_pos``, the reference's scalar current length (an int or a 0-d
     tensor, every slot there) or a [B] tensor (slot b at its own) →
     (logits [B, 1, vocab], caches)."""
+    @torch.no_grad()
     def decode_step(model, tokens, caches, cache_pos):
         _check_dtype(cfg, model)
         B = tokens.shape[0]

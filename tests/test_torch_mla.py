@@ -12,7 +12,8 @@ off their ones so that both norms count:
     slot (the reference's cached MLA takes one shared position);
   * the prefill's query-row blocking against one unblocked call;
   * the port's init drawing the reference's leaves and distributions;
-  * the no-cache form refused, naming its ROADMAP item.
+  * the no-cache form (training, ROADMAP item 16.8) against JAX's and
+    against the cached prefill.
 """
 import jax
 import jax.numpy as jnp
@@ -185,8 +186,20 @@ def test_init_draws_the_reference_leaves_and_distributions():
 
 
 def test_the_no_cache_form_is_refused_naming_its_item():
-    _, _, tcfg, tp = _weights()
-    x = torch.zeros(1, 4, SMOKE["d_model"])
-    with pytest.raises(NotImplementedError, match="item 16.8"):
-        tattention.mla_forward(tp, x, torch.zeros(1, 4, dtype=torch.int64),
-                               tcfg)
+    """The no-cache form (the training forward, ROADMAP item 16.8) is no
+    longer refused: K/V expanded from the latent, it equals the
+    reference's ``mla_forward`` with no cache, and the cached prefill of
+    the same tokens."""
+    jcfg, jp, tcfg, tp = _weights()
+    rng = np.random.default_rng(9)
+    x, pos = _x(rng, 2, 7), _positions(2, 7)
+    jy, jc = jattention.mla_forward(jp, jnp.asarray(x), jnp.asarray(pos),
+                                    jcfg)
+    assert jc is None
+    ty = tattention.mla_forward(tp, torch.from_numpy(x),
+                                torch.from_numpy(pos), tcfg)
+    close(ty, jy)
+    cached = tattention.mla_forward(tp, torch.from_numpy(x),
+                                    torch.from_numpy(pos), tcfg,
+                                    _port_cache(2, 7), 0)
+    close(ty, cached.numpy())
