@@ -333,7 +333,47 @@ Phases, each printed on its own line, none catching its own failure:
                largest, but for the elements (at most 2 %, counted in the
                log) whose CPU gradient is nonzero and within 1e-4 of its
                leaf's largest, where Adam's step is the rounding's;
-  10. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
+  10a. gpipe qwen2-0.5b  parallel/pipeline.py's ``gpipe`` over qwen2-0.5b's
+               24 decoder layers at full width (d_model 896, 14/2 heads,
+               d_ff 4864, bf16, seed 0; the no-cache training layer as
+               ``layer_fn``) in 4 stages of 6 on 4 gloo ranks sharing the
+               card, 8 microbatches of [1, 1024] hidden states: the
+               outputs, the inputs' gradient and each stage's weight
+               gradients of the backward of their sum held against the
+               same layers applied in order on the card, within one bf16
+               step of the value (bit for bit expected: the ring moves
+               bytes); logs the largest difference, the 11 ticks, the
+               bubble (3/11), each rank's wall and peak memory (gloo's
+               transport: correctness only) and 0 launches of the ten
+               kernels (gated);
+  10b. moe mesh  the MoE's mesh paths at full width on 4 gloo ranks (model
+               = 4): one deepseek-v3-671b MoE layer (256 experts, d 7168,
+               expert d_ff 2048, 1 shared, sigmoid router; 22.5 GB of
+               experts at bf16, each rank drawing only its 64 from
+               per-expert seeds) on the gather / EP path and the a2a
+               dispatch, and one granite-moe-3b-a800m layer (40 experts,
+               ``ep=False``) on the slot-parallel path, over 8 x 256
+               tokens; the meshless layer runs first in this process (its
+               weights freed before the spawn): gather and slot-parallel
+               within the all-reduce order's rounding bound of it (each
+               element within (2k + 2) x 2^-8 of the sum of its terms'
+               and shared output's magnitudes, k = top_k; the whole within
+               1e-2 relative), a2a (routed per sequence shard, as the
+               reference) with at least 95 % of elements within that bound
+               (the reference's criterion) and every element within it of
+               the meshless layer run on each sequence part alone, every
+               rank's output equal; logs each path's drops beside the
+               meshless drops, the largest difference and 0 launches;
+  10c. fsdp qwen2-0.5b  FSDP data-parallel training through launch/train.py
+               ``train`` on 2 gloo ranks sharing the card, phase 9a's
+               config and data (batch 4 x 4096 in 2 microbatches, f32
+               master weights, bf16 compute, remat full, TF32 off), 2
+               steps: each step's loss and grad norm within 1e-3 relative
+               of phase 9a's same step, the checkpoint the 2 ranks wrote
+               restored at 1 rank equal bit for bit to each rank's shards
+               (digests), 0 launches; logs each rank's peak memory and
+               step times (gloo's transport: correctness only);
+  11. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
      launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
      ``_minitron4b``, ``_tp`` and ``_granite`` with phases 7f, 7g, 7h
      (rank 0's) and 7j's, each timed at its own phase 3 shape;
@@ -2241,8 +2281,8 @@ def tp_serve(results, card: str, chunked):
     from repro_torch.parallel import launch
     from repro_torch.serve.cache import CacheConfig
     from repro_torch.serve.engine import EngineConfig
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from test_torch_tp_job import ServeJob, replicated, serve_schedule
+    from repro_torch.parallel.tp_jobs import (ServeJob, replicated,
+                                              serve_schedule)
     free_card("serve tp")
     cfg = configs.get_config("qwen2-0.5b")
     lens, prompts = phase7_prompts(cfg.vocab)
@@ -2995,29 +3035,11 @@ TRAIN = dict(arch="qwen2-0.5b", seq=4096, batch=4, grad_accum=2, steps=3,
              ckpt_every=2, lr=3e-3)
 
 
-def hand_written_kernels():
-    """The launch counter of each of the ten hand-written kernels' wrappers
-    (``.launches``), by name."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gemm
-    from repro_torch.kernels import paged_decode_attention as pda
-    from repro_torch.kernels import paged_prefill_attention as ppa
-    from repro_torch.kernels import polybench as pb
-    from repro_torch.kernels import tiled
-    return {"paged_flash_decode": pda.paged_flash_decode,
-            "paged_flash_prefill": ppa.paged_flash_prefill,
-            "flash_decode": da.flash_decode,
-            "flash_attention": fa.flash_attention, "gemm": gemm.gemm,
-            "matvec": pb.matvec, "matvec_t": pb.matvec_t,
-            "conv2d": pb.conv2d, "covar": pb.covar,
-            "autodma_tiled": tiled.launch}
-
-
 def train_full(card: str):
     """Phase 9a (see the module docstring)."""
     import shutil
     from repro_torch import configs
+    from repro_torch import kernels as kernels_lib
     from repro_torch.checkpoint.manager import MANIFEST, CheckpointManager
     from repro_torch.launch import train as train_lib
     from repro_torch.launch.serve import profile_rows, profiler
@@ -3031,13 +3053,14 @@ def train_full(card: str):
                                                             "meta"))
     ckpt = os.path.join(ROOT, "build", "train_smoke_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
-    kernels = hand_written_kernels()
+    kernels = kernels_lib.wrappers()
     for k in kernels.values():
         k.launches = 0
     steps, prof = [], profiler()
 
-    def on_step(step, loss, dt, state):
-        steps.append((step, loss, dt, time.perf_counter()))
+    def on_step(step, loss, dt, state, metrics):
+        steps.append((step, loss, dt, time.perf_counter(),
+                      float(metrics["grad_norm"])))
         if step == 1:                  # profile steps 2-3
             torch.cuda.synchronize()
             prof.start()
@@ -3099,7 +3122,7 @@ def train_full(card: str):
     again = []
     t0 = time.perf_counter()
     resumed = train_lib.train(
-        *args, on_step=lambda step, loss, dt, state: again.append(
+        *args, on_step=lambda step, loss, dt, state, metrics: again.append(
             (step, loss, dt)), **kw)
     wall = time.perf_counter() - t0
     with open(os.path.join(ckpt, "step_00000003", MANIFEST)) as f:
@@ -3118,6 +3141,7 @@ def train_full(card: str):
     log(phase, f"{card}: step time (the restarted step 3, no profiler, "
         f"host clock ending in a synchronize) {step_s * 1e3:.1f} ms, "
         f"{tokens / step_s:.0f} tokens/s")
+    return [(st[0], st[1], st[4]) for st in steps]
 
 
 def snapshot(state):
@@ -3217,6 +3241,276 @@ def train_vs_cpu():
             f"{n_out[0]} / {n_out[1]} of {n_all} elements after steps 1 / 2 "
             "whose CPU gradient is nonzero and within 1e-4 of its leaf's "
             "largest (Adam's step there is the rounding's)")
+
+
+# --------------------------------------------------------------------------
+# phase 10: the mesh paths (gloo ranks sharing the card: every wall time
+# there is transport for correctness, never speed)
+# --------------------------------------------------------------------------
+def _spawn(fn, n, args, timeout_s):
+    import tempfile
+    from repro_torch.parallel import launch
+    with tempfile.TemporaryDirectory() as store:
+        return launch.spawn(fn, n, args, store_dir=store, backend="gloo",
+                            timeout_s=timeout_s)
+
+
+TRANSPORT_NOTE = ("transport: gloo, a CUDA tensor staged through the host "
+                  "(parallel/sharding.py; the ring an all-gather and a "
+                  "pick), for correctness only")
+
+
+def gpipe_full(card: str):
+    """Phase 10a (see the module docstring)."""
+    from repro_torch.parallel import pipeline
+    from repro_torch.parallel import mesh_jobs as jobs
+    phase = "gpipe qwen2-0.5b"
+    free_card(phase)
+    job = jobs.PipelineJob(stages=4, n_layers=24, arch="qwen2-0.5b", seed=0,
+                           micro=8, rows=1, seq=1024, device="cuda:0")
+    t0 = time.perf_counter()
+    ref = jobs.sequential(job, torch.device("cuda"))
+    seq_s = time.perf_counter() - t0
+    free_card(phase, "after the sequential reference")
+    t0 = time.perf_counter()
+    out = _spawn(jobs.pipeline_job, 4, (job,), 900.0)
+    spawn_s = time.perf_counter() - t0
+    per = job.n_layers // job.stages
+    worst, n = {"ys": 0.0, "x_grad": 0.0, "w_grads": 0.0}, 0
+    for r in out:
+        s = r["stage"]
+        pairs = [("ys", r["ys"], ref["ys"]),
+                 ("x_grad", r["x_grad"], ref["x_grad"])] + [
+            ("w_grads", r["w_grads"][k], v[s * per:(s + 1) * per])
+            for k, v in ref["w_grads"].items()]
+        for what, got, want in pairs:
+            got, want = torch.from_numpy(got), torch.from_numpy(want)
+            diff = (got - want).abs()
+            assert torch.isfinite(got).all() and bool(
+                (diff <= bf16_step(want)).all()), (what, s, diff.max())
+            worst[what] = max(worst[what], float(diff.max()))
+            n += got.numel()
+        assert r["ticks"] == 11 and r["launches"] == 0, r
+    assert sorted(r["stage"] for r in out) == [0, 1, 2, 3]
+    log(phase, f"{card}: 24 layers (d_model 896, heads 14/2, d_ff 4864, "
+        f"bf16, seed 0, nothing cut) in 4 stages of 6 on 4 gloo ranks of "
+        f"cuda:0, 8 microbatches of [1, 1024, 896]: outputs, input and "
+        f"weight gradients ({n} values over the 4 ranks) within one bf16 "
+        f"step of the sequential layers on the card; largest difference "
+        f"ys {worst['ys']:.3e}, input grad {worst['x_grad']:.3e}, weight "
+        f"grads {worst['w_grads']:.3e}; {out[0]['ticks']} ticks, bubble "
+        f"{pipeline.bubble_fraction(4, 8):.4f} (3/11); launches of the ten "
+        f"kernels {sum(r['launches'] for r in out)}; sequential reference "
+        f"{seq_s:.1f} s; ranks' forward + backward "
+        + ", ".join(f"{r['wall_s']:.1f}" for r in sorted(
+            out, key=lambda r: r["stage"]))
+        + " s, peak " + ", ".join(f"{r['peak_gib']:.2f}" for r in sorted(
+            out, key=lambda r: r["stage"]))
+        + f" GiB a rank, the whole spawn {spawn_s:.1f} s ({TRANSPORT_NOTE})")
+
+
+def _meshless_moe(p, x, cfg):
+    """The meshless layer on ``x``, and each element's bound on a mesh
+    path's difference from it: the all-reduce order re-rounds at most the
+    k - 1 bf16 adds of a token's terms on either side, the cast of the f32
+    sum and the shared expert's add, each by at most 2^-8 of the sum of
+    the magnitudes of its terms and shared output (the terms themselves
+    may round one step apart: 2^-7 of that sum) → (y, aux, bound, drops,
+    routed), host tensors and numbers."""
+    from repro_torch.models import moe
+    with torch.no_grad():
+        y, aux = moe.moe_forward(p, x, cfg)
+        xf = x.reshape(-1, cfg.d_model)
+        gates, idx, _ = moe.route(p["router"], xf, cfg)
+        sg, st, sv = moe.select(gates, idx, cfg)
+        xg = torch.where(sv[..., None], xf[st], torch.zeros_like(xf[st]))
+        ye = moe._experts(xg, p["w_gate"], p["w_up"], p["w_down"])
+        ye = ye * sg[..., None].to(ye.dtype)
+        mag = moe._combine(ye.float().abs(), idx, st, sv)
+        if cfg.n_shared:
+            sh = p["shared"]
+            mag = mag + (F.silu(xf @ sh["w_gate"]) * (xf @ sh["w_up"])
+                         @ sh["w_down"]).float().abs()
+        bound = ((2 * cfg.top_k + 2) * 2.0**-8 * mag).reshape(y.shape)
+        drops = int(moe.dropped(idx, st, sv, cfg.n_experts))
+    return y.float().cpu(), float(aux), bound.cpu(), drops, idx.numel()
+
+
+def moe_mesh_full(card: str):
+    """Phase 10b (see the module docstring)."""
+    from repro_torch import configs
+    from repro_torch.parallel import mesh_jobs as jobs
+    phase = "moe mesh"
+    free_card(phase)
+    ds = configs.get_config("deepseek-v3-671b").moe
+    gr = configs.get_config("granite-moe-3b-a800m").moe
+    assert (ds.n_experts, ds.d_model, ds.d_ff, ds.n_shared, ds.router,
+            ds.ep) == (256, 7168, 2048, 1, "sigmoid", True), ds
+    assert (gr.n_experts, gr.ep) == (40, False), gr
+    cases = {"deepseek-v3-671b gather": (ds, "ep"),
+             "deepseek-v3-671b a2a": (dataclasses.replace(
+                 ds, dispatch="a2a"), "a2a"),
+             "granite-moe-3b-a800m slot-parallel": (gr, "slot")}
+    mesh_jobs = [jobs.MoeJob(cfg=cfg, mesh=(1, 4), seed=0, tokens=(8, 256),
+                             dtype=torch.bfloat16, device="cuda:0")
+                 for cfg, _ in cases.values()]
+    expert_gb = 3 * ds.n_experts * ds.d_model * ds.d_ff * 2 / 1e9
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    meshless = {}
+    for arch in ("deepseek-v3-671b", "granite-moe-3b-a800m"):
+        job = mesh_jobs[0 if arch.startswith("deepseek") else 2]
+        cfg = job.cfg
+        p = jobs.draw_moe(cfg, 0, cfg.n_experts, job.seed, device, job.dtype)
+        x = jobs.moe_input(job, device)
+        meshless[arch] = _meshless_moe(p, x, cfg)
+        if arch.startswith("deepseek"):   # a2a: each sequence part alone
+            L = x.shape[1]
+            parts = [_meshless_moe(p, x[:, m * L // 4:(m + 1) * L // 4],
+                                   cfg) for m in range(4)]
+            meshless["parts"] = (torch.cat([q[0] for q in parts], 1),
+                                 torch.cat([q[2] for q in parts], 1),
+                                 [q[3] for q in parts])
+        del p, x
+        free_card(phase, f"after the meshless {arch} layer")
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = _spawn(jobs.each, 4, (jobs.moe_job, mesh_jobs), 900.0)
+    spawn_s = time.perf_counter() - t0
+    for i, (name, (cfg, path)) in enumerate(cases.items()):
+        y0, aux0, bound, drops0, routed = meshless[name.split()[0]]
+        ranks = sorted((r[i] for r in out), key=lambda r: r["coords"]["model"])
+        assert all(r["path"] == path and r["launches"] == 0
+                   for r in ranks), [(r["path"], r["launches"]) for r in ranks]
+        y = torch.from_numpy(ranks[0]["y"])
+        for r in ranks[1:]:          # every model rank holds the output
+            assert torch.equal(torch.from_numpy(r["y"]), y), name
+        assert torch.isfinite(y).all()
+        diff = (y - y0).abs()
+        within = diff <= bound
+        rel = float((y - y0).norm() / y0.norm())
+        if path == "a2a":
+            share = float(within.float().mean())
+            assert share >= 0.95, (name, share)
+            y_parts, b_parts, d_parts = meshless["parts"]
+            d_own = (y - y_parts).abs()
+            assert bool((d_own <= b_parts).all()), float(
+                (d_own - b_parts).max())
+            assert [r["drops"][0] for r in ranks] == d_parts, (ranks, d_parts)
+            aux = [r["aux"] for r in ranks]
+            assert len(set(aux)) == 1, aux
+            log(phase, f"{card}: {name}: 4 gloo ranks, each its 64 experts "
+                f"and a 64-token part of each of the 8 rows, routed alone "
+                f"(the reference's a2a: capacity per sequence shard), two "
+                f"all-to-alls: every element within the bound of the "
+                f"meshless layer run on each part alone (largest difference "
+                f"{float(d_own.max()):.3e}); against the meshless layer on "
+                f"all 2048 tokens (the reference's criterion) "
+                f"{100 * share:.2f} % of elements within the bound (gate "
+                f"95 %), rel {rel:.3e}; drops per sequence part "
+                + ", ".join(f"{r['drops'][0]}/{r['drops'][1]}"
+                            for r in ranks)
+                + f" against {drops0}/{routed} on all tokens; aux "
+                f"{aux[0]:.6f} (mean over the parts) against {aux0:.6f}; "
+                "rank walls "
+                + ", ".join(f"{r['wall_s']:.2f}" for r in ranks)
+                + f" s ({TRANSPORT_NOTE}); launches 0")
+            continue
+        used = float((diff / bound)[bound > 0].max())
+        assert bool(within.all()), (name, float((diff - bound).max()))
+        assert rel <= 1e-2, (name, rel)
+        assert all(abs(r["aux"] - aux0) <= 1e-6 * abs(aux0)
+                   for r in ranks), (name, aux0, [r["aux"] for r in ranks])
+        what = ("EP: each rank its 64 experts (drawn alone from per-expert "
+                f"seeds; {expert_gb:.1f} GB of experts in all at bf16)"
+                if path == "ep" else
+                f"slot-parallel: all {cfg.n_experts} experts on each rank, "
+                "rank r slot slice r of each expert's capacity")
+        log(phase, f"{card}: {name}: 4 gloo ranks (model = 4), {what}, the "
+            f"partial outputs summed over the ranks in f32: every element "
+            f"within the all-reduce order's bound of the meshless layer, "
+            f"largest difference {float(diff.max()):.3e}, at most "
+            f"{used:.3f} of an element's bound, rel {rel:.3e}; aux "
+            f"{ranks[0]['aux']:.6f} against {aux0:.6f}; drops "
+            f"{ranks[0]['drops'][0]}/{ranks[0]['drops'][1]} on every rank "
+            f"against {drops0}/{routed} meshless; rank walls "
+            + ", ".join(f"{r['wall_s']:.2f}" for r in ranks)
+            + f" s ({TRANSPORT_NOTE}); launches 0")
+    log(phase, f"meshless layers {ref_s:.1f} s, the spawn {spawn_s:.1f} s")
+
+
+def fsdp_full(card: str, ref_steps):
+    """Phase 10c (see the module docstring); ``ref_steps``: phase 9a's
+    (step, loss, grad norm)."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.parallel import sharding
+    from repro_torch.train import step as step_lib
+    from repro_torch.parallel import mesh_jobs as jobs
+    phase = f"fsdp {TRAIN['arch']}"
+    free_card(phase)
+    ckpt = os.path.join(ROOT, "build", "fsdp_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(arch=TRAIN["arch"], smoke=False, steps_total=2, ckpt_dir=ckpt,
+              batch=TRAIN["batch"], seq=TRAIN["seq"], lr=TRAIN["lr"],
+              ckpt_every=TRAIN["ckpt_every"],
+              grad_accum=TRAIN["grad_accum"], device="cuda", log_every=1)
+    t0 = time.perf_counter()
+    out = _spawn(jobs.train_job, 2, (jobs.TrainJob(kwargs=kw),), 1500.0)
+    spawn_s = time.perf_counter() - t0
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for r in out:
+        assert [st["step"] for st in r["steps"]] == [1, 2], r["steps"]
+        assert r["launches"] == 0, r["launches"]
+        for st, (step, loss, gnorm) in zip(r["steps"], ref_steps):
+            for k, ref in (("loss", loss), ("grad_norm", gnorm)):
+                worst[k] = max(worst[k], abs(st[k] - ref) / abs(ref))
+    assert max(worst.values()) <= 1e-3, (worst, out[0]["steps"], ref_steps)
+    # the 2 ranks' checkpoint at 1 rank: equal to each rank's shards
+    mgr = CheckpointManager(ckpt)
+    assert mgr.latest_step() == 2
+    cfg = configs.get_config(TRAIN["arch"])
+    t1 = time.perf_counter()
+    state = train_lib.build_state(cfg, 1, "cuda")     # another seed
+    host, extra = mgr.restore(step_lib.state_tree(state))
+    step_lib.load_state(state, host)
+    assert extra == {"data_step": 2} and int(state.step) == 2
+    mesh = sharding.Mesh.abstract((2, 1), ("data", "model"))
+    specs = step_lib.state_specs(step_lib.param_specs(state.params, mesh))
+    for r in out:
+        rank = mesh.rank_at(r["coords"])
+        shards = [tree_lib.to_host(sharding.shard_of(t, s, mesh, rank))
+                  for t, s in zip(tree_lib.leaves(step_lib.state_tree(
+                      state)), tree_lib.leaves(specs,
+                                               is_leaf=sharding.is_spec))]
+        assert jobs.digest(shards) == r["digest"], rank
+    restore_s = time.perf_counter() - t1
+    del state, host
+    shutil.rmtree(ckpt)
+    log(phase, f"{card}: {TRAIN['arch']} at full width, FSDP over 2 gloo "
+        f"ranks of cuda:0 (data = 2: every embed_fsdp dimension halved, the "
+        f"embedding whole), batch {TRAIN['batch']} x {TRAIN['seq']} in "
+        f"{TRAIN['grad_accum']} microbatches, each rank 1 row of each; "
+        f"f32 master, bf16 compute, remat full, TF32 off: losses "
+        + ", ".join(f"{st['loss']:.6f}" for st in out[0]["steps"])
+        + " against phase 9a's "
+        + ", ".join(f"{loss:.6f}" for _, loss, _ in ref_steps[:2])
+        + ", grad norms "
+        + ", ".join(f"{st['grad_norm']:.6f}" for st in out[0]["steps"])
+        + " against "
+        + ", ".join(f"{g:.6f}" for _, _, g in ref_steps[:2])
+        + f" (worst rel loss {worst['loss']:.2e}, grad norm "
+        f"{worst['grad_norm']:.2e}; gate 1e-3); the 2 ranks' step-2 "
+        f"checkpoint restored at 1 rank equals each rank's shards bit for "
+        f"bit ({restore_s:.1f} s); peak memory a rank "
+        + ", ".join(f"{r['peak_gib']:.2f}" for r in out)
+        + " GiB; step s " + "; ".join(
+            ", ".join(f"{st['s']:.1f}" for st in r["steps"]) for r in out)
+        + f", the whole spawn {spawn_s:.1f} s ({TRANSPORT_NOTE}); launches "
+        f"of the ten kernels {sum(r['launches'] for r in out)}")
 
 
 # the kernel templates' mangled names, as ptxas prints them, shortened
@@ -3398,12 +3692,18 @@ def main() -> int:
     steps_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_full(card)
+    ref_steps = train_full(card)
     log(f"train {TRAIN['arch']}", f"phase 9a in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train_vs_cpu()
     log("train card/cpu", f"phase 9b in {time.perf_counter() - t0:.1f} s")
+    for name, fn, args in (("10a", gpipe_full, ()),
+                           ("10b", moe_mesh_full, ()),
+                           ("10c", fsdp_full, (ref_steps,))):
+        t0 = time.perf_counter()
+        fn(card, *args)
+        log("mesh", f"phase {name} in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in results.values()]

@@ -13,8 +13,14 @@ would trust. A save snapshots the state to host memory at once and
 writes it on one background thread (one save in flight at a time); the
 newest ``keep`` steps are kept.
 
-The reference's elastic restore (its ``shardings`` argument) belongs to
-its mesh; the port has one device and restores host arrays.
+A checkpoint holds whole leaves, as the reference's host arrays are, so
+it is the same file whatever mesh wrote it. :meth:`CheckpointManager.
+restore` with ``shardings`` (a tree of parallel/sharding.py
+``NamedSharding``, train/step.py ``state_shardings``) is the reference's
+elastic path (``manager.py:124-140``): each rank takes its slice of each
+saved leaf on the mesh it runs now, so a checkpoint written at 2 ranks
+restores at 1 and the other way round (train/step.py ``whole_state``
+gathers a sharded state's leaves to save them).
 """
 from __future__ import annotations
 
@@ -110,11 +116,14 @@ class CheckpointManager:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: Optional[int] = None
-                ) -> Tuple[Any, Dict]:
+    def restore(self, template, step: Optional[int] = None,
+                shardings=None) -> Tuple[Any, Dict]:
         """(``template``'s tree holding the saved numpy arrays, the
-        manifest's ``extra``) of ``step`` (default: the latest). Raises
-        when a leaf's saved shape is not the template's."""
+        manifest's ``extra``) of ``step`` (default: the latest). With
+        ``shardings`` (a tree of ``NamedSharding`` shaped as
+        ``template``) each leaf is this rank's slice of the saved one.
+        Raises when a leaf's saved shape (its slice's, with
+        ``shardings``) is not the template's."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no valid checkpoint in {self.dir}")
@@ -122,9 +131,14 @@ class CheckpointManager:
         with open(os.path.join(d, MANIFEST)) as f:
             manifest = json.load(f)
         leaves = []
-        for key, leaf in tree_lib.paths(template):
+        held = tree_lib.paths(template)
+        where = ([None] * len(held) if shardings is None
+                 else tree_lib.leaves(shardings))
+        for (key, leaf), sh in zip(held, where):
             ent = manifest["leaves"][key]
             arr = np.load(os.path.join(d, ent["file"]))
+            if sh is not None:
+                arr = sh.shard_of(arr)
             if list(arr.shape) != list(np.shape(leaf)):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(np.shape(leaf))}")

@@ -4,7 +4,8 @@
 First 3 layers dense (d_ff 18432, per the HF config), remaining 58 MoE.
 MLA latent cache: (512+64)/token a layer (models/attention.py
 ``mla_forward``). The reference shards the 256 experts over its model axis
-(``ep=True``), which the port carries and does not act on (no mesh). Served
+(``ep=True``), and so does the port under a mesh (models/moe.py's EP and
+a2a paths, ``chip_smoke.py`` phase 10b); serving sets no mesh. Served
 by the dense engine only, as in the reference (MLA is not pageable). The
 whole model (1.37 TB at bf16) fits no single card: ``chip_smoke.py`` serves
 it at full width, cut in depth to 3 dense + 2 MoE layers with the MTP

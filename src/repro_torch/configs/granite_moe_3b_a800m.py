@@ -3,7 +3,8 @@
 32L d_model=1536 24H (kv=8) d_ff=512(expert) vocab=49155
 [hf:ibm-granite; hf]. 40 experts, each token routed to 8 with
 capacity-based dispatch (models/moe.py); the reference keeps the experts
-replicated over its model axis (``ep=False``), which the port carries.
+replicated over its model axis (``ep=False``), and so does the port
+under a mesh (models/moe.py's slot-parallel path).
 """
 from repro_torch.models import moe, transformer
 

@@ -13,7 +13,7 @@ prints, a field as ``.name``, joined by ``/`` (``.params/groups/0/0/mixer/wq``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ import torch
 
 def _children(node) -> List[Tuple[str, Any]]:
     """(path element, child) of a container node, in JAX's order; [] for a
-    leaf (see :func:`is_leaf`)."""
+    leaf (see :func:`_atom`)."""
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -34,44 +34,51 @@ def _children(node) -> List[Tuple[str, Any]]:
     return []
 
 
-def is_leaf(node) -> bool:
+def _atom(node) -> bool:
+    """Not a container: a leaf whatever ``is_leaf`` says."""
     return not (isinstance(node, (dict, list, tuple)) or (
         dataclasses.is_dataclass(node) and not isinstance(node, type)))
 
 
-def paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """Every leaf with its path, in JAX's flattening order."""
-    if is_leaf(tree):
+def paths(tree, prefix: str = "", is_leaf: Optional[Callable] = None
+          ) -> List[Tuple[str, Any]]:
+    """Every leaf with its path, in JAX's flattening order (``is_leaf``:
+    a node it holds true of is a leaf too, as JAX's)."""
+    if _atom(tree) or (is_leaf is not None and is_leaf(tree)):
         return [(prefix, tree)]
     out = []
     for key, child in _children(tree):
-        out.extend(paths(child, f"{prefix}/{key}" if prefix else key))
+        out.extend(paths(child, f"{prefix}/{key}" if prefix else key,
+                         is_leaf))
     return out
 
 
-def leaves(tree) -> List[Any]:
-    return [leaf for _, leaf in paths(tree)]
+def leaves(tree, is_leaf: Optional[Callable] = None) -> List[Any]:
+    return [leaf for _, leaf in paths(tree, is_leaf=is_leaf)]
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (and the matching leaves of each
-    tree in ``rest``, of the same structure), keeping the structure; the
-    leaves are visited in :func:`paths` order."""
-    if is_leaf(tree):
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
+    """``fn`` over the leaves of ``tree`` (and the matching nodes of each
+    tree in ``rest``, of the same structure down to ``tree``'s leaves),
+    keeping the structure; the leaves are visited in :func:`paths` order.
+    ``is_leaf`` as in :func:`paths`."""
+    if _atom(tree) or (is_leaf is not None and is_leaf(tree)):
         return fn(tree, *rest)
+
+    def sub(node, *others):
+        return tree_map(fn, node, *others, is_leaf=is_leaf)
+
     if isinstance(tree, dict):      # leaves visited in :func:`paths` order
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in sorted(tree)}
+        return {k: sub(tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, getattr(tree, f),
-                                     *(getattr(r, f) for r in rest))
+        return type(tree)(*(sub(getattr(tree, f),
+                                *(getattr(r, f) for r in rest))
                             for f in tree._fields))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+        return type(tree)(sub(v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return dataclasses.replace(tree, **{
-        f.name: tree_map(fn, getattr(tree, f.name),
-                         *(getattr(r, f.name) for r in rest))
+        f.name: sub(getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
         for f in dataclasses.fields(tree)})
 
 

@@ -1,10 +1,9 @@
 """The fault-tolerant training driver.
 
-Counterpart of ``repro/launch/train.py`` on one device (the reference
-builds a data mesh over every device it sees; the port has one card):
-deterministic data (data/pipeline.py, skip-ahead on restart) → the train
-step (train/step.py) wrapped as an offload ``TargetRegion`` → async
-checkpoints (checkpoint/manager.py) → the watchdog:
+Counterpart of ``repro/launch/train.py``: deterministic data
+(data/pipeline.py, skip-ahead on restart) → the train step (train/step.py)
+wrapped as an offload ``TargetRegion`` → async checkpoints
+(checkpoint/manager.py) → the watchdog:
 
   * at start the newest valid checkpoint is restored and the loop resumes
     at its ``data_step``;
@@ -23,16 +22,30 @@ device, and on the card in ``torch.cuda.synchronize()``. Usage::
 Without ``--device cpu`` it runs on the card, and raises where there is
 none. ``--ckpt-dir`` has no default: the run resumes from whatever
 checkpoint that directory holds, so each run names its own.
+
+``--ranks N`` trains data-parallel in the FSDP layout, as the reference's
+driver does over the (devices, 1) mesh it builds: N ranks
+(parallel/launch.py ``spawn``, gloo; on the card every rank on cuda:0)
+over launch/mesh.py ``make_dev_mesh``, each holding its shards of the
+state and its rows of each batch (train/step.py). Checkpoints hold whole
+leaves (rank 0 writes them), and a restore hands each rank its slice, so
+a run may resume at another rank count (the reference's elastic
+restart). Every rank takes the same control flow: the injected failure
+fires at the same step on all, a step's time is the slowest rank's, and
+a rollback waits for rank 0's save in flight before any rank reads.
+Only rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import sys
+import tempfile
 import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 if __package__ in (None, ""):   # run as a file: put src/ on the path
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
@@ -45,6 +58,7 @@ from repro_torch.data import pipeline as dp            # noqa: E402
 from repro_torch.models import transformer             # noqa: E402
 from repro_torch.optim import adamw                    # noqa: E402
 from repro_torch.parallel import compression           # noqa: E402
+from repro_torch.parallel import launch as ranks_lib    # noqa: E402
 from repro_torch.train import step as steps            # noqa: E402
 
 
@@ -64,12 +78,14 @@ def train(arch: str, smoke: bool, steps_total: int, ckpt_dir: str,
           step_timeout: float = 600.0, inject_failure: Optional[int] = None,
           grad_accum: int = 1, compress: str = "none", seed: int = 0,
           log_every: int = 10, device="cuda",
-          on_step: Optional[Callable] = None):
+          on_step: Optional[Callable] = None, mesh=None):
     """Train ``arch`` (its smoke config with ``smoke``) for
     ``steps_total`` steps on ``device`` → the loss of every step taken, in
     order, a rolled-back step's too, as the reference keeps it.
-    ``on_step(step, loss, seconds, state)`` is called after each completed
-    step (``step`` counts it)."""
+    ``on_step(step, loss, seconds, state, metrics)`` is called after each
+    completed step (``step`` counts it; ``metrics`` the step's).
+    ``mesh``: this rank's data mesh (launch/mesh.py ``make_dev_mesh``) to
+    train in the FSDP layout; every rank of it calls ``train`` alike."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.train: no CUDA device; pass "
@@ -79,14 +95,36 @@ def train(arch: str, smoke: bool, steps_total: int, ckpt_dir: str,
     mgr = CheckpointManager(ckpt_dir)
     dcfg = dp.DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                          seed=seed, mtp=cfg.mtp)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
 
-    state = build_state(cfg, seed, device)
+    def fresh():
+        state = build_state(cfg, seed, device)
+        return state if mesh is None else steps.shard_state(state, mesh)
+
+    def save(step, blocking):
+        tree = (steps.state_tree(state) if mesh is None
+                else steps.whole_state(state, keep=lead))
+        if lead:
+            mgr.save(step, tree, extra={"data_step": step},
+                     blocking=blocking)
+
+    def restore():
+        """Rank 0's save in flight lands first; → the restored data step."""
+        mgr.wait()
+        if mesh is not None:
+            dist.barrier()
+        restored, extra = mgr.restore(
+            steps.state_tree(state), shardings=None if mesh is None
+            else steps.state_shardings(state))
+        steps.load_state(state, restored)
+        return int(extra.get("data_step", mgr.latest_step()))
+
+    state = fresh()
     start_step = 0
     if mgr.latest_step() is not None:
-        restored, extra = mgr.restore(steps.state_tree(state))
-        steps.load_state(state, restored)
-        start_step = int(extra.get("data_step", mgr.latest_step()))
-        print(f"[train] restored step {start_step} from {ckpt_dir}")
+        start_step = restore()
+        say(f"[train] restored step {start_step} from {ckpt_dir}")
 
     comp = (compression.Compressor(mode=compress) if compress != "none"
             else None)
@@ -102,7 +140,9 @@ def train(arch: str, smoke: bool, steps_total: int, ckpt_dir: str,
         try:
             t0 = time.time()
             b = dp.make_batch(dcfg, step)
-            state, metrics = region(state, dp.to_device(b, device))
+            rows = b if mesh is None else steps.rank_rows(b, grad_accum,
+                                                          mesh)
+            state, metrics = region(state, dp.to_device(rows, device))
             if inject_failure is not None and step == inject_failure:
                 inject_failure = None  # fire once
                 raise SimulatedFailure(f"injected at step {step}")
@@ -110,37 +150,58 @@ def train(arch: str, smoke: bool, steps_total: int, ckpt_dir: str,
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.time() - t0
+            if mesh is not None:          # every rank judges the same time
+                slowest = torch.tensor([dt], dtype=torch.float64)
+                dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+                dt = float(slowest)
             if dt > step_timeout:
                 raise TimeoutError(f"straggler: step took {dt:.1f}s")
             losses.append(loss)
             step += 1
             if on_step is not None:
-                on_step(step, loss, dt, state)
+                on_step(step, loss, dt, state, metrics)
             if step % log_every == 0:
                 tok_s = b["tokens"].size / dt
-                print(f"[train] step {step} loss {loss:.4f} "
-                      f"({dt:.2f}s, {tok_s:,.0f} tok/s)", flush=True)
+                say(f"[train] step {step} loss {loss:.4f} "
+                    f"({dt:.2f}s, {tok_s:,.0f} tok/s)", flush=True)
             if step % ckpt_every == 0:
-                mgr.save(step, steps.state_tree(state),
-                         extra={"data_step": step}, blocking=False)
+                save(step, blocking=False)
         except (SimulatedFailure, TimeoutError) as e:
-            print(f"[train] FAILURE at step {step}: {e} — rolling back")
+            say(f"[train] FAILURE at step {step}: {e} — rolling back")
             mgr.wait()
+            if mesh is not None:
+                dist.barrier()
             if mgr.latest_step() is not None:
-                restored, extra = mgr.restore(steps.state_tree(state))
-                steps.load_state(state, restored)
-                step = int(extra.get("data_step", mgr.latest_step()))
+                step = restore()
             else:
-                state = build_state(cfg, seed, device)
+                state = fresh()
                 step = 0
-            print(f"[train] resumed at step {step}")
+            say(f"[train] resumed at step {step}")
     mgr.wait()
-    mgr.save(step, steps.state_tree(state), extra={"data_step": step})
+    save(step, blocking=True)
     wall = time.time() - t_start
-    print(f"[train] done: {step} steps in {wall:.1f}s; "
-          f"loss {losses[0]:.3f} → {losses[-1]:.3f}" if losses else
-          f"[train] done: {step} steps in {wall:.1f}s; no step taken")
+    say(f"[train] done: {step} steps in {wall:.1f}s; "
+        f"loss {losses[0]:.3f} → {losses[-1]:.3f}" if losses else
+        f"[train] done: {step} steps in {wall:.1f}s; no step taken")
     return losses
+
+
+def _rank_train(rank: int, kwargs) -> list:
+    """One rank of ``--ranks N``: the data mesh over the spawned group,
+    then :func:`train` (only rank 0 prints)."""
+    from repro_torch.launch.mesh import make_dev_mesh
+    return train(**kwargs, mesh=make_dev_mesh())
+
+
+def train_ranks(n: int, timeout_s: float = 3600.0, **kwargs) -> list:
+    """:func:`train` on ``n`` spawned gloo ranks (``kwargs`` as
+    :func:`train`'s, ``device`` shared by every rank) → rank 0's losses.
+    A rank that raises fails the call; the ranks must finish within
+    ``timeout_s`` (a collective waits as long)."""
+    with tempfile.TemporaryDirectory() as store:
+        out = ranks_lib.spawn(_rank_train, n, (kwargs,), store_dir=store,
+                              backend="gloo", timeout_s=timeout_s)
+    return out[0]
 
 
 def main(argv=None):
@@ -161,12 +222,20 @@ def main(argv=None):
                     choices=["none", "bf16", "int8"])
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="data-parallel ranks in the FSDP layout (gloo; "
+                         "on the card all on cuda:0)")
     args = ap.parse_args(argv)
-    train(args.arch, args.smoke, args.steps, args.ckpt_dir, args.batch,
-          args.seq, args.lr, ckpt_every=args.ckpt_every,
-          step_timeout=args.step_timeout,
-          inject_failure=args.inject_failure, grad_accum=args.grad_accum,
-          compress=args.compress, device=args.device)
+    kw = dict(arch=args.arch, smoke=args.smoke, steps_total=args.steps,
+              ckpt_dir=args.ckpt_dir, batch=args.batch, seq=args.seq,
+              lr=args.lr, ckpt_every=args.ckpt_every,
+              step_timeout=args.step_timeout,
+              inject_failure=args.inject_failure, grad_accum=args.grad_accum,
+              compress=args.compress, device=args.device)
+    if args.ranks > 1:
+        train_ranks(args.ranks, **kw)
+    else:
+        train(**kw)
 
 
 if __name__ == "__main__":

@@ -319,6 +319,14 @@ def mla_leaves(cfg: MlaConfig) -> Dict[str, Tuple[Tuple[int, ...],
             for name, shape in shapes.items()}
 
 
+# each MLA leaf's logical sharding axes (the reference's ``init_mla``)
+MLA_AXES = {"w_dq": ("embed_fsdp", None), "q_norm": (None,),
+            "w_uq": (None, "heads_tp"), "w_dkv": ("embed_fsdp", None),
+            "kv_norm": (None,), "w_kr": ("embed_fsdp", None),
+            "w_uk": (None, "heads_tp"), "w_uv": (None, "heads_tp"),
+            "wo": ("heads_tp", "embed_fsdp")}
+
+
 def _mla_attend(q_nope, q_rope, ckv, kr, mask, w_uk, w_uv,
                 cfg: MlaConfig) -> torch.Tensor:
     """The reference's ``_mla_absorbed_attend``: q_nope [B, L, H, nope],

@@ -1,7 +1,7 @@
 """Mixture-of-Experts: a top-k router and capacity-based dispatch.
 
-Counterpart of ``repro/models/moe.py`` on its meshless path, the one
-serving takes (no mesh is set): ``moe_forward`` routes every token of the
+Counterpart of ``repro/models/moe.py``. On its meshless path, the one
+serving takes (no mesh is set), ``moe_forward`` routes every token of the
 call to ``top_k`` experts, each expert takes its top-C tokens by gate
 (``capacity``), and a token past an expert's capacity simply loses that
 expert's term (no renormalisation). The tokens of one call therefore
@@ -13,8 +13,9 @@ rounding of the f32 products):
 
   * router logits are f32 products of the input and the router; gates are
     cast back to the input's dtype;
-  * ``gate_mat`` [N, E] is f32 (``capacity`` keeps C ≤ N, so the
-    reference's rows past N never occur); each expert selects its top C
+  * ``gate_mat`` [N, E] is f32 (``capacity`` keeps C ≤ N; only the
+    slot-parallel path's ``C_pad`` may pass N, and then zero rows pad it
+    to ``C_pad``, as the reference's do); each expert selects its top C
     tokens, equal gates in token order (``jax.lax.top_k``'s order: here a
     stable descending sort, since ``torch.topk`` leaves the order of ties
     undefined on CUDA); a selection with gate 0 maps to token 0 with zero
@@ -32,19 +33,46 @@ index ops), so the training forward runs the same code, and
 Shapes are static (C from host ints): the path has no device→host read.
 The expert products are ``torch.bmm``, as the reference computes them
 outside any Pallas kernel. :class:`MoeConfig` keeps every field of the
-reference; ``ep`` and ``dispatch`` are carried for the configs to read
-the same, and not acted on (the port has no mesh).
+reference.
+
+**Under a mesh** (parallel/sharding.py ``use_mesh``) with a ``model``
+axis of M ranks, ``moe_forward`` takes the reference's mesh paths
+(``moe.py:168-284``). Each rank holds its own batch rows (its ``pod`` /
+``data`` shard) and every rank of a model line the same rows:
+
+  * **EP** (``cfg.ep`` and M divides E): the expert leaves are this rank's
+    model shard, ``[E/M, ...]`` (experts r·E/M onward), and the rank
+    computes its experts over every token of its rows;
+  * **slot-parallel** otherwise (granite's 40 experts; ``ep=False``): the
+    expert leaves are whole and rank r takes slot slice r of every
+    expert's ``C_pad = ceil(C / M)·M`` capacity slots (``C_pad`` may pass
+    C: the reference's rounding, which then drops fewer tokens);
+  * either way the routing runs alike on every rank, the rank's work
+    enters through ``copy_to`` and the partial outputs are summed over
+    the line (in f32, rounded once);
+  * **a2a** (``dispatch="a2a"``, EP, and M divides L): the rank takes
+    sequence part r of its rows, routes it alone (its own capacity, as
+    the reference's shard does), sends each expert's selected rows to the
+    expert's owner and the outputs back (two all-to-alls), and the parts
+    are gathered back along the sequence;
+  * ``aux`` is the mean over the batch ranks (the a2a path's over the
+    model ranks too), its gradient the reference's ``_pmean_grad_safe``.
+
+With M = 1 (FSDP data parallelism, train/step.py) a rank's output is the
+meshless path's on its rows, bit for bit. Autograd runs through every
+collective, so the training step differentiates each path.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import blocks
+from repro_torch.parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +85,8 @@ class MoeConfig:
     router: str = "softmax"      # "softmax" | "sigmoid" (deepseek-v3)
     capacity_factor: float = 1.25
     aux_weight: float = 0.01
-    ep: bool = True              # expert-parallel over 'model' (no mesh here)
-    dispatch: str = "gather"     # "gather" | "a2a" (no mesh here)
+    ep: bool = True              # expert-parallel over 'model' (if divisible)
+    dispatch: str = "gather"     # "gather" (psum-EP) | "a2a" (deepseek-style)
 
 
 def leaf_shapes(cfg: MoeConfig) -> Dict[str, Tuple[int, ...]]:
@@ -73,6 +101,23 @@ def leaf_shapes(cfg: MoeConfig) -> Dict[str, Tuple[int, ...]]:
         fs = f * cfg.n_shared
         out.update({"shared.w_gate": (d, fs), "shared.w_up": (d, fs),
                     "shared.w_down": (fs, d)})
+    return out
+
+
+def leaf_axes(cfg: MoeConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each leaf's logical sharding axes (the reference's ``init_moe``):
+    the experts over ``expert`` under ``ep``, else their hidden axis over
+    ``mlp_tp``."""
+    ex = ("expert", "embed_fsdp", None) if cfg.ep else \
+        (None, "embed_fsdp", "mlp_tp")
+    ex_out = ("expert", None, "embed_fsdp") if cfg.ep else \
+        (None, "mlp_tp", "embed_fsdp")
+    out = {"router": ("embed_fsdp", None), "w_gate": ex, "w_up": ex,
+           "w_down": ex_out}
+    if cfg.n_shared:
+        out.update({"shared.w_gate": ("embed_fsdp", "mlp_tp"),
+                    "shared.w_up": ("embed_fsdp", "mlp_tp"),
+                    "shared.w_down": ("mlp_tp", "embed_fsdp")})
     return out
 
 
@@ -107,17 +152,28 @@ def capacity(n_tokens: int, cfg: MoeConfig) -> int:
     return min(n_tokens, max(8, -(-c // 8) * 8))  # sublane-aligned, ≤ N
 
 
-def select(gates: torch.Tensor, idx: torch.Tensor, cfg: MoeConfig
+def select(gates: torch.Tensor, idx: torch.Tensor, cfg: MoeConfig,
+           e_lo: int = 0, e_n: Optional[int] = None, slot_rank: int = 0,
+           n_slots: int = 1
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Each expert's top-C tokens by gate: (sel_gates [E, C] f32, sel_tok
-    [E, C] int64, sel_valid [E, C] bool); an invalid selection (gate 0)
-    points at token 0."""
+    """Each expert's top tokens by gate, in this rank's slice of the
+    (expert, slot) grid: experts ``[e_lo, e_lo + e_n)`` and slots
+    ``[slot_rank·C_l, (slot_rank + 1)·C_l)`` of ``C_pad = C_l·n_slots``,
+    ``C_l = ceil(C / n_slots)`` → (sel_gates [e_n, C_l] f32, sel_tok
+    [e_n, C_l] int64, sel_valid [e_n, C_l] bool); an invalid selection
+    (gate 0) points at token 0. The defaults are the whole grid (C_pad =
+    C)."""
     N = gates.shape[0]
-    C = capacity(N, cfg)
-    gate_mat = torch.zeros(N, cfg.n_experts, dtype=torch.float32,
+    e_n = cfg.n_experts if e_n is None else e_n
+    C_l = -(-capacity(N, cfg) // n_slots)
+    Np = max(N, C_l * n_slots)            # top-k needs k ≤ the rows
+    gate_mat = torch.zeros(Np, cfg.n_experts, dtype=torch.float32,
                            device=gates.device).scatter(
-                               1, idx.long(), gates.float())   # C ≤ N
-    sel_gates, sel_tok = _top_k(gate_mat.t(), C)               # [E, C]
+                               1, idx.long(), gates.float())
+    sel_gates, sel_tok = _top_k(gate_mat.t(), C_l * n_slots)   # [E, C_pad]
+    rows = slice(e_lo, e_lo + e_n)
+    cols = slice(slot_rank * C_l, (slot_rank + 1) * C_l)
+    sel_gates, sel_tok = sel_gates[rows, cols], sel_tok[rows, cols]
     sel_valid = sel_gates > 0.0
     sel_tok = torch.where(sel_valid, sel_tok.clamp_max(N - 1),
                           torch.zeros_like(sel_tok))
@@ -138,21 +194,27 @@ def dropped(idx: torch.Tensor, sel_tok: torch.Tensor,
 
 
 def _combine(ye: torch.Tensor, idx: torch.Tensor, sel_tok: torch.Tensor,
-             sel_valid: torch.Tensor) -> torch.Tensor:
-    """y [N, d]: each token's gated expert outputs ``ye`` [E, C, d] summed
-    in ascending expert order, one add at ye's dtype at a time (the
-    reference's scatter-add order), by gathers only."""
-    E, C, d = ye.shape
+             sel_valid: torch.Tensor, e_lo: int = 0,
+             n_experts: Optional[int] = None) -> torch.Tensor:
+    """y [N, d]: each token's gated expert outputs ``ye`` [e_n, C, d]
+    (experts ``e_lo`` onward of ``n_experts``, default all of them)
+    summed in ascending expert order, one add at ye's dtype at a time (the
+    reference's scatter-add order), by gathers only; an expert outside the
+    slice, or one that did not keep the token, adds an exact zero."""
+    e_n, C, d = ye.shape
     N = idx.shape[0]
+    E = e_lo + e_n if n_experts is None else n_experts
     # slot[n, e]: the row of ye that holds token n's term from expert e, or
-    # E*C (a zero row) where expert e did not keep it; invalid selections
-    # write a spare row N that is then dropped
-    slot = torch.full((N + 1, E), E * C, dtype=torch.int64, device=ye.device)
+    # e_n*C (a zero row) where there is none; invalid selections write a
+    # spare row N that is then dropped
+    slot = torch.full((N + 1, E), e_n * C, dtype=torch.int64,
+                      device=ye.device)
     col = torch.where(sel_valid, sel_tok, torch.full_like(sel_tok, N))
-    rows = torch.arange(E * C, device=ye.device).view(E, C)
-    slot.scatter_(0, col.t(), rows.t())
+    rows = torch.arange(e_n * C, device=ye.device).view(e_n, C)
+    slot[:, e_lo:e_lo + e_n] = slot[:, e_lo:e_lo + e_n].scatter(
+        0, col.t(), rows.t())
     experts = torch.sort(idx.long(), dim=1).values                # [N, k]
-    terms = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])[
+    terms = torch.cat([ye.reshape(e_n * C, d), ye.new_zeros(1, d)])[
         slot[:N].gather(1, experts)]                               # [N, k, d]
     y = terms[:, 0]
     for j in range(1, terms.shape[1]):
@@ -160,31 +222,110 @@ def _combine(ye: torch.Tensor, idx: torch.Tensor, sel_tok: torch.Tensor,
     return y
 
 
+def _experts(xg: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """[e, c, d] rows through their experts' SwiGLU → [e, c, d]."""
+    return torch.bmm(F.silu(torch.bmm(xg, w_gate)) * torch.bmm(xg, w_up),
+                     w_down)
+
+
 def dispatch_compute(xf: torch.Tensor, router_w: torch.Tensor,
                      w_gate: torch.Tensor, w_up: torch.Tensor,
-                     w_down: torch.Tensor, cfg: MoeConfig
+                     w_down: torch.Tensor, cfg: MoeConfig, e_lo: int = 0,
+                     e_n: Optional[int] = None, slot_rank: int = 0,
+                     n_slots: int = 1, line: Optional[sharding.Line] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``_dispatch_compute`` at ``e_lo=0, e_n=E,
-    slot_rank=0, n_slots=1``: xf [N, d] → (y [N, d], aux)."""
+    """The reference's ``_dispatch_compute``: xf [N, d] → (this rank's
+    partial y [N, d], aux) over experts ``[e_lo, e_lo + e_n)`` (the expert
+    leaves hold just those) and slot slice ``slot_rank`` of ``n_slots``
+    (:func:`select`); the defaults are the meshless whole grid. ``line``:
+    the model line when the slice differs by rank. The routing, alike on
+    every rank, stays outside it; the token rows and the gates enter the
+    rank's work through ``copy_to``, so their cotangents are summed over
+    the line."""
     gates, idx, aux = route(router_w, xf, cfg)
-    sel_gates, sel_tok, sel_valid = select(gates, idx, cfg)
-    xg = xf[sel_tok]                                           # [E, C, d]
+    if line is not None:
+        xf, gates = sharding.copy_to(xf, line), sharding.copy_to(gates, line)
+    sel_gates, sel_tok, sel_valid = select(gates, idx, cfg, e_lo, e_n,
+                                           slot_rank, n_slots)
+    xg = xf[sel_tok]                                           # [e_n, C_l, d]
     xg = torch.where(sel_valid[..., None], xg, torch.zeros_like(xg))
-    h = F.silu(torch.bmm(xg, w_gate)) * torch.bmm(xg, w_up)
-    ye = torch.bmm(h, w_down)                                  # [E, C, d]
+    ye = _experts(xg, w_gate, w_up, w_down)
     ye = ye * sel_gates[..., None].to(ye.dtype)
-    return _combine(ye, idx, sel_tok, sel_valid), aux
+    return _combine(ye, idx, sel_tok, sel_valid, e_lo,
+                    cfg.n_experts), aux
+
+
+def _a2a(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
+         w_up: torch.Tensor, w_down: torch.Tensor, cfg: MoeConfig,
+         line: sharding.Line) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``local_a2a`` on this rank's sequence part of x [B,
+    L, d] (the expert leaves: its EP shard) → (y [B, L/M, d] of that part,
+    its aux)."""
+    B, Ll, d = x.shape
+    M, E = line.size, cfg.n_experts
+    Em = E // M
+    xl = x.reshape(-1, d)                                     # [N_l, d]
+    gates, idx, aux = route(sharding.copy_to(router_w, line), xl, cfg)
+    sel_g, sel_t, sel_valid = select(gates, idx, cfg)         # [E, C]
+    C = sel_t.shape[1]
+    xsend = xl[sel_t.reshape(E * C)].reshape(M, Em * C, d)
+    xsend = torch.where(sel_valid.reshape(M, Em * C)[..., None], xsend,
+                        torch.zeros_like(xsend))
+    # a2a #1: each expert's rows to its owner → [M, Em·C, d]
+    xrecv = sharding.all_to_all(xsend, line)
+    xg = xrecv.reshape(M, Em, C, d).transpose(0, 1).reshape(Em, M * C, d)
+    ye = _experts(xg, w_gate, w_up, w_down)                   # [Em, M·C, d]
+    ysend = ye.reshape(Em, M, C, d).transpose(0, 1).reshape(M, Em * C, d)
+    # a2a #2: the outputs back to the rows' owners
+    yrecv = sharding.all_to_all(ysend, line)
+    yrecv = yrecv.reshape(E, C, d) * sel_g[..., None].to(yrecv.dtype)
+    return _combine(yrecv, idx, sel_t, sel_valid).reshape(B, Ll, d), aux
 
 
 def moe_forward(p: Dict, x: torch.Tensor, cfg: MoeConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, L, d] → (y [B, L, d], aux · aux_weight). All B·L tokens are
-    routed together: they share every expert's capacity."""
+    """x [B, L, d] → (y [B, L, d], aux · aux_weight). Without a mesh all
+    B·L tokens are routed together: they share every expert's capacity.
+    Under a mesh with a ``model`` axis, the reference's mesh paths (see the
+    module docstring): ``x`` is this rank's rows, ``p``'s expert leaves its
+    EP shard when the EP path applies."""
     B, L, d = x.shape
+    mesh = sharding.current_mesh()
+    E = cfg.n_experts
+    rw, wg, wu, wd = p["router"], p["w_gate"], p["w_up"], p["w_down"]
     xf = x.reshape(B * L, d)
-    y, aux = dispatch_compute(xf, p["router"], p["w_gate"], p["w_up"],
-                              p["w_down"], cfg)
+    if mesh is None or "model" not in mesh.shape:
+        y, aux = dispatch_compute(xf, rw, wg, wu, wd, cfg)
+    else:
+        M = mesh.shape["model"]
+        line = mesh.line("model")
+        batch_axes = tuple(a for a in sharding.BATCH_AXES if a in mesh.shape)
+        ep = cfg.ep and E % M == 0
+        held = E // M if ep else E
+        if wg.shape[0] != held:
+            raise ValueError(f"moe: {E} experts over model = {M} "
+                             f"({'EP' if ep else 'slot-parallel'}) hold "
+                             f"{held} a rank, got {wg.shape[0]}")
+        if cfg.dispatch == "a2a" and ep and L % M == 0:
+            y, aux = _a2a(sharding.split_to(x, line, 1), rw, wg, wu, wd,
+                          cfg, line)
+            y = sharding.gather_from(y, line, 1).reshape(B * L, d)
+            over = ("model",) + batch_axes
+        else:
+            r = line.index
+            if not ep:    # whole experts on every rank: their grads sum
+                wg, wu, wd = (sharding.copy_to(w, line) for w in (wg, wu, wd))
+            y, aux = dispatch_compute(
+                xf, rw, wg, wu, wd, cfg, *((r * held, held, 0, 1) if ep
+                                           else (0, E, r, M)), line=line)
+            y = sharding.reduce_from(y, line)
+            over = batch_axes
+        if over:
+            aux = sharding.pmean(aux, mesh.line(over),
+                                 replicated=M if "model" in over else 1)
     if cfg.n_shared:
         s = p["shared"]
         y = y + blocks.swiglu(s["w_gate"], s["w_up"], s["w_down"], xf)
-    return y.reshape(B, L, d), aux * cfg.aux_weight
+    return sharding.constrain(y.reshape(B, L, d), "batch", None, None), \
+        aux * cfg.aux_weight

@@ -388,3 +388,19 @@ FORWARD = {"mamba": mamba2_forward, "mlstm": mlstm_forward,
            "slstm": slstm_forward}
 LEAVES = {"mamba": mamba2_leaves, "mlstm": mlstm_leaves,
           "slstm": slstm_leaves}
+# each leaf's logical sharding axes, as the reference's ``init_*`` name them
+# (models/transformer.py ``param_axes``)
+AXES = {
+    "mamba": {"in_proj": ("embed_fsdp", "heads_tp"),
+              "conv_w": (None, "heads_tp"), "A_log": ("heads_tp",),
+              "D": ("heads_tp",), "dt_bias": ("heads_tp",),
+              "norm": ("heads_tp",), "out_proj": ("heads_tp", "embed_fsdp")},
+    "mlstm": {"up_proj": ("embed_fsdp", "heads_tp"),
+              "conv_w": (None, "heads_tp"), "wq": ("heads_tp", None),
+              "wk": ("heads_tp", None), "wv": ("heads_tp", None),
+              "w_if": ("heads_tp", None), "norm": ("heads_tp",),
+              "down_proj": ("heads_tp", "embed_fsdp")},
+    "slstm": {"w_gates": ("embed_fsdp", "heads_tp"),
+              "r_gates": ("heads_tp", None, None), "norm": (None,),
+              "ff_up": ("embed_fsdp", "mlp_tp"),
+              "ff_down": ("mlp_tp", "embed_fsdp")}}

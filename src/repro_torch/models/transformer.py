@@ -69,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import tree as tree_lib
 from repro_torch.models import attention, blocks, ssm
 from repro_torch.models import moe as moe_lib
+from repro_torch.parallel import sharding
 
 Pattern = Tuple[str, ...]
 Group = Tuple[Pattern, int]
@@ -370,6 +371,87 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return Transformer(cfg, params)
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical sharding axes of every leaf of :func:`init_model`'s
+    tree, keyed as :func:`param_tree` keys the leaves: the second tree the
+    reference's ``blocks.split_params(init_model(...))`` returns. A leaf's
+    axes are a tuple, one entry (None or a logical name,
+    parallel/sharding.py ``DEFAULT_RULES``) a dimension; a group's
+    stacked leaves lead with ``layers`` (``sharding.stack_axes``), a MoE's
+    experts take ``moe.leaf_axes`` by ``cfg.moe.ep``."""
+    check_supported(cfg)
+    norm = {"scale": (None,)}
+    if cfg.norm == "layer":
+        norm["bias"] = (None,)
+    proj_in, proj_out = ("embed_fsdp", "heads_tp"), ("heads_tp", "embed_fsdp")
+
+    def mixer_axes(mixer):
+        if mixer == "mla":
+            return dict(attention.MLA_AXES)
+        out = {"wq": proj_in, "wk": proj_in, "wv": proj_in, "wo": proj_out}
+        if cfg.qkv_bias and mixer != "cross":
+            out.update(bq=("heads_tp",), bk=("heads_tp",), bv=("heads_tp",))
+        return out
+
+    def mlp_axes():
+        up, down = ("embed_fsdp", "mlp_tp"), ("mlp_tp", "embed_fsdp")
+        if cfg.mlp == "relu2":
+            return {"w_in": up, "w_out": down}
+        if cfg.mlp == "gelu":
+            return {"w_in": up, "b_in": ("mlp_tp",), "w_out": down,
+                    "b_out": (None,)}
+        return {"w_gate": up, "w_up": up, "w_down": down}
+
+    def moe_axes():
+        out: Dict[str, Any] = {}
+        for name, axes in moe_lib.leaf_axes(cfg.moe).items():
+            head, _, leaf = name.rpartition(".")
+            (out.setdefault(head, {}) if head else out)[leaf] = axes
+        return out
+
+    def layer_axes(kind):
+        mixer, ffn = parse_kind(kind)
+        layer: Dict[str, Any] = {"ln1": dict(norm)}
+        if mixer in ssm.RECURRENT:
+            layer["mixer"] = dict(ssm.AXES[mixer])
+        elif mixer != "shared":
+            layer["mixer"] = mixer_axes(mixer)
+        if ffn != "none":
+            layer["ln2"] = dict(norm)
+        if ffn != "none" and mixer != "shared":
+            layer["ffn"] = moe_axes() if ffn == "moe" else mlp_axes()
+        if cfg.sandwich_norm:
+            layer["ln1_post"] = dict(norm)
+            if ffn != "none":
+                layer["ln2_post"] = dict(norm)
+        return layer
+
+    def groups_axes(groups):
+        return [tuple(tree_lib.tree_map(sharding.stack_axes, layer_axes(kind),
+                                        is_leaf=sharding.is_spec)
+                      for kind in pattern) for pattern, _ in groups]
+
+    out: Dict[str, Any] = {"groups": groups_axes(cfg.groups),
+                           "embed": ("vocab_tp", None),
+                           "final_norm": dict(norm)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("embed_fsdp", "vocab_tp")
+    if cfg.learned_pos:
+        out["pos_embed"] = (None, "embed_fsdp")
+    if cfg.encoder_groups:
+        out["encoder"] = {"groups": groups_axes(cfg.encoder_groups),
+                          "final_norm": dict(norm),
+                          "pos_embed": (None, "embed_fsdp")}
+    if has_shared(cfg):
+        out["shared_block"] = {"mixer": mixer_axes("shared"),
+                               "ffn": mlp_axes()}
+    if cfg.mtp:
+        out["mtp"] = {"proj": (None, "embed_fsdp"),
+                      "block": layer_axes(cfg.groups[-1][0][-1]),
+                      "norm": dict(norm)}
+    return out
+
+
 def _init_moe(cfg: moe_lib.MoeConfig, lead: Tuple[int, ...], generator,
               device, dt):
     out: Dict[str, Any] = {}
@@ -523,7 +605,11 @@ class Transformer(nn.Module):
     reference's tree); the forward passes and the paged steps
     (serve/paged_step.py) are plain functions over it. Weights are made
     without gradients, as serving wants them; training turns them on with
-    ``model.requires_grad_(True)`` (train/step.py ``init_state``)."""
+    ``model.requires_grad_(True)`` (train/step.py ``init_state``).
+    ``fsdp``: None, or once train/step.py ``shard_state`` has cut every
+    leaf to this rank's FSDP shard, ``(mesh, specs)`` with ``specs`` the
+    :func:`param_tree`-shaped tree of each leaf's spec
+    (:func:`train_forward` gathers each leaf where it is used)."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__()
@@ -541,6 +627,7 @@ class Transformer(nn.Module):
         self.shared_block = (SharedBlock(tree["shared_block"])
                              if "shared_block" in tree else None)
         self.mtp = MtpHead(tree["mtp"]) if "mtp" in tree else None
+        self.fsdp = None      # (mesh, specs) once train/step.py shards it
         if bool(cfg.learned_pos) != (self.pos_embed is not None) or \
                 bool(cfg.encoder_groups) != (self.encoder is not None) or \
                 has_shared(cfg) != (self.shared_block is not None) or \
@@ -909,11 +996,12 @@ def _train_layer(kind: str, p, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _train_unit(pattern: Pattern, unit_p, positions, extra, cfg, shared,
-                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One unit of a group: its layers' leaves cast to the compute dtype
-    (inside the remat region, as the reference casts inside its scan
-    body), then each layer; (x, Σ aux)."""
-    unit_p = _cast(unit_p, cfg.compute_dtype)
+                whole, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One unit of a group: its layers' leaves made whole (``whole``:
+    FSDP's gather, inside the remat region, so the backward gathers them
+    again) and cast to the compute dtype (inside the region, as the
+    reference casts inside its scan body), then each layer; (x, Σ aux)."""
+    unit_p = _cast(whole(unit_p), cfg.compute_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(pattern, unit_p):
         x, a = _train_layer(kind, p, x, positions, extra, cfg, shared)
@@ -923,13 +1011,15 @@ def _train_unit(pattern: Pattern, unit_p, positions, extra, cfg, shared,
 
 
 def _train_groups(stacks: nn.ModuleList, groups, x: torch.Tensor,
-                  positions: torch.Tensor, extra, cfg: ModelConfig, shared
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  positions: torch.Tensor, extra, cfg: ModelConfig, shared,
+                  whole) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every unit of ``groups`` in order, each under
     ``torch.utils.checkpoint`` when ``cfg.remat`` is not ``"none"`` (the
     reference's ``jax.checkpoint`` of its scan body: its ``"full"`` saves
     nothing inside a unit, and so does this; ``"dots"``, which no config
-    sets, is taken as ``"full"``); (x, Σ aux in f32, a group at a time)."""
+    sets, is taken as ``"full"``); (x, Σ aux in f32, a group at a time).
+    ``whole(tree, gi, i)``: position ``i`` of group ``gi``'s unit leaves
+    made whole (:func:`_gatherer`)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (pattern, count) in enumerate(groups):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -937,7 +1027,8 @@ def _train_groups(stacks: nn.ModuleList, groups, x: torch.Tensor,
             unit = functools.partial(
                 _train_unit, pattern,
                 [stacks[gi][i].unit(u) for i in range(len(pattern))],
-                positions, extra, cfg, shared)
+                positions, extra, cfg, shared,
+                lambda ps, gi=gi: [whole(p, gi, i) for i, p in enumerate(ps)])
             if cfg.remat != "none":
                 x, a = checkpoint(unit, x, use_reentrant=False)
             else:
@@ -947,20 +1038,46 @@ def _train_groups(stacks: nn.ModuleList, groups, x: torch.Tensor,
     return x, aux_total
 
 
-def _train_encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
+def _gatherer(model: Transformer):
+    """``g(tree, *path, unit=False)``: ``tree`` (leaves of ``model`` at
+    ``path`` of :func:`param_tree`, or with ``unit`` one unit's views of a
+    stacked position) whole. Under an FSDP layout (``model.fsdp``) each
+    leaf is all-gathered from the ranks' shards (parallel/sharding.py
+    ``gather_leaf``: its backward reduce-scatters the gradient); without
+    one it is ``tree`` itself."""
+    if model.fsdp is None:
+        return lambda tree, *path, unit=False: tree
+    mesh, specs = model.fsdp
+
+    def g(tree, *path, unit=False):
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        if unit:     # a unit drops the stacked axis, which no rule binds
+            spec = tree_lib.tree_map(lambda p: p[1:], spec,
+                                     is_leaf=sharding.is_spec)
+        return sharding.gather_tree(tree, spec, mesh)
+    return g
+
+
+def _train_encode(model: Transformer, frames: torch.Tensor,
+                  g) -> torch.Tensor:
     """Whisper's encoder in the training forward (the reference's
-    ``_encode``): frames [B, S_enc, d] at the compute dtype."""
+    ``_encode``): frames [B, S_enc, d] at the compute dtype; ``g``:
+    :func:`_gatherer`."""
     cfg, enc = model.cfg, model.encoder
     S = frames.shape[1]
     if S > cfg.encoder_seq:
         raise ValueError(f"encode: {S} frames past the encoder's "
                          f"{cfg.encoder_seq} learned positions")
-    x = frames + enc.pos_embed.to(cfg.compute_dtype)[None, :S]
+    x = frames + g(enc.pos_embed, "encoder", "pos_embed").to(
+        cfg.compute_dtype)[None, :S]
     pos = torch.arange(S, device=x.device)[None].expand(frames.shape[:2])
-    x, _ = _train_groups(enc.groups, cfg.encoder_groups, x, pos, None, cfg,
-                         None)
-    return _norm_apply(_cast(_norm_leaf(enc, "final_norm"),
-                             cfg.compute_dtype), x, cfg)
+    x, _ = _train_groups(
+        enc.groups, cfg.encoder_groups, x, pos, None, cfg, None,
+        lambda t, gi, i: g(t, "encoder", "groups", gi, i, unit=True))
+    return _norm_apply(_cast(g(_norm_leaf(enc, "final_norm"), "encoder",
+                               "final_norm"), cfg.compute_dtype), x, cfg)
 
 
 def train_forward(model: Transformer, tokens: torch.Tensor,
@@ -984,34 +1101,38 @@ def train_forward(model: Transformer, tokens: torch.Tensor,
     ``mtp.proj``, one layer of the last kind, the norm and the head."""
     cfg = model.cfg
     cd = cfg.compute_dtype
+    g = _gatherer(model)
     B, L = tokens.shape
     positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
-    embed_w = model.embed.to(cd)
+    embed_w = g(model.embed, "embed").to(cd)
     x = blocks.embed_lookup(embed_w, tokens)
     if cfg.embed_scale:
         x = x * embed_scale(cfg.d_model, cd)
     if cfg.learned_pos:
-        x = x + blocks.embed_lookup(model.pos_embed.to(cd),
+        x = x + blocks.embed_lookup(g(model.pos_embed, "pos_embed").to(cd),
                                     positions.clamp(0, cfg.learned_pos - 1))
     if cfg.encoder_groups:
         if extra is None:
             raise ValueError(f"{cfg.name}: the training forward needs the "
                              "encoder input `extra`")
-        extra = _train_encode(model, extra.to(cd))
+        extra = _train_encode(model, extra.to(cd), g)
     elif extra is not None:
         extra = extra.to(cd)
     if has_cross(cfg) and extra is None:
         raise ValueError(f"{cfg.name}: the training forward needs the "
                          "encoder input `extra` (stub image embeddings)")
-    shared = (None if model.shared_block is None else
-              _cast(param_tree(model)["shared_block"], cd))
-    x, moe_aux = _train_groups(model.groups, cfg.groups, x, positions, extra,
-                               cfg, shared)
-    h_final = _norm_apply(_cast(_norm_leaf(model, "final_norm"), cd), x, cfg)
-    head = embed_w.t() if cfg.tie_embeddings else model.lm_head.to(cd)
+    shared = (None if model.shared_block is None else _cast(
+        g(param_tree(model)["shared_block"], "shared_block"), cd))
+    x, moe_aux = _train_groups(
+        model.groups, cfg.groups, x, positions, extra, cfg, shared,
+        lambda t, gi, i: g(t, "groups", gi, i, unit=True))
+    h_final = _norm_apply(_cast(g(_norm_leaf(model, "final_norm"),
+                                  "final_norm"), cd), x, cfg)
+    head = embed_w.t() if cfg.tie_embeddings else \
+        g(model.lm_head, "lm_head").to(cd)
     aux = {"moe_aux": moe_aux}
     if cfg.mtp and next_tokens is not None:
-        mtp_p = _cast(param_tree(model)["mtp"], cd)
+        mtp_p = _cast(g(param_tree(model)["mtp"], "mtp"), cd)
         e_next = blocks.embed_lookup(embed_w, next_tokens)
         h_mtp = torch.cat([h_final, e_next], dim=-1) @ mtp_p["proj"]
         h_mtp, _ = _train_layer(cfg.groups[-1][0][-1], mtp_p["block"], h_mtp,

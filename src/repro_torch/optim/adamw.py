@@ -72,12 +72,17 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def update(grads, opt: OptState, params, step: torch.Tensor, cfg: Config
+def update(grads, opt: OptState, params, step: torch.Tensor, cfg: Config,
+           gnorm: Optional[torch.Tensor] = None
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step: (the new parameter leaves, the new moments, metrics
     ``grad_norm`` and ``lr``). Nothing is written in place; the caller
-    copies the new leaves into its parameters (train/step.py)."""
-    gnorm = global_norm(grads)
+    copies the new leaves into its parameters (train/step.py). ``gnorm``:
+    the gradient's global norm when ``grads`` holds one rank's shards of
+    it (train/step.py's FSDP step: the clip needs the norm over every
+    shard); :func:`global_norm` of ``grads`` by default."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),

@@ -18,6 +18,25 @@ loss terms, ``grad_norm``, ``lr`` and ``tokens`` (0-d tensors but
 ``tokens``). :func:`state_tree` / :func:`load_state` carry a state to and
 from the reference's tree (checkpoint/manager.py).
 
+**Data parallelism in the FSDP layout** (the reference's train driver on a
+(data, 1) mesh, its state under ``tree_shardings``): :func:`shard_state`
+cuts every weight, m and v leaf to this rank's shard as
+``sharding.resolve`` binds its logical axes (models/transformer.py
+``param_axes``: ``embed_fsdp`` over ``data``; a leaf whose dimension does
+not divide stays whole), and the same ``make_train_step`` then runs the
+FSDP step on the rank's rows (:func:`rank_rows`): the training forward
+all-gathers each leaf where it is used, inside each unit's remat region;
+the backward reduce-scatters each sharded leaf's gradient and the step
+sums a whole leaf's over the batch ranks, both then divided into the mean
+over them; the clip takes the norm over every shard, the compressor each
+whole leaf (its int8 blocks are the whole flattened leaf's), and AdamW
+updates the shards. The loss and the metrics are the means over the
+global batch. :func:`whole_state` / :func:`state_shardings` carry a
+sharded state to and from a checkpoint's whole leaves::
+
+    state = shard_state(init_state(model), mesh)     # every rank
+    state, m = train_step(state, rank_rows(batch, grad_accum, mesh))
+
 **Serving**: ``make_prefill_step`` / ``make_decode_step``
 (``step.py:93-110``), which
 the reference's dry-run lowers for its prefill / decode cells and through
@@ -47,6 +66,7 @@ at exactly those shapes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -57,6 +77,7 @@ import torch
 from repro_torch.core import tree as tree_lib
 from repro_torch.models import ssm, transformer
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
 from repro_torch.train import loss as loss_lib
 
 
@@ -100,19 +121,138 @@ def load_state(state: TrainState, host: TrainState) -> TrainState:
     return state
 
 
+def param_specs(model, mesh: sharding.Mesh) -> Any:
+    """The spec of each leaf of :func:`transformer.param_tree` on
+    ``mesh``: its logical axes (``transformer.param_axes``) resolved
+    against its whole shape (``sharding.tree_shardings``)."""
+    shapes = tree_lib.tree_map(lambda p: tuple(p.shape),
+                               transformer.param_tree(model))
+    return tree_lib.tree_map(lambda sh: sh.spec, sharding.tree_shardings(
+        transformer.param_axes(model.cfg), shapes, mesh))
+
+
+def shard_state(state: TrainState, mesh: sharding.Mesh) -> TrainState:
+    """``state`` (whole leaves) cut to this rank's FSDP shards in place:
+    each weight's data, m and v replaced by the slice ``resolve`` gives
+    it on ``mesh`` (a (data, model) mesh whose model axis is 1: the
+    training forward runs tensor-parallel nowhere); ``state.params.fsdp``
+    set. Returns the state."""
+    for a, n in mesh.shape.items():
+        if a not in sharding.BATCH_AXES and n != 1:
+            raise ValueError(f"FSDP training shards over "
+                             f"{sharding.BATCH_AXES} only; mesh axis "
+                             f"{a!r} is {n}")
+    model = state.params
+    params = transformer.param_tree(model)
+    specs = param_specs(model, mesh)
+    with torch.no_grad():
+        for p, spec in zip(tree_lib.leaves(params), tree_lib.leaves(
+                specs, is_leaf=sharding.is_spec)):
+            p.data = sharding.shard_of(p.data, spec, mesh)
+    cut = lambda t, spec: sharding.shard_of(t, spec, mesh)
+    model.fsdp = (mesh, specs)
+    return TrainState(params=model, opt=adamw.OptState(
+        m=tree_lib.tree_map(cut, state.opt.m, specs),
+        v=tree_lib.tree_map(cut, state.opt.v, specs)), step=state.step)
+
+
+def state_specs(specs) -> TrainState:
+    """The spec of each leaf of :func:`state_tree` from the weights'
+    (:func:`param_specs`): m and v lie as their weights, the step whole."""
+    return TrainState(params=specs, opt=adamw.OptState(m=specs, v=specs),
+                      step=())
+
+
+def state_shardings(state: TrainState) -> TrainState:
+    """A sharded state's specs on its mesh (``CheckpointManager.
+    restore``'s ``shardings``: each rank reads its slice of each whole
+    leaf)."""
+    mesh, specs = state.params.fsdp
+    return tree_lib.tree_map(lambda s: sharding.NamedSharding(mesh, s),
+                             state_specs(specs), is_leaf=sharding.is_spec)
+
+
+@torch.no_grad()
+def whole_state(state: TrainState, keep: bool = True) -> TrainState:
+    """A sharded state's :func:`state_tree` as whole host leaves (every
+    rank takes part; one whole leaf at a time on the device): what a
+    checkpoint holds, as the reference's host arrays are whole. A rank
+    with ``keep`` False takes part and keeps nothing (None leaves)."""
+    mesh, specs = state.params.fsdp
+    return sharding.gather_tree(
+        state_tree(state), state_specs(specs), mesh,
+        fn=tree_lib.to_host if keep else (lambda t: None))
+
+
+def rank_rows(batch: Dict, grad_accum: int, mesh: sharding.Mesh) -> Dict:
+    """This rank's rows of a global ``batch``, as the reference's data
+    shard holds them: microbatch m (rows m·B/grad_accum onward, the
+    train step's split) cut into equal parts over the batch axes, this
+    rank's part of each, in microbatch order."""
+    line = mesh.line(tuple(a for a in sharding.BATCH_AXES
+                           if a in mesh.shape))
+    B = batch["tokens"].shape[0]
+    if B % (grad_accum * line.size):
+        raise ValueError(f"batch {B} does not split into {grad_accum} "
+                         f"microbatches over {line.size} batch ranks")
+    mb = B // grad_accum
+    part = mb // line.size
+    rows = np.concatenate([np.arange(m * mb + line.index * part,
+                                     m * mb + (line.index + 1) * part)
+                           for m in range(grad_accum)])
+    return {k: v[rows] if isinstance(v, np.ndarray)
+            else v[torch.from_numpy(rows).to(v.device)]
+            for k, v in batch.items()}
+
+
+def _reduce_grads(grads, specs, mesh: sharding.Mesh, n: int):
+    """Each gradient shard summed over the batch ranks its leaf is not
+    sharded over (a sharded leaf's backward already reduce-scattered it
+    over the rest), then divided by ``n``."""
+    batch = tuple(a for a in sharding.BATCH_AXES if a in mesh.shape)
+
+    def red(g, spec):
+        if g is None:
+            return None
+        free = tuple(a for a in batch if a not in sharding.spec_axes(spec))
+        if free:
+            g = sharding.reduce_from(g, mesh.line(free))
+        return g / n
+    return tree_lib.tree_map(red, grads, specs)
+
+
+def _global_norm(grads, specs, mesh: sharding.Mesh) -> torch.Tensor:
+    """sqrt(Σ leaf²) over every shard of every leaf: each leaf's local
+    sum of squares summed over the ranks of the axes it is sharded on."""
+    by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, spec in zip(tree_lib.leaves(grads),
+                       tree_lib.leaves(specs, is_leaf=sharding.is_spec)):
+        if g is not None:
+            key = sharding.spec_axes(spec)
+            s = torch.sum(torch.square(g.float()))
+            by_axes[key] = s if key not in by_axes else by_axes[key] + s
+    total = None
+    for key, s in by_axes.items():
+        if key:
+            s = sharding.reduce_from(s, mesh.line(key))
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
 def make_loss_fn(cfg: transformer.ModelConfig, mtp_weight: float = 0.3):
     """``loss_fn(model, batch) -> (loss, metrics)``: batch ``tokens`` /
     ``labels`` [B, L], optional ``extra`` (encoder input),
     ``next_tokens`` / ``mtp_labels`` (deepseek's MTP head)."""
     def loss_fn(model, batch):
+        tokens = sharding.constrain(batch["tokens"], "batch", None)
+        labels = sharding.constrain(batch["labels"], "batch", None)
         nxt = batch.get("next_tokens")
         logits, aux = transformer.forward(
-            model, batch["tokens"], mode="train", extra=batch.get("extra"),
+            model, tokens, mode="train", extra=batch.get("extra"),
             next_tokens=nxt)
         if cfg.mtp and nxt is not None:
             aux["mtp_labels"] = batch.get("mtp_labels")
-        return loss_lib.lm_loss(logits, batch["labels"], aux,
-                                mtp_weight=mtp_weight)
+        return loss_lib.lm_loss(logits, labels, aux, mtp_weight=mtp_weight)
     return loss_fn
 
 
@@ -127,48 +267,66 @@ def make_train_step(cfg: transformer.ModelConfig, opt_cfg: adamw.Config,
     summed into the f32 leaves' ``.grad`` and divided by ``grad_accum``;
     the loss and each metric are the microbatches' mean. ``compressor``
     (parallel/compression.py) takes the gradient tree before the
-    optimizer."""
+    optimizer. A state from :func:`shard_state` takes the FSDP step on
+    this rank's rows (the module docstring)."""
     loss_fn = make_loss_fn(cfg)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
                                                             Dict]:
         model = state.params
+        mesh = None if model.fsdp is None else model.fsdp[0]
         params = transformer.param_tree(model)
         leaves = tree_lib.leaves(params)
         for p in leaves:
             p.grad = None
         B = batch["tokens"].shape[0]
-        if grad_accum <= 1:
-            loss, metrics = loss_fn(model, batch)
-            loss.backward()
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            if B % grad_accum:
-                raise ValueError(f"batch {B} does not split into "
-                                 f"{grad_accum} microbatches")
-            mb, runs = B // grad_accum, []
+        if B % grad_accum:
+            raise ValueError(f"batch {B} does not split into "
+                             f"{grad_accum} microbatches")
+        mb, runs = B // grad_accum, []
+        with contextlib.ExitStack() as ctx:
+            if mesh is not None:
+                ctx.enter_context(sharding.use_mesh(mesh))
             for i in range(grad_accum):
-                loss, m = loss_fn(model, {k: v[i * mb:(i + 1) * mb]
-                                          for k, v in batch.items()})
+                loss, m = loss_fn(model, batch if grad_accum == 1 else
+                                  {k: v[i * mb:(i + 1) * mb]
+                                   for k, v in batch.items()})
                 loss.backward()
                 runs.append({k: v.detach() for k, v in m.items()})
-            metrics = {k: torch.stack([r[k] for r in runs]).mean()
-                       for k in runs[0]}
+        metrics = runs[0] if grad_accum == 1 else {
+            k: torch.stack([r[k] for r in runs]).mean() for k in runs[0]}
         grads = tree_lib.unflatten(params, [
             None if p.grad is None else
             (p.grad if grad_accum <= 1 else p.grad / grad_accum)
             for p in leaves])
-        if compressor is not None:
+        gnorm, ranks = None, 1
+        if mesh is not None:
+            specs = model.fsdp[1]
+            line = mesh.line(tuple(a for a in sharding.BATCH_AXES
+                                   if a in mesh.shape))
+            ranks = line.size
+            grads = _reduce_grads(grads, specs, mesh, ranks)
+            metrics = {k: sharding.reduce_from(v, line) / ranks
+                       for k, v in metrics.items()}
+            if compressor is not None:    # int8 blocks of the whole leaf
+                with torch.no_grad():
+                    grads = tree_lib.tree_map(
+                        lambda g, spec: None if g is None else
+                        sharding.shard_of(g, spec, mesh),
+                        compressor(sharding.gather_tree(grads, specs, mesh)),
+                        specs)
+            gnorm = _global_norm(grads, specs, mesh)
+        elif compressor is not None:
             grads = compressor(grads)
         new_p, new_opt, opt_metrics = adamw.update(
-            grads, state.opt, params, state.step, opt_cfg)
+            grads, state.opt, params, state.step, opt_cfg, gnorm=gnorm)
         with torch.no_grad():
             for p, new in zip(leaves, tree_lib.leaves(new_p)):
                 p.copy_(new)
         for p in leaves:
             p.grad = None
         metrics = dict(metrics, **opt_metrics,
-                       tokens=float(batch["tokens"].numel()))
+                       tokens=float(batch["tokens"].numel() * ranks))
         return TrainState(params=model, opt=new_opt,
                           step=state.step + 1), metrics
 

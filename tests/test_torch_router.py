@@ -251,7 +251,8 @@ def test_fleet_streams_bit_identical_tp(tp, tmp_path):
     finishes, and each replica drains dead with a clean allocator on
     every rank."""
     from repro_torch.parallel import launch
-    from test_torch_tp_job import ServeJob, replicated, serve_schedule
+    from repro_torch.parallel.tp_jobs import (ServeJob, replicated,
+                                              serve_schedule)
 
     def econf(side, tp):
         return side.EngineConfig(

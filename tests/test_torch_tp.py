@@ -12,7 +12,7 @@ for tp = 4 (tests/test_scheduler_properties.py:410-420).
 
 The port's ranks are processes: each test spawns them
 (parallel/launch.py) over gloo on the CPU, each serving its schedule
-through tests/test_torch_tp_job.py, with the group's store in the test's
+through repro_torch/parallel/tp_jobs.py, with the group's store in the test's
 own ``tmp_path`` and a bounded wait, so a deadlocked collective fails the
 test instead of hanging the suite. Every rank runs with the
 rank-consistency check on (its page tables hashed and gathered after
@@ -46,7 +46,7 @@ from repro_torch.serve.cache import CacheConfig as TCacheConfig
 from repro_torch.serve.engine import Engine as TEngine
 from repro_torch.serve.engine import EngineConfig as TEngineConfig
 from repro_torch.serve.policy import PolicyConfig as TPolicyConfig
-from test_torch_tp_job import ServeJob, replicated, serve_schedule
+from repro_torch.parallel.tp_jobs import ServeJob, replicated, serve_schedule
 
 COUNTERS = ("prefill_chunks", "prefill_chunk_tokens", "decode_tokens",
             "decode_steps", "admission_refusals", "evictions_reprefill",
