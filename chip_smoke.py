@@ -313,7 +313,7 @@ Phases, each printed on its own line, none catching its own failure:
                checkpoint at step 2, then a second ``train()`` that
                restores it and runs step 3 again. Gates: finite losses,
                the resumed step 3's loss within 1e-3 of the first run's
-               and resumed at data step 2, 0 launches of each of the ten
+               and resumed at data step 2, 0 launches of each of the
                hand-written kernels (the training path reaches none, as
                the reference's reaches no pallas_call). Logs each step's
                loss and ms (host clock, ending in a synchronize), the step
@@ -344,7 +344,7 @@ Phases, each printed on its own line, none catching its own failure:
                step of the value (bit for bit expected: the ring moves
                bytes); logs the largest difference, the 11 ticks, the
                bubble (3/11), each rank's wall and peak memory (gloo's
-               transport: correctness only) and 0 launches of the ten
+               transport: correctness only) and 0 launches of the
                kernels (gated);
   10b. moe mesh  the MoE's mesh paths at full width on 4 gloo ranks (model
                = 4): one deepseek-v3-671b MoE layer (256 experts, d 7168,
@@ -373,7 +373,30 @@ Phases, each printed on its own line, none catching its own failure:
                restored at 1 rank equal bit for bit to each rank's shards
                (digests), 0 launches; logs each rank's peak memory and
                step times (gloo's transport: correctness only);
-  11. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
+  11a. dma     ``core/dma.hero_memcpy2d`` (``csrc/hero_memcpy2d.cu``: rows
+               staged through the TMA bulk copy of ``csrc/hero_dma.cuh``)
+               against its plain version, the reference's sequential row
+               loop, bit for bit: the main path's tile gather (4096 x 4096
+               f32 out of a 4096 x 8192 matrix into a packed buffer, its
+               one launch counted), odd offsets and strides with elems 1001
+               in bf16, int8, f32 and f64, and overlapping destinations
+               (dst stride < elems, and 0: the later row wins); the tile
+               gather timed (kernel and a ``copy_`` between strided views
+               from CUDA-graph replays, the plain loop with CUDA events)
+               beside its bound (bytes read + written at 3.35 TB/s);
+  11b. dryrun 1x1  the dry run's one-card check: ``launch/dryrun.run_cell``
+               on a 1x1 mesh (the ``meta`` trace) for qwen2-0.5b
+               decode_32k (B 128, S 32768: 51.54 GB of caches and 0.99 GB
+               of weights) and xlstm-1.3b long_500k (B 1, state only), at
+               full width, bf16, seed 0; the same arguments built on the
+               card (bytes equal to the record's, gate), one step's FLOPs
+               on the card (``core/perf.TraceCount``: ATen ops plus the
+               kernels' own counts) equal to the trace's (gate), the step
+               at cache_pos S - 1 timed (3 warm, 10 timed, CUDA events)
+               beside the roofline bound, and the peak device memory
+               beside the record's bytes (temp traced on meta beside the
+               card's);
+  12. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
      launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
      ``_minitron4b``, ``_tp`` and ``_granite`` with phases 7f, 7g, 7h
      (rank 0's) and 7j's, each timed at its own phase 3 shape;
@@ -390,7 +413,8 @@ Phases, each printed on its own line, none catching its own failure:
      flash_decode_whisper_cross, each with the launches of one kind of
      layer in its phase and timed at that kind's shape in phase 5; and
      flash_attention_zamba2 and flash_decode_zamba2 with phase 7n's
-     launches, timed in phase 5; every entry launched at least once).
+     launches, timed in phase 5; hero_memcpy2d with phase 11a's; every
+     entry launched at least once).
      The recurrent mixers of 7m / 7n (models/ssm.py) and 7o's MLA have
      no entry, nor has phase 9's training attention (models/flash_xla.py):
      the reference computes them in plain jnp / XLA and reaches no
@@ -3110,7 +3134,7 @@ def train_full(card: str):
         f"{setup:.1f} s before step 1 (weights, state), {between:.1f} s "
         f"between steps 2 and 3 (the step-2 checkpoint's snapshot), "
         f"{tail:.1f} s after step 3 (the profiler's stop, the last "
-        f"checkpoint); launches of the ten hand-written kernels: "
+        f"checkpoint); launches of the hand-written kernels: "
         f"{sum(launches.values())}")
     log(phase, f"{card}: device busy over steps 2-3 {busy_ms:.1f} ms of "
         f"{prof_ms:.1f} ms ({100 * busy_ms / prof_ms:.1f} %; the step-2 "
@@ -3299,7 +3323,7 @@ def gpipe_full(card: str):
         f"step of the sequential layers on the card; largest difference "
         f"ys {worst['ys']:.3e}, input grad {worst['x_grad']:.3e}, weight "
         f"grads {worst['w_grads']:.3e}; {out[0]['ticks']} ticks, bubble "
-        f"{pipeline.bubble_fraction(4, 8):.4f} (3/11); launches of the ten "
+        f"{pipeline.bubble_fraction(4, 8):.4f} (3/11); launches of the "
         f"kernels {sum(r['launches'] for r in out)}; sequential reference "
         f"{seq_s:.1f} s; ranks' forward + backward "
         + ", ".join(f"{r['wall_s']:.1f}" for r in sorted(
@@ -3510,7 +3534,147 @@ def fsdp_full(card: str, ref_steps):
         + " GiB; step s " + "; ".join(
             ", ".join(f"{st['s']:.1f}" for st in r["steps"]) for r in out)
         + f", the whole spawn {spawn_s:.1f} s ({TRANSPORT_NOTE}); launches "
-        f"of the ten kernels {sum(r['launches'] for r in out)}")
+        f"of the kernels {sum(r['launches'] for r in out)}")
+
+
+# --------------------------------------------------------------------------
+# phase 11: the in-kernel DMA and the dry run's one-card check
+# --------------------------------------------------------------------------
+# (name, dtype, rows, elems, src stride, dst stride, src off, dst off); the
+# first is the main path's call: a 4096 x 4096 f32 tile out of a 4096 x 8192
+# matrix into a packed buffer
+MEMCPY2D_CASES = (
+    ("tile gather", torch.float32, 4096, 4096, 8192, 4096, 2048, 0),
+    ("unaligned bf16", torch.bfloat16, 300, 1001, 1003, 1005, 3, 5),
+    ("unaligned int8", torch.int8, 300, 1001, 1013, 1001, 7, 1),
+    ("unaligned f32", torch.float32, 257, 1001, 1001, 1003, 1, 0),
+    ("f64 rows", torch.float64, 64, 999, 1000, 1001, 1, 3),
+    ("overlap bf16 (ds < elems)", torch.bfloat16, 64, 1001, 1003, 700, 1, 2),
+    ("overlap int8 (ds < elems)", torch.int8, 64, 1001, 1001, 13, 0, 3),
+    ("overlap f32 (ds 0)", torch.float32, 9, 1001, 1100, 0, 4, 1),
+    ("overlap bf16 (ds 0)", torch.bfloat16, 5, 40000, 40001, 0, 0, 0),
+)
+
+
+def memcpy2d_check(results):
+    """Phase 11a: ``core/dma.hero_memcpy2d`` on the card against its plain
+    version (the reference's sequential row loop in PyTorch) on the same
+    CUDA tensors, bit for bit, in every case of ``MEMCPY2D_CASES``; the
+    tile gather timed: kernel and yardstick (one ``copy_`` between strided
+    views) as 20 calls replayed from a CUDA graph, the plain loop with CUDA
+    events."""
+    from repro_torch.core import dma
+    from repro_torch.launch.kernel_suite import graph_ms
+    phase = "dma"
+    res = results["hero_memcpy2d"]
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def inputs(dtype, rows, elems, ss, ds, so, do):
+        n_src = so + (rows - 1) * ss + elems
+        n_dst = do + (rows - 1) * ds + elems
+        if dtype.is_floating_point:
+            src = torch.randn(n_src, generator=g, device="cuda").to(dtype)
+        else:
+            src = torch.randint(-128, 128, (n_src,), generator=g,
+                                device="cuda").to(dtype)
+        return src, torch.zeros(n_dst, dtype=dtype, device="cuda")
+
+    for k, (what, dtype, *geom) in enumerate(MEMCPY2D_CASES):
+        src, dst = inputs(dtype, *geom)
+        plain = dma.hero_memcpy2d_plain(dst.clone(), src, *geom)
+        if k == 0:    # the main path's call: its launch alone is counted
+            dma.hero_memcpy2d.launches = 0
+        out = dma.hero_memcpy2d(dst, src, *geom)
+        torch.cuda.synchronize()
+        if k == 0:
+            res["launches"] = dma.hero_memcpy2d.launches
+        bad = int((out.view(torch.uint8) != plain.view(torch.uint8)).sum())
+        log(phase, f"hero_memcpy2d {what}: {dtype} rows {geom[0]} elems "
+            f"{geom[1]} strides {geom[2]}/{geom[3]} offsets {geom[4]}/"
+            f"{geom[5]}: {'bit for bit' if not bad else f'{bad} bytes differ'}")
+        assert not bad, f"hero_memcpy2d {what}: {bad} bytes differ from plain"
+    res["max_abs_err"] = 0.0
+    # the tile gather, timed
+    _, dtype, *geom = MEMCPY2D_CASES[0]
+    rows, elems, ss, ds, so, do = geom
+    src, dst = inputs(dtype, *geom)
+    res["ms"] = graph_ms(lambda: dma.hero_memcpy2d(dst, src, *geom), 20)
+    res["plain_ms"] = cuda_ms(
+        lambda i: dma.hero_memcpy2d_plain(dst, src, *geom), iters=2, warm=1)
+    view_src = src.as_strided((rows, elems), (ss, 1), so)
+    view_dst = dst.as_strided((rows, elems), (ds, 1), do)
+    res["library_ms"] = graph_ms(lambda: view_dst.copy_(view_src), 20)
+    nbytes = 2 * rows * elems * src.element_size()
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 0)
+    log(phase, f"hero_memcpy2d tile gather {rows}x{elems} f32 of a {rows}x"
+        f"{ss} matrix: kernel {res['ms']:.4f} ms, plain (row loop) "
+        f"{res['plain_ms']:.4f} ms, copy_ of strided views yardstick "
+        f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}: {nbytes} B at 3.35 TB/s); "
+        f"{res['launches']} launch on the main path")
+
+
+# the dry run's cells that phase 11b runs on the card at full width (bf16,
+# seed 0) on a mesh of one rank
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k"), ("xlstm-1.3b", "long_500k"))
+
+
+def dryrun_check(card: str):
+    """Phase 11b: the one-card check of the dry run (launch/dryrun.py
+    ``run_cell`` on the 1x1 mesh). For each cell of ``DRYRUN_CELLS``: the
+    ``meta`` trace on the host; the real arguments built on the card by the
+    same ``specs.build_cell``, whose bytes must equal the record's argument
+    bytes; one step under ``core/perf.TraceCount`` on the card, whose FLOPs
+    (ATen ops plus the kernels' own counts) must equal the trace's; then
+    the step (cache_pos S - 1: the whole cache read) timed, 3 warm and 10
+    timed calls between CUDA events, beside the roofline's bound, and the
+    peak device memory beside the record's bytes, its temp (traced on
+    meta) beside the card's."""
+    from repro_torch import configs
+    from repro_torch.core import perf
+    from repro_torch.launch import dryrun, specs
+    phase = "dryrun 1x1"
+    for arch, shape_name in DRYRUN_CELLS:
+        shape = configs.SHAPES[shape_name]
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, "1x1", verbose=False)
+        t_meta = time.perf_counter() - t0
+        free_card(phase)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        cell = specs.build_cell(arch, shape, dryrun.mesh_of("1x1"),
+                                device="cuda", seed=0)
+        arg = specs.nbytes(cell.args)
+        want = rec["memory"]["argument_size_in_bytes"]
+        assert arg == want, f"{arch}: card arguments {arg} B, dry run {want}"
+        with perf.TraceCount() as count:
+            logits, _ = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        traced = rec["traced"]["flops"]
+        assert count.flops == traced, \
+            f"{arch}: card FLOPs {count.flops}, meta trace {traced}"
+        assert torch.isfinite(logits.float()).all(), f"{arch}: logits"
+        ms = cuda_ms(lambda i: cell.fn(*cell.args), iters=10, warm=3)
+        peak = torch.cuda.max_memory_allocated() - before
+        mem = rec["memory"]
+        rl = rec["roofline"]
+        log(phase, f"{arch} x {shape_name} ({card}): arguments {arg} B on "
+            f"the card = the dry run's; step FLOPs on the card "
+            f"{count.flops:.0f} (ATen {count.aten_flops}, kernels "
+            f"{count.kernel_flops}) = the meta trace's (analytic "
+            f"{rec['analytic']['flops']:.0f}); step {ms:.4f} ms (cache_pos "
+            f"{shape.seq_len - 1}, 10 timed after 3 warm) against the "
+            f"roofline bound {rl['bound_s'] * 1e3:.4f} ms ({rl['dominant']}: "
+            f"{rec['analytic']['hbm_bytes']:.0f} B at 3.35 TB/s, "
+            f"{rec['analytic']['flops']:.0f} flop at 989 TFLOP/s); peak "
+            f"device memory {peak / 1e9:.3f} GB against the dry run's "
+            f"{mem['total_per_device'] / 1e9:.3f} GB (arguments + outputs - "
+            f"alias + temp): temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB "
+            f"traced on meta (the plain versions' scratch), "
+            f"{(peak - mem['total_per_device'] + mem['temp_size_in_bytes']) / 1e9:.3f}"
+            f" GB on the card; meta trace {t_meta:.1f} s on the host")
+        del cell, logits
+    free_card(phase, "after phase 11b")
 
 
 # the kernel templates' mangled names, as ptxas prints them, shortened
@@ -3534,7 +3698,10 @@ KERNEL_NAMES = (
      f"pages hd {m[3]} (tensor cores)"),
     (r"flash_mmaILi(\d+)E", lambda m: f"flash_mma hd {m[1]} (tensor cores)"),
     (r"flash_kernelIfLi(\d+)E",
-     lambda m: f"flash_kernel hd {m[1]} (CUDA cores, f32)"))
+     lambda m: f"flash_kernel hd {m[1]} (CUDA cores, f32)"),
+    (r"memcpy2d_kernelI([htjy])E",
+     lambda m: f"hero_memcpy2d {dict(h=1, t=2, j=4, y=8)[m[1]]}-byte "
+     "elements"))
 
 
 INSTANCES = {}   # short kernel instance name -> "N registers; spills"
@@ -3595,6 +3762,11 @@ def kernel_entries():
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/autodma_tiled.cu",
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0}
+    results["hero_memcpy2d"] = {
+        "name": "hero_memcpy2d", "route": "cuda",
+        "source": "src/repro_torch/csrc/hero_memcpy2d.cu",
+        "replaces": "src/repro/core/dma.py:148", "launches": 0,
+        "max_abs_err": 0.0}
     for name, source, replaces in (
             ("conv2d", "conv2d_3x3.cu", "polybench.py:94"),
             ("flash_decode", "decode_attention.cu", "decode_attention.py:26"),
@@ -3704,6 +3876,12 @@ def main() -> int:
         t0 = time.perf_counter()
         fn(card, *args)
         log("mesh", f"phase {name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    memcpy2d_check(results)
+    log("dma", f"phase 11a in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_check(card)
+    log("dryrun 1x1", f"phase 11b in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in results.values()]

@@ -356,14 +356,14 @@ def tiled_call(body: Body, spec: KernelSpec, plan_: Optional[Plan] = None,
 
     Returns ``(call, plan)``. ``call(*inputs)`` takes the spec's inputs in
     order: CUDA tensors launch the hand-written builder kernel
-    (``kernels/tiled.py``, ``csrc/autodma_tiled.cu``) or raise; CPU tensors
-    take :func:`walk` with ``body.plain``.
+    (``kernels/tiled.py``, ``csrc/autodma_tiled.cu``) or raise; CPU (and
+    ``meta``) tensors take :func:`walk` with ``body.plain``.
     """
     p = plan_ or plan(spec, **plan_kwargs)
 
     def call(*tensors: torch.Tensor):
         dev = tensors[0].device
-        if dev.type == "cpu":
+        if dev.type in ("cpu", "meta"):     # meta: shapes alone
             return walk(body.plain, p, *tensors)
         if dev.type != "cuda":
             raise ValueError(f"{spec.name}: unsupported device {dev}")

@@ -1,8 +1,9 @@
-"""hero_memcpy, host half: copies between host DRAM and the card (HEROv2 §2.4).
+"""hero_memcpy: the paper's DMA API (HEROv2 §2.4) on the card.
 
-Counterpart of the host-level functions of ``repro/core/dma.py``: the
-paper's DMA API along direction (host2dev / dev2host) and synchronicity
-(blocking / ``_async`` + wait). On the card:
+Counterpart of ``repro/core/dma.py``: the paper's DMA API along direction
+(host2dev / dev2host), synchronicity (blocking / ``_async`` + wait) and
+dimensionality (1-D / 2-D scatter-gather). Between host DRAM and the
+card:
 
 * **dev→host** (``hero_memcpy_dev2host_async``). The module's copy stream
   (one per device, :func:`copy_stream`) waits for the work queued so far on
@@ -29,15 +30,27 @@ or to pinned memory and reuses the block only after it.
 Every handle carries timing events on the copy stream (``start``, ``done``)
 for :func:`device_window_ms`, and issue / completion stamps on its own
 injected clock (``t_start`` / ``t_done``, observational only) for the serve
-tracer's ``dma`` track. The in-kernel half of the reference module
-(``copy_async``, ``hero_memcpy2d``) is not ported yet.
+tracer's ``dma`` track.
+
+Inside the card, the reference's in-kernel half is hand-written CUDA:
+``copy_async`` is a ``__device__`` helper (``csrc/hero_dma.cuh``: a TMA
+bulk copy from device memory into shared memory on an mbarrier, whose
+handle's ``wait()`` waits on the barrier's phase), and
+:func:`hero_memcpy2d` launches ``csrc/hero_memcpy2d.cu``, which stages
+rows through it. The reference's sequential row loop is the semantics,
+overlapping and zero-stride destinations included (the later row wins);
+:func:`hero_memcpy2d_plain` walks that loop in PyTorch for CPU and
+``meta`` tensors, and :func:`memcpy2d_ref` is the numpy oracle.
+``hero_memcpy2d.launches`` counts calls that launched the kernel.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import time
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -191,3 +204,88 @@ def device_window_ms(handles: Sequence[TransferHandle]) -> float:
     after their copies have completed)."""
     return handles[0].start.elapsed_time(handles[-1].done)
 
+
+
+# --------------------------------------------------------------------------
+# inside the card: the 2-D scatter-gather copy
+# --------------------------------------------------------------------------
+def memcpy2d_ref(dst: np.ndarray, src: np.ndarray, rows: int, elems: int,
+                 src_stride: int, dst_stride: int, src_off=0,
+                 dst_off=0) -> np.ndarray:
+    """The numpy oracle (the reference's ``memcpy2d_ref``): a copy of
+    ``dst`` after the sequential row loop."""
+    dst = np.array(dst)
+    for i in range(rows):
+        s = src_off + i * src_stride
+        d = dst_off + i * dst_stride
+        dst[d:d + elems] = src[s:s + elems]
+    return dst
+
+
+def hero_memcpy2d_plain(dst: torch.Tensor, src: torch.Tensor, rows: int,
+                        elems: int, src_stride: int, dst_stride: int,
+                        src_off: int = 0, dst_off: int = 0) -> torch.Tensor:
+    """The reference's row loop in PyTorch, in place on ``dst``."""
+    for i in range(rows):
+        s = src_off + i * src_stride
+        d = dst_off + i * dst_stride
+        dst[d:d + elems] = src[s:s + elems]
+    return dst
+
+
+def _check_2d(dst, src, rows, elems, src_stride, dst_stride, src_off,
+              dst_off) -> None:
+    name = "hero_memcpy2d"
+    if dst.dim() != 1 or src.dim() != 1 or not dst.is_contiguous() or \
+            not src.is_contiguous():
+        raise ValueError(f"{name}: dst and src must be contiguous 1-D "
+                         "tensors")
+    if dst.dtype != src.dtype or dst.element_size() not in (1, 2, 4, 8):
+        raise TypeError(f"{name}: dst and src must share a dtype of 1, 2, 4 "
+                        f"or 8 bytes, got {dst.dtype}/{src.dtype}")
+    if dst.device != src.device:
+        raise ValueError(f"{name}: dst on {dst.device}, src on {src.device}")
+    if min(rows, elems, src_stride, dst_stride, src_off, dst_off) < 0:
+        raise ValueError(f"{name}: rows, elems, strides and offsets must be "
+                         ">= 0")
+    if rows and elems and (
+            src_off + (rows - 1) * src_stride + elems > src.numel()
+            or dst_off + (rows - 1) * dst_stride + elems > dst.numel()):
+        raise ValueError(f"{name}: {rows} rows of {elems} run past src "
+                         f"({src.numel()}) or dst ({dst.numel()})")
+    if dst.device.type != "meta" and dst.numel() and src.numel() and \
+            dst.untyped_storage().data_ptr() == \
+            src.untyped_storage().data_ptr():
+        raise ValueError(f"{name}: src shares its storage with dst")
+
+
+def hero_memcpy2d(dst: torch.Tensor, src: torch.Tensor, rows: int,
+                  elems: int, src_stride: int, dst_stride: int,
+                  src_off: int = 0, dst_off: int = 0) -> torch.Tensor:
+    """2-D scatter-gather copy (the paper's ``hero_memcpy2d``): ``rows``
+    sequences of ``elems`` elements, row i from ``src[src_off + i *
+    src_stride:][:elems]`` to ``dst[dst_off + i * dst_stride:][:elems]``, as
+    the sequential row loop writes them (a later row wins where rows
+    overlap). ``dst`` and ``src``: contiguous 1-D tensors of one dtype of
+    1, 2, 4 or 8 bytes, not sharing storage; offsets and strides in
+    elements. Writes ``dst`` in place and returns it. CUDA tensors launch
+    ``csrc/hero_memcpy2d.cu`` (or raise); CPU and ``meta`` tensors take
+    :func:`hero_memcpy2d_plain`."""
+    args = (rows, elems, src_stride, dst_stride, src_off, dst_off)
+    _check_2d(dst, src, *args)
+    if dst.device.type in ("cpu", "meta"):
+        return hero_memcpy2d_plain(dst, src, *args)
+    if dst.device.type != "cuda":
+        raise ValueError(f"hero_memcpy2d: unsupported device {dst.device}")
+    from repro_torch.kernels import _build
+    lib = _build.load("hero_memcpy2d")
+    stream = torch.cuda.current_stream(dst.device).cuda_stream
+    err = lib.hero_memcpy2d(
+        ctypes.c_void_p(dst.data_ptr()), ctypes.c_void_p(src.data_ptr()),
+        *args, dst.element_size(), ctypes.c_void_p(stream))
+    _build.check("hero_memcpy2d", err)
+    hero_memcpy2d.launches += 1
+    return dst
+
+
+hero_memcpy2d.launches = 0

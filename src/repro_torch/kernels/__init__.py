@@ -2,8 +2,10 @@
 
 
 def wrappers():
-    """The ten hand-written kernels' wrappers, by name. Each counts its
-    launches in ``.launches``, in this process."""
+    """The hand-written kernels' wrappers, by name: the ten TPU kernels'
+    and the in-kernel DMA's ``hero_memcpy2d`` (core/dma.py). Each counts
+    its launches in ``.launches``, in this process."""
+    from repro_torch.core import dma
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
@@ -17,4 +19,5 @@ def wrappers():
             "flash_attention": fa.flash_attention, "gemm": gemm.gemm,
             "matvec": pb.matvec, "matvec_t": pb.matvec_t,
             "conv2d": pb.conv2d, "covar": pb.covar,
-            "autodma_tiled": tiled.launch}
+            "autodma_tiled": tiled.launch,
+            "hero_memcpy2d": dma.hero_memcpy2d}

@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # name -> the C entry point's argument types (pointers and the stream are
 # c_void_p so ctypes never cuts them to 32 bits)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "paged_decode_attention": [_P] * 10 + [_I] * 9 + [_P],
     "paged_prefill_attention": [_P] * 9 + [_I] * 10 + [_P],
@@ -32,6 +32,7 @@ SIGNATURES = {
     "conv2d_3x3": [_P] * 3 + [_I] * 5 + [_P],
     "decode_attention": [_P] * 8 + [_I] * 8 + [_P],
     "flash_attention": [_P] * 4 + [_I] * 12 + [ctypes.c_float, _P],
+    "hero_memcpy2d": [_P] * 2 + [_L] * 6 + [_I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

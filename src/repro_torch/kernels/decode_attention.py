@@ -15,9 +15,11 @@ there instead).
     error: one launch that splits the key axis over blocks, the last block
     of each (slot, kv head) merging the splits;
   * CPU — :func:`flash_decode_plain`, the reference's online softmax over
-    ``block_k`` tiles written out in PyTorch.
+    ``block_k`` tiles written out in PyTorch; ``meta`` tensors take it too
+    (shapes alone: a dry run's traced pass).
 
-``flash_decode.launches`` counts calls that launched the CUDA kernel.
+``flash_decode.launches`` counts calls that launched the CUDA kernel; each
+launch reports :func:`plain_flops` to ``core/perf.py``'s counters.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Dict, List, NamedTuple
 
 import torch
 
+from repro_torch.core import perf
 from repro_torch.kernels import _build, ref
 
 NEG = ref.NEG
@@ -108,6 +111,13 @@ def decode_attention_ref(q, k_cache, v_cache, lengths):
     return ref.decode_attention(q, k_cache, v_cache, lengths)
 
 
+def plain_flops(B: int, H: int, S: int, hd: int, bk: int) -> int:
+    """The FLOPs :func:`flash_decode_plain`'s matrix products count (every
+    whole ``bk`` tile of the cache, whatever the lengths): what a launch
+    reports to ``core/perf.py``'s counters."""
+    return 4 * B * H * hd * (S // bk) * bk
+
+
 def flash_decode_plain(q, k_cache, v_cache, lengths, block_k: int = 512):
     """The reference kernel's function in PyTorch: an online softmax in f32
     over ``block_k`` tiles of the cache (m from -inf, masked logits NEG).
@@ -177,7 +187,7 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512):
              kernel tiles for itself (only the sums' order depends on it)
     Returns [B, H, hd] in q's dtype.
     """
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):     # meta: shapes alone
         return flash_decode_plain(q, k_cache, v_cache, lengths, block_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
@@ -199,6 +209,8 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512):
         shape.nsplit, shape.chunk, DTYPES[q.dtype], ctypes.c_void_p(stream))
     _build.check("decode_attention", err)
     flash_decode.launches += 1
+    perf.add_kernel_flops("flash_decode", plain_flops(
+        B, H, S, hd, decode_block_k(S, block_k)))
     return out
 
 

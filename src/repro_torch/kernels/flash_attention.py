@@ -18,9 +18,11 @@ of V over the keys of the blocks the reference runs for it.
     :func:`launch_shape` gives the launch from host ints only, so a call
     can be captured in a CUDA graph;
   * CPU — :func:`flash_attention_plain`, the reference's grid of blocks
-    walked in PyTorch, causal block skip included.
+    walked in PyTorch, causal block skip included; ``meta`` tensors take it
+    too (shapes alone: a dry run's traced pass).
 
-``flash_attention.launches`` counts calls that launched the CUDA kernel.
+``flash_attention.launches`` counts calls that launched the CUDA kernel;
+each launch reports :func:`plain_flops` to ``core/perf.py``'s counters.
 Key positions at or past Lk are never attended (the reference reads
 whatever pads a short last block there).
 """
@@ -32,7 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import heromem
+from repro_torch.core import heromem, perf
 from repro_torch.kernels import _build, ref
 
 NEG = ref.NEG
@@ -103,6 +105,21 @@ def _blocks(q, k, block_q, block_k) -> Tuple[int, int]:
         block_q = block_q or pq
         block_k = block_k or pk
     return block_q, block_k
+
+
+def plain_flops(BH: int, L: int, Lk: int, hd: int, causal: bool, bq: int,
+                bk: int) -> int:
+    """The FLOPs :func:`flash_attention_plain`'s matrix products count over
+    the blocks it visits (past the causal frontier skipped): what a launch
+    reports to ``core/perf.py``'s counters."""
+    total = 0
+    for q0 in range(0, L, bq):
+        R = min(bq, L - q0)
+        for k0 in range(0, Lk, bk):
+            if causal and k0 > q0 + bq - 1:
+                break
+            total += 4 * BH * R * min(bk, Lk - k0) * hd
+    return total
 
 
 def flash_attention_plain(q, k, v, causal: bool = True,
@@ -183,7 +200,7 @@ def flash_attention(q, k, v, causal: bool = True,
     """q, k, v: [B, H, L, hd] and [B, H, Lk, hd] (GQA broadcast upstream).
     Returns [B, H, L, hd] in q's dtype. ``block_q`` / ``block_k`` default
     to :func:`plan_blocks`."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):     # meta: shapes alone
         return flash_attention_plain(q, k, v, causal, window, softcap,
                                      block_q, block_k)
     if q.device.type != "cuda":
@@ -206,6 +223,8 @@ def flash_attention(q, k, v, causal: bool = True,
         ctypes.c_void_p(stream))
     _build.check("flash_attention", err)
     flash_attention.launches += 1
+    perf.add_kernel_flops("flash_attention",
+                          plain_flops(B * H, L, Lk, hd, causal, bq, bk))
     return out
 
 

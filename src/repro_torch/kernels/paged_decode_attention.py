@@ -188,7 +188,7 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths,
     Returns [B, H, hd] in q's dtype.
     """
     check_scales("paged_flash_decode", k_scale, v_scale)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):     # meta: shapes alone
         return paged_flash_decode_plain(q, k_pages, v_pages, page_table,
                                         lengths, k_scale, v_scale)
     if q.device.type != "cuda":

@@ -144,7 +144,7 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, start,
     Returns [C, H, hd] in q's dtype.
     """
     check_scales("paged_flash_prefill", k_scale, v_scale)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):     # meta: shapes alone
         return paged_flash_prefill_plain(q, k_pages, v_pages, page_table,
                                          start, k_scale, v_scale)
     if q.device.type != "cuda":

@@ -194,7 +194,7 @@ def conv2d(A: torch.Tensor, c3x3, mode: str = "autodma",
     if tuple(c.shape) != (3, 3):
         raise ValueError(f"conv2d: c3x3 must be [3, 3], got {tuple(c.shape)}")
     plan = autodma.plan(autodma.conv2d_3x3_spec(H, W, A.dtype), mode=mode)
-    if A.device.type == "cpu":
+    if A.device.type in ("cpu", "meta"):     # meta: shapes alone
         return conv2d_plain(A, c, conv2d_row_tile(H, W, row_tile)), plan
     if A.device.type != "cuda":
         raise ValueError(f"conv2d: unsupported device {A.device}")

@@ -1,0 +1,313 @@
+"""Abstract arguments and shardings for every (arch × shape × mesh) cell.
+
+Counterpart of ``repro/launch/specs.py``. The reference builds
+``ShapeDtypeStruct`` trees of the whole arrays and lets XLA partition
+them; the port runs one process a rank, so a cell's arguments are what
+ONE rank holds: ``meta`` tensors (shapes alone, no memory) at the shard
+shape that ``parallel/sharding.resolve`` gives each leaf under the cell's
+rules on the mesh (``sharding.tree_shardings`` over ``Mesh.abstract``).
+:func:`build_cell` returns the step (train/step.py's train, prefill or
+decode step), those arguments and their shardings; :func:`trace_cell`,
+the counterpart of ``lower_cell``, runs the step once on them
+(core/offload.py ``TargetRegion.trace``: FLOPs, bytes and the collectives
+it issues, recorded on the abstract mesh).
+
+A rank's pass is the port's own step, so a cell whose rules need a path
+the port lacks has none: the serving steps take whole weights and their
+caches whole but for the batch (no FSDP gather in serving, no
+tensor-parallel path under these rules), and the FSDP train step shards
+over the batch axes only (train/step.py ``shard_state``: a model axis
+of 1). :attr:`Cell.gaps` names each such leaf with the rule that binds it;
+a cell with gaps is not traced.
+
+On a real device (the one-card check, a mesh of one rank) the same
+function draws the arguments: weights from a seed, zeroed caches, random
+tokens, ``cache_pos`` S − 1 (a decode step then reads the whole cache).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import configs
+from repro_torch.configs import ShapeSpec
+from repro_torch.core import offload
+from repro_torch.core import tree as tree_lib
+from repro_torch.models import transformer
+from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
+from repro_torch.train import step as steps
+
+
+def cell_config(arch: str, shape: ShapeSpec,
+                probe: Optional[Dict[int, int]] = None, smoke: bool = False
+                ) -> transformer.ModelConfig:
+    """The model config for one cell (+ optional per-group count probe),
+    with the reference's overrides. Probe keys index decoder groups first,
+    then encoder groups. ``smoke``: the arch's reduced config instead."""
+    cfg = (configs.get_smoke_config if smoke else configs.get_config)(arch)
+    over: Dict[str, Any] = {}
+    MODEL_AXIS = 16
+    if shape.step in ("decode", "prefill"):
+        # serving holds bf16 weights (no optimizer master copy to protect)
+        over["param_dtype"] = torch.bfloat16
+    if shape.step == "decode":
+        # SP (seq-sharded cache) when KV heads cannot cover the model axis;
+        # MLA's latent cache has no head axis; long_500k shards seq always
+        if (cfg.n_kv % MODEL_AXIS != 0 or cfg.mla is not None
+                or shape.name == "long_500k"):
+            over["shard_kv_seq"] = True
+    if shape.name == "long_500k":
+        over["q_chunk"] = 2048
+        over["kv_chunk"] = 2048
+    if probe is not None:
+        ng = len(cfg.groups)
+        groups = tuple((pat, probe.get(i, 1))
+                       for i, (pat, cnt) in enumerate(cfg.groups))
+        enc = tuple((pat, probe.get(ng + i, 1))
+                    for i, (pat, cnt) in enumerate(cfg.encoder_groups))
+        over["groups"] = groups
+        if enc:
+            over["encoder_groups"] = enc
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def group_counts(arch: str) -> Tuple[int, ...]:
+    cfg = configs.get_config(arch)
+    return tuple(c for _, c in cfg.groups) + \
+        tuple(c for _, c in cfg.encoder_groups)
+
+
+def rule_overrides(cfg: transformer.ModelConfig) -> Dict[str, Any]:
+    return {"kv_seq": ("model",)} if cfg.shard_kv_seq else {}
+
+
+# train-cell microbatching (the reference's table)
+GRAD_ACCUM = {"deepseek-v3-671b": 16, "yi-34b": 8, "gemma3-27b": 8,
+              "llama-3.2-vision-11b": 4, "minitron-4b": 2,
+              "granite-moe-3b-a800m": 2, "zamba2-1.2b": 2, "xlstm-1.3b": 2,
+              "whisper-medium": 2}
+
+
+@dataclasses.dataclass
+class Cell:
+    """One cell: ``fn(*args)`` is one rank's step on ``mesh``.
+    ``in_shardings``: a ``NamedSharding`` tree per argument (the model as
+    its parameter tree); ``donate``: the arguments the step writes in
+    place or replaces (the reference's donated arguments); ``gaps``: the
+    leaves whose spec needs a path the port lacks, each as ``"path:
+    logical axis -> mesh axes (what is missing)"`` (empty: the cell
+    traces)."""
+    arch: str
+    shape: ShapeSpec
+    cfg: transformer.ModelConfig
+    fn: Any
+    args: Tuple
+    in_shardings: Tuple
+    mesh: sharding.Mesh
+    donate: Tuple[int, ...] = ()
+    rules: Optional[Dict[str, Any]] = None
+    grad_accum: int = 1
+    gaps: Tuple[str, ...] = ()
+
+
+def tensor_leaves(tree) -> List[torch.Tensor]:
+    """Every tensor of ``tree`` in JAX's order, a model as its parameter
+    tree (``transformer.param_tree``)."""
+    out = []
+    for leaf in tree_lib.leaves(tree):
+        if isinstance(leaf, transformer.Transformer):
+            out.extend(tensor_leaves(transformer.param_tree(leaf)))
+        elif isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+    return out
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tensor_leaves(tree))
+
+
+def _specs(axes_tree, shape_tree, mesh):
+    return tree_lib.tree_map(lambda sh: sh.spec, sharding.tree_shardings(
+        axes_tree, shape_tree, mesh))
+
+
+def _local(shape, spec, mesh) -> Tuple[int, ...]:
+    return tuple(n // sharding.axis_size(sharding._entry_axes(
+        spec[i] if i < len(spec) else None), mesh)
+        for i, n in enumerate(shape))
+
+
+def _gaps(prefix: str, axes_tree, spec_tree, mesh: sharding.Mesh,
+          allowed: Tuple[str, ...], missing: str) -> List[str]:
+    """The leaves whose spec binds a mesh axis of more than one rank
+    outside ``allowed``."""
+    out = []
+    for (path, axes), spec in zip(
+            tree_lib.paths(axes_tree, prefix, is_leaf=sharding.is_spec),
+            tree_lib.leaves(spec_tree, is_leaf=sharding.is_spec)):
+        bad = [f"{axes[i]} -> {'/'.join(sharding._entry_axes(e))}"
+               for i, e in enumerate(spec)
+               if any(a not in allowed and mesh.shape[a] > 1
+                      for a in sharding._entry_axes(e))]
+        if bad:
+            out.append(f"{path}: {', '.join(bad)} ({missing})")
+    return out
+
+
+def _array(shape, dtype, device, generator=None, high: int = 0):
+    if device.type == "meta" or generator is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if high:
+        return torch.randint(0, high, shape, generator=generator,
+                             device=device, dtype=torch.int64).to(dtype)
+    return torch.randn(shape, generator=generator, device=device).to(dtype)
+
+
+def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
+               probe: Optional[Dict[int, int]] = None,
+               cfg_over: Optional[Dict[str, Any]] = None,
+               rules_over: Optional[Dict[str, Any]] = None,
+               grad_accum: Optional[int] = None, device="meta",
+               seed: int = 0, smoke: bool = False) -> Cell:
+    """One rank's (rank 0's) arguments for a cell; ``cfg_over`` /
+    ``rules_over`` / ``grad_accum``: the hillclimb levers
+    (launch/hillclimb.py). ``device`` other than ``meta`` draws real
+    arguments from ``seed`` and needs a mesh on which every leaf is
+    whole. ``smoke``: the arch's reduced config (tests)."""
+    device = torch.device(device)
+    cfg = cell_config(arch, shape, probe, smoke)
+    if cfg_over:
+        cfg = dataclasses.replace(cfg, **cfg_over)
+    rules = dict(rule_overrides(cfg))
+    if rules_over:
+        rules.update(rules_over)
+    ga = grad_accum if grad_accum is not None else GRAD_ACCUM.get(arch, 1)
+    gen = None if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
+    batch_axes = tuple(a for a in sharding.BATCH_AXES if a in mesh.shape)
+    train = shape.step == "train"
+    with sharding.use_mesh(mesh, rules):
+        model = transformer.init_model(cfg, gen, device)
+        params = transformer.param_tree(model)
+        p_axes = transformer.param_axes(cfg)
+        p_specs = _specs(p_axes, tree_lib.tree_map(
+            lambda p: tuple(p.shape), params), mesh)
+        gaps = _gaps("params", p_axes, p_specs, mesh,
+                     batch_axes if train else (),
+                     "the FSDP train step shards over the batch axes only"
+                     if train else "the serving steps take whole weights: "
+                     "no FSDP gather, no tensor-parallel path")
+        for p, spec in zip(tree_lib.leaves(params),
+                           tree_lib.leaves(p_specs, is_leaf=sharding.is_spec)):
+            local = _local(p.shape, spec, mesh)
+            if local != tuple(p.shape):
+                if device.type != "meta":
+                    raise ValueError(f"{arch}: real arguments need whole "
+                                     f"leaves; {tuple(p.shape)} -> {local}")
+                p.data = torch.empty(local, dtype=p.dtype, device=device)
+        p_sh = tree_lib.tree_map(lambda s: sharding.NamedSharding(mesh, s),
+                                 p_specs, is_leaf=sharding.is_spec)
+        B = shape.global_batch
+        L = shape.seq_len if shape.step != "decode" else 1
+        tok_spec = sharding.resolve(("batch", None), (B, L), mesh)
+        b_local = _local((B, L), tok_spec, mesh)
+
+        def tokens():
+            return _array(b_local, torch.int32, device, gen, cfg.vocab)
+
+        extra = None
+        if transformer.has_cross(cfg) and shape.step != "decode":
+            dim = cfg.cross_kv_dim if cfg.family == "vlm" else cfg.d_model
+            ex_spec = sharding.resolve(("batch", None, None),
+                                       (B, cfg.encoder_seq, dim), mesh)
+            extra = _array(_local((B, cfg.encoder_seq, dim), ex_spec, mesh),
+                           torch.bfloat16, device, gen)
+        if train:
+            model.requires_grad_(True)
+            model.fsdp = (mesh, p_specs) if mesh.size > 1 else None
+            state = steps.TrainState(params=model, opt=adamw.init(params),
+                                     step=torch.zeros((), dtype=torch.int32,
+                                                      device=device))
+            batch = {"tokens": tokens(), "labels": tokens()}
+            if cfg.mtp:
+                batch["next_tokens"] = tokens()
+                batch["mtp_labels"] = tokens()
+            if extra is not None:
+                batch["extra"] = extra
+            fn = steps.make_train_step(cfg, adamw.Config(), grad_accum=ga)
+            b_sh = {k: sharding.NamedSharding(
+                mesh, ex_spec if k == "extra" else tok_spec) for k in batch}
+            state_sh = steps.TrainState(
+                params=p_sh, opt=adamw.OptState(m=p_sh, v=p_sh),
+                step=sharding.NamedSharding(mesh, ()))
+            return Cell(arch, shape, cfg, fn, (state, batch),
+                        (state_sh, b_sh), mesh, donate=(0,), rules=rules,
+                        grad_accum=ga, gaps=tuple(gaps))
+        S = shape.seq_len
+        c_axes = transformer.cache_logical_axes(cfg)
+        whole = transformer.init_caches(cfg, B, S, device="meta")
+        c_specs = _specs(c_axes, tree_lib.tree_map(
+            lambda a: tuple(a.shape), whole), mesh)
+        gaps += _gaps("caches", c_axes, c_specs, mesh, batch_axes,
+                      "the serving steps hold a cache whole but for the "
+                      "batch")
+        caches = tree_lib.tree_map(
+            lambda a, spec: _array(_local(a.shape, spec, mesh), a.dtype,
+                                   device),
+            whole, c_specs)
+        c_sh = tree_lib.tree_map(lambda s: sharding.NamedSharding(mesh, s),
+                                 c_specs, is_leaf=sharding.is_spec)
+        tok_sh = sharding.NamedSharding(mesh, tok_spec)
+        if shape.step == "prefill":
+            fn = steps.make_prefill_step(cfg)
+            return Cell(arch, shape, cfg, fn, (model, tokens(), caches,
+                                               extra),
+                        (p_sh, tok_sh, c_sh, None if extra is None else
+                         sharding.NamedSharding(mesh, ex_spec)),
+                        mesh, donate=(2,), rules=rules, gaps=tuple(gaps))
+        pos = torch.full((), S - 1, dtype=torch.int32, device=device)
+        fn = steps.make_decode_step(cfg)
+        return Cell(arch, shape, cfg, fn, (model, tokens(), caches, pos),
+                    (p_sh, tok_sh, c_sh, sharding.NamedSharding(mesh, ())),
+                    mesh, donate=(2,), rules=rules, gaps=tuple(gaps))
+
+
+def memory(cell: Cell, trace: Optional[offload.Trace] = None
+           ) -> Dict[str, Optional[int]]:
+    """One rank's bytes. Exact from the shard shapes: the arguments; the
+    outputs, which are the donated arguments' new values (``alias``, as the
+    reference donates them: the caches, or the train state) and, for a
+    serving step, the logits [B_local, 1, vocab] at the compute dtype (a
+    train step's metrics are a few scalars, not counted). From a traced
+    pass (None: not traced): temp, the most bytes of storages the pass
+    created alive at once less the new outputs (``output - alias``), so
+    that ``total_per_device`` is the arguments plus that peak. The kernels'
+    plain versions run on ``meta``, so their scratch stands in for the
+    kernels'."""
+    arg = nbytes(cell.args)
+    alias = sum(nbytes(cell.args[i]) for i in cell.donate)
+    out = alias
+    if cell.shape.step != "train":
+        out += cell.args[1].shape[0] * cell.cfg.vocab * \
+            cell.cfg.compute_dtype.itemsize
+    temp = None if trace is None else \
+        max(0, trace.peak_bytes - (out - alias))
+    return {"argument_size_in_bytes": arg, "output_size_in_bytes": out,
+            "temp_size_in_bytes": temp, "alias_size_in_bytes": alias,
+            "total_per_device": arg + out - alias + (temp or 0)}
+
+
+def trace_cell(cell: Cell) -> offload.Trace:
+    """Run one rank's step on the cell's arguments (the counterpart of
+    ``lower_cell``) under its mesh and rules: FLOPs, bytes, collectives
+    and outputs of the pass."""
+    if cell.gaps:
+        raise ValueError(f"{cell.arch} x {cell.shape.name}: no traced pass "
+                         f"on {cell.mesh}: {cell.gaps[0]}")
+    region = offload.TargetRegion(cell.fn, name=f"{cell.arch}/"
+                                  f"{cell.shape.name}")
+    with sharding.use_mesh(cell.mesh, cell.rules):
+        return region.trace(*cell.args)

@@ -12,6 +12,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import addrspace
+
 
 @functools.lru_cache(maxsize=None)
 def rounded(value: float, dtype: torch.dtype) -> float:
@@ -86,5 +88,6 @@ def gelu_mlp(w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
 
 
 def embed_lookup(table: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
-    """Row gather: [vocab, d] × int ids [...] → [..., d]."""
-    return F.embedding(token_ids.long(), table)
+    """Row gather: [vocab, d] × int ids [...] → [..., d], legalized as
+    core/addrspace.py says (row ids int32: NATIVE for every vocab)."""
+    return addrspace.legalized_take(table, token_ids, axis=0)

@@ -272,7 +272,8 @@ def _mlstm_qkv(p, x, cfg: MlstmConfig, conv_state=None):
         blocks.rounded(math.sqrt(P), x.dtype)
     k = (conv_out @ p["wk"]).reshape(B, L, H, P)
     v = (xi @ p["wv"]).reshape(B, L, H, P)
-    gif = (xi @ p["w_if"]).float()
+    # an f32 w_if (the reference's leaf) promotes xi to f32, as jnp does
+    gif = (xi.to(p["w_if"].dtype) @ p["w_if"]).float()
     i_g, f_g = gif.chunk(2, dim=-1)                     # [B, L, H]
     ld = F.logsigmoid(f_g)                              # log forget ≤ 0
     lg = i_g.clamp(-cfg.gate_clip, cfg.gate_clip)       # log input, clipped

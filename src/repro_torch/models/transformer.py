@@ -837,6 +837,35 @@ def cache_seq_axis(mixer: str) -> Optional[int]:
     return 2 if mixer == "mla" else 3
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    """The logical sharding axes of each leaf of :func:`init_caches`'s tree
+    (the reference's ``cache_logical_axes``): K/V over ``kv_heads_tp`` (and
+    ``kv_seq`` under ``cfg.shard_kv_seq``), MLA's latents over ``kv_seq``,
+    a recurrent state's heads (or its conv history's channels) over
+    ``heads_tp``; every leaf leads with ``layers`` and ``batch``."""
+    kv_seq = "kv_seq" if cfg.shard_kv_seq else None
+    kv = ("layers", "batch", "kv_heads_tp", kv_seq, None)
+    state = {"mamba": {"ssm": ("layers", "batch", "heads_tp", None, None),
+                       "conv": ("layers", "batch", None, "heads_tp")},
+             "slstm": {name: ("layers", "batch", "heads_tp", None)
+                       for name in ("c", "n", "h")}}
+    state["mlstm"] = state["mamba"]
+    out = []
+    for pattern, _ in cfg.groups:
+        per_pos = []
+        for kind in pattern:
+            mixer = parse_kind(kind)[0]
+            if mixer in state:
+                per_pos.append(dict(state[mixer]))
+            elif mixer == "mla":
+                per_pos.append({name: ("layers", "batch", kv_seq, None)
+                                for name in ("ckv", "kr")})
+            else:
+                per_pos.append({"k": kv, "v": kv})
+        out.append(tuple(per_pos))
+    return out
+
+
 def _encoder_units(model: Transformer):
     """Walk the encoder's layers in order: (kind, layer weights)."""
     for gi, (pattern, count) in enumerate(model.cfg.encoder_groups):

@@ -265,7 +265,7 @@ def _nest(flat):
 def pipeline_job(rank: int, job: PipelineJob) -> Dict[str, Any]:
     """gpipe forward and the backward of ``ys.float().sum()``: the
     outputs, the inputs' gradient and this stage's layers' gradients (host
-    f32), with the ticks, the launches of the ten kernels and the wall
+    f32), with the ticks, the launches of the kernels and the wall
     time."""
     from repro_torch.parallel import pipeline
     device = _device(job.device)

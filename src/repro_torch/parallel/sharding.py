@@ -54,6 +54,14 @@ unmeasured until a multi-card call.
 Every sum runs in f32 (a bf16 or f16 operand is widened first and the
 result rounded once).
 
+*On an abstract mesh* (:func:`record_collectives`, a dry run's traced
+pass of one rank: rank 0), :meth:`Mesh.line` gives lines with no process
+group, and each wire function records what it would issue
+(``core/perf.Collective``: its kind, its result's bytes on the wire, its
+group's size) and returns a tensor of the result's shape whose values
+mean nothing (on ``meta`` tensors there are none). The ring shift
+records the all-gather it is made of.
+
 **Serving tp** (``init_tp``, ``tp_group``, :func:`all_gather_cat`) is the
 reference's ``TP_AXIS`` / ``tp_mesh``: each rank runs the same scheduler
 and meets the others in one ``all_gather`` of attention heads a layer
@@ -72,6 +80,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import perf
 from repro_torch.core import tree as tree_lib
 
 # logical axis -> preferred mesh axes (in order; filtered by mesh presence)
@@ -191,7 +200,10 @@ class Mesh:
         if len(key) != len(axes):
             raise ValueError(f"axes {axes} not all in mesh {self.shape}")
         if not self._lines:
-            raise ValueError("an abstract mesh has no process groups")
+            if _REC.records is None:
+                raise ValueError("an abstract mesh has no process groups")
+            size = math.prod(self.shape[a] for a in key)
+            return Line(key, size, 0, (), None)   # rank 0's, recording
         return self._lines[key]
 
     def __repr__(self):
@@ -235,6 +247,10 @@ def use_mesh(mesh: Mesh, overrides: Optional[Dict[str, Optional[Tuple[
 
 def current_mesh() -> Optional[Mesh]:
     return _CTX.mesh
+
+
+def current_rules() -> Dict[str, Optional[Tuple[str, ...]]]:
+    return dict(_CTX.rules)
 
 
 def axis_size(mesh_axes: Sequence[str], mesh: Mesh) -> int:
@@ -366,6 +382,41 @@ def tree_shardings(axes_tree, shape_tree=None, mesh: Optional[Mesh] = None):
 # --------------------------------------------------------------------------
 # the collectives: on the wire
 # --------------------------------------------------------------------------
+class _Rec(threading.local):
+    def __init__(self):
+        self.records: Optional[List[perf.Collective]] = None
+
+
+_REC = _Rec()
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Record, in this thread, the collectives issued over an abstract
+    mesh's lines: yields the list of ``core/perf.Collective`` records,
+    filled as the pass runs."""
+    prev = _REC.records
+    _REC.records = records = []
+    try:
+        yield records
+    finally:
+        _REC.records = prev
+
+
+def _abstract(line: Line, kind: str, result: torch.Tensor) -> bool:
+    """True on an abstract line (no group, more than one rank: nothing to
+    send), after recording one ``kind`` collective with ``result``'s
+    bytes."""
+    if line.group is not None or line.size == 1:
+        return False
+    if _REC.records is None:
+        raise ValueError(f"{line}: a collective on an abstract mesh runs "
+                         "only inside record_collectives()")
+    _REC.records.append(perf.Collective(
+        kind, result.numel() * result.element_size(), line.size))
+    return True
+
+
 def _wide(x: torch.Tensor) -> torch.Tensor:
     """A fresh copy to sum in: f32 for a bf16 / f16 ``x``."""
     if x.dtype in (torch.bfloat16, torch.float16):
@@ -376,7 +427,8 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
 def _sum(x: torch.Tensor, line: Line) -> torch.Tensor:
     """Σ over the line, in f32, rounded once to x's dtype."""
     y = _wide(x)
-    dist.all_reduce(y, group=line.group)
+    if not _abstract(line, "all-reduce", y):
+        dist.all_reduce(y, group=line.group)
     return y.to(x.dtype)
 
 
@@ -385,7 +437,8 @@ def _parts(x: torch.Tensor, line: Line) -> List[torch.Tensor]:
     x = x.contiguous()
     out = torch.empty((line.size,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather_into_tensor(out, x[None], group=line.group)
+    if not _abstract(line, "all-gather", out):
+        dist.all_gather_into_tensor(out, x[None], group=line.group)
     return list(out.unbind(0))
 
 
@@ -399,7 +452,8 @@ def _reduce_scatter(x: torch.Tensor, line: Line, dim: int) -> torch.Tensor:
     y = _wide(x).movedim(dim, 0).contiguous()
     out = torch.empty((n,) + tuple(y.shape[1:]), dtype=y.dtype,
                       device=y.device)
-    dist.reduce_scatter_tensor(out, y, group=line.group)
+    if not _abstract(line, "reduce-scatter", out):
+        dist.reduce_scatter_tensor(out, y, group=line.group)
     return out.movedim(0, dim).to(x.dtype).contiguous()
 
 
@@ -409,7 +463,8 @@ def _all_to_all(x: torch.Tensor, line: Line) -> torch.Tensor:
     concat_axis=0, tiled=True)``)."""
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=line.group)
+    if not _abstract(line, "all-to-all", out):
+        dist.all_to_all_single(out, x, group=line.group)
     return out
 
 

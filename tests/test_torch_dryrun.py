@@ -1,0 +1,191 @@
+"""launch/specs.py, launch/dryrun.py and launch/hillclimb.py.
+
+  * A cell's arguments are one rank's shards: every leaf's bytes (weights,
+    optimizer moments, step, batch, caches, cache position, in the
+    reference's argument order) equal the shard shape of the reference's
+    ``sharding.resolve`` spec of that leaf on the (16, 16) mesh under the
+    reference's rules and ``cell_config`` overrides, for qwen2-0.5b at full
+    width on its three shapes and for every arch at decode_32k.
+  * ``run_cell`` on a mesh of one rank traces the port's own decode step
+    of qwen2-0.5b decode_32k on ``meta`` at full width: its FLOPs equal the
+    reference's analytic count to 1 %, its arguments are the card's 52.53
+    GB, its temp bytes the pass's peak of created storages less the
+    logits; on the production mesh the same cell is not traced, and the
+    record names the leaf and the rule.
+  * A smoke-config ``hillclimb`` run with the model axis unbound traces
+    the FSDP train step on the abstract (16, 16) mesh (the all-gathers and
+    reduce-scatters recorded) and appends its entry to a log in
+    ``tmp_path``.
+  * ``repro_torch.launch.dryrun`` and ``hillclimb`` import without JAX.
+"""
+import json
+import math
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from repro import configs as jconfigs
+from repro.launch import specs as jspecs
+from repro.parallel import sharding as jsharding
+from repro_torch import configs
+from repro_torch.launch import dryrun, hillclimb, specs
+from repro_torch.parallel import sharding
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _is_spec(x):
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str)
+                                        for e in x)
+
+
+def _ref_leaf_bytes(arch, shape_name, mesh_shape, monkeypatch):
+    """Each argument leaf's bytes on one device of the reference's mesh:
+    its abstract shape cut as ``jsharding.resolve`` binds its axes."""
+    shape = jconfigs.SHAPES[shape_name]
+    cfg = jspecs.cell_config(arch, shape)
+    rules = dict(jsharding.DEFAULT_RULES)
+    rules.update(jspecs.rule_overrides(cfg))
+    monkeypatch.setattr(jsharding._CTX, "rules", rules)
+    mesh = types.SimpleNamespace(shape=dict(zip(("data", "model"),
+                                                mesh_shape)))
+
+    def shard(shape_, dtype, axes):
+        spec = jsharding.resolve(axes, shape_, mesh)
+        n = 1
+        for i, d in enumerate(shape_):
+            e = spec[i] if i < len(spec) else None
+            e = () if e is None else ((e,) if isinstance(e, str) else e)
+            n *= d // math.prod(mesh.shape[a] for a in e)
+        return n * np.dtype(dtype).itemsize
+
+    def tree(vals, axes):
+        return [shard(v.shape, v.dtype, a) for v, a in zip(
+            jax.tree_util.tree_leaves(vals),
+            jax.tree_util.tree_leaves(axes, is_leaf=_is_spec))]
+
+    B, L = shape.global_batch, shape.seq_len
+    params = tree(*jspecs.abstract_params(cfg))
+    tok = shard((B, 1 if shape.step == "decode" else L), np.int32,
+                ("batch", None))
+    extra = []
+    if cfg.family in ("vlm", "audio") and shape.step != "decode":
+        dim = cfg.cross_kv_dim if cfg.family == "vlm" else cfg.d_model
+        extra = [shard((B, cfg.encoder_seq, dim), jax.numpy.bfloat16,
+                       ("batch", None, None))]
+    if shape.step == "train":     # state (params, m, v f32, step), batch
+        moments = [b // np.dtype(np.float32).itemsize * 4 for b in params]
+        batch = {"labels": tok, "tokens": tok}
+        if cfg.mtp:
+            batch.update(mtp_labels=tok, next_tokens=tok)
+        keys = sorted(list(batch) + (["extra"] if extra else []))
+        return params + moments + moments + [4] + [
+            extra[0] if k == "extra" else batch[k] for k in keys]
+    caches = tree(*jspecs.abstract_caches(cfg, B, L))
+    return params + [tok] + caches + (extra if shape.step == "prefill"
+                                      else [4])
+
+
+CELLS = [("qwen2-0.5b", s) for s in ("train_4k", "prefill_32k",
+                                     "decode_32k")] + \
+    [(a, "decode_32k") for a in jconfigs.ARCHS if a != "qwen2-0.5b"]
+
+
+@pytest.mark.parametrize("arch,shape_name", CELLS)
+def test_argument_bytes_are_the_reference_s_shards(arch, shape_name,
+                                                   monkeypatch):
+    mesh = dryrun.mesh_of("16x16")
+    cell = specs.build_cell(arch, configs.SHAPES[shape_name], mesh)
+    got = [t.numel() * t.element_size()
+           for t in specs.tensor_leaves(cell.args)]
+    want = _ref_leaf_bytes(arch, shape_name, (16, 16), monkeypatch)
+    assert got == want
+    mem = specs.memory(cell)
+    assert mem["argument_size_in_bytes"] == sum(want)
+    donated = sum(specs.nbytes(cell.args[i]) for i in cell.donate)
+    assert mem["alias_size_in_bytes"] == donated
+    assert all(t.device.type == "meta"
+               for t in specs.tensor_leaves(cell.args))
+
+
+def test_run_cell_traces_the_decode_step_to_the_analytic_flops():
+    shape = configs.SHAPES["decode_32k"]
+    one = dryrun.run_cell("qwen2-0.5b", shape, "1x1", verbose=False)
+    t, a = one["traced"], one["analytic"]
+    assert abs(t["flops"] / a["flops"] - 1) < 0.01
+    assert t["kernel_flops"] == {}          # meta: the plain versions
+    assert t["collective"]["total"] == 0 and one["chips"] == 1
+    assert one["memory"]["argument_size_in_bytes"] == 52527673604
+    mem = one["memory"]
+    assert 0 < mem["temp_size_in_bytes"] < 2**30    # the plain scratch
+    assert mem["total_per_device"] == mem["argument_size_in_bytes"] + \
+        mem["output_size_in_bytes"] - mem["alias_size_in_bytes"] + \
+        mem["temp_size_in_bytes"]
+    assert t["peak_bytes"] == mem["temp_size_in_bytes"] + \
+        mem["output_size_in_bytes"] - mem["alias_size_in_bytes"]
+    assert one["roofline"]["dominant"] == "memory"
+    assert one["roofline_chip"].startswith("H100")
+    prod = dryrun.run_cell("qwen2-0.5b", shape, "16x16", verbose=False)
+    assert prod["traced"] is None and prod["roofline"]["collective_s"] is None
+    assert prod["memory"]["temp_size_in_bytes"] is None
+    assert prod["traced_null"]["leaf"].startswith("params/embed: vocab_tp "
+                                                  "-> model")
+    assert prod["analytic"] == a
+
+
+def test_hillclimb_traces_the_fsdp_step_on_the_abstract_mesh(tmp_path,
+                                                             monkeypatch):
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path / "dryrun"))
+    log = tmp_path / "perf_log.json"
+    argv = ["--arch", "qwen2-0.5b", "--shape", "train_4k", "--smoke",
+            "--tag", "fsdp-only", "--hypothesis", "model axis unbound",
+            "--set", "q_chunk=4096", "--set", "kv_chunk=4096",
+            "--log", str(log)]
+    for r in ("heads_tp", "kv_heads_tp", "mlp_tp", "vocab_tp"):
+        argv += ["--rule", f"{r}="]
+    entry = hillclimb.main(argv)
+    saved = json.loads(log.read_text())
+    assert saved[-1]["tag"] == "fsdp-only" and saved[-1]["after"] == \
+        entry["after"]
+    after = entry["after"]
+    assert after["traced_null"] is None and after["coll_per_dev_bytes"] > 0
+    assert after["chips"] == 256 and after["dominant"] in (
+        "compute", "memory", "collective")
+    cell = specs.build_cell(
+        "qwen2-0.5b", configs.SHAPES["train_4k"], dryrun.mesh_of("16x16"),
+        smoke=True, cfg_over={"q_chunk": 4096, "kv_chunk": 4096},
+        rules_over={r: None for r in ("heads_tp", "kv_heads_tp", "mlp_tp",
+                                      "vocab_tp")})
+    kinds = {r.kind for r in specs.trace_cell(cell).collectives}
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= kinds
+    assert sharding.current_mesh() is None
+    hillclimb.main(argv + ["--mesh", "one"])
+    assert len(json.loads(log.read_text())) == 2
+
+
+def test_dryrun_cli_writes_records_and_imports_no_jax(tmp_path,
+                                                      monkeypatch):
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    dryrun.main(["--arch", "xlstm-1.3b", "--shape", "long_500k", "--mesh",
+                 "both"])
+    for mesh in ("16x16", "2x16x16"):
+        rec = json.loads((tmp_path / f"xlstm-1.3b__long_500k__{mesh}.json")
+                         .read_text())
+        assert set(rec) >= {"memory", "analytic", "roofline", "traced"}
+        assert rec["traced"] is not None or rec["traced_null"]["leaf"]
+    assert "xlstm-1.3b" not in json.loads((tmp_path / "skips.json")
+                                          .read_text())
+    code = ("import sys; import repro_torch, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hillclimb; "
+            "assert not [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'repro.'))], 'jax loaded'")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env={"PYTHONPATH": str(SRC),
+                                       "PATH": "/usr/bin:/bin"},
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
