@@ -373,6 +373,43 @@ Phases, each printed on its own line, none catching its own failure:
                restored at 1 rank equal bit for bit to each rank's shards
                (digests), 0 launches; logs each rank's peak memory and
                step times (gloo's transport: correctness only);
+  10d. tp serve  the serving steps on a rank's shards (train/step.py
+               ``shard_model`` / ``rank_caches``; parallel/mesh_jobs.py
+               ``ServeJob``) on gloo ranks sharing the card, each rank
+               also running the one-rank step itself: qwen2-0.5b at full
+               width (bf16, seed 0) under its decode_32k cell's rules
+               (``kv_seq`` → model) on (data 1, model 2) (its kv heads on
+               the model axis, head-aligned), (1, 4) (SP decode; q columns
+               3.5 heads a rank, gathered) and (2, 2) (the FSDP gather
+               too): a decode step at S 32768, B 8 over caches drawn
+               N(0, 1), 7 slots at 32767 and one at 100 (its later slices
+               empty), and a prefill of B 2 x 2048 tokens; and in f32
+               (TF32 off) on (1, 4) a decode step at S 1024 of
+               qwen2-0.5b and of granite-moe-3b-a800m at full width
+               (experts whole, slot-parallel; its capacity factor
+               E / top_k so that neither path drops a token; granite
+               runs in f32 alone, since in bf16 its routing flips
+               against f32 and its own bf16 error bounds nothing).
+               Gates, every rank: in bf16 its logits, against the
+               one-rank step, within 3x that step's own bf16 error (the
+               same step in f32 on the same values, run first in this
+               process: largest element and norm), its cache parts
+               within 3x the one-rank caches' bf16 error (the greedy
+               tokens reported); in f32 its logits within 1e-4 of the
+               largest one-rank f32 logit (element and norm) and the
+               greedy token equal on every row whose one-rank top-2 gap
+               passes twice that (at least one row); its kernel
+               (flash_decode / flash_attention) launched, and its
+               collectives (kind, bytes, group, in order) equal to
+               ``specs.trace_cell``'s of the same cell on the abstract
+               mesh. First, ``flash_decode(..., return_lse=True)`` at a
+               (1, 4) rank's shape (B 8, H 14, K 2, S 8192, hd 64, bf16,
+               one slot empty) against its plain version (lse within
+               1e-3, NEG for the empty slot, the output the same bits as
+               without the flag), timed beside the library's attention
+               with its lse (``aten._scaled_dot_product_efficient_
+               attention``, the lengths as a bias, held against plain)
+               and its byte bound;
   11a. dma     ``core/dma.hero_memcpy2d`` (``csrc/hero_memcpy2d.cu``: rows
                staged through the TMA bulk copy of ``csrc/hero_dma.cuh``)
                against its plain version, the reference's sequential row
@@ -413,7 +450,9 @@ Phases, each printed on its own line, none catching its own failure:
      flash_decode_whisper_cross, each with the launches of one kind of
      layer in its phase and timed at that kind's shape in phase 5; and
      flash_attention_zamba2 and flash_decode_zamba2 with phase 7n's
-     launches, timed in phase 5; hero_memcpy2d with phase 11a's; every
+     launches, timed in phase 5; flash_decode_sp with the launches of
+     phase 10d's (1, 4) qwen2-0.5b decode step on rank 0, timed with its
+     lse at that rank's shape; hero_memcpy2d with phase 11a's; every
      entry launched at least once).
      The recurrent mixers of 7m / 7n (models/ssm.py) and 7o's MLA have
      no entry, nor has phase 9's training attention (models/flash_xla.py):
@@ -429,6 +468,7 @@ from a directory that lacks the repository's ``src/``, it fails too.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import copy
 import dataclasses
 import json
@@ -3538,6 +3578,288 @@ def fsdp_full(card: str, ref_steps):
 
 
 # --------------------------------------------------------------------------
+# phase 10d: the serving steps on a rank's shards
+# --------------------------------------------------------------------------
+# phase 10d's bound: a rank's bf16 step may stray from the same step in f32
+# (one rank, the same bf16 weights, caches and tokens) at most twice as far
+# as the one-rank bf16 step does, so it lies within 3x the one-rank step's
+# own bf16 error of the one-rank step (largest element and norm alike)
+TP_TIMES = 3.0
+TP_F32_TOL = 1e-4   # in f32 (TF32 off): only the order of the sums differs
+SP_SHAPE = (8, 14, 2, 8192, 64)          # a (1, 4) rank's decode (S 32768)
+SP_LENS = (0, 8192, 1, 100, 4097, 8191, 5000, 8192)
+
+
+def check_sp_decode(results):
+    """``flash_decode(..., return_lse=True)`` at a rank's SP-decode shape
+    against its plain version (an empty slice included), its output the
+    same bits as without the flag; timed beside the library's attention
+    with its log-sum-exp (the efficient-attention op, the lengths as a
+    bias) and the byte bound (kernel and library from CUDA-graph replays,
+    cycling 8 caches; plain from CUDA events)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch.kernel_suite import graph_ms
+    import itertools
+    res = results["flash_decode_sp"]
+    g = torch.Generator(device="cuda").manual_seed(10)
+    B, H, K, S, hd = SP_SHAPE
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    caches = [tuple(torch.randn(B, K, S, hd, generator=g, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2)) for _ in range(8)]
+    lengths = torch.tensor(SP_LENS, dtype=torch.int32, device="cuda")
+    out, lse = da.flash_decode(q, *caches[0], lengths, return_lse=True)
+    assert torch.equal(out, da.flash_decode(q, *caches[0], lengths))
+    p_out, p_lse = da.flash_decode_plain(q, *caches[0], lengths,
+                                         return_lse=True)
+    res["max_abs_err"] = close(out, p_out)
+    empty = lengths == 0
+    assert bool((lse[empty] == da.NEG).all()), lse[empty]
+    lse_err = float((lse[~empty] - p_lse[~empty]).abs().max())
+    assert lse_err <= 1e-3, lse_err
+    cyc = itertools.cycle(caches)
+    res["ms"] = graph_ms(lambda: da.flash_decode(
+        q, *next(cyc), lengths, return_lse=True), 20)
+    res["plain_ms"] = cuda_ms(lambda i: da.flash_decode_plain(
+        q, *caches[i % 8], lengths, return_lse=True), iters=4, warm=1)
+    # the library's (out, lse): the efficient-attention op with its
+    # log-sum-exp, each kv head's G query heads as G query rows, the
+    # lengths as a bias; held against plain on the slots with a key
+    G, item = H // K, 2
+    qg = q.view(B, K, G, hd)
+    bias = torch.zeros(B, 1, 1, S, dtype=q.dtype, device="cuda").masked_fill(
+        torch.arange(S, device="cuda") >= lengths[:, None, None, None],
+        float("-inf")).expand(B, K, G, S)
+    lib = lambda k, v: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qg, k, v, bias, True)[:2]   # noqa: E731
+    l_out, l_lse = lib(*caches[0])
+    l_out = l_out.reshape(B, H, hd)[~empty]
+    l_lse = l_lse[..., :G].reshape(B, H)[~empty]
+    lib_err = (float((l_out.float() - p_out[~empty].float()).abs().max()),
+               float((l_lse - p_lse[~empty]).abs().max()))
+    assert lib_err[0] <= 2e-2 and lib_err[1] <= 1e-2, lib_err
+    res["library_ms"] = graph_ms(lambda: lib(*next(cyc)), 20)
+    nbytes = (sum(K * hd * item * (n + (n if n > 0 else S)) for n in SP_LENS)
+              + 2 * q.numel() * item + 4 * B + 4 * B * H)
+    flops = sum(K * G * hd * (4 * n if n > 0 else 2 * S) for n in SP_LENS)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
+    log("tp serve", f"flash_decode with lse at a (1, 4) rank's SP-decode "
+        f"shape B {B} H {H} K {K} S {S} hd {hd} bf16, lengths {SP_LENS}: "
+        f"out within {res['max_abs_err']:.3e} of plain (2e-3 + one bf16 "
+        f"step), the same bits as without lse; lse within {lse_err:.3e} of "
+        f"plain (gate 1e-3), NEG for the empty slot; kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
+        f"(aten._scaled_dot_product_efficient_attention with its lse, "
+        f"G query rows a kv head, a length bias; graph) "
+        f"{res['library_ms']:.4f} ms, out / lse within {lib_err[0]:.3e} / "
+        f"{lib_err[1]:.3e} of plain on the slots with a key, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {nbytes} B at 3.35 "
+        "TB/s)")
+
+
+def tp_serve_jobs():
+    """Phase 10d's cases: {mesh: [(name, ServeJob, the ShapeSpec and
+    build_cell levers of the same cell on an abstract mesh)]}."""
+    from repro_torch import configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import specs
+    from repro_torch.parallel import mesh_jobs as jobs
+    rng = np.random.default_rng(0)
+    out = {}
+    # (arch, meshes, bf16 decode S, bf16 prefill L): granite in f32 alone
+    # (in bf16 its routing flips against f32, so its own bf16 error is
+    # no bound); each arch in f32 on (1, 4) first, at S 1024
+    for arch, meshes, S_dec, L in (("qwen2-0.5b", ((1, 2), (1, 4), (2, 2)),
+                                    32768, 2048),
+                                   ("granite-moe-3b-a800m", ((1, 4),), 0,
+                                    0)):
+        cfg = specs.cell_config(arch, configs.SHAPES["decode_32k"])
+        over = {"shard_kv_seq": cfg.shard_kv_seq}
+        if cfg.moe is not None:    # no capacity drops, meshless or not
+            over["moe"] = dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+            cfg = dataclasses.replace(cfg, moe=over["moe"])
+        rules = specs.rule_overrides(cfg)
+        tok = rng.integers(0, cfg.vocab, (8, 1)).astype(np.int32)
+        pos = np.array([max(S_dec, 1024) - 1] * 7 + [100])
+        prompt = rng.integers(0, cfg.vocab, (2, L)).astype(np.int32) \
+            if L else None
+        for mesh in meshes:
+            kw = dict(cfg=cfg, mesh=mesh, rules=rules, compare=True,
+                      keep=(), device="cuda:0")
+            items = out.setdefault(mesh, [])
+            if mesh == (1, 4):     # f32 (TF32 off), first: exact gates
+                f32 = dict(param_dtype=torch.float32,
+                           compute_dtype=torch.float32)
+                items.insert(0, (f"{arch} decode f32", jobs.ServeJob(
+                    **dict(kw, cfg=dataclasses.replace(cfg, **f32),
+                           compare=False, keep=("logits",)),
+                    batch=8, max_seq=1024, decode=[(tok, np.minimum(
+                        pos, 1023))], fill=True),
+                    (arch, ShapeSpec("decode_32k", 1024, 8, "decode"),
+                     dict(over, **f32))))
+            if S_dec:
+                items.append((f"{arch} decode", jobs.ServeJob(
+                    batch=8, max_seq=S_dec, decode=[(tok, pos)], fill=True,
+                    **kw), (arch, ShapeSpec("decode_32k", S_dec, 8,
+                                            "decode"), over)))
+            if L:
+                items.append((f"{arch} prefill", jobs.ServeJob(
+                    batch=2, max_seq=L, prompt=prompt, **kw),
+                    (arch, ShapeSpec("prefill_32k", L, 2, "prefill"), over)))
+    return out
+
+
+def bf16_error(job):
+    """The one-rank step's own bf16 error: its logits and caches against
+    the same step in f32 on the same values → ([(max |diff|, norm of the
+    difference over the f32 logits') a step], max |diff| of the caches)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.parallel import mesh_jobs as jobs
+    b, cb = jobs.one_rank(job)
+    f, cf = jobs.one_rank(job, torch.float32)
+    out = ([(float((x - y).abs().max()), float((x - y).norm() / y.norm()))
+            for x, y in zip(b, f)],
+           max(float((p.float() - q).abs().max()) for p, q in zip(
+               tree_lib.leaves(cb), tree_lib.leaves(cf))))
+    del b, cb, f, cf
+    free_card("tp serve", f"after the one-rank bf16 / f32 steps of a job")
+    return out
+
+
+def tp_serve_full(card: str, results):
+    """Phase 10d (see the module docstring)."""
+    from repro_torch.launch import specs
+    from repro_torch.parallel import mesh_jobs as jobs
+    from repro_torch.parallel import sharding
+    phase = "tp serve"
+    free_card(phase)
+    check_sp_decode(results)
+    t0 = time.perf_counter()
+    cases = tp_serve_jobs()
+    noise, exact = {}, {}
+    for items in cases.values():
+        for name, job, _ in items:
+            if not job.compare:      # f32: the one-rank logits here
+                exact[name] = [t.cpu() for t in jobs.one_rank(job)[0]]
+                free_card(phase, f"after the one-rank {name} step")
+            elif name not in noise:
+                noise[name] = bf16_error(job)
+                log(phase, f"{name}: the one-rank step's own bf16 error "
+                    f"against f32 (largest element, norm) "
+                    + ", ".join(f"({a:.4g}, {n:.4g})"
+                                for a, n in noise[name][0])
+                    + f", caches {noise[name][1]:.4g}")
+    noise_s = time.perf_counter() - t0
+
+    def trace_all():      # on meta, on the CPU: beside the spawns
+        t = time.perf_counter()
+        out = {}
+        for mesh, items in cases.items():
+            amesh = sharding.Mesh.abstract(mesh, ("data", "model"))
+            for name, _, (arch, shape, over) in items:
+                cell = specs.build_cell(arch, shape, amesh, cfg_over=over)
+                out[mesh, name] = [
+                    (c.kind, c.nbytes, c.group)
+                    for c in specs.trace_cell(cell).collectives]
+        return out, time.perf_counter() - t
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    tracing = pool.submit(trace_all)
+    walls, runs = {}, {}
+    for mesh, items in cases.items():
+        t0 = time.perf_counter()
+        runs[mesh] = _spawn(jobs.each, mesh[0] * mesh[1], (
+            jobs.serve_job, [job for _, job, _ in items]), 900.0)
+        walls[mesh] = time.perf_counter() - t0
+    traced, trace_s = tracing.result()
+    pool.shutdown()
+    for mesh, items in cases.items():
+        n, out = mesh[0] * mesh[1], runs[mesh]
+        for i, (name, job, _) in enumerate(items):
+            ranks = sorted((r[i] for r in out),
+                           key=lambda r: (r["coords"]["data"],
+                                          r["coords"]["model"]))
+            kernel = "flash_decode" if job.decode else "flash_attention"
+            for r in ranks:
+                assert r["launches"][kernel] > 0, (name, mesh, r["launches"])
+                colls = [tuple(c) for c in r["collectives"]]
+                assert colls == traced[mesh, name], (
+                    name, mesh, colls[:4], traced[mesh, name][:4])
+            if not job.compare:
+                worst, rel, held, rows = 0.0, 0.0, 0, 0
+                for r in ranks:
+                    lo, hi = r["rows"]
+                    for got, want in zip(r["logits"], exact[name]):
+                        got, want = torch.from_numpy(got), want[lo:hi]
+                        d, amax = got - want, float(want.abs().max())
+                        worst = max(worst, float(d.abs().max()) / amax)
+                        rel = max(rel, float(d.norm() / want.norm()))
+                        # a flip needs a top-2 gap under twice the gate
+                        top = want.topk(2, dim=-1).values
+                        sure = top[..., 0] - top[..., 1] > \
+                            2 * TP_F32_TOL * amax
+                        assert torch.equal(got.argmax(-1)[sure],
+                                           want.argmax(-1)[sure]), name
+                        held += int(sure.sum())
+                        rows += sure.numel()
+                assert worst <= TP_F32_TOL and rel <= TP_F32_TOL, (
+                    name, worst, rel)
+                assert held > 0, (name, "no row's top-2 gap passes 2x "
+                                  "the gate: the greedy gate holds nothing")
+                log(phase, f"{card}: {name} on (data {mesh[0]}, model "
+                    f"{mesh[1]}), f32 (TF32 off): every rank's logits within "
+                    f"{worst:.3e} of the largest one-rank logit, difference "
+                    f"norm {rel:.3e} of the one-rank logits' (gate "
+                    f"{TP_F32_TOL:g}); greedy tokens equal on the {held} of "
+                    f"{rows} rows whose one-rank top-2 gap passes twice the "
+                    f"gate (gate); collectives equal to the meta trace's; "
+                    f"{kernel} launches a rank "
+                    + ", ".join(str(r["launches"][kernel]) for r in ranks))
+                continue
+            worst, rel, c_worst, same, rows = 0.0, 0.0, 0.0, 0, 0
+            steps_err, cache_err = noise[name]
+            for r in ranks:
+                for (diff, top, norm, got, want, gap), (e_max, e_norm) in \
+                        zip(r["logits_vs_one"], steps_err):
+                    lim = TP_TIMES * e_max
+                    assert np.isfinite(diff) and diff <= lim and \
+                        norm <= TP_TIMES * e_norm, (
+                            name, mesh, r["coords"], diff, lim, norm,
+                            e_norm)
+                    worst = max(worst, diff / e_max)
+                    rel = max(rel, norm / e_norm)
+                    same += int((got == want).sum())
+                    rows += got.size
+                c_diff, _ = r["caches_vs_one"]
+                assert c_diff <= TP_TIMES * cache_err, (name, mesh, c_diff,
+                                                        cache_err)
+                c_worst = max(c_worst, c_diff / cache_err)
+            if mesh == (1, 4) and name == "qwen2-0.5b decode":
+                results["flash_decode_sp"]["launches"] = \
+                    ranks[0]["launches"]["flash_decode"]
+            r0 = ranks[0]
+            log(phase, f"{card}: {name} on (data {mesh[0]}, model "
+                f"{mesh[1]}), {n} gloo ranks of cuda:0, cache "
+                f"{r0['cache_shapes'][0]} a rank: against the one-rank "
+                f"step, the largest logit difference {worst:.3f}x and the "
+                f"difference norm {rel:.3f}x the one-rank step's own bf16 "
+                f"error, the caches {c_worst:.3f}x (gates {TP_TIMES:g}x); "
+                f"greedy tokens equal on {same} of {rows} rows (reported, "
+                f"not gated: random weights' top-2 gaps lie inside the "
+                f"bf16 bound; the f32 cases gate them); "
+                f"{len(r0['collectives'])} collectives a "
+                f"rank, kinds and bytes equal to the meta trace's on the "
+                f"abstract mesh; {kernel} launches a rank "
+                + ", ".join(str(r["launches"][kernel]) for r in ranks)
+                + "; rank walls " + ", ".join(f"{r['wall_s']:.2f}"
+                                              for r in ranks)
+                + f" s ({TRANSPORT_NOTE})")
+    log(phase, f"one-rank bf16 / f32 steps {noise_s:.1f} s; meta traces "
+        f"{trace_s:.1f} s (beside the spawns); spawns " + ", ".join(
+        f"{m}: {w:.1f} s" for m, w in walls.items()))
+
+
+# --------------------------------------------------------------------------
 # phase 11: the in-kernel DMA and the dry run's one-card check
 # --------------------------------------------------------------------------
 # (name, dtype, rows, elems, src stride, dst stride, src off, dst off); the
@@ -3783,6 +4105,7 @@ def kernel_entries():
     # phase 7k or 7l, timed at their shape in phase 5), times at their
     # shapes (the entries above carry the suite's)
     for name, base in (("flash_decode_dense", "flash_decode"),
+                       ("flash_decode_sp", "flash_decode"),
                        ("flash_attention_dense", "flash_attention"),
                        ("flash_attention_monolithic", "flash_attention"),
                        ("flash_decode_gemma3", "flash_decode"),
@@ -3872,7 +4195,8 @@ def main() -> int:
     log("train card/cpu", f"phase 9b in {time.perf_counter() - t0:.1f} s")
     for name, fn, args in (("10a", gpipe_full, ()),
                            ("10b", moe_mesh_full, ()),
-                           ("10c", fsdp_full, (ref_steps,))):
+                           ("10c", fsdp_full, (ref_steps,)),
+                           ("10d", tp_serve_full, (results,))):
         t0 = time.perf_counter()
         fn(card, *args)
         log("mesh", f"phase {name} in {time.perf_counter() - t0:.1f} s")

@@ -60,7 +60,17 @@
 //     SPLIT ORDER, rescaling by exp(m_j - max m), divides by max(l, 1e-30),
 //     writes out, and sets the counter back to 0 for the next call. The
 //     order makes the result independent of which block came last, so
-//     graph replays are bit for bit equal. It reads the other blocks'
+//     graph replays are bit for bit equal.
+//   * Optionally (a non-null `lse`, the rank-local SP decode's partial
+//     softmax) the same merging block writes lse = m + log(l) of each
+//     query row beside `out`, in the same launch: m the largest scaled
+//     logit over the splits, l the sum of exp(logit - m). A slot of length
+//     0 keeps its output, the mean of V over the S rows, and its lse is
+//     NEG + log(S), which is NEG in f32: a combine over sequence slices
+//     (parallel/sharding.py combine_partials) then gives it weight 0
+//     whenever another slice has a key, and, when every slice is empty,
+//     the mean of V over all of them. With `lse` null nothing else
+//     changes: the output is the same bits. It reads the other blocks'
 //     partials with ld.global.cg (L2, coherent), never through the
 //     read-only path: the weights of each row into shared memory (a warp a
 //     row), then a thread per 4 features. The counters are a persistent
@@ -202,8 +212,9 @@ __global__ void __launch_bounds__(THREADS, 4)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ lengths,
                   float* part_m, float* part_l, float* part_acc,
-                  int* counters, T* __restrict__ out, int H, int K, int S,
-                  int chunk, float scale) {
+                  int* counters, T* __restrict__ out,
+                  float* __restrict__ lse, int H, int K, int S, int chunk,
+                  float scale) {
   constexpr int EPL = Vec<T>::EPL;
   constexpr int LPR = HD / EPL;          // lanes that read one key row
   constexpr int KPW = 32 / LPR;          // key rows a warp reads at once
@@ -220,6 +231,7 @@ __global__ void __launch_bounds__(THREADS, 4)
   __shared__ float wm[NWARPS][ROWS], wl[NWARPS][ROWS];
   __shared__ __align__(16) float wacc[NWARPS][ROWS * HD];
   __shared__ float sw[ROWS][MAX_SPLITS], sl[ROWS][MAX_SPLITS];
+  __shared__ float smax[ROWS];
   __shared__ int last;
 
   const int split = blockIdx.x, nsplit = gridDim.x;
@@ -426,6 +438,7 @@ __global__ void __launch_bounds__(THREADS, 4)
     for (int j = lane; j < nsplit; j += 32)
       mx = fmaxf(mx, __ldcg(part_m + row + j));
     mx = warp_max(mx);   // finite: split 0 reads a key (or V)
+    if (lane == 0) smax[g] = mx;
     for (int j = lane; j < nsplit; j += 32) {
       const float mj = __ldcg(part_m + row + j);
       sw[g][j] = mj == -INFINITY ? 0.f : expf(mj - mx);
@@ -453,6 +466,7 @@ __global__ void __launch_bounds__(THREADS, 4)
       }
     }
     const float den = fmaxf(lsum, 1e-30f);
+    if (lse != nullptr && d == 0) lse[row] = smax[g] + logf(den);
     T* o = out + row * HD + d;
     o[0] = from_f32<T>(a.x / den);
     o[1] = from_f32<T>(a.y / den);
@@ -464,37 +478,38 @@ __global__ void __launch_bounds__(THREADS, 4)
 
 template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
-                      const int* lengths, void* out, float* pm, float* pl,
-                      float* pa, int* counters, int B, int H, int K, int S,
-                      int nsplit, int chunk, cudaStream_t stream) {
+                      const int* lengths, void* out, float* lse, float* pm,
+                      float* pl, float* pa, int* counters, int B, int H,
+                      int K, int S, int nsplit, int chunk,
+                      cudaStream_t stream) {
   const int G = H / K;
   const dim3 grid(nsplit, B * K, (G + ROWS - 1) / ROWS);
   decode_kernel<T, HD><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, pm, pl, pa, counters,
-      static_cast<T*>(out), H, K, S, chunk,
+      static_cast<T*>(out), lse, H, K, S, chunk,
       1.0f / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(int hd, const void* q, const void* k, const void* v,
-                   const int* lengths, void* out, float* pm, float* pl,
-                   float* pa, int* counters, int B, int H, int K, int S,
-                   int nsplit, int chunk, cudaStream_t s) {
+                   const int* lengths, void* out, float* lse, float* pm,
+                   float* pl, float* pa, int* counters, int B, int H, int K,
+                   int S, int nsplit, int chunk, cudaStream_t s) {
   switch (hd) {
     case 16:
-      return launch_hd<T, 16>(q, k, v, lengths, out, pm, pl, pa, counters, B,
-                              H, K, S, nsplit, chunk, s);
+      return launch_hd<T, 16>(q, k, v, lengths, out, lse, pm, pl, pa,
+                              counters, B, H, K, S, nsplit, chunk, s);
     case 32:
-      return launch_hd<T, 32>(q, k, v, lengths, out, pm, pl, pa, counters, B,
-                              H, K, S, nsplit, chunk, s);
+      return launch_hd<T, 32>(q, k, v, lengths, out, lse, pm, pl, pa,
+                              counters, B, H, K, S, nsplit, chunk, s);
     case 64:
-      return launch_hd<T, 64>(q, k, v, lengths, out, pm, pl, pa, counters, B,
-                              H, K, S, nsplit, chunk, s);
+      return launch_hd<T, 64>(q, k, v, lengths, out, lse, pm, pl, pa,
+                              counters, B, H, K, S, nsplit, chunk, s);
     case 128:
-      return launch_hd<T, 128>(q, k, v, lengths, out, pm, pl, pa, counters,
-                               B, H, K, S, nsplit, chunk, s);
+      return launch_hd<T, 128>(q, k, v, lengths, out, lse, pm, pl, pa,
+                              counters, B, H, K, S, nsplit, chunk, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -507,13 +522,14 @@ extern "C" {
 // One-token attention of q [B, H, hd] over k/v [B, K, S, hd] in `nsplit`
 // splits of `chunk` keys (nsplit * chunk >= S, nsplit <= 256), one launch;
 // part_ml holds 2 * B*H*nsplit floats, part_acc B*H*nsplit*hd, counters
-// B*K*ceil(G/8) int32 that are 0 on entry and are left 0. Returns a
-// cudaError_t value: 0 on a launch that was accepted.
+// B*K*ceil(G/8) int32 that are 0 on entry and are left 0; `lse` (B*H
+// floats, m + log(l) of each row) is written when it is not null. Returns
+// a cudaError_t value: 0 on a launch that was accepted.
 int decode_attention(const void* q, const void* k, const void* v,
-                     const void* lengths, void* out, void* part_ml,
-                     void* part_acc, void* counters, int B, int H, int K,
-                     int S, int hd, int nsplit, int chunk, int dtype,
-                     void* stream) {
+                     const void* lengths, void* out, void* lse,
+                     void* part_ml, void* part_acc, void* counters, int B,
+                     int H, int K, int S, int hd, int nsplit, int chunk,
+                     int dtype, void* stream) {
   if (B == 0) return cudaSuccess;
   if (K <= 0 || H % K || S <= 0 || nsplit <= 0 || nsplit > MAX_SPLITS ||
       chunk <= 0 || (long long)nsplit * chunk < S)
@@ -523,14 +539,15 @@ int decode_attention(const void* q, const void* k, const void* v,
   float* pl = pm + (size_t)B * H * nsplit;
   float* pa = static_cast<float*>(part_acc);
   int* ctr = static_cast<int*>(counters);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return launch<float>(hd, q, k, v, len, out, pm, pl, pa, ctr, B, H, K,
-                           S, nsplit, chunk, s);
+      return launch<float>(hd, q, k, v, len, out, ls, pm, pl, pa, ctr, B, H,
+                           K, S, nsplit, chunk, s);
     case BF16:
-      return launch<__nv_bfloat16>(hd, q, k, v, len, out, pm, pl, pa, ctr, B,
-                                   H, K, S, nsplit, chunk, s);
+      return launch<__nv_bfloat16>(hd, q, k, v, len, out, ls, pm, pl, pa,
+                                   ctr, B, H, K, S, nsplit, chunk, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -9,6 +9,16 @@ The numeric contract is the reference kernel's: masked logits are
 0 returns the mean of V over all S positions (the paged kernels return 0
 there instead).
 
+``return_lse=True`` also returns ``lse`` [B, H] f32 = m + log(l) of each
+query row's softmax over its visible keys, in the kernel's scale (1/√hd):
+what a sequence-parallel decode needs to combine the slices of a cache
+that ranks hold apart (parallel/sharding.py ``combine_partials``). A slot
+of length 0 keeps its output, the mean of V over the S rows, and gets lse
+= NEG + log(S), which is NEG in f32: a combine gives such a slice weight 0
+whenever another slice has a key, and the mean of V over every row when
+all are empty, which is what the reference's ``_decode_attend`` gives a
+row with no visible key. Without the flag the output is the same bits.
+
 :func:`flash_decode` dispatches by the device of its tensors:
 
   * CUDA — the hand-written kernel ``csrc/decode_attention.cu``, or an
@@ -118,10 +128,12 @@ def plain_flops(B: int, H: int, S: int, hd: int, bk: int) -> int:
     return 4 * B * H * hd * (S // bk) * bk
 
 
-def flash_decode_plain(q, k_cache, v_cache, lengths, block_k: int = 512):
+def flash_decode_plain(q, k_cache, v_cache, lengths, block_k: int = 512,
+                       return_lse: bool = False):
     """The reference kernel's function in PyTorch: an online softmax in f32
     over ``block_k`` tiles of the cache (m from -inf, masked logits NEG).
-    Returns [B, H, hd] in q's dtype."""
+    Returns [B, H, hd] in q's dtype; with ``return_lse`` also lse [B, H]
+    f32 = m + log(l) (the module docstring)."""
     B, H, hd = q.shape
     K, S = k_cache.shape[1], k_cache.shape[2]
     G = H // K
@@ -144,8 +156,11 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, block_k: int = 512):
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + p @ vb
         m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(B, H, hd).to(q.dtype)
+    den = l.clamp_min(1e-30)
+    out = (acc / den[..., None]).reshape(B, H, hd).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(den)).reshape(B, H)
+    return out
 
 
 def _check_cuda(q, k_cache, v_cache, lengths) -> None:
@@ -176,7 +191,8 @@ def _check_cuda(q, k_cache, v_cache, lengths) -> None:
         raise ValueError(f"{name}: hd {hd} not in {HEAD_DIMS}")
 
 
-def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512):
+def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512,
+                 return_lse: bool = False):
     """One-token GQA attention over a dense ragged cache.
 
     q:       [B, H, hd]
@@ -185,10 +201,12 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512):
     lengths: [B] int32 valid positions (0 gives the mean of V over S)
     block_k: the reference's key tile; the plain version walks it, the CUDA
              kernel tiles for itself (only the sums' order depends on it)
-    Returns [B, H, hd] in q's dtype.
+    Returns [B, H, hd] in q's dtype; with ``return_lse`` the pair (out,
+    lse [B, H] f32), written by the same launch.
     """
     if q.device.type in ("cpu", "meta"):     # meta: shapes alone
-        return flash_decode_plain(q, k_cache, v_cache, lengths, block_k)
+        return flash_decode_plain(q, k_cache, v_cache, lengths, block_k,
+                                  return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     _check_cuda(q, k_cache, v_cache, lengths)
@@ -198,6 +216,7 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512):
     shape = decode_launch(B, H, K, S, hd, n_sm)
     counters = arrival_counters(q.device, shape.counters)
     out = torch.empty_like(q)
+    lse = torch.empty(B, H, device=q.device) if return_lse else None
     part_ml = torch.empty(shape.part_ml, device=q.device)
     part_acc = torch.empty(shape.part_acc, device=q.device)
     lib = _build.load("decode_attention")
@@ -205,13 +224,14 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512):
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())          # noqa: E731
     err = lib.decode_attention(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(out),
+        ctypes.c_void_p(None if lse is None else lse.data_ptr()),
         ptr(part_ml), ptr(part_acc), ptr(counters), B, H, K, S, hd,
         shape.nsplit, shape.chunk, DTYPES[q.dtype], ctypes.c_void_p(stream))
     _build.check("decode_attention", err)
     flash_decode.launches += 1
     perf.add_kernel_flops("flash_decode", plain_flops(
         B, H, S, hd, decode_block_k(S, block_k)))
-    return out
+    return out if lse is None else (out, lse)
 
 
 flash_decode.launches = 0

@@ -18,8 +18,11 @@ of V over the keys of the blocks the reference runs for it.
     :func:`launch_shape` gives the launch from host ints only, so a call
     can be captured in a CUDA graph;
   * CPU — :func:`flash_attention_plain`, the reference's grid of blocks
-    walked in PyTorch, causal block skip included; ``meta`` tensors take it
-    too (shapes alone: a dry run's traced pass).
+    walked in PyTorch, causal block skip included;
+  * ``meta`` (shapes alone: a dry run's traced pass) — no walk: an empty
+    output, and the walk's :func:`plain_flops` reported as a launch
+    reports them. At a prefill of 32768 tokens the walk is ~33 thousand
+    blocks a layer of some 20 ops each, hours of a traced pass.
 
 ``flash_attention.launches`` counts calls that launched the CUDA kernel;
 each launch reports :func:`plain_flops` to ``core/perf.py``'s counters.
@@ -200,9 +203,15 @@ def flash_attention(q, k, v, causal: bool = True,
     """q, k, v: [B, H, L, hd] and [B, H, Lk, hd] (GQA broadcast upstream).
     Returns [B, H, L, hd] in q's dtype. ``block_q`` / ``block_k`` default
     to :func:`plan_blocks`."""
-    if q.device.type in ("cpu", "meta"):     # meta: shapes alone
+    if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, softcap,
                                      block_q, block_k)
+    if q.device.type == "meta":            # shapes alone: count the walk
+        B, H, L, hd = q.shape
+        bq, bk = _blocks(q, k, block_q, block_k)
+        perf.add_kernel_flops("flash_attention", plain_flops(
+            B * H, L, k.shape[2], hd, causal, bq, bk))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda(q, k, v)

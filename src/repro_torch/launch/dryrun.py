@@ -17,14 +17,21 @@ one traced pass of the port's own step on them. Per cell:
   * ``analytic`` — launch/accounting.py ``step_cost`` (whole step);
   * ``traced`` — one rank's FLOPs (``FlopCounterMode`` over the ATen ops,
     the kernels' plain versions included, which is what the kernels
-    report on the card), the bytes its ATen ops touch unfused, and the
-    collectives the port's code issued (parallel/sharding.py records them
-    on the abstract mesh) through core/perf.py's ring model. The eager
-    pass visits every layer, so the reference's probe lowerings (which
-    make up for XLA counting a scanned body once) are not ported. Where
-    the cell's rules need a path the port lacks (``specs.Cell.gaps``),
-    ``traced`` is ``null`` and ``traced_null`` names the leaf and the rule:
-    no other mesh is substituted and no bytes are invented;
+    report on the card; ``flash_attention`` on ``meta`` reports its
+    walk's FLOPs without walking it), the bytes its ATen ops touch
+    unfused, and the collectives the port's code issued
+    (parallel/sharding.py records them on the abstract mesh) through
+    core/perf.py's ring model. A serving cell's pass is one rank's step
+    on its shards (the model axis tensor- and sequence-parallel:
+    ``transformer.hidden``), so ``flops_all_chips`` also counts the
+    work the ranks of a line repeat. The eager pass visits every layer,
+    so the reference's probe lowerings (which make up for XLA counting a
+    scanned body once) are not ported. Where the cell's rules need a
+    path the port lacks (``specs.Cell.gaps``: an MLA, recurrent or cross
+    layer cut over the model axis, a ring cache cut over its rows, the
+    encoder of a prefill, training with a model axis), ``traced`` is
+    ``null`` and ``traced_null`` names the leaf and the rule: no other
+    mesh is substituted and no bytes are invented;
   * ``roofline`` — core/perf.py ``Roofline`` on the H100's datasheet peaks
     from the analytic FLOPs and bytes and the traced collective bytes
     (the collective term ``null`` where ``traced`` is). Modelled, not

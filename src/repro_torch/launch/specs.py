@@ -12,17 +12,22 @@ the counterpart of ``lower_cell``, runs the step once on them
 (core/offload.py ``TargetRegion.trace``: FLOPs, bytes and the collectives
 it issues, recorded on the abstract mesh).
 
-A rank's pass is the port's own step, so a cell whose rules need a path
-the port lacks has none: the serving steps take whole weights and their
-caches whole but for the batch (no FSDP gather in serving, no
-tensor-parallel path under these rules), and the FSDP train step shards
-over the batch axes only (train/step.py ``shard_state``: a model axis
-of 1). :attr:`Cell.gaps` names each such leaf with the rule that binds it;
-a cell with gaps is not traced.
+A rank's pass is the port's own step. The serving steps run on a rank's
+shards (train/step.py ``shard_model``: the batch axes gathered a unit at
+a time, the model axis tensor- and sequence-parallel) for GQA layers with
+an MLP or a MoE; a cell whose rules cut what the port's rank path cannot
+take has no pass: an MLA, recurrent or cross layer's leaves and caches cut
+over the model axis (those layers run whole on a rank), a ring cache cut
+over its rows (``kv_seq`` on a sliding-window layer), the encoder of a
+prefill; and the FSDP train step shards over the batch axes only
+(train/step.py ``shard_state``: a model axis of 1). :attr:`Cell.gaps`
+names each such leaf with the rule that binds it; a cell with gaps is not
+traced.
 
-On a real device (the one-card check, a mesh of one rank) the same
-function draws the arguments: weights from a seed, zeroed caches, random
-tokens, ``cache_pos`` S − 1 (a decode step then reads the whole cache).
+On a real device the same function draws the arguments: each leaf drawn
+whole from a seed (weights, random tokens) and cut to this rank's shard
+(``sharding.shard_of``; on a mesh of one rank the whole leaf), zeroed
+caches, ``cache_pos`` S − 1 (a decode step then reads the whole cache).
 """
 from __future__ import annotations
 
@@ -141,20 +146,62 @@ def _local(shape, spec, mesh) -> Tuple[int, ...]:
 
 
 def _gaps(prefix: str, axes_tree, spec_tree, mesh: sharding.Mesh,
-          allowed: Tuple[str, ...], missing: str) -> List[str]:
+          allowed: Tuple[str, ...], missing) -> List[str]:
     """The leaves whose spec binds a mesh axis of more than one rank
-    outside ``allowed``."""
+    outside ``allowed``, each with the reason ``missing(path)`` gives,
+    in the dimensions it names (``(reason, dims)``, dims None: all;
+    None: the leaf is no gap)."""
     out = []
     for (path, axes), spec in zip(
             tree_lib.paths(axes_tree, prefix, is_leaf=sharding.is_spec),
             tree_lib.leaves(spec_tree, is_leaf=sharding.is_spec)):
+        gap = missing(path)
+        if gap is None:
+            continue
+        why, dims = gap
         bad = [f"{axes[i]} -> {'/'.join(sharding._entry_axes(e))}"
                for i, e in enumerate(spec)
-               if any(a not in allowed and mesh.shape[a] > 1
-                      for a in sharding._entry_axes(e))]
+               if (dims is None or i in dims) and any(
+                   a not in allowed and mesh.shape[a] > 1
+                   for a in sharding._entry_axes(e))]
         if bad:
-            out.append(f"{path}: {', '.join(bad)} ({missing})")
+            out.append(f"{path}: {', '.join(bad)} ({why})")
     return out
+
+
+def _kind(cfg: transformer.ModelConfig, path: str) -> Optional[str]:
+    """The mixer of the layer a ``params/groups/...`` or ``caches/...``
+    path lies in (None outside the decoder's groups)."""
+    parts = path.split("/")
+    if parts[0] == "params" and parts[1:2] == ["groups"]:
+        gi, pi = int(parts[2]), int(parts[3])
+    elif parts[0] == "caches":
+        gi, pi = int(parts[1]), int(parts[2])
+    else:
+        return None
+    return transformer.parse_kind(cfg.groups[gi][0][pi])[0]
+
+
+def _serving_gaps(cfg, step: str):
+    """``missing(path)`` for the serving steps' leaves: what the rank path
+    (``transformer.hidden``) cannot take cut over a non-batch axis."""
+    def missing(path: str):
+        parts = path.split("/")
+        if parts[:2] == ["params", "encoder"]:
+            return (("the encoder runs on no rank path yet", None)
+                    if step == "prefill" else None)
+        mixer = _kind(cfg, path)
+        if mixer is None or mixer in transformer.RANK_MIXERS:
+            if parts[0] == "caches" and cfg.window_of(mixer or "") \
+                    is not None:         # the rows (kv_seq) of a ring
+                return "a ring cache cut over its rows: no rank path yet", \
+                    (3,)
+            return None
+        if parts[0] == "params" and "mixer" not in parts:
+            return None          # the layer's norms: whole
+        return f"a {mixer!r} layer runs whole on a rank: no rank path " \
+            "yet", None
+    return missing
 
 
 def _array(shape, dtype, device, generator=None, high: int = 0):
@@ -172,11 +219,13 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
                rules_over: Optional[Dict[str, Any]] = None,
                grad_accum: Optional[int] = None, device="meta",
                seed: int = 0, smoke: bool = False) -> Cell:
-    """One rank's (rank 0's) arguments for a cell; ``cfg_over`` /
+    """One rank's arguments for a cell (rank 0's on an abstract mesh);
+    ``cfg_over`` /
     ``rules_over`` / ``grad_accum``: the hillclimb levers
     (launch/hillclimb.py). ``device`` other than ``meta`` draws real
-    arguments from ``seed`` and needs a mesh on which every leaf is
-    whole. ``smoke``: the arch's reduced config (tests)."""
+    arguments from ``seed``, each leaf whole and then cut to this rank's
+    shard (``mesh`` then a real mesh of ranks, or of one). ``smoke``: the
+    arch's reduced config (tests)."""
     device = torch.device(device)
     cfg = cell_config(arch, shape, probe, smoke)
     if cfg_over:
@@ -195,19 +244,23 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
         p_axes = transformer.param_axes(cfg)
         p_specs = _specs(p_axes, tree_lib.tree_map(
             lambda p: tuple(p.shape), params), mesh)
-        gaps = _gaps("params", p_axes, p_specs, mesh,
-                     batch_axes if train else (),
-                     "the FSDP train step shards over the batch axes only"
-                     if train else "the serving steps take whole weights: "
-                     "no FSDP gather, no tensor-parallel path")
-        for p, spec in zip(tree_lib.leaves(params),
-                           tree_lib.leaves(p_specs, is_leaf=sharding.is_spec)):
-            local = _local(p.shape, spec, mesh)
-            if local != tuple(p.shape):
-                if device.type != "meta":
-                    raise ValueError(f"{arch}: real arguments need whole "
-                                     f"leaves; {tuple(p.shape)} -> {local}")
-                p.data = torch.empty(local, dtype=p.dtype, device=device)
+        if train:
+            gaps = _gaps("params", p_axes, p_specs, mesh, batch_axes,
+                         lambda path: ("the FSDP train step shards over the "
+                                       "batch axes only", None))
+        else:
+            gaps = _gaps("params", p_axes, p_specs, mesh, batch_axes,
+                         _serving_gaps(cfg, shape.step))
+        if device.type == "meta":
+            for p, spec in zip(tree_lib.leaves(params), tree_lib.leaves(
+                    p_specs, is_leaf=sharding.is_spec)):
+                local = _local(p.shape, spec, mesh)
+                if local != tuple(p.shape):
+                    p.data = torch.empty(local, dtype=p.dtype, device=device)
+            if mesh.size > 1:
+                model.shards = (mesh, p_specs)
+        elif mesh.size > 1:
+            steps.shard_model(model, mesh)
         p_sh = tree_lib.tree_map(lambda s: sharding.NamedSharding(mesh, s),
                                  p_specs, is_leaf=sharding.is_spec)
         B = shape.global_batch
@@ -215,19 +268,25 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
         tok_spec = sharding.resolve(("batch", None), (B, L), mesh)
         b_local = _local((B, L), tok_spec, mesh)
 
+        def cut(whole, spec, local):
+            if device.type == "meta":
+                return torch.zeros(local, dtype=whole.dtype, device=device)
+            return sharding.shard_of(whole, spec, mesh)
+
         def tokens():
-            return _array(b_local, torch.int32, device, gen, cfg.vocab)
+            return cut(_array((B, L), torch.int32, device, gen, cfg.vocab),
+                       tok_spec, b_local)
 
         extra = None
         if transformer.has_cross(cfg) and shape.step != "decode":
             dim = cfg.cross_kv_dim if cfg.family == "vlm" else cfg.d_model
             ex_spec = sharding.resolve(("batch", None, None),
                                        (B, cfg.encoder_seq, dim), mesh)
-            extra = _array(_local((B, cfg.encoder_seq, dim), ex_spec, mesh),
-                           torch.bfloat16, device, gen)
+            ex_local = _local((B, cfg.encoder_seq, dim), ex_spec, mesh)
+            extra = cut(_array((B, cfg.encoder_seq, dim), torch.bfloat16,
+                               device, gen), ex_spec, ex_local)
         if train:
             model.requires_grad_(True)
-            model.fsdp = (mesh, p_specs) if mesh.size > 1 else None
             state = steps.TrainState(params=model, opt=adamw.init(params),
                                      step=torch.zeros((), dtype=torch.int32,
                                                       device=device))
@@ -247,29 +306,21 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
                         (state_sh, b_sh), mesh, donate=(0,), rules=rules,
                         grad_accum=ga, gaps=tuple(gaps))
         S = shape.seq_len
-        c_axes = transformer.cache_logical_axes(cfg)
-        whole = transformer.init_caches(cfg, B, S, device="meta")
-        c_specs = _specs(c_axes, tree_lib.tree_map(
-            lambda a: tuple(a.shape), whole), mesh)
-        gaps += _gaps("caches", c_axes, c_specs, mesh, batch_axes,
-                      "the serving steps hold a cache whole but for the "
-                      "batch")
-        caches = tree_lib.tree_map(
-            lambda a, spec: _array(_local(a.shape, spec, mesh), a.dtype,
-                                   device),
-            whole, c_specs)
+        caches, c_specs = steps.rank_caches(cfg, B, S, mesh, device=device)
+        gaps += _gaps("caches", transformer.cache_logical_axes(cfg), c_specs,
+                      mesh, batch_axes, _serving_gaps(cfg, shape.step))
         c_sh = tree_lib.tree_map(lambda s: sharding.NamedSharding(mesh, s),
                                  c_specs, is_leaf=sharding.is_spec)
         tok_sh = sharding.NamedSharding(mesh, tok_spec)
         if shape.step == "prefill":
-            fn = steps.make_prefill_step(cfg)
+            fn = steps.make_prefill_step(cfg, c_specs)
             return Cell(arch, shape, cfg, fn, (model, tokens(), caches,
                                                extra),
                         (p_sh, tok_sh, c_sh, None if extra is None else
                          sharding.NamedSharding(mesh, ex_spec)),
                         mesh, donate=(2,), rules=rules, gaps=tuple(gaps))
         pos = torch.full((), S - 1, dtype=torch.int32, device=device)
-        fn = steps.make_decode_step(cfg)
+        fn = steps.make_decode_step(cfg, c_specs)
         return Cell(arch, shape, cfg, fn, (model, tokens(), caches, pos),
                     (p_sh, tok_sh, c_sh, sharding.NamedSharding(mesh, ())),
                     mesh, donate=(2,), rules=rules, gaps=tuple(gaps))

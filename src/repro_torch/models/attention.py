@@ -70,6 +70,18 @@ time (at full width the logits of 8 coupled rows of 1536 tokens would
 be 9.7 GB of f32 at once). It calls no hand-written kernel: the
 reference computes it in plain ``jnp`` and reaches no ``pallas_call``.
 
+**On one rank of a mesh** (:func:`gqa_forward` with its leaves' and
+cache's specs: the serving steps on a rank's shards, models/transformer.py
+``hidden``) the same two cases run on the rank's columns of the
+projections, its kv heads and its rows of the cache, each read from the
+leaf's spec: the heads are attended
+locally where the columns fall on head boundaries and gathered over the
+model line first where they do not; a cache cut over its rows
+(``kv_seq``) writes each decode position on the rank that holds it, and
+``flash_decode(..., return_lse=True)`` over each rank's rows is merged by
+``sharding.combine_partials``; ``wo``'s rows give a partial product
+summed over the line.
+
 **No cache: the training forward.** Every attention layer that runs with
 no cache goes through :func:`~repro_torch.models.flash_xla.
 flash_attention_xla` (plain PyTorch with its own backward, as the
@@ -98,6 +110,7 @@ from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import blocks
 from repro_torch.models.flash_xla import flash_attention_xla
+from repro_torch.parallel import sharding
 
 
 def check_dense(cfg) -> None:
@@ -109,21 +122,39 @@ def check_dense(cfg) -> None:
 
 
 def qkv(m: Dict[str, torch.Tensor], h: torch.Tensor, positions: torch.Tensor,
-        cfg):
+        cfg, q_cols=None, kv_cols=None):
     """QKV projections with bias and RoPE: h [B, L, d] (already normed),
-    positions [B, L] absolute → q [B, L, H, hd], k, v [B, L, K, hd]."""
+    positions [B, L] absolute → q [B, L, H, hd], k, v [B, L, K, hd].
+    ``q_cols`` / ``kv_cols``: ``(part, lo, hi)``, keep only the columns
+    [lo, hi) of the whole projection, of which ``m`` holds ``part``
+    (:func:`_cols`): q then holds (hi − lo) / hd heads."""
     B, L, _ = h.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    hd = cfg.hd
     q, k, v = h @ m["wq"], h @ m["wk"], h @ m["wv"]
     if cfg.qkv_bias:
         q, k, v = q + m["bq"], k + m["bk"], v + m["bv"]
-    q = q.reshape(B, L, H, hd)
-    k = k.reshape(B, L, K, hd)
-    v = v.reshape(B, L, K, hd)
+    if q_cols is not None:
+        q = _cols(q, *q_cols)
+    if kv_cols is not None:
+        k, v = _cols(k, *kv_cols), _cols(v, *kv_cols)
+    q = q.reshape(B, L, -1, hd)
+    k = k.reshape(B, L, -1, hd)
+    v = v.reshape(B, L, -1, hd)
     if cfg.rope_theta is not None:
         q = blocks.apply_rope(q, positions, cfg.rope_theta)
         k = blocks.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _cols(x: torch.Tensor, part: sharding.Held, lo: int, hi: int
+          ) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of the whole last dimension of ``x``, this
+    rank's ``part`` of it: sliced where the part holds them, else after a
+    ``gather_from`` over the part's line."""
+    if not (part.lo <= lo and hi <= part.hi):
+        x = sharding.gather_from(x, part.line, -1)
+        part = part._replace(lo=0, hi=part.whole)
+    return x[..., lo - part.lo:hi - part.lo]
 
 
 def ring_write(cache: torch.Tensor, new: torch.Tensor) -> None:
@@ -142,14 +173,17 @@ def ring_write(cache: torch.Tensor, new: torch.Tensor) -> None:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, G: int,
-           causal: bool, window: Optional[int] = None) -> torch.Tensor:
+           causal: bool, window: Optional[int] = None,
+           kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``flash_attention`` of q [B, L, H, hd] over k, v [B, K, S, hd], kv
-    heads repeated to the G query heads of each → [B, L, H, hd]."""
+    heads repeated to the query heads → [B, L, H, hd]: ``kv`` gives each
+    query head's kv head (an index into k's heads), by default G
+    consecutive query heads a kv head."""
+    if kv is None:
+        kv = torch.arange(q.shape[2], device=q.device) // G
     return flash_attention(
-        q.transpose(1, 2).contiguous(),
-        k.repeat_interleave(G, dim=1).contiguous(),
-        v.repeat_interleave(G, dim=1).contiguous(),
-        causal=causal, window=window).transpose(1, 2)
+        q.transpose(1, 2).contiguous(), k.index_select(1, kv),
+        v.index_select(1, kv), causal=causal, window=window).transpose(1, 2)
 
 
 def attend_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
@@ -168,8 +202,10 @@ def attend_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
 def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
                 positions: torch.Tensor, cfg,
                 cache: Optional[Dict[str, torch.Tensor]], cache_pos,
-                window: Optional[int] = None,
-                causal: bool = True) -> torch.Tensor:
+                window: Optional[int] = None, causal: bool = True,
+                spec: Optional[Dict[str, Tuple]] = None,
+                cache_spec: Optional[Dict[str, Tuple]] = None
+                ) -> torch.Tensor:
     """One layer's attention over its slot cache; returns y [B, L, d].
 
     h: [B, L, d] normed input; positions: [B, L] absolute; cache: ``{"k",
@@ -181,46 +217,118 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     S ≤ window rows (see the module docstring). With ``cache=None`` the
     training forward: the L keys attended through
     :func:`attend_train` (``causal``, ``window``), ``cache_pos`` unused.
-    """
+
+    On one rank of the active mesh, ``m`` holds the rank's shards of the
+    leaves and ``cache`` its part of the slot cache, under ``spec`` /
+    ``cache_spec`` (their ``parallel/sharding.resolve`` specs, the batch
+    axes already gathered or the rank's rows); ``h`` is the rank's rows,
+    whole across the model line, and so is y. Every step reads its leaf's
+    spec (``sharding.held``: with no spec, the whole dimension), whatever
+    the arch and however the split falls:
+
+      * the heads attended: in a decode step every query head of the kv
+        heads the cache holds (the same on every rank of a line that cuts
+        the cache's rows); in a prefill those whose columns ``wo``'s rows
+        take, each over its own kv head;
+      * q / k / v: the rank's columns of ``wq`` / ``wk`` / ``wv`` (and
+        biases), used as they are when they hold those heads' columns (a
+        split on head boundaries), else all-gathered over the line first;
+      * the cache: only the kv heads and rows it holds are written; a
+        decode position p lands at p − lo on the rank whose rows [lo, hi)
+        hold it; a ring (window) layer keeps ``ring_write``, on its kv
+        heads;
+      * decode: ``flash_decode`` over the held rows, at lengths clamp(len
+        − lo, 0, hi − lo); with the rows cut, with ``return_lse`` and
+        ``combine_partials`` over their line; prefill: ``flash_attention``
+        on the heads' L new keys;
+      * output: the rank's columns of the attention output times its rows
+        of ``wo``, summed over ``wo``'s line (``reduce_from``)."""
     B, L, _ = h.shape
-    H, K = cfg.n_heads, cfg.n_kv
     if cache is None:
         q, k, v = qkv(m, h, positions, cfg)
         att = attend_train(q, k, v, cfg, causal, window)
         return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
     check_dense(cfg)
-    q, k, v = qkv(m, h, positions, cfg)
+    mesh = sharding.current_mesh()
+    spec, cache_spec = spec or {}, cache_spec or {}
+    G, hd = cfg.n_heads // cfg.n_kv, cfg.hd
     kc, vc = cache["k"], cache["v"]
-    S = kc.shape[2]
+    qc = sharding.held(m["wq"], spec.get("wq"), 1, mesh)
+    kvc = sharding.held(m["wk"], spec.get("wk"), 1, mesh)
+    oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
+    heads = sharding.held(kc, cache_spec.get("k"), 1, mesh)
+    rows = sharding.held(kc, cache_spec.get("k"), 2, mesh)
+    S_loc, S = kc.shape[2], rows.whole
+    decode = isinstance(cache_pos, torch.Tensor)
+    if not decode and cache_pos != 0:
+        raise ValueError(f"gqa_forward: cache_pos must be a [B] tensor "
+                         f"(decode) or 0 (prefill), got {cache_pos!r}")
+    if decode and L != 1:
+        raise ValueError(f"gqa_forward: a decode step takes one token a "
+                         f"slot, got L={L}")
+    if window is not None and rows.line is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: a window-{window} ring cache cut over its rows "
+            "(kv_seq) is not ported (ROADMAP 16.11)")
     if window is not None and S > window:
         raise ValueError(f"gqa_forward: a window-{window} layer keeps a ring "
                          f"of at most {window} rows, got {S}")
-    if isinstance(cache_pos, torch.Tensor):
-        if L != 1:
-            raise ValueError(f"gqa_forward: a decode step takes one token a "
-                             f"slot, got L={L}")
+    if not decode and window is None and L > S:
+        raise ValueError(f"gqa_forward: a prefill of {L} tokens into a "
+                         f"cache of {S} rows")
+    sp = decode and rows.line is not None
+    if decode:                   # every query head of the cache's kv heads
+        k_lo, k_hi = heads.lo, heads.hi
+        h_lo, h_hi = k_lo * G, k_hi * G
+    else:                        # the query heads wo's rows take
+        h_lo, h_hi = oc.lo // hd, -(-oc.hi // hd)
+        k_lo, k_hi = h_lo // G, -(-h_hi // G)
+    if not (h_lo * hd <= oc.lo and oc.hi <= h_hi * hd):
+        raise NotImplementedError(
+            f"{cfg.name}: wo's rows [{oc.lo}, {oc.hi}) need heads outside "
+            f"the kv heads [{k_lo}, {k_hi}) of the rank's cache")
+    # kv heads: those attended and those the rank's cache holds
+    w_lo, w_hi = min(k_lo, heads.lo), max(k_hi, heads.hi)
+    q, k, v = qkv(m, h, positions, cfg, (qc, h_lo * hd, h_hi * hd),
+                  (kvc, w_lo * hd, w_hi * hd))
+    mine = slice(heads.lo - w_lo, heads.hi - w_lo)      # the cache's heads
+    if decode:
         pos = cache_pos.long()
         lengths = cache_pos + 1
         if window is not None:
             pos, lengths = pos % S, lengths.clamp(max=S)
         slots = torch.arange(B, device=h.device)
-        kc[slots, :, pos] = k[:, 0].to(kc.dtype)
-        vc[slots, :, pos] = v[:, 0].to(vc.dtype)
-        att = flash_decode(q[:, 0].contiguous(), kc, vc,
-                           lengths.to(torch.int32))[:, None]
-    elif cache_pos == 0:
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)         # [B, K, L, hd]
-        if window is None:
-            kc[:, :, :L] = kt.to(kc.dtype)
-            vc[:, :, :L] = vt.to(vc.dtype)
-        else:
-            ring_write(kc, kt)
-            ring_write(vc, vt)
-        att = attend(q, kt, vt, H // K, causal=True, window=window)
+        for c, new in ((kc, k), (vc, v)):
+            new = new[:, 0, mine].to(c.dtype)                   # [B, Kr, hd]
+            if sp:       # a slot whose position another rank holds: as is
+                row = (pos - rows.lo).clamp(0, S_loc - 1)
+                here = ((pos >= rows.lo) & (pos < rows.hi))[:, None, None]
+                new = torch.where(here, new, c[slots, :, row])
+                c[slots, :, row] = new
+            else:
+                c[slots, :, pos] = new
+        lengths = (lengths - rows.lo).clamp(0, S_loc).to(torch.int32)
+        args = (q[:, 0].contiguous(), kc, vc, lengths)
+        att = sharding.combine_partials(
+            *flash_decode(*args, return_lse=True), rows.line) if sp else \
+            flash_decode(*args)
+        att = att[:, None]
     else:
-        raise ValueError(f"gqa_forward: cache_pos must be a [B] tensor "
-                         f"(decode) or 0 (prefill), got {cache_pos!r}")
-    return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)     # [B, Kw, L, hd]
+        if window is None:
+            r0, r1 = rows.lo, min(rows.hi, L)
+            if r1 > r0:
+                kc[:, :, :r1 - r0] = kt[:, mine, r0:r1].to(kc.dtype)
+                vc[:, :, :r1 - r0] = vt[:, mine, r0:r1].to(vc.dtype)
+        else:
+            ring_write(kc, kt[:, mine])
+            ring_write(vc, vt[:, mine])
+        # each query head's kv head (the heads need not fill whole groups)
+        kv = torch.arange(h_lo, h_hi, device=h.device) // G - w_lo
+        att = attend(q, kt, vt, G, causal=True, window=window, kv=kv)
+    att = att.reshape(B, L, -1)[..., oc.lo - h_lo * hd:oc.hi - h_lo * hd]
+    y = att.to(h.dtype) @ m["wo"]
+    return y if oc.line is None else sharding.reduce_from(y, oc.line)
 
 
 def cross_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,

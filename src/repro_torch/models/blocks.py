@@ -8,6 +8,7 @@ approximation (``jax.nn.gelu(approximate=True)``).
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -81,10 +82,12 @@ def relu2_mlp(w_in: torch.Tensor, w_out: torch.Tensor,
 
 
 def gelu_mlp(w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
-             b_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+             b_out: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """GELU MLP with biases (whisper): ``gelu(x @ w_in + b_in) @ w_out +
-    b_out``, the tanh approximation as the reference's."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    b_out``, the tanh approximation as the reference's (``b_out`` None:
+    no output bias, for a partial product that is summed first)."""
+    y = F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out
+    return y if b_out is None else y + b_out
 
 
 def embed_lookup(table: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ mapped through ``np.asarray``) and builds the port's
 :class:`~repro_torch.models.transformer.Transformer`; ``params_to_numpy``
 is the way back, the port's leaves as that numpy tree (checkpoints, the
 tests). Both sides use the same layout, so every leaf is a copy: no
-transpose, no reshape.
+transpose, no reshape. ``rank_params_from_numpy`` gives one rank's shard
+of that tree on a mesh (cut on the host by train/step.py ``shard_model``
+before it moves to the device): the model the serving steps run on that
+rank.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import torch
 from repro_torch.core import tree as tree_lib
 from repro_torch.models.transformer import (ModelConfig, Transformer,
                                             param_tree)
+from repro_torch.parallel import sharding
+from repro_torch.train.step import shard_model
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -56,6 +61,15 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu") -> Transformer:
                                  "mtp")
             if k in tree}
     return Transformer(cfg, _map(keep, torch.device(device)))
+
+
+def rank_params_from_numpy(tree, cfg: ModelConfig, mesh: sharding.Mesh,
+                           device="cpu") -> Transformer:
+    """This rank's shard of the reference tree on ``mesh`` under the active
+    rules (``sharding.use_mesh``): :func:`params_from_numpy` on the host,
+    cut there by train/step.py ``shard_model`` (which sets
+    ``model.shards``), then moved to ``device``."""
+    return shard_model(params_from_numpy(tree, cfg), mesh).to(device)
 
 
 def params_to_numpy(model: Transformer):

@@ -22,8 +22,14 @@ the training forward (:func:`train_forward`: no caches, the reference's
 ``forward(mode="train")``); the paged steps
 (serve/paged_step.py) walk the same layers with the same pieces
 (:func:`embed`, :func:`layer_pre`, :func:`layer_post`, :func:`logits`)
-over a page pool. :class:`ModelConfig` keeps every field of the reference
-so that the configs read the same, with torch dtypes in place of jnp ones
+over a page pool. On one rank of a mesh (``Transformer.shards``, set by
+train/step.py ``shard_model``), :func:`hidden` runs each layer on the
+rank's shards (:func:`_layers`: a unit's leaves gathered over the
+batch axes when it is reached, FSDP's gather; the model axis
+tensor-parallel in :func:`embed`, ``attention.gqa_forward``, :func:`_ffn`
+and :func:`logits`, each reading its leaves' specs). :class:`ModelConfig`
+keeps every field of the reference so that the configs read the same,
+with torch dtypes in place of jnp ones
 (``compute_dtype=torch.float32`` works as the reference override does).
 
 Weights keep the reference layout: ``y = x @ w`` with ``w`` of shape
@@ -606,10 +612,12 @@ class Transformer(nn.Module):
     (serve/paged_step.py) are plain functions over it. Weights are made
     without gradients, as serving wants them; training turns them on with
     ``model.requires_grad_(True)`` (train/step.py ``init_state``).
-    ``fsdp``: None, or once train/step.py ``shard_state`` has cut every
-    leaf to this rank's FSDP shard, ``(mesh, specs)`` with ``specs`` the
+    ``shards``: None, or once train/step.py ``shard_model`` has cut every
+    leaf to this rank's shard, ``(mesh, specs)`` with ``specs`` the
     :func:`param_tree`-shaped tree of each leaf's spec
-    (:func:`train_forward` gathers each leaf where it is used)."""
+    (:func:`train_forward` gathers each leaf where it is used; the
+    serving forward gathers the batch axes and runs the rest
+    tensor-parallel, :func:`hidden`)."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__()
@@ -627,7 +635,7 @@ class Transformer(nn.Module):
         self.shared_block = (SharedBlock(tree["shared_block"])
                              if "shared_block" in tree else None)
         self.mtp = MtpHead(tree["mtp"]) if "mtp" in tree else None
-        self.fsdp = None      # (mesh, specs) once train/step.py shards it
+        self.shards = None    # (mesh, specs) once train/step.py shards it
         if bool(cfg.learned_pos) != (self.pos_embed is not None) or \
                 bool(cfg.encoder_groups) != (self.encoder is not None) or \
                 has_shared(cfg) != (self.shared_block is not None) or \
@@ -685,42 +693,98 @@ def _norm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return blocks.rms_norm(p["scale"], x, zero_centered=cfg.zero_centered_norm)
 
 
-def _ffn(p, ffn: str, x: torch.Tensor, cfg: ModelConfig
+MLP_LEAVES = {"swiglu": (("w_gate", "w_up"), "w_down"),   # (column-,
+              "relu2": (("w_in",), "w_out"),             # row-parallel)
+              "gelu": (("w_in", "b_in"), "w_out")}
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")   # a MoE's [E, ...] leaves
+
+
+def _ffn(p, ffn: str, x: torch.Tensor, cfg: ModelConfig, spec=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(y, the MoE's aux · aux_weight, None for an MLP)."""
+    """(y, the MoE's aux · aux_weight, None for an MLP).
+
+    On one rank of the active mesh, ``p`` holds the rank's shards and
+    ``spec`` their specs once the batch axes are gathered (x is the
+    rank's rows, whole; so is y). An MLP is column-parallel in
+    (:data:`MLP_LEAVES`: the rank's columns of the hidden) and
+    row-parallel out, then summed over the out leaf's line, then
+    ``b_out``; where the in leaves' columns are not the out leaf's rows
+    (a binding that ``resolve`` dropped for one of them) the in leaves
+    are cut to those rows first, gathered over their line where they do
+    not hold them. A MoE's leaves are made whole over every axis but a
+    held expert axis (the reference's ``shard_map`` takes the experts
+    whole, or their EP shard), then ``moe_forward``'s mesh paths."""
+    mesh = sharding.current_mesh()
     if ffn == "moe":
+        if spec is not None:
+            p = {k: sharding.gather_tree(
+                v, (None,) + spec[k][1:] if k in EXPERT_LEAVES else spec[k],
+                mesh) for k, v in p.items()}
         return moe_lib.moe_forward(p, x, cfg.moe)
-    if ffn == "mlp" and cfg.mlp == "swiglu":
-        return blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x), None
-    if ffn == "mlp" and cfg.mlp == "relu2":
-        return blocks.relu2_mlp(p["w_in"], p["w_out"], x), None
-    if ffn == "mlp" and cfg.mlp == "gelu":
-        return blocks.gelu_mlp(p["w_in"], p["b_in"], p["w_out"], p["b_out"],
-                               x), None
-    raise NotImplementedError(f"repro_torch: ffn {ffn!r}/{cfg.mlp!r}")
+    if ffn != "mlp" or cfg.mlp not in MLP_LEAVES:
+        raise NotImplementedError(f"repro_torch: ffn {ffn!r}/{cfg.mlp!r}")
+    spec = spec or {}
+    ins, out = MLP_LEAVES[cfg.mlp]
+    rows = sharding.held(p[out], spec.get(out), 0, mesh)
+    p = dict(p)
+    for k in ins:
+        cols = sharding.held(p[k], spec.get(k), p[k].dim() - 1, mesh)
+        if (cols.lo, cols.hi) != (rows.lo, rows.hi):
+            p[k] = attention._cols(p[k], cols, rows.lo, rows.hi)
+    if cfg.mlp == "swiglu":
+        y = blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
+    elif cfg.mlp == "relu2":
+        y = blocks.relu2_mlp(p["w_in"], p["w_out"], x)
+    else:
+        y = blocks.gelu_mlp(p["w_in"], p["b_in"], p["w_out"],
+                            p["b_out"] if rows.line is None else None, x)
+    if rows.line is None:
+        return y, None
+    y = sharding.reduce_from(y, rows.line)
+    return (y + p["b_out"] if cfg.mlp == "gelu" else y), None
 
 
-def _ffn_apply(p, ffn: str, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_apply(p, ffn: str, x: torch.Tensor, cfg: ModelConfig,
+               spec=None) -> torch.Tensor:
     """y alone: serving drops the MoE's aux, as the reference's serving
     steps do."""
-    return _ffn(p, ffn, x, cfg)[0]
+    return _ffn(p, ffn, x, cfg, spec)[0]
+
+
+def _layers(model: Transformer, caches, cache_specs=None):
+    """Walk every layer in order: (kind, layer weights, their specs, that
+    layer's views of ``caches``, their specs). Cache leaves carry a
+    leading ``[count]`` axis per group position (dense slot caches from
+    :func:`init_caches`, or page pools); a layer's view drops it. A
+    ``shared`` site's weights are its own norms with the shared block's
+    ``mixer`` and ``ffn``. On one rank of a mesh (``model.shards``) each
+    unit's leaves are gathered over the batch axes when it is reached,
+    never the whole model at once (:func:`_rank_tree`); the specs are
+    None without a mesh."""
+    shared = model.shared_block
+    if shared is not None:
+        shared = _rank_tree(model, {"mixer": dict(shared.mixer),
+                                    "ffn": dict(shared.ffn)}, "shared_block")
+    for gi, (pattern, count) in enumerate(model.cfg.groups):
+        for u in range(count):
+            for i, kind in enumerate(pattern):
+                p, ps = _rank_tree(model, model.groups[gi][i].unit(u),
+                                   "groups", gi, i, unit=True)
+                if parse_kind(kind)[0] == "shared":
+                    p = dict(p, mixer=dict(shared[0]["mixer"]),
+                             ffn=dict(shared[0]["ffn"]))
+                    ps = ps if ps is None else dict(ps, **shared[1])
+                yield (kind, p, ps,
+                       {name: arr[u] for name, arr in caches[gi][i].items()},
+                       None if cache_specs is None else
+                       _spec_at(cache_specs, (gi, i), True))
 
 
 def units(model: Transformer, caches):
     """Walk every layer in order: (kind, layer weights, that layer's views
-    of ``caches``). Cache leaves carry a leading ``[count]`` axis per group
-    position (dense slot caches from :func:`init_caches`, or page pools);
-    a layer's view drops it. A ``shared`` site's weights are its own norms
-    with the shared block's ``mixer`` and ``ffn``."""
-    shared = model.shared_block
-    for gi, (pattern, count) in enumerate(model.cfg.groups):
-        for u in range(count):
-            for i, kind in enumerate(pattern):
-                p = model.groups[gi][i].unit(u)
-                if parse_kind(kind)[0] == "shared":
-                    p["mixer"], p["ffn"] = dict(shared.mixer), dict(shared.ffn)
-                yield (kind, p,
-                       {name: arr[u] for name, arr in caches[gi][i].items()})
+    of ``caches``), as :func:`_layers`."""
+    for kind, p, _, cache, _ in _layers(model, caches):
+        yield kind, p, cache
 
 
 def embed_scale(d_model: int, dtype: torch.dtype) -> float:
@@ -731,15 +795,83 @@ def embed_scale(d_model: int, dtype: torch.dtype) -> float:
 
 
 def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    x = blocks.embed_lookup(model.embed, tokens)
+    """The embedding rows of ``tokens`` (scaled where the config says).
+    On a rank (``model.shards``) whose table is cut over its vocabulary
+    (``vocab_tp``): the tokens in the rank's row range looked up through
+    ``legalized_take``, the rest zero, summed over the line (exact: one
+    rank holds each row)."""
+    table, spec = _rank_tree(model, model.embed, "embed")
+    rows = sharding.held(table, spec, 0, sharding.current_mesh())
+    if rows.line is None:
+        x = blocks.embed_lookup(table, tokens)
+    else:
+        local = tokens.long() - rows.lo
+        inside = (local >= 0) & (local < table.shape[0])
+        x = blocks.embed_lookup(table, local.clamp(0, table.shape[0] - 1))
+        x = sharding.reduce_from(
+            torch.where(inside[..., None], x, torch.zeros_like(x)),
+            rows.line)
     if model.cfg.embed_scale:
         x = x * embed_scale(model.cfg.d_model, x.dtype)
     return x
 
 
 def logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head. On a rank whose head is cut over the
+    vocabulary (the tied embedding's rows, or ``lm_head``'s columns):
+    the rank's logits, all-gathered over the line into the whole
+    vocabulary."""
     h = _norm_apply(_norm_leaf(model, "final_norm"), x, model.cfg)
-    return h @ model.head()
+    mesh = sharding.current_mesh()
+    if model.cfg.tie_embeddings:
+        table, spec = _rank_tree(model, model.embed, "embed")
+        head, cols = table.t(), sharding.held(table, spec, 0, mesh)
+    else:
+        head, spec = _rank_tree(model, model.lm_head, "lm_head")
+        cols = sharding.held(head, spec, 1, mesh)
+    out = h @ head
+    return out if cols.line is None else \
+        sharding.gather_from(out, cols.line, -1)
+
+
+# --------------------------------------------------------------------------
+# one rank of a mesh: the leaves the serving forward takes
+# --------------------------------------------------------------------------
+def _rank_tree(model: Transformer, tree, *path, unit: bool = False):
+    """(``tree``, None) without a mesh. On one rank (``model.shards``):
+    ``tree`` (this rank's shards of the leaves at ``path`` of
+    :func:`param_tree`, or with ``unit`` one unit's views of a stacked
+    position) gathered over the mesh's batch axes, the ranks of which hold
+    different rows and so need the whole leaf (the training forward's
+    gather, :func:`_gatherer`, over those axes alone), and the specs that
+    remain: what stays cut is bound to an axis whose ranks share the rows
+    (the model axis), for the tensor-parallel ops."""
+    if model.shards is None:
+        return tree, None
+    mesh, specs = model.shards
+    over = tuple(a for a in sharding.BATCH_AXES if a in mesh.shape)
+    return _gatherer(model, over)(tree, *path, unit=unit), tree_lib.tree_map(
+        lambda s: sharding.unbind(s, over), _spec_at(specs, path, unit),
+        is_leaf=sharding.is_spec)
+
+
+def _check_whole(what: str, spec_tree) -> None:
+    """Raise unless every leaf that the rank path runs whole (a recurrent,
+    cross or MLA layer's leaves and caches, learned positions) is whole
+    once the batch axes are gathered (no spec: no mesh)."""
+    if spec_tree is None:
+        return
+    mesh = sharding.current_mesh()
+    for path, spec in tree_lib.paths(spec_tree, what,
+                                     is_leaf=sharding.is_spec):
+        if any(mesh.shape[a] > 1 for a in sharding.spec_axes(spec)
+               if a not in sharding.BATCH_AXES):
+            raise NotImplementedError(
+                f"{path}: {spec} on {mesh}: cut over a non-batch axis, "
+                "which this layer's rank path does not take (ROADMAP 16.11)")
+
+
+RANK_MIXERS = ("gqa", "global", "local", "shared")   # cut over the model axis
 
 
 def layer_pre(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
@@ -758,10 +890,12 @@ def _residual(p, post: str, x: torch.Tensor, y: torch.Tensor,
     return x + y
 
 
-def _ffn_residual(p, ffn: str, x: torch.Tensor, cfg: ModelConfig):
+def _ffn_residual(p, ffn: str, x: torch.Tensor, cfg: ModelConfig,
+                  spec=None):
     if ffn == "none":
         return x
-    y = _ffn_apply(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg)
+    y = _ffn_apply(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg,
+                   None if spec is None else spec["ffn"])
     return _residual(p, "ln2_post", x, y, cfg)
 
 
@@ -913,11 +1047,23 @@ def recurrent_forward(mixer: str, p: Dict[str, torch.Tensor],
 
 
 def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
-           mode: str, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+           mode: str, extra: Optional[torch.Tensor] = None,
+           cache_specs=None) -> torch.Tensor:
     """The final hidden state [B, L, d] (before the final norm); see
-    :func:`forward`."""
+    :func:`forward`. On one rank of a mesh (``model.shards``, under
+    ``sharding.use_mesh``): ``tokens`` and ``caches`` are the rank's rows
+    and parts, ``cache_specs`` the caches' specs, and each layer runs on
+    the rank's shards (:func:`_layers`; ``attention.gqa_forward`` and
+    :func:`_ffn` read each leaf's spec); the result is the rank's rows,
+    whole."""
     cfg = model.cfg
     B, L = tokens.shape
+    rank = model.shards is not None
+    if not rank:     # whole leaves: a one-rank mesh's cache specs bind none
+        cache_specs = None
+    elif cache_specs is None:
+        raise ValueError("a sharded model's serving step needs its caches' "
+                         "specs (train/step.py rank_caches)")
     if mode == "decode":
         if not isinstance(cache_pos, torch.Tensor) or L != 1:
             raise ValueError("decode: one token a slot and a [B] cache_pos "
@@ -931,8 +1077,10 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
         raise ValueError(f"mode {mode!r}: expected 'prefill' or 'decode'")
     x = embed(model, tokens)
     if cfg.learned_pos:     # past the table, the last row (the reference)
+        table, spec = _rank_tree(model, model.pos_embed, "pos_embed")
+        _check_whole("pos_embed", spec)
         x = x + blocks.embed_lookup(
-            model.pos_embed, positions.clamp(max=cfg.learned_pos - 1))
+            table, positions.clamp(max=cfg.learned_pos - 1))
     if mode == "decode":    # cross layers read their caches
         extra = None
     elif has_cross(cfg):
@@ -941,21 +1089,31 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
                              "`extra` (stub image / audio embeddings)")
         extra = extra.to(x.dtype)
         if model.encoder is not None:
+            if rank:
+                raise NotImplementedError(
+                    f"{cfg.name}: the encoder on a rank of a mesh is not "
+                    "ported (ROADMAP 16.11)")
             extra = encode(model, extra)
-    for kind, p, cache in units(model, caches):
+    for kind, p, ps, cache, cs in _layers(model, caches, cache_specs):
         mixer, ffn = parse_kind(kind)
         h = _norm_apply(p["ln1"], x, cfg)
-        if mixer in ssm.RECURRENT:
-            y = recurrent_forward(mixer, p["mixer"], h, cfg, cache, mode)
-        elif mixer == "cross":
-            y = attention.cross_forward(p["mixer"], h, cfg, cache, extra)
-        elif mixer == "mla":
-            y = attention.mla_forward(p["mixer"], h, positions, cfg.mla,
-                                      cache, cache_pos)
+        if mixer in RANK_MIXERS:
+            y = attention.gqa_forward(
+                p["mixer"], h, positions, cfg, cache, cache_pos,
+                window=cfg.window_of(mixer),
+                spec=None if ps is None else ps["mixer"], cache_spec=cs)
         else:
-            y = attention.gqa_forward(p["mixer"], h, positions, cfg, cache,
-                                      cache_pos, window=cfg.window_of(mixer))
-        x = _ffn_residual(p, ffn, _residual(p, "ln1_post", x, y, cfg), cfg)
+            _check_whole(kind, None if ps is None else ps["mixer"])
+            _check_whole(kind, cs)
+            if mixer in ssm.RECURRENT:
+                y = recurrent_forward(mixer, p["mixer"], h, cfg, cache, mode)
+            elif mixer == "cross":
+                y = attention.cross_forward(p["mixer"], h, cfg, cache, extra)
+            else:
+                y = attention.mla_forward(p["mixer"], h, positions, cfg.mla,
+                                          cache, cache_pos)
+        x = _ffn_residual(p, ffn, _residual(p, "ln1_post", x, y, cfg), cfg,
+                          ps)
     return x
 
 
@@ -1067,25 +1225,31 @@ def _train_groups(stacks: nn.ModuleList, groups, x: torch.Tensor,
     return x, aux_total
 
 
-def _gatherer(model: Transformer):
+def _spec_at(specs, path, unit: bool = False):
+    """The spec tree at ``path`` of ``specs``; with ``unit``, one unit's of
+    a stacked position (the stacked axis, which no rule binds, dropped)."""
+    for key in path:
+        specs = specs[key]
+    if unit:
+        specs = tree_lib.tree_map(lambda p: p[1:], specs,
+                                  is_leaf=sharding.is_spec)
+    return specs
+
+
+def _gatherer(model: Transformer, over=None):
     """``g(tree, *path, unit=False)``: ``tree`` (leaves of ``model`` at
     ``path`` of :func:`param_tree`, or with ``unit`` one unit's views of a
-    stacked position) whole. Under an FSDP layout (``model.fsdp``) each
-    leaf is all-gathered from the ranks' shards (parallel/sharding.py
-    ``gather_leaf``: its backward reduce-scatters the gradient); without
-    one it is ``tree`` itself."""
-    if model.fsdp is None:
+    stacked position) whole, or gathered over ``over``'s axes alone. On a
+    rank's shards (``model.shards``) each leaf is all-gathered from the
+    ranks' shards (parallel/sharding.py ``gather_leaf``: its backward
+    reduce-scatters the gradient); without them it is ``tree`` itself."""
+    if model.shards is None:
         return lambda tree, *path, unit=False: tree
-    mesh, specs = model.fsdp
+    mesh, specs = model.shards
 
     def g(tree, *path, unit=False):
-        spec = specs
-        for key in path:
-            spec = spec[key]
-        if unit:     # a unit drops the stacked axis, which no rule binds
-            spec = tree_lib.tree_map(lambda p: p[1:], spec,
-                                     is_leaf=sharding.is_spec)
-        return sharding.gather_tree(tree, spec, mesh)
+        return sharding.gather_tree(tree, _spec_at(specs, path, unit), mesh,
+                                    over=over)
     return g
 
 

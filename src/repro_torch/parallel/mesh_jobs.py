@@ -1,9 +1,10 @@
 """Jobs on the ranks of a mesh: the collectives, gpipe, the MoE's mesh
-paths and FSDP training.
+paths, FSDP training and the serving steps on a rank's shards.
 
-The rank side of chip_smoke.py's phases 10a–10c and of the CPU tests of
+The rank side of chip_smoke.py's phases 10a–10d and of the CPU tests of
 the mesh paths (tests/test_torch_sharding.py, test_torch_pipeline.py,
-test_torch_moe_mesh.py, test_torch_fsdp.py); it imports no JAX. Each job
+test_torch_moe_mesh.py, test_torch_fsdp.py, test_torch_tp_serve.py); it
+imports no JAX. Each job
 is a dataclass the caller pickles to ``repro_torch.parallel.launch.spawn``;
 its function runs on every rank over a ``sharding.Mesh`` of the spawned
 group and returns host results (numpy arrays, numbers)::
@@ -568,6 +569,185 @@ def train_job(rank: int, job: TrainJob) -> Dict[str, Any]:
             "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                          if device.type == "cuda" else None),
             "coords": mesh.coords()}
+
+
+# --------------------------------------------------------------------------
+# the serving steps on a rank's shards
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class ServeJob:
+    """train/step.py's prefill and decode steps of ``cfg`` on a (data,
+    model) mesh under the rules ``rules`` (overrides on ``DEFAULT_RULES``),
+    over ``batch`` slots × ``max_seq`` rows. ``weights``: the reference
+    tree as numpy (each rank cuts its shard on the host), or None: the
+    whole model drawn from ``seed`` on the device, then cut. The whole
+    caches start as ``caches`` (numpy leaves in ``init_caches``' order),
+    or with ``fill`` as N(0, 1) draws from ``seed + 2`` (a decode step
+    over a full cache with no prefill first), else zeros. ``prompt``:
+    global tokens [B, L] for a prefill (None: none); ``decode``: then
+    each (tokens [B, 1], cache_pos: an int or a [B] array) in turn.
+    ``compare``: each rank also runs the one-rank steps here, on the whole
+    model and caches, and reports its rows' and its cache parts'
+    differences from them; ``keep``: what each rank returns as host arrays
+    (``"logits"``, its rows of each step's; ``"caches"``, its parts)."""
+    cfg: Any
+    mesh: Tuple[int, int]
+    rules: Dict[str, Any]
+    batch: int
+    max_seq: int
+    prompt: Optional[np.ndarray] = None
+    decode: Sequence[Tuple[np.ndarray, Any]] = ()
+    weights: Any = None
+    fill: bool = False
+    caches: Optional[Sequence[np.ndarray]] = None
+    seed: int = 0
+    device: str = "cpu"
+    compare: bool = False
+    keep: Tuple[str, ...] = ("logits", "caches")
+
+
+def _whole_model(job: ServeJob, device):
+    from repro_torch.models import convert, transformer
+    if job.weights is not None:
+        return convert.params_from_numpy(job.weights, job.cfg, device)
+    gen = torch.Generator(device=device).manual_seed(job.seed)
+    return transformer.init_model(job.cfg, gen, device)
+
+
+def _whole_caches(job: ServeJob, device):
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import transformer
+    caches = transformer.init_caches(job.cfg, job.batch, job.max_seq,
+                                     device=device)
+    if job.fill:
+        g = torch.Generator(device=device).manual_seed(job.seed + 2)
+        for a in tree_lib.leaves(caches):
+            a.copy_(torch.randn(a.shape, generator=g, device=device))
+    elif job.caches is not None:
+        for a, c in zip(tree_lib.leaves(caches), job.caches):
+            a.copy_(torch.from_numpy(np.asarray(c)))
+    return caches
+
+
+def one_rank(job: ServeJob, dtype=None):
+    """The job's steps meshless in this process, on the whole model and
+    caches it starts from; with ``dtype``, both cast to it after they are
+    drawn (the same values) and the config's dtypes set to it → (each
+    step's logits as f32, the final caches)."""
+    from repro_torch.core import tree as tree_lib
+    device = _device(job.device)
+    model, caches = _whole_model(job, device), _whole_caches(job, device)
+    if dtype is not None:
+        model = model.to(dtype)
+        caches = tree_lib.tree_map(lambda a: a.to(dtype), caches)
+        job = dataclasses.replace(job, cfg=dataclasses.replace(
+            job.cfg, param_dtype=dtype, compute_dtype=dtype))
+    logits = _serve_steps(job, model, caches, None, device)
+    return [t.float() for t in logits], caches
+
+
+def _serve_steps(job: ServeJob, model, caches, specs, device,
+                 rows=None) -> List[torch.Tensor]:
+    """The job's prefill and decode steps on ``model`` / ``caches``;
+    ``rows``: the rank's slots (tokens and positions cut to them)."""
+    from repro_torch.train import step as step_lib
+    tokens = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa
+    cut = (lambda a: a) if rows is None else (lambda a: a[rows])
+    out = []
+    if job.prompt is not None:
+        out.append(step_lib.make_prefill_step(job.cfg, specs)(
+            model, cut(tokens(job.prompt)), caches)[0])
+    decode = step_lib.make_decode_step(job.cfg, specs)
+    for tok, pos in job.decode:
+        if not isinstance(pos, int):
+            pos = cut(torch.as_tensor(np.asarray(pos), device=device))
+        out.append(decode(model, cut(tokens(tok)), caches, pos)[0])
+    return out
+
+
+def serve_job(rank: int, job: ServeJob) -> Dict[str, Any]:
+    """The steps on this rank's shards: its rows' logits of each step and
+    its cache parts (as ``keep`` says), the collectives it issued (kind, bytes,
+    group size), the attention kernels' launches, the wall time, and with
+    ``compare``, for each step, the largest difference of its logits from
+    the one-rank step's on its rows, the largest one-rank logit, the
+    difference's norm over the one-rank logits', both greedy tokens and
+    the one-rank top-2 gap of each row; and the largest
+    difference of its cache parts from the one-rank caches' and their
+    largest value."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import convert
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import step as step_lib
+    device = _device(job.device)
+    cfg = job.cfg
+    mesh = _mesh(job.mesh, ("data", "model"))
+    whole_caches = _whole_caches(job, device)
+    with sh.use_mesh(mesh, job.rules):
+        specs = step_lib.rank_caches(cfg, job.batch, job.max_seq, mesh,
+                                     device="meta")[1]
+    caches = tree_lib.tree_map(lambda a, s: sh.shard_of(a, s, mesh),
+                               whole_caches, specs)
+    whole = None
+    if job.weights is None or job.compare:
+        whole = _whole_model(job, device)
+    ref = None
+    if job.compare:     # the one-rank steps, meshless, on the whole leaves
+        ref = [t.float() for t in _serve_steps(job, whole, whole_caches,
+                                               None, device)]
+    else:
+        whole_caches = None
+    with sh.use_mesh(mesh, job.rules):
+        if job.weights is None:
+            model = step_lib.shard_model(whole, mesh)
+        else:
+            model = convert.rank_params_from_numpy(job.weights, cfg, mesh,
+                                                   device)
+        del whole
+        b_spec = sh.resolve(("batch", None), (job.batch, 1), mesh)
+        rows = sh.shard_slices((job.batch, 1), b_spec, mesh)[0]
+        for k in (da.flash_decode, fa.flash_attention):
+            k.launches = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        with sh.record_collectives() as colls:
+            got = _serve_steps(job, model, caches, specs, device, rows)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    out = {"coords": mesh.coords(), "rows": (rows.start, rows.stop),
+           "wall_s": wall,
+           "launches": {"flash_decode": da.flash_decode.launches,
+                        "flash_attention": fa.flash_attention.launches},
+           "collectives": [tuple(dataclasses.astuple(c)) for c in colls],
+           "cache_shapes": [tuple(a.shape) for a in tree_lib.leaves(caches)]}
+    if "logits" in job.keep:
+        out["logits"] = [_host(t) for t in got]
+    if "caches" in job.keep:
+        out["caches"] = [_host(a) for a in tree_lib.leaves(caches)]
+    if job.compare:     # each step: (max |diff|, max |one-rank|, the
+        out["logits_vs_one"] = []     # relative norm, greedy, top-2 gap)
+        for g_, r in zip(got, ref):
+            r = r[rows]
+            top = r.topk(2, dim=-1).values
+            d = g_.float() - r
+            out["logits_vs_one"].append((
+                float(d.abs().max()), float(r.abs().max()),
+                float(d.norm() / r.norm()), _host(g_.float().argmax(-1)),
+                _host(r.argmax(-1)), _host(top[..., 0] - top[..., 1])))
+        want = [sh.shard_of(a, s, mesh) for a, s in zip(
+            tree_lib.leaves(whole_caches), tree_lib.leaves(
+                specs, is_leaf=sh.is_spec))]
+        out["caches_vs_one"] = (
+            max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(tree_lib.leaves(caches), want)),
+            max(float(b.float().abs().max()) for b in want))
+        del want
+    if device.type == "cuda":     # the next job of a spawn draws afresh
+        del model, caches, got, whole_caches, ref
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -22,7 +22,12 @@ of every set of its axes (:meth:`Mesh.line`), so a collective "over
 ``model``" runs over this rank's model line only; :meth:`Mesh.abstract`
 gives the shape alone (``launch/mesh.py``'s production meshes).
 :func:`shard_slices` / :func:`shard_of` give the slice of a leaf a rank
-holds under a spec (``NamedSharding.devices_indices_map``'s counterpart).
+holds under a spec (``NamedSharding.devices_indices_map``'s counterpart);
+:func:`held` the range of one dimension a rank's shard holds and the line
+that cuts it (the whole dimension with no spec or no mesh), which the
+serving steps read for every op (models/transformer.py ``hidden``), and
+:func:`unbind` a spec once :func:`gather_leaf` has gathered some of its
+axes.
 :func:`constrain` returns its input: every rank already holds its own
 activation, so the reference's ``with_sharding_constraint`` has nothing to
 move.
@@ -38,7 +43,10 @@ the sum over the line of their gradient shares is the line's gradient
 gather (each rank uses the whole leaf on its own rows, so its backward
 reduce-scatters the sum), :func:`all_to_all` and :func:`ring_shift` move
 rows and route the cotangents back the way they came, and :func:`pmean`
-is the reference's ``_pmean_grad_safe``.
+is the reference's ``_pmean_grad_safe``. :func:`combine_partials` (no
+gradient: serving) merges the softmax attention of key slices the ranks
+hold apart, from each slice's output and log-sum-exp: the reference's SP
+decode, whose max / sum GSPMD turns into all-reduces.
 
 *Transport.* The all-gather, the reduce-scatter and the all-to-all are
 ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
@@ -60,7 +68,8 @@ group, and each wire function records what it would issue
 (``core/perf.Collective``: its kind, its result's bytes on the wire, its
 group's size) and returns a tensor of the result's shape whose values
 mean nothing (on ``meta`` tensors there are none). The ring shift
-records the all-gather it is made of.
+records the all-gather it is made of. Inside ``record_collectives`` a
+real mesh's collectives are recorded the same way, and then issued.
 
 **Serving tp** (``init_tp``, ``tp_group``, :func:`all_gather_cat`) is the
 reference's ``TP_AXIS`` / ``tp_mesh``: each rank runs the same scheduler
@@ -74,7 +83,7 @@ import datetime
 import itertools
 import math
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -320,8 +329,10 @@ def shard_slices(shape: Sequence[int], spec: Tuple, mesh: Mesh,
     """The slice of a ``shape`` leaf that ``rank`` (default: this one)
     holds under ``spec``: a dimension bound to axes (a0, a1, ...) is cut
     into their product of equal parts, and the rank takes part number
-    row-major(its coordinates on a0, a1, ...)."""
-    coords = mesh.coords(rank)
+    row-major(its coordinates on a0, a1, ...). On an abstract mesh, rank
+    0's (the dry run's traced rank)."""
+    coords = mesh.coords(rank) if rank is not None or mesh.rank is not None \
+        else {a: 0 for a in mesh.axis_names}
     out = []
     for i, n in enumerate(shape):
         axes = _entry_axes(spec[i] if i < len(spec) else None)
@@ -336,6 +347,40 @@ def shard_slices(shape: Sequence[int], spec: Tuple, mesh: Mesh,
                        [mesh.shape[a] for a in axes])
         out.append(slice(k * (n // parts), (k + 1) * (n // parts)))
     return tuple(out)
+
+
+class Held(NamedTuple):
+    """The part ``[lo, hi)`` of a dimension of ``whole`` elements that this
+    rank holds, and the ``line`` of the axes that cut it (None when the
+    dimension is whole: the op then takes the whole path)."""
+    lo: int
+    hi: int
+    whole: int
+    line: Optional[Line]
+
+
+def held(x, spec: Optional[Tuple], dim: int, mesh: Optional[Mesh]) -> Held:
+    """What this rank holds of dimension ``dim`` of its shard ``x`` (a
+    tensor or a shape) under ``spec``: the range :func:`shard_slices`
+    gives it in the whole leaf, and the line of the bound axes. With no
+    spec or no mesh, the whole dimension."""
+    shape = tuple(x.shape) if isinstance(x, torch.Tensor) else tuple(x)
+    if spec is None or mesh is None:
+        return Held(0, shape[dim], shape[dim], None)
+    whole = tuple(n * axis_size(_entry_axes(spec[i] if i < len(spec)
+                                            else None), mesh)
+                  for i, n in enumerate(shape))
+    part = shard_slices(whole, spec, mesh)[dim]
+    axes = _entry_axes(spec[dim] if dim < len(spec) else None)
+    line = mesh.line(axes) if axes and axis_size(axes, mesh) > 1 else None
+    return Held(part.start, part.stop, whole[dim], line)
+
+
+def unbind(spec: Tuple, axes: Sequence[str]) -> Tuple:
+    """``spec`` with every dimension bound to one of ``axes`` made whole
+    (what :func:`gather_leaf` over ``axes`` leaves)."""
+    return tuple(None if set(_entry_axes(e)) & set(axes) else e
+                 for e in spec)
 
 
 def shard_of(x, spec: Tuple, mesh: Mesh, rank: Optional[int] = None):
@@ -404,16 +449,20 @@ def record_collectives():
 
 
 def _abstract(line: Line, kind: str, result: torch.Tensor) -> bool:
-    """True on an abstract line (no group, more than one rank: nothing to
-    send), after recording one ``kind`` collective with ``result``'s
-    bytes."""
-    if line.group is not None or line.size == 1:
+    """Record one ``kind`` collective with ``result``'s bytes inside
+    :func:`record_collectives` (on a real line as on an abstract one);
+    True on an abstract line (no group, more than one rank: nothing to
+    send)."""
+    if line.size == 1:
+        return False
+    if _REC.records is not None:
+        _REC.records.append(perf.Collective(
+            kind, result.numel() * result.element_size(), line.size))
+    if line.group is not None:
         return False
     if _REC.records is None:
         raise ValueError(f"{line}: a collective on an abstract mesh runs "
                          "only inside record_collectives()")
-    _REC.records.append(perf.Collective(
-        kind, result.numel() * result.element_size(), line.size))
     return True
 
 
@@ -621,26 +670,50 @@ def pmean(x: torch.Tensor, line: Line, replicated: int = 1) -> torch.Tensor:
     return _PMean.apply(x, line, replicated)
 
 
-def gather_leaf(x: torch.Tensor, spec: Tuple, mesh: Mesh
-                ) -> torch.Tensor:
+def gather_leaf(x: torch.Tensor, spec: Tuple, mesh: Mesh,
+                over: Optional[Sequence[str]] = None) -> torch.Tensor:
     """A leaf whole from this rank's shard under ``spec``
-    (:func:`gather_shards` along each bound dimension)."""
+    (:func:`gather_shards` along each bound dimension); with ``over``,
+    only the dimensions bound to one of those axes (the rest stay this
+    rank's part: ``unbind(spec, over)`` is then its spec)."""
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
-        if axes:
+        if axes and (over is None or set(axes) & set(over)):
             x = gather_shards(x, mesh.line(axes), dim)
     return x
 
 
-def gather_tree(tree, specs, mesh: Mesh, fn=None):
-    """Every leaf of ``tree`` whole (:func:`gather_leaf`; ``specs`` a tree
-    of ``tree``'s shape; a None leaf, a gradient the loss did not reach,
-    stays None), ``fn`` applied to each as it arrives (``core/tree.
-    to_host`` for a checkpoint: one whole leaf at a time on the device)."""
+def gather_tree(tree, specs, mesh: Mesh, fn=None,
+                over: Optional[Sequence[str]] = None):
+    """Every leaf of ``tree`` whole (:func:`gather_leaf`, over ``over``'s
+    axes alone when given; ``specs`` a tree of ``tree``'s shape; a None
+    leaf, a gradient the loss did not reach, stays None), ``fn`` applied
+    to each as it arrives (``core/tree.to_host`` for a checkpoint: one
+    whole leaf at a time on the device)."""
     fn = fn or (lambda t: t)
     return tree_lib.tree_map(
-        lambda t, s: None if t is None else fn(gather_leaf(t, s, mesh)),
+        lambda t, s: None if t is None else fn(gather_leaf(t, s, mesh,
+                                                           over)),
         tree, specs)
+
+
+def combine_partials(out: torch.Tensor, lse: torch.Tensor, line: Line
+                     ) -> torch.Tensor:
+    """The softmax attention over a key axis that the line's ranks hold in
+    slices, from each slice's ``out`` [..., hd] and ``lse`` [...] (f32,
+    the log of its softmax's denominator: kernels/decode_attention.py
+    ``flash_decode(..., return_lse=True)``): both all-gathered over the
+    line, each slice weighed by exp(lseᵣ − max), the sum and the division
+    in f32, the result cast to ``out``'s dtype. A slice with no visible
+    key (lse NEG) weighs 0 beside one that has; when none has, every
+    slice weighs 1. Serving only (no gradient)."""
+    if line.size == 1:
+        return out
+    outs = torch.stack(_parts(out, line)).float()
+    lses = torch.stack(_parts(lse.float(), line))
+    w = torch.exp(lses - lses.amax(dim=0, keepdim=True))
+    y = (w[..., None] * outs).sum(dim=0) / w.sum(dim=0)[..., None]
+    return y.to(out.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -60,6 +60,20 @@ run under ``torch.no_grad()``::
         logits, caches = decode(model, tok, caches, pos)
         tok = logits[:, -1].argmax(-1)[:, None]
 
+**Serving on one rank of a mesh** (the reference's steps jitted under
+its rules, partitioned by GSPMD): :func:`shard_model` cuts the model to
+this rank's shards under the active rules (or models/convert.py
+``rank_params_from_numpy`` from the reference's tree) and
+:func:`rank_caches` gives the rank's part of the caches with their specs;
+the same steps, made with those specs, then run under the mesh on the
+rank's rows (models/transformer.py ``hidden``)::
+
+    with sharding.use_mesh(mesh, rules):
+        model = shard_model(model, mesh)
+        caches, specs = rank_caches(cfg, B, max_seq, mesh, device="cuda")
+        logits, caches = make_decode_step(cfg, specs)(model, tok, caches,
+                                                      pos)
+
 :func:`attention_calls` lists the attention-kernel calls such a run makes,
 shape by shape, so that each kernel can be held against its plain version
 at exactly those shapes.
@@ -131,26 +145,35 @@ def param_specs(model, mesh: sharding.Mesh) -> Any:
         transformer.param_axes(model.cfg), shapes, mesh))
 
 
+def shard_model(model, mesh: sharding.Mesh):
+    """``model`` (whole leaves) cut to this rank's shards in place: each
+    weight's data replaced by the slice ``resolve`` gives it on ``mesh``
+    under the active rules (a leaf whose dimension does not divide stays
+    whole); ``model.shards`` set. Returns the model: the prefill and
+    decode steps then run it on this rank (the module docstring)."""
+    specs = param_specs(model, mesh)
+    with torch.no_grad():
+        for p, spec in zip(tree_lib.leaves(transformer.param_tree(model)),
+                           tree_lib.leaves(specs, is_leaf=sharding.is_spec)):
+            p.data = sharding.shard_of(p.data, spec, mesh)
+    model.shards = (mesh, specs)
+    return model
+
+
 def shard_state(state: TrainState, mesh: sharding.Mesh) -> TrainState:
     """``state`` (whole leaves) cut to this rank's FSDP shards in place:
     each weight's data, m and v replaced by the slice ``resolve`` gives
     it on ``mesh`` (a (data, model) mesh whose model axis is 1: the
-    training forward runs tensor-parallel nowhere); ``state.params.fsdp``
+    training forward runs tensor-parallel nowhere); ``state.params.shards``
     set. Returns the state."""
     for a, n in mesh.shape.items():
         if a not in sharding.BATCH_AXES and n != 1:
             raise ValueError(f"FSDP training shards over "
                              f"{sharding.BATCH_AXES} only; mesh axis "
                              f"{a!r} is {n}")
-    model = state.params
-    params = transformer.param_tree(model)
-    specs = param_specs(model, mesh)
-    with torch.no_grad():
-        for p, spec in zip(tree_lib.leaves(params), tree_lib.leaves(
-                specs, is_leaf=sharding.is_spec)):
-            p.data = sharding.shard_of(p.data, spec, mesh)
+    model = shard_model(state.params, mesh)
+    specs = model.shards[1]
     cut = lambda t, spec: sharding.shard_of(t, spec, mesh)
-    model.fsdp = (mesh, specs)
     return TrainState(params=model, opt=adamw.OptState(
         m=tree_lib.tree_map(cut, state.opt.m, specs),
         v=tree_lib.tree_map(cut, state.opt.v, specs)), step=state.step)
@@ -167,7 +190,7 @@ def state_shardings(state: TrainState) -> TrainState:
     """A sharded state's specs on its mesh (``CheckpointManager.
     restore``'s ``shardings``: each rank reads its slice of each whole
     leaf)."""
-    mesh, specs = state.params.fsdp
+    mesh, specs = state.params.shards
     return tree_lib.tree_map(lambda s: sharding.NamedSharding(mesh, s),
                              state_specs(specs), is_leaf=sharding.is_spec)
 
@@ -178,7 +201,7 @@ def whole_state(state: TrainState, keep: bool = True) -> TrainState:
     rank takes part; one whole leaf at a time on the device): what a
     checkpoint holds, as the reference's host arrays are whole. A rank
     with ``keep`` False takes part and keeps nothing (None leaves)."""
-    mesh, specs = state.params.fsdp
+    mesh, specs = state.params.shards
     return sharding.gather_tree(
         state_tree(state), state_specs(specs), mesh,
         fn=tree_lib.to_host if keep else (lambda t: None))
@@ -274,7 +297,7 @@ def make_train_step(cfg: transformer.ModelConfig, opt_cfg: adamw.Config,
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
                                                             Dict]:
         model = state.params
-        mesh = None if model.fsdp is None else model.fsdp[0]
+        mesh = None if model.shards is None else model.shards[0]
         params = transformer.param_tree(model)
         leaves = tree_lib.leaves(params)
         for p in leaves:
@@ -301,7 +324,7 @@ def make_train_step(cfg: transformer.ModelConfig, opt_cfg: adamw.Config,
             for p in leaves])
         gnorm, ranks = None, 1
         if mesh is not None:
-            specs = model.fsdp[1]
+            specs = model.shards[1]
             line = mesh.line(tuple(a for a in sharding.BATCH_AXES
                                    if a in mesh.shape))
             ranks = line.size
@@ -341,24 +364,59 @@ def _check_dtype(cfg: transformer.ModelConfig, model) -> None:
                          "(model.to(dtype=cfg.compute_dtype))")
 
 
-def make_prefill_step(cfg: transformer.ModelConfig):
+def rank_caches(cfg: transformer.ModelConfig, batch: int, max_seq: int,
+                mesh: sharding.Mesh, dtype=None, device=None):
+    """This rank's zeroed part of the slot caches of ``batch`` slots ×
+    ``max_seq`` rows on ``mesh`` (its slots, kv heads and rows) and the
+    spec of each leaf under the active rules (its logical axes,
+    ``transformer.cache_logical_axes``, resolved against its whole shape):
+    what the prefill and decode steps of a sharded model take."""
+    whole = transformer.init_caches(cfg, batch, max_seq, dtype, "meta")
+    specs = tree_lib.tree_map(lambda sh: sh.spec, sharding.tree_shardings(
+        transformer.cache_logical_axes(cfg), tree_lib.tree_map(
+            lambda a: tuple(a.shape), whole), mesh))
+    caches = tree_lib.tree_map(
+        lambda a, spec: torch.zeros(
+            tuple(s.stop - s.start for s in sharding.shard_slices(
+                tuple(a.shape), spec, mesh)), dtype=a.dtype, device=device),
+        whole, specs)
+    return caches, specs
+
+
+def _check_mesh(model) -> None:
+    """Raise unless a sharded model's step runs under its mesh (the
+    caller's ``sharding.use_mesh``, which also holds the rules it was cut
+    under)."""
+    if model.shards is not None and \
+            sharding.current_mesh() is not model.shards[0]:
+        raise ValueError("a sharded model's step runs under its mesh: "
+                         "call it inside sharding.use_mesh(mesh, rules)")
+
+
+def make_prefill_step(cfg: transformer.ModelConfig, cache_specs=None):
     """``prefill_step(model, tokens, caches, extra=None)``: tokens [B, L]
     of one length, every slot from position 0, and a cross-attention
     model's encoder input ``extra`` → (the last position's logits [B, 1,
-    vocab], caches)."""
+    vocab], caches). A sharded model (:func:`shard_model`) runs on this
+    rank: ``tokens`` are its rows, ``caches`` its part (:func:`rank_caches`)
+    and ``cache_specs`` their specs; the logits are the rank's rows, the
+    whole vocabulary."""
     @torch.no_grad()
     def prefill_step(model, tokens, caches, extra=None):
         _check_dtype(cfg, model)
-        h = transformer.hidden(model, tokens, caches, 0, "prefill", extra)
+        _check_mesh(model)
+        h = transformer.hidden(model, tokens, caches, 0, "prefill", extra,
+                               cache_specs)
         return transformer.logits(model, h[:, -1:]), caches
     return prefill_step
 
 
-def make_decode_step(cfg: transformer.ModelConfig):
+def make_decode_step(cfg: transformer.ModelConfig, cache_specs=None):
     """``decode_step(model, tokens, caches, cache_pos)``: tokens [B, 1] at
     ``cache_pos``, the reference's scalar current length (an int or a 0-d
     tensor, every slot there) or a [B] tensor (slot b at its own) →
-    (logits [B, 1, vocab], caches)."""
+    (logits [B, 1, vocab], caches). A sharded model as in
+    :func:`make_prefill_step` (a [B] ``cache_pos``: the rank's rows)."""
     @torch.no_grad()
     def decode_step(model, tokens, caches, cache_pos):
         _check_dtype(cfg, model)
@@ -369,7 +427,10 @@ def make_decode_step(cfg: transformer.ModelConfig):
         else:   # a fill on the device: no copy from the host, no sync
             pos = torch.full((B,), int(cache_pos), dtype=torch.long,
                              device=tokens.device)
-        return transformer.forward(model, tokens, caches, pos, "decode")
+        _check_mesh(model)
+        h = transformer.hidden(model, tokens, caches, pos, "decode", None,
+                               cache_specs)
+        return transformer.logits(model, h), caches
     return decode_step
 
 

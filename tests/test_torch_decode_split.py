@@ -276,3 +276,29 @@ def test_cuda_one_launch_per_call_and_graph_replays():
             torch.cuda.synchronize()
             assert torch.equal(replayed, out)
         assert not tda._COUNTERS[q.device][-1].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_lse_against_plain():
+    """On the card at a rank's SP-decode shape (B 8, H 14, K 2, S 8192, hd
+    64, bf16 and f32, one slot empty): the kernel's lse within 1e-3 of the
+    plain version's (NEG for the empty slot), its output the same bits as
+    without ``return_lse``, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card: python -m pytest "
+                    "-m cuda tests/test_torch_decode_split.py)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    Bq, H, K, Sq, hd = 8, 14, 2, 8192, 64
+    lens = torch.tensor([0, 8192, 1, 63, 4097, 128, 1000, 8191],
+                        dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(Bq, H, hd, generator=g, device="cuda").to(dtype)
+        kc, vc = (torch.randn(Bq, K, Sq, hd, generator=g, device="cuda")
+                  .to(dtype) for _ in range(2))
+        n0 = tda.flash_decode.launches
+        out, lse = tda.flash_decode(q, kc, vc, lens, return_lse=True)
+        assert tda.flash_decode.launches == n0 + 1
+        assert torch.equal(out, tda.flash_decode(q, kc, vc, lens))
+        _, plain = tda.flash_decode_plain(q, kc, vc, lens, return_lse=True)
+        assert bool((lse[0] == tda.NEG).all())
+        torch.testing.assert_close(lse[1:], plain[1:], rtol=0, atol=1e-3)

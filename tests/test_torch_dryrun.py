@@ -10,8 +10,15 @@
     of qwen2-0.5b decode_32k on ``meta`` at full width: its FLOPs equal the
     reference's analytic count to 1 %, its arguments are the card's 52.53
     GB, its temp bytes the pass's peak of created storages less the
-    logits; on the production mesh the same cell is not traced, and the
-    record names the leaf and the rule.
+    logits; on the production mesh the same cell is traced on one rank's
+    shards (its FLOPs times the 256 ranks at least 99 % of the analytic
+    count, collectives and temp recorded), and deepseek-v3-671b's, whose
+    MLA has no rank path yet, is not: the record names the leaf and the
+    rule.
+  * On the 1x1 mesh with real arguments (smoke config, on the CPU, as the
+    card's one-rank check builds them) the decode step made with the
+    caches' specs runs the whole model of qwen2-0.5b and of xlstm-1.3b
+    and gives the logits of the step made without them.
   * A smoke-config ``hillclimb`` run with the model axis unbound traces
     the FSDP train step on the abstract (16, 16) mesh (the all-gathers and
     reduce-scatters recorded) and appends its entry to a log in
@@ -131,11 +138,44 @@ def test_run_cell_traces_the_decode_step_to_the_analytic_flops():
     assert one["roofline"]["dominant"] == "memory"
     assert one["roofline_chip"].startswith("H100")
     prod = dryrun.run_cell("qwen2-0.5b", shape, "16x16", verbose=False)
-    assert prod["traced"] is None and prod["roofline"]["collective_s"] is None
-    assert prod["memory"]["temp_size_in_bytes"] is None
-    assert prod["traced_null"]["leaf"].startswith("params/embed: vocab_tp "
-                                                  "-> model")
+    pt = prod["traced"]
+    assert pt is not None and "traced_null" not in prod
+    assert prod["roofline"]["collective_s"] is not None
+    assert prod["memory"]["temp_size_in_bytes"] is not None
+    assert pt["collective"]["total"] > 0
+    # every rank's share of the step, summed, is the step: the excess over
+    # the analytic count is the work the ranks of a line repeat (the
+    # norms, the logits' head over the gathered hidden state, the kv heads
+    # each rank of the sequence line attends)
+    assert pt["flops_all_chips"] >= 0.99 * a["flops"], (pt, a)
+    print(f"qwen2-0.5b decode_32k on 16x16: traced x 256 / analytic = "
+          f"{pt['flops_all_chips'] / a['flops']:.4f}")
     assert prod["analytic"] == a
+    out = dryrun.run_cell("deepseek-v3-671b", shape, "16x16", verbose=False)
+    assert out["traced"] is None and out["roofline"]["collective_s"] is None
+    assert out["memory"]["temp_size_in_bytes"] is None
+    assert out["traced_null"]["leaf"].startswith(
+        "params/groups/0/0/mixer/w_uk: heads_tp -> model"), out["traced_null"]
+
+
+@pytest.mark.parametrize("arch,shape_name", [("qwen2-0.5b", "decode_32k"),
+                                             ("xlstm-1.3b", "long_500k")])
+def test_one_rank_cell_runs_its_step_on_real_arguments(arch, shape_name):
+    """``build_cell`` on the 1x1 mesh with real arguments (what the card's
+    one-rank check runs, outside any ``use_mesh``; smoke config, B 2, S
+    16): the step made with the caches' specs runs the whole model and
+    gives the logits of the same step made without them."""
+    import torch
+    from repro_torch.train import step as steps
+    shape = configs.ShapeSpec(shape_name, 16, 2, "decode")
+    cell = specs.build_cell(arch, shape, dryrun.mesh_of("1x1"),
+                            device="cpu", seed=0, smoke=True)
+    model, tok, caches, pos = cell.args
+    want = steps.make_decode_step(cell.cfg)(
+        model, tok, jax.tree_util.tree_map(torch.clone, caches), pos)[0]
+    got = cell.fn(*cell.args)[0]
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
 
 
 def test_hillclimb_traces_the_fsdp_step_on_the_abstract_mesh(tmp_path,
