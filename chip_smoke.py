@@ -166,7 +166,7 @@ Phases, each printed on its own line, none catching its own failure:
                times; logged: free memory before the weights, peak
                memory, tok/s, TTFT and ITL p50 / p99, decode steps and
                chunks; then a second run, gated to the same streams,
-               with iterations 8-16 (``PROFILE_WINDOW``, as in every
+               with iterations 8-12 (``PROFILE_WINDOW``, as in every
                profiled phase: the profile's analysis is slow) under
                torch.profiler: the device's busy share of that window and
                its top kernels;
@@ -196,7 +196,7 @@ Phases, each printed on its own line, none catching its own failure:
                496 calls, flash_decode 62 x decode steps; logged: free
                memory before the weights, peak memory, tok/s, TTFT and ITL
                p50 / p99; then a second run, gated to the same streams,
-               with iterations 8-16 under torch.profiler: the device's
+               with iterations 8-12 under torch.profiler: the device's
                busy share and its top kernels;
   7j. serve granite-moe-3b-a800m  granite-moe at full width (32 layers,
                d_model 1536, 24/8 heads, hd 64, 40 experts of d_ff 512,
@@ -224,7 +224,7 @@ Phases, each printed on its own line, none catching its own failure:
                of layer's share (told apart by wrapping cross_forward and
                encoder_forward for the run) equal to what
                ``attention_calls`` lists, and a second run, profiled over
-               decode steps 8-16, with the same streams; logged: free
+               decode steps 8-12, with the same streams; logged: free
                memory before the weights, peak memory, prefill ms, tok/s,
                ITL p50 / p99, busy share and top kernels;
   7l. steps whisper-medium  at full width (24 encoder + 2 x 24 decoder
@@ -374,23 +374,40 @@ Phases, each printed on its own line, none catching its own failure:
                (digests), 0 launches; logs each rank's peak memory and
                step times (gloo's transport: correctness only);
   10d. tp serve  the serving steps on a rank's shards (train/step.py
-               ``shard_model`` / ``rank_caches``; parallel/mesh_jobs.py
+               ``init_shards`` / ``rank_caches``; parallel/mesh_jobs.py
                ``ServeJob``) on gloo ranks sharing the card, each rank
-               also running the one-rank step itself: qwen2-0.5b at full
-               width (bf16, seed 0) under its decode_32k cell's rules
-               (``kv_seq`` → model) on (data 1, model 2) (its kv heads on
-               the model axis, head-aligned), (1, 4) (SP decode; q columns
-               3.5 heads a rank, gathered) and (2, 2) (the FSDP gather
-               too): a decode step at S 32768, B 8 over caches drawn
-               N(0, 1), 7 slots at 32767 and one at 100 (its later slices
-               empty), and a prefill of B 2 x 2048 tokens; and in f32
-               (TF32 off) on (1, 4) a decode step at S 1024 of
-               qwen2-0.5b and of granite-moe-3b-a800m at full width
-               (experts whole, slot-parallel; its capacity factor
-               E / top_k so that neither path drops a token; granite
-               runs in f32 alone, since in bf16 its routing flips
-               against f32 and its own bf16 error bounds nothing).
-               Gates, every rank: in bf16 its logits, against the
+               drawing only its shards (seed 0, bf16) and, in bf16,
+               also running the one-rank step itself
+               (``TP_SERVE``), at full width under each arch's
+               decode_32k cell's rules: qwen2-0.5b (``kv_seq`` → model)
+               on (data 1, model 2) (its kv heads on the model axis,
+               head-aligned), (1, 4) (SP decode; q columns 3.5 heads a
+               rank, gathered) and (2, 2) (the FSDP gather too): a decode
+               step at S 32768, B 8 over caches drawn N(0, 1), 7 slots at
+               32767 and one at 100 (its later slices empty), and a
+               prefill of B 2 x 2048 tokens; llama-3.2-vision-11b cut in
+               depth to its first group (4 self + 1 cross layers; its 8
+               kv heads do not cover the production model axis of 16, so
+               ``kv_seq`` cuts the self caches' rows and the cross
+               caches' 1600; a rule override keeps them whole on these
+               smaller meshes too) on (1, 4) and (2, 2): the same
+               decode, and a prefill of B 2 x 256 tokens with 1600 stub
+               patches; whisper-medium whole (its kv heads on the model
+               axis) on (1, 4) and (2, 2): a decode at S 448 and a
+               prefill of the 4-token start of transcript, B 2, through
+               the encoder over 1500 stub frames on a rank's heads;
+               and in f32 (TF32 off) on (1, 4) a decode step at S
+               min(1024, S) of each of those, of granite-moe-3b-a800m
+               at full width (experts whole, slot-parallel) and of
+               deepseek-v3-671b cut in depth to 1 dense + 1 MoE layer
+               (MTP head undrawn; the latents' rows on ``kv_seq``, slot 7's
+               later slices empty; each rank draws its shards alone: the
+               whole f32 weights on each of 4 ranks would not fit), both
+               MoE archs at capacity factor E / top_k so that neither
+               path drops a token, and in f32 alone, since in bf16 a
+               rank's routing may flip against the one-rank step's and
+               their own bf16 error bounds nothing. Gates, every rank: in
+               bf16 its logits, against the
                one-rank step, within 3x that step's own bf16 error (the
                same step in f32 on the same values, run first in this
                process: largest element and norm), its cache parts
@@ -399,17 +416,22 @@ Phases, each printed on its own line, none catching its own failure:
                largest one-rank f32 logit (element and norm) and the
                greedy token equal on every row whose one-rank top-2 gap
                passes twice that (at least one row); its kernel
-               (flash_decode / flash_attention) launched, and its
-               collectives (kind, bytes, group, in order) equal to
+               (flash_decode / flash_attention) launched, and none on
+               deepseek's path (MLA is plain); and its collectives
+               (kind, bytes, group, in order) equal to
                ``specs.trace_cell``'s of the same cell on the abstract
                mesh. First, ``flash_decode(..., return_lse=True)`` at a
-               (1, 4) rank's shape (B 8, H 14, K 2, S 8192, hd 64, bf16,
-               one slot empty) against its plain version (lse within
-               1e-3, NEG for the empty slot, the output the same bits as
-               without the flag), timed beside the library's attention
-               with its lse (``aten._scaled_dot_product_efficient_
-               attention``, the lengths as a bias, held against plain)
-               and its byte bound;
+               (1, 4) rank's shapes (qwen2's SP slice: B 8, H 14, K 2, S
+               8192, hd 64, bf16, one slot empty; llama-vision's cross
+               rows: B 8, H 32, K 8, S 400, hd 128) against its plain
+               version (lse within 1e-3, NEG for an empty slot, the
+               output the same bits as without the flag), timed beside
+               the library's attention with its lse (``aten._scaled_dot_
+               product_efficient_attention``, the lengths as a bias,
+               held against plain) and its byte bound; and
+               ``flash_attention`` at whisper's encoder on a (1, 4)
+               rank's heads (B 2, H 4, 1500 frames, hd 64, non-causal)
+               against plain, timed beside SDPA and its bound;
   11a. dma     ``core/dma.hero_memcpy2d`` (``csrc/hero_memcpy2d.cu``: rows
                staged through the TMA bulk copy of ``csrc/hero_dma.cuh``)
                against its plain version, the reference's sequential row
@@ -430,9 +452,13 @@ Phases, each printed on its own line, none catching its own failure:
                on the card (``core/perf.TraceCount``: ATen ops plus the
                kernels' own counts) equal to the trace's (gate), the step
                at cache_pos S - 1 timed (3 warm, 10 timed, CUDA events)
-               beside the roofline bound, and the peak device memory
-               beside the record's bytes (temp traced on meta beside the
-               card's);
+               beside the roofline bound, and one more warm step's temp
+               on the card (its peak over the arguments less its logits)
+               within 2 MiB + 1 % of the record's temp (gate: traced on
+               meta, the storages the pass creates and the kernels'
+               scratch at their launch), logged beside the allocator's
+               rounding, the cuBLAS workspaces and the first call's
+               one-time allocations;
   12. a ``{"kernels": [...]}`` line (the paged kernels with phase 7's
      launches, as ``_int8`` with phase 7b's, as ``_yi34b``,
      ``_minitron4b``, ``_tp`` and ``_granite`` with phases 7f, 7g, 7h
@@ -452,8 +478,13 @@ Phases, each printed on its own line, none catching its own failure:
      flash_attention_zamba2 and flash_decode_zamba2 with phase 7n's
      launches, timed in phase 5; flash_decode_sp with the launches of
      phase 10d's (1, 4) qwen2-0.5b decode step on rank 0, timed with its
-     lse at that rank's shape; hero_memcpy2d with phase 11a's; every
-     entry launched at least once).
+     lse at that rank's shape; flash_decode_cross_sp with the cross
+     layer's launches of 10d's (1, 4) llama-3.2-vision-11b decode step on
+     rank 0, timed with its lse at that rank's cross rows;
+     flash_attention_encoder_tp with the encoder layers' launches of 10d's
+     (1, 4) whisper-medium prefill on rank 0, timed at that rank's heads;
+     hero_memcpy2d with phase 11a's; every entry launched at least
+     once).
      The recurrent mixers of 7m / 7n (models/ssm.py) and 7o's MLA have
      no entry, nor has phase 9's training attention (models/flash_xla.py):
      the reference computes them in plain jnp / XLA and reaches no
@@ -2157,8 +2188,11 @@ def time_serving_attention(results, lens):
 
 ZOO = {"yi-34b": "_yi34b", "minitron-4b": "_minitron4b",
        "granite-moe-3b-a800m": "_granite"}
-PROFILE_WINDOW = (8, 16)  # every profiled run's traced iterations / decode
-#                           steps (the profile's analysis is slow)
+PROFILE_WINDOW = (8, 12)  # every profiled run's traced iterations / decode
+#                           steps (the profile's analysis is slow: 8-16
+#                           took 84 s of yi-34b's phase and 67 s of
+#                           granite's, so the window was halved to keep the
+#                           script inside its time limit)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2629,42 +2663,13 @@ def greedy(cfg, model, tokens, extra, caches, hook=None, n_new=NEW_TOKENS):
 
 def launches_by_mixer(run):
     """``run()``'s launches of both attention kernels, counted from 0, by
-    the mixer kind of the layer that made them: "cross" inside
-    ``attention.cross_forward`` and "enc" inside ``encoder_forward`` (both
-    wrapped for this call alone, each call's launches the difference of
-    the wrappers' counts), "gqa" the rest. Returns (run's result, {(mixer,
-    kernel): launches} of those launched, {kernel: launches})."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import attention
-    kernels = {"flash_attention": fa.flash_attention,
-               "flash_decode": da.flash_decode}
-    by_mixer = collections.Counter()
-
-    def counted(mixer, fn):
-        def call(*args, **kw):
-            before = {k: w.launches for k, w in kernels.items()}
-            try:
-                return fn(*args, **kw)
-            finally:
-                for k, w in kernels.items():
-                    by_mixer[(mixer, k)] += w.launches - before[k]
-        return call
-
-    saved = attention.cross_forward, attention.encoder_forward
-    for w in kernels.values():
-        w.launches = 0
-    attention.cross_forward = counted("cross", saved[0])
-    attention.encoder_forward = counted("enc", saved[1])
-    try:
+    the mixer kind of the layer that made them
+    (parallel/mesh_jobs.py ``attention_launches``). Returns (run's result,
+    {(mixer, kernel): launches} of those launched, {kernel: launches})."""
+    from repro_torch.parallel import mesh_jobs as jobs
+    with jobs.attention_launches() as counts:
         out = run()
-    finally:
-        attention.cross_forward, attention.encoder_forward = saved
-    total = {k: w.launches for k, w in kernels.items()}
-    for k in kernels:
-        by_mixer[("gqa", k)] = (total[k] - by_mixer[("cross", k)]
-                                - by_mixer[("enc", k)])
-    return out, dict(+by_mixer), total
+    return out, counts["by_mixer"], counts["total"]
 
 
 def cross_steps(results, card: str, arch: str):
@@ -3588,25 +3593,28 @@ TP_TIMES = 3.0
 TP_F32_TOL = 1e-4   # in f32 (TF32 off): only the order of the sums differs
 SP_SHAPE = (8, 14, 2, 8192, 64)          # a (1, 4) rank's decode (S 32768)
 SP_LENS = (0, 8192, 1, 100, 4097, 8191, 5000, 8192)
+# llama-3.2-vision-11b's cross rows on a (1, 4) rank (1600 / 4, every
+# row valid) and whisper-medium's encoder on a (1, 4) rank (16 / 4 heads)
+CROSS_SP_SHAPE = (8, 32, 8, 400, 128)
+ENCODER_TP_SHAPE = (2, 4, 1500, 64)
 
 
-def check_sp_decode(results):
+def check_sp_decode(res, shape, lens, what, seed):
     """``flash_decode(..., return_lse=True)`` at a rank's SP-decode shape
-    against its plain version (an empty slice included), its output the
-    same bits as without the flag; timed beside the library's attention
-    with its log-sum-exp (the efficient-attention op, the lengths as a
-    bias) and the byte bound (kernel and library from CUDA-graph replays,
-    cycling 8 caches; plain from CUDA events)."""
+    against its plain version (an empty slice where ``lens`` has one), its
+    output the same bits as without the flag; timed beside the library's
+    attention with its log-sum-exp (the efficient-attention op, the
+    lengths as a bias) and the byte bound (kernel and library from
+    CUDA-graph replays, cycling 8 caches; plain from CUDA events)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.launch.kernel_suite import graph_ms
     import itertools
-    res = results["flash_decode_sp"]
-    g = torch.Generator(device="cuda").manual_seed(10)
-    B, H, K, S, hd = SP_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, K, S, hd = shape
     q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
     caches = [tuple(torch.randn(B, K, S, hd, generator=g, device="cuda")
                     .to(torch.bfloat16) for _ in range(2)) for _ in range(8)]
-    lengths = torch.tensor(SP_LENS, dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     out, lse = da.flash_decode(q, *caches[0], lengths, return_lse=True)
     assert torch.equal(out, da.flash_decode(q, *caches[0], lengths))
     p_out, p_lse = da.flash_decode_plain(q, *caches[0], lengths,
@@ -3638,15 +3646,15 @@ def check_sp_decode(results):
                float((l_lse - p_lse[~empty]).abs().max()))
     assert lib_err[0] <= 2e-2 and lib_err[1] <= 1e-2, lib_err
     res["library_ms"] = graph_ms(lambda: lib(*next(cyc)), 20)
-    nbytes = (sum(K * hd * item * (n + (n if n > 0 else S)) for n in SP_LENS)
+    nbytes = (sum(K * hd * item * (n + (n if n > 0 else S)) for n in lens)
               + 2 * q.numel() * item + 4 * B + 4 * B * H)
-    flops = sum(K * G * hd * (4 * n if n > 0 else 2 * S) for n in SP_LENS)
+    flops = sum(K * G * hd * (4 * n if n > 0 else 2 * S) for n in lens)
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
-    log("tp serve", f"flash_decode with lse at a (1, 4) rank's SP-decode "
-        f"shape B {B} H {H} K {K} S {S} hd {hd} bf16, lengths {SP_LENS}: "
+    log("tp serve", f"flash_decode with lse at {what} B {B} H {H} K {K} S "
+        f"{S} hd {hd} bf16, lengths {tuple(lens)}: "
         f"out within {res['max_abs_err']:.3e} of plain (2e-3 + one bf16 "
         f"step), the same bits as without lse; lse within {lse_err:.3e} of "
-        f"plain (gate 1e-3), NEG for the empty slot; kernel "
+        f"plain (gate 1e-3), NEG for an empty slot; kernel "
         f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
         f"(aten._scaled_dot_product_efficient_attention with its lse, "
         f"G query rows a kv head, a length bias; graph) "
@@ -3656,56 +3664,127 @@ def check_sp_decode(results):
         "TB/s)")
 
 
+def check_rank_attention(results):
+    """Both attention kernels at phase 10d's rank shapes against their
+    plain versions, timed beside the library and their bounds:
+    flash_decode with its lse at qwen2-0.5b's SP slice and at
+    llama-3.2-vision-11b's cross rows (``CROSS_SP_SHAPE``), and
+    flash_attention over whisper-medium's 1500 frames on a rank's heads
+    (``ENCODER_TP_SHAPE``, non-causal)."""
+    from repro_torch.kernels import flash_attention as fa
+    check_sp_decode(results["flash_decode_sp"], SP_SHAPE, SP_LENS,
+                    "a (1, 4) rank's SP-decode shape (qwen2-0.5b, S 32768)",
+                    10)
+    check_sp_decode(results["flash_decode_cross_sp"], CROSS_SP_SHAPE,
+                    (CROSS_SP_SHAPE[3],) * CROSS_SP_SHAPE[0],
+                    "a (1, 4) rank's cross rows (llama-3.2-vision-11b, "
+                    "1600 patches)", 12)
+    res = results["flash_attention_encoder_tp"]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(ENCODER_TP_SHAPE, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    plain = fa.flash_attention_plain(q, k, v, causal=False)
+    res["max_abs_err"] = close(fa.flash_attention(q, k, v, causal=False),
+                               plain)
+    lib_err = float((F.scaled_dot_product_attention(q, k, v).float()
+                     - plain.float()).abs().max())
+    assert lib_err <= 2e-2, lib_err
+    log("tp serve", f"flash_attention at a (1, 4) rank's heads of "
+        f"whisper-medium's encoder {list(ENCODER_TP_SHAPE)} bf16, "
+        f"non-causal: max |kernel - plain| {res['max_abs_err']:.3e} "
+        f"(2e-3 + one bf16 step), sdpa within {lib_err:.3e} of plain")
+    time_flash(res, q, k, v, False, None)
+
+
+# phase 10d's archs at full width: ``meshes`` for the bf16 steps, a bf16
+# decode at S ``S_dec`` (0: none) over caches drawn N(0, 1), a bf16
+# prefill of ``prefill`` = (B, L) tokens (with the encoder input of a
+# cross-attention arch), and each arch in f32 on (1, 4) first (a decode at
+# S min(1024, S_dec)); ``cut``:
+# the depth cuts memory forces (config overrides); ``rules``: rule
+# overrides beside the cell's (llama-vision's kv heads kept whole, as on
+# the production mesh, whose model axis of 16 its 8 do not cover: so
+# ``kv_seq`` cuts its self and cross caches' rows on these small meshes
+# too, whose model axis they would cover). The MoE archs run in f32 alone:
+# in bf16 a rank's routing may flip against the one-rank step's (granite
+# against f32 itself; deepseek's rank 0 once strayed 0.161 of the logits'
+# norm, 12x the one-rank step's own bf16 error), so that error bounds
+# nothing
+TP_SERVE = {
+    "qwen2-0.5b": dict(meshes=((1, 2), (1, 4), (2, 2)), S_dec=32768,
+                       prefill=(2, 2048)),
+    "granite-moe-3b-a800m": dict(meshes=(), S_dec=0, prefill=None),
+    "llama-3.2-vision-11b": dict(
+        meshes=((1, 4), (2, 2)), S_dec=32768, prefill=(2, 256),
+        cut=dict(groups=((("gqa:mlp",) * 4 + ("cross:mlp",), 1),)),
+        rules=dict(kv_heads_tp=None)),
+    "whisper-medium": dict(meshes=((1, 4), (2, 2)), S_dec=448,
+                           prefill=(2, 4)),
+    "deepseek-v3-671b": dict(
+        meshes=(), S_dec=32768, prefill=None,
+        cut=dict(groups=((("mla:mlp",), 1), (("mla:moe",), 1)), mtp=False)),
+}
+
+
 def tp_serve_jobs():
-    """Phase 10d's cases: {mesh: [(name, ServeJob, the ShapeSpec and
-    build_cell levers of the same cell on an abstract mesh)]}."""
+    """Phase 10d's cases (``TP_SERVE``): {mesh: [(name, ServeJob, the
+    ShapeSpec and build_cell's config and rule levers of the same cell on
+    an abstract mesh)]}."""
     from repro_torch import configs
     from repro_torch.configs import ShapeSpec
     from repro_torch.launch import specs
     from repro_torch.parallel import mesh_jobs as jobs
     rng = np.random.default_rng(0)
     out = {}
-    # (arch, meshes, bf16 decode S, bf16 prefill L): granite in f32 alone
-    # (in bf16 its routing flips against f32, so its own bf16 error is
-    # no bound); each arch in f32 on (1, 4) first, at S 1024
-    for arch, meshes, S_dec, L in (("qwen2-0.5b", ((1, 2), (1, 4), (2, 2)),
-                                    32768, 2048),
-                                   ("granite-moe-3b-a800m", ((1, 4),), 0,
-                                    0)):
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    for arch, spec in TP_SERVE.items():
         cfg = specs.cell_config(arch, configs.SHAPES["decode_32k"])
-        over = {"shard_kv_seq": cfg.shard_kv_seq}
+        over = dict(spec.get("cut", {}), shard_kv_seq=cfg.shard_kv_seq)
         if cfg.moe is not None:    # no capacity drops, meshless or not
             over["moe"] = dataclasses.replace(
                 cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
-            cfg = dataclasses.replace(cfg, moe=over["moe"])
-        rules = specs.rule_overrides(cfg)
+        cfg = dataclasses.replace(cfg, **over)
+        extra_rules = spec.get("rules", {})
+        rules = dict(specs.rule_overrides(cfg), **extra_rules)
         tok = rng.integers(0, cfg.vocab, (8, 1)).astype(np.int32)
-        pos = np.array([max(S_dec, 1024) - 1] * 7 + [100])
-        prompt = rng.integers(0, cfg.vocab, (2, L)).astype(np.int32) \
-            if L else None
-        for mesh in meshes:
-            kw = dict(cfg=cfg, mesh=mesh, rules=rules, compare=True,
-                      keep=(), device="cuda:0")
+        S_dec = spec["S_dec"] or 1024
+        S32 = min(1024, S_dec)
+        pos = np.array([S_dec - 1] * 7 + [100])
+        prefill = spec["prefill"]
+        if prefill:
+            Bp, L = prefill
+            prompt = np.tile(np.array(WHISPER_SOT, np.int32), (Bp, 1)) \
+                if arch == "whisper-medium" else \
+                rng.integers(0, cfg.vocab, (Bp, L)).astype(np.int32)
+            extra = None
+            if cfg.encoder_seq:
+                dim = cfg.cross_kv_dim if cfg.family == "vlm" else \
+                    cfg.d_model
+                extra = rng.standard_normal(
+                    (Bp, cfg.encoder_seq, dim)).astype(np.float32)
+        base = dict(cfg=cfg, rules=rules, device="cuda:0")
+        # f32 (TF32 off) on (1, 4), first: the exact gates
+        items = out.setdefault((1, 4), [])
+        exact = dict(base, cfg=dataclasses.replace(cfg, **f32), mesh=(1, 4),
+                     compare=False, keep=("logits",))
+        items.insert(0, (f"{arch} decode f32", jobs.ServeJob(
+            **exact, batch=8, max_seq=S32, decode=[(tok, np.minimum(
+                pos, S32 - 1))], fill=True),
+            (arch, ShapeSpec("decode_32k", S32, 8, "decode"),
+             dict(over, **f32), extra_rules)))
+        for mesh in spec["meshes"]:
+            kw = dict(base, mesh=mesh, compare=True, keep=())
             items = out.setdefault(mesh, [])
-            if mesh == (1, 4):     # f32 (TF32 off), first: exact gates
-                f32 = dict(param_dtype=torch.float32,
-                           compute_dtype=torch.float32)
-                items.insert(0, (f"{arch} decode f32", jobs.ServeJob(
-                    **dict(kw, cfg=dataclasses.replace(cfg, **f32),
-                           compare=False, keep=("logits",)),
-                    batch=8, max_seq=1024, decode=[(tok, np.minimum(
-                        pos, 1023))], fill=True),
-                    (arch, ShapeSpec("decode_32k", 1024, 8, "decode"),
-                     dict(over, **f32))))
-            if S_dec:
+            if spec["S_dec"]:
                 items.append((f"{arch} decode", jobs.ServeJob(
                     batch=8, max_seq=S_dec, decode=[(tok, pos)], fill=True,
                     **kw), (arch, ShapeSpec("decode_32k", S_dec, 8,
-                                            "decode"), over)))
-            if L:
+                                            "decode"), over, extra_rules)))
+            if prefill:
                 items.append((f"{arch} prefill", jobs.ServeJob(
-                    batch=2, max_seq=L, prompt=prompt, **kw),
-                    (arch, ShapeSpec("prefill_32k", L, 2, "prefill"), over)))
+                    batch=Bp, max_seq=L, prompt=prompt, extra=extra, **kw),
+                    (arch, ShapeSpec("prefill_32k", L, Bp, "prefill"),
+                     over, extra_rules)))
     return out
 
 
@@ -3733,13 +3812,13 @@ def tp_serve_full(card: str, results):
     from repro_torch.parallel import sharding
     phase = "tp serve"
     free_card(phase)
-    check_sp_decode(results)
+    check_rank_attention(results)
     t0 = time.perf_counter()
     cases = tp_serve_jobs()
     noise, exact = {}, {}
     for items in cases.values():
         for name, job, _ in items:
-            if not job.compare:      # f32: the one-rank logits here
+            if job.cfg.compute_dtype == torch.float32:  # the logits here
                 exact[name] = [t.cpu() for t in jobs.one_rank(job)[0]]
                 free_card(phase, f"after the one-rank {name} step")
             elif name not in noise:
@@ -3756,8 +3835,9 @@ def tp_serve_full(card: str, results):
         out = {}
         for mesh, items in cases.items():
             amesh = sharding.Mesh.abstract(mesh, ("data", "model"))
-            for name, _, (arch, shape, over) in items:
-                cell = specs.build_cell(arch, shape, amesh, cfg_over=over)
+            for name, _, (arch, shape, over, rules) in items:
+                cell = specs.build_cell(arch, shape, amesh, cfg_over=over,
+                                        rules_over=rules)
                 out[mesh, name] = [
                     (c.kind, c.nbytes, c.group)
                     for c in specs.trace_cell(cell).collectives]
@@ -3781,11 +3861,17 @@ def tp_serve_full(card: str, results):
                                           r["coords"]["model"]))
             kernel = "flash_decode" if job.decode else "flash_attention"
             for r in ranks:
-                assert r["launches"][kernel] > 0, (name, mesh, r["launches"])
+                if job.cfg.mla is not None:     # MLA is plain: no kernel
+                    assert not any(r["launches"].values()), (
+                        name, mesh, r["launches"])
+                else:
+                    assert r["launches"][kernel] > 0, (name, mesh,
+                                                       r["launches"])
                 colls = [tuple(c) for c in r["collectives"]]
                 assert colls == traced[mesh, name], (
                     name, mesh, colls[:4], traced[mesh, name][:4])
-            if not job.compare:
+            launched = ", ".join(str(r["launches"][kernel]) for r in ranks)
+            if job.cfg.compute_dtype == torch.float32:
                 worst, rel, held, rows = 0.0, 0.0, 0, 0
                 for r in ranks:
                     lo, hi = r["rows"]
@@ -3813,8 +3899,9 @@ def tp_serve_full(card: str, results):
                     f"{TP_F32_TOL:g}); greedy tokens equal on the {held} of "
                     f"{rows} rows whose one-rank top-2 gap passes twice the "
                     f"gate (gate); collectives equal to the meta trace's; "
-                    f"{kernel} launches a rank "
-                    + ", ".join(str(r["launches"][kernel]) for r in ranks))
+                    f"{kernel} launches a rank {launched}; rank set-ups "
+                    + ", ".join(f"{r['setup_s']:.2f}" for r in ranks)
+                    + " s")
                 continue
             worst, rel, c_worst, same, rows = 0.0, 0.0, 0.0, 0, 0
             steps_err, cache_err = noise[name]
@@ -3834,10 +3921,20 @@ def tp_serve_full(card: str, results):
                 assert c_diff <= TP_TIMES * cache_err, (name, mesh, c_diff,
                                                         cache_err)
                 c_worst = max(c_worst, c_diff / cache_err)
-            if mesh == (1, 4) and name == "qwen2-0.5b decode":
-                results["flash_decode_sp"]["launches"] = \
-                    ranks[0]["launches"]["flash_decode"]
             r0 = ranks[0]
+            if mesh == (1, 4):       # the kernels line's rank-shape rows
+                for entry, arch_step, key in (
+                        ("flash_decode_sp", "qwen2-0.5b decode",
+                         ("gqa", "flash_decode")),
+                        ("flash_decode_cross_sp",
+                         "llama-3.2-vision-11b decode",
+                         ("cross", "flash_decode")),
+                        ("flash_attention_encoder_tp",
+                         "whisper-medium prefill",
+                         ("enc", "flash_attention"))):
+                    if name == arch_step:
+                        results[entry]["launches"] = \
+                            r0["launches_by_mixer"][key]
             log(phase, f"{card}: {name} on (data {mesh[0]}, model "
                 f"{mesh[1]}), {n} gloo ranks of cuda:0, cache "
                 f"{r0['cache_shapes'][0]} a rank: against the one-rank "
@@ -3849,10 +3946,12 @@ def tp_serve_full(card: str, results):
                 f"bf16 bound; the f32 cases gate them); "
                 f"{len(r0['collectives'])} collectives a "
                 f"rank, kinds and bytes equal to the meta trace's on the "
-                f"abstract mesh; {kernel} launches a rank "
-                + ", ".join(str(r["launches"][kernel]) for r in ranks)
+                f"abstract mesh; attention launches a rank by layer kind "
+                + "; ".join(str(r["launches_by_mixer"]) for r in ranks)
                 + "; rank walls " + ", ".join(f"{r['wall_s']:.2f}"
                                               for r in ranks)
+                + " s, set-ups " + ", ".join(f"{r['setup_s']:.2f}"
+                                             for r in ranks)
                 + f" s ({TRANSPORT_NOTE})")
     log(phase, f"one-rank bf16 / f32 steps {noise_s:.1f} s; meta traces "
         f"{trace_s:.1f} s (beside the spawns); spawns " + ", ".join(
@@ -3939,6 +4038,42 @@ def memcpy2d_check(results):
 # the dry run's cells that phase 11b runs on the card at full width (bf16,
 # seed 0) on a mesh of one rank
 DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k"), ("xlstm-1.3b", "long_500k"))
+# phase 11b's gate on temp: the card's caching allocator counts each block
+# rounded up to 512 B, and hands a request a cached block whole when less
+# than 1 MiB would be left of it, so its peak may pass the storages' exact
+# bytes that the trace counts by up to 1 MiB a live block; the few blocks
+# alive at a step's peak are held to 2 MiB, and 1 % of temp besides
+TEMP_TOL_BYTES = 2 * 2**20
+TEMP_TOL_REL = 0.01
+
+
+def alive_at_peak(snapshot):
+    """The bytes alive at the peak of a ``torch.cuda.memory._snapshot()``'s
+    recorded trace (allocations made while it was recorded) and at its
+    end, each summed by the innermost frame of this repository's code that
+    made them → (at the peak, at the end)."""
+    def where(frames):
+        for f in frames:
+            if "repro_torch" in f.get("filename", ""):
+                return (f"{f['filename'].split('repro_torch/')[-1]}:"
+                        f"{f['line']} {f['name']}")
+        return "outside repro_torch"
+
+    live, cur, best, at = {}, 0, 0, {}
+    for ev in snapshot["device_traces"][0]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = (ev["size"], where(ev.get("frames", ())))
+            cur += ev["size"]
+            if cur > best:
+                best, at = cur, dict(live)
+        elif ev["action"] == "free_requested" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])[0]
+    def by_frame(alive):
+        out = collections.Counter()
+        for size, w in alive.values():
+            out[w] += size
+        return out
+    return by_frame(at), by_frame(live)
 
 
 def dryrun_check(card: str):
@@ -3949,9 +4084,15 @@ def dryrun_check(card: str):
     bytes; one step under ``core/perf.TraceCount`` on the card, whose FLOPs
     (ATen ops plus the kernels' own counts) must equal the trace's; then
     the step (cache_pos S - 1: the whole cache read) timed, 3 warm and 10
-    timed calls between CUDA events, beside the roofline's bound, and the
-    peak device memory beside the record's bytes, its temp (traced on
-    meta) beside the card's."""
+    timed calls between CUDA events, beside the roofline's bound; then one
+    more warm step alone, whose peak over the arguments less its new
+    outputs is the card's temp, gated against the record's temp (traced on
+    meta: the storages the pass creates and the kernels' scratch at their
+    launch) within ``TEMP_TOL_BYTES`` + ``TEMP_TOL_REL``; beside it, what
+    the card's peak counts that is no step's scratch: the allocator's
+    rounding at that peak, the cuBLAS workspaces the process holds, the
+    first call's one-time allocations, and what the first call outside
+    ``TraceCount`` makes and leaves behind (its memory history)."""
     from repro_torch import configs
     from repro_torch.core import perf
     from repro_torch.launch import dryrun, specs
@@ -3962,23 +4103,61 @@ def dryrun_check(card: str):
         rec = dryrun.run_cell(arch, shape, "1x1", verbose=False)
         t_meta = time.perf_counter() - t0
         free_card(phase)
+        ws = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        ws -= torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
+        req = torch.cuda.memory_stats()["requested_bytes.all.current"]
         cell = specs.build_cell(arch, shape, dryrun.mesh_of("1x1"),
                                 device="cuda", seed=0)
         arg = specs.nbytes(cell.args)
         want = rec["memory"]["argument_size_in_bytes"]
         assert arg == want, f"{arch}: card arguments {arg} B, dry run {want}"
+        base = torch.cuda.memory_allocated()
+        held = base - before - arg       # the arguments' blocks beyond them
+        held_rounding = base - before - (
+            torch.cuda.memory_stats()["requested_bytes.all.current"] - req)
         with perf.TraceCount() as count:
             logits, _ = cell.fn(*cell.args)
         torch.cuda.synchronize()
+        first = torch.cuda.max_memory_allocated() - base
         traced = rec["traced"]["flops"]
         assert count.flops == traced, \
             f"{arch}: card FLOPs {count.flops}, meta trace {traced}"
         assert torch.isfinite(logits.float()).all(), f"{arch}: logits"
+        del logits
+        mem = rec["memory"]
+        new = mem["output_size_in_bytes"] - mem["alias_size_in_bytes"]
+        # the first call outside TraceCount, recorded: what is alive at its
+        # peak and what stays after it, by where it was made
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.memory._record_memory_history(max_entries=200000,
+                                                 stacks="python")
+        cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        stays = torch.cuda.memory_allocated() - base
+        at_peak, after = alive_at_peak(torch.cuda.memory._snapshot())
+        torch.cuda.memory._record_memory_history(enabled=None)
         ms = cuda_ms(lambda i: cell.fn(*cell.args), iters=10, warm=3)
         peak = torch.cuda.max_memory_allocated() - before
-        mem = rec["memory"]
+        # one warm step alone: its peak over the arguments, less its logits
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats()
+        logits, _ = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        st = torch.cuda.memory_stats()
+        card_temp = st["allocated_bytes.all.peak"] - base - new
+        rounding = (st["allocated_bytes.all.peak"] - base) - \
+            (st["requested_bytes.all.peak"] - req)
+        temp = mem["temp_size_in_bytes"]
+        tol = TEMP_TOL_BYTES + TEMP_TOL_REL * temp
+        assert abs(card_temp - temp) <= tol, (
+            f"{arch}: temp {card_temp} B on the card, {temp} B traced, "
+            f"tolerance {tol:.0f} B")
         rl = rec["roofline"]
         log(phase, f"{arch} x {shape_name} ({card}): arguments {arg} B on "
             f"the card = the dry run's; step FLOPs on the card "
@@ -3988,13 +4167,29 @@ def dryrun_check(card: str):
             f"{shape.seq_len - 1}, 10 timed after 3 warm) against the "
             f"roofline bound {rl['bound_s'] * 1e3:.4f} ms ({rl['dominant']}: "
             f"{rec['analytic']['hbm_bytes']:.0f} B at 3.35 TB/s, "
-            f"{rec['analytic']['flops']:.0f} flop at 989 TFLOP/s); peak "
-            f"device memory {peak / 1e9:.3f} GB against the dry run's "
-            f"{mem['total_per_device'] / 1e9:.3f} GB (arguments + outputs - "
-            f"alias + temp): temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB "
-            f"traced on meta (the plain versions' scratch), "
-            f"{(peak - mem['total_per_device'] + mem['temp_size_in_bytes']) / 1e9:.3f}"
-            f" GB on the card; meta trace {t_meta:.1f} s on the host")
+            f"{rec['analytic']['flops']:.0f} flop at 989 TFLOP/s); temp "
+            f"{card_temp} B on the card (one warm step's peak over the "
+            f"arguments less its {new} B of logits) against {temp} B "
+            f"traced on meta (of which the kernels' scratch at their "
+            f"launch: peak {rec['traced']['scratch_peak_bytes']} B alive "
+            f"with it), within {abs(card_temp - temp)} B (gate "
+            f"{tol:.0f} B); not the step's scratch: the allocator's "
+            f"rounding at that peak {rounding} B, the cuBLAS workspaces the "
+            f"process held before the cell {ws} B (made again by its first "
+            f"GEMM), the first call's peak over the arguments {first} B, "
+            f"{first - card_temp - new} B above a warm step's (its one-time "
+            f"allocations); the next call (the first outside TraceCount) "
+            f"peaks with {sum(at_peak.values())} B alive that it made, by "
+            f"where made: "
+            + ", ".join(f"{n} B {w}" for w, n in at_peak.most_common(4))
+            + f", and leaves {stays} B allocated ("
+            + ", ".join(f"{n} B {w}" for w, n in after.most_common(3))
+            + f"); the arguments' blocks hold {held} B beyond their bytes "
+            f"({held_rounding} B of it the allocator's rounding); peak "
+            f"device memory over the build and all 14 calls "
+            f"{peak / 1e9:.3f} GB against the dry run's "
+            f"{mem['total_per_device'] / 1e9:.3f} GB (arguments + outputs "
+            f"- alias + temp); meta trace {t_meta:.1f} s on the host")
         del cell, logits
     free_card(phase, "after phase 11b")
 
@@ -4106,6 +4301,8 @@ def kernel_entries():
     # shapes (the entries above carry the suite's)
     for name, base in (("flash_decode_dense", "flash_decode"),
                        ("flash_decode_sp", "flash_decode"),
+                       ("flash_decode_cross_sp", "flash_decode"),
+                       ("flash_attention_encoder_tp", "flash_attention"),
                        ("flash_attention_dense", "flash_attention"),
                        ("flash_attention_monolithic", "flash_attention"),
                        ("flash_decode_gemma3", "flash_decode"),

@@ -39,7 +39,9 @@ class Trace:
     bytes every ATen op read and wrote, the most bytes of the storages it
     created alive at once (``peak_bytes``), the collectives issued (one
     rank's records), the outputs (``meta`` tensors) and the host
-    seconds."""
+    seconds; ``scratch_peak_bytes``, the most bytes alive at a
+    hand-written kernel's launch with the scratch it allocates
+    (``perf.add_kernel_scratch``)."""
     flops: float
     kernel_flops: Dict[str, float]
     bytes: int
@@ -47,6 +49,7 @@ class Trace:
     collectives: List[perf.Collective]
     outputs: Any
     seconds: float
+    scratch_peak_bytes: int = 0
 
 
 class TargetRegion:
@@ -82,7 +85,8 @@ class TargetRegion:
         self.stats.last_trace_s = time.perf_counter() - t0
         self._traced[cache_key] = Trace(
             count.flops, dict(count.kernel_flops), count.bytes,
-            count.peak_bytes, colls, out, self.stats.last_trace_s)
+            count.peak_bytes, colls, out, self.stats.last_trace_s,
+            count.scratch_peak_bytes)
         return self._traced[cache_key]
 
 

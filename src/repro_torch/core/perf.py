@@ -46,6 +46,7 @@ class Chip:
     peak_flops: float
     hbm_bw: float
     link_bw: float
+    sms: int = 132      # streaming multiprocessors (a kernel's split plan)
 
 
 # NVIDIA's datasheet peaks for the H100 SXM5 80GB HBM3 at its 700 W limit
@@ -184,6 +185,18 @@ def add_kernel_flops(name: str, flops: float) -> None:
         c.kernel_flops[name] = c.kernel_flops.get(name, 0.0) + flops
 
 
+def add_kernel_scratch(name: str, nbytes: int) -> None:
+    """A hand-written kernel's launch that allocates ``nbytes`` of device
+    scratch for itself alone (a ``meta`` pass does not allocate it): every
+    :class:`TraceCount` open in this thread records it by name and takes
+    the bytes alive at the launch plus the scratch as a candidate peak
+    (``scratch_peak_bytes``)."""
+    for c in _ACTIVE.counts:
+        c.kernel_scratch[name] = max(c.kernel_scratch.get(name, 0), nbytes)
+        c.scratch_peak_bytes = max(c.scratch_peak_bytes,
+                                   c._bytes.live + nbytes)
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
@@ -239,12 +252,18 @@ class TraceCount:
     op's inputs and outputs, unfused) and ``c.peak_bytes`` /
     ``c.end_bytes`` (the storages the pass's ATen ops created: the most
     alive at once, and those alive at its end). A kernel launched on the
-    card is not seen; its plain version on ``meta`` is."""
+    card is not seen; its plain version on ``meta`` is, unless its wrapper
+    reports the launch instead (:func:`add_kernel_flops`,
+    :func:`add_kernel_scratch`: ``c.kernel_scratch``, its largest scratch
+    by name, and ``c.scratch_peak_bytes``, the most bytes alive at a
+    launch with its scratch)."""
 
     def __init__(self):
         self.kernel_flops: Dict[str, float] = {}
+        self.kernel_scratch: Dict[str, int] = {}
         self.aten_flops = 0
         self.bytes = self.peak_bytes = self.end_bytes = 0
+        self.scratch_peak_bytes = 0
         self._flop = self._bytes = None
 
     def __enter__(self) -> "TraceCount":

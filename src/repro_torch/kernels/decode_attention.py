@@ -25,8 +25,12 @@ row with no visible key. Without the flag the output is the same bits.
     error: one launch that splits the key axis over blocks, the last block
     of each (slot, kv head) merging the splits;
   * CPU — :func:`flash_decode_plain`, the reference's online softmax over
-    ``block_k`` tiles written out in PyTorch; ``meta`` tensors take it too
-    (shapes alone: a dry run's traced pass).
+    ``block_k`` tiles written out in PyTorch;
+  * ``meta`` (shapes alone: a dry run's traced pass) — the launch's
+    counts without its work: the output (and lse) allocated, the split
+    partials ``part_ml`` / ``part_acc`` the launch would allocate for
+    itself on an H100 reported to ``core/perf.py`` as the kernel's scratch
+    (``add_kernel_scratch``), and its FLOPs.
 
 ``flash_decode.launches`` counts calls that launched the CUDA kernel; each
 launch reports :func:`plain_flops` to ``core/perf.py``'s counters.
@@ -204,14 +208,23 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512,
     Returns [B, H, hd] in q's dtype; with ``return_lse`` the pair (out,
     lse [B, H] f32), written by the same launch.
     """
-    if q.device.type in ("cpu", "meta"):     # meta: shapes alone
+    if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, block_k,
                                   return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_decode: unsupported device {q.device}")
-    _check_cuda(q, k_cache, v_cache, lengths)
     B, H, hd = q.shape
     _, K, S, _ = k_cache.shape
+    flops = plain_flops(B, H, S, hd, decode_block_k(S, block_k))
+    if q.device.type == "meta":    # shapes alone: what the launch counts
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, device=q.device) if return_lse else None
+        shape = decode_launch(B, H, K, S, hd, perf.H100.sms)
+        perf.add_kernel_scratch("flash_decode",
+                                4 * (shape.part_ml + shape.part_acc))
+        perf.add_kernel_flops("flash_decode", flops)
+        return out if lse is None else (out, lse)
+    _check_cuda(q, k_cache, v_cache, lengths)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     shape = decode_launch(B, H, K, S, hd, n_sm)
     counters = arrival_counters(q.device, shape.counters)
@@ -229,8 +242,7 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512,
         shape.nsplit, shape.chunk, DTYPES[q.dtype], ctypes.c_void_p(stream))
     _build.check("decode_attention", err)
     flash_decode.launches += 1
-    perf.add_kernel_flops("flash_decode", plain_flops(
-        B, H, S, hd, decode_block_k(S, block_k)))
+    perf.add_kernel_flops("flash_decode", flops)
     return out if lse is None else (out, lse)
 
 

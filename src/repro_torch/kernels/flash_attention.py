@@ -211,6 +211,7 @@ def flash_attention(q, k, v, causal: bool = True,
         bq, bk = _blocks(q, k, block_q, block_k)
         perf.add_kernel_flops("flash_attention", plain_flops(
             B * H, L, k.shape[2], hd, causal, bq, bk))
+        perf.add_kernel_scratch("flash_attention", 0)   # out alone
         return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

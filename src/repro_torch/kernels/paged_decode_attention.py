@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import perf
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -188,9 +189,16 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths,
     Returns [B, H, hd] in q's dtype.
     """
     check_scales("paged_flash_decode", k_scale, v_scale)
-    if q.device.type in ("cpu", "meta"):     # meta: shapes alone
+    if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, page_table,
                                         lengths, k_scale, v_scale)
+    if q.device.type == "meta":    # shapes alone: the launch's scratch
+        grid = decode_grid(q.shape[0], q.shape[1], k_pages.shape[1],
+                           q.shape[2], page_table.shape[1], perf.H100.sms,
+                           shards)
+        perf.add_kernel_scratch("paged_flash_decode",
+                                4 * (grid.part_ml + grid.part_acc))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     code = check_cuda_inputs("paged_flash_decode", q, k_pages, v_pages,

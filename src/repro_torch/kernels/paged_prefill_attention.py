@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import perf
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.paged_decode_attention import (
     _ptr, check_cuda_inputs, check_scales, dequant_pages, gather_pages)
@@ -144,9 +145,17 @@ def paged_flash_prefill(q, k_pages, v_pages, page_table, start,
     Returns [C, H, hd] in q's dtype.
     """
     check_scales("paged_flash_prefill", k_scale, v_scale)
-    if q.device.type in ("cpu", "meta"):     # meta: shapes alone
+    if q.device.type == "cpu":
         return paged_flash_prefill_plain(q, k_pages, v_pages, page_table,
                                          start, k_scale, v_scale)
+    if q.device.type == "meta":    # shapes alone: the launch's scratch
+        grid = prefill_grid(q.shape[0], q.shape[1], k_pages.shape[1],
+                            q.shape[2], k_pages.shape[2],
+                            page_table.shape[0], int(start), perf.H100.sms,
+                            k_pages.dtype, shards)
+        perf.add_kernel_scratch("paged_flash_prefill",
+                                4 * (grid.part_ml + grid.part_acc))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_prefill: unsupported device {q.device}")
     if not isinstance(start, int):

@@ -11,15 +11,17 @@ one traced pass of the port's own step on them. Per cell:
   * ``memory`` — a rank's argument, output and alias bytes, exact from
     the shard shapes (launch/specs.py ``memory``: the donated arguments
     are the alias); temp bytes from the traced pass (the storages it
-    created, followed to their last tensor), ``null`` where nothing is
-    traced; ``chip_smoke.py`` phase 11b measures the peak on the card
-    beside them;
+    created, followed to their last tensor, and the scratch each
+    hand-written kernel's launch allocates for itself, reported by its
+    ``meta`` branch: ``scratch_peak_bytes``), ``null`` where nothing is
+    traced; ``chip_smoke.py`` phase 11b measures one step's temp on the
+    card and gates the traced temp against it;
   * ``analytic`` — launch/accounting.py ``step_cost`` (whole step);
   * ``traced`` — one rank's FLOPs (``FlopCounterMode`` over the ATen ops,
-    the kernels' plain versions included, which is what the kernels
-    report on the card; ``flash_attention`` on ``meta`` reports its
-    walk's FLOPs without walking it), the bytes its ATen ops touch
-    unfused, and the collectives the port's code issued
+    and the attention kernels' own counts, which their wrappers report on
+    ``meta`` without walking, as their launches do on the card), the
+    bytes its ATen ops touch unfused (a kernel's are not seen, on the
+    card as on ``meta``), and the collectives the port's code issued
     (parallel/sharding.py records them on the abstract mesh) through
     core/perf.py's ring model. A serving cell's pass is one rank's step
     on its shards (the model axis tensor- and sequence-parallel:
@@ -27,9 +29,9 @@ one traced pass of the port's own step on them. Per cell:
     work the ranks of a line repeat. The eager pass visits every layer,
     so the reference's probe lowerings (which make up for XLA counting a
     scanned body once) are not ported. Where the cell's rules need a
-    path the port lacks (``specs.Cell.gaps``: an MLA, recurrent or cross
-    layer cut over the model axis, a ring cache cut over its rows, the
-    encoder of a prefill, training with a model axis), ``traced`` is
+    path the port lacks (``specs.Cell.gaps``: a recurrent layer cut over
+    the model axis, a ring cache cut over its rows, training with a model
+    axis), ``traced`` is
     ``null`` and ``traced_null`` names the leaf and the rule: no other
     mesh is substituted and no bytes are invented;
   * ``roofline`` — core/perf.py ``Roofline`` on the H100's datasheet peaks
@@ -79,6 +81,7 @@ def traced_record(cell: specs.Cell, tr) -> Dict:
     return {"flops": tr.flops, "flops_all_chips": tr.flops * cell.mesh.size,
             "kernel_flops": tr.kernel_flops, "bytes": tr.bytes,
             "peak_bytes": tr.peak_bytes,
+            "scratch_peak_bytes": tr.scratch_peak_bytes,
             "collective": {k: v for k, v in coll.items() if k != "counts"},
             "collective_counts": coll["counts"], "trace_s": tr.seconds}
 

@@ -14,13 +14,13 @@ it issues, recorded on the abstract mesh).
 
 A rank's pass is the port's own step. The serving steps run on a rank's
 shards (train/step.py ``shard_model``: the batch axes gathered a unit at
-a time, the model axis tensor- and sequence-parallel) for GQA layers with
-an MLP or a MoE; a cell whose rules cut what the port's rank path cannot
-take has no pass: an MLA, recurrent or cross layer's leaves and caches cut
-over the model axis (those layers run whole on a rank), a ring cache cut
-over its rows (``kv_seq`` on a sliding-window layer), the encoder of a
-prefill; and the FSDP train step shards over the batch axes only
-(train/step.py ``shard_state``: a model axis of 1). :attr:`Cell.gaps`
+a time, the model axis tensor- and sequence-parallel) for GQA, cross,
+encoder and MLA layers with an MLP or a MoE; a cell whose rules cut what
+the port's rank path cannot take has no pass: a recurrent layer's leaves
+and state cut over the model axis (those layers run whole on a rank), a
+ring cache cut over its rows (``kv_seq`` on a sliding-window layer); and
+the FSDP train step shards over the batch axes only (train/step.py
+``shard_state``: a model axis of 1). :attr:`Cell.gaps`
 names each such leaf with the rule that binds it; a cell with gaps is not
 traced.
 
@@ -182,20 +182,18 @@ def _kind(cfg: transformer.ModelConfig, path: str) -> Optional[str]:
     return transformer.parse_kind(cfg.groups[gi][0][pi])[0]
 
 
-def _serving_gaps(cfg, step: str):
+def _serving_gaps(cfg):
     """``missing(path)`` for the serving steps' leaves: what the rank path
     (``transformer.hidden``) cannot take cut over a non-batch axis."""
     def missing(path: str):
         parts = path.split("/")
-        if parts[:2] == ["params", "encoder"]:
-            return (("the encoder runs on no rank path yet", None)
-                    if step == "prefill" else None)
         mixer = _kind(cfg, path)
-        if mixer is None or mixer in transformer.RANK_MIXERS:
-            if parts[0] == "caches" and cfg.window_of(mixer or "") \
-                    is not None:         # the rows (kv_seq) of a ring
+        if mixer is None:
+            return None
+        if mixer in transformer.RANK_MIXERS:
+            if parts[0] == "caches" and cfg.window_of(mixer) is not None:
                 return "a ring cache cut over its rows: no rank path yet", \
-                    (3,)
+                    (3,)         # the rows (kv_seq) of a ring
             return None
         if parts[0] == "params" and "mixer" not in parts:
             return None          # the layer's norms: whole
@@ -250,7 +248,7 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
                                        "batch axes only", None))
         else:
             gaps = _gaps("params", p_axes, p_specs, mesh, batch_axes,
-                         _serving_gaps(cfg, shape.step))
+                         _serving_gaps(cfg))
         if device.type == "meta":
             for p, spec in zip(tree_lib.leaves(params), tree_lib.leaves(
                     p_specs, is_leaf=sharding.is_spec)):
@@ -308,7 +306,7 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
         S = shape.seq_len
         caches, c_specs = steps.rank_caches(cfg, B, S, mesh, device=device)
         gaps += _gaps("caches", transformer.cache_logical_axes(cfg), c_specs,
-                      mesh, batch_axes, _serving_gaps(cfg, shape.step))
+                      mesh, batch_axes, _serving_gaps(cfg))
         c_sh = tree_lib.tree_map(lambda s: sharding.NamedSharding(mesh, s),
                                  c_specs, is_leaf=sharding.is_spec)
         tok_sh = sharding.NamedSharding(mesh, tok_spec)
@@ -333,19 +331,20 @@ def memory(cell: Cell, trace: Optional[offload.Trace] = None
     reference donates them: the caches, or the train state) and, for a
     serving step, the logits [B_local, 1, vocab] at the compute dtype (a
     train step's metrics are a few scalars, not counted). From a traced
-    pass (None: not traced): temp, the most bytes of storages the pass
-    created alive at once less the new outputs (``output - alias``), so
-    that ``total_per_device`` is the arguments plus that peak. The kernels'
-    plain versions run on ``meta``, so their scratch stands in for the
-    kernels'."""
+    pass (None: not traced): temp, the most bytes alive at once less the
+    new outputs (``output - alias``), so that ``total_per_device`` is the
+    arguments plus that peak. The bytes alive are the storages the pass
+    created and, at each hand-written kernel's launch, the scratch it
+    allocates for itself on the card, which its ``meta`` branch reports
+    (``trace.scratch_peak_bytes``: ``flash_decode``'s split partials)."""
     arg = nbytes(cell.args)
     alias = sum(nbytes(cell.args[i]) for i in cell.donate)
     out = alias
     if cell.shape.step != "train":
         out += cell.args[1].shape[0] * cell.cfg.vocab * \
             cell.cfg.compute_dtype.itemsize
-    temp = None if trace is None else \
-        max(0, trace.peak_bytes - (out - alias))
+    temp = None if trace is None else max(
+        0, max(trace.peak_bytes, trace.scratch_peak_bytes) - (out - alias))
     return {"argument_size_in_bytes": arg, "output_size_in_bytes": out,
             "temp_size_in_bytes": temp, "alias_size_in_bytes": alias,
             "total_per_device": arg + out - alias + (temp or 0)}

@@ -70,17 +70,18 @@ time (at full width the logits of 8 coupled rows of 1536 tokens would
 be 9.7 GB of f32 at once). It calls no hand-written kernel: the
 reference computes it in plain ``jnp`` and reaches no ``pallas_call``.
 
-**On one rank of a mesh** (:func:`gqa_forward` with its leaves' and
+**On one rank of a mesh** (:func:`gqa_forward`, :func:`cross_forward`,
+:func:`encoder_forward` and :func:`mla_forward` with their leaves' and
 cache's specs: the serving steps on a rank's shards, models/transformer.py
-``hidden``) the same two cases run on the rank's columns of the
-projections, its kv heads and its rows of the cache, each read from the
-leaf's spec: the heads are attended
-locally where the columns fall on head boundaries and gathered over the
-model line first where they do not; a cache cut over its rows
-(``kv_seq``) writes each decode position on the rank that holds it, and
-``flash_decode(..., return_lse=True)`` over each rank's rows is merged by
-``sharding.combine_partials``; ``wo``'s rows give a partial product
-summed over the line.
+``hidden``) the same cases run on the rank's columns of the projections,
+its kv heads and its rows of the cache, each read from the leaf's spec:
+the heads are attended locally where the columns fall on head boundaries
+and gathered over the model line first where they do not; a cache cut
+over its rows (``kv_seq``) writes each decode position on the rank that
+holds it, and the attention over each rank's rows
+(``flash_decode(..., return_lse=True)``, or MLA's absorbed attention with
+its lse) is merged by ``sharding.combine_partials``; ``wo``'s rows give a
+partial product summed over the line.
 
 **No cache: the training forward.** Every attention layer that runs with
 no cache goes through :func:`~repro_torch.models.flash_xla.
@@ -276,19 +277,7 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     if not decode and window is None and L > S:
         raise ValueError(f"gqa_forward: a prefill of {L} tokens into a "
                          f"cache of {S} rows")
-    sp = decode and rows.line is not None
-    if decode:                   # every query head of the cache's kv heads
-        k_lo, k_hi = heads.lo, heads.hi
-        h_lo, h_hi = k_lo * G, k_hi * G
-    else:                        # the query heads wo's rows take
-        h_lo, h_hi = oc.lo // hd, -(-oc.hi // hd)
-        k_lo, k_hi = h_lo // G, -(-h_hi // G)
-    if not (h_lo * hd <= oc.lo and oc.hi <= h_hi * hd):
-        raise NotImplementedError(
-            f"{cfg.name}: wo's rows [{oc.lo}, {oc.hi}) need heads outside "
-            f"the kv heads [{k_lo}, {k_hi}) of the rank's cache")
-    # kv heads: those attended and those the rank's cache holds
-    w_lo, w_hi = min(k_lo, heads.lo), max(k_hi, heads.hi)
+    h_lo, h_hi, w_lo, w_hi = _head_plan(cfg, oc, heads, decode)
     q, k, v = qkv(m, h, positions, cfg, (qc, h_lo * hd, h_hi * hd),
                   (kvc, w_lo * hd, w_hi * hd))
     mine = slice(heads.lo - w_lo, heads.hi - w_lo)      # the cache's heads
@@ -297,22 +286,11 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
         lengths = cache_pos + 1
         if window is not None:
             pos, lengths = pos % S, lengths.clamp(max=S)
-        slots = torch.arange(B, device=h.device)
         for c, new in ((kc, k), (vc, v)):
-            new = new[:, 0, mine].to(c.dtype)                   # [B, Kr, hd]
-            if sp:       # a slot whose position another rank holds: as is
-                row = (pos - rows.lo).clamp(0, S_loc - 1)
-                here = ((pos >= rows.lo) & (pos < rows.hi))[:, None, None]
-                new = torch.where(here, new, c[slots, :, row])
-                c[slots, :, row] = new
-            else:
-                c[slots, :, pos] = new
+            _write_position(c, new[:, 0, mine], pos, rows, 2)
         lengths = (lengths - rows.lo).clamp(0, S_loc).to(torch.int32)
-        args = (q[:, 0].contiguous(), kc, vc, lengths)
-        att = sharding.combine_partials(
-            *flash_decode(*args, return_lse=True), rows.line) if sp else \
-            flash_decode(*args)
-        att = att[:, None]
+        att = _decode_attend(q[:, 0].contiguous(), kc, vc, lengths,
+                             rows)[:, None]
     else:
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)     # [B, Kw, L, hd]
         if window is None:
@@ -323,17 +301,91 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
         else:
             ring_write(kc, kt[:, mine])
             ring_write(vc, vt[:, mine])
-        # each query head's kv head (the heads need not fill whole groups)
-        kv = torch.arange(h_lo, h_hi, device=h.device) // G - w_lo
-        att = attend(q, kt, vt, G, causal=True, window=window, kv=kv)
-    att = att.reshape(B, L, -1)[..., oc.lo - h_lo * hd:oc.hi - h_lo * hd]
-    y = att.to(h.dtype) @ m["wo"]
+        att = attend(q, kt, vt, G, causal=True, window=window,
+                     kv=_kv_index(h_lo, h_hi, G, w_lo, h.device))
+    return _out(att, m["wo"], oc, h_lo * hd, h.dtype)
+
+
+def _head_plan(cfg, oc: sharding.Held, heads: Optional[sharding.Held],
+               decode: bool) -> Tuple[int, int, int, int]:
+    """The query heads ``[h_lo, h_hi)`` a rank attends and the kv heads
+    ``[w_lo, w_hi)`` it projects (see :func:`gqa_forward`): in a decode
+    step every query head of the kv heads its cache holds (``heads``),
+    else those whose columns ``wo``'s rows ``oc`` take, each group's kv
+    head, and the cache's kv heads beside them (``heads`` None: no
+    cache)."""
+    G, hd = cfg.n_heads // cfg.n_kv, cfg.hd
+    if decode:
+        k_lo, k_hi = heads.lo, heads.hi
+        h_lo, h_hi = k_lo * G, k_hi * G
+    else:
+        h_lo, h_hi = oc.lo // hd, -(-oc.hi // hd)
+        k_lo, k_hi = h_lo // G, -(-h_hi // G)
+    if not (h_lo * hd <= oc.lo and oc.hi <= h_hi * hd):
+        raise NotImplementedError(
+            f"{cfg.name}: wo's rows [{oc.lo}, {oc.hi}) need heads outside "
+            f"the kv heads [{k_lo}, {k_hi}) of the rank's cache")
+    if heads is None:
+        return h_lo, h_hi, k_lo, k_hi
+    return h_lo, h_hi, min(k_lo, heads.lo), max(k_hi, heads.hi)
+
+
+def _kv_index(h_lo: int, h_hi: int, G: int, w_lo: int, device
+              ) -> torch.Tensor:
+    """Each query head of ``[h_lo, h_hi)``'s kv head, an index into the
+    projected kv heads from ``w_lo`` (the heads need not fill whole
+    groups)."""
+    return torch.arange(h_lo, h_hi, device=device) // G - w_lo
+
+
+def _write_position(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                    rows: sharding.Held, axis: int) -> None:
+    """A decode step's ``new`` [B, ...] into ``c`` at each slot's position
+    ``pos`` [B] on the sequence axis ``axis`` of c (1 or 2), in place.
+    With the rows cut (``rows``: this rank's [lo, hi)), a position p lands
+    at p − lo on the rank that holds it; a slot whose position another
+    rank holds keeps its row as it is."""
+    new = new.to(c.dtype)
+    slots = torch.arange(c.shape[0], device=c.device)
+    at = (slots, slice(None), pos) if axis == 2 else (slots, pos)
+    if rows.line is not None:
+        row = (pos - rows.lo).clamp(0, c.shape[axis] - 1)
+        at = (slots, slice(None), row) if axis == 2 else (slots, row)
+        here = (pos >= rows.lo) & (pos < rows.hi)
+        new = torch.where(here.view((-1,) + (1,) * (new.dim() - 1)), new,
+                          c[at])
+    c[at] = new
+
+
+def _decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                   lengths: torch.Tensor, rows: sharding.Held
+                   ) -> torch.Tensor:
+    """``flash_decode`` over the cache rows this rank holds, at its local
+    ``lengths``; with the rows cut, with ``return_lse`` and
+    ``combine_partials`` over their line."""
+    if rows.line is None:
+        return flash_decode(q, kc, vc, lengths)
+    return sharding.combine_partials(
+        *flash_decode(q, kc, vc, lengths, return_lse=True), rows.line)
+
+
+def _out(att: torch.Tensor, wo: torch.Tensor, oc: sharding.Held, lo: int,
+         dtype) -> torch.Tensor:
+    """The output projection: the columns of the attention output ``att``
+    [B, L, heads, ·] (its first column at ``lo`` of the whole) that
+    ``wo``'s rows ``oc`` take, times them, summed over their line."""
+    B, L = att.shape[:2]
+    att = att.reshape(B, L, -1)[..., oc.lo - lo:oc.hi - lo]
+    y = att.to(dtype) @ wo
     return y if oc.line is None else sharding.reduce_from(y, oc.line)
 
 
 def cross_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
                   cache: Optional[Dict[str, torch.Tensor]],
-                  extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  extra: Optional[torch.Tensor] = None,
+                  spec: Optional[Dict[str, Tuple]] = None,
+                  cache_spec: Optional[Dict[str, Tuple]] = None
+                  ) -> torch.Tensor:
     """One cross-attention layer; returns y [B, L, d].
 
     h: [B, L, d] normed input; cache: ``{"k", "v"}`` [B, K, S_enc, hd].
@@ -342,49 +394,80 @@ def cross_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
     cache's dtype) and the queries attend them un-cast. Without, a decode
     step (L = 1) over the cache as it stands. With ``cache=None`` the
     training forward: K/V from ``extra``, non-causal, every key valid
-    (:func:`attend_train` with an all-true ``kv_len_mask``)."""
+    (:func:`attend_train` with an all-true ``kv_len_mask``).
+
+    On one rank of a mesh, ``spec`` / ``cache_spec`` as in
+    :func:`gqa_forward`, whose head split this layer takes (the
+    reference's cross projections carry the GQA layer's axes): a prefill
+    projects K/V of the kv heads its queries and its cache need over every
+    encoder row, writes its cache's heads and rows, and attends the heads
+    ``wo``'s rows take; a decode step attends every query head of its
+    cache's kv heads over the rows it holds (all S_enc rows are valid),
+    merged over their line with ``combine_partials`` where they are cut."""
     B, L, _ = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q = (h @ m["wq"]).reshape(B, L, H, hd)
     if cache is None:
+        q = (h @ m["wq"]).reshape(B, L, H, hd)
         S = extra.shape[1]
         k = (extra @ m["wk"]).reshape(B, S, K, hd)
         v = (extra @ m["wv"]).reshape(B, S, K, hd)
         valid = torch.ones(B, S, dtype=torch.bool, device=h.device)
         att = attend_train(q, k, v, cfg, False, kv_len_mask=valid)
         return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
+    mesh = sharding.current_mesh()
+    spec, cache_spec = spec or {}, cache_spec or {}
     kc, vc = cache["k"], cache["v"]
-    S = kc.shape[2]
-    if extra is not None:
+    qc = sharding.held(m["wq"], spec.get("wq"), 1, mesh)
+    kvc = sharding.held(m["wk"], spec.get("wk"), 1, mesh)
+    oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
+    heads = sharding.held(kc, cache_spec.get("k"), 1, mesh)
+    rows = sharding.held(kc, cache_spec.get("k"), 2, mesh)
+    S = rows.whole
+    decode = extra is None
+    if decode and L != 1:
+        raise ValueError(f"cross_forward: a prefill of {L} tokens needs the "
+                         "encoder states (extra)")
+    h_lo, h_hi, w_lo, w_hi = _head_plan(cfg, oc, heads, decode)
+    q = _cols(h @ m["wq"], qc, h_lo * hd, h_hi * hd).reshape(B, L, -1, hd)
+    if decode:
+        lengths = torch.full((B,), kc.shape[2], dtype=torch.int32,
+                             device=h.device)
+        att = _decode_attend(q[:, 0].contiguous(), kc.to(q.dtype),
+                             vc.to(q.dtype), lengths, rows)[:, None]
+    else:
         if tuple(extra.shape[:2]) != (B, S):
             raise ValueError(f"cross_forward: encoder states "
                              f"{tuple(extra.shape)} do not fill a cross "
                              f"cache of {S} rows for {B} slots")
-        k = (extra @ m["wk"]).reshape(B, S, K, hd).transpose(1, 2)
-        v = (extra @ m["wv"]).reshape(B, S, K, hd).transpose(1, 2)
-        kc.copy_(k)
-        vc.copy_(v)
-        att = attend(q, k, v, H // K, causal=False)
-    elif L == 1:
-        lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)
-        att = flash_decode(q[:, 0].contiguous(), kc.to(q.dtype),
-                           vc.to(q.dtype), lengths)[:, None]
-    else:
-        raise ValueError(f"cross_forward: a prefill of {L} tokens needs the "
-                         "encoder states (extra)")
-    return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
+        k, v = (_cols(extra @ m[w], kvc, w_lo * hd, w_hi * hd).reshape(
+            B, S, -1, hd).transpose(1, 2) for w in ("wk", "wv"))
+        mine = slice(heads.lo - w_lo, heads.hi - w_lo)
+        kc.copy_(k[:, mine, rows.lo:rows.hi])
+        vc.copy_(v[:, mine, rows.lo:rows.hi])
+        att = attend(q, k, v, H // K, causal=False,
+                     kv=_kv_index(h_lo, h_hi, H // K, w_lo, h.device))
+    return _out(att, m["wo"], oc, h_lo * hd, h.dtype)
 
 
-def encoder_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
-                    cfg) -> torch.Tensor:
+def encoder_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
+                    spec: Optional[Dict[str, Tuple]] = None) -> torch.Tensor:
     """One encoder (``enc``) layer's attention, no cache: h [B, S, d]
-    normed → y [B, S, d], every frame attending every frame."""
+    normed → y [B, S, d], every frame attending every frame. On one rank
+    of a mesh (``spec`` as in :func:`gqa_forward`) the heads ``wo``'s rows
+    take, as a prefill there."""
     B, S, _ = h.shape
+    mesh, spec = sharding.current_mesh(), spec or {}
+    qc = sharding.held(m["wq"], spec.get("wq"), 1, mesh)
+    kvc = sharding.held(m["wk"], spec.get("wk"), 1, mesh)
+    oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
+    h_lo, h_hi, w_lo, w_hi = _head_plan(cfg, oc, None, False)
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
-    q, k, v = qkv(m, h, positions, cfg)
-    att = attend(q, k.transpose(1, 2), v.transpose(1, 2),
-                 cfg.n_heads // cfg.n_kv, causal=False)
-    return att.reshape(B, S, -1).to(h.dtype) @ m["wo"]
+    q, k, v = qkv(m, h, positions, cfg, (qc, cfg.hd * h_lo, cfg.hd * h_hi),
+                  (kvc, cfg.hd * w_lo, cfg.hd * w_hi))
+    G = cfg.n_heads // cfg.n_kv
+    att = attend(q, k.transpose(1, 2), v.transpose(1, 2), G, causal=False,
+                 kv=_kv_index(h_lo, h_hi, G, w_lo, h.device))
+    return _out(att, m["wo"], oc, h_lo * cfg.hd, h.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -436,11 +519,15 @@ MLA_AXES = {"w_dq": ("embed_fsdp", None), "q_norm": (None,),
 
 
 def _mla_attend(q_nope, q_rope, ckv, kr, mask, w_uk, w_uv,
-                cfg: MlaConfig) -> torch.Tensor:
+                cfg: MlaConfig, return_lse: bool = False):
     """The reference's ``_mla_absorbed_attend``: q_nope [B, L, H, nope],
     q_rope [B, L, H, rope] over the latents ckv [B, S, c] and kr [B, S,
     rope], ``mask`` broadcasting to [B, H, L, S] (True: attended), w_uk
-    [c, H, nope] and w_uv [c, H, v] in f32 → [B, L, H, v] at q's dtype."""
+    [c, H, nope] and w_uv [c, H, v] in f32 → out [B, L, H, v] f32; with
+    ``return_lse`` also lse [B, L, H] f32, the log of each softmax's
+    denominator over these keys (for ``sharding.combine_partials``: a row
+    with none visible has lse -1e30 + log S, which is -1e30, and the mean
+    of the values)."""
     ckv32 = ckv.float()
     q_lat = torch.einsum("blhn,chn->blhc", q_nope.float(), w_uk)
     logits = torch.einsum("blhc,bsc->bhls", q_lat, ckv32)
@@ -449,13 +536,18 @@ def _mla_attend(q_nope, q_rope, ckv, kr, mask, w_uk, w_uv,
     logits.masked_fill_(~mask, -1e30)
     pr = torch.softmax(logits, dim=-1)
     lat = torch.einsum("bhls,bsc->blhc", pr, ckv32)
-    return torch.einsum("blhc,chv->blhv", lat, w_uv).to(q_nope.dtype)
+    out = torch.einsum("blhc,chv->blhv", lat, w_uv)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).transpose(1, 2)
+    return out
 
 
 def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
                 positions: torch.Tensor, cfg: MlaConfig,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                cache_pos=None) -> torch.Tensor:
+                cache_pos=None, spec: Optional[Dict[str, Tuple]] = None,
+                cache_spec: Optional[Dict[str, Tuple]] = None
+                ) -> torch.Tensor:
     """One MLA layer over its latent slot cache; returns y [B, L, d].
 
     h: [B, L, d] normed input; positions: [B, L] absolute; cache: ``{"ckv"
@@ -464,46 +556,80 @@ def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     tensor is a decode step, the int 0 a prefill of every slot from
     position 0 (see the module docstring). With ``cache=None`` the
     training forward, K/V expanded (the reference's ``attention.py:
-    302-324``)."""
+    302-324``).
+
+    On one rank of a mesh (``spec`` / ``cache_spec`` as in
+    :func:`gqa_forward`; the reference splits ``w_uq`` / ``w_uk`` /
+    ``w_uv``'s columns and ``wo``'s rows by heads and the latents' rows
+    over ``kv_seq``): the latents and the rotary key are computed whole
+    from the whole ``w_dkv`` / ``w_kr``; a prefill writes the rows its
+    cache holds and attends the L new latents for the heads ``wo``'s rows
+    take; a decode step writes its position on the rank that holds it
+    and, with the rows cut, attends every head over those rows, the
+    slices merged with ``combine_partials`` over their line (else the
+    heads ``wo``'s rows take). Each head's columns of ``w_uq`` / ``w_uk``
+    / ``w_uv`` are gathered over their line where the rank lacks them;
+    ``wo``'s partial product is summed over its line."""
     B, L, _ = h.shape
-    H, nope = cfg.n_heads, cfg.qk_nope
+    H, nope, dq, vd = cfg.n_heads, cfg.qk_nope, cfg.qk_nope + cfg.qk_rope, \
+        cfg.v_dim
     cq = blocks.rms_norm(m["q_norm"], h @ m["w_dq"])
-    q = (cq @ m["w_uq"]).reshape(B, L, H, nope + cfg.qk_rope)
-    q_nope = q[..., :nope]
-    q_rope = blocks.apply_rope(q[..., nope:], positions, cfg.rope_theta)
     ckv = blocks.rms_norm(m["kv_norm"], h @ m["w_dkv"])         # [B, L, c]
     k_rope = blocks.apply_rope((h @ m["w_kr"]).reshape(B, L, 1, cfg.qk_rope),
                                positions, cfg.rope_theta)[:, :, 0]
     if cache is None:
-        return _mla_expanded(m, q_nope, q_rope, ckv, k_rope, cfg)
-    w_uk = m["w_uk"].reshape(cfg.kv_lora, H, nope).float()
-    w_uv = m["w_uv"].reshape(cfg.kv_lora, H, cfg.v_dim).float()
+        q = (cq @ m["w_uq"]).reshape(B, L, H, dq)
+        q_rope = blocks.apply_rope(q[..., nope:], positions, cfg.rope_theta)
+        return _mla_expanded(m, q[..., :nope], q_rope, ckv, k_rope, cfg)
+    mesh = sharding.current_mesh()
+    spec, cache_spec = spec or {}, cache_spec or {}
     cc, kc = cache["ckv"], cache["kr"]
-    S = cc.shape[1]
-    if isinstance(cache_pos, torch.Tensor):
-        if L != 1:
-            raise ValueError(f"mla_forward: a decode step takes one token a "
-                             f"slot, got L={L}")
+    rows = sharding.held(cc, cache_spec.get("ckv"), 1, mesh)
+    oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
+    decode = isinstance(cache_pos, torch.Tensor)
+    if not decode and cache_pos != 0:
+        raise ValueError(f"mla_forward: cache_pos must be a [B] tensor "
+                         f"(decode) or 0 (prefill), got {cache_pos!r}")
+    if decode and L != 1:
+        raise ValueError(f"mla_forward: a decode step takes one token a "
+                         f"slot, got L={L}")
+    sp = decode and rows.line is not None
+    h_lo, h_hi = (0, H) if sp else (oc.lo // vd, -(-oc.hi // vd))
+
+    def cols(name, width):      # heads [h_lo, h_hi) of a heads_tp leaf
+        w = m[name] if name != "w_uq" else cq @ m[name]
+        return _cols(w, sharding.held(m[name], spec.get(name), 1, mesh),
+                     h_lo * width, h_hi * width)
+    q = cols("w_uq", dq).reshape(B, L, -1, dq)
+    q_nope = q[..., :nope]
+    q_rope = blocks.apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    w_uk = cols("w_uk", nope).reshape(cfg.kv_lora, -1, nope).float()
+    w_uv = cols("w_uv", vd).reshape(cfg.kv_lora, -1, vd).float()
+    if decode:
         pos = cache_pos.long()
-        slots = torch.arange(B, device=h.device)
-        cc[slots, pos] = ckv[:, 0].to(cc.dtype)
-        kc[slots, pos] = k_rope[:, 0].to(kc.dtype)
-        valid = torch.arange(S, device=h.device)[None] <= pos[:, None]
+        _write_position(cc, ckv[:, 0], pos, rows, 1)
+        _write_position(kc, k_rope[:, 0], pos, rows, 1)
+        keys = rows.lo + torch.arange(cc.shape[1], device=h.device)
         out = _mla_attend(q_nope, q_rope, cc.to(h.dtype), kc.to(h.dtype),
-                          valid[:, None, None], w_uk, w_uv, cfg)
-    elif cache_pos == 0:
-        cc[:, :L] = ckv.to(cc.dtype)
-        kc[:, :L] = k_rope.to(kc.dtype)
-        ckv_l, kr_l = cc[:, :L].to(h.dtype), kc[:, :L].to(h.dtype)
+                          (keys[None] <= pos[:, None])[:, None, None],
+                          w_uk, w_uv, cfg, return_lse=sp)
+        if sp:
+            out = sharding.combine_partials(*out, rows.line)
+    else:
+        r0, r1 = rows.lo, min(rows.hi, L)
+        if r1 > r0:
+            cc[:, :r1 - r0] = ckv[:, r0:r1].to(cc.dtype)
+            kc[:, :r1 - r0] = k_rope[:, r0:r1].to(kc.dtype)
+        # the L latents as the cache holds them, read back at h's dtype
+        ckv_l = ckv.to(cc.dtype).to(h.dtype)
+        kr_l = k_rope.to(kc.dtype).to(h.dtype)
         keys = torch.arange(L, device=h.device)
         out = torch.cat([_mla_attend(
             q_nope[:, r:r + MLA_Q_BLOCK], q_rope[:, r:r + MLA_Q_BLOCK],
             ckv_l, kr_l, keys[None] <= keys[r:r + MLA_Q_BLOCK, None],
-            w_uk, w_uv, cfg) for r in range(0, L, MLA_Q_BLOCK)], dim=1)
-    else:
-        raise ValueError(f"mla_forward: cache_pos must be a [B] tensor "
-                         f"(decode) or 0 (prefill), got {cache_pos!r}")
-    return out.reshape(B, L, H * cfg.v_dim) @ m["wo"]
+            w_uk, w_uv, cfg).to(h.dtype)
+            for r in range(0, L, MLA_Q_BLOCK)], dim=1)
+    return _out(out.to(h.dtype), m["wo"], oc, h_lo * vd, h.dtype)
 
 
 def _mla_expanded(m, q_nope, q_rope, ckv, k_rope, cfg: MlaConfig

@@ -26,10 +26,12 @@ over a page pool. On one rank of a mesh (``Transformer.shards``, set by
 train/step.py ``shard_model``), :func:`hidden` runs each layer on the
 rank's shards (:func:`_layers`: a unit's leaves gathered over the
 batch axes when it is reached, FSDP's gather; the model axis
-tensor-parallel in :func:`embed`, ``attention.gqa_forward``, :func:`_ffn`
-and :func:`logits`, each reading its leaves' specs). :class:`ModelConfig`
-keeps every field of the reference so that the configs read the same,
-with torch dtypes in place of jnp ones
+tensor-parallel in :func:`embed`, the attention layers
+(``attention.gqa_forward``, ``cross_forward``, ``encoder_forward`` in
+:func:`encode`, ``mla_forward``), :func:`_ffn` and :func:`logits`, each
+reading its leaves' specs; the recurrent mixers run whole on a rank).
+:class:`ModelConfig` keeps every field of the reference so that the
+configs read the same, with torch dtypes in place of jnp ones
 (``compute_dtype=torch.float32`` works as the reference override does).
 
 Weights keep the reference layout: ``y = x @ w`` with ``w`` of shape
@@ -214,38 +216,66 @@ def check_supported(cfg: ModelConfig) -> None:
 DRAW_ELEMS = 2**28    # most elements of a 2-D leaf drawn in one f32 piece
 
 
+def _piece_index(shape: Tuple[int, ...]):
+    """The indices of the pieces :func:`_normal` draws a ``shape`` leaf in,
+    in order: a leaf of more than two axes one slice of its first axis at
+    a time, each slice of more than ``DRAW_ELEMS`` elements split again
+    the same way; a 2-D one in runs of whole rows of at most
+    ``DRAW_ELEMS`` elements."""
+    if len(shape) > 2:
+        sub = shape[1:]
+        inner = _piece_index(sub) if math.prod(sub) > DRAW_ELEMS else \
+            ((slice(None),) * len(sub),)
+        return [(i,) + rest for i in range(shape[0]) for rest in inner]
+    if len(shape) == 2:
+        step = max(1, DRAW_ELEMS // max(1, shape[1]))
+        return [(slice(r, min(r + step, shape[0])), slice(None))
+                for r in range(0, shape[0], step)]
+    return [(slice(None),) * len(shape)]
+
+
 def _pieces(t: torch.Tensor):
-    """The views :func:`_normal` draws ``t`` in, in order: a leaf of more
-    than two axes one slice of its first axis at a time, each slice of more
-    than ``DRAW_ELEMS`` elements split again the same way; a 2-D one in
-    runs of whole rows of at most ``DRAW_ELEMS`` elements."""
-    if t.dim() > 2:
-        return [p for s in t
-                for p in (_pieces(s) if s.numel() > DRAW_ELEMS else (s,))]
-    if t.dim() == 2:
-        return t.split(max(1, DRAW_ELEMS // max(1, t.shape[1])))
-    return (t,)
+    """The views :func:`_normal` draws ``t`` in, in order
+    (:func:`_piece_index`)."""
+    return [t[idx] for idx in _piece_index(tuple(t.shape))]
 
 
-def _normal(shape, std: float, generator, device, dtype):
+def _normal(shape, std: float, generator, device, dtype, part=None):
     """N(0, std²) at ``dtype``, drawn in f32 one ``[count]`` slice of a
     stacked leaf at a time: a whole f32 draw of yi-34b's ``[60, 7168,
     20480]`` MLP leaves would need a 35 GB temporary beside the weights.
     A slice or a 2-D leaf of more than ``DRAW_ELEMS`` elements is drawn in
     smaller pieces (:func:`_pieces`): gemma3-27b's ``[262144, 5376]``
     embedding whole would be a 5.6 GB temporary, one layer of
-    deepseek-v3's ``[256, 7168, 2048]`` experts 15 GB."""
-    out = torch.empty(shape, dtype=dtype, device=device)
+    deepseek-v3's ``[256, 7168, 2048]`` experts 15 GB. ``part``: the
+    slices of the leaf to make (None: all of it); every piece is drawn
+    and the part keeps what falls in it, so its values are the whole
+    draw's."""
+    shape = tuple(shape)
+    part = part or tuple(slice(0, n) for n in shape)
+    out = torch.empty(tuple(p.stop - p.start for p in part), dtype=dtype,
+                      device=device)
     if out.device.type == "meta":
         return out
-    for part in _pieces(out):
-        w = torch.empty(part.shape, dtype=torch.float32, device=device)
-        part.copy_(w.normal_(0.0, 1.0, generator=generator).mul_(std))
+    for idx in _piece_index(shape):
+        piece = [(i, i + 1) if isinstance(i, int) else
+                 (i.start or 0, n if i.stop is None else i.stop)
+                 for i, n in zip(idx, shape)]
+        w = torch.empty(tuple(hi - lo for lo, hi in piece),
+                        dtype=torch.float32, device=device)
+        w.normal_(0.0, 1.0, generator=generator).mul_(std)
+        cut = [(max(lo, p.start), min(hi, p.stop))
+               for (lo, hi), p in zip(piece, part)]
+        if all(lo < hi for lo, hi in cut):
+            out[tuple(slice(lo - p.start, hi - p.start) for (lo, hi), p in
+                      zip(cut, part))].copy_(w[tuple(
+                          slice(lo - a, hi - a) for (lo, hi), (a, _) in
+                          zip(cut, piece))])
     return out
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-               device=None) -> "Transformer":
+               device=None, part=None) -> "Transformer":
     """Random weights drawn from the reference's distributions
     (``transformer.py:113-246`` and ``attention.init_gqa`` /
     ``init_cross``): dense weights N(0, 1/fan_in) (a cross layer's ``wk``
@@ -264,116 +294,158 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``cfg.param_dtype`` (a full-width model at bf16 passes
     ``param_dtype=torch.bfloat16``, so the executor's cast to the compute
     dtype copies nothing). ``generator`` must live on ``device`` (a
-    ``meta`` device allocates nothing, for counting parameters)."""
+    ``meta`` device allocates nothing, for counting parameters).
+    ``part(path)``: the slices of the leaf at ``path`` (its keys in
+    :func:`param_tree`) to make, or None for the whole leaf; each leaf is
+    then made at that part's shape alone, with the values the whole draw
+    gives it (train/step.py ``init_shards``: a rank's shards with no whole
+    leaf on the device)."""
     check_supported(cfg)
     device = torch.device(device if device is not None else "cpu")
     dt = cfg.param_dtype
     d, f, H, K, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv, cfg.hd
+    keep = part or (lambda path: None)
 
-    def normal(shape, std):
-        return _normal(shape, std, generator, device, dt)
+    def normal(path, shape, std, dtype=dt):
+        return _normal(shape, std, generator, device, dtype, keep(path))
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def made(path, whole):
+        """A leaf computed whole (a constant, small), cut to its part."""
+        sl = keep(path)
+        return whole if sl is None else whole[sl].clone()
 
-    def norm(shape):
+    def full(path, shape, value):
+        return made(path, torch.full(shape, value, dtype=dt, device=device))
+
+    def norm(path, shape):
         if cfg.norm == "layer":
-            return {"scale": torch.ones(shape, dtype=dt, device=device),
-                    "bias": zeros(shape)}
-        fill = torch.zeros if cfg.zero_centered_norm else torch.ones
-        return {"scale": fill(shape, dtype=dt, device=device)}
+            return {"scale": full(path + ("scale",), shape, 1.0),
+                    "bias": full(path + ("bias",), shape, 0.0)}
+        return {"scale": full(path + ("scale",), shape,
+                              0.0 if cfg.zero_centered_norm else 1.0)}
 
-    def mixer_tree(mixer, lead):
+    def mixer_tree(mixer, lead, path):
         """An attention mixer's leaves, each with the leading axes
         ``lead`` (``(count,)`` in a group, ``()`` in the shared block or
         the MTP head)."""
         if mixer == "mla":
-            return {name: torch.ones(lead + shape, dtype=dt, device=device)
-                    if std is None else normal(lead + shape, std)
+            return {name: full(path + (name,), lead + shape, 1.0)
+                    if std is None else normal(path + (name,), lead + shape,
+                                               std)
                     for name, (shape, std) in
                     attention.mla_leaves(cfg.mla).items()}
         kvd = (cfg.cross_kv_dim or d) if mixer == "cross" else d
-        out = {"wq": normal(lead + (d, H * hd), 1 / math.sqrt(d)),
-               "wk": normal(lead + (kvd, K * hd), 1 / math.sqrt(kvd)),
-               "wv": normal(lead + (kvd, K * hd), 1 / math.sqrt(kvd)),
-               "wo": normal(lead + (H * hd, d), 1 / math.sqrt(H * hd))}
+        out = {"wq": normal(path + ("wq",), lead + (d, H * hd),
+                            1 / math.sqrt(d)),
+               "wk": normal(path + ("wk",), lead + (kvd, K * hd),
+                            1 / math.sqrt(kvd)),
+               "wv": normal(path + ("wv",), lead + (kvd, K * hd),
+                            1 / math.sqrt(kvd)),
+               "wo": normal(path + ("wo",), lead + (H * hd, d),
+                            1 / math.sqrt(H * hd))}
         if cfg.qkv_bias and mixer != "cross":
             for b, n in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
-                out[b] = zeros(lead + (n,))
+                out[b] = full(path + (b,), lead + (n,), 0.0)
         return out
 
-    def recurrent_tree(mixer, lead):
+    def recurrent_tree(mixer, lead, path):
         out = {}
         for name, (shape, init) in ssm.LEAVES[mixer](
                 getattr(cfg, mixer)).items():
-            shape = lead + shape
+            shape, at = lead + shape, path + (name,)
             if init == ssm.ONES:
-                out[name] = torch.ones(shape, dtype=dt, device=device)
+                out[name] = full(at, shape, 1.0)
             elif init == ssm.ZEROS:
-                out[name] = zeros(shape)
+                out[name] = full(at, shape, 0.0)
             elif init == ssm.A_LOG:
                 a = torch.linspace(1.0, 16.0, shape[-1], device=device)
-                out[name] = torch.log(a).to(dt).expand(shape).clone()
+                out[name] = made(at, torch.log(a).to(dt).expand(shape).clone())
             else:
-                out[name] = _normal(shape, init, generator, device,
-                                    torch.float32 if name in ssm.F32_LEAVES
-                                    else dt)
+                out[name] = normal(at, shape, init,
+                                   torch.float32 if name in ssm.F32_LEAVES
+                                   else dt)
         return out
 
-    def mlp_tree(lead):
+    def mlp_tree(lead, path):
+        at = lambda name: path + (name,)    # noqa: E731
         if cfg.mlp == "relu2":
-            return {"w_in": normal(lead + (d, f), 1 / math.sqrt(d)),
-                    "w_out": normal(lead + (f, d), 1 / math.sqrt(f))}
+            return {"w_in": normal(at("w_in"), lead + (d, f),
+                                   1 / math.sqrt(d)),
+                    "w_out": normal(at("w_out"), lead + (f, d),
+                                    1 / math.sqrt(f))}
         if cfg.mlp == "gelu":
-            return {"w_in": normal(lead + (d, f), 1 / math.sqrt(d)),
-                    "b_in": zeros(lead + (f,)),
-                    "w_out": normal(lead + (f, d), 1 / math.sqrt(f)),
-                    "b_out": zeros(lead + (d,))}
-        return {"w_gate": normal(lead + (d, f), 1 / math.sqrt(d)),
-                "w_up": normal(lead + (d, f), 1 / math.sqrt(d)),
-                "w_down": normal(lead + (f, d), 1 / math.sqrt(f))}
+            return {"w_in": normal(at("w_in"), lead + (d, f),
+                                   1 / math.sqrt(d)),
+                    "b_in": full(at("b_in"), lead + (f,), 0.0),
+                    "w_out": normal(at("w_out"), lead + (f, d),
+                                    1 / math.sqrt(f)),
+                    "b_out": full(at("b_out"), lead + (d,), 0.0)}
+        return {"w_gate": normal(at("w_gate"), lead + (d, f),
+                                 1 / math.sqrt(d)),
+                "w_up": normal(at("w_up"), lead + (d, f), 1 / math.sqrt(d)),
+                "w_down": normal(at("w_down"), lead + (f, d),
+                                 1 / math.sqrt(f))}
 
-    def layer_tree(kind, lead):
+    def moe_tree(lead, path):
+        out: Dict[str, Any] = {}
+        for name, shape in moe_lib.leaf_shapes(cfg.moe).items():
+            w = normal(path + tuple(name.split(".")), lead + shape,
+                       1 / math.sqrt(shape[0]),
+                       torch.float32 if name == "router" else dt)
+            head, _, leaf = name.rpartition(".")
+            (out.setdefault(head, {}) if head else out)[leaf] = w
+        return out
+
+    def layer_tree(kind, lead, path):
         """One layer's leaves, each with the leading axes ``lead``."""
         mixer, ffn = parse_kind(kind)
-        layer = {"ln1": norm(lead + (d,))}
+        layer = {"ln1": norm(path + ("ln1",), lead + (d,))}
         if mixer in ssm.RECURRENT:
-            layer["mixer"] = recurrent_tree(mixer, lead)
+            layer["mixer"] = recurrent_tree(mixer, lead, path + ("mixer",))
         elif mixer != "shared":   # a site's weights: shared_block
-            layer["mixer"] = mixer_tree(mixer, lead)
+            layer["mixer"] = mixer_tree(mixer, lead, path + ("mixer",))
         if ffn != "none":
-            layer["ln2"] = norm(lead + (d,))
+            layer["ln2"] = norm(path + ("ln2",), lead + (d,))
         if ffn != "none" and mixer != "shared":
-            layer["ffn"] = (_init_moe(cfg.moe, lead, generator, device, dt)
-                            if ffn == "moe" else mlp_tree(lead))
+            layer["ffn"] = (moe_tree if ffn == "moe" else mlp_tree)(
+                lead, path + ("ffn",))
         if cfg.sandwich_norm:
-            layer["ln1_post"] = norm(lead + (d,))
+            layer["ln1_post"] = norm(path + ("ln1_post",), lead + (d,))
             if ffn != "none":
-                layer["ln2_post"] = norm(lead + (d,))
+                layer["ln2_post"] = norm(path + ("ln2_post",), lead + (d,))
         return layer
 
-    def groups_tree(groups):
-        return [tuple(layer_tree(kind, (count,)) for kind in pattern)
-                for pattern, count in groups]
+    def groups_tree(groups, path):
+        return [tuple(layer_tree(kind, (count,), path + (gi, i))
+                      for i, kind in enumerate(pattern))
+                for gi, (pattern, count) in enumerate(groups)]
 
-    params: Dict[str, Any] = {"groups": groups_tree(cfg.groups)}
-    params["embed"] = normal((cfg.vocab, d), 0.02)
-    params["final_norm"] = norm((d,))
+    params: Dict[str, Any] = {"groups": groups_tree(cfg.groups, ("groups",))}
+    params["embed"] = normal(("embed",), (cfg.vocab, d), 0.02)
+    params["final_norm"] = norm(("final_norm",), (d,))
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab), 1 / math.sqrt(d))
+        params["lm_head"] = normal(("lm_head",), (d, cfg.vocab),
+                                   1 / math.sqrt(d))
     if cfg.learned_pos:
-        params["pos_embed"] = normal((cfg.learned_pos, d), 0.02)
+        params["pos_embed"] = normal(("pos_embed",), (cfg.learned_pos, d),
+                                     0.02)
     if cfg.encoder_groups:
-        params["encoder"] = {"groups": groups_tree(cfg.encoder_groups),
-                             "final_norm": norm((d,)),
-                             "pos_embed": normal((cfg.encoder_seq, d), 0.02)}
+        enc = ("encoder",)
+        params["encoder"] = {
+            "groups": groups_tree(cfg.encoder_groups, enc + ("groups",)),
+            "final_norm": norm(enc + ("final_norm",), (d,)),
+            "pos_embed": normal(enc + ("pos_embed",), (cfg.encoder_seq, d),
+                                0.02)}
     if has_shared(cfg):
-        params["shared_block"] = {"mixer": mixer_tree("shared", ()),
-                                  "ffn": mlp_tree(())}
+        params["shared_block"] = {
+            "mixer": mixer_tree("shared", (), ("shared_block", "mixer")),
+            "ffn": mlp_tree((), ("shared_block", "ffn"))}
     if cfg.mtp:
-        params["mtp"] = {"proj": normal((2 * d, d), 1 / math.sqrt(2 * d)),
-                         "block": layer_tree(cfg.groups[-1][0][-1], ()),
-                         "norm": norm((d,))}
+        params["mtp"] = {"proj": normal(("mtp", "proj"), (2 * d, d),
+                                        1 / math.sqrt(2 * d)),
+                         "block": layer_tree(cfg.groups[-1][0][-1], (),
+                                             ("mtp", "block")),
+                         "norm": norm(("mtp", "norm"), (d,))}
     return Transformer(cfg, params)
 
 
@@ -455,17 +527,6 @@ def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
         out["mtp"] = {"proj": (None, "embed_fsdp"),
                       "block": layer_axes(cfg.groups[-1][0][-1]),
                       "norm": dict(norm)}
-    return out
-
-
-def _init_moe(cfg: moe_lib.MoeConfig, lead: Tuple[int, ...], generator,
-              device, dt):
-    out: Dict[str, Any] = {}
-    for name, shape in moe_lib.leaf_shapes(cfg).items():
-        w = _normal(lead + shape, 1 / math.sqrt(shape[0]), generator,
-                    device, torch.float32 if name == "router" else dt)
-        head, _, leaf = name.rpartition(".")
-        (out.setdefault(head, {}) if head else out)[leaf] = w
     return out
 
 
@@ -856,9 +917,9 @@ def _rank_tree(model: Transformer, tree, *path, unit: bool = False):
 
 
 def _check_whole(what: str, spec_tree) -> None:
-    """Raise unless every leaf that the rank path runs whole (a recurrent,
-    cross or MLA layer's leaves and caches, learned positions) is whole
-    once the batch axes are gathered (no spec: no mesh)."""
+    """Raise unless every leaf that the rank path runs whole (a recurrent
+    layer's leaves and state, learned positions, the encoder's final norm)
+    is whole once the batch axes are gathered (no spec: no mesh)."""
     if spec_tree is None:
         return
     mesh = sharding.current_mesh()
@@ -871,7 +932,9 @@ def _check_whole(what: str, spec_tree) -> None:
                 "which this layer's rank path does not take (ROADMAP 16.11)")
 
 
-RANK_MIXERS = ("gqa", "global", "local", "shared")   # cut over the model axis
+# the mixers whose rank path takes their leaves and caches cut over the
+# model axis (the recurrent ones run whole on a rank)
+RANK_MIXERS = ("gqa", "global", "local", "shared", "cross", "mla")
 
 
 def layer_pre(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
@@ -1001,30 +1064,44 @@ def cache_logical_axes(cfg: ModelConfig):
 
 
 def _encoder_units(model: Transformer):
-    """Walk the encoder's layers in order: (kind, layer weights)."""
+    """Walk the encoder's layers in order: (kind, layer weights, their
+    specs), each unit gathered over the batch axes on a rank as
+    :func:`_layers` does (specs None without a mesh)."""
     for gi, (pattern, count) in enumerate(model.cfg.encoder_groups):
         for u in range(count):
             for i, kind in enumerate(pattern):
-                yield kind, model.encoder.groups[gi][i].unit(u)
+                yield (kind, *_rank_tree(
+                    model, model.encoder.groups[gi][i].unit(u), "encoder",
+                    "groups", gi, i, unit=True))
 
 
 def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings [B, S_enc, d] at the
     model's dtype (the reference's ``_encode``): learned positions
     ``pos_embed[:S_enc]`` added, the ``enc`` layers (no cache, every frame
-    attending every frame), the encoder's final norm."""
+    attending every frame), the encoder's final norm. On one rank of a
+    mesh: ``frames`` are the rank's rows; the positions and the final
+    norm are whole once the batch axes are gathered; each layer runs on
+    the rank's heads (``attention.encoder_forward``) and its MLP column /
+    row-parallel (:func:`_ffn`)."""
     cfg, enc = model.cfg, model.encoder
     S = frames.shape[1]
     if S > cfg.encoder_seq:
         raise ValueError(f"encode: {S} frames past the encoder's "
                          f"{cfg.encoder_seq} learned positions")
-    x = frames + enc.pos_embed[None, :S]
-    for kind, p in _encoder_units(model):
-        y = attention.encoder_forward(p["mixer"],
-                                      _norm_apply(p["ln1"], x, cfg), cfg)
+    table, spec = _rank_tree(model, enc.pos_embed, "encoder", "pos_embed")
+    _check_whole("encoder/pos_embed", spec)
+    x = frames + table[None, :S]
+    for kind, p, ps in _encoder_units(model):
+        y = attention.encoder_forward(
+            p["mixer"], _norm_apply(p["ln1"], x, cfg), cfg,
+            None if ps is None else ps["mixer"])
         x = _ffn_residual(p, parse_kind(kind)[1],
-                          _residual(p, "ln1_post", x, y, cfg), cfg)
-    return _norm_apply(_norm_leaf(enc, "final_norm"), x, cfg)
+                          _residual(p, "ln1_post", x, y, cfg), cfg, ps)
+    norm, spec = _rank_tree(model, _norm_leaf(enc, "final_norm"), "encoder",
+                            "final_norm")
+    _check_whole("encoder/final_norm", spec)
+    return _norm_apply(norm, x, cfg)
 
 
 def recurrent_forward(mixer: str, p: Dict[str, torch.Tensor],
@@ -1053,9 +1130,9 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
     :func:`forward`. On one rank of a mesh (``model.shards``, under
     ``sharding.use_mesh``): ``tokens`` and ``caches`` are the rank's rows
     and parts, ``cache_specs`` the caches' specs, and each layer runs on
-    the rank's shards (:func:`_layers`; ``attention.gqa_forward`` and
-    :func:`_ffn` read each leaf's spec); the result is the rank's rows,
-    whole."""
+    the rank's shards (:func:`_layers`; the attention layers and
+    :func:`_ffn` read each leaf's spec; ``extra`` is the rank's rows of
+    the encoder input); the result is the rank's rows, whole."""
     cfg = model.cfg
     B, L = tokens.shape
     rank = model.shards is not None
@@ -1089,29 +1166,25 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
                              "`extra` (stub image / audio embeddings)")
         extra = extra.to(x.dtype)
         if model.encoder is not None:
-            if rank:
-                raise NotImplementedError(
-                    f"{cfg.name}: the encoder on a rank of a mesh is not "
-                    "ported (ROADMAP 16.11)")
             extra = encode(model, extra)
     for kind, p, ps, cache, cs in _layers(model, caches, cache_specs):
         mixer, ffn = parse_kind(kind)
         h = _norm_apply(p["ln1"], x, cfg)
-        if mixer in RANK_MIXERS:
+        spec = None if ps is None else ps["mixer"]
+        if mixer in ssm.RECURRENT:
+            _check_whole(kind, spec)
+            _check_whole(kind, cs)
+            y = recurrent_forward(mixer, p["mixer"], h, cfg, cache, mode)
+        elif mixer == "cross":
+            y = attention.cross_forward(p["mixer"], h, cfg, cache, extra,
+                                        spec, cs)
+        elif mixer == "mla":
+            y = attention.mla_forward(p["mixer"], h, positions, cfg.mla,
+                                      cache, cache_pos, spec, cs)
+        else:
             y = attention.gqa_forward(
                 p["mixer"], h, positions, cfg, cache, cache_pos,
-                window=cfg.window_of(mixer),
-                spec=None if ps is None else ps["mixer"], cache_spec=cs)
-        else:
-            _check_whole(kind, None if ps is None else ps["mixer"])
-            _check_whole(kind, cs)
-            if mixer in ssm.RECURRENT:
-                y = recurrent_forward(mixer, p["mixer"], h, cfg, cache, mode)
-            elif mixer == "cross":
-                y = attention.cross_forward(p["mixer"], h, cfg, cache, extra)
-            else:
-                y = attention.mla_forward(p["mixer"], h, positions, cfg.mla,
-                                          cache, cache_pos)
+                window=cfg.window_of(mixer), spec=spec, cache_spec=cs)
         x = _ffn_residual(p, ffn, _residual(p, "ln1_post", x, y, cfg), cfg,
                           ps)
     return x

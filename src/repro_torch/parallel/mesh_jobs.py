@@ -20,6 +20,8 @@ tensors on the card (:func:`probe_job`)::
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -40,6 +42,49 @@ def _zero_launches():
 def _launches() -> int:
     from repro_torch import kernels
     return sum(k.launches for k in kernels.wrappers().values())
+
+
+@contextlib.contextmanager
+def attention_launches():
+    """Count both dense attention kernels' launches inside the block, from
+    0, by the mixer kind of the layer that made them: ``"cross"`` inside
+    ``attention.cross_forward`` and ``"enc"`` inside ``encoder_forward``
+    (both wrapped for the block alone, each call's launches the
+    difference of the counters), ``"gqa"`` the rest. Yields a dict filled
+    at the block's end: ``"total"`` {kernel: launches} and ``"by_mixer"``
+    {(mixer, kernel): launches} of those launched."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    kernels = {"flash_attention": fa.flash_attention,
+               "flash_decode": da.flash_decode}
+    by_mixer: Dict[Tuple[str, str], int] = collections.Counter()
+
+    def counted(mixer, fn):
+        def call(*args, **kw):
+            before = {k: w.launches for k, w in kernels.items()}
+            try:
+                return fn(*args, **kw)
+            finally:
+                for k, w in kernels.items():
+                    by_mixer[(mixer, k)] += w.launches - before[k]
+        return call
+
+    saved = attention.cross_forward, attention.encoder_forward
+    for w in kernels.values():
+        w.launches = 0
+    attention.cross_forward = counted("cross", saved[0])
+    attention.encoder_forward = counted("enc", saved[1])
+    counts: Dict[str, Any] = {}
+    try:
+        yield counts
+    finally:
+        attention.cross_forward, attention.encoder_forward = saved
+    total = {k: w.launches for k, w in kernels.items()}
+    for k in kernels:
+        by_mixer[("gqa", k)] = (total[k] - by_mixer[("cross", k)]
+                                - by_mixer[("enc", k)])
+    counts.update(total=total, by_mixer=dict(+by_mixer))
 
 
 def _host(t: Optional[torch.Tensor]):
@@ -584,18 +629,25 @@ class ServeJob:
     caches start as ``caches`` (numpy leaves in ``init_caches``' order),
     or with ``fill`` as N(0, 1) draws from ``seed + 2`` (a decode step
     over a full cache with no prefill first), else zeros. ``prompt``:
-    global tokens [B, L] for a prefill (None: none); ``decode``: then
-    each (tokens [B, 1], cache_pos: an int or a [B] array) in turn.
+    global tokens [B, L] for a prefill (None: none), with ``extra`` a
+    cross-attention model's global encoder input [B, S_enc, kv_dim]
+    (numpy; cast to the compute dtype; each rank takes its rows);
+    ``decode``: then each (tokens [B, 1], cache_pos: an int or a [B]
+    array) in turn.
     ``compare``: each rank also runs the one-rank steps here, on the whole
     model and caches, and reports its rows' and its cache parts'
     differences from them; ``keep``: what each rank returns as host arrays
-    (``"logits"``, its rows of each step's; ``"caches"``, its parts)."""
+    (``"logits"``, its rows of each step's; ``"caches"``, its parts). With
+    ``weights`` None a rank draws its shards alone (train/step.py
+    ``init_shards``: the values of the whole draw, which ``compare``
+    draws besides)."""
     cfg: Any
     mesh: Tuple[int, int]
     rules: Dict[str, Any]
     batch: int
     max_seq: int
     prompt: Optional[np.ndarray] = None
+    extra: Optional[np.ndarray] = None
     decode: Sequence[Tuple[np.ndarray, Any]] = ()
     weights: Any = None
     fill: bool = False
@@ -655,8 +707,10 @@ def _serve_steps(job: ServeJob, model, caches, specs, device,
     cut = (lambda a: a) if rows is None else (lambda a: a[rows])
     out = []
     if job.prompt is not None:
+        extra = None if job.extra is None else cut(torch.from_numpy(
+            np.asarray(job.extra)).to(device, job.cfg.compute_dtype))
         out.append(step_lib.make_prefill_step(job.cfg, specs)(
-            model, cut(tokens(job.prompt)), caches)[0])
+            model, cut(tokens(job.prompt)), caches, extra)[0])
     decode = step_lib.make_decode_step(job.cfg, specs)
     for tok, pos in job.decode:
         if not isinstance(pos, int):
@@ -668,7 +722,10 @@ def _serve_steps(job: ServeJob, model, caches, specs, device,
 def serve_job(rank: int, job: ServeJob) -> Dict[str, Any]:
     """The steps on this rank's shards: its rows' logits of each step and
     its cache parts (as ``keep`` says), the collectives it issued (kind, bytes,
-    group size), the attention kernels' launches, the wall time, and with
+    group size), the attention kernels' launches (in all and by mixer
+    kind, :func:`attention_launches`), the wall time of the set-up (the
+    weights and caches drawn, the one-rank steps) and of the steps, and
+    with
     ``compare``, for each step, the largest difference of its logits from
     the one-rank step's on its rows, the largest one-rank logit, the
     difference's norm over the one-rank logits', both greedy tokens and
@@ -676,11 +733,10 @@ def serve_job(rank: int, job: ServeJob) -> Dict[str, Any]:
     difference of its cache parts from the one-rank caches' and their
     largest value."""
     from repro_torch.core import tree as tree_lib
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import convert
     from repro_torch.parallel import sharding as sh
     from repro_torch.train import step as step_lib
+    t_setup = time.perf_counter()
     device = _device(job.device)
     cfg = job.cfg
     mesh = _mesh(job.mesh, ("data", "model"))
@@ -690,36 +746,36 @@ def serve_job(rank: int, job: ServeJob) -> Dict[str, Any]:
                                      device="meta")[1]
     caches = tree_lib.tree_map(lambda a, s: sh.shard_of(a, s, mesh),
                                whole_caches, specs)
-    whole = None
-    if job.weights is None or job.compare:
-        whole = _whole_model(job, device)
+    whole = _whole_model(job, device) if job.compare else None
     ref = None
     if job.compare:     # the one-rank steps, meshless, on the whole leaves
         ref = [t.float() for t in _serve_steps(job, whole, whole_caches,
                                                None, device)]
     else:
         whole_caches = None
+    del whole
+    if device.type == "cuda":       # for the other ranks sharing the card
+        torch.cuda.empty_cache()
     with sh.use_mesh(mesh, job.rules):
         if job.weights is None:
-            model = step_lib.shard_model(whole, mesh)
+            model = step_lib.init_shards(cfg, mesh, torch.Generator(
+                device=device).manual_seed(job.seed), device)
         else:
             model = convert.rank_params_from_numpy(job.weights, cfg, mesh,
                                                    device)
-        del whole
         b_spec = sh.resolve(("batch", None), (job.batch, 1), mesh)
         rows = sh.shard_slices((job.batch, 1), b_spec, mesh)[0]
-        for k in (da.flash_decode, fa.flash_attention):
-            k.launches = 0
         _sync(device)
         t0 = time.perf_counter()
-        with sh.record_collectives() as colls:
+        setup = t0 - t_setup
+        with sh.record_collectives() as colls, \
+                attention_launches() as launches:
             got = _serve_steps(job, model, caches, specs, device, rows)
         _sync(device)
         wall = time.perf_counter() - t0
     out = {"coords": mesh.coords(), "rows": (rows.start, rows.stop),
-           "wall_s": wall,
-           "launches": {"flash_decode": da.flash_decode.launches,
-                        "flash_attention": fa.flash_attention.launches},
+           "setup_s": setup, "wall_s": wall, "launches": launches["total"],
+           "launches_by_mixer": launches["by_mixer"],
            "collectives": [tuple(dataclasses.astuple(c)) for c in colls],
            "cache_shapes": [tuple(a.shape) for a in tree_lib.leaves(caches)]}
     if "logits" in job.keep:

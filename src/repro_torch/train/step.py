@@ -160,6 +160,29 @@ def shard_model(model, mesh: sharding.Mesh):
     return model
 
 
+def init_shards(cfg: transformer.ModelConfig, mesh: sharding.Mesh,
+                generator: Optional[torch.Generator] = None, device=None):
+    """This rank's shards of the model ``transformer.init_model(cfg,
+    generator, device)`` draws, each leaf made at its shard's shape alone
+    (``init_model``'s ``part``: a piece of a leaf's draw at a time, so no
+    whole leaf is on the device), ``model.shards`` set: what
+    :func:`shard_model` gives that model, for a model whose whole leaves
+    would not fit beside the other ranks' shards."""
+    meta = transformer.init_model(cfg, device="meta")
+    specs = param_specs(meta, mesh)
+    shapes = tree_lib.tree_map(lambda t: tuple(t.shape),
+                               transformer.param_tree(meta))
+
+    def part(path):
+        spec, shape = specs, shapes
+        for key in path:
+            spec, shape = spec[key], shape[key]
+        return sharding.shard_slices(shape, spec, mesh)
+    model = transformer.init_model(cfg, generator, device, part=part)
+    model.shards = (mesh, specs)
+    return model
+
+
 def shard_state(state: TrainState, mesh: sharding.Mesh) -> TrainState:
     """``state`` (whole leaves) cut to this rank's FSDP shards in place:
     each weight's data, m and v replaced by the slice ``resolve`` gives

@@ -10,11 +10,13 @@
     of qwen2-0.5b decode_32k on ``meta`` at full width: its FLOPs equal the
     reference's analytic count to 1 %, its arguments are the card's 52.53
     GB, its temp bytes the pass's peak of created storages less the
-    logits; on the production mesh the same cell is traced on one rank's
-    shards (its FLOPs times the 256 ranks at least 99 % of the analytic
-    count, collectives and temp recorded), and deepseek-v3-671b's, whose
-    MLA has no rank path yet, is not: the record names the leaf and the
-    rule.
+    logits; its ``flash_decode`` FLOPs are the launches' own count, which
+    the wrapper reports on ``meta`` as on the card; on the production mesh
+    the same cell is traced on one rank's shards (its FLOPs times the 256
+    ranks at least 99 % of the analytic count, collectives and temp
+    recorded), and so is deepseek-v3-671b's, whose MLA takes its rank
+    path; xlstm-1.3b's, whose mLSTM has no rank path yet, is not: the
+    record names the leaf and the rule.
   * On the 1x1 mesh with real arguments (smoke config, on the CPU, as the
     card's one-rank check builds them) the decode step made with the
     caches' specs runs the whole model of qwen2-0.5b and of xlstm-1.3b
@@ -40,6 +42,7 @@ from repro import configs as jconfigs
 from repro.launch import specs as jspecs
 from repro.parallel import sharding as jsharding
 from repro_torch import configs
+from repro_torch.kernels.decode_attention import plain_flops
 from repro_torch.launch import dryrun, hillclimb, specs
 from repro_torch.parallel import sharding
 
@@ -125,11 +128,14 @@ def test_run_cell_traces_the_decode_step_to_the_analytic_flops():
     one = dryrun.run_cell("qwen2-0.5b", shape, "1x1", verbose=False)
     t, a = one["traced"], one["analytic"]
     assert abs(t["flops"] / a["flops"] - 1) < 0.01
-    assert t["kernel_flops"] == {}          # meta: the plain versions
+    cfg = specs.cell_config("qwen2-0.5b", shape)    # the launches' count
+    assert t["kernel_flops"] == {"flash_decode": cfg.n_layers() * plain_flops(
+        shape.global_batch, cfg.n_heads, shape.seq_len, cfg.hd, 512)}
     assert t["collective"]["total"] == 0 and one["chips"] == 1
     assert one["memory"]["argument_size_in_bytes"] == 52527673604
     mem = one["memory"]
-    assert 0 < mem["temp_size_in_bytes"] < 2**30    # the plain scratch
+    assert 0 < mem["temp_size_in_bytes"] < 2**30    # ATen's and kernels'
+    assert t["scratch_peak_bytes"] > 0
     assert mem["total_per_device"] == mem["argument_size_in_bytes"] + \
         mem["output_size_in_bytes"] - mem["alias_size_in_bytes"] + \
         mem["temp_size_in_bytes"]
@@ -151,11 +157,15 @@ def test_run_cell_traces_the_decode_step_to_the_analytic_flops():
     print(f"qwen2-0.5b decode_32k on 16x16: traced x 256 / analytic = "
           f"{pt['flops_all_chips'] / a['flops']:.4f}")
     assert prod["analytic"] == a
-    out = dryrun.run_cell("deepseek-v3-671b", shape, "16x16", verbose=False)
+    out = dryrun.run_cell("xlstm-1.3b", shape, "16x16", verbose=False)
     assert out["traced"] is None and out["roofline"]["collective_s"] is None
     assert out["memory"]["temp_size_in_bytes"] is None
     assert out["traced_null"]["leaf"].startswith(
-        "params/groups/0/0/mixer/w_uk: heads_tp -> model"), out["traced_null"]
+        "params/groups/0/0/mixer/conv_w: heads_tp -> model"), \
+        out["traced_null"]
+    ds = dryrun.run_cell("deepseek-v3-671b", shape, "16x16", verbose=False)
+    assert "traced_null" not in ds and ds["traced"]["collective"]["total"] > 0
+    assert ds["memory"]["temp_size_in_bytes"] is not None
 
 
 @pytest.mark.parametrize("arch,shape_name", [("qwen2-0.5b", "decode_32k"),
