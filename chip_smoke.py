@@ -93,7 +93,15 @@ Phases, each printed on its own line, none catching its own failure:
                (B 1, causal, L 151-1326) and flash_decode at each of the
                63 decode steps' lengths (B 8, S 2048, slot b at prompt +
                1 + step), each held, the longest prefill and the middle
-               step timed;
+               step timed; then both with a logit softcap
+               (``SOFTCAP``): flash_decode with its lse at the serving
+               decode shape and at gemma3-27b's global decode (B 8, H 32,
+               K 16, S 2048, hd 128), flash_attention at qwen2-0.5b's
+               prefill (B 1, H 14, L 2048, hd 64, causal), each held
+               against its plain version (the lse within 1e-3) and the
+               qwen2 shapes timed, beside the library yardstick
+               ``flex_attention`` compiled with a tanh ``score_mod`` and
+               the same mask (held against plain first);
   6. suite     the paper's kernel suite through ``kernels/ops.py``
                (``launch/kernel_suite.py``: Fig. 7 at N=2048 with conv2d
                and covar, darknet, the ISA study, the attention rows),
@@ -151,13 +159,19 @@ Phases, each printed on its own line, none catching its own failure:
                24 x prefills times and paged_flash_prefill never, every
                slot or page free at the end; logged: tok/s, TTFT, ITL and
                the share of tokens equal to phase 7's chunked streams;
-               then flash_decode at the dense decode step's shape (each
+               then the dense engine again with ``logit_softcap`` set
+               (``SOFTCAP``, the same weights; the same gates, its
+               launches the ``_softcap`` entries', its tok/s and its
+               token match against the uncapped dense run logged); then
+               flash_decode at the dense decode step's shape (each
                slot at its last step's length) and flash_attention at the
                longest prompt's prefill, each held against its plain
                version and timed for its serving entries;
-  7f. serve yi-34b  yi-34b at full width (60 layers, d_model 7168, 56/8
-               heads, hd 128, d_ff 20480, vocab 64000, untied; 34.4 B
-               parameters drawn at bf16, seed 0) through phase 7's
+  7f. serve yi-34b  yi-34b at full width, cut in depth to 20 of its 60
+               layers (``ZOO_LAYERS``; d_model 7168, 56/8
+               heads, hd 128, d_ff 20480, vocab 64000, untied; the
+               parameters drawn at bf16, seed 0: 34.4 B at 60 layers)
+               through phase 7's
                chunked engine and traffic (a pool of 1024 pages x
                3,932,160 B), run after every earlier model and pool is
                freed; gates: every request finishes, 8 x 64 tokens, the
@@ -183,26 +197,34 @@ Phases, each printed on its own line, none catching its own failure:
                rank-consistency check on after every iteration, every
                page free;
   7i. serve gemma3-27b  (``dense_zoo_serve``, as 7m / 7n) gemma3-27b at
-               full width (62 layers: 52 local
-               with window 1024 on ring caches, 10 global; d_model 5376,
-               32/16 heads, hd 128, d_ff 21504, vocab 262144, tied,
-               zero-centred and sandwich norms, the embedding scaled;
-               27,008,986,368 parameters drawn at bf16, seed 0; nothing
-               cut) through the dense engine (8 slots x 2048; its local
-               layers are not pageable) on phase 7's traffic, after every
-               earlier model is freed; gates: every request finishes with
-               64 tokens, every slot free, the cache leaves 4,831,838,208
-               B, no warm-up pool left resident, flash_attention 62 x 8 =
-               496 calls, flash_decode 62 x decode steps; logged: free
-               memory before the weights, peak memory, tok/s, TTFT and ITL
-               p50 / p99; then a second run, gated to the same streams,
-               with iterations 8-12 under torch.profiler: the device's
-               busy share and its top kernels;
-  7j. serve granite-moe-3b-a800m  granite-moe at full width (32 layers,
-               d_model 1536, 24/8 heads, hd 64, 40 experts of d_ff 512,
-               top-8 with capacity dispatch, vocab 49155, tied;
-               3,298,793,472 parameters drawn at bf16, seed 0; nothing
-               cut) through phase 7f's chunked engine, traffic and gates;
+               full width (d_model 5376, 32/16 heads, hd 128, d_ff 21504,
+               vocab 262144, tied, zero-centred and sandwich norms, the
+               embedding scaled; local layers with window 1024 on ring
+               caches): first the memory-fit gate (``full_depth_fit``) at
+               the published 62 layers (52 local, 10 global;
+               27,008,986,368 parameters drawn at bf16, seed 0, cache
+               leaves 4,831,838,208 B: both gated) serving the traffic's
+               shortest prompt to 4 tokens; then, cut in depth to 14 of
+               the 62 layers (``DENSE_ZOO``: 12 local, 2 global;
+               7,189,867,776 parameters) to keep the script inside its
+               time limit, through the dense engine (8 slots x 2048; its
+               local layers are not pageable) on phase 7's traffic, after
+               every earlier model is freed; gates: every request
+               finishes with 64 tokens, every slot free, the cache leaves
+               1,073,741,824 B, no warm-up pool left resident,
+               flash_attention 14 x 8 = 112 calls, flash_decode 14 x
+               decode steps; logged: free memory before the weights, peak
+               memory, tok/s, TTFT and ITL p50 / p99; then a second run,
+               gated to the same streams, with iterations 8-12 under
+               torch.profiler: the device's busy share and its top
+               kernels;
+  7j. serve granite-moe-3b-a800m  granite-moe at full width, cut in
+               depth to 8 of its 32 layers (``ZOO_LAYERS``; d_model 1536,
+               24/8 heads, hd 64, 40 experts of d_ff 512,
+               top-8 with capacity dispatch, vocab 49155, tied; the
+               parameters drawn at bf16, seed 0: 3,298,793,472 at 32
+               layers) through phase 7f's chunked engine, traffic and
+               gates;
                logged besides: the (token, expert) assignments the
                capacity drops on one 256-token chunk at each layer
                (request 0's first 256 tokens, counted with the port's
@@ -236,18 +258,21 @@ Phases, each printed on its own line, none catching its own failure:
                cache leaves of 352,321,536 B (self) and 1,179,648,000 B
                (cross), flash_attention 24 encoder + 24 self + 24 cross =
                72 calls, flash_decode 48 x 63 = 3024;
-  7m. serve xlstm-1.3b  at full width (48 layers = 6 x (7 mLSTM + 1
-               sLSTM), d_model 2048, 4 heads, vocab 50304, tied;
-               3,502,733,312 parameters drawn at bf16, seed 0; nothing
-               cut) through the dense engine, the only one that serves it
-               in either package (its layers are not pageable), 8 slots x
-               2048, on phase 7's traffic; gates as 7i: the parameter
-               count, cache leaves of 5,652,086,784 B (the mLSTM states,
-               42 x 8 x 4 x 1024 x 1025 x 4 B, with the conv and sLSTM
-               leaves; constant in max_seq), every request with 64
-               tokens, every slot free, both attention kernels launched
-               0 times (it has no attention layer), and a second,
-               profiled run with the same streams;
+  7m. serve xlstm-1.3b  at full width (d_model 2048, 4 heads, vocab
+               50304, tied): first the memory-fit gate at the published
+               48 layers (6 x (7 mLSTM + 1 sLSTM); 3,502,733,312
+               parameters drawn at bf16, seed 0, cache leaves
+               5,652,086,784 B: the mLSTM states, 42 x 8 x 4 x 1024 x
+               1025 x 4 B, with the conv and sLSTM leaves); then, cut in
+               depth to 16 of the 48 layers (2 x (7 mLSTM + 1 sLSTM);
+               1,236,260,864 parameters) through the dense engine, the
+               only one that serves it in either package (its layers are
+               not pageable), 8 slots x 2048, on phase 7's traffic; gates
+               as 7i: the parameter count, cache leaves of 1,884,028,928
+               B (constant in max_seq), every request with 64 tokens,
+               every slot free, both attention kernels launched 0 times
+               (it has no attention layer), and a second, profiled run
+               with the same streams;
   7n. serve zamba2-1.2b  at full width (38 layers = 6 x (5 Mamba2 + 1
                shared attention site) + 2 Mamba2, d_model 2048, 32 heads
                (MHA), d_ff 8192, d_state 64, head_dim 64, vocab 32000,
@@ -306,8 +331,9 @@ Phases, each printed on its own line, none catching its own failure:
   9a. train qwen2-0.5b  the training path (launch/train.py ``train()``:
                train/step.py, the training forward with flash_xla, the
                loss, AdamW, checkpoints) on qwen2-0.5b at its published
-               width (24 layers, d_model 896, 14/2 heads, d_ff 4864, vocab
-               151936; random weights, seed 0), f32 master weights, bf16
+               width, cut in depth to 8 of its 24 layers (``TRAIN``;
+               d_model 896, 14/2 heads, d_ff 4864, vocab 151936; random
+               weights, seed 0), f32 master weights, bf16
                compute, remat ``full``, sequence 4096 (the reference's
                train_4k), batch 4 in 2 microbatches: 3 steps with a
                checkpoint at step 2, then a second ``train()`` that
@@ -406,7 +432,16 @@ Phases, each printed on its own line, none catching its own failure:
                MoE archs at capacity factor E / top_k so that neither
                path drops a token, and in f32 alone, since in bf16 a
                rank's routing may flip against the one-rank step's and
-               their own bf16 error bounds nothing. Gates, every rank: in
+               their own bf16 error bounds nothing; and the recurrent
+               mixers (models/ssm.py on a rank's heads) at full width:
+               xlstm-1.3b cut to one unit (7 mLSTM + 1 sLSTM layers;
+               mLSTM projections cut over the model axis,
+               its 4 heads' state a rank's on (1, 4) and whole on (2, 2))
+               and zamba2-1.2b (Mamba2 by heads; its shared attention
+               sites' caches at S 8192) on (1, 4) and (2, 2): a decode
+               step over states and caches drawn N(0, 1) and a prefill
+               of B 2 x 256 tokens, and in f32 on (1, 4) a decode of
+               each. Gates, every rank: in
                bf16 its logits, against the
                one-rank step, within 3x that step's own bf16 error (the
                same step in f32 on the same values, run first in this
@@ -416,8 +451,10 @@ Phases, each printed on its own line, none catching its own failure:
                largest one-rank f32 logit (element and norm) and the
                greedy token equal on every row whose one-rank top-2 gap
                passes twice that (at least one row); its kernel
-               (flash_decode / flash_attention) launched, and none on
-               deepseek's path (MLA is plain); and its collectives
+               (flash_decode / flash_attention) launched, none on
+               deepseek's or xlstm's path (MLA and the recurrent mixers
+               are plain) and none inside a recurrent layer (zamba2's
+               shared sites launch); and its collectives
                (kind, bytes, group, in order) equal to
                ``specs.trace_cell``'s of the same cell on the abstract
                mesh. First, ``flash_decode(..., return_lse=True)`` at a
@@ -483,6 +520,8 @@ Phases, each printed on its own line, none catching its own failure:
      rank 0, timed with its lse at that rank's cross rows;
      flash_attention_encoder_tp with the encoder layers' launches of 10d's
      (1, 4) whisper-medium prefill on rank 0, timed at that rank's heads;
+     flash_decode_softcap and flash_attention_softcap with the launches
+     of 7e's capped dense run, timed with the cap in phase 5;
      hero_memcpy2d with phase 11a's; every entry launched at least
      once).
      The recurrent mixers of 7m / 7n (models/ssm.py) and 7o's MLA have
@@ -1206,9 +1245,69 @@ def check_attention_kernels(results):
     check_gemma3_attention(results, g)
     check_cross_attention(results, g)
     check_zamba2_attention(results, g)
+    check_softcap_attention(results, g)
 
 
 GEMMA3 = dict(H=32, K=16, hd=128, window=1024)   # gemma3-27b's attention
+SOFTCAP = 5.0     # the capped cases' logit_softcap (phases 5 and 7e)
+
+
+def check_softcap_attention(results, g):
+    """Both dense kernels with a logit softcap (``SOFTCAP``) against their
+    plain versions: flash_decode (and its lse) at qwen2-0.5b's dense
+    decode shape (``DECODE``, the serving lengths) and at gemma3-27b's
+    global decode shape (B 8, H 32, K 16, S 2048, hd 128, phase 7i's
+    lengths), flash_attention at qwen2-0.5b's dense prefill shape (B 1, H
+    14, L 2048, hd 64, causal); the qwen2 shapes give the ``_softcap``
+    entries their times (gemma3's is held, not timed)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.kernel_suite import (ATTENTION, DECODE,
+                                                 decode_lengths)
+    bf16 = torch.bfloat16
+    lens7, _ = phase7_prompts(16)
+    gl = (8, GEMMA3["H"], GEMMA3["K"], 2 * GEMMA3["window"], GEMMA3["hd"])
+    # (shape, lengths, the results entry it is timed for or None, what)
+    for shape, lengths, res, what in (
+            (DECODE, decode_lengths(DECODE[0], DECODE[3]),
+             results["flash_decode_softcap"], "qwen2-0.5b dense decode"),
+            (gl, [int(n) + 63 for n in lens7], None,
+             "gemma3-27b global decode")):
+        B, H, K, S, hd = shape
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(bf16)
+        kc, vc = (torch.randn(B, K, S, hd, generator=g, device="cuda")
+                  .to(bf16) for _ in range(2))
+        lt = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        out, lse = da.flash_decode(q, kc, vc, lt, return_lse=True,
+                                   softcap=SOFTCAP)
+        p_out, p_lse = da.flash_decode_plain(q, kc, vc, lt, return_lse=True,
+                                             softcap=SOFTCAP)
+        err = close(out, p_out)
+        seen = lt > 0
+        lse_err = float((lse[seen] - p_lse[seen]).abs().max())
+        assert lse_err <= 1e-3, (what, lse_err)
+        moved = float((out.float() - da.flash_decode(q, kc, vc, lt).float())
+                      .abs().max())
+        log("attention kernels", f"{what} with softcap {SOFTCAP}: "
+            f"flash_decode B {B} H {H} K {K} S {S} hd {hd} bf16 lengths "
+            f"{lengths}: max |kernel - plain| {err:.3e} "
+            f"(2e-3 + one bf16 step), lse within {lse_err:.3e} of plain "
+            f"(gate 1e-3); the cap moves the output by up to {moved:.3e}")
+        if res is not None:
+            res["max_abs_err"] = err
+            time_decode_dense(res, shape, lengths, g, SOFTCAP)
+    B, H, L, hd, causal, window = ATTENTION["qwen2-0.5b"]
+    q, k, v = (torch.randn(B, H, L, hd, generator=g, device="cuda").to(bf16)
+               for _ in range(3))
+    kw = dict(causal=causal, window=window, softcap=SOFTCAP)
+    res = results["flash_attention_softcap"]
+    res["max_abs_err"] = close(fa.flash_attention(q, k, v, **kw),
+                               fa.flash_attention_plain(q, k, v, **kw))
+    log("attention kernels", f"qwen2-0.5b dense prefill with softcap "
+        f"{SOFTCAP}: flash_attention B {B} H {H} L {L} hd {hd} bf16 causal: "
+        f"max |kernel - plain| {res['max_abs_err']:.3e} (2e-3 + one bf16 "
+        "step)")
+    time_flash(res, q, k, v, causal, window, softcap=SOFTCAP)
 
 
 def check_gemma3_attention(results, g):
@@ -1364,10 +1463,52 @@ def check_zamba2_attention(results, g):
     time_decode_dense(res, (B, H, K, S, hd), steps[len(steps) // 2], g)
 
 
-def time_decode_dense(res, shape, lens, g):
-    """Kernel and the SDPA yardstick: device time of 20 calls replayed from
-    a CUDA graph, cycling 8 caches (67 MB > the 50 MB L2); plain: CUDA
-    events around eager calls."""
+def flex_softcap(q, kvs, softcap, mask_mod, plain, rows):
+    """The library yardstick of a capped attention: ``flex_attention``, one
+    PyTorch call (compiled by ``torch.compile``, as PyTorch runs it), with
+    the cap ``tanh(s / c) * c`` as its ``score_mod`` (after the scale,
+    before the mask, the reference's order) and ``mask_mod`` as its block
+    mask, over q [B, H, Lq, hd] and each (k, v) of ``kvs`` [B, K, Lk, hd]
+    in turn. Compiled and held against ``plain`` (the plain version's
+    output on ``kvs[0]`` as [B, H, Lq, hd]; ``rows``: the batch rows with a
+    key to attend) within 2e-2 first (a yardstick's gate, as
+    ``flash_decode_sp``'s: its bf16 P·V rounds otherwise than the
+    kernels'), then timed as the other yardsticks are (:func:`graph_ms`). Returns (ms, max |flex -
+    plain|). Its compiler's caches go under ``build/`` of the checkout."""
+    import itertools
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from repro_torch.launch.kernel_suite import graph_ms
+    cache = os.path.join(ROOT, "build", "torch_compile")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(cache, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(cache, "triton"))
+    B, H, Lq, _ = q.shape
+    K, Lk = kvs[0][0].shape[1], kvs[0][0].shape[2]
+    block = create_block_mask(mask_mod, B, None, Lq, Lk, device="cuda")
+
+    def cap(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / softcap) * softcap
+
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def call(k, v):
+        return compiled(q, k, v, score_mod=cap, block_mask=block,
+                        enable_gqa=H != K)
+
+    out = call(*kvs[0])[rows].float()
+    err = float((out - plain[rows].float()).abs().max())
+    assert torch.isfinite(out).all() and err <= 2e-2, err
+    cyc = itertools.cycle(kvs)
+    return graph_ms(lambda: call(*next(cyc)), 20), err
+
+
+def time_decode_dense(res, shape, lens, g, softcap=None):
+    """Kernel and the library yardstick: device time of 20 calls replayed
+    from a CUDA graph, cycling 8 caches (67 MB > the 50 MB L2); plain: CUDA
+    events around eager calls. The yardstick: SDPA with a key position <
+    length mask, or with ``softcap`` (both then cap their logits)
+    :func:`flex_softcap` under the same mask."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.launch.kernel_suite import graph_ms
     import itertools
@@ -1377,44 +1518,70 @@ def time_decode_dense(res, shape, lens, g):
                     .to(torch.bfloat16) for _ in range(2)) for _ in range(8)]
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     cyc = itertools.cycle(caches)
-    res["ms"] = graph_ms(lambda: da.flash_decode(q, *next(cyc), lengths), 20)
+    res["ms"] = graph_ms(lambda: da.flash_decode(
+        q, *next(cyc), lengths, softcap=softcap), 20)
     res["plain_ms"] = cuda_ms(lambda i: da.flash_decode_plain(
-        q, *caches[i % 8], lengths), iters=4, warm=1)
+        q, *caches[i % 8], lengths, softcap=softcap), iters=4, warm=1)
     qb = q[:, :, None]                                     # [B, H, 1, hd]
-    mask = (torch.arange(S, device="cuda")[None] <
-            lengths[:, None])[:, None, None]               # key pos < length
-    res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
-        qb, *next(cyc), attn_mask=mask, enable_gqa=True), 20)
+    if softcap:
+        res["library_ms"], err = flex_softcap(
+            qb, caches, softcap,
+            lambda b, h, q_idx, kv_idx: kv_idx < lengths[b],
+            da.flash_decode_plain(qb[:, :, 0], *caches[0], lengths,
+                                  softcap=softcap)[:, :, None],
+            lengths > 0)
+        lib = (f"flex_attention yardstick (compiled, graph; tanh score_mod, "
+               f"block mask key position < length; max |flex - plain| "
+               f"{err:.3e} on the rows with a key, gate 2e-2) "
+               f"{res['library_ms']:.4f} ms")
+    else:
+        mask = (torch.arange(S, device="cuda")[None] <
+                lengths[:, None])[:, None, None]           # key pos < length
+        res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            qb, *next(cyc), attn_mask=mask, enable_gqa=True), 20)
+        lib = (f"sdpa yardstick (graph; mask: key position < length) "
+               f"{res['library_ms']:.4f} ms")
     G, item = H // K, 2
     nbytes = (sum(K * hd * item * (n + (n if n > 0 else S)) for n in lens)
               + 2 * q.numel() * item + 4 * B)
-    flops = sum(K * G * hd * (4 * n if n > 0 else 2 * S) for n in lens)
+    cap = 3 if softcap else 0      # a capped logit: a division, tanh, product
+    flops = sum(K * G * ((4 * hd + cap) * n if n > 0 else 2 * hd * S)
+                for n in lens)
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
     log("attention kernels", f"flash_decode timing B {B} H {H} K {K} S {S} "
-        f"hd {hd} bf16 lengths {lens}: kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, sdpa yardstick (graph; mask: key "
-        f"position < length) {res['library_ms']:.4f} ms, bound "
+        f"hd {hd} bf16 softcap {softcap} lengths {lens}: kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, {lib}, bound "
         f"{res['bound_ms']:.4f} ms "
         f"({res['bound_by']}: {nbytes} B at 3.35 TB/s, {flops} flop at 989 "
         "TFLOP/s bf16)")
 
 
-def time_flash(res, q, k, v, causal, window, G=1):
+def time_flash(res, q, k, v, causal, window, G=1, softcap=None):
     """Kernel and the SDPA yardstick: device time of 20 calls replayed from
     a CUDA graph; plain (the block walk): CUDA events around eager calls.
     Causal (with or without a window) over L keys, or non-causal over
     every one of Lk keys. ``G``: k and v hold each kv head G times over
-    (repeated to the query heads); the bound reads each once."""
+    (repeated to the query heads); the bound reads each once. With
+    ``softcap`` both cap their logits and the yardstick is
+    :func:`flex_softcap` under the same causal mask."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.kernel_suite import graph_ms
     B, H, L, hd = q.shape
     Lk = k.shape[2]
     assert causal or window is None, "the pair counts below"
-    res["ms"] = graph_ms(lambda: fa.flash_attention(
-        q, k, v, causal=causal, window=window), 20)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    res["ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
     res["plain_ms"] = cuda_ms(lambda i: fa.flash_attention_plain(
-        q, k, v, causal=causal, window=window), iters=2, warm=1)
-    if not causal:
+        q, k, v, **kw), iters=2, warm=1)
+    if softcap:
+        assert causal and window is None, "flex_softcap's mask below"
+        res["library_ms"], err = flex_softcap(
+            q, [(k, v)], softcap,
+            lambda b, h, q_idx, kv_idx: kv_idx <= q_idx,
+            fa.flash_attention_plain(q, k, v, **kw), slice(None))
+        what = (f"compiled flex_attention, tanh score_mod, causal block "
+                f"mask; max |flex - plain| {err:.3e}, gate 2e-2")
+    elif not causal:
         what = f"no mask, Lq {L} x Lk {Lk}"
         res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v), 20)
@@ -1430,14 +1597,14 @@ def time_flash(res, q, k, v, causal, window, G=1):
             q, k, v, attn_mask=mask), 20)
     pairs = (L * Lk if not causal else
              sum(min(n + 1, window or n + 1) for n in range(L)))
-    flops = 4 * hd * pairs * B * H
+    flops = (4 * hd + (3 if softcap else 0)) * pairs * B * H
     nbytes = ((2 * q.numel() + (k.numel() + v.numel()) // G)
               * q.element_size())
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
     log("attention kernels", f"flash_attention timing B {B} H {H} L {L} Lk "
-        f"{Lk} hd {hd} bf16 causal {causal} window {window} (K/V bytes "
-        f"counted once a kv head: G {G}): kernel "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, sdpa "
+        f"{Lk} hd {hd} bf16 causal {causal} window {window} softcap "
+        f"{softcap} (K/V bytes counted once a kv head: G {G}): kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
         f"yardstick (graph, {what}) {res['library_ms']:.4f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {flops} flop at 989 "
         f"TFLOP/s bf16, {nbytes} B at 3.35 TB/s)")
@@ -2080,7 +2247,9 @@ def fleet_serve(card: str):
 
 def dense_serve(results, card: str, chunked):
     """Phase 7's model and traffic through the dense engine and through the
-    monolithic paged engine (bf16 pages): both attention kernels of the
+    monolithic paged engine (bf16 pages), then through the dense engine
+    with ``logit_softcap`` set (``SOFTCAP``; the same weights, drawn again
+    from the seed under the capped config): both attention kernels of the
     dense path counted, from 0, in each run."""
     from repro_torch import configs
     from repro_torch.kernels import decode_attention as da
@@ -2101,9 +2270,16 @@ def dense_serve(results, card: str, chunked):
                for n in lens]
     counters = (da.flash_decode, fa.flash_attention, pda.paged_flash_decode,
                 ppa.paged_flash_prefill)
+    dense_streams = None
     for name, cache in (("dense", CacheConfig()),
                         ("monolithic paged", CacheConfig(paged=True,
-                                                         page_tokens=16))):
+                                                         page_tokens=16)),
+                        (f"dense, softcap {SOFTCAP}", CacheConfig())):
+        if "softcap" in name:
+            cfg = dataclasses.replace(cfg, logit_softcap=SOFTCAP)
+            del model
+            model = transformer.init_model(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
         conf = EngineConfig(n_slots=8, max_seq=2048, cache=cache)
         warm_up(cfg, model, conf, "cuda")
         eng = Engine(cfg, model, config=conf, device="cuda")
@@ -2135,9 +2311,16 @@ def dense_serve(results, card: str, chunked):
             assert (eng.pool.seq_ids < 0).all()
             pool = (f"slot pool {eng.pool.footprint_bytes()} B, every slot "
                     "free")
-            results["flash_decode_dense"]["launches"] = n_dd
-        key = "monolithic" if cache.paged else "dense"
+        key = ("softcap" if cfg.logit_softcap else
+               "monolithic" if cache.paged else "dense")
         results[f"flash_attention_{key}"]["launches"] = n_fa
+        if not cache.paged:
+            results[f"flash_decode_{key}"]["launches"] = n_dd
+        if key == "dense":
+            dense_streams = streams
+        elif key == "softcap":
+            pool += (f"; token match against the uncapped dense streams "
+                     f"{_match(streams, dense_streams):.3f} (reported)")
         toks = sum(len(t) for t in streams.values())
         dec = "paged_flash_decode" if cache.paged else "flash_decode"
         log("serve dense", f"{card}: {name}: {len(streams)} requests, "
@@ -2194,6 +2377,10 @@ PROFILE_WINDOW = (8, 12)  # every profiled run's traced iterations / decode
 #                           granite's, so the window was halved to keep the
 #                           script inside its time limit)
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# depth cuts at full width (the paged kernels' shapes do not depend on the
+# depth), so that the script keeps inside its time limit as phases are
+# added: yi-34b serves 20 of its 60 layers, granite-moe 8 of its 32
+ZOO_LAYERS = {"yi-34b": 20, "granite-moe-3b-a800m": 8}
 
 
 def free_card(phase: str, when: str = "before the weights are drawn"):
@@ -2291,6 +2478,9 @@ def zoo_serve(results, card: str, arch: str, profile: bool):
     free_card(phase)
     torch.cuda.reset_peak_memory_stats()
     cfg = configs.get_config(arch, param_dtype=torch.bfloat16)
+    if arch in ZOO_LAYERS:
+        (pattern, _), = cfg.groups
+        cfg = dataclasses.replace(cfg, groups=((pattern, ZOO_LAYERS[arch]),))
     t0 = time.perf_counter()
     model = transformer.init_model(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -2433,12 +2623,19 @@ def tp_serve(results, card: str, chunked):
 # MTP head undrawn)
 DENSE_ZOO = {
     "gemma3-27b": dict(
-        phase="7i", params=27_008_986_368, leaves=4_831_838_208,
-        token_bytes=81_920,
-        entries=("flash_attention_gemma3", "flash_decode_gemma3")),
+        phase="7i", params=7_189_867_776, leaves=1_073_741_824,
+        token_bytes=16_384,
+        entries=("flash_attention_gemma3", "flash_decode_gemma3"),
+        cut=dict(groups=((("local:mlp",) * 5 + ("global:mlp",), 2),
+                         (("local:mlp",), 2))),
+        why="to keep the script inside its time limit",
+        fit=(27_008_986_368, 4_831_838_208)),
     "xlstm-1.3b": dict(
-        phase="7m", params=3_502_733_312, leaves=5_652_086_784,
-        token_bytes=0, entries=None),
+        phase="7m", params=1_236_260_864, leaves=1_884_028_928,
+        token_bytes=0, entries=None,
+        cut=dict(groups=((("mlstm:none",) * 7 + ("slstm:none",), 2),)),
+        why="to keep the script inside its time limit",
+        fit=(3_502_733_312, 5_652_086_784)),
     "zamba2-1.2b": dict(
         phase="7n", params=951_304_192, leaves=1_080_229_888,
         token_bytes=49_152,
@@ -2446,13 +2643,55 @@ DENSE_ZOO = {
     "deepseek-v3-671b": dict(
         phase="7o", params=26_618_387_456, leaves=94_371_840,
         token_bytes=5_760, entries=None,
-        cut=dict(groups=((("mla:mlp",), 3), (("mla:moe",), 2)), mtp=False))}
+        cut=dict(groups=((("mla:mlp",), 3), (("mla:moe",), 2)), mtp=False),
+        why="the MTP head undrawn; the published parameters fit no card")}
+
+
+FIT_NEW = 4      # the memory-fit gate's new tokens (3 decode steps)
+
+
+def full_depth_fit(card: str, arch: str, fit, phase: str):
+    """The memory-fit gate of an arch whose traffic ``dense_zoo_serve``
+    serves cut in depth: the published depth drawn at bf16 (seed 0) with
+    the dense engine's pool (8 slots x 2048), gated on the published
+    parameter count and cache leaves (``fit``), and the traffic's
+    shortest prompt served to ``FIT_NEW`` tokens, so that a prefill and
+    decode steps run through every layer; then all of it freed."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Engine, EngineConfig
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = configs.get_config(arch, param_dtype=torch.bfloat16)
+    model = transformer.init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    eng = Engine(cfg, model, config=EngineConfig(n_slots=8, max_seq=2048),
+                 device="cuda")
+    n_par, leaves = transformer.count_params(eng.model), \
+        eng.pool.leaf_nbytes()
+    assert (n_par, leaves) == fit, (n_par, leaves)
+    lens, prompts = phase7_prompts(cfg.vocab)
+    i = int(np.argmin(lens))
+    streams = serve(eng, [prompts[i]], FIT_NEW)
+    assert [len(t) for t in streams.values()] == [FIT_NEW], streams
+    assert (eng.pool.seq_ids < 0).all()
+    log(phase, f"{card}: memory-fit gate at the published depth "
+        f"({cfg.n_layers()} layers, {n_par} parameters in bf16, {2 * n_par} "
+        f"B; dense pool 8 slots x 2048, cache leaves {leaves} B): one "
+        f"request of {int(lens[i])} prompt tokens served to {FIT_NEW} new "
+        f"tokens, every slot free, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{time.perf_counter() - t0:.1f} s")
+    del eng, model
+    free_card(phase, "after the memory-fit gate")
 
 
 def dense_zoo_serve(results, card: str, arch: str):
     """Phases 7i / 7m / 7n / 7o: ``arch`` at its published width (random
-    weights, seed 0, drawn at bf16; nothing cut, but deepseek-v3-671b's
-    depth, ``DENSE_ZOO``) through the dense engine (8 slots x 2048) on
+    weights, seed 0, drawn at bf16; nothing cut but the depth of all but
+    zamba2-1.2b, ``DENSE_ZOO``; gemma3-27b and xlstm-1.3b pass
+    :func:`full_depth_fit` at their published depth first) through the
+    dense engine (8 slots x 2048) on
     phase 7's traffic, after every earlier model is freed. Both attention
     kernels counted from 0: one flash_attention a prefill and one
     flash_decode a decode step in each attention layer (gemma3-27b's 52
@@ -2475,6 +2714,8 @@ def dense_zoo_serve(results, card: str, arch: str):
     spec = DENSE_ZOO[arch]
     phase = f"serve {arch}"
     free_card(phase)
+    if "fit" in spec:
+        full_depth_fit(card, arch, spec["fit"], phase)
     torch.cuda.reset_peak_memory_stats()
     cfg = configs.get_config(arch, param_dtype=torch.bfloat16,
                              **spec.get("cut", {}))
@@ -2514,9 +2755,8 @@ def dense_zoo_serve(results, card: str, arch: str):
                              for k, n in kinds.items())
         cut = (f"; CUT IN DEPTH to {cfg.n_layers()} of the published "
                f"{full.n_layers()} layers ({per_kind}), every layer at "
-               f"full width, the MTP head "
-               f"{'drawn' if cfg.mtp else 'undrawn'} (the published "
-               f"{n_full} parameters fit no card)")
+               f"full width ({spec['why']}; {n_full} parameters "
+               "published)")
     mla = (f" MLA q_lora {cfg.mla.q_lora} kv_lora {cfg.mla.kv_lora} "
            f"qk_nope {cfg.mla.qk_nope} qk_rope {cfg.mla.qk_rope} v_dim "
            f"{cfg.mla.v_dim}" if cfg.mla else "")
@@ -3101,7 +3341,10 @@ def fleet_vs_single(cfg, model):
 # phase 9: the training path
 # ---------------------------------------------------------------------------
 TRAIN = dict(arch="qwen2-0.5b", seq=4096, batch=4, grad_accum=2, steps=3,
-             ckpt_every=2, lr=3e-3)
+             ckpt_every=2, lr=3e-3,
+             # cut in depth at full width (9a and 10c alike), to keep the
+             # script inside its time limit: 8 of the 24 layers
+             overrides=dict(groups=((("gqa:mlp",), 8),)))
 
 
 def train_full(card: str):
@@ -3115,7 +3358,8 @@ def train_full(card: str):
     from repro_torch.models import transformer
     phase = f"train {TRAIN['arch']}"
     free_card(phase)
-    cfg = configs.get_config(TRAIN["arch"])
+    cfg = configs.get_config(TRAIN["arch"], **TRAIN["overrides"])
+    full = configs.get_config(TRAIN["arch"])
     assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == (
         torch.float32, torch.bfloat16, "full"), cfg
     n_par = transformer.count_params(transformer.init_model(cfg, None,
@@ -3140,7 +3384,7 @@ def train_full(card: str):
     args = (TRAIN["arch"], False, TRAIN["steps"], ckpt, TRAIN["batch"],
             TRAIN["seq"], TRAIN["lr"])
     kw = dict(ckpt_every=TRAIN["ckpt_every"], grad_accum=TRAIN["grad_accum"],
-              device="cuda", log_every=1)
+              device="cuda", log_every=1, overrides=TRAIN["overrides"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     losses = train_lib.train(*args, on_step=on_step, **kw)
@@ -3166,7 +3410,9 @@ def train_full(card: str):
                     for us, n, key in rows[:8])
     log(phase, f"{card}: {cfg.n_layers()} layers d_model {cfg.d_model} "
         f"heads {cfg.n_heads}/{cfg.n_kv} d_ff {cfg.d_ff} vocab {cfg.vocab} "
-        f"(nothing cut), {n_par} parameters, f32 master weights, bf16 "
+        f"(cut in depth to {cfg.n_layers()} of its {full.n_layers()} "
+        f"layers at full width, to keep the script inside its time "
+        f"limit), {n_par} parameters, f32 master weights, bf16 "
         f"compute, remat {cfg.remat}; batch {TRAIN['batch']} x seq "
         f"{TRAIN['seq']} in {TRAIN['grad_accum']} microbatches; losses "
         + ", ".join(f"step {st[0]} {st[1]:.4f}" for st in steps)
@@ -3526,7 +3772,8 @@ def fsdp_full(card: str, ref_steps):
     kw = dict(arch=TRAIN["arch"], smoke=False, steps_total=2, ckpt_dir=ckpt,
               batch=TRAIN["batch"], seq=TRAIN["seq"], lr=TRAIN["lr"],
               ckpt_every=TRAIN["ckpt_every"],
-              grad_accum=TRAIN["grad_accum"], device="cuda", log_every=1)
+              grad_accum=TRAIN["grad_accum"], device="cuda", log_every=1,
+              overrides=TRAIN["overrides"])
     t0 = time.perf_counter()
     out = _spawn(jobs.train_job, 2, (jobs.TrainJob(kwargs=kw),), 1500.0)
     spawn_s = time.perf_counter() - t0
@@ -3541,7 +3788,7 @@ def fsdp_full(card: str, ref_steps):
     # the 2 ranks' checkpoint at 1 rank: equal to each rank's shards
     mgr = CheckpointManager(ckpt)
     assert mgr.latest_step() == 2
-    cfg = configs.get_config(TRAIN["arch"])
+    cfg = configs.get_config(TRAIN["arch"], **TRAIN["overrides"])
     t1 = time.perf_counter()
     state = train_lib.build_state(cfg, 1, "cuda")     # another seed
     host, extra = mgr.restore(step_lib.state_tree(state))
@@ -3559,7 +3806,8 @@ def fsdp_full(card: str, ref_steps):
     restore_s = time.perf_counter() - t1
     del state, host
     shutil.rmtree(ckpt)
-    log(phase, f"{card}: {TRAIN['arch']} at full width, FSDP over 2 gloo "
+    log(phase, f"{card}: {TRAIN['arch']} at full width (phase 9a's "
+        f"depth), FSDP over 2 gloo "
         f"ranks of cuda:0 (data = 2: every embed_fsdp dimension halved, the "
         f"embedding whole), batch {TRAIN['batch']} x {TRAIN['seq']} in "
         f"{TRAIN['grad_accum']} microbatches, each rank 1 row of each; "
@@ -3723,6 +3971,17 @@ TP_SERVE = {
     "deepseek-v3-671b": dict(
         meshes=(), S_dec=32768, prefill=None,
         cut=dict(groups=((("mla:mlp",), 1), (("mla:moe",), 1)), mtp=False)),
+    # the recurrent mixers (models/ssm.py) on a rank's shards: xlstm's
+    # state is constant in S (cut to one unit, 7 mLSTM + 1 sLSTM: its
+    # 0.94 GB of state a unit is drawn whole on each of four ranks);
+    # zamba2's shared sites keep K/V of S_dec rows (8192, not the cell's
+    # 32768: each rank draws the whole caches before it cuts its part)
+    "xlstm-1.3b": dict(meshes=((1, 4), (2, 2)), S_dec=1024,
+                       prefill=(2, 256),
+                       cut=dict(groups=((("mlstm:none",) * 7
+                                         + ("slstm:none",), 1),))),
+    "zamba2-1.2b": dict(meshes=((1, 4), (2, 2)), S_dec=8192,
+                        prefill=(2, 256)),
 }
 
 
@@ -3805,9 +4064,13 @@ def bf16_error(job):
     return out
 
 
+PLAIN_MIXERS = ("mla", "mamba", "mlstm", "slstm")   # no kernel: plain jnp
+
+
 def tp_serve_full(card: str, results):
     """Phase 10d (see the module docstring)."""
     from repro_torch.launch import specs
+    from repro_torch.models import transformer
     from repro_torch.parallel import mesh_jobs as jobs
     from repro_torch.parallel import sharding
     phase = "tp serve"
@@ -3860,8 +4123,15 @@ def tp_serve_full(card: str, results):
                            key=lambda r: (r["coords"]["data"],
                                           r["coords"]["model"]))
             kernel = "flash_decode" if job.decode else "flash_attention"
+            # MLA and the recurrent mixers are plain: no kernel launches
+            # inside them (zamba2's shared attention sites launch)
+            plain = all(transformer.parse_kind(kind)[0] in PLAIN_MIXERS
+                        for pattern, _ in job.cfg.groups for kind in pattern)
             for r in ranks:
-                if job.cfg.mla is not None:     # MLA is plain: no kernel
+                assert not any(m == "recurrent"
+                               for m, _ in r["launches_by_mixer"]), (
+                    name, mesh, r["launches_by_mixer"])
+                if plain:
                     assert not any(r["launches"].values()), (
                         name, mesh, r["launches"])
                 else:
@@ -4309,6 +4579,8 @@ def kernel_entries():
                        ("flash_attention_gemma3", "flash_attention"),
                        ("flash_attention_zamba2", "flash_attention"),
                        ("flash_decode_zamba2", "flash_decode"),
+                       ("flash_decode_softcap", "flash_decode"),
+                       ("flash_attention_softcap", "flash_attention"),
                        *((name, kernel) for spec in CROSS_STEPS.values()
                          for (_, kernel), name in spec["entries"].items())):
         results[name] = dict(results[base], name=name)

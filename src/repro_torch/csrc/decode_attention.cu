@@ -7,6 +7,9 @@
 // Computes one-token GQA attention of q [B, H, hd] over a dense cache
 // k/v [B, K, S, hd] (q, k, v f32 or bf16, one dtype): query head h = k*G + g
 // of slot b attends key positions < lengths[b]; out [B, H, hd] in q's dtype.
+// A nonzero `softcap` c caps each scaled logit s as tanh(s / c) * c before
+// the mask, in the order of the reference's _decode_attend
+// (src/repro/models/attention.py:195); lse is then over the capped logits.
 // The numeric contract is the reference's, which differs from the paged
 // kernels': masked logits are NEG = -1e30 and their probabilities are NOT
 // zeroed, so a slot of length 0 (all keys masked) weighs all S positions
@@ -214,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, 4)
                   float* part_m, float* part_l, float* part_acc,
                   int* counters, T* __restrict__ out,
                   float* __restrict__ lse, int H, int K, int S, int chunk,
-                  float scale) {
+                  float scale, float softcap) {
   constexpr int EPL = Vec<T>::EPL;
   constexpr int LPR = HD / EPL;          // lanes that read one key row
   constexpr int KPW = 32 / LPR;          // key rows a warp reads at once
@@ -313,7 +316,11 @@ __global__ void __launch_bounds__(THREADS, 4)
           reduce_rows<LPR>(d[u], lane);
           const bool valid = c0 + u * KPW + kslot < hi;
 #pragma unroll
-          for (int i = 0; i < NV; ++i) s[u][i] = valid ? d[u][i] * scale : NEG;
+          for (int i = 0; i < NV; ++i) {
+            float x = d[u][i] * scale;
+            if (softcap != 0.f) x = tanhf(x / softcap) * softcap;
+            s[u][i] = valid ? x : NEG;
+          }
         }
       } else {   // a length-0 slot: every logit is NEG
 #pragma unroll
@@ -480,7 +487,7 @@ template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
                       const int* lengths, void* out, float* lse, float* pm,
                       float* pl, float* pa, int* counters, int B, int H,
-                      int K, int S, int nsplit, int chunk,
+                      int K, int S, int nsplit, int chunk, float softcap,
                       cudaStream_t stream) {
   const int G = H / K;
   const dim3 grid(nsplit, B * K, (G + ROWS - 1) / ROWS);
@@ -488,7 +495,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, pm, pl, pa, counters,
       static_cast<T*>(out), lse, H, K, S, chunk,
-      1.0f / sqrtf(static_cast<float>(HD)));
+      1.0f / sqrtf(static_cast<float>(HD)), softcap);
   return cudaGetLastError();
 }
 
@@ -496,20 +503,25 @@ template <typename T>
 cudaError_t launch(int hd, const void* q, const void* k, const void* v,
                    const int* lengths, void* out, float* lse, float* pm,
                    float* pl, float* pa, int* counters, int B, int H, int K,
-                   int S, int nsplit, int chunk, cudaStream_t s) {
+                   int S, int nsplit, int chunk, float softcap,
+                   cudaStream_t s) {
   switch (hd) {
     case 16:
       return launch_hd<T, 16>(q, k, v, lengths, out, lse, pm, pl, pa,
-                              counters, B, H, K, S, nsplit, chunk, s);
+                              counters, B, H, K, S, nsplit, chunk, softcap,
+                              s);
     case 32:
       return launch_hd<T, 32>(q, k, v, lengths, out, lse, pm, pl, pa,
-                              counters, B, H, K, S, nsplit, chunk, s);
+                              counters, B, H, K, S, nsplit, chunk, softcap,
+                              s);
     case 64:
       return launch_hd<T, 64>(q, k, v, lengths, out, lse, pm, pl, pa,
-                              counters, B, H, K, S, nsplit, chunk, s);
+                              counters, B, H, K, S, nsplit, chunk, softcap,
+                              s);
     case 128:
       return launch_hd<T, 128>(q, k, v, lengths, out, lse, pm, pl, pa,
-                              counters, B, H, K, S, nsplit, chunk, s);
+                              counters, B, H, K, S, nsplit, chunk, softcap,
+                              s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -523,13 +535,14 @@ extern "C" {
 // splits of `chunk` keys (nsplit * chunk >= S, nsplit <= 256), one launch;
 // part_ml holds 2 * B*H*nsplit floats, part_acc B*H*nsplit*hd, counters
 // B*K*ceil(G/8) int32 that are 0 on entry and are left 0; `lse` (B*H
-// floats, m + log(l) of each row) is written when it is not null. Returns
+// floats, m + log(l) of each row) is written when it is not null; softcap
+// 0 means none. Returns
 // a cudaError_t value: 0 on a launch that was accepted.
 int decode_attention(const void* q, const void* k, const void* v,
                      const void* lengths, void* out, void* lse,
                      void* part_ml, void* part_acc, void* counters, int B,
                      int H, int K, int S, int hd, int nsplit, int chunk,
-                     int dtype, void* stream) {
+                     int dtype, float softcap, void* stream) {
   if (B == 0) return cudaSuccess;
   if (K <= 0 || H % K || S <= 0 || nsplit <= 0 || nsplit > MAX_SPLITS ||
       chunk <= 0 || (long long)nsplit * chunk < S)
@@ -544,10 +557,11 @@ int decode_attention(const void* q, const void* k, const void* v,
   switch (dtype) {
     case F32:
       return launch<float>(hd, q, k, v, len, out, ls, pm, pl, pa, ctr, B, H,
-                           K, S, nsplit, chunk, s);
+                           K, S, nsplit, chunk, softcap, s);
     case BF16:
       return launch<__nv_bfloat16>(hd, q, k, v, len, out, ls, pm, pl, pa,
-                                   ctr, B, H, K, S, nsplit, chunk, s);
+                                   ctr, B, H, K, S, nsplit, chunk, softcap,
+                                   s);
     default:
       return cudaErrorInvalidValue;
   }

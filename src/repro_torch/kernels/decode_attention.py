@@ -9,8 +9,13 @@ The numeric contract is the reference kernel's: masked logits are
 0 returns the mean of V over all S positions (the paged kernels return 0
 there instead).
 
+``softcap`` c (0 or None: none) caps each scaled logit s as tanh(s / c)·c
+before the mask, the reference's ``_decode_attend`` order
+(``repro/models/attention.py:195-210``).
+
 ``return_lse=True`` also returns ``lse`` [B, H] f32 = m + log(l) of each
-query row's softmax over its visible keys, in the kernel's scale (1/√hd):
+query row's softmax over its visible keys, in the kernel's scale (1/√hd,
+capped when ``softcap`` is set):
 what a sequence-parallel decode needs to combine the slices of a cache
 that ranks hold apart (parallel/sharding.py ``combine_partials``). A slot
 of length 0 keeps its output, the mean of V over the S rows, and gets lse
@@ -39,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -125,17 +130,21 @@ def decode_attention_ref(q, k_cache, v_cache, lengths):
     return ref.decode_attention(q, k_cache, v_cache, lengths)
 
 
-def plain_flops(B: int, H: int, S: int, hd: int, bk: int) -> int:
+def plain_flops(B: int, H: int, S: int, hd: int, bk: int,
+                softcap: Optional[float] = None) -> int:
     """The FLOPs :func:`flash_decode_plain`'s matrix products count (every
-    whole ``bk`` tile of the cache, whatever the lengths): what a launch
-    reports to ``core/perf.py``'s counters."""
-    return 4 * B * H * hd * (S // bk) * bk
+    whole ``bk`` tile of the cache, whatever the lengths), and with a
+    ``softcap`` three a logit (the division, the tanh, the product): what
+    a launch reports to ``core/perf.py``'s counters."""
+    return (4 * hd + (3 if softcap else 0)) * B * H * (S // bk) * bk
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, block_k: int = 512,
-                       return_lse: bool = False):
+                       return_lse: bool = False,
+                       softcap: Optional[float] = None):
     """The reference kernel's function in PyTorch: an online softmax in f32
-    over ``block_k`` tiles of the cache (m from -inf, masked logits NEG).
+    over ``block_k`` tiles of the cache (m from -inf, logits capped by
+    ``softcap`` when it is set, masked logits NEG).
     Returns [B, H, hd] in q's dtype; with ``return_lse`` also lse [B, H]
     f32 = m + log(l) (the module docstring)."""
     B, H, hd = q.shape
@@ -152,6 +161,8 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, block_k: int = 512,
         kb = k_cache[:, :, j * bk:(j + 1) * bk].float()         # [B, K, bk, hd]
         vb = v_cache[:, :, j * bk:(j + 1) * bk].float()
         s = (qg @ kb.transpose(-1, -2)) * scale                 # [B, K, G, bk]
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
         kpos = j * bk + torch.arange(bk, device=q.device)
         s = torch.where(kpos < lens, s, NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -196,7 +207,7 @@ def _check_cuda(q, k_cache, v_cache, lengths) -> None:
 
 
 def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512,
-                 return_lse: bool = False):
+                 return_lse: bool = False, softcap: Optional[float] = None):
     """One-token GQA attention over a dense ragged cache.
 
     q:       [B, H, hd]
@@ -205,17 +216,18 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512,
     lengths: [B] int32 valid positions (0 gives the mean of V over S)
     block_k: the reference's key tile; the plain version walks it, the CUDA
              kernel tiles for itself (only the sums' order depends on it)
+    softcap: c caps each scaled logit as tanh(s / c)·c (0 or None: none)
     Returns [B, H, hd] in q's dtype; with ``return_lse`` the pair (out,
     lse [B, H] f32), written by the same launch.
     """
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, block_k,
-                                  return_lse)
+                                  return_lse, softcap)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     B, H, hd = q.shape
     _, K, S, _ = k_cache.shape
-    flops = plain_flops(B, H, S, hd, decode_block_k(S, block_k))
+    flops = plain_flops(B, H, S, hd, decode_block_k(S, block_k), softcap)
     if q.device.type == "meta":    # shapes alone: what the launch counts
         out = torch.empty_like(q)
         lse = torch.empty(B, H, device=q.device) if return_lse else None
@@ -239,7 +251,8 @@ def flash_decode(q, k_cache, v_cache, lengths, block_k: int = 512,
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(out),
         ctypes.c_void_p(None if lse is None else lse.data_ptr()),
         ptr(part_ml), ptr(part_acc), ptr(counters), B, H, K, S, hd,
-        shape.nsplit, shape.chunk, DTYPES[q.dtype], ctypes.c_void_p(stream))
+        shape.nsplit, shape.chunk, DTYPES[q.dtype],
+        ctypes.c_float(float(softcap or 0.0)), ctypes.c_void_p(stream))
     _build.check("decode_attention", err)
     flash_decode.launches += 1
     perf.add_kernel_flops("flash_decode", flops)

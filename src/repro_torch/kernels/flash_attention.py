@@ -77,6 +77,9 @@ def launch_shape(L: int, hd: int, dtype: torch.dtype) -> LaunchShape:
     return LaunchShape(R, 256, -(-L // R), smem)
 
 
+BLOCKS = (128, 256, 512, 1024, 2048)    # plan_blocks' choices, each side
+
+
 def plan_blocks(L: int, Lk: int, hd: int, itemsize: int = 4,
                 budget: Optional[int] = None) -> Tuple[int, int]:
     """AutoDMA block planning for (q_blk, k_blk): maximize tiles subject to
@@ -84,10 +87,10 @@ def plan_blocks(L: int, Lk: int, hd: int, itemsize: int = 4,
     budget = budget or heromem.hero_l1_capacity()
     best = (128, 128)
     best_steps = None
-    for qb in (128, 256, 512, 1024, 2048):
+    for qb in BLOCKS:
         if L % qb and qb != L:
             continue
-        for kb in (128, 256, 512, 1024, 2048):
+        for kb in BLOCKS:
             if Lk % kb and kb != Lk:
                 continue
             qb_, kb_ = min(qb, L), min(kb, Lk)

@@ -28,10 +28,12 @@ one traced pass of the port's own step on them. Per cell:
     ``transformer.hidden``), so ``flops_all_chips`` also counts the
     work the ranks of a line repeat. The eager pass visits every layer,
     so the reference's probe lowerings (which make up for XLA counting a
-    scanned body once) are not ported. Where the cell's rules need a
-    path the port lacks (``specs.Cell.gaps``: a recurrent layer cut over
-    the model axis, a ring cache cut over its rows, training with a model
-    axis), ``traced`` is
+    scanned body once) are not ported; a prefill through recurrent
+    layers, whose loops step a chunk or a token at a time, is traced at
+    2, 3 and 4 periods of its loops and fitted (``specs.trace_cell``:
+    the counts exact, the peaks extrapolated). Where the cell's rules need a
+    path the port lacks (``specs.Cell.gaps``: a ring cache cut over its
+    rows, training with a model axis), ``traced`` is
     ``null`` and ``traced_null`` names the leaf and the rule: no other
     mesh is substituted and no bytes are invented;
   * ``roofline`` — core/perf.py ``Roofline`` on the H100's datasheet peaks

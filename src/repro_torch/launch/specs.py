@@ -15,10 +15,9 @@ it issues, recorded on the abstract mesh).
 A rank's pass is the port's own step. The serving steps run on a rank's
 shards (train/step.py ``shard_model``: the batch axes gathered a unit at
 a time, the model axis tensor- and sequence-parallel) for GQA, cross,
-encoder and MLA layers with an MLP or a MoE; a cell whose rules cut what
-the port's rank path cannot take has no pass: a recurrent layer's leaves
-and state cut over the model axis (those layers run whole on a rank), a
-ring cache cut over its rows (``kv_seq`` on a sliding-window layer); and
+encoder, MLA and recurrent layers with an MLP or a MoE; a cell whose
+rules cut what the port's rank path cannot take has no pass: a ring cache
+cut over its rows (``kv_seq`` on a sliding-window layer); and
 the FSDP train step shards over the batch axes only (train/step.py
 ``shard_state``: a model axis of 1). :attr:`Cell.gaps`
 names each such leaf with the rule that binds it; a cell with gaps is not
@@ -32,15 +31,17 @@ caches, ``cache_pos`` S − 1 (a decode step then reads the whole cache).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import configs
 from repro_torch.configs import ShapeSpec
-from repro_torch.core import offload
+from repro_torch.core import offload, perf
 from repro_torch.core import tree as tree_lib
-from repro_torch.models import transformer
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import ssm, transformer
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding
 from repro_torch.train import step as steps
@@ -116,6 +117,7 @@ class Cell:
     rules: Optional[Dict[str, Any]] = None
     grad_accum: int = 1
     gaps: Tuple[str, ...] = ()
+    levers: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def tensor_leaves(tree) -> List[torch.Tensor]:
@@ -232,6 +234,8 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
     if rules_over:
         rules.update(rules_over)
     ga = grad_accum if grad_accum is not None else GRAD_ACCUM.get(arch, 1)
+    levers = dict(probe=probe, cfg_over=cfg_over, rules_over=rules_over,
+                  grad_accum=grad_accum, smoke=smoke)
     gen = None if device.type == "meta" else \
         torch.Generator(device=device).manual_seed(seed)
     batch_axes = tuple(a for a in sharding.BATCH_AXES if a in mesh.shape)
@@ -302,7 +306,7 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
                 step=sharding.NamedSharding(mesh, ()))
             return Cell(arch, shape, cfg, fn, (state, batch),
                         (state_sh, b_sh), mesh, donate=(0,), rules=rules,
-                        grad_accum=ga, gaps=tuple(gaps))
+                        grad_accum=ga, gaps=tuple(gaps), levers=levers)
         S = shape.seq_len
         caches, c_specs = steps.rank_caches(cfg, B, S, mesh, device=device)
         gaps += _gaps("caches", transformer.cache_logical_axes(cfg), c_specs,
@@ -316,12 +320,12 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
                                                extra),
                         (p_sh, tok_sh, c_sh, None if extra is None else
                          sharding.NamedSharding(mesh, ex_spec)),
-                        mesh, donate=(2,), rules=rules, gaps=tuple(gaps))
+                        mesh, donate=(2,), rules=rules, gaps=tuple(gaps), levers=levers)
         pos = torch.full((), S - 1, dtype=torch.int32, device=device)
         fn = steps.make_decode_step(cfg, c_specs)
         return Cell(arch, shape, cfg, fn, (model, tokens(), caches, pos),
                     (p_sh, tok_sh, c_sh, sharding.NamedSharding(mesh, ())),
-                    mesh, donate=(2,), rules=rules, gaps=tuple(gaps))
+                    mesh, donate=(2,), rules=rules, gaps=tuple(gaps), levers=levers)
 
 
 def memory(cell: Cell, trace: Optional[offload.Trace] = None
@@ -350,14 +354,88 @@ def memory(cell: Cell, trace: Optional[offload.Trace] = None
             "total_per_device": arg + out - alias + (temp or 0)}
 
 
-def trace_cell(cell: Cell) -> offload.Trace:
-    """Run one rank's step on the cell's arguments (the counterpart of
-    ``lower_cell``) under its mesh and rules: FLOPs, bytes, collectives
-    and outputs of the pass."""
-    if cell.gaps:
-        raise ValueError(f"{cell.arch} x {cell.shape.name}: no traced pass "
-                         f"on {cell.mesh}: {cell.gaps[0]}")
+# A prefill through a recurrent layer loops in Python a chunk (gla_chunked)
+# or a token (the sLSTM) at a time, each step the same ops on the same
+# shapes: on ``meta`` a 32k-token pass is some half a million ops a layer.
+# trace_cell traces such a cell at these multiples of its period instead
+# and fits the counts (:func:`_fitted`); a pass of one period is left out,
+# since one chunk's pass differs in a few bytes from the rest.
+FIT_PERIODS = (2, 3, 4)
+
+
+def _fit_period(cell: Cell) -> Optional[int]:
+    """The period P (tokens) of a ``meta`` prefill cell that
+    :func:`trace_cell` fits, or None: the least common multiple of the
+    recurrent mixers' chunks and, where the model attends, flash_attention's
+    largest block (its plan of blocks is then the same at every multiple
+    of P), where the cell's length is a multiple of P past the longest
+    fitted pass."""
+    cfg, L = cell.cfg, cell.shape.seq_len
+    mixers = {transformer.parse_kind(kind)[0]
+              for pattern, _ in cfg.groups for kind in pattern}
+    if (cell.shape.step != "prefill" or not mixers & set(ssm.RECURRENT)
+            or cell.args[1].device.type != "meta"):
+        return None
+    attends = bool(mixers - set(ssm.RECURRENT))
+    P = math.lcm(*((max(fa.BLOCKS),) if attends else ()),
+                 *(getattr(cfg, m).chunk for m in ("mamba", "mlstm")
+                   if m in mixers))
+    return P if L % P == 0 and L // P > FIT_PERIODS[-1] else None
+
+
+def _fitted(cell: Cell, P: int) -> offload.Trace:
+    """The pass of ``cell`` (n = L / P periods) from passes of the same cell
+    at ``FIT_PERIODS`` (2, 3 and 4 periods): each count (FLOPs, the
+    kernels' own by name, bytes, each collective's bytes) the quadratic in
+    n through them, exact for steps that repeat (linear in n) and for
+    attention's causal walk over whole blocks (quadratic); the peaks
+    (``peak_bytes``, ``scratch_peak_bytes``) the line through the two
+    longest. No outputs; ``seconds`` the three passes'."""
+    n = cell.shape.seq_len // P
+    t2, t3, t4 = (_traced(build_cell(
+        cell.arch, dataclasses.replace(cell.shape, seq_len=m * P),
+        cell.mesh, **cell.levers)) for m in FIT_PERIODS)
+
+    def quad(f2, f3, f4):          # Lagrange through n = 2, 3, 4
+        return ((n - 3) * (n - 4) // 2 * f2 - (n - 2) * (n - 4) * f3
+                + (n - 2) * (n - 3) // 2 * f4)
+
+    def line(f3, f4):
+        return f4 + (n - 4) * (f4 - f3)
+
+    colls = []
+    assert len(t2.collectives) == len(t3.collectives) == \
+        len(t4.collectives), (cell.arch, cell.shape.name)
+    for c2, c3, c4 in zip(t2.collectives, t3.collectives, t4.collectives):
+        assert (c2.kind, c2.group) == (c3.kind, c3.group) == \
+            (c4.kind, c4.group), (c2, c3, c4)
+        colls.append(perf.Collective(c4.kind, quad(c2.nbytes, c3.nbytes,
+                                                   c4.nbytes), c4.group))
+    kernel_flops = {k: quad(*(t.kernel_flops.get(k, 0) for t in
+                              (t2, t3, t4))) for k in t4.kernel_flops}
+    return offload.Trace(
+        quad(t2.flops, t3.flops, t4.flops), kernel_flops,
+        quad(t2.bytes, t3.bytes, t4.bytes),
+        line(t3.peak_bytes, t4.peak_bytes), colls, None,
+        t2.seconds + t3.seconds + t4.seconds,
+        line(t3.scratch_peak_bytes, t4.scratch_peak_bytes))
+
+
+def _traced(cell: Cell) -> offload.Trace:
+    """The one pass of :func:`trace_cell`, at the cell's own length."""
     region = offload.TargetRegion(cell.fn, name=f"{cell.arch}/"
                                   f"{cell.shape.name}")
     with sharding.use_mesh(cell.mesh, cell.rules):
         return region.trace(*cell.args)
+
+
+def trace_cell(cell: Cell) -> offload.Trace:
+    """Run one rank's step on the cell's arguments (the counterpart of
+    ``lower_cell``) under its mesh and rules: FLOPs, bytes, collectives
+    and outputs of the pass. A long ``meta`` prefill through a recurrent
+    layer is fitted from short passes (:func:`_fitted`)."""
+    if cell.gaps:
+        raise ValueError(f"{cell.arch} x {cell.shape.name}: no traced pass "
+                         f"on {cell.mesh}: {cell.gaps[0]}")
+    P = _fit_period(cell)
+    return _traced(cell) if P is None else _fitted(cell, P)

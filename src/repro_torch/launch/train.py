@@ -42,7 +42,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -78,8 +78,10 @@ def train(arch: str, smoke: bool, steps_total: int, ckpt_dir: str,
           step_timeout: float = 600.0, inject_failure: Optional[int] = None,
           grad_accum: int = 1, compress: str = "none", seed: int = 0,
           log_every: int = 10, device="cuda",
-          on_step: Optional[Callable] = None, mesh=None):
-    """Train ``arch`` (its smoke config with ``smoke``) for
+          on_step: Optional[Callable] = None, mesh=None,
+          overrides: Optional[Dict[str, Any]] = None):
+    """Train ``arch`` (its smoke config with ``smoke``; ``overrides``: its
+    fields replaced, as ``configs.get_config`` takes them) for
     ``steps_total`` steps on ``device`` → the loss of every step taken, in
     order, a rolled-back step's too, as the reference keeps it.
     ``on_step(step, loss, seconds, state, metrics)`` is called after each
@@ -90,8 +92,8 @@ def train(arch: str, smoke: bool, steps_total: int, ckpt_dir: str,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.train: no CUDA device; pass "
                            "--device cpu to train on the CPU")
-    cfg = (configs.get_smoke_config(arch) if smoke
-           else configs.get_config(arch))
+    cfg = (configs.get_smoke_config if smoke
+           else configs.get_config)(arch, **(overrides or {}))
     mgr = CheckpointManager(ckpt_dir)
     dcfg = dp.DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                          seed=seed, mtp=cfg.mtp)

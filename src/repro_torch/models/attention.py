@@ -96,8 +96,12 @@ with ``cache=None`` (K and V expanded from the latent, ``ckv @ w_uk`` and
 ``ckv @ w_uv``, the rotary key broadcast to every head: head dim qk_nope
 + qk_rope, V zero-padded to it and sliced back after).
 
-Logit softcaps are not ported on the serving path (ROADMAP queue 1, item
-16); the training attention takes the config's.
+A config's ``logit_softcap`` c caps every scaled logit s as tanh(s / c)·c
+before the mask, as the reference's ``_decode_attend`` and
+``_attend_streaming`` do: both kernels take it (``flash_decode(...,
+softcap=c)`` with its lse over the capped logits, so the SP combine
+holds; ``flash_attention(..., softcap=c)``), and so does the training
+attention. Only the paged pools refuse a softcap (serve/kvcache.py).
 """
 from __future__ import annotations
 
@@ -114,30 +118,23 @@ from repro_torch.models.flash_xla import flash_attention_xla
 from repro_torch.parallel import sharding
 
 
-def check_dense(cfg) -> None:
-    """Raise unless the dense path covers ``cfg``'s attention."""
-    if cfg.logit_softcap:
-        raise NotImplementedError(
-            f"repro_torch: {cfg.name}: softcap attention is not ported yet "
-            "(ROADMAP queue 1, item 16)")
-
-
 def qkv(m: Dict[str, torch.Tensor], h: torch.Tensor, positions: torch.Tensor,
         cfg, q_cols=None, kv_cols=None):
     """QKV projections with bias and RoPE: h [B, L, d] (already normed),
     positions [B, L] absolute → q [B, L, H, hd], k, v [B, L, K, hd].
     ``q_cols`` / ``kv_cols``: ``(part, lo, hi)``, keep only the columns
     [lo, hi) of the whole projection, of which ``m`` holds ``part``
-    (:func:`_cols`): q then holds (hi − lo) / hd heads."""
+    (``sharding.take``): q then holds (hi − lo) / hd heads."""
     B, L, _ = h.shape
     hd = cfg.hd
     q, k, v = h @ m["wq"], h @ m["wk"], h @ m["wv"]
     if cfg.qkv_bias:
         q, k, v = q + m["bq"], k + m["bk"], v + m["bv"]
     if q_cols is not None:
-        q = _cols(q, *q_cols)
+        q = sharding.take(q, q_cols[0], q_cols[1:])[0]
     if kv_cols is not None:
-        k, v = _cols(k, *kv_cols), _cols(v, *kv_cols)
+        k, v = (sharding.take(a, kv_cols[0], kv_cols[1:])[0]
+                for a in (k, v))
     q = q.reshape(B, L, -1, hd)
     k = k.reshape(B, L, -1, hd)
     v = v.reshape(B, L, -1, hd)
@@ -145,17 +142,6 @@ def qkv(m: Dict[str, torch.Tensor], h: torch.Tensor, positions: torch.Tensor,
         q = blocks.apply_rope(q, positions, cfg.rope_theta)
         k = blocks.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
-
-
-def _cols(x: torch.Tensor, part: sharding.Held, lo: int, hi: int
-          ) -> torch.Tensor:
-    """Columns ``[lo, hi)`` of the whole last dimension of ``x``, this
-    rank's ``part`` of it: sliced where the part holds them, else after a
-    ``gather_from`` over the part's line."""
-    if not (part.lo <= lo and hi <= part.hi):
-        x = sharding.gather_from(x, part.line, -1)
-        part = part._replace(lo=0, hi=part.whole)
-    return x[..., lo - part.lo:hi - part.lo]
 
 
 def ring_write(cache: torch.Tensor, new: torch.Tensor) -> None:
@@ -175,16 +161,18 @@ def ring_write(cache: torch.Tensor, new: torch.Tensor) -> None:
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, G: int,
            causal: bool, window: Optional[int] = None,
-           kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+           kv: Optional[torch.Tensor] = None,
+           softcap: Optional[float] = None) -> torch.Tensor:
     """``flash_attention`` of q [B, L, H, hd] over k, v [B, K, S, hd], kv
     heads repeated to the query heads → [B, L, H, hd]: ``kv`` gives each
     query head's kv head (an index into k's heads), by default G
-    consecutive query heads a kv head."""
+    consecutive query heads a kv head; ``softcap`` as the config's."""
     if kv is None:
         kv = torch.arange(q.shape[2], device=q.device) // G
     return flash_attention(
         q.transpose(1, 2).contiguous(), k.index_select(1, kv),
-        v.index_select(1, kv), causal=causal, window=window).transpose(1, 2)
+        v.index_select(1, kv), causal=causal, window=window,
+        softcap=softcap).transpose(1, 2)
 
 
 def attend_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
@@ -249,7 +237,6 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
         q, k, v = qkv(m, h, positions, cfg)
         att = attend_train(q, k, v, cfg, causal, window)
         return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
-    check_dense(cfg)
     mesh = sharding.current_mesh()
     spec, cache_spec = spec or {}, cache_spec or {}
     G, hd = cfg.n_heads // cfg.n_kv, cfg.hd
@@ -290,7 +277,7 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
             _write_position(c, new[:, 0, mine], pos, rows, 2)
         lengths = (lengths - rows.lo).clamp(0, S_loc).to(torch.int32)
         att = _decode_attend(q[:, 0].contiguous(), kc, vc, lengths,
-                             rows)[:, None]
+                             rows, cfg.logit_softcap)[:, None]
     else:
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)     # [B, Kw, L, hd]
         if window is None:
@@ -302,7 +289,8 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
             ring_write(kc, kt[:, mine])
             ring_write(vc, vt[:, mine])
         att = attend(q, kt, vt, G, causal=True, window=window,
-                     kv=_kv_index(h_lo, h_hi, G, w_lo, h.device))
+                     kv=_kv_index(h_lo, h_hi, G, w_lo, h.device),
+                     softcap=cfg.logit_softcap)
     return _out(att, m["wo"], oc, h_lo * hd, h.dtype)
 
 
@@ -358,15 +346,16 @@ def _write_position(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
 
 
 def _decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                   lengths: torch.Tensor, rows: sharding.Held
-                   ) -> torch.Tensor:
+                   lengths: torch.Tensor, rows: sharding.Held,
+                   softcap: Optional[float] = None) -> torch.Tensor:
     """``flash_decode`` over the cache rows this rank holds, at its local
-    ``lengths``; with the rows cut, with ``return_lse`` and
-    ``combine_partials`` over their line."""
+    ``lengths``, logits capped by ``softcap``; with the rows cut, with
+    ``return_lse`` and ``combine_partials`` over their line."""
     if rows.line is None:
-        return flash_decode(q, kc, vc, lengths)
+        return flash_decode(q, kc, vc, lengths, softcap=softcap)
     return sharding.combine_partials(
-        *flash_decode(q, kc, vc, lengths, return_lse=True), rows.line)
+        *flash_decode(q, kc, vc, lengths, return_lse=True, softcap=softcap),
+        rows.line)
 
 
 def _out(att: torch.Tensor, wo: torch.Tensor, oc: sharding.Held, lo: int,
@@ -428,24 +417,27 @@ def cross_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
         raise ValueError(f"cross_forward: a prefill of {L} tokens needs the "
                          "encoder states (extra)")
     h_lo, h_hi, w_lo, w_hi = _head_plan(cfg, oc, heads, decode)
-    q = _cols(h @ m["wq"], qc, h_lo * hd, h_hi * hd).reshape(B, L, -1, hd)
+    q = sharding.take(h @ m["wq"], qc, (h_lo * hd, h_hi * hd))[0].reshape(
+        B, L, -1, hd)
     if decode:
         lengths = torch.full((B,), kc.shape[2], dtype=torch.int32,
                              device=h.device)
         att = _decode_attend(q[:, 0].contiguous(), kc.to(q.dtype),
-                             vc.to(q.dtype), lengths, rows)[:, None]
+                             vc.to(q.dtype), lengths, rows,
+                             cfg.logit_softcap)[:, None]
     else:
         if tuple(extra.shape[:2]) != (B, S):
             raise ValueError(f"cross_forward: encoder states "
                              f"{tuple(extra.shape)} do not fill a cross "
                              f"cache of {S} rows for {B} slots")
-        k, v = (_cols(extra @ m[w], kvc, w_lo * hd, w_hi * hd).reshape(
-            B, S, -1, hd).transpose(1, 2) for w in ("wk", "wv"))
+        k, v = (sharding.take(extra @ m[w], kvc, (w_lo * hd, w_hi * hd))[0]
+                .reshape(B, S, -1, hd).transpose(1, 2) for w in ("wk", "wv"))
         mine = slice(heads.lo - w_lo, heads.hi - w_lo)
         kc.copy_(k[:, mine, rows.lo:rows.hi])
         vc.copy_(v[:, mine, rows.lo:rows.hi])
         att = attend(q, k, v, H // K, causal=False,
-                     kv=_kv_index(h_lo, h_hi, H // K, w_lo, h.device))
+                     kv=_kv_index(h_lo, h_hi, H // K, w_lo, h.device),
+                     softcap=cfg.logit_softcap)
     return _out(att, m["wo"], oc, h_lo * hd, h.dtype)
 
 
@@ -466,7 +458,8 @@ def encoder_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
                   (kvc, cfg.hd * w_lo, cfg.hd * w_hi))
     G = cfg.n_heads // cfg.n_kv
     att = attend(q, k.transpose(1, 2), v.transpose(1, 2), G, causal=False,
-                 kv=_kv_index(h_lo, h_hi, G, w_lo, h.device))
+                 kv=_kv_index(h_lo, h_hi, G, w_lo, h.device),
+                 softcap=cfg.logit_softcap)
     return _out(att, m["wo"], oc, h_lo * cfg.hd, h.dtype)
 
 
@@ -598,8 +591,9 @@ def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
 
     def cols(name, width):      # heads [h_lo, h_hi) of a heads_tp leaf
         w = m[name] if name != "w_uq" else cq @ m[name]
-        return _cols(w, sharding.held(m[name], spec.get(name), 1, mesh),
-                     h_lo * width, h_hi * width)
+        return sharding.take(w, sharding.held(m[name], spec.get(name), 1,
+                                              mesh),
+                             (h_lo * width, h_hi * width))[0]
     q = cols("w_uq", dq).reshape(B, L, -1, dq)
     q_nope = q[..., :nope]
     q_rope = blocks.apply_rope(q[..., nope:], positions, cfg.rope_theta)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import addrspace
+from repro_torch.parallel import sharding
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,10 +27,18 @@ def rounded(value: float, dtype: torch.dtype) -> float:
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
-             zero_centered: bool = False) -> torch.Tensor:
-    """``x / sqrt(mean(x²) + eps) · scale`` in float32, cast back to x's dtype."""
+             zero_centered: bool = False,
+             line: Optional[sharding.Line] = None) -> torch.Tensor:
+    """``x / sqrt(mean(x²) + eps) · scale`` in float32, cast back to x's
+    dtype. With a ``line`` (parallel/sharding.py) x and ``scale`` are this
+    rank's equal part of the row, the line's other ranks hold the rest:
+    the sum of squares is summed over it (one all-reduce of [..., 1])."""
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    if line is None:
+        var = x32.square().mean(dim=-1, keepdim=True)
+    else:
+        var = sharding.reduce_from(x32.square().sum(dim=-1, keepdim=True),
+                                   line) / (x.shape[-1] * line.size)
     y = x32 * torch.rsqrt(var + eps)
     s = scale.float()
     if zero_centered:           # gemma convention: scale stored as (1 + s)

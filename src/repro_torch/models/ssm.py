@@ -35,6 +35,39 @@ A state dict (``{"ssm", "conv"}`` for Mamba2 and the mLSTM, ``{"c", "n",
 prompt included), with more it starts :func:`gla_chunked` from it. The
 forwards return the new state beside the output and never write the one
 they were given; models/transformer.py writes it into the slot caches.
+
+**On one rank of a mesh** (the serving steps on a rank's shards:
+models/transformer.py ``hidden`` passes each forward its leaves' specs
+and its state's, ``spec`` / ``cache_spec``) a forward reads what the rank
+holds of every leaf through ``sharding.held``; with no spec or no mesh
+that is the whole dimension, and the same ops run on the whole leaves.
+
+  * The heads: those of the rank's part of the state (``ssm``, or the
+    sLSTM's ``c``; all of them where the state is whole, the same on every
+    rank of the line). The gla core (:func:`gla_chunked` /
+    :func:`gla_step`) and the sLSTM's recurrence run on them alone, and
+    the new state is the rank's part.
+  * A fused projection cut by columns (Mamba2's ``in_proj``, z | x | B |
+    C | dt; the mLSTM's ``up_proj``, xi | z) is cut across its parts, so
+    a rank's columns do not fall on its heads: its output is gathered
+    whole over the line (one all-gather of [B, L, width]). The causal
+    conv then runs on every channel, its weights and history gathered
+    whole where they are cut (small), and the new history is cut back to
+    the rank's channels. Mamba2's B and C, shared by every head, are
+    whole so.
+  * A projection cut by rows (the mLSTM's ``wq`` / ``wk`` / ``wv`` /
+    ``w_if``, ``out_proj`` / ``down_proj``, the sLSTM's ``ff_down``)
+    takes the rank's rows of its input and gives a partial product,
+    summed in f32 over the line (``reduce_from``); the mLSTM's input
+    projections form their partial products in f32 too, so that the
+    gates and q / k / v the recurrence reads round once, as one rank's.
+  * A norm over the whole inner row whose rank holds some heads' channels
+    sums the squares over the heads' line (one all-reduce of [B, L, 1]
+    f32), and scales the channels the output projection's rows take.
+  * The sLSTM's ``w_gates`` (cut by columns off its heads' boundaries),
+    ``r_gates`` and ``ff_up`` (u | g) give the rank's heads and hidden
+    rows through ``sharding.take``: sliced where held, gathered over the
+    line where not.
 """
 from __future__ import annotations
 
@@ -46,6 +79,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import blocks
+from repro_torch.parallel import sharding
 
 NEG = -1e30     # the exponent of a masked pair inside a chunk
 
@@ -146,6 +180,73 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# one rank of a mesh: what the forwards read of their leaves' specs
+# --------------------------------------------------------------------------
+def _held(p, spec, name: str, dim: int) -> sharding.Held:
+    """What this rank holds of dimension ``dim`` of leaf ``name``."""
+    return sharding.held(p[name], spec.get(name), dim,
+                         sharding.current_mesh())
+
+
+def _heads(state, name: str, cache_spec, H: int, mesh) -> sharding.Held:
+    """The heads a rank runs: those of its part of the state leaf
+    ``name`` (axis 1), all H with no state."""
+    if state is None:
+        return sharding.Held(0, H, H, None)
+    return sharding.held(state[name], (cache_spec or {}).get(name), 1, mesh)
+
+
+def _channels(heads: sharding.Held, width: int, whole: int
+              ) -> sharding.Held:
+    """The channels of ``heads`` (``width`` a head) out of ``whole``."""
+    return heads._replace(lo=heads.lo * width, hi=heads.hi * width,
+                          whole=whole)
+
+
+def _whole_cols(y: torch.Tensor, cols: sharding.Held) -> torch.Tensor:
+    """A projection's output whole: its columns gathered over the line
+    where the rank holds a part."""
+    return sharding.take(y, cols, (0, cols.whole))[0]
+
+
+def _conv(p, spec, xc: torch.Tensor, state, cache_spec):
+    """SiLU of :func:`causal_conv` of the whole channels ``xc`` [B, L, D]
+    over ``p["conv_w"]`` and the history ``state["conv"]`` (none without a
+    state), each gathered whole where the rank holds a part, and the new
+    history cut back to the rank's channels (None without a state)."""
+    w = _whole_cols(p["conv_w"], _held(p, spec, "conv_w", 1))
+    if state is None:
+        return F.silu(causal_conv(xc, w)[0]), None
+    hist = state["conv"]
+    ch = sharding.held(hist, (cache_spec or {}).get("conv"), 2,
+                       sharding.current_mesh())
+    y, new = causal_conv(xc, w, _whole_cols(hist, ch))
+    return F.silu(y), new[..., ch.lo:ch.hi]
+
+
+def _rows_out(p, spec, name: str, y: torch.Tensor, yc: sharding.Held,
+              nc: sharding.Held, z: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """The output projection ``p[name]`` of the normed inner row: ``y``
+    holds its channels ``yc`` (the ranks of ``yc.line`` the rest; gathered
+    whole first where they lack ``p[name]``'s rows), the norm's scale its
+    part ``nc``; ``blocks.rms_norm`` over ``yc.line``, the channels of
+    ``p[name]``'s rows (times SiLU of the whole gate ``z``'s, the
+    mLSTM's), times those rows, summed over their line."""
+    oc = _held(p, spec, name, 0)
+    if not (yc.lo <= oc.lo and oc.hi <= yc.hi):
+        y = _whole_cols(y, yc)
+        yc = sharding.Held(0, yc.whole, yc.whole, None)
+    scale = sharding.take(p["norm"], nc, (yc.lo, yc.hi), dim=0)[0]
+    y = blocks.rms_norm(scale, y, line=yc.line)[
+        ..., oc.lo - yc.lo:oc.hi - yc.lo]
+    if z is not None:
+        y = y * F.silu(z[..., oc.lo:oc.hi])
+    out = y @ p[name]
+    return out if oc.line is None else sharding.reduce_from(out, oc.line)
+
+
+# --------------------------------------------------------------------------
 # Mamba2 (SSD)
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
@@ -179,43 +280,44 @@ def mamba2_leaves(cfg: Mamba2Config) -> Dict[str, Leaf]:
             "out_proj": ((di, d), di ** -0.5)}
 
 
-def _mamba2_qkv(p, x, cfg: Mamba2Config, conv_state=None):
-    B, L, _ = x.shape
-    di, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-    zxbcdt = x @ p["in_proj"]
-    z, xin, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
-    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    conv_out, new_conv = causal_conv(conv_in, p["conv_w"], conv_state)
-    conv_out = F.silu(conv_out)
-    xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
-    dt = F.softplus(dt + p["dt_bias"])                      # [B, L, H]
-    A = -torch.exp(p["A_log"].float())                      # [H]
-    ld = dt.float() * A                                     # log decay ≤ 0
-    xh = xin.reshape(B, L, H, P)
-    v = xh * dt[..., None]
-    q = Cm[:, :, None].expand(B, L, H, N)
-    k = Bm[:, :, None].expand(B, L, H, N)
-    return z, xh, q, k, v, ld, new_conv
-
-
-def mamba2_forward(p, x: torch.Tensor, cfg: Mamba2Config, state=None):
+def mamba2_forward(p, x: torch.Tensor, cfg: Mamba2Config, state=None,
+                   spec=None, cache_spec=None):
     """x [B, L, d]; state ``{"ssm": [B, H, N, P] f32, "conv": [B, K-1,
     d_inner + 2N]}`` for stepwise use. Returns (out [B, L, d], the new
-    state or None)."""
+    state or None). On one rank of a mesh (``spec`` / ``cache_spec``: the
+    leaves' and the state's specs) the rank's heads, as the module
+    docstring sets out."""
     B, L, _ = x.shape
-    decode = state is not None and L == 1
-    conv_state = state["conv"] if state is not None else None
-    z, xh, q, k, v, ld, new_conv = _mamba2_qkv(p, x, cfg, conv_state)
-    if decode:
+    di, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    mesh, spec = sharding.current_mesh(), spec or {}
+    heads = _heads(state, "ssm", cache_spec, H, mesh)
+    h_lo, h_hi = heads.lo, heads.hi
+    zxbcdt = _whole_cols(x @ p["in_proj"], _held(p, spec, "in_proj", 1))
+    z, xin, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
+    conv_out, new_conv = _conv(p, spec, torch.cat([xin, Bm, Cm], dim=-1),
+                               state, cache_spec)
+    xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+    dt_bias, A_log, D = (sharding.take(p[k], _held(p, spec, k, 0),
+                                       (h_lo, h_hi), dim=0)[0]
+                         for k in ("dt_bias", "A_log", "D"))
+    dt = F.softplus(dt[..., h_lo:h_hi] + dt_bias)           # [B, L, Hc]
+    A = -torch.exp(A_log.float())                           # [Hc]
+    ld = dt.float() * A                                     # log decay ≤ 0
+    Hc = h_hi - h_lo
+    xh = xin[..., h_lo * P:h_hi * P].reshape(B, L, Hc, P)
+    v = xh * dt[..., None]
+    q = Cm[:, :, None].expand(B, L, Hc, N)
+    k = Bm[:, :, None].expand(B, L, Hc, N)
+    if state is not None and L == 1:                        # decode
         y1, S = gla_step(state["ssm"], q[:, 0], k[:, 0], v[:, 0], ld[:, 0])
         y = y1[:, None]
     else:
         S0 = state["ssm"] if state is not None else None
         y, S = gla_chunked(q, k, v, ld, chunk=cfg.chunk, state0=S0)
-    y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(B, L, cfg.d_inner)
-    y = blocks.rms_norm(p["norm"], y * F.silu(z))
-    out = y @ p["out_proj"]
+    y = y + xh * D[None, None, :, None]
+    y = y.reshape(B, L, Hc * P) * F.silu(z[..., h_lo * P:h_hi * P])
+    out = _rows_out(p, spec, "out_proj", y, _channels(heads, P, di),
+                    _held(p, spec, "norm", 0))
     new_state = {"ssm": S, "conv": new_conv} if state is not None else None
     return out, new_state
 
@@ -261,36 +363,45 @@ def mlstm_leaves(cfg: MlstmConfig) -> Dict[str, Leaf]:
             "norm": ((di,), ONES), "down_proj": ((di, d), di ** -0.5)}
 
 
-def _mlstm_qkv(p, x, cfg: MlstmConfig, conv_state=None):
-    B, L, _ = x.shape
-    H, P = cfg.n_heads, cfg.head_dim
-    up = x @ p["up_proj"]
-    xi, z = up.chunk(2, dim=-1)
-    conv_out, new_conv = causal_conv(xi, p["conv_w"], conv_state)
-    conv_out = F.silu(conv_out)
-    q = (conv_out @ p["wq"]).reshape(B, L, H, P) / \
-        blocks.rounded(math.sqrt(P), x.dtype)
-    k = (conv_out @ p["wk"]).reshape(B, L, H, P)
-    v = (xi @ p["wv"]).reshape(B, L, H, P)
-    # an f32 w_if (the reference's leaf) promotes xi to f32, as jnp does
-    gif = (xi.to(p["w_if"].dtype) @ p["w_if"]).float()
-    i_g, f_g = gif.chunk(2, dim=-1)                     # [B, L, H]
-    ld = F.logsigmoid(f_g)                              # log forget ≤ 0
-    lg = i_g.clamp(-cfg.gate_clip, cfg.gate_clip)       # log input, clipped
-    return z, q, k, v, ld, lg, new_conv
-
-
-def mlstm_forward(p, x: torch.Tensor, cfg: MlstmConfig, state=None):
+def mlstm_forward(p, x: torch.Tensor, cfg: MlstmConfig, state=None,
+                  spec=None, cache_spec=None):
     """x [B, L, d]; state ``{"ssm": [B, H, P, P+1] f32, "conv": [B, K-1,
     d_inner]}`` for stepwise use. The normaliser rides as an extra value
-    column of ones: y = num / max(|den|, 1)."""
+    column of ones: y = num / max(|den|, 1). On one rank of a mesh, as
+    :func:`mamba2_forward`."""
     B, L, _ = x.shape
-    P = cfg.head_dim
-    decode = state is not None and L == 1
-    conv_state = state["conv"] if state is not None else None
-    z, q, k, v, ld, lg, new_conv = _mlstm_qkv(p, x, cfg, conv_state)
+    H, P, di = cfg.n_heads, cfg.head_dim, cfg.d_inner
+    mesh, spec = sharding.current_mesh(), spec or {}
+    heads = _heads(state, "ssm", cache_spec, H, mesh)
+    h_lo, h_hi = heads.lo, heads.hi
+    Hc = h_hi - h_lo
+    up = _whole_cols(x @ p["up_proj"], _held(p, spec, "up_proj", 1))
+    xi, z = up.chunk(2, dim=-1)
+    conv_out, new_conv = _conv(p, spec, xi, state, cache_spec)
+
+    def proj(a, name):    # a @ p[name], p[name]'s rows of di, the whole sum
+        c = _held(p, spec, name, 0)
+        if c.line is None:
+            return a @ p[name]
+        # the partial products in f32, rounded once after the sum, as the
+        # one-rank product rounds once: the recurrence amplifies a rounding
+        # of each part (bf16 parts doubled 10d's xlstm rank error)
+        y = a[..., c.lo:c.hi].float() @ p[name].float()
+        return sharding.reduce_from(y, c.line).to(a.dtype)
+
+    def mine(a):          # [B, L, H·w] → the rank's heads [B, L, Hc, w]
+        return a.reshape(B, L, H, -1)[:, :, h_lo:h_hi]
+
+    q = mine(proj(conv_out, "wq")) / blocks.rounded(math.sqrt(P), x.dtype)
+    k = mine(proj(conv_out, "wk"))
+    v = mine(proj(xi, "wv"))
+    # an f32 w_if (the reference's leaf) promotes xi to f32, as jnp does
+    gif = proj(xi.to(p["w_if"].dtype), "w_if").float()
+    i_g, f_g = (g[..., h_lo:h_hi] for g in gif.chunk(2, dim=-1))  # [B,L,Hc]
+    ld = F.logsigmoid(f_g)                              # log forget ≤ 0
+    lg = i_g.clamp(-cfg.gate_clip, cfg.gate_clip)       # log input, clipped
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
-    if decode:
+    if state is not None and L == 1:                    # decode
         y1, S = gla_step(state["ssm"], q[:, 0], k[:, 0], v_aug[:, 0],
                          ld[:, 0], lg[:, 0])
         y = y1[:, None]
@@ -298,10 +409,9 @@ def mlstm_forward(p, x: torch.Tensor, cfg: MlstmConfig, state=None):
         S0 = state["ssm"] if state is not None else None
         y, S = gla_chunked(q, k, v_aug, ld, lg, chunk=cfg.chunk, state0=S0)
     num, den = y[..., :P], y[..., P:]
-    y = num / torch.clamp(den.abs(), min=1.0)
-    y = y.reshape(B, L, cfg.d_inner)
-    y = blocks.rms_norm(p["norm"], y) * F.silu(z)
-    out = y @ p["down_proj"]
+    y = (num / torch.clamp(den.abs(), min=1.0)).reshape(B, L, Hc * P)
+    out = _rows_out(p, spec, "down_proj", y, _channels(heads, P, di),
+                    _held(p, spec, "norm", 0), z)
     new_state = {"ssm": S, "conv": new_conv} if state is not None else None
     return out, new_state
 
@@ -341,16 +451,27 @@ def slstm_leaves(cfg: SlstmConfig) -> Dict[str, Leaf]:
             "ff_down": ((f, d), f ** -0.5)}
 
 
-def slstm_forward(p, x: torch.Tensor, cfg: SlstmConfig, state=None):
+def slstm_forward(p, x: torch.Tensor, cfg: SlstmConfig, state=None,
+                  spec=None, cache_spec=None):
     """x [B, L, d]; state ``{"c", "n", "h"}`` [B, H, hd] f32 for stepwise
     use. One step a token: gates from ``x @ w_gates`` plus the f32 carry
-    ``h`` through the block-diagonal ``r_gates``."""
+    ``h`` through the block-diagonal ``r_gates``. On one rank of a mesh,
+    as :func:`mamba2_forward`: the heads of the rank's carry, then the
+    whole h for the norm, the MLP column- and row-parallel as the leaves
+    are cut."""
     B, L, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    wx = (x @ p["w_gates"]).reshape(B, L, H, 4 * hd)
-    r = p["r_gates"].float()
+    mesh, spec = sharding.current_mesh(), spec or {}
+    heads = _heads(state, "c", cache_spec, H, mesh)
+    h_lo, h_hi = heads.lo, heads.hi
+    Hc = h_hi - h_lo
+    wx = sharding.take(x @ p["w_gates"], _held(p, spec, "w_gates", 1),
+                       (h_lo * 4 * hd, h_hi * 4 * hd))[0]
+    wx = wx.reshape(B, L, Hc, 4 * hd)
+    r = sharding.take(p["r_gates"], _held(p, spec, "r_gates", 0),
+                      (h_lo, h_hi), dim=0)[0].float()
     if state is None:
-        z0 = torch.zeros(B, H, hd, dtype=torch.float32, device=x.device)
+        z0 = torch.zeros(B, Hc, hd, dtype=torch.float32, device=x.device)
         c, n, h = z0, z0, z0
     else:
         c, n, h = state["c"], state["n"], state["h"]
@@ -367,10 +488,19 @@ def slstm_forward(p, x: torch.Tensor, cfg: SlstmConfig, state=None):
         n = ft * n + it
         h = ot * (c / torch.clamp(n.abs(), min=1.0))
         hs.append(h.to(x.dtype))
-    y = torch.stack(hs, dim=1).reshape(B, L, d)
-    y = blocks.rms_norm(p["norm"], y)
-    u, gate = (y @ p["ff_up"]).chunk(2, dim=-1)
+    # the norm reads the whole row: the heads' channels gathered
+    y = _whole_cols(torch.stack(hs, dim=1).reshape(B, L, Hc * hd),
+                    _channels(heads, hd, d))
+    norm = sharding.take(p["norm"], _held(p, spec, "norm", 0), (0, d),
+                         dim=0)[0]
+    y = blocks.rms_norm(norm, y)
+    fr = _held(p, spec, "ff_down", 0)       # the rank's rows of the hidden
+    f = fr.whole
+    u, gate = sharding.take(y @ p["ff_up"], _held(p, spec, "ff_up", 1),
+                            (fr.lo, fr.hi), (f + fr.lo, f + fr.hi))
     out = (F.gelu(u, approximate="tanh") * gate) @ p["ff_down"]
+    if fr.line is not None:
+        out = sharding.reduce_from(out, fr.line)
     new_state = None if state is None else {"c": c, "n": n, "h": h}
     return out, new_state
 

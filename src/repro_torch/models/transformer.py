@@ -28,8 +28,9 @@ rank's shards (:func:`_layers`: a unit's leaves gathered over the
 batch axes when it is reached, FSDP's gather; the model axis
 tensor-parallel in :func:`embed`, the attention layers
 (``attention.gqa_forward``, ``cross_forward``, ``encoder_forward`` in
-:func:`encode`, ``mla_forward``), :func:`_ffn` and :func:`logits`, each
-reading its leaves' specs; the recurrent mixers run whole on a rank).
+:func:`encode`, ``mla_forward``), the recurrent mixers (models/ssm.py
+through :func:`recurrent_forward`), :func:`_ffn` and :func:`logits`, each
+reading its leaves' specs).
 :class:`ModelConfig` keeps every field of the reference so that the
 configs read the same, with torch dtypes in place of jnp ones
 (``compute_dtype=torch.float32`` works as the reference override does).
@@ -171,7 +172,7 @@ def check_supported(cfg: ModelConfig) -> None:
     with dense swiglu, squared-ReLU or GELU MLPs or a MoE (with ``cfg.moe``
     set), or a recurrent mixer (``mamba`` / ``mlstm`` / ``slstm`` with its
     config set) with no ffn; a ``shared`` site with an MLP; RMS or layer
-    norms, no softcap. Every mixer and ffn of the reference's zoo is here,
+    norms. Every mixer and ffn of the reference's zoo is here,
     for serving and for the training forward alike."""
     for groups, mixers in ((cfg.groups, DECODER_MIXERS),
                            (cfg.encoder_groups, ("enc",))):
@@ -201,7 +202,7 @@ def check_supported(cfg: ModelConfig) -> None:
                         f"repro_torch: a shared site carries the shared "
                         f"MLP (got {kind!r})")
     if cfg.mlp not in ("swiglu", "relu2", "gelu") or \
-            cfg.norm not in ("rms", "layer") or cfg.logit_softcap:
+            cfg.norm not in ("rms", "layer"):
         raise NotImplementedError(
             f"repro_torch: {cfg.name} needs blocks not ported yet "
             "(ROADMAP queue 1, item 4 and 16)")
@@ -791,7 +792,7 @@ def _ffn(p, ffn: str, x: torch.Tensor, cfg: ModelConfig, spec=None
     for k in ins:
         cols = sharding.held(p[k], spec.get(k), p[k].dim() - 1, mesh)
         if (cols.lo, cols.hi) != (rows.lo, rows.hi):
-            p[k] = attention._cols(p[k], cols, rows.lo, rows.hi)
+            p[k] = sharding.take(p[k], cols, (rows.lo, rows.hi))[0]
     if cfg.mlp == "swiglu":
         y = blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
     elif cfg.mlp == "relu2":
@@ -917,9 +918,9 @@ def _rank_tree(model: Transformer, tree, *path, unit: bool = False):
 
 
 def _check_whole(what: str, spec_tree) -> None:
-    """Raise unless every leaf that the rank path runs whole (a recurrent
-    layer's leaves and state, learned positions, the encoder's final norm)
-    is whole once the batch axes are gathered (no spec: no mesh)."""
+    """Raise unless every leaf that the rank path runs whole (learned
+    positions, the encoder's final norm) is whole once the batch axes are
+    gathered (no spec: no mesh)."""
     if spec_tree is None:
         return
     mesh = sharding.current_mesh()
@@ -933,8 +934,9 @@ def _check_whole(what: str, spec_tree) -> None:
 
 
 # the mixers whose rank path takes their leaves and caches cut over the
-# model axis (the recurrent ones run whole on a rank)
-RANK_MIXERS = ("gqa", "global", "local", "shared", "cross", "mla")
+# model axis
+RANK_MIXERS = ("gqa", "global", "local", "shared", "cross", "mla", "mlstm",
+               "slstm", "mamba")
 
 
 def layer_pre(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
@@ -1106,18 +1108,21 @@ def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
 
 def recurrent_forward(mixer: str, p: Dict[str, torch.Tensor],
                       h: torch.Tensor, cfg: ModelConfig,
-                      state: Dict[str, torch.Tensor], mode: str
-                      ) -> torch.Tensor:
+                      state: Dict[str, torch.Tensor], mode: str,
+                      spec=None, cache_spec=None) -> torch.Tensor:
     """One recurrent layer (models/ssm.py) over its slots' state views,
     written in place with the new state; returns y [B, L, d]. A decode
     step continues from the state. A prefill starts from a zero state and
     zero conv history, whatever the views hold: a slot's earlier sequence
     (or the free slot's decode steps) must not leak into the next one.
     The reference's dense engine starts from the slot's state as it
-    stands (see tests/test_torch_xlstm.py)."""
+    stands (see tests/test_torch_xlstm.py). On one rank of a mesh
+    ``state`` is the rank's part under ``cache_spec`` and ``p`` its shards
+    under ``spec``; the forward reads both."""
     start = state if mode == "decode" else \
         {name: torch.zeros_like(a) for name, a in state.items()}
-    y, new = ssm.FORWARD[mixer](p, h, getattr(cfg, mixer), start)
+    y, new = ssm.FORWARD[mixer](p, h, getattr(cfg, mixer), start, spec,
+                                cache_spec)
     for name, a in state.items():
         a.copy_(new[name])
     return y
@@ -1172,9 +1177,8 @@ def hidden(model: Transformer, tokens: torch.Tensor, caches, cache_pos,
         h = _norm_apply(p["ln1"], x, cfg)
         spec = None if ps is None else ps["mixer"]
         if mixer in ssm.RECURRENT:
-            _check_whole(kind, spec)
-            _check_whole(kind, cs)
-            y = recurrent_forward(mixer, p["mixer"], h, cfg, cache, mode)
+            y = recurrent_forward(mixer, p["mixer"], h, cfg, cache, mode,
+                                  spec, cs)
         elif mixer == "cross":
             y = attention.cross_forward(p["mixer"], h, cfg, cache, extra,
                                         spec, cs)

@@ -48,14 +48,15 @@ def _launches() -> int:
 def attention_launches():
     """Count both dense attention kernels' launches inside the block, from
     0, by the mixer kind of the layer that made them: ``"cross"`` inside
-    ``attention.cross_forward`` and ``"enc"`` inside ``encoder_forward``
-    (both wrapped for the block alone, each call's launches the
-    difference of the counters), ``"gqa"`` the rest. Yields a dict filled
+    ``attention.cross_forward``, ``"enc"`` inside ``encoder_forward`` and
+    ``"recurrent"`` inside ``transformer.recurrent_forward`` (each wrapped
+    for the block alone, each call's launches the difference of the
+    counters), ``"gqa"`` the rest. Yields a dict filled
     at the block's end: ``"total"`` {kernel: launches} and ``"by_mixer"``
     {(mixer, kernel): launches} of those launched."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import attention
+    from repro_torch.models import attention, transformer
     kernels = {"flash_attention": fa.flash_attention,
                "flash_decode": da.flash_decode}
     by_mixer: Dict[Tuple[str, str], int] = collections.Counter()
@@ -70,20 +71,23 @@ def attention_launches():
                     by_mixer[(mixer, k)] += w.launches - before[k]
         return call
 
-    saved = attention.cross_forward, attention.encoder_forward
+    saved = (attention.cross_forward, attention.encoder_forward,
+             transformer.recurrent_forward)
     for w in kernels.values():
         w.launches = 0
     attention.cross_forward = counted("cross", saved[0])
     attention.encoder_forward = counted("enc", saved[1])
+    transformer.recurrent_forward = counted("recurrent", saved[2])
     counts: Dict[str, Any] = {}
     try:
         yield counts
     finally:
-        attention.cross_forward, attention.encoder_forward = saved
+        (attention.cross_forward, attention.encoder_forward,
+         transformer.recurrent_forward) = saved
     total = {k: w.launches for k, w in kernels.items()}
     for k in kernels:
-        by_mixer[("gqa", k)] = (total[k] - by_mixer[("cross", k)]
-                                - by_mixer[("enc", k)])
+        by_mixer[("gqa", k)] = total[k] - sum(
+            by_mixer[(m, k)] for m in ("cross", "enc", "recurrent"))
     counts.update(total=total, by_mixer=dict(+by_mixer))
 
 

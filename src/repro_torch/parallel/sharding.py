@@ -376,6 +376,18 @@ def held(x, spec: Optional[Tuple], dim: int, mesh: Optional[Mesh]) -> Held:
     return Held(part.start, part.stop, whole[dim], line)
 
 
+def take(x: torch.Tensor, part: Held, *spans: Tuple[int, int],
+         dim: int = -1) -> List[torch.Tensor]:
+    """The ranges ``spans`` (each ``[lo, hi)`` of the whole dimension
+    ``dim``) of ``x``, which holds this rank's ``part`` of that dimension:
+    sliced where the part holds them all, else after one
+    :func:`gather_from` over the part's line."""
+    if not all(part.lo <= lo and hi <= part.hi for lo, hi in spans):
+        x = gather_from(x, part.line, dim)
+        part = part._replace(lo=0, hi=part.whole)
+    return [x.narrow(dim, lo - part.lo, hi - lo) for lo, hi in spans]
+
+
 def unbind(spec: Tuple, axes: Sequence[str]) -> Tuple:
     """``spec`` with every dimension bound to one of ``axes`` made whole
     (what :func:`gather_leaf` over ``axes`` leaves)."""

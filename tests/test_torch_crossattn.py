@@ -378,17 +378,18 @@ def test_attention_calls_are_the_steps_calls(arch, monkeypatch):
             0, tcfg.vocab, (B, PROMPT)), None
     seen = []
 
-    def flash_attention(q, k, v, causal, window=None):
+    def flash_attention(q, k, v, causal, window=None, softcap=None):
         assert v.shape == k.shape
         seen.append(("flash_attention", tuple(q.shape), tuple(k.shape),
                      causal, window, ()))
-        return tfa.flash_attention(q, k, v, causal=causal, window=window)
+        return tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
 
-    def flash_decode(q, kc, vc, lengths):
+    def flash_decode(q, kc, vc, lengths, softcap=None):
         assert vc.shape == kc.shape
         seen.append(("flash_decode", tuple(q.shape), tuple(kc.shape), False,
                      None, tuple(lengths.tolist())))
-        return tda.flash_decode(q, kc, vc, lengths)
+        return tda.flash_decode(q, kc, vc, lengths, softcap=softcap)
 
     monkeypatch.setattr(tattention, "flash_attention", flash_attention)
     monkeypatch.setattr(tattention, "flash_decode", flash_decode)

@@ -14,13 +14,17 @@
     the wrapper reports on ``meta`` as on the card; on the production mesh
     the same cell is traced on one rank's shards (its FLOPs times the 256
     ranks at least 99 % of the analytic count, collectives and temp
-    recorded), and so is deepseek-v3-671b's, whose MLA takes its rank
-    path; xlstm-1.3b's, whose mLSTM has no rank path yet, is not: the
+    recorded), and so are deepseek-v3-671b's, whose MLA takes its rank
+    path, and xlstm-1.3b's, whose mLSTM / sLSTM take theirs; its train_4k
+    cell, whose FSDP step takes no model axis yet, is not traced: the
     record names the leaf and the rule.
   * On the 1x1 mesh with real arguments (smoke config, on the CPU, as the
     card's one-rank check builds them) the decode step made with the
     caches' specs runs the whole model of qwen2-0.5b and of xlstm-1.3b
     and gives the logits of the step made without them.
+  * A long prefill through recurrent layers, traced from passes of 2, 3
+    and 4 periods and fitted, equals its whole pass (xlstm-1.3b,
+    zamba2-1.2b; smoke configs).
   * A smoke-config ``hillclimb`` run with the model axis unbound traces
     the FSDP train step on the abstract (16, 16) mesh (the all-gathers and
     reduce-scatters recorded) and appends its entry to a log in
@@ -157,12 +161,15 @@ def test_run_cell_traces_the_decode_step_to_the_analytic_flops():
     print(f"qwen2-0.5b decode_32k on 16x16: traced x 256 / analytic = "
           f"{pt['flops_all_chips'] / a['flops']:.4f}")
     assert prod["analytic"] == a
-    out = dryrun.run_cell("xlstm-1.3b", shape, "16x16", verbose=False)
+    xl = dryrun.run_cell("xlstm-1.3b", shape, "16x16", verbose=False)
+    assert "traced_null" not in xl and xl["traced"]["collective"]["total"] > 0
+    assert xl["memory"]["temp_size_in_bytes"] is not None
+    out = dryrun.run_cell("xlstm-1.3b", configs.SHAPES["train_4k"], "16x16",
+                          verbose=False)
     assert out["traced"] is None and out["roofline"]["collective_s"] is None
     assert out["memory"]["temp_size_in_bytes"] is None
     assert out["traced_null"]["leaf"].startswith(
-        "params/groups/0/0/mixer/conv_w: heads_tp -> model"), \
-        out["traced_null"]
+        "params/embed: vocab_tp -> model"), out["traced_null"]
     ds = dryrun.run_cell("deepseek-v3-671b", shape, "16x16", verbose=False)
     assert "traced_null" not in ds and ds["traced"]["collective"]["total"] > 0
     assert ds["memory"]["temp_size_in_bytes"] is not None
@@ -186,6 +193,43 @@ def test_one_rank_cell_runs_its_step_on_real_arguments(arch, shape_name):
     got = cell.fn(*cell.args)[0]
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch,mesh_name,L", [("xlstm-1.3b", "16x16", 160),
+                                              ("zamba2-1.2b", "16x16", 10240),
+                                              ("zamba2-1.2b", "1x1", 10240)])
+def test_recurrent_prefill_fit_equals_the_whole_trace(arch, mesh_name, L):
+    """``trace_cell`` of a prefill through recurrent layers fits its counts
+    from passes of 2, 3 and 4 periods: on the smoke configs (zamba2's Mamba2
+    chunk raised to 512 so that the whole pass traces quickly; its shared
+    attention's causal walk makes its FLOPs quadratic) the fit equals the
+    whole pass in FLOPs, the kernels' own, bytes, every collective and both
+    peaks."""
+    import dataclasses
+
+    over = None
+    if arch == "zamba2-1.2b":
+        over = dict(mamba=dataclasses.replace(
+            configs.get_smoke_config(arch).mamba, chunk=512))
+    mesh = dryrun.mesh_of(mesh_name)
+
+    def cell(n):
+        return specs.build_cell(arch, configs.ShapeSpec("prefill_32k", n, 2,
+                                                        "prefill"),
+                                mesh, cfg_over=over, smoke=True)
+
+    specs.trace_cell(cell(64))       # a process's first pass: one-time ops
+    whole = cell(L)
+    P = specs._fit_period(whole)
+    assert P and L // P == 5, P
+    fit, want = specs.trace_cell(whole), specs._traced(whole)
+    assert fit.flops == want.flops and fit.kernel_flops == want.kernel_flops
+    assert fit.bytes == want.bytes
+    assert [(c.kind, c.nbytes, c.group) for c in fit.collectives] == \
+        [(c.kind, c.nbytes, c.group) for c in want.collectives]
+    assert (fit.peak_bytes, fit.scratch_peak_bytes) == \
+        (want.peak_bytes, want.scratch_peak_bytes)
+    assert (fit.kernel_flops != {}) == (arch == "zamba2-1.2b")
 
 
 def test_hillclimb_traces_the_fsdp_step_on_the_abstract_mesh(tmp_path,

@@ -207,15 +207,16 @@ def test_attention_calls_are_the_steps_calls(perturbed, monkeypatch):
     B, P, S, n_new = 2, 10, 32, 5
     seen = []
 
-    def flash_attention(q, k, v, causal, window=None):
+    def flash_attention(q, k, v, causal, window=None, softcap=None):
         seen.append(("flash_attention", tuple(q.shape), tuple(k.shape),
                      causal, window, ()))
-        return tfa.flash_attention(q, k, v, causal=causal, window=window)
+        return tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
 
-    def flash_decode(q, kc, vc, lengths):
+    def flash_decode(q, kc, vc, lengths, softcap=None):
         seen.append(("flash_decode", tuple(q.shape), tuple(kc.shape), False,
                      None, tuple(lengths.tolist())))
-        return tda.flash_decode(q, kc, vc, lengths)
+        return tda.flash_decode(q, kc, vc, lengths, softcap=softcap)
 
     monkeypatch.setattr(tattention, "flash_attention", flash_attention)
     monkeypatch.setattr(tattention, "flash_decode", flash_decode)
