@@ -406,17 +406,17 @@ Phases, each printed on its own line, none catching its own failure:
                also running the one-rank step itself
                (``TP_SERVE``), at full width under each arch's
                decode_32k cell's rules: qwen2-0.5b (``kv_seq`` → model)
-               on (data 1, model 2) (its kv heads on the model axis,
-               head-aligned), (1, 4) (SP decode; q columns 3.5 heads a
-               rank, gathered) and (2, 2) (the FSDP gather too): a decode
+               on (1, 4) (SP decode; q columns 3.5 heads a rank,
+               gathered) and (2, 2) (the FSDP gather too; its kv heads
+               on the model axis, head-aligned): a decode
                step at S 32768, B 8 over caches drawn N(0, 1), 7 slots at
                32767 and one at 100 (its later slices empty), and a
                prefill of B 2 x 2048 tokens; llama-3.2-vision-11b cut in
                depth to its first group (4 self + 1 cross layers; its 8
                kv heads do not cover the production model axis of 16, so
                ``kv_seq`` cuts the self caches' rows and the cross
-               caches' 1600; a rule override keeps them whole on these
-               smaller meshes too) on (1, 4) and (2, 2): the same
+               caches' 1600; a rule override keeps them whole on this
+               smaller mesh too) on (1, 4): the same
                decode, and a prefill of B 2 x 256 tokens with 1600 stub
                patches; whisper-medium whole (its kv heads on the model
                axis) on (1, 4) and (2, 2): a decode at S 448 and a
@@ -436,12 +436,12 @@ Phases, each printed on its own line, none catching its own failure:
                mixers (models/ssm.py on a rank's heads) at full width:
                xlstm-1.3b cut to one unit (7 mLSTM + 1 sLSTM layers;
                mLSTM projections cut over the model axis,
-               its 4 heads' state a rank's on (1, 4) and whole on (2, 2))
-               and zamba2-1.2b (Mamba2 by heads; its shared attention
-               sites' caches at S 8192) on (1, 4) and (2, 2): a decode
-               step over states and caches drawn N(0, 1) and a prefill
-               of B 2 x 256 tokens, and in f32 on (1, 4) a decode of
-               each. Gates, every rank: in
+               its 4 heads' state a rank's on (1, 4) and whole on
+               (2, 2)) on (1, 4) and (2, 2), and zamba2-1.2b (Mamba2 by
+               heads; its shared attention sites' caches at S 8192) on
+               (1, 4): a decode step over states and caches drawn
+               N(0, 1) and a prefill of B 2 x 256 tokens, and in f32 on
+               (1, 4) a decode of each. Gates, every rank: in
                bf16 its logits, against the
                one-rank step, within 3x that step's own bf16 error (the
                same step in f32 on the same values, run first in this
@@ -469,6 +469,32 @@ Phases, each printed on its own line, none catching its own failure:
                ``flash_attention`` at whisper's encoder on a (1, 4)
                rank's heads (B 2, H 4, 1500 frames, hd 64, non-causal)
                against plain, timed beside SDPA and its bound;
+  10e. tp train  training with a model axis (train/step.py
+               ``shard_state`` under the train_4k cell's rules,
+               parallel/mesh_jobs.py ``FsdpJob``) on 4 gloo ranks of the
+               card, each drawing the whole model from seed 0 and taking
+               its shards: qwen2-0.5b at phase 9a's width, depth, data
+               and optimizer (f32 master, bf16 compute, remat full, TF32
+               off) on (data 2, model 2), two steps of 4 x 4096 in 2
+               microbatches, each rank one row of each: heads, kv heads,
+               the MLP's hidden and the vocabulary over model (the loss
+               over the vocabulary line), the FSDP gather over data;
+               losses and grad norms within 1e-3 relative of phase 9a's
+               steps 1-2 (10c's gate), 0 kernel launches (the training
+               attention is flash_xla, plain in both packages), each
+               rank's peak memory logged; and granite-moe-3b-a800m in f32
+               cut to 2 layers on (1, 4) (its experts whole, slot-
+               parallel; TF32 off), one step of 2 x 1024 tokens: loss,
+               nll, moe_aux and grad norm within 1e-4 relative of the
+               same step on one rank in this process, and each rank's
+               weight, m and v shards after it against its slices of
+               the one-rank state through their (Σx, Σ|x|, Σx²) in f64
+               (``FsdpJob``'s ``sums``: a rank's state, its experts
+               whole, is too large to carry back), Σx and Σ|x| within
+               1e-4 of Σ|x|, Σx² within 2e-4 of Σx², 0 launches; and
+               qwen2's gradient norm of each weight at step 1, read
+               from the ranks' first moments (m = (1 - b1)·scale·g),
+               within 5e-2 of phase 9a's;
   11a. dma     ``core/dma.hero_memcpy2d`` (``csrc/hero_memcpy2d.cu``: rows
                staged through the TMA bulk copy of ``csrc/hero_dma.cuh``)
                against its plain version, the reference's sequential row
@@ -3354,8 +3380,10 @@ def train_full(card: str):
     from repro_torch import kernels as kernels_lib
     from repro_torch.checkpoint.manager import MANIFEST, CheckpointManager
     from repro_torch.launch import train as train_lib
+    from repro_torch.core import tree as tree_lib
     from repro_torch.launch.serve import profile_rows, profiler
     from repro_torch.models import transformer
+    from repro_torch.train import step as step_lib
     phase = f"train {TRAIN['arch']}"
     free_card(phase)
     cfg = configs.get_config(TRAIN["arch"], **TRAIN["overrides"])
@@ -3369,12 +3397,14 @@ def train_full(card: str):
     kernels = kernels_lib.wrappers()
     for k in kernels.values():
         k.launches = 0
-    steps, prof = [], profiler()
+    steps, prof, m_sq = [], profiler(), []
 
     def on_step(step, loss, dt, state, metrics):
         steps.append((step, loss, dt, time.perf_counter(),
                       float(metrics["grad_norm"])))
         if step == 1:                  # profile steps 2-3
+            m_sq.extend(float(t.double().square().sum()) for t in
+                        tree_lib.leaves(step_lib.state_tree(state).opt.m))
             torch.cuda.synchronize()
             prof.start()
         elif step == 3:
@@ -3456,7 +3486,7 @@ def train_full(card: str):
     log(phase, f"{card}: step time (the restarted step 3, no profiler, "
         f"host clock ending in a synchronize) {step_s * 1e3:.1f} ms, "
         f"{tokens / step_s:.0f} tokens/s")
-    return [(st[0], st[1], st[4]) for st in steps]
+    return [(st[0], st[1], st[4]) for st in steps], m_sq
 
 
 def snapshot(state):
@@ -3959,13 +3989,17 @@ def check_rank_attention(results):
 # norm, 12x the one-rank step's own bf16 error), so that error bounds
 # nothing
 TP_SERVE = {
-    "qwen2-0.5b": dict(meshes=((1, 2), (1, 4), (2, 2)), S_dec=32768,
+    "qwen2-0.5b": dict(meshes=((1, 4), (2, 2)), S_dec=32768,
                        prefill=(2, 2048)),
     "granite-moe-3b-a800m": dict(meshes=(), S_dec=0, prefill=None),
     "llama-3.2-vision-11b": dict(
-        meshes=((1, 4), (2, 2)), S_dec=32768, prefill=(2, 256),
+        meshes=((1, 4),), S_dec=32768, prefill=(2, 256),
         cut=dict(groups=((("gqa:mlp",) * 4 + ("cross:mlp",), 1),)),
         rules=dict(kv_heads_tp=None)),
+    # (2, 2): the FSDP gather over data beside the model axis, of the
+    # cross and encoder leaves (whisper) and of a whole-state recurrence
+    # beside cut projections (xlstm's 4 heads on a model axis of 2, the
+    # layout of the production 16x16 mesh)
     "whisper-medium": dict(meshes=((1, 4), (2, 2)), S_dec=448,
                            prefill=(2, 4)),
     "deepseek-v3-671b": dict(
@@ -3980,7 +4014,7 @@ TP_SERVE = {
                        prefill=(2, 256),
                        cut=dict(groups=((("mlstm:none",) * 7
                                          + ("slstm:none",), 1),))),
-    "zamba2-1.2b": dict(meshes=((1, 4), (2, 2)), S_dec=8192,
+    "zamba2-1.2b": dict(meshes=((1, 4),), S_dec=8192,
                         prefill=(2, 256)),
 }
 
@@ -4226,6 +4260,201 @@ def tp_serve_full(card: str, results):
     log(phase, f"one-rank bf16 / f32 steps {noise_s:.1f} s; meta traces "
         f"{trace_s:.1f} s (beside the spawns); spawns " + ", ".join(
         f"{m}: {w:.1f} s" for m, w in walls.items()))
+
+
+# --------------------------------------------------------------------------
+# phase 10e: training with a model axis
+# --------------------------------------------------------------------------
+TP_TRAIN_MESH = (2, 2)                    # qwen2-0.5b at phase 9a's depth
+TP_TRAIN_MOE = dict(arch="granite-moe-3b-a800m", mesh=(1, 4), batch=2,
+                    seq=1024, overrides=dict(groups=((("gqa:moe",), 2),)))
+TP_TRAIN_MOE_TOL = 1e-4   # in f32 (TF32 off): only the order of the sums
+# qwen2's gradient norm of each leaf, step 1, against phase 9a's: both
+# bf16 compute, summed in other orders; a sum over a wrong line of the
+# model axis of 2 is a factor of 2 or 1/2 on its leaves
+TP_TRAIN_LEAF_TOL = 5e-2
+
+
+def state_leaf_specs(cfg, mesh, rules):
+    """The names of the weights, the abstract (data, model) ``mesh`` and
+    the spec of each leaf of train/step.py ``state_tree`` on it under
+    ``rules`` (weights, m, v, the step)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import transformer
+    from repro_torch.parallel import sharding
+    from repro_torch.train import step as step_lib
+    amesh = sharding.Mesh.abstract(mesh, ("data", "model"))
+    model = transformer.init_model(cfg, None, "meta")
+    with sharding.use_mesh(amesh, rules):
+        p_specs = step_lib.param_specs(model, amesh)
+    names = [p for p, _ in tree_lib.paths(transformer.param_tree(model))]
+    return names, amesh, tree_lib.leaves(step_lib.state_specs(p_specs),
+                                         is_leaf=sharding.is_spec)
+
+
+def tp_train_full(card: str, ref_steps, ref_m_sq):
+    """Phase 10e (see the module docstring); ``ref_steps``: phase 9a's
+    (step, loss, grad norm); ``ref_m_sq``: its Σm² of each weight after
+    step 1."""
+    from repro_torch import configs
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data import pipeline as dp
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_lib
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import mesh_jobs as jobs
+    from repro_torch.parallel import sharding
+    from repro_torch.train import step as step_lib
+    phase = "tp train"
+    free_card(phase)
+    arch = TRAIN["arch"]
+    cfg = configs.get_config(arch, **TRAIN["overrides"])
+    rules = specs.rule_overrides(specs.cell_config(arch,
+                                                   configs.SHAPES["train_4k"]))
+    dcfg = dp.DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                         global_batch=TRAIN["batch"], seed=0, mtp=False)
+    # launch/train.py's optimizer for phase 9a's run
+    opt = adamw.Config(lr=TRAIN["lr"], total_steps=TRAIN["steps"])
+    dense = jobs.FsdpJob(cfg=cfg, weights=None, seed=0, device="cuda:0",
+                         batches=[dp.make_batch(dcfg, s) for s in range(2)],
+                         grad_accum=TRAIN["grad_accum"], mesh=TP_TRAIN_MESH,
+                         rules=rules, opt=opt, wholes=False, sums=True)
+    m = TP_TRAIN_MOE
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    mcfg = configs.get_config(m["arch"], **m["overrides"], **f32)
+    mdata = dp.DataConfig(vocab=mcfg.vocab, seq_len=m["seq"],
+                          global_batch=m["batch"], seed=0, mtp=False)
+    mbatch = dp.make_batch(mdata, 0)
+    mrules = specs.rule_overrides(specs.cell_config(
+        m["arch"], configs.SHAPES["train_4k"]))
+    moe = jobs.FsdpJob(cfg=mcfg, weights=None, seed=0, device="cuda:0",
+                       batches=[mbatch], mesh=m["mesh"], wholes=False,
+                       rules=mrules, sums=True)
+    # the MoE's one-rank step, in this process, and each rank's slices of
+    # its state after the step (weights, m, v), fingerprinted
+    state = train_lib.build_state(mcfg, 0, "cuda")
+    state, one = step_lib.make_train_step(mcfg, adamw.Config())(
+        state, dp.to_device(mbatch, "cuda"))
+    one = {k: float(v) for k, v in one.items()}
+    m_names, m_mesh, m_specs = state_leaf_specs(mcfg, m["mesh"], mrules)
+    whole = tree_lib.leaves(step_lib.state_tree(state))
+    one_sums = [[jobs.fingerprint(t[sharding.shard_slices(
+        t.shape, spec, m_mesh, rank)]) for t, spec in zip(whole, m_specs)]
+        for rank in range(m_mesh.size)]
+    del state, whole
+    free_card(phase, "after the MoE's one-rank step")
+    t0 = time.perf_counter()
+    # the small MoE job first: its step takes the ranks' one-time costs
+    # (the autograd device thread's first GEMMs, gloo's first CUDA tensors)
+    out = _spawn(jobs.each, 4, (jobs.fsdp_job, [moe, dense]), 600.0)
+    spawn_s = time.perf_counter() - t0
+    out = [r[::-1] for r in out]          # [dense, moe] on every rank
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for r in out:
+        d = r[0]
+        assert d["launches"] == 0 and r[1]["launches"] == 0, (
+            d["launches"], r[1]["launches"])
+        assert len(d["metrics"]) == 2
+        for st, (_, loss, gnorm) in zip(d["metrics"], ref_steps):
+            for k, ref in (("loss", loss), ("grad_norm", gnorm)):
+                worst[k] = max(worst[k], abs(st[k] - ref) / abs(ref))
+    assert max(worst.values()) <= 1e-3, (worst, out[0][0]["metrics"],
+                                          ref_steps)
+    moe_worst = 0.0
+    for r in out:
+        got = r[1]["metrics"][0]
+        for k in ("loss", "nll", "moe_aux", "grad_norm"):
+            moe_worst = max(moe_worst, abs(got[k] - one[k]) / abs(one[k]))
+    assert moe_worst <= TP_TRAIN_MOE_TOL, (moe_worst, out[0][1]["metrics"],
+                                          one)
+    # each rank's weight, m and v shards after the step against its slices
+    # of the one-rank state: Σx and Σ|x| within the gate of Σ|x|, Σx²
+    # within twice it of Σx² (m = (1 - b1)·scale·g: a gradient summed
+    # over a wrong line scales its leaf's)
+    n = len(m_names)
+    shard_worst = [0.0, 0.0, 0.0]              # weights, m, v
+    for r in out:
+        rank = m_mesh.rank_at(r[1]["coords"])
+        got = r[1]["sums"][1]
+        assert len(got) == len(one_sums[rank]) == 3 * n + 1
+        for i, ((s, a, q), (s1, a1, q1)) in enumerate(zip(
+                got, one_sums[rank])):
+            err = max(abs(s - s1) / max(a1, 1e-30),
+                      abs(a - a1) / max(a1, 1e-30),
+                      abs(q - q1) / max(2 * q1, 1e-30))
+            assert err <= TP_TRAIN_MOE_TOL, (
+                rank, i, m_names[i % n] if i < 3 * n else "step", err,
+                (s, a, q), (s1, a1, q1))
+            part = min(i // n, 2)
+            shard_worst[part] = max(shard_worst[part], err)
+    # qwen2: each weight's gradient norm at step 1 from the ranks' Σm²
+    # (a shard cut over a line summed over it, a replica counted once)
+    # against phase 9a's, g = sqrt(Σm²) / ((1 - b1)·min(1, clip / norm))
+    names, amesh, leaf_specs = state_leaf_specs(cfg, TP_TRAIN_MESH, rules)
+    n = len(names)
+    assert len(ref_m_sq) == n
+    m_sq = [0.0] * n
+    for r in out:
+        for i, spec in enumerate(leaf_specs[n:2 * n]):
+            axes = sharding.spec_axes(spec)
+            reps = math.prod(k for a, k in amesh.shape.items()
+                             if a not in axes)
+            m_sq[i] += r[0]["sums"][1][n + i][2] / reps
+
+    def norms(sq, gnorm):
+        scale = 1.0 if opt.clip_norm is None else min(
+            1.0, opt.clip_norm / max(gnorm, 1e-9))
+        return [math.sqrt(x) / ((1 - opt.b1) * scale) for x in sq]
+    mine = norms(m_sq, out[0][0]["metrics"][0]["grad_norm"])
+    ref = norms(ref_m_sq, ref_steps[0][2])
+    leaf_rel = [abs(a - b) / max(b, 1e-30) for a, b in zip(mine, ref)]
+    w = max(range(n), key=leaf_rel.__getitem__)
+    assert leaf_rel[w] <= TP_TRAIN_LEAF_TOL, (names[w], mine[w], ref[w])
+    r0 = out[0][0]
+    log(phase, f"{card}: {arch} at full width and phase 9a's depth "
+        f"({cfg.n_layers()} layers) on (data {TP_TRAIN_MESH[0]}, model "
+        f"{TP_TRAIN_MESH[1]}), 4 gloo ranks of cuda:0 under the train_4k "
+        f"rules (heads, kv heads, the MLP's hidden and the vocabulary over "
+        f"model; the loss over the vocabulary line), batch "
+        f"{TRAIN['batch']} x {TRAIN['seq']} in {TRAIN['grad_accum']} "
+        f"microbatches, each rank 1 row of each; f32 master, bf16 "
+        f"compute, remat full, TF32 off: losses "
+        + ", ".join(f"{st['loss']:.6f}" for st in r0["metrics"])
+        + " against phase 9a's "
+        + ", ".join(f"{loss:.6f}" for _, loss, _ in ref_steps[:2])
+        + ", grad norms "
+        + ", ".join(f"{st['grad_norm']:.6f}" for st in r0["metrics"])
+        + " against "
+        + ", ".join(f"{g:.6f}" for _, _, g in ref_steps[:2])
+        + f" (worst rel loss {worst['loss']:.2e}, grad norm "
+        f"{worst['grad_norm']:.2e}; gate 1e-3); peak memory a rank "
+        + ", ".join(f"{r[0]['peak_gib']:.2f}" for r in out)
+        + " GiB; step s " + "; ".join(
+            ", ".join(f"{t:.1f}" for t in r[0]["step_s"]) for r in out)
+        + ", set-ups " + ", ".join(f"{r[0]['setup_s']:.1f}" for r in out)
+        + f" s ({TRANSPORT_NOTE}); launches of the kernels "
+        f"{sum(r[0]['launches'] for r in out)}; step 1's gradient norm "
+        f"of each of the {n} weights (from the ranks' first moment) "
+        f"within {leaf_rel[w]:.2e} of phase 9a's (worst {names[w]}: "
+        f"{mine[w]:.6g} against {ref[w]:.6g}; gate "
+        f"{TP_TRAIN_LEAF_TOL:g}), median "
+        f"{sorted(leaf_rel)[n // 2]:.2e}")
+    log(phase, f"{card}: {m['arch']} in f32 cut to {mcfg.n_layers()} "
+        f"layers on (data {m['mesh'][0]}, model {m['mesh'][1]}) (experts "
+        f"whole, slot-parallel), one step of {m['batch']} x {m['seq']}: "
+        f"loss {out[0][1]['metrics'][0]['loss']:.7f}, grad norm "
+        f"{out[0][1]['metrics'][0]['grad_norm']:.7f} against the one-rank "
+        f"step's {one['loss']:.7f}, {one['grad_norm']:.7f} (worst rel of "
+        f"loss, nll, moe_aux, grad norm over the ranks {moe_worst:.2e}; "
+        f"gate {TP_TRAIN_MOE_TOL:g}); every rank's weight, m and v "
+        f"shards after the step against its slices of the one-rank "
+        f"state: (Σx, Σ|x|, Σx²) within "
+        + ", ".join(f"{e:.2e}" for e in shard_worst)
+        + f" (gate {TP_TRAIN_MOE_TOL:g}); launches "
+        f"{sum(r[1]['launches'] for r in out)}; step s "
+        + ", ".join(f"{r[1]['step_s'][0]:.1f}" for r in out) + ", set-ups "
+        + ", ".join(f"{r[1]['setup_s']:.1f}" for r in out)
+        + f" s; the spawn {spawn_s:.1f} s")
 
 
 # --------------------------------------------------------------------------
@@ -4656,7 +4885,7 @@ def main() -> int:
     steps_vs_cpu()
     log("card/cpu", f"phase 8 in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    ref_steps = train_full(card)
+    ref_steps, ref_m_sq = train_full(card)
     log(f"train {TRAIN['arch']}", f"phase 9a in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -4665,7 +4894,8 @@ def main() -> int:
     for name, fn, args in (("10a", gpipe_full, ()),
                            ("10b", moe_mesh_full, ()),
                            ("10c", fsdp_full, (ref_steps,)),
-                           ("10d", tp_serve_full, (results,))):
+                           ("10d", tp_serve_full, (results,)),
+                           ("10e", tp_train_full, (ref_steps, ref_m_sq))):
         t0 = time.perf_counter()
         fn(card, *args)
         log("mesh", f"phase {name} in {time.perf_counter() - t0:.1f} s")

@@ -1,10 +1,26 @@
-"""VMM — the page allocator behind the paged KV pool.
+"""VMM — the sharding page table, the software TLB and the page allocator
+behind the paged KV pool (HEROv2 §2.1, §2.3: the hybrid IOMMU).
 
-Counterpart of ``repro/core/vmm.py``: :class:`PagedAllocator` (page-granular
-allocation with a free list and reference counts), its typed errors and
-``audit()``, copied as they are (numpy and plain Python). The reference's
-sharding page table and software TLB belong to its JAX mesh and are not
-part of the serving path.
+Counterpart of ``repro/core/vmm.py``, numpy and plain Python:
+
+  * :class:`ShardingPageTable` — the "page table": a global coordinate →
+    (rank, local offset, shard shape), from a ``sharding.NamedSharding``
+    (parallel/sharding.py) and a global shape; walking it queries the
+    sharding's ``devices_indices_map`` (``shard_slices`` for every rank,
+    in row-major order: the reference's ``mesh.devices.flat`` order), the
+    host-managed truth;
+  * :class:`Tlb` — a bounded LRU software TLB over page-granular
+    translations with the paper's hit / miss counters and a ``prefetch``
+    hook. As the reference's, ``translate`` walks the table once more
+    after a hit or a fill to refine the translation to the exact
+    coordinate, so its counts equal the reference's;
+  * :class:`PagedAllocator` — page-granular allocation with a free list
+    and reference counts (serve/kvcache.py), its typed errors and
+    ``audit()``.
+
+Nothing on the serving or training path calls the page table or the TLB
+(the reference uses them in its tests); the table takes any sharding with
+a ``devices_indices_map`` and imports nothing of parallel/sharding.py.
 
 Ownership boundaries & invariants (the serving stack builds on these):
   * This module owns *page identity only* — which physical page ids exist,
@@ -26,11 +42,102 @@ Ownership boundaries & invariants (the serving stack builds on these):
 """
 from __future__ import annotations
 
+import dataclasses
+from collections import OrderedDict
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core import addrspace
+
+
+@dataclasses.dataclass(frozen=True)
+class Translation:
+    device_index: int              # the rank: row-major over the mesh
+    local_offset: Tuple[int, ...]  # element coords within the local shard
+    shard_shape: Tuple[int, ...]
+
+
+class ShardingPageTable:
+    """Logical global coords → (rank, local coords), from a sharding with
+    a ``devices_indices_map(shape)`` ({rank: tuple of slices}, ranks in
+    row-major order: ``sharding.NamedSharding``'s)."""
+
+    def __init__(self, global_shape: Sequence[int], sharding):
+        self.global_shape = tuple(int(s) for s in global_shape)
+        self.sharding = sharding
+        self._entries: List[Tuple[Tuple[slice, ...], int]] = []
+        for rank, idx in sharding.devices_indices_map(
+                self.global_shape).items():
+            norm = tuple(
+                slice(s.start or 0, s.stop if s.stop is not None else dimlen)
+                for s, dimlen in zip(idx, self.global_shape))
+            self._entries.append((norm, int(rank)))
+
+    def walk(self, coords: Sequence[int]) -> Translation:
+        """Full page-table walk (slow path — what a TLB miss costs): the
+        first rank, in row-major order, whose shard holds ``coords``."""
+        coords = tuple(int(c) for c in coords)
+        for idx, dev in self._entries:
+            if all(s.start <= c < s.stop for s, c in zip(idx, coords)):
+                local = tuple(c - s.start for s, c in zip(idx, coords))
+                shard = tuple(s.stop - s.start for s in idx)
+                return Translation(dev, local, shard)
+        raise IndexError(f"coords {coords} outside global shape "
+                         f"{self.global_shape}")
+
+
+class Tlb:
+    """Bounded LRU TLB over page-granular translations.
+
+    ``page_shape`` is the translation granule (the paper's 4 KiB pages:
+    here a tile of the global index space). Misses walk the page table;
+    ``hits`` / ``misses`` / :attr:`hit_rate` are the paper's counters, and
+    :meth:`prefetch` mirrors its TLB-prefetching follow-up."""
+
+    def __init__(self, table: ShardingPageTable, page_shape: Sequence[int],
+                 capacity: int = 64):
+        self.table = table
+        self.page_shape = tuple(int(p) for p in page_shape)
+        self.capacity = capacity
+        self._map: "OrderedDict[Tuple[int, ...], Translation]" = \
+            OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def _page_of(self, coords: Sequence[int]) -> Tuple[int, ...]:
+        return tuple(c // p for c, p in zip(coords, self.page_shape))
+
+    def _base(self, page: Tuple[int, ...]) -> Tuple[int, ...]:
+        return tuple(p * s for p, s in zip(page, self.page_shape))
+
+    def translate(self, coords: Sequence[int]) -> Translation:
+        page = self._page_of(coords)
+        tr = self._map.get(page)
+        if tr is not None:
+            self.hits += 1
+            self._map.move_to_end(page)
+        else:
+            self.misses += 1
+            self._fill(page, self.table.walk(self._base(page)))
+        # refined to the exact coords (a walk after a hit too, as the
+        # reference's)
+        return self.table.walk(coords)
+
+    def prefetch(self, coords: Sequence[int]) -> None:
+        page = self._page_of(coords)
+        if page not in self._map:
+            self._fill(page, self.table.walk(self._base(page)))
+
+    def _fill(self, page, tr) -> None:
+        self._map[page] = tr
+        if len(self._map) > self.capacity:
+            self._map.popitem(last=False)  # LRU eviction
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
 
 
 class VmmError(RuntimeError):

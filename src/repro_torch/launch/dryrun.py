@@ -63,6 +63,7 @@ from repro_torch import configs
 from repro_torch.core import perf
 from repro_torch.launch import accounting, specs
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import Mesh
 
 RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -88,6 +89,22 @@ def traced_record(cell: specs.Cell, tr) -> Dict:
             "collective_counts": coll["counts"], "trace_s": tr.seconds}
 
 
+def logits_bytes(cell: specs.Cell) -> Dict[str, int]:
+    """A train cell's f32 logits of one microbatch on a rank (the loss
+    takes them at f32): over the rank's part of the vocabulary where the
+    head is cut over it (``vocab_tp``), and as the whole vocabulary would
+    hold them."""
+    cfg, params = cell.cfg, cell.in_shardings[0].params
+    spec, dim = (params["embed"].spec, 0) if cfg.tie_embeddings else \
+        (params["lm_head"].spec, 1)
+    entry = spec[dim] if dim < len(spec) else None
+    parts = sharding.axis_size(sharding._entry_axes(entry), cell.mesh)
+    rows = cell.args[1]["tokens"].shape[0] // cell.grad_accum
+    whole = rows * cell.shape.seq_len * cfg.vocab * 4
+    return {"rank_f32": whole // parts, "whole_vocab_f32": whole,
+            "vocab_parts": parts}
+
+
 def run_cell(arch: str, shape: configs.ShapeSpec, mesh_name: str = "16x16",
              verbose: bool = True, **levers) -> Dict:
     """One cell's record on ``mesh_name``; ``levers``: build_cell's
@@ -106,6 +123,8 @@ def run_cell(arch: str, shape: configs.ShapeSpec, mesh_name: str = "16x16",
         tr = specs.trace_cell(cell)
         rec["traced"] = traced_record(cell, tr)
     rec["memory"] = specs.memory(cell, tr)
+    if shape.step == "train":
+        rec["logits"] = logits_bytes(cell)
     cost = accounting.step_cost(cell.cfg, shape)
     coll = None if tr is None else \
         rec["traced"]["collective"]["total"] * chips

@@ -15,13 +15,15 @@ it issues, recorded on the abstract mesh).
 A rank's pass is the port's own step. The serving steps run on a rank's
 shards (train/step.py ``shard_model``: the batch axes gathered a unit at
 a time, the model axis tensor- and sequence-parallel) for GQA, cross,
-encoder, MLA and recurrent layers with an MLP or a MoE; a cell whose
-rules cut what the port's rank path cannot take has no pass: a ring cache
-cut over its rows (``kv_seq`` on a sliding-window layer); and
-the FSDP train step shards over the batch axes only (train/step.py
-``shard_state``: a model axis of 1). :attr:`Cell.gaps`
-names each such leaf with the rule that binds it; a cell with gaps is not
-traced.
+encoder, MLA and recurrent layers with an MLP or a MoE; the train step
+(train/step.py ``shard_state``) for GQA layers with an MLP or a MoE, the
+model axis tensor-parallel under autograd down to a vocabulary-parallel
+loss. A cell whose rules cut what the port's rank path cannot take has
+no pass: a ring cache cut over its rows (``kv_seq`` on a sliding-window
+layer); a train cell's cross, encoder, MLA or recurrent leaf, learned
+positions, shared block or MTP head cut over the model axis (ROADMAP
+16.11c-2). :attr:`Cell.gaps` names each such leaf with the rule that
+binds it; a cell with gaps is not traced.
 
 On a real device the same function draws the arguments: each leaf drawn
 whole from a seed (weights, random tokens) and cut to this rank's shard
@@ -31,6 +33,7 @@ caches, ``cache_pos`` S − 1 (a decode step then reads the whole cache).
 from __future__ import annotations
 
 import dataclasses
+import fractions
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -68,16 +71,22 @@ def cell_config(arch: str, shape: ShapeSpec,
     if shape.name == "long_500k":
         over["q_chunk"] = 2048
         over["kv_chunk"] = 2048
-    if probe is not None:
-        ng = len(cfg.groups)
-        groups = tuple((pat, probe.get(i, 1))
-                       for i, (pat, cnt) in enumerate(cfg.groups))
-        enc = tuple((pat, probe.get(ng + i, 1))
-                    for i, (pat, cnt) in enumerate(cfg.encoder_groups))
-        over["groups"] = groups
-        if enc:
-            over["encoder_groups"] = enc
-    return dataclasses.replace(cfg, **over) if over else cfg
+    cfg = dataclasses.replace(cfg, **over) if over else cfg
+    return cfg if probe is None else _probed(cfg, probe)
+
+
+def _probed(cfg: transformer.ModelConfig, probe: Dict[int, int]
+            ) -> transformer.ModelConfig:
+    """``cfg`` with each group's count from ``probe`` (decoder groups
+    first, then encoder groups; 1 where it has none)."""
+    ng = len(cfg.groups)
+    over: Dict[str, Any] = {"groups": tuple(
+        (pat, probe.get(i, 1)) for i, (pat, _) in enumerate(cfg.groups))}
+    if cfg.encoder_groups:
+        over["encoder_groups"] = tuple(
+            (pat, probe.get(ng + i, 1))
+            for i, (pat, _) in enumerate(cfg.encoder_groups))
+    return dataclasses.replace(cfg, **over)
 
 
 def group_counts(arch: str) -> Tuple[int, ...]:
@@ -204,6 +213,22 @@ def _serving_gaps(cfg):
     return missing
 
 
+def _train_gaps(cfg):
+    """``missing(path)`` for the train step's leaves: what the training
+    forward on a rank's shards (``transformer.train_forward``) cannot take
+    cut over a non-batch axis: every leaf but the embedding, the head, the
+    final norm and the GQA layers' (``TRAIN_RANK_MIXERS``, with an MLP or
+    a MoE)."""
+    def missing(path: str):
+        parts = path.split("/")
+        if parts[1] in ("embed", "lm_head", "final_norm"):
+            return None
+        if _kind(cfg, path) in transformer.TRAIN_RANK_MIXERS:
+            return None
+        return "training with a model axis: ROADMAP 16.11c-2", None
+    return missing
+
+
 def _array(shape, dtype, device, generator=None, high: int = 0):
     if device.type == "meta" or generator is None:
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -230,6 +255,8 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
     cfg = cell_config(arch, shape, probe, smoke)
     if cfg_over:
         cfg = dataclasses.replace(cfg, **cfg_over)
+        if probe is not None:     # the probe's counts over cfg_over's groups
+            cfg = _probed(cfg, probe)
     rules = dict(rule_overrides(cfg))
     if rules_over:
         rules.update(rules_over)
@@ -248,8 +275,7 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
             lambda p: tuple(p.shape), params), mesh)
         if train:
             gaps = _gaps("params", p_axes, p_specs, mesh, batch_axes,
-                         lambda path: ("the FSDP train step shards over the "
-                                       "batch axes only", None))
+                         _train_gaps(cfg))
         else:
             gaps = _gaps("params", p_axes, p_specs, mesh, batch_axes,
                          _serving_gaps(cfg))
@@ -363,6 +389,22 @@ def memory(cell: Cell, trace: Optional[offload.Trace] = None
 FIT_PERIODS = (2, 3, 4)
 
 
+def _through(points, x):
+    """The polynomial through ``points`` [(x_i, f_i)] at ``x``, Lagrange's
+    form in exact rationals: the fits' counts are integers (or floats that
+    hold integers) and so is every weight at an integer ``x``. A float
+    where any f_i is one, else an int."""
+    total = fractions.Fraction(0)
+    for i, (xi, fi) in enumerate(points):
+        w = fractions.Fraction(fi)
+        for j, (xj, _) in enumerate(points):
+            if j != i:
+                w *= fractions.Fraction(x - xj, xi - xj)
+        total += w
+    return float(total) if any(isinstance(f, float) for _, f in points) \
+        else int(total)
+
+
 def _fit_period(cell: Cell) -> Optional[int]:
     """The period P (tokens) of a ``meta`` prefill cell that
     :func:`trace_cell` fits, or None: the least common multiple of the
@@ -396,12 +438,11 @@ def _fitted(cell: Cell, P: int) -> offload.Trace:
         cell.arch, dataclasses.replace(cell.shape, seq_len=m * P),
         cell.mesh, **cell.levers)) for m in FIT_PERIODS)
 
-    def quad(f2, f3, f4):          # Lagrange through n = 2, 3, 4
-        return ((n - 3) * (n - 4) // 2 * f2 - (n - 2) * (n - 4) * f3
-                + (n - 2) * (n - 3) // 2 * f4)
+    def quad(*f):
+        return _through(list(zip(FIT_PERIODS, f)), n)
 
     def line(f3, f4):
-        return f4 + (n - 4) * (f4 - f3)
+        return _through([(3, f3), (4, f4)], n)
 
     colls = []
     assert len(t2.collectives) == len(t3.collectives) == \
@@ -421,6 +462,81 @@ def _fitted(cell: Cell, P: int) -> offload.Trace:
         line(t3.scratch_peak_bytes, t4.scratch_peak_bytes))
 
 
+# A train cell's eager pass on ``meta`` visits every layer of every
+# microbatch (yi-34b and gemma3-27b train_4k: some 500 layer passes, ~8
+# minutes a mesh); past this many, trace_cell fits the pass instead
+# (:func:`_fitted_train`).
+TRAIN_FIT_PASSES = 100
+
+
+def _layer_passes(cell: Cell) -> int:
+    return cell.grad_accum * sum(len(pattern) * count for pattern, count in
+                                 cell.cfg.groups + cell.cfg.encoder_groups)
+
+
+def _fitted_train(cell: Cell) -> offload.Trace:
+    """The train step of ``cell`` (G = grad_accum microbatches of b rows,
+    N_i units of group i) from passes of the same cell with 1, 2 or 3
+    units of one group (the others at 1), each at 2 and 3 microbatches of
+    the same b rows. Each count (FLOPs, the kernels' own, bytes, the
+    number and the bytes of the collectives of each kind and group size)
+    is linear in the microbatches (a microbatch's part and the step's own:
+    the optimizer, the gradients' sums, the norm), taken at G through 2
+    and 3, and is the base pass's plus, for each group, a quadratic in its
+    units through 1, 2 and 3 less the base (the bytes are quadratic: each
+    unit's backward writes its group's whole stacked gradient); exact, as
+    the work repeats a unit and a microbatch at a time (one microbatch
+    skips the step's mean over them, so no pass takes one). The peaks are
+    extrapolated the same way. The collectives come back grouped by kind
+    and group size, each of their mean size (``perf.collective_bytes`` of
+    them exact), not in issue order."""
+    groups = cell.cfg.groups + cell.cfg.encoder_groups
+    b = cell.shape.global_batch // cell.grad_accum
+    G = cell.grad_accum
+    seconds = []
+
+    def counts(probe, g):
+        levers = dict(cell.levers, probe=probe, grad_accum=g)
+        shape = dataclasses.replace(cell.shape, global_batch=b * g)
+        t = _traced(build_cell(cell.arch, shape, cell.mesh, **levers))
+        seconds.append(t.seconds)
+        c = dict(t.kernel_flops, _flops=t.flops, _bytes=t.bytes,
+                 _peak=t.peak_bytes, _scratch=t.scratch_peak_bytes)
+        for r in t.collectives:
+            for key, v in ((("n", r.kind, r.group), 1),
+                           (("bytes", r.kind, r.group), r.nbytes)):
+                c[key] = c.get(key, 0) + v
+        return c
+
+    def at_G(probe):    # each count at G microbatches, through 2 and 3
+        c2, c3 = counts(probe, 2), counts(probe, 3)
+        return {k: _through([(2, c2.get(k, 0)), (3, c3.get(k, 0))], G)
+                for k in set(c2) | set(c3)}
+
+    base = {i: 1 for i in range(len(groups))}
+    one = at_G(base)
+    more = [(at_G({**base, i: 2}), at_G({**base, i: 3}))
+            for i in range(len(groups))]
+    fitted = {}
+    for k in set(one).union(*(set(a) | set(c) for a, c in more)):
+        v1 = one.get(k, 0)
+        fitted[k] = v1 + sum(
+            _through([(1, v1), (2, two.get(k, 0)), (3, three.get(k, 0))],
+                     n) - v1
+            for (_, n), (two, three) in zip(groups, more))
+    colls = []
+    for k in sorted(k for k in fitted if isinstance(k, tuple)
+                    and k[0] == "n"):
+        n, total = int(fitted[k]), int(fitted[("bytes",) + k[1:]])
+        colls += [perf.Collective(k[1], total // n + (i < total % n),
+                                  k[2]) for i in range(n)]
+    return offload.Trace(
+        fitted["_flops"], {k: v for k, v in fitted.items()
+                           if isinstance(k, str) and k[0] != "_"},
+        fitted["_bytes"], fitted["_peak"], colls, None, sum(seconds),
+        fitted["_scratch"])
+
+
 def _traced(cell: Cell) -> offload.Trace:
     """The one pass of :func:`trace_cell`, at the cell's own length."""
     region = offload.TargetRegion(cell.fn, name=f"{cell.arch}/"
@@ -433,9 +549,15 @@ def trace_cell(cell: Cell) -> offload.Trace:
     """Run one rank's step on the cell's arguments (the counterpart of
     ``lower_cell``) under its mesh and rules: FLOPs, bytes, collectives
     and outputs of the pass. A long ``meta`` prefill through a recurrent
-    layer is fitted from short passes (:func:`_fitted`)."""
+    layer is fitted from short passes (:func:`_fitted`), and so is a
+    ``meta`` train step of more than :data:`TRAIN_FIT_PASSES` layer
+    passes (:func:`_fitted_train`)."""
     if cell.gaps:
         raise ValueError(f"{cell.arch} x {cell.shape.name}: no traced pass "
                          f"on {cell.mesh}: {cell.gaps[0]}")
+    if cell.shape.step == "train" and \
+            cell.args[1]["tokens"].device.type == "meta" and \
+            _layer_passes(cell) > TRAIN_FIT_PASSES:
+        return _fitted_train(cell)
     P = _fit_period(cell)
     return _traced(cell) if P is None else _fitted(cell, P)

@@ -119,21 +119,22 @@ from repro_torch.parallel import sharding
 
 
 def qkv(m: Dict[str, torch.Tensor], h: torch.Tensor, positions: torch.Tensor,
-        cfg, q_cols=None, kv_cols=None):
+        cfg, q_cols=None, kv_cols=None, apart: bool = False):
     """QKV projections with bias and RoPE: h [B, L, d] (already normed),
     positions [B, L] absolute → q [B, L, H, hd], k, v [B, L, K, hd].
     ``q_cols`` / ``kv_cols``: ``(part, lo, hi)``, keep only the columns
     [lo, hi) of the whole projection, of which ``m`` holds ``part``
-    (``sharding.take``): q then holds (hi − lo) / hd heads."""
+    (``sharding.take``, ``apart`` as its): q then holds (hi − lo) / hd
+    heads."""
     B, L, _ = h.shape
     hd = cfg.hd
     q, k, v = h @ m["wq"], h @ m["wk"], h @ m["wv"]
     if cfg.qkv_bias:
         q, k, v = q + m["bq"], k + m["bk"], v + m["bv"]
     if q_cols is not None:
-        q = sharding.take(q, q_cols[0], q_cols[1:])[0]
+        q = sharding.take(q, q_cols[0], q_cols[1:], apart=apart)[0]
     if kv_cols is not None:
-        k, v = (sharding.take(a, kv_cols[0], kv_cols[1:])[0]
+        k, v = (sharding.take(a, kv_cols[0], kv_cols[1:], apart=apart)[0]
                 for a in (k, v))
     q = q.reshape(B, L, -1, hd)
     k = k.reshape(B, L, -1, hd)
@@ -213,7 +214,14 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     axes already gathered or the rank's rows); ``h`` is the rank's rows,
     whole across the model line, and so is y. Every step reads its leaf's
     spec (``sharding.held``: with no spec, the whole dimension), whatever
-    the arch and however the split falls:
+    the arch and however the split falls. The training forward
+    (``cache=None``) attends the heads ``wo``'s rows take over their kv
+    heads (:func:`attend_train`), under autograd: ``h`` enters through
+    ``copy_to`` over ``wo``'s line, a leaf whole on that line through
+    ``copy_to`` too (each rank uses its own columns of it), and
+    projections gathered off a head's boundary through ``take(...,
+    apart=True)`` (parallel/sharding.py's module docstring). In the
+    serving cases:
 
       * the heads attended: in a decode step every query head of the kv
         heads the cache holds (the same on every rank of a line that cuts
@@ -233,17 +241,23 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
       * output: the rank's columns of the attention output times its rows
         of ``wo``, summed over ``wo``'s line (``reduce_from``)."""
     B, L, _ = h.shape
-    if cache is None:
-        q, k, v = qkv(m, h, positions, cfg)
-        att = attend_train(q, k, v, cfg, causal, window)
-        return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
     mesh = sharding.current_mesh()
     spec, cache_spec = spec or {}, cache_spec or {}
     G, hd = cfg.n_heads // cfg.n_kv, cfg.hd
-    kc, vc = cache["k"], cache["v"]
     qc = sharding.held(m["wq"], spec.get("wq"), 1, mesh)
     kvc = sharding.held(m["wk"], spec.get("wk"), 1, mesh)
     oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
+    if cache is None:
+        h_lo, h_hi, w_lo, w_hi = _head_plan(cfg, oc, None, False)
+        m, h_in = _train_entry(m, h, spec, mesh, oc, (qc, kvc), cfg)
+        q, k, v = qkv(m, h_in, positions, cfg, (qc, h_lo * hd, h_hi * hd),
+                      (kvc, w_lo * hd, w_hi * hd), apart=oc.line is not None)
+        if (h_lo, h_hi) != (w_lo * G, w_hi * G):   # not whole groups
+            kv = _kv_index(h_lo, h_hi, G, w_lo, h.device)
+            k, v = k.index_select(2, kv), v.index_select(2, kv)
+        att = attend_train(q, k, v, cfg, causal, window)
+        return _out(att, m["wo"], oc, h_lo * hd, h.dtype)
+    kc, vc = cache["k"], cache["v"]
     heads = sharding.held(kc, cache_spec.get("k"), 1, mesh)
     rows = sharding.held(kc, cache_spec.get("k"), 2, mesh)
     S_loc, S = kc.shape[2], rows.whole
@@ -292,6 +306,36 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
                      kv=_kv_index(h_lo, h_hi, G, w_lo, h.device),
                      softcap=cfg.logit_softcap)
     return _out(att, m["wo"], oc, h_lo * hd, h.dtype)
+
+
+def _train_entry(m: Dict[str, torch.Tensor], h: torch.Tensor, spec, mesh,
+                 oc: sharding.Held, parts, cfg):
+    """(m, h) for the training forward on a rank's shards: with the heads
+    split over ``wo``'s line, ``h`` through ``copy_to`` over it and each
+    projection leaf (weight, bias) that is whole on it through
+    ``copy_to`` as well, since a rank uses only its heads' columns of it.
+    With ``wo`` whole every rank attends every head alike, and a
+    projection cut over a line (``parts``: q's and k / v's) would then
+    be a mix this path does not take."""
+    if oc.line is None:
+        if any(part.line is not None for part in parts):
+            raise NotImplementedError(
+                f"{cfg.name}: q / k / v columns cut over a line while wo's "
+                "rows are whole (a heads_tp / kv_heads_tp rule split): no "
+                "training path")
+        return m, h
+    m = dict(m)
+    for name, t in m.items():
+        if name == "wo":
+            continue
+        part = sharding.held(t, spec.get(name), t.dim() - 1, mesh)
+        if part.line is None:
+            m[name] = sharding.copy_to(t, oc.line)
+        elif part.line.axes != oc.line.axes:
+            raise NotImplementedError(
+                f"{cfg.name}: {name} cut over {part.line.axes}, wo's rows "
+                f"over {oc.line.axes}: no training path")
+    return m, sharding.copy_to(h, oc.line)
 
 
 def _head_plan(cfg, oc: sharding.Held, heads: Optional[sharding.Held],

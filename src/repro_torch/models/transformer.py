@@ -773,15 +773,19 @@ def _ffn(p, ffn: str, x: torch.Tensor, cfg: ModelConfig, spec=None
     ``b_out``; where the in leaves' columns are not the out leaf's rows
     (a binding that ``resolve`` dropped for one of them) the in leaves
     are cut to those rows first, gathered over their line where they do
-    not hold them. A MoE's leaves are made whole over every axis but a
-    held expert axis (the reference's ``shard_map`` takes the experts
-    whole, or their EP shard), then ``moe_forward``'s mesh paths."""
+    not hold them. Under autograd x enters through ``copy_to`` over the
+    out leaf's line and an in leaf whole on it too (a rank uses its rows
+    alone, so the gradient is summed over the line); a gathered in leaf
+    takes ``take(..., apart=True)``. A MoE's leaves are made whole over
+    every axis but a held expert axis (the reference's ``shard_map``
+    takes the experts whole, or their EP shard), with ``gather_from``:
+    ``moe_forward``'s mesh paths sum the ranks' shares of them itself."""
     mesh = sharding.current_mesh()
     if ffn == "moe":
         if spec is not None:
             p = {k: sharding.gather_tree(
                 v, (None,) + spec[k][1:] if k in EXPERT_LEAVES else spec[k],
-                mesh) for k, v in p.items()}
+                mesh, alike=True) for k, v in p.items()}
         return moe_lib.moe_forward(p, x, cfg.moe)
     if ffn != "mlp" or cfg.mlp not in MLP_LEAVES:
         raise NotImplementedError(f"repro_torch: ffn {ffn!r}/{cfg.mlp!r}")
@@ -789,10 +793,15 @@ def _ffn(p, ffn: str, x: torch.Tensor, cfg: ModelConfig, spec=None
     ins, out = MLP_LEAVES[cfg.mlp]
     rows = sharding.held(p[out], spec.get(out), 0, mesh)
     p = dict(p)
+    if rows.line is not None:
+        x = sharding.copy_to(x, rows.line)
     for k in ins:
         cols = sharding.held(p[k], spec.get(k), p[k].dim() - 1, mesh)
         if (cols.lo, cols.hi) != (rows.lo, rows.hi):
-            p[k] = sharding.take(p[k], cols, (rows.lo, rows.hi))[0]
+            if cols.line is None:
+                p[k] = sharding.copy_to(p[k], rows.line)
+            p[k] = sharding.take(p[k], cols, (rows.lo, rows.hi),
+                                 apart=rows.line is not None)[0]
     if cfg.mlp == "swiglu":
         y = blocks.swiglu(p["w_gate"], p["w_up"], p["w_down"], x)
     elif cfg.mlp == "relu2":
@@ -856,23 +865,29 @@ def embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return blocks.rounded(math.sqrt(d_model), dtype)
 
 
+def _lookup(table: torch.Tensor, spec, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """The rows of ``tokens`` from ``table``, which holds the rows
+    :func:`sharding.held` gives it under ``spec``: where they are cut over
+    a line (``vocab_tp``), the tokens in the rank's row range looked up
+    through ``legalized_take``, the rest zero, summed over the line
+    (exact: one rank holds each row; the backward passes each rank the
+    whole cotangent, of which its rows take their tokens')."""
+    rows = sharding.held(table, spec, 0, sharding.current_mesh())
+    if rows.line is None:
+        return blocks.embed_lookup(table, tokens)
+    local = tokens.long() - rows.lo
+    inside = (local >= 0) & (local < table.shape[0])
+    x = blocks.embed_lookup(table, local.clamp(0, table.shape[0] - 1))
+    return sharding.reduce_from(
+        torch.where(inside[..., None], x, torch.zeros_like(x)), rows.line)
+
+
 def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """The embedding rows of ``tokens`` (scaled where the config says).
     On a rank (``model.shards``) whose table is cut over its vocabulary
-    (``vocab_tp``): the tokens in the rank's row range looked up through
-    ``legalized_take``, the rest zero, summed over the line (exact: one
-    rank holds each row)."""
-    table, spec = _rank_tree(model, model.embed, "embed")
-    rows = sharding.held(table, spec, 0, sharding.current_mesh())
-    if rows.line is None:
-        x = blocks.embed_lookup(table, tokens)
-    else:
-        local = tokens.long() - rows.lo
-        inside = (local >= 0) & (local < table.shape[0])
-        x = blocks.embed_lookup(table, local.clamp(0, table.shape[0] - 1))
-        x = sharding.reduce_from(
-            torch.where(inside[..., None], x, torch.zeros_like(x)),
-            rows.line)
+    (``vocab_tp``): :func:`_lookup`."""
+    x = _lookup(*_rank_tree(model, model.embed, "embed"), tokens)
     if model.cfg.embed_scale:
         x = x * embed_scale(model.cfg.d_model, x.dtype)
     return x
@@ -912,15 +927,18 @@ def _rank_tree(model: Transformer, tree, *path, unit: bool = False):
         return tree, None
     mesh, specs = model.shards
     over = tuple(a for a in sharding.BATCH_AXES if a in mesh.shape)
-    return _gatherer(model, over)(tree, *path, unit=unit), tree_lib.tree_map(
-        lambda s: sharding.unbind(s, over), _spec_at(specs, path, unit),
-        is_leaf=sharding.is_spec)
+    spec = _spec_at(specs, path, unit)
+    return sharding.gather_tree(tree, spec, mesh, over=over), \
+        tree_lib.tree_map(lambda s: sharding.unbind(s, over), spec,
+                          is_leaf=sharding.is_spec)
 
 
-def _check_whole(what: str, spec_tree) -> None:
+def _check_whole(what: str, spec_tree, item: str = "16.11") -> None:
     """Raise unless every leaf that the rank path runs whole (learned
-    positions, the encoder's final norm) is whole once the batch axes are
-    gathered (no spec: no mesh)."""
+    positions, the encoder's final norm; in training every leaf of a
+    layer kind outside :data:`TRAIN_RANK_MIXERS`) is whole once the batch
+    axes are gathered (no spec: no mesh); ``item``: the ROADMAP item that
+    would take it."""
     if spec_tree is None:
         return
     mesh = sharding.current_mesh()
@@ -930,7 +948,8 @@ def _check_whole(what: str, spec_tree) -> None:
                if a not in sharding.BATCH_AXES):
             raise NotImplementedError(
                 f"{path}: {spec} on {mesh}: cut over a non-batch axis, "
-                "which this layer's rank path does not take (ROADMAP 16.11)")
+                f"which this layer's rank path does not take (ROADMAP "
+                f"{item})")
 
 
 # the mixers whose rank path takes their leaves and caches cut over the
@@ -1232,13 +1251,25 @@ def _cast(tree, dtype):
         lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
 
 
+# the mixers whose training forward takes their leaves cut over the model
+# axis (a layer of another kind refuses such a cut: ROADMAP 16.11c-2)
+TRAIN_RANK_MIXERS = ("gqa", "global", "local")
+
+
 def _train_layer(kind: str, p, x: torch.Tensor, positions: torch.Tensor,
                  extra: Optional[torch.Tensor], cfg: ModelConfig,
-                 shared) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 shared, spec=None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer with no cache (the reference's ``_apply_layer`` in train
     mode): (x, the MoE's aux or None). A ``shared`` site takes ``shared``'s
-    mixer and MLP."""
+    mixer and MLP. ``spec``: on one rank of a mesh, the specs of ``p``
+    once the batch axes are gathered (:func:`_rank_tree`): a GQA layer's
+    attention and :func:`_ffn` then run on the rank's shards, as in
+    serving; a layer of another kind refuses a leaf cut over a non-batch
+    axis."""
     mixer, ffn = parse_kind(kind)
+    if spec is not None and mixer not in TRAIN_RANK_MIXERS:
+        _check_whole(f"a {mixer!r} layer", spec, "16.11c-2")
     if mixer == "shared":
         p = dict(p, mixer=shared["mixer"], ffn=shared["ffn"])
     h = _norm_apply(p["ln1"], x, cfg)
@@ -1251,24 +1282,30 @@ def _train_layer(kind: str, p, x: torch.Tensor, positions: torch.Tensor,
     else:
         y = attention.gqa_forward(p["mixer"], h, positions, cfg, None, 0,
                                   window=cfg.window_of(mixer),
-                                  causal=mixer != "enc")
+                                  causal=mixer != "enc",
+                                  spec=None if spec is None
+                                  else spec.get("mixer"))
     x = _residual(p, "ln1_post", x, y, cfg)
     if ffn == "none":
         return x, None
-    y, aux = _ffn(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg)
+    y, aux = _ffn(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg,
+                  None if spec is None or mixer == "shared"
+                  else spec["ffn"])
     return _residual(p, "ln2_post", x, y, cfg), aux
 
 
 def _train_unit(pattern: Pattern, unit_p, positions, extra, cfg, shared,
-                whole, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One unit of a group: its layers' leaves made whole (``whole``:
-    FSDP's gather, inside the remat region, so the backward gathers them
-    again) and cast to the compute dtype (inside the region, as the
-    reference casts inside its scan body), then each layer; (x, Σ aux)."""
-    unit_p = _cast(whole(unit_p), cfg.compute_dtype)
+                leaves, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One unit of a group: its layers' leaves gathered by ``leaves``
+    (each position's (leaves, specs): FSDP's gather over the batch axes,
+    inside the remat region, so the backward gathers them again) and cast
+    to the compute dtype (inside the region, as the reference casts
+    inside its scan body), then each layer on them; (x, Σ aux)."""
+    gathered = leaves(unit_p)
+    unit_p = _cast([p for p, _ in gathered], cfg.compute_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in zip(pattern, unit_p):
-        x, a = _train_layer(kind, p, x, positions, extra, cfg, shared)
+    for kind, p, (_, spec) in zip(pattern, unit_p, gathered):
+        x, a = _train_layer(kind, p, x, positions, extra, cfg, shared, spec)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -1276,23 +1313,25 @@ def _train_unit(pattern: Pattern, unit_p, positions, extra, cfg, shared,
 
 def _train_groups(stacks: nn.ModuleList, groups, x: torch.Tensor,
                   positions: torch.Tensor, extra, cfg: ModelConfig, shared,
-                  whole) -> Tuple[torch.Tensor, torch.Tensor]:
+                  leaves) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every unit of ``groups`` in order, each under
     ``torch.utils.checkpoint`` when ``cfg.remat`` is not ``"none"`` (the
     reference's ``jax.checkpoint`` of its scan body: its ``"full"`` saves
     nothing inside a unit, and so does this; ``"dots"``, which no config
     sets, is taken as ``"full"``); (x, Σ aux in f32, a group at a time).
-    ``whole(tree, gi, i)``: position ``i`` of group ``gi``'s unit leaves
-    made whole (:func:`_gatherer`)."""
+    ``leaves(tree, gi, i)``: position ``i`` of group ``gi``'s unit leaves
+    and their specs (:func:`_rank_tree`)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    mesh = sharding.current_mesh()
+    rules = sharding.current_rules()
     for gi, (pattern, count) in enumerate(groups):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for u in range(count):
             unit = functools.partial(
-                _train_unit, pattern,
+                _in_mesh, mesh, rules, _train_unit, pattern,
                 [stacks[gi][i].unit(u) for i in range(len(pattern))],
                 positions, extra, cfg, shared,
-                lambda ps, gi=gi: [whole(p, gi, i) for i, p in enumerate(ps)])
+                lambda ps, gi=gi: [leaves(p, gi, i) for i, p in enumerate(ps)])
             if cfg.remat != "none":
                 x, a = checkpoint(unit, x, use_reentrant=False)
             else:
@@ -1300,6 +1339,17 @@ def _train_groups(stacks: nn.ModuleList, groups, x: torch.Tensor,
             aux = aux + a
         aux_total = aux_total + aux
     return x, aux_total
+
+
+def _in_mesh(mesh, rules, fn, *args):
+    """``fn(*args)`` under ``mesh`` and ``rules`` (none: as it stands). A
+    remat region is recomputed in the backward, which on the card runs on
+    autograd's device thread, where this thread's mesh is not active: the
+    recomputation must read the specs the forward read."""
+    if mesh is None:
+        return fn(*args)
+    with sharding.use_mesh(mesh, rules):
+        return fn(*args)
 
 
 def _spec_at(specs, path, unit: bool = False):
@@ -1313,47 +1363,35 @@ def _spec_at(specs, path, unit: bool = False):
     return specs
 
 
-def _gatherer(model: Transformer, over=None):
-    """``g(tree, *path, unit=False)``: ``tree`` (leaves of ``model`` at
-    ``path`` of :func:`param_tree`, or with ``unit`` one unit's views of a
-    stacked position) whole, or gathered over ``over``'s axes alone. On a
-    rank's shards (``model.shards``) each leaf is all-gathered from the
-    ranks' shards (parallel/sharding.py ``gather_leaf``: its backward
-    reduce-scatters the gradient); without them it is ``tree`` itself."""
-    if model.shards is None:
-        return lambda tree, *path, unit=False: tree
-    mesh, specs = model.shards
-
-    def g(tree, *path, unit=False):
-        return sharding.gather_tree(tree, _spec_at(specs, path, unit), mesh,
-                                    over=over)
-    return g
-
-
-def _train_encode(model: Transformer, frames: torch.Tensor,
-                  g) -> torch.Tensor:
+def _train_encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder in the training forward (the reference's
-    ``_encode``): frames [B, S_enc, d] at the compute dtype; ``g``:
-    :func:`_gatherer`."""
+    ``_encode``): frames [B, S_enc, d] at the compute dtype. On a rank its
+    leaves are gathered over the batch axes and must be whole beyond them
+    (ROADMAP 16.11c-2)."""
     cfg, enc = model.cfg, model.encoder
     S = frames.shape[1]
     if S > cfg.encoder_seq:
         raise ValueError(f"encode: {S} frames past the encoder's "
                          f"{cfg.encoder_seq} learned positions")
-    x = frames + g(enc.pos_embed, "encoder", "pos_embed").to(
-        cfg.compute_dtype)[None, :S]
+    if model.shards is not None:
+        _check_whole("encoder", _spec_at(model.shards[1], ("encoder",)),
+                     "16.11c-2")
+    table, _ = _rank_tree(model, enc.pos_embed, "encoder", "pos_embed")
+    x = frames + table.to(cfg.compute_dtype)[None, :S]
     pos = torch.arange(S, device=x.device)[None].expand(frames.shape[:2])
     x, _ = _train_groups(
         enc.groups, cfg.encoder_groups, x, pos, None, cfg, None,
-        lambda t, gi, i: g(t, "encoder", "groups", gi, i, unit=True))
-    return _norm_apply(_cast(g(_norm_leaf(enc, "final_norm"), "encoder",
-                               "final_norm"), cfg.compute_dtype), x, cfg)
+        lambda t, gi, i: _rank_tree(model, t, "encoder", "groups", gi, i,
+                                    unit=True))
+    norm, _ = _rank_tree(model, _norm_leaf(enc, "final_norm"), "encoder",
+                         "final_norm")
+    return _norm_apply(_cast(norm, cfg.compute_dtype), x, cfg)
 
 
 def train_forward(model: Transformer, tokens: torch.Tensor,
                   extra: Optional[torch.Tensor] = None,
                   next_tokens: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The reference's ``forward(mode="train")``: tokens [B, L] from
     position 0, no caches → (logits [B, L, vocab], aux ``{"moe_aux"}``,
     with ``"mtp_logits"`` when ``cfg.mtp`` and ``next_tokens`` are given).
@@ -1368,41 +1406,74 @@ def train_forward(model: Transformer, tokens: torch.Tensor,
     model (stub patches [B, encoder_seq, cross_kv_dim], or whisper's frames
     [B, S_enc, d], which the encoder runs first). The MTP head (deepseek):
     the final normed hidden state beside ``embed[next_tokens]``, through
-    ``mtp.proj``, one layer of the last kind, the norm and the head."""
+    ``mtp.proj``, one layer of the last kind, the norm and the head.
+
+    On one rank of a mesh (``model.shards``: train/step.py
+    ``shard_state``) ``tokens`` are the rank's rows, each leaf is gathered
+    over the batch axes where it is used (:func:`_rank_tree`, inside each
+    unit's remat region) and the model axis runs tensor-parallel as the
+    serving forward does: the vocabulary-cut embedding summed over its
+    line (:func:`embed`'s lookup), each GQA layer's attention on the
+    rank's heads and :func:`_ffn` column / row-parallel, with the
+    collectives' gradients of parallel/sharding.py. The head returns the
+    rank's logits over its part of the vocabulary, and then ``aux["vocab"]``
+    is that part (a ``sharding.Held``: train/loss.py's vocabulary-parallel
+    loss reads it). A leaf of another layer kind, the encoder, learned
+    positions or the MTP head cut over the model axis refuses (ROADMAP
+    16.11c-2)."""
     cfg = model.cfg
     cd = cfg.compute_dtype
-    g = _gatherer(model)
     B, L = tokens.shape
     positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
-    embed_w = g(model.embed, "embed").to(cd)
-    x = blocks.embed_lookup(embed_w, tokens)
+    table, e_spec = _rank_tree(model, model.embed, "embed")
+    embed_w = table.to(cd)
+    x = _lookup(embed_w, e_spec, tokens)
     if cfg.embed_scale:
         x = x * embed_scale(cfg.d_model, cd)
     if cfg.learned_pos:
-        x = x + blocks.embed_lookup(g(model.pos_embed, "pos_embed").to(cd),
+        table, spec = _rank_tree(model, model.pos_embed, "pos_embed")
+        _check_whole("pos_embed", spec, "16.11c-2")
+        x = x + blocks.embed_lookup(table.to(cd),
                                     positions.clamp(0, cfg.learned_pos - 1))
     if cfg.encoder_groups:
         if extra is None:
             raise ValueError(f"{cfg.name}: the training forward needs the "
                              "encoder input `extra`")
-        extra = _train_encode(model, extra.to(cd), g)
+        extra = _train_encode(model, extra.to(cd))
     elif extra is not None:
         extra = extra.to(cd)
     if has_cross(cfg) and extra is None:
         raise ValueError(f"{cfg.name}: the training forward needs the "
                          "encoder input `extra` (stub image embeddings)")
-    shared = (None if model.shared_block is None else _cast(
-        g(param_tree(model)["shared_block"], "shared_block"), cd))
+    shared = None
+    if model.shared_block is not None:
+        shared, spec = _rank_tree(model, param_tree(model)["shared_block"],
+                                  "shared_block")
+        _check_whole("shared_block", spec, "16.11c-2")
+        shared = _cast(shared, cd)
     x, moe_aux = _train_groups(
         model.groups, cfg.groups, x, positions, extra, cfg, shared,
-        lambda t, gi, i: g(t, "groups", gi, i, unit=True))
-    h_final = _norm_apply(_cast(g(_norm_leaf(model, "final_norm"),
-                                  "final_norm"), cd), x, cfg)
-    head = embed_w.t() if cfg.tie_embeddings else \
-        g(model.lm_head, "lm_head").to(cd)
-    aux = {"moe_aux": moe_aux}
+        lambda t, gi, i: _rank_tree(model, t, "groups", gi, i, unit=True))
+    norm, _ = _rank_tree(model, _norm_leaf(model, "final_norm"), "final_norm")
+    h_final = _norm_apply(_cast(norm, cd), x, cfg)
+    mesh = sharding.current_mesh()
+    if cfg.tie_embeddings:
+        head, cols = embed_w.t(), sharding.held(embed_w, e_spec, 0, mesh)
+    else:
+        lm, spec = _rank_tree(model, model.lm_head, "lm_head")
+        head, cols = lm.to(cd), sharding.held(lm, spec, 1, mesh)
+    aux: Dict[str, Any] = {"moe_aux": moe_aux}
+    if cols.line is not None:
+        aux["vocab"] = cols
+        h_final = sharding.copy_to(h_final, cols.line)
     if cfg.mtp and next_tokens is not None:
-        mtp_p = _cast(g(param_tree(model)["mtp"], "mtp"), cd)
+        if cols.line is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the MTP head over a vocabulary cut over "
+                f"{cols.line.axes} (ROADMAP 16.11c-2)")
+        mtp_p, spec = _rank_tree(model, param_tree(model)["mtp"], "mtp")
+        _check_whole("mtp", spec, "16.11c-2")
+        mtp_p = _cast(mtp_p, cd)
         e_next = blocks.embed_lookup(embed_w, next_tokens)
         h_mtp = torch.cat([h_final, e_next], dim=-1) @ mtp_p["proj"]
         h_mtp, _ = _train_layer(cfg.groups[-1][0][-1], mtp_p["block"], h_mtp,

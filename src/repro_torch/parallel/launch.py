@@ -31,8 +31,10 @@ import torch.multiprocessing as mp
 from repro_torch.parallel import sharding
 
 
-def _rank_main(rank: int, fn: Callable, tp: int, args: Tuple,
-               store_dir: str, backend: str, timeout_s: float) -> None:
+def _rank_main(rank: int, payload: str, tp: int, store_dir: str,
+               backend: str, timeout_s: float) -> None:
+    with open(payload, "rb") as f:
+        fn, args = pickle.load(f)
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * tp)))
     sharding.init_tp(rank, tp, os.path.join(store_dir, "store"), backend,
                      timeout_s)
@@ -56,10 +58,17 @@ def spawn(fn: Callable, tp: int, args: Tuple = (), *, store_dir: str,
     """Run ``fn(rank, *args)`` on ``tp`` new processes joined in one group
     (``backend``: ``"gloo"`` or ``"nccl"``); returns each rank's result.
     ``fn`` and ``args`` must pickle (``fn`` a module-level function).
-    ``store_dir`` must be a directory no other group uses."""
+    ``store_dir`` must be a directory no other group uses. ``fn`` and
+    ``args`` reach the ranks through a file there: through the start
+    pipe, arguments past its buffer would hold the parent until each new
+    process had imported what they name, so the ranks would start one
+    after another."""
     os.makedirs(store_dir, exist_ok=True)
+    payload = os.path.join(store_dir, "payload.pkl")
+    with open(payload, "wb") as f:
+        pickle.dump((fn, args), f)
     ctx = mp.start_processes(
-        _rank_main, args=(fn, tp, args, store_dir, backend, timeout_s),
+        _rank_main, args=(payload, tp, store_dir, backend, timeout_s),
         nprocs=tp, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     try:

@@ -95,6 +95,12 @@ def _host(t: Optional[torch.Tensor]):
     return None if t is None else t.detach().float().cpu().numpy()
 
 
+def fingerprint(t: torch.Tensor) -> Tuple[float, float, float]:
+    """(Σx, Σ|x|, Σx²) of a tensor in f64 (``FsdpJob``'s ``sums``)."""
+    x = t.detach().double()
+    return float(x.sum()), float(x.abs().sum()), float((x * x).sum())
+
+
 def _device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda":
@@ -507,12 +513,25 @@ def moe_job(rank: int, job: MoeJob) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class FsdpJob:
-    """Train steps of ``cfg`` from ``weights`` (the reference tree as
-    numpy) on a (ranks, 1) mesh: ``batches`` (global numpy batches, one a
-    step), ``grad_accum``, ``compress``. ``save_dir``: rank 0 saves the
-    whole state there after the steps (step = number of steps);
-    ``restore_dir``: the state is restored from that directory's newest
-    checkpoint before the steps, each rank taking its slice."""
+    """Train steps of ``cfg`` on a mesh of the spawned ranks: ``mesh``
+    (data, model) under the rules ``rules`` (overrides on
+    ``DEFAULT_RULES``), or None: (ranks, 1), the FSDP layout.
+    ``weights``: the reference tree as numpy, or None: drawn from ``seed``
+    on the device (launch/train.py ``build_state``), then cut.
+    ``batches`` (global numpy batches, one a step), ``grad_accum``,
+    ``compress``, ``opt`` (an ``optim/adamw.Config``; None: its
+    defaults). ``save_dir``: rank 0 saves the whole state there after
+    the steps (step = number of steps; every rank waits for the save, so
+    that a later job of the spawn may restore it); ``restore_dir``: the
+    state is restored from that directory's newest checkpoint before the
+    steps, each rank taking its slice. ``wholes``: rank 0 returns the
+    whole state before the steps and after each (False: none, for a
+    model too large to carry back); ``shards``: every rank returns its
+    own shards of the state (train/step.py ``state_tree``'s leaves)
+    before the steps and after each; ``sums``: every rank returns, for
+    each of those leaves, its shard's (Σx, Σ|x|, Σx²) in f64 before the
+    steps and after each (a fingerprint of shards too large to carry
+    back)."""
     cfg: Any
     weights: Any
     batches: List[Dict[str, np.ndarray]]
@@ -521,48 +540,97 @@ class FsdpJob:
     save_dir: Optional[str] = None
     restore_dir: Optional[str] = None
     device: str = "cpu"
+    mesh: Optional[Tuple[int, int]] = None
+    rules: Optional[Dict[str, Any]] = None
+    wholes: bool = True
+    shards: bool = False
+    sums: bool = False
+    seed: int = 0
+    opt: Any = None
 
 
 def fsdp_job(rank: int, job: FsdpJob) -> Dict[str, Any]:
-    """The steps' metrics (global means, every rank alike), this rank's
-    shard shapes, and on rank 0 the whole state (the reference's tree of
-    host leaves) before the steps and after each."""
+    """The steps' metrics (global means, every rank alike) and times (and
+    the set-up's before them), this rank's coordinates, shard shapes, peak
+    memory on the card and kernel launches, on rank 0 the whole state
+    (the reference's tree of host leaves) before the steps and after
+    each, and this rank's ``shards`` / ``sums`` where the job asks."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import tree as tree_lib
     from repro_torch.data import pipeline as dp
     from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.train import build_state
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.optim import adamw
-    from repro_torch.parallel import compression
+    from repro_torch.parallel import compression, sharding
     from repro_torch.train import step as step_lib
+    t0 = time.perf_counter()
     device = _device(job.device)
-    mesh = make_dev_mesh()
-    state = step_lib.shard_state(step_lib.init_state(
-        params_from_numpy(job.weights, job.cfg, device)), mesh)
-    if job.restore_dir is not None:
-        host, _ = CheckpointManager(job.restore_dir).restore(
-            step_lib.state_tree(state),
-            shardings=step_lib.state_shardings(state))
-        step_lib.load_state(state, host)
-    ts = step_lib.make_train_step(
-        job.cfg, adamw.Config(), grad_accum=job.grad_accum,
-        compressor=job.compress and compression.Compressor(
-            mode=job.compress))
-    lead = mesh.rank == 0
-    metrics, wholes = [], [step_lib.whole_state(state, keep=lead)]
-    for b in job.batches:
-        state, m = ts(state, dp.to_device(
-            step_lib.rank_rows(b, job.grad_accum, mesh), device))
-        metrics.append({k: float(v) for k, v in m.items()})
-        wholes.append(step_lib.whole_state(state, keep=lead))
-    if job.save_dir is not None and lead:
-        CheckpointManager(job.save_dir).save(
-            len(job.batches), wholes[-1],
-            extra={"data_step": len(job.batches)})
+    mesh = make_dev_mesh() if job.mesh is None else _mesh(
+        job.mesh, ("data", "model"))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out: Dict[str, Any] = {"coords": mesh.coords()}
+    with sharding.use_mesh(mesh, job.rules):
+        state = step_lib.shard_state(
+            step_lib.init_state(params_from_numpy(job.weights, job.cfg,
+                                                  device))
+            if job.weights is not None else
+            build_state(job.cfg, job.seed, device), mesh)
+        if job.restore_dir is not None:
+            host, _ = CheckpointManager(job.restore_dir).restore(
+                step_lib.state_tree(state),
+                shardings=step_lib.state_shardings(state))
+            step_lib.load_state(state, host)
+        ts = step_lib.make_train_step(
+            job.cfg, job.opt or adamw.Config(), grad_accum=job.grad_accum,
+            compressor=job.compress and compression.Compressor(
+                mode=job.compress))
+        keep = job.wholes and mesh.rank == 0
+        metrics, step_s = [], []
+        wholes = [step_lib.whole_state(state, keep=keep)] if job.wholes \
+            else []
+
+        def own():
+            leaves = tree_lib.leaves(step_lib.state_tree(state))
+            if job.shards:
+                shards.append([tree_lib.to_host(t) for t in leaves])
+            if job.sums:
+                sums.append([fingerprint(t) for t in leaves])
+        shards, sums = [], []
+        own()
+        out["setup_s"] = time.perf_counter() - t0
+        _zero_launches()
+        for b in job.batches:
+            rows = dp.to_device(step_lib.rank_rows(b, job.grad_accum, mesh),
+                                device)
+            _sync(device)
+            t0 = time.perf_counter()
+            state, m = ts(state, rows)
+            metrics.append({k: float(v) for k, v in m.items()})
+            _sync(device)
+            step_s.append(time.perf_counter() - t0)
+            if job.wholes:
+                wholes.append(step_lib.whole_state(state, keep=keep))
+            own()
+        if job.save_dir is not None:
+            saved = wholes[-1] if job.wholes else step_lib.whole_state(
+                state, keep=mesh.rank == 0)
+            if mesh.rank == 0:
+                CheckpointManager(job.save_dir).save(
+                    len(job.batches), saved,
+                    extra={"data_step": len(job.batches)})
+            if torch.distributed.is_initialized():
+                torch.distributed.barrier()
     shapes = [tuple(t.shape) for t in tree_lib.leaves(
         step_lib.state_tree(state).params)]
-    return {"metrics": metrics, "shapes": shapes,
-            "wholes": wholes if lead else None}
+    return dict(out, metrics=metrics, shapes=shapes, step_s=step_s,
+                launches=_launches(),
+                shards=shards if job.shards else None,
+                sums=sums if job.sums else None,
+                wholes=wholes if job.wholes and mesh.rank == 0 else None,
+                peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else None))
 
 
 def digest(arrays) -> str:

@@ -46,7 +46,36 @@ rows and route the cotangents back the way they came, and :func:`pmean`
 is the reference's ``_pmean_grad_safe``. :func:`combine_partials` (no
 gradient: serving) merges the softmax attention of key slices the ranks
 hold apart, from each slice's output and log-sum-exp: the reference's SP
-decode, whose max / sum GSPMD turns into all-reduces.
+decode, whose max / sum GSPMD turns into all-reduces; :func:`max_over`
+(no gradient) is the vocabulary-parallel loss's max.
+
+Which collective each position of a tensor-parallel layer takes under
+autograd (models/attention.py ``gqa_forward``, models/transformer.py
+``_ffn`` and the head, train/loss.py):
+
+  * **entry** into work that differs by rank of a line (column-parallel
+    projections, a rank's heads): ``copy_to``, so the input's gradient is
+    the sum of the ranks' shares;
+  * **row-parallel exit**: ``reduce_from`` (its backward passes the
+    cotangent through: every rank then uses the sum alike);
+  * **an activation gathered over the line and then used apart** (a
+    rank's heads out of projection columns cut off a head's boundary):
+    ``take(..., apart=True)``, whose gather is ``gather_shards``: the
+    cotangent of each rank's part is the line's sum. ``gather_from``'s
+    backward (the rank's slice of its own cotangent) is right only where
+    every rank uses the gathered tensor alike (a leaf gathered whole
+    before work that sums its ranks' shares itself: the MoE's experts,
+    ``gather_leaf(..., alike=True)``);
+  * **a leaf whole on the line that a rank narrows to its part**:
+    ``copy_to`` on the leaf, so its gradient is summed over the line;
+  * **the vocabulary**: no gather in training; the loss takes the
+    rank's logits, its max over the line (``max_over``) and its sums
+    (``reduce_from``). Serving still gathers the logits whole.
+
+A leaf every rank of a line uses whole and alike (a norm, a bias added
+after the row sum, the router) gets the same whole gradient on each rank
+and is not summed over that line (train/step.py ``_reduce_grads`` sums
+over the free batch axes alone).
 
 *Transport.* The all-gather, the reduce-scatter and the all-to-all are
 ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
@@ -377,13 +406,16 @@ def held(x, spec: Optional[Tuple], dim: int, mesh: Optional[Mesh]) -> Held:
 
 
 def take(x: torch.Tensor, part: Held, *spans: Tuple[int, int],
-         dim: int = -1) -> List[torch.Tensor]:
+         dim: int = -1, apart: bool = False) -> List[torch.Tensor]:
     """The ranges ``spans`` (each ``[lo, hi)`` of the whole dimension
     ``dim``) of ``x``, which holds this rank's ``part`` of that dimension:
-    sliced where the part holds them all, else after one
-    :func:`gather_from` over the part's line."""
+    sliced where the part holds them all, else after one gather over the
+    part's line: :func:`gather_from` where every rank of the line takes
+    the same spans, :func:`gather_shards` with ``apart`` (each rank takes
+    its own: the cotangents are summed, the module docstring). Both
+    gathers give the same values."""
     if not all(part.lo <= lo and hi <= part.hi for lo, hi in spans):
-        x = gather_from(x, part.line, dim)
+        x = (gather_shards if apart else gather_from)(x, part.line, dim)
         part = part._replace(lo=0, hi=part.whole)
     return [x.narrow(dim, lo - part.lo, hi - lo) for lo, hi in spans]
 
@@ -411,6 +443,15 @@ class NamedSharding:
 
     def shard_of(self, x):
         return shard_of(x, self.spec, self.mesh)
+
+    def devices_indices_map(self, shape: Sequence[int]
+                            ) -> Dict[int, Tuple[slice, ...]]:
+        """rank → the slice of a ``shape`` leaf it holds
+        (:func:`shard_slices`), every rank in row-major order: the order
+        of the reference's ``mesh.devices.flat`` (core/vmm.py's page
+        table walks it)."""
+        return {r: shard_slices(tuple(shape), self.spec, self.mesh, r)
+                for r in range(self.mesh.size)}
 
     def __repr__(self):
         return f"NamedSharding({self.mesh}, {self.spec})"
@@ -683,20 +724,24 @@ def pmean(x: torch.Tensor, line: Line, replicated: int = 1) -> torch.Tensor:
 
 
 def gather_leaf(x: torch.Tensor, spec: Tuple, mesh: Mesh,
-                over: Optional[Sequence[str]] = None) -> torch.Tensor:
+                over: Optional[Sequence[str]] = None,
+                alike: bool = False) -> torch.Tensor:
     """A leaf whole from this rank's shard under ``spec``
-    (:func:`gather_shards` along each bound dimension); with ``over``,
-    only the dimensions bound to one of those axes (the rest stay this
-    rank's part: ``unbind(spec, over)`` is then its spec)."""
+    (:func:`gather_shards` along each bound dimension; with ``alike``
+    :func:`gather_from`, for a leaf the ranks then use alike: the module
+    docstring); with ``over``, only the dimensions bound to one of those
+    axes (the rest stay this rank's part: ``unbind(spec, over)`` is then
+    its spec)."""
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
         if axes and (over is None or set(axes) & set(over)):
-            x = gather_shards(x, mesh.line(axes), dim)
+            x = (gather_from if alike else gather_shards)(
+                x, mesh.line(axes), dim)
     return x
 
 
 def gather_tree(tree, specs, mesh: Mesh, fn=None,
-                over: Optional[Sequence[str]] = None):
+                over: Optional[Sequence[str]] = None, alike: bool = False):
     """Every leaf of ``tree`` whole (:func:`gather_leaf`, over ``over``'s
     axes alone when given; ``specs`` a tree of ``tree``'s shape; a None
     leaf, a gradient the loss did not reach, stays None), ``fn`` applied
@@ -705,8 +750,21 @@ def gather_tree(tree, specs, mesh: Mesh, fn=None,
     fn = fn or (lambda t: t)
     return tree_lib.tree_map(
         lambda t, s: None if t is None else fn(gather_leaf(t, s, mesh,
-                                                           over)),
+                                                           over, alike)),
         tree, specs)
+
+
+@torch.no_grad()
+def max_over(x: torch.Tensor, line: Optional[Line]) -> torch.Tensor:
+    """The elementwise max over the line's ranks of ``x`` (no gradient:
+    the vocabulary-parallel loss's shift, train/loss.py); ``x`` itself
+    with no line."""
+    if line is None or line.size == 1:
+        return x.detach()
+    y = x.detach().clone()
+    if not _abstract(line, "all-reduce", y):
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=line.group)
+    return y
 
 
 def combine_partials(out: torch.Tensor, lse: torch.Tensor, line: Line

@@ -37,6 +37,22 @@ sharded state to and from a checkpoint's whole leaves::
     state = shard_state(init_state(model), mesh)     # every rank
     state, m = train_step(state, rank_rows(batch, grad_accum, mesh))
 
+**With a model axis** (the reference's step jitted under its rules on a
+(data, model) or (pod, data, model) mesh, partitioned by GSPMD): under
+``sharding.use_mesh(mesh, rules)`` :func:`shard_state` also cuts the
+leaves the rules bind to ``model`` (heads, kv heads, the MLP's hidden,
+the vocabulary, the experts), every rank of a model line takes the same
+rows (:func:`rank_rows`), and the training forward runs that axis
+tensor-parallel under autograd (models/transformer.py ``train_forward``:
+the GQA layers with an MLP or a MoE; other layer kinds refuse, ROADMAP
+16.11c-2) down to a vocabulary-parallel loss (train/loss.py). The
+gradient is summed over the free batch axes only and the metrics are
+reduced over the batch line only::
+
+    with sharding.use_mesh(mesh, rules):
+        state = shard_state(init_state(model), mesh)
+        state, m = train_step(state, rank_rows(batch, grad_accum, mesh))
+
 **Serving**: ``make_prefill_step`` / ``make_decode_step``
 (``step.py:93-110``), which
 the reference's dry-run lowers for its prefill / decode cells and through
@@ -184,16 +200,11 @@ def init_shards(cfg: transformer.ModelConfig, mesh: sharding.Mesh,
 
 
 def shard_state(state: TrainState, mesh: sharding.Mesh) -> TrainState:
-    """``state`` (whole leaves) cut to this rank's FSDP shards in place:
-    each weight's data, m and v replaced by the slice ``resolve`` gives
-    it on ``mesh`` (a (data, model) mesh whose model axis is 1: the
-    training forward runs tensor-parallel nowhere); ``state.params.shards``
-    set. Returns the state."""
-    for a, n in mesh.shape.items():
-        if a not in sharding.BATCH_AXES and n != 1:
-            raise ValueError(f"FSDP training shards over "
-                             f"{sharding.BATCH_AXES} only; mesh axis "
-                             f"{a!r} is {n}")
+    """``state`` (whole leaves) cut to this rank's shards in place: each
+    weight's data, m and v replaced by the slice ``resolve`` gives it on
+    ``mesh`` under the active rules (a (data, model) or (pod, data,
+    model) mesh; the caller's ``sharding.use_mesh(mesh, rules)``, or the
+    default rules); ``state.params.shards`` set. Returns the state."""
     model = shard_model(state.params, mesh)
     specs = model.shards[1]
     cut = lambda t, spec: sharding.shard_of(t, spec, mesh)
@@ -254,7 +265,11 @@ def rank_rows(batch: Dict, grad_accum: int, mesh: sharding.Mesh) -> Dict:
 def _reduce_grads(grads, specs, mesh: sharding.Mesh, n: int):
     """Each gradient shard summed over the batch ranks its leaf is not
     sharded over (a sharded leaf's backward already reduce-scattered it
-    over the rest), then divided by ``n``."""
+    over the rest), then divided by ``n``. Never over the model axis: a
+    shard cut over it holds its own gradient whole, and a leaf every rank
+    of a model line uses alike (a norm, ``b_out`` after the row sum, the
+    router) the same whole gradient on each (parallel/sharding.py's
+    module docstring)."""
     batch = tuple(a for a in sharding.BATCH_AXES if a in mesh.shape)
 
     def red(g, spec):
@@ -269,7 +284,8 @@ def _reduce_grads(grads, specs, mesh: sharding.Mesh, n: int):
 
 def _global_norm(grads, specs, mesh: sharding.Mesh) -> torch.Tensor:
     """sqrt(Σ leaf²) over every shard of every leaf: each leaf's local
-    sum of squares summed over the ranks of the axes it is sharded on."""
+    sum of squares summed over the ranks of the axes it is sharded on
+    (and no others, so a leaf whole on a line counts once)."""
     by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
     for g, spec in zip(tree_lib.leaves(grads),
                        tree_lib.leaves(specs, is_leaf=sharding.is_spec)):
@@ -313,8 +329,10 @@ def make_train_step(cfg: transformer.ModelConfig, opt_cfg: adamw.Config,
     summed into the f32 leaves' ``.grad`` and divided by ``grad_accum``;
     the loss and each metric are the microbatches' mean. ``compressor``
     (parallel/compression.py) takes the gradient tree before the
-    optimizer. A state from :func:`shard_state` takes the FSDP step on
-    this rank's rows (the module docstring)."""
+    optimizer. A state from :func:`shard_state` takes the step on
+    this rank's rows (the module docstring) under its mesh: the caller's
+    ``sharding.use_mesh(mesh, rules)`` where it is active, else the mesh
+    with the default rules."""
     loss_fn = make_loss_fn(cfg)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
@@ -331,7 +349,7 @@ def make_train_step(cfg: transformer.ModelConfig, opt_cfg: adamw.Config,
                              f"{grad_accum} microbatches")
         mb, runs = B // grad_accum, []
         with contextlib.ExitStack() as ctx:
-            if mesh is not None:
+            if mesh is not None and sharding.current_mesh() is not mesh:
                 ctx.enter_context(sharding.use_mesh(mesh))
             for i in range(grad_accum):
                 loss, m = loss_fn(model, batch if grad_accum == 1 else

@@ -15,9 +15,10 @@
     the same cell is traced on one rank's shards (its FLOPs times the 256
     ranks at least 99 % of the analytic count, collectives and temp
     recorded), and so are deepseek-v3-671b's, whose MLA takes its rank
-    path, and xlstm-1.3b's, whose mLSTM / sLSTM take theirs; its train_4k
-    cell, whose FSDP step takes no model axis yet, is not traced: the
-    record names the leaf and the rule.
+    path, and xlstm-1.3b's, whose mLSTM / sLSTM take theirs; xlstm-1.3b's
+    train_4k cell, whose recurrent layers' training forward takes no model
+    axis yet (ROADMAP 16.11c-2), is not traced: the record names the leaf
+    and the rule.
   * On the 1x1 mesh with real arguments (smoke config, on the CPU, as the
     card's one-rank check builds them) the decode step made with the
     caches' specs runs the whole model of qwen2-0.5b and of xlstm-1.3b
@@ -169,7 +170,8 @@ def test_run_cell_traces_the_decode_step_to_the_analytic_flops():
     assert out["traced"] is None and out["roofline"]["collective_s"] is None
     assert out["memory"]["temp_size_in_bytes"] is None
     assert out["traced_null"]["leaf"].startswith(
-        "params/embed: vocab_tp -> model"), out["traced_null"]
+        "params/groups/0/0/mixer/") and "16.11c-2" in \
+        out["traced_null"]["leaf"], out["traced_null"]
     ds = dryrun.run_cell("deepseek-v3-671b", shape, "16x16", verbose=False)
     assert "traced_null" not in ds and ds["traced"]["collective"]["total"] > 0
     assert ds["memory"]["temp_size_in_bytes"] is not None
@@ -283,3 +285,60 @@ def test_dryrun_cli_writes_records_and_imports_no_jax(tmp_path,
                                        "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_train_fit_equals_the_whole_trace():
+    """``trace_cell`` of a long train step on ``meta`` (the model axis
+    tensor-parallel on the production mesh) fits its counts from passes
+    of 1, 2 and 3 units of each group and 2 and 3 microbatches: on
+    granite-moe-3b-a800m's smoke config in two groups at 4 units each
+    and 4 microbatches the fit equals the whole pass in FLOPs, the
+    kernels' own, bytes, and the number and bytes of the collectives of
+    each kind and group; the peaks, extrapolated, lie within 5 % of the
+    whole pass's."""
+    arch = "granite-moe-3b-a800m"
+    pattern = configs.get_smoke_config(arch).groups[0][0]
+
+    def cell(ga, probe):
+        return specs.build_cell(
+            arch, configs.ShapeSpec("train_4k", 16, 16 * ga, "train"),
+            dryrun.mesh_of("16x16"), smoke=True, grad_accum=ga, probe=probe,
+            cfg_over=dict(groups=((pattern, 1), (pattern, 1))))
+
+    specs._traced(cell(1, None))     # a process's first pass: one-time ops
+    cell = cell(4, {0: 4, 1: 4})
+    assert not cell.gaps, cell.gaps
+    fit, want = specs._fitted_train(cell), specs._traced(cell)
+    assert fit.flops == want.flops and fit.kernel_flops == want.kernel_flops
+    assert fit.bytes == want.bytes
+
+    def by_kind(trace):
+        out = {}
+        for c in trace.collectives:
+            n, b = out.get((c.kind, c.group), (0, 0))
+            out[c.kind, c.group] = (n + 1, b + c.nbytes)
+        return out
+
+    assert by_kind(fit) == by_kind(want)
+    assert abs(fit.peak_bytes - want.peak_bytes) <= 0.05 * want.peak_bytes
+    assert fit.scratch_peak_bytes == want.scratch_peak_bytes == 0
+    print(f"{arch}: peak fitted {fit.peak_bytes} B, traced "
+          f"{want.peak_bytes} B")
+
+
+@pytest.mark.parametrize("arch,parts", [("qwen2-0.5b", 16),
+                                        ("granite-moe-3b-a800m", 1)])
+def test_train_cell_logits_are_cut_over_the_vocabulary(arch, parts):
+    """A train_4k rank's f32 logits of a microbatch on 16x16: qwen2-0.5b's
+    vocabulary (151936) is cut 16 ways, 2.49 GB a rank against the 39.8
+    GB the whole vocabulary would hold; granite's 49155 does not divide,
+    so its head stays whole."""
+    cell = specs.build_cell(arch, configs.SHAPES["train_4k"],
+                            dryrun.mesh_of("16x16"))
+    got = dryrun.logits_bytes(cell)
+    rows = 256 // 16 // specs.GRAD_ACCUM.get(arch, 1)
+    whole = rows * 4096 * cell.cfg.vocab * 4
+    assert got == {"rank_f32": whole // parts, "whole_vocab_f32": whole,
+                   "vocab_parts": parts}
+    if arch == "qwen2-0.5b":
+        assert (got["rank_f32"], whole) == (2_489_319_424, 39_829_110_784)

@@ -48,7 +48,6 @@ import torch
 import test_torch_train_step as tts
 from repro.checkpoint.manager import CheckpointManager as JManager
 from repro.optim import adamw as jadamw
-from repro.parallel import compression as jcomp
 from repro.train import step as jstep
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import tree as tree_lib
@@ -57,8 +56,8 @@ from repro_torch.parallel import launch
 from repro_torch.train import step as tstep
 from repro_torch.parallel.mesh_jobs import (FsdpJob, TrainJob, each,
                                             fsdp_job, train_job)
-from test_torch_train_common import (batch, jax_batch, jax_params,
-                                     jax_value_and_grad, model, weights)
+from test_torch_train_common import (batch, jax_batch, jax_params, model,
+                                     shard_oracle, weights)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 TESTS = Path(__file__).resolve().parent
@@ -174,47 +173,9 @@ def ranks(tmp_path_factory):
 @functools.lru_cache(maxsize=None)
 def _oracle(arch):
     """The reference's semantics on a (2, 1) mesh from its meshless
-    functions: per step, the mean over (microbatch, shard) of
-    ``value_and_grad(make_loss_fn)`` on each shard's rows and of its
-    metrics, the compressor, ``adamw.update`` → [(metrics, state, the
-    gradient before the compressor)] after each step."""
+    functions (test_torch_train_common.py ``shard_oracle``)."""
     case = CASES[arch]
-    vg = jax_value_and_grad(arch)
-    params = jax_params(arch)
-    state = jstep.TrainState(params=params, opt=jadamw.init(params),
-                             step=jnp.zeros((), jnp.int32))
-    ga = case["grad_accum"]
-    out = []
-    for s in range(2):
-        b = batch(arch, s, 4)
-        mb = b["tokens"].shape[0] // ga
-        part = mb // RANKS
-        grads, mets = [], []
-        for m in range(ga):
-            for r in range(RANKS):
-                rows = slice(m * mb + r * part, m * mb + (r + 1) * part)
-                (_, met), g = vg(state.params, jax_batch(
-                    {k: v[rows] for k, v in b.items()}))
-                grads.append(jax.tree_util.tree_leaves(g))
-                mets.append(met)
-        flat = [sum(np.asarray(x) for x in gs) / len(gs)
-                for gs in zip(*grads)]
-        g = jax.tree_util.tree_unflatten(
-            jax.tree_util.tree_structure(state.params),
-            [jnp.asarray(x) for x in flat])
-        if case["compress"]:
-            g = jcomp.Compressor(mode=case["compress"])(g)
-        new_p, new_opt, om = jadamw.update(g, state.opt, state.params,
-                                           state.step, jadamw.Config())
-        metrics = {k: float(np.mean([float(m[k]) for m in mets]))
-                   for k in mets[0]}
-        metrics.update({k: float(v) for k, v in om.items()},
-                       tokens=float(b["tokens"].size))
-        state = jstep.TrainState(params=new_p, opt=new_opt,
-                                 step=state.step + 1)
-        out.append((metrics, jax.tree_util.tree_map(np.asarray, state),
-                    flat))
-    return out
+    return shard_oracle(arch, RANKS, case["grad_accum"], case["compress"])
 
 
 def _check_steps(arch, case, got, ref):

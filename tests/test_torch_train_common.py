@@ -43,10 +43,12 @@ def close_scaled(got, ref, tol: float, scale=None):
 
 
 @functools.lru_cache(maxsize=None)
-def weights(arch: str):
+def weights(arch: str, groups=None):
     """(jax cfg, numpy tree, port cfg): the f32 smoke config's
-    ``PRNGKey(0)`` weights, :data:`PERTURBED` leaves moved."""
-    cfg = jconfigs.get_smoke_config(arch, compute_dtype=jnp.float32)
+    ``PRNGKey(0)`` weights, :data:`PERTURBED` leaves moved; ``groups``:
+    the config's layer groups replaced (a cut in depth)."""
+    over = {} if groups is None else {"groups": groups}
+    cfg = jconfigs.get_smoke_config(arch, compute_dtype=jnp.float32, **over)
     tree = jax.tree_util.tree_map(np.array, jblocks.split_params(
         jtransformer.init_model(jax.random.PRNGKey(0), cfg))[0])
     rng = np.random.default_rng(1)
@@ -59,7 +61,8 @@ def weights(arch: str):
                 leaf.dtype)
         leaves.append(leaf)
     tree = jax.tree_util.tree_unflatten(treedef, leaves)
-    tcfg = tconfigs.get_smoke_config(arch, compute_dtype=torch.float32)
+    tcfg = tconfigs.get_smoke_config(arch, compute_dtype=torch.float32,
+                                     **over)
     return cfg, tree, tcfg
 
 
@@ -107,11 +110,63 @@ def jax_forward(arch: str):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_value_and_grad(arch: str):
+def jax_value_and_grad(arch: str, groups=None):
     """jit of ``jax.value_and_grad(make_loss_fn(cfg), has_aux=True)``."""
-    cfg = weights(arch)[0]
+    cfg = weights(arch, groups)[0]
     return jax.jit(jax.value_and_grad(jstep.make_loss_fn(cfg), has_aux=True))
 
 
-def jax_params(arch: str):
-    return jax.tree_util.tree_map(jnp.asarray, weights(arch)[1])
+def jax_params(arch: str, groups=None):
+    return jax.tree_util.tree_map(jnp.asarray, weights(arch, groups)[1])
+
+
+def shard_oracle(arch: str, data: int, grad_accum: int, compress=None,
+                 groups=None, steps: int = 2, global_batch: int = 4):
+    """The reference's train step on a mesh of ``data`` data shards from
+    its meshless functions (its mesh step refuses the MoE archs:
+    ``ROADMAP.md`` §3): per step the mean over (microbatch, shard) of
+    ``value_and_grad(make_loss_fn)`` on each shard's rows and of its
+    metrics (the MoE routes each shard alone, as the reference's
+    ``shard_map`` does), the compressor (``compress``), then
+    ``adamw.update`` → [(metrics, numpy state, the gradient's numpy
+    leaves before the compressor)] a step, from :func:`weights` (at
+    ``groups``) and :func:`batch`."""
+    from repro.optim import adamw as jadamw
+    from repro.parallel import compression as jcomp
+    vg = jax_value_and_grad(arch, groups)
+    params = jax_params(arch, groups)
+    update = jax.jit(jadamw.update, static_argnums=4)
+    state = jstep.TrainState(params=params, opt=jadamw.init(params),
+                             step=jnp.zeros((), jnp.int32))
+    out = []
+    for s in range(steps):
+        b = batch(arch, s, global_batch)
+        mb = global_batch // grad_accum
+        part = mb // data
+        grads, mets = [], []
+        for m in range(grad_accum):
+            for r in range(data):
+                rows = slice(m * mb + r * part, m * mb + (r + 1) * part)
+                (_, met), g = vg(state.params, jax_batch(
+                    {k: v[rows] for k, v in b.items()}))
+                grads.append(jax.tree_util.tree_leaves(g))
+                mets.append(met)
+        flat = [sum(np.asarray(x) for x in gs) / len(gs)
+                for gs in zip(*grads)]
+        g = jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(state.params),
+            [jnp.asarray(x) for x in flat])
+        if compress:
+            g = jcomp.Compressor(mode=compress)(g)
+        new_p, new_opt, om = update(g, state.opt, state.params, state.step,
+                                    jadamw.Config())
+        metrics = {k: float(np.mean([float(m[k]) for m in mets]))
+                   for k in mets[0]}
+        metrics.update({k: float(v) for k, v in om.items()},
+                       tokens=float(b["tokens"].size))
+        state = jstep.TrainState(params=new_p, opt=new_opt,
+                                 step=state.step + 1)
+        out.append((metrics, jax.tree_util.tree_map(np.asarray, state),
+                    flat))
+    return out
+
