@@ -26,14 +26,18 @@ one traced pass of the port's own step on them. Per cell:
     core/perf.py's ring model. A serving cell's pass is one rank's step
     on its shards (the model axis tensor- and sequence-parallel:
     ``transformer.hidden``), so ``flops_all_chips`` also counts the
-    work the ranks of a line repeat. The eager pass visits every layer,
+    work the ranks of a line repeat; so does a train cell's, its step on
+    the rank's shards under autograd (``transformer.train_forward``,
+    every layer kind). The eager pass visits every layer,
     so the reference's probe lowerings (which make up for XLA counting a
     scanned body once) are not ported; a prefill through recurrent
     layers, whose loops step a chunk or a token at a time, is traced at
     2, 3 and 4 periods of its loops and fitted (``specs.trace_cell``:
-    the counts exact, the peaks extrapolated). Where the cell's rules need a
-    path the port lacks (``specs.Cell.gaps``: a ring cache cut over its
-    rows, training with a model axis), ``traced`` is
+    the counts exact, the peaks extrapolated), and so is a train step of
+    more than ``specs.TRAIN_FIT_PASSES`` layer passes, from passes of 1-3
+    units and 2-3 microbatches. Where the cell's rules need a path the
+    port lacks (``specs.Cell.gaps``: a ring cache cut over its rows),
+    ``traced`` is
     ``null`` and ``traced_null`` names the leaf and the rule: no other
     mesh is substituted and no bytes are invented;
   * ``roofline`` — core/perf.py ``Roofline`` on the H100's datasheet peaks

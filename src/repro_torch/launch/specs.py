@@ -15,15 +15,13 @@ it issues, recorded on the abstract mesh).
 A rank's pass is the port's own step. The serving steps run on a rank's
 shards (train/step.py ``shard_model``: the batch axes gathered a unit at
 a time, the model axis tensor- and sequence-parallel) for GQA, cross,
-encoder, MLA and recurrent layers with an MLP or a MoE; the train step
-(train/step.py ``shard_state``) for GQA layers with an MLP or a MoE, the
-model axis tensor-parallel under autograd down to a vocabulary-parallel
-loss. A cell whose rules cut what the port's rank path cannot take has
-no pass: a ring cache cut over its rows (``kv_seq`` on a sliding-window
-layer); a train cell's cross, encoder, MLA or recurrent leaf, learned
-positions, shared block or MTP head cut over the model axis (ROADMAP
-16.11c-2). :attr:`Cell.gaps` names each such leaf with the rule that
-binds it; a cell with gaps is not traced.
+encoder, MLA and recurrent layers with an MLP or a MoE; so does the train
+step (train/step.py ``shard_state``), the model axis tensor-parallel
+under autograd down to a vocabulary-parallel loss, the shared block and
+the MTP head included. A serving cell whose rules cut what the port's
+rank path cannot take has no pass: a ring cache cut over its rows
+(``kv_seq`` on a sliding-window layer). :attr:`Cell.gaps` names each such
+leaf with the rule that binds it; a cell with gaps is not traced.
 
 On a real device the same function draws the arguments: each leaf drawn
 whole from a seed (weights, random tokens) and cut to this rank's shard
@@ -213,22 +211,6 @@ def _serving_gaps(cfg):
     return missing
 
 
-def _train_gaps(cfg):
-    """``missing(path)`` for the train step's leaves: what the training
-    forward on a rank's shards (``transformer.train_forward``) cannot take
-    cut over a non-batch axis: every leaf but the embedding, the head, the
-    final norm and the GQA layers' (``TRAIN_RANK_MIXERS``, with an MLP or
-    a MoE)."""
-    def missing(path: str):
-        parts = path.split("/")
-        if parts[1] in ("embed", "lm_head", "final_norm"):
-            return None
-        if _kind(cfg, path) in transformer.TRAIN_RANK_MIXERS:
-            return None
-        return "training with a model axis: ROADMAP 16.11c-2", None
-    return missing
-
-
 def _array(shape, dtype, device, generator=None, high: int = 0):
     if device.type == "meta" or generator is None:
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -273,12 +255,8 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
         p_axes = transformer.param_axes(cfg)
         p_specs = _specs(p_axes, tree_lib.tree_map(
             lambda p: tuple(p.shape), params), mesh)
-        if train:
-            gaps = _gaps("params", p_axes, p_specs, mesh, batch_axes,
-                         _train_gaps(cfg))
-        else:
-            gaps = _gaps("params", p_axes, p_specs, mesh, batch_axes,
-                         _serving_gaps(cfg))
+        gaps = [] if train else _gaps("params", p_axes, p_specs, mesh,
+                                      batch_axes, _serving_gaps(cfg))
         if device.type == "meta":
             for p, spec in zip(tree_lib.leaves(params), tree_lib.leaves(
                     p_specs, is_leaf=sharding.is_spec)):
@@ -295,10 +273,16 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
         L = shape.seq_len if shape.step != "decode" else 1
         tok_spec = sharding.resolve(("batch", None), (B, L), mesh)
         b_local = _local((B, L), tok_spec, mesh)
+        if train:       # each microbatch cut as the reference constrains it
+            b_local = (B // sharding.axis_size(
+                steps.microbatch_axes(B // ga, mesh), mesh), L)
 
         def cut(whole, spec, local):
             if device.type == "meta":
                 return torch.zeros(local, dtype=whole.dtype, device=device)
+            if train:
+                return steps.rank_rows({"tokens": whole}, ga,
+                                       mesh)["tokens"]
             return sharding.shard_of(whole, spec, mesh)
 
         def tokens():
@@ -310,7 +294,8 @@ def build_cell(arch: str, shape: ShapeSpec, mesh: sharding.Mesh,
             dim = cfg.cross_kv_dim if cfg.family == "vlm" else cfg.d_model
             ex_spec = sharding.resolve(("batch", None, None),
                                        (B, cfg.encoder_seq, dim), mesh)
-            ex_local = _local((B, cfg.encoder_seq, dim), ex_spec, mesh)
+            ex_local = (b_local[0],) + _local((B, cfg.encoder_seq, dim),
+                                              ex_spec, mesh)[1:]
             extra = cut(_array((B, cfg.encoder_seq, dim), torch.bfloat16,
                                device, gen), ex_spec, ex_local)
         if train:
@@ -380,12 +365,14 @@ def memory(cell: Cell, trace: Optional[offload.Trace] = None
             "total_per_device": arg + out - alias + (temp or 0)}
 
 
-# A prefill through a recurrent layer loops in Python a chunk (gla_chunked)
-# or a token (the sLSTM) at a time, each step the same ops on the same
-# shapes: on ``meta`` a 32k-token pass is some half a million ops a layer.
-# trace_cell traces such a cell at these multiples of its period instead
-# and fits the counts (:func:`_fitted`); a pass of one period is left out,
-# since one chunk's pass differs in a few bytes from the rest.
+# A prefill or a train step through a recurrent layer loops in Python a
+# chunk (gla_chunked) or a token (the sLSTM) at a time, each step the same
+# ops on the same shapes: on ``meta`` a 32k-token pass is some half a
+# million ops a layer, and xlstm-1.3b's train_4k pass (its sLSTMs' 4096
+# steps, forward, recompute and backward, in each microbatch) passed 12
+# minutes. trace_cell traces such a cell at these multiples of its period
+# instead and fits the counts (:func:`_fitted`); a pass of one period is
+# left out, since one chunk's pass differs in a few bytes from the rest.
 FIT_PERIODS = (2, 3, 4)
 
 
@@ -406,20 +393,27 @@ def _through(points, x):
 
 
 def _fit_period(cell: Cell) -> Optional[int]:
-    """The period P (tokens) of a ``meta`` prefill cell that
-    :func:`trace_cell` fits, or None: the least common multiple of the
-    recurrent mixers' chunks and, where the model attends, flash_attention's
-    largest block (its plan of blocks is then the same at every multiple
-    of P), where the cell's length is a multiple of P past the longest
-    fitted pass."""
+    """The period P (tokens) of a ``meta`` prefill or train cell through
+    recurrent layers that :func:`trace_cell` fits, or None: the least
+    common multiple of the recurrent mixers' chunks and, where the model
+    attends, the attention's largest block (flash_attention's in a
+    prefill, ``flash_xla``'s chunks in training: its plan of blocks is
+    then the same at every multiple of P), where the cell's length is a
+    multiple of P past the longest fitted pass. A MoE's capacity steps
+    with the tokens, so a model with one is not fitted."""
     cfg, L = cell.cfg, cell.shape.seq_len
     mixers = {transformer.parse_kind(kind)[0]
               for pattern, _ in cfg.groups for kind in pattern}
-    if (cell.shape.step != "prefill" or not mixers & set(ssm.RECURRENT)
-            or cell.args[1].device.type != "meta"):
+    train = cell.shape.step == "train"
+    tokens = cell.args[1]["tokens"] if train else cell.args[1]
+    if (cell.shape.step not in ("prefill", "train")
+            or not mixers & set(ssm.RECURRENT)
+            or transformer.couples_rows(cfg)
+            or tokens.device.type != "meta"):
         return None
     attends = bool(mixers - set(ssm.RECURRENT))
-    P = math.lcm(*((max(fa.BLOCKS),) if attends else ()),
+    blocks = (cfg.q_chunk, cfg.kv_chunk) if train else (max(fa.BLOCKS),)
+    P = math.lcm(*(blocks if attends else ()),
                  *(getattr(cfg, m).chunk for m in ("mamba", "mlstm")
                    if m in mixers))
     return P if L % P == 0 and L // P > FIT_PERIODS[-1] else None
@@ -430,7 +424,8 @@ def _fitted(cell: Cell, P: int) -> offload.Trace:
     at ``FIT_PERIODS`` (2, 3 and 4 periods): each count (FLOPs, the
     kernels' own by name, bytes, each collective's bytes) the quadratic in
     n through them, exact for steps that repeat (linear in n) and for
-    attention's causal walk over whole blocks (quadratic); the peaks
+    attention's causal walk over whole blocks (quadratic), in a prefill
+    and in a train step alike; the peaks
     (``peak_bytes``, ``scratch_peak_bytes``) the line through the two
     longest. No outputs; ``seconds`` the three passes'."""
     n = cell.shape.seq_len // P

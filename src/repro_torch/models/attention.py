@@ -249,7 +249,7 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
     if cache is None:
         h_lo, h_hi, w_lo, w_hi = _head_plan(cfg, oc, None, False)
-        m, h_in = _train_entry(m, h, spec, mesh, oc, (qc, kvc), cfg)
+        m, h_in = _train_entry(m, h, spec, mesh, oc, (qc, kvc), cfg.name)
         q, k, v = qkv(m, h_in, positions, cfg, (qc, h_lo * hd, h_hi * hd),
                       (kvc, w_lo * hd, w_hi * hd), apart=oc.line is not None)
         if (h_lo, h_hi) != (w_lo * G, w_hi * G):   # not whole groups
@@ -309,31 +309,32 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
 
 
 def _train_entry(m: Dict[str, torch.Tensor], h: torch.Tensor, spec, mesh,
-                 oc: sharding.Held, parts, cfg):
+                 oc: sharding.Held, parts, name: str):
     """(m, h) for the training forward on a rank's shards: with the heads
     split over ``wo``'s line, ``h`` through ``copy_to`` over it and each
-    projection leaf (weight, bias) that is whole on it through
-    ``copy_to`` as well, since a rank uses only its heads' columns of it.
-    With ``wo`` whole every rank attends every head alike, and a
-    projection cut over a line (``parts``: q's and k / v's) would then
-    be a mix this path does not take."""
+    leaf but ``wo`` (projections, biases, MLA's down-projections and
+    norms) that is whole on it through ``copy_to`` as well, since a rank
+    uses only its heads' part of what it feeds. With ``wo`` whole every
+    rank attends every head alike, and a projection cut over a line
+    (``parts``: the column cuts of the heads' projections) would then be
+    a mix this path does not take; ``name`` names the layer's arch."""
     if oc.line is None:
         if any(part.line is not None for part in parts):
             raise NotImplementedError(
-                f"{cfg.name}: q / k / v columns cut over a line while wo's "
-                "rows are whole (a heads_tp / kv_heads_tp rule split): no "
-                "training path")
+                f"{name}: the heads' projection columns cut over a line "
+                "while wo's rows are whole (a heads_tp / kv_heads_tp rule "
+                "split): no training path")
         return m, h
     m = dict(m)
-    for name, t in m.items():
-        if name == "wo":
+    for leaf, t in m.items():
+        if leaf == "wo":
             continue
-        part = sharding.held(t, spec.get(name), t.dim() - 1, mesh)
+        part = sharding.held(t, spec.get(leaf), t.dim() - 1, mesh)
         if part.line is None:
-            m[name] = sharding.copy_to(t, oc.line)
+            m[leaf] = sharding.copy_to(t, oc.line)
         elif part.line.axes != oc.line.axes:
             raise NotImplementedError(
-                f"{cfg.name}: {name} cut over {part.line.axes}, wo's rows "
+                f"{name}: {leaf} cut over {part.line.axes}, wo's rows "
                 f"over {oc.line.axes}: no training path")
     return m, sharding.copy_to(h, oc.line)
 
@@ -436,23 +437,37 @@ def cross_forward(m: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
     encoder row, writes its cache's heads and rows, and attends the heads
     ``wo``'s rows take; a decode step attends every query head of its
     cache's kv heads over the rows it holds (all S_enc rows are valid),
-    merged over their line with ``combine_partials`` where they are cut."""
+    merged over their line with ``combine_partials`` where they are cut.
+    The training forward attends the heads ``wo``'s rows take, as
+    :func:`gqa_forward`'s does, ``extra`` entering through ``copy_to``
+    over ``wo``'s line beside ``h`` (every cross layer of every rank reads
+    it, and uses its own kv heads' part)."""
     B, L, _ = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    if cache is None:
-        q = (h @ m["wq"]).reshape(B, L, H, hd)
-        S = extra.shape[1]
-        k = (extra @ m["wk"]).reshape(B, S, K, hd)
-        v = (extra @ m["wv"]).reshape(B, S, K, hd)
-        valid = torch.ones(B, S, dtype=torch.bool, device=h.device)
-        att = attend_train(q, k, v, cfg, False, kv_len_mask=valid)
-        return att.reshape(B, L, -1).to(h.dtype) @ m["wo"]
     mesh = sharding.current_mesh()
     spec, cache_spec = spec or {}, cache_spec or {}
-    kc, vc = cache["k"], cache["v"]
     qc = sharding.held(m["wq"], spec.get("wq"), 1, mesh)
     kvc = sharding.held(m["wk"], spec.get("wk"), 1, mesh)
     oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
+    if cache is None:
+        h_lo, h_hi, w_lo, w_hi = _head_plan(cfg, oc, None, False)
+        m, h_in = _train_entry(m, h, spec, mesh, oc, (qc, kvc), cfg.name)
+        apart = oc.line is not None
+        if apart:
+            extra = sharding.copy_to(extra, oc.line)
+        S = extra.shape[1]
+        q = sharding.take(h_in @ m["wq"], qc, (h_lo * hd, h_hi * hd),
+                          apart=apart)[0].reshape(B, L, -1, hd)
+        k, v = (sharding.take(extra @ m[w], kvc, (w_lo * hd, w_hi * hd),
+                              apart=apart)[0].reshape(B, S, -1, hd)
+                for w in ("wk", "wv"))
+        if (h_lo, h_hi) != (w_lo * (H // K), w_hi * (H // K)):
+            kv = _kv_index(h_lo, h_hi, H // K, w_lo, h.device)
+            k, v = k.index_select(2, kv), v.index_select(2, kv)
+        valid = torch.ones(B, S, dtype=torch.bool, device=h.device)
+        att = attend_train(q, k, v, cfg, False, kv_len_mask=valid)
+        return _out(att, m["wo"], oc, h_lo * hd, h.dtype)
+    kc, vc = cache["k"], cache["v"]
     heads = sharding.held(kc, cache_spec.get("k"), 1, mesh)
     rows = sharding.held(kc, cache_spec.get("k"), 2, mesh)
     S = rows.whole
@@ -610,37 +625,42 @@ def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     B, L, _ = h.shape
     H, nope, dq, vd = cfg.n_heads, cfg.qk_nope, cfg.qk_nope + cfg.qk_rope, \
         cfg.v_dim
+    mesh = sharding.current_mesh()
+    spec, cache_spec = spec or {}, cache_spec or {}
+    oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
+    heads_cols = {name: sharding.held(m[name], spec.get(name), 1, mesh)
+                  for name in ("w_uq", "w_uk", "w_uv")}
+    apart = cache is None and oc.line is not None
+    if cache is None:       # the heads wo's rows take: h and the down-
+        m, h = _train_entry(m, h, spec, mesh, oc,  # projections entered
+                            tuple(heads_cols.values()), "MLA")
     cq = blocks.rms_norm(m["q_norm"], h @ m["w_dq"])
     ckv = blocks.rms_norm(m["kv_norm"], h @ m["w_dkv"])         # [B, L, c]
     k_rope = blocks.apply_rope((h @ m["w_kr"]).reshape(B, L, 1, cfg.qk_rope),
                                positions, cfg.rope_theta)[:, :, 0]
-    if cache is None:
-        q = (cq @ m["w_uq"]).reshape(B, L, H, dq)
-        q_rope = blocks.apply_rope(q[..., nope:], positions, cfg.rope_theta)
-        return _mla_expanded(m, q[..., :nope], q_rope, ckv, k_rope, cfg)
-    mesh = sharding.current_mesh()
-    spec, cache_spec = spec or {}, cache_spec or {}
-    cc, kc = cache["ckv"], cache["kr"]
-    rows = sharding.held(cc, cache_spec.get("ckv"), 1, mesh)
-    oc = sharding.held(m["wo"], spec.get("wo"), 0, mesh)
     decode = isinstance(cache_pos, torch.Tensor)
-    if not decode and cache_pos != 0:
-        raise ValueError(f"mla_forward: cache_pos must be a [B] tensor "
-                         f"(decode) or 0 (prefill), got {cache_pos!r}")
-    if decode and L != 1:
-        raise ValueError(f"mla_forward: a decode step takes one token a "
-                         f"slot, got L={L}")
+    if cache is not None:
+        cc, kc = cache["ckv"], cache["kr"]
+        rows = sharding.held(cc, cache_spec.get("ckv"), 1, mesh)
+        if not decode and cache_pos != 0:
+            raise ValueError(f"mla_forward: cache_pos must be a [B] tensor "
+                             f"(decode) or 0 (prefill), got {cache_pos!r}")
+        if decode and L != 1:
+            raise ValueError(f"mla_forward: a decode step takes one token a "
+                             f"slot, got L={L}")
     sp = decode and rows.line is not None
     h_lo, h_hi = (0, H) if sp else (oc.lo // vd, -(-oc.hi // vd))
 
     def cols(name, width):      # heads [h_lo, h_hi) of a heads_tp leaf
         w = m[name] if name != "w_uq" else cq @ m[name]
-        return sharding.take(w, sharding.held(m[name], spec.get(name), 1,
-                                              mesh),
-                             (h_lo * width, h_hi * width))[0]
+        return sharding.take(w, heads_cols[name],
+                             (h_lo * width, h_hi * width), apart=apart)[0]
     q = cols("w_uq", dq).reshape(B, L, -1, dq)
     q_nope = q[..., :nope]
     q_rope = blocks.apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    if cache is None:
+        return _mla_expanded(q_nope, q_rope, ckv, k_rope, cols("w_uk", nope),
+                             cols("w_uv", vd), m["wo"], oc, h_lo * vd, cfg)
     w_uk = cols("w_uk", nope).reshape(cfg.kv_lora, -1, nope).float()
     w_uv = cols("w_uv", vd).reshape(cfg.kv_lora, -1, vd).float()
     if decode:
@@ -670,20 +690,23 @@ def mla_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     return _out(out.to(h.dtype), m["wo"], oc, h_lo * vd, h.dtype)
 
 
-def _mla_expanded(m, q_nope, q_rope, ckv, k_rope, cfg: MlaConfig
+def _mla_expanded(q_nope, q_rope, ckv, k_rope, w_uk, w_uv, wo,
+                  oc: sharding.Held, lo: int, cfg: MlaConfig
                   ) -> torch.Tensor:
-    """The no-cache MLA attention: K = [ckv·w_uk, k_rope on every head], V
-    = ckv·w_uv zero-padded from v_dim to qk_nope + qk_rope, causal, through
-    :func:`attend_train` with n_kv = H and the MLA config's chunks; V's
-    padding sliced off → y [B, L, d]."""
-    B, L, H = q_nope.shape[0], q_nope.shape[1], cfg.n_heads
+    """The no-cache MLA attention of the heads of q (``w_uk`` / ``w_uv``
+    their columns): K = [ckv·w_uk, k_rope on every head], V = ckv·w_uv
+    zero-padded from v_dim to qk_nope + qk_rope, causal, through
+    :func:`attend_train` with n_kv = the heads and the MLA config's
+    chunks; V's padding sliced off, then ``wo``'s rows ``oc`` (the
+    output's column ``lo`` first, :func:`_out`) → y [B, L, d]."""
+    B, L, H = q_nope.shape[:3]
     dk = cfg.qk_nope + cfg.qk_rope
-    k_nope = (ckv @ m["w_uk"]).reshape(B, L, H, cfg.qk_nope)
-    v = (ckv @ m["w_uv"]).reshape(B, L, H, cfg.v_dim)
+    k_nope = (ckv @ w_uk).reshape(B, L, H, cfg.qk_nope)
+    v = (ckv @ w_uv).reshape(B, L, H, cfg.v_dim)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, L, H, cfg.qk_rope)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     if cfg.v_dim != dk:
         v = torch.nn.functional.pad(v, (0, dk - cfg.v_dim))
     out = attend_train(q, k, v, cfg, True)[..., :cfg.v_dim]
-    return out.reshape(B, L, H * cfg.v_dim) @ m["wo"]
+    return _out(out, wo, oc, lo, q_nope.dtype)

@@ -32,13 +32,17 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
     """``x / sqrt(mean(x²) + eps) · scale`` in float32, cast back to x's
     dtype. With a ``line`` (parallel/sharding.py) x and ``scale`` are this
     rank's equal part of the row, the line's other ranks hold the rest:
-    the sum of squares is summed over it (one all-reduce of [..., 1])."""
+    the sum of squares is summed over it (one all-reduce of [..., 1]).
+    Each rank scales only its own channels by it, so under autograd its
+    cotangent is summed over the line too (``reduce_from(...,
+    apart=True)``)."""
     x32 = x.float()
     if line is None:
         var = x32.square().mean(dim=-1, keepdim=True)
     else:
         var = sharding.reduce_from(x32.square().sum(dim=-1, keepdim=True),
-                                   line) / (x.shape[-1] * line.size)
+                                   line, apart=True) / (x.shape[-1] *
+                                                        line.size)
     y = x32 * torch.rsqrt(var + eps)
     s = scale.float()
     if zero_centered:           # gemma convention: scale stored as (1 + s)

@@ -68,6 +68,24 @@ that is the whole dimension, and the same ops run on the whole leaves.
     ``r_gates`` and ``ff_up`` (u | g) give the rank's heads and hidden
     rows through ``sharding.take``: sliced where held, gathered over the
     line where not.
+
+**The training forward on a rank's shards** (no state: models/
+transformer.py ``_train_layer`` passes each forward its leaves' specs)
+runs the same steps under autograd, with the collectives' gradients of
+parallel/sharding.py. Mamba2's and the mLSTM's heads are those whose
+channels cover the output projection's rows (a rank may hold part of a
+head: the ranks that share it each run it, and the norm then sums its
+squares over the rows' channels alone); the sLSTM's are those of its
+``r_gates``. Work that differs by rank of the output projection's line
+(:func:`_enter`) takes ``x`` and every leaf whole on the line through
+``copy_to``, every gather ``apart`` (``gather_shards``: the cotangents
+summed and scattered) and every partial sum read by heads through
+``reduce_from(..., apart=True)``; work the ranks run alike takes a
+column cut through ``copy_to`` on its input and ``gather_from``
+(:func:`_project`), a row cut through ``copy_to`` and ``reduce_from``.
+The sLSTM's heads and its MLP are two such spans: the heads' differs by
+rank where the heads or the MLP's rows are cut, the MLP's where its rows
+are.
 """
 from __future__ import annotations
 
@@ -188,11 +206,9 @@ def _held(p, spec, name: str, dim: int) -> sharding.Held:
                          sharding.current_mesh())
 
 
-def _heads(state, name: str, cache_spec, H: int, mesh) -> sharding.Held:
-    """The heads a rank runs: those of its part of the state leaf
-    ``name`` (axis 1), all H with no state."""
-    if state is None:
-        return sharding.Held(0, H, H, None)
+def _heads(state, name: str, cache_spec, mesh) -> sharding.Held:
+    """The heads a rank runs in a serving step: those of its part of the
+    state leaf ``name`` (axis 1)."""
     return sharding.held(state[name], (cache_spec or {}).get(name), 1, mesh)
 
 
@@ -203,43 +219,71 @@ def _channels(heads: sharding.Held, width: int, whole: int
                           whole=whole)
 
 
-def _whole_cols(y: torch.Tensor, cols: sharding.Held) -> torch.Tensor:
-    """A projection's output whole: its columns gathered over the line
-    where the rank holds a part."""
-    return sharding.take(y, cols, (0, cols.whole))[0]
+def _enter(p, spec, names, x: Optional[torch.Tensor],
+           line: Optional[sharding.Line]):
+    """The training forward's entry into work that differs by rank of
+    ``line`` (None: none does; ``p`` and ``x`` as they are): ``x`` and
+    each leaf of ``names`` whole on the line through ``copy_to`` over it,
+    since a rank uses only its part of each and their cotangents are the
+    line's sum (parallel/sharding.py's module docstring). Inside, every
+    gather is ``apart`` and every partial sum read by heads
+    ``reduce_from(..., apart=True)``."""
+    if line is None:
+        return p, x
+    p = dict(p)
+    for name in names:
+        if all(_held(p, spec, name, d).line is None
+               for d in range(p[name].dim())):
+            p[name] = sharding.copy_to(p[name], line)
+    return p, None if x is None else sharding.copy_to(x, line)
 
 
-def _conv(p, spec, xc: torch.Tensor, state, cache_spec):
+def _project(a: torch.Tensor, w: torch.Tensor, cols: sharding.Held,
+             *spans: Tuple[int, int], apart: bool = False):
+    """The ranges ``spans`` of the columns of ``a @ w``, ``w`` holding
+    ``cols`` of them (``sharding.take``). Work the ranks run alike
+    (``apart`` False) enters a column cut through ``copy_to`` on ``a``:
+    each rank's product holds only its columns' share of a's gradient."""
+    if cols.line is not None and not apart:
+        a = sharding.copy_to(a, cols.line)
+    return sharding.take(a @ w, cols, *spans, apart=apart)
+
+
+def _conv(p, spec, xc: torch.Tensor, state, cache_spec, apart=False):
     """SiLU of :func:`causal_conv` of the whole channels ``xc`` [B, L, D]
     over ``p["conv_w"]`` and the history ``state["conv"]`` (none without a
     state), each gathered whole where the rank holds a part, and the new
     history cut back to the rank's channels (None without a state)."""
-    w = _whole_cols(p["conv_w"], _held(p, spec, "conv_w", 1))
+    cw = _held(p, spec, "conv_w", 1)
+    w = sharding.take(p["conv_w"], cw, (0, cw.whole), apart=apart)[0]
     if state is None:
         return F.silu(causal_conv(xc, w)[0]), None
     hist = state["conv"]
     ch = sharding.held(hist, (cache_spec or {}).get("conv"), 2,
                        sharding.current_mesh())
-    y, new = causal_conv(xc, w, _whole_cols(hist, ch))
+    y, new = causal_conv(xc, w, sharding.take(hist, ch, (0, ch.whole))[0])
     return F.silu(y), new[..., ch.lo:ch.hi]
 
 
 def _rows_out(p, spec, name: str, y: torch.Tensor, yc: sharding.Held,
-              nc: sharding.Held, z: Optional[torch.Tensor] = None
-              ) -> torch.Tensor:
+              nc: sharding.Held, z: Optional[torch.Tensor] = None,
+              apart: bool = False) -> torch.Tensor:
     """The output projection ``p[name]`` of the normed inner row: ``y``
     holds its channels ``yc`` (the ranks of ``yc.line`` the rest; gathered
     whole first where they lack ``p[name]``'s rows), the norm's scale its
-    part ``nc``; ``blocks.rms_norm`` over ``yc.line``, the channels of
+    part ``nc``; ``blocks.rms_norm``, over the row's parts on ``yc.line``
+    (each rank's channels of ``p[name]``'s rows), of the channels of
     ``p[name]``'s rows (times SiLU of the whole gate ``z``'s, the
-    mLSTM's), times those rows, summed over their line."""
+    mLSTM's), times those rows, summed over their line. ``apart``: the
+    training forward's gathers inside work that differs by rank."""
     oc = _held(p, spec, name, 0)
     if not (yc.lo <= oc.lo and oc.hi <= yc.hi):
-        y = _whole_cols(y, yc)
+        y = sharding.take(y, yc, (0, yc.whole), apart=apart)[0]
         yc = sharding.Held(0, yc.whole, yc.whole, None)
-    scale = sharding.take(p["norm"], nc, (yc.lo, yc.hi), dim=0)[0]
-    y = blocks.rms_norm(scale, y, line=yc.line)[
-        ..., oc.lo - yc.lo:oc.hi - yc.lo]
+    lo, hi = (oc.lo, oc.hi) if yc.line is not None else (yc.lo, yc.hi)
+    scale = sharding.take(p["norm"], nc, (lo, hi), dim=0, apart=apart)[0]
+    y = blocks.rms_norm(scale, y[..., lo - yc.lo:hi - yc.lo],
+                        line=yc.line)[..., oc.lo - lo:oc.hi - lo]
     if z is not None:
         y = y * F.silu(z[..., oc.lo:oc.hi])
     out = y @ p[name]
@@ -289,16 +333,18 @@ def mamba2_forward(p, x: torch.Tensor, cfg: Mamba2Config, state=None,
     docstring sets out."""
     B, L, _ = x.shape
     di, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-    mesh, spec = sharding.current_mesh(), spec or {}
-    heads = _heads(state, "ssm", cache_spec, H, mesh)
+    spec = spec or {}
+    heads, p, x = _plan(p, spec, x, state, cache_spec, "out_proj", P, H)
     h_lo, h_hi = heads.lo, heads.hi
-    zxbcdt = _whole_cols(x @ p["in_proj"], _held(p, spec, "in_proj", 1))
+    apart = state is None and heads.line is not None
+    ic = _held(p, spec, "in_proj", 1)
+    zxbcdt = _project(x, p["in_proj"], ic, (0, ic.whole), apart=apart)[0]
     z, xin, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
     conv_out, new_conv = _conv(p, spec, torch.cat([xin, Bm, Cm], dim=-1),
-                               state, cache_spec)
+                               state, cache_spec, apart)
     xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
     dt_bias, A_log, D = (sharding.take(p[k], _held(p, spec, k, 0),
-                                       (h_lo, h_hi), dim=0)[0]
+                                       (h_lo, h_hi), dim=0, apart=apart)[0]
                          for k in ("dt_bias", "A_log", "D"))
     dt = F.softplus(dt[..., h_lo:h_hi] + dt_bias)           # [B, L, Hc]
     A = -torch.exp(A_log.float())                           # [Hc]
@@ -317,9 +363,26 @@ def mamba2_forward(p, x: torch.Tensor, cfg: Mamba2Config, state=None,
     y = y + xh * D[None, None, :, None]
     y = y.reshape(B, L, Hc * P) * F.silu(z[..., h_lo * P:h_hi * P])
     out = _rows_out(p, spec, "out_proj", y, _channels(heads, P, di),
-                    _held(p, spec, "norm", 0))
+                    _held(p, spec, "norm", 0), apart=apart)
     new_state = {"ssm": S, "conv": new_conv} if state is not None else None
     return out, new_state
+
+
+def _plan(p, spec, x: torch.Tensor, state, cache_spec, out: str,
+          width: int, H: int):
+    """(heads, p, x) for Mamba2 / the mLSTM: in a serving step the heads
+    of the rank's state; in the training forward (no state) those whose
+    channels (``width`` a head) cover the output projection ``out``'s
+    rows, over its line (a rank may hold part of a head, and the ranks
+    that share it each run it; all H with the rows whole), ``x`` and the
+    leaves whole on that line entered through :func:`_enter`."""
+    if state is not None:
+        return (_heads(state, "ssm", cache_spec, sharding.current_mesh()),
+                p, x)
+    oc = _held(p, spec, out, 0)
+    heads = sharding.Held(oc.lo // width, -(-oc.hi // width), H, oc.line) \
+        if oc.line is not None else sharding.Held(0, H, H, None)
+    return (heads,) + _enter(p, spec, tuple(p), x, heads.line)
 
 
 def mamba2_init_state(cfg: Mamba2Config, batch: int, dtype, device=None):
@@ -371,23 +434,27 @@ def mlstm_forward(p, x: torch.Tensor, cfg: MlstmConfig, state=None,
     :func:`mamba2_forward`."""
     B, L, _ = x.shape
     H, P, di = cfg.n_heads, cfg.head_dim, cfg.d_inner
-    mesh, spec = sharding.current_mesh(), spec or {}
-    heads = _heads(state, "ssm", cache_spec, H, mesh)
+    spec = spec or {}
+    heads, p, x = _plan(p, spec, x, state, cache_spec, "down_proj", P, H)
     h_lo, h_hi = heads.lo, heads.hi
     Hc = h_hi - h_lo
-    up = _whole_cols(x @ p["up_proj"], _held(p, spec, "up_proj", 1))
+    apart = state is None and heads.line is not None
+    uc = _held(p, spec, "up_proj", 1)
+    up = _project(x, p["up_proj"], uc, (0, uc.whole), apart=apart)[0]
     xi, z = up.chunk(2, dim=-1)
-    conv_out, new_conv = _conv(p, spec, xi, state, cache_spec)
+    conv_out, new_conv = _conv(p, spec, xi, state, cache_spec, apart)
 
     def proj(a, name):    # a @ p[name], p[name]'s rows of di, the whole sum
         c = _held(p, spec, name, 0)
         if c.line is None:
             return a @ p[name]
+        if not apart:     # a row cut in work the ranks run alike
+            a = sharding.copy_to(a, c.line)
         # the partial products in f32, rounded once after the sum, as the
         # one-rank product rounds once: the recurrence amplifies a rounding
         # of each part (bf16 parts doubled 10d's xlstm rank error)
         y = a[..., c.lo:c.hi].float() @ p[name].float()
-        return sharding.reduce_from(y, c.line).to(a.dtype)
+        return sharding.reduce_from(y, c.line, apart=apart).to(a.dtype)
 
     def mine(a):          # [B, L, H·w] → the rank's heads [B, L, Hc, w]
         return a.reshape(B, L, H, -1)[:, :, h_lo:h_hi]
@@ -411,7 +478,7 @@ def mlstm_forward(p, x: torch.Tensor, cfg: MlstmConfig, state=None,
     num, den = y[..., :P], y[..., P:]
     y = (num / torch.clamp(den.abs(), min=1.0)).reshape(B, L, Hc * P)
     out = _rows_out(p, spec, "down_proj", y, _channels(heads, P, di),
-                    _held(p, spec, "norm", 0), z)
+                    _held(p, spec, "norm", 0), z, apart)
     new_state = {"ssm": S, "conv": new_conv} if state is not None else None
     return out, new_state
 
@@ -456,20 +523,31 @@ def slstm_forward(p, x: torch.Tensor, cfg: SlstmConfig, state=None,
     """x [B, L, d]; state ``{"c", "n", "h"}`` [B, H, hd] f32 for stepwise
     use. One step a token: gates from ``x @ w_gates`` plus the f32 carry
     ``h`` through the block-diagonal ``r_gates``. On one rank of a mesh,
-    as :func:`mamba2_forward`: the heads of the rank's carry, then the
-    whole h for the norm, the MLP column- and row-parallel as the leaves
-    are cut."""
+    as :func:`mamba2_forward`: the heads of the rank's carry (in the
+    training forward, those of its ``r_gates``), then the whole h for the
+    norm, the MLP column- and row-parallel as the leaves are cut. Under
+    autograd the heads and the MLP are two spans of work: the heads' span
+    differs by rank where the heads or the MLP's rows are cut, the MLP's
+    where its rows are, and each enters through :func:`_enter`."""
     B, L, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     mesh, spec = sharding.current_mesh(), spec or {}
-    heads = _heads(state, "c", cache_spec, H, mesh)
+    fr = _held(p, spec, "ff_down", 0)       # the rank's rows of the hidden
+    if state is None:
+        heads = _held(p, spec, "r_gates", 0)
+        mlp = fr.line                       # the MLP's span differs by rank
+        p, x = _enter(p, spec, ("w_gates", "r_gates"), x, heads.line or mlp)
+        p = _enter(p, spec, ("norm", "ff_up"), None, mlp)[0]
+    else:
+        heads, mlp = _heads(state, "c", cache_spec, mesh), None
     h_lo, h_hi = heads.lo, heads.hi
     Hc = h_hi - h_lo
-    wx = sharding.take(x @ p["w_gates"], _held(p, spec, "w_gates", 1),
-                       (h_lo * 4 * hd, h_hi * 4 * hd))[0]
+    apart = (heads.line or mlp) is not None
+    wx = _project(x, p["w_gates"], _held(p, spec, "w_gates", 1),
+                  (h_lo * 4 * hd, h_hi * 4 * hd), apart=apart)[0]
     wx = wx.reshape(B, L, Hc, 4 * hd)
     r = sharding.take(p["r_gates"], _held(p, spec, "r_gates", 0),
-                      (h_lo, h_hi), dim=0)[0].float()
+                      (h_lo, h_hi), dim=0, apart=apart)[0].float()
     if state is None:
         z0 = torch.zeros(B, Hc, hd, dtype=torch.float32, device=x.device)
         c, n, h = z0, z0, z0
@@ -489,15 +567,15 @@ def slstm_forward(p, x: torch.Tensor, cfg: SlstmConfig, state=None,
         h = ot * (c / torch.clamp(n.abs(), min=1.0))
         hs.append(h.to(x.dtype))
     # the norm reads the whole row: the heads' channels gathered
-    y = _whole_cols(torch.stack(hs, dim=1).reshape(B, L, Hc * hd),
-                    _channels(heads, hd, d))
+    apart = mlp is not None
+    y = sharding.take(torch.stack(hs, dim=1).reshape(B, L, Hc * hd),
+                      _channels(heads, hd, d), (0, d), apart=apart)[0]
     norm = sharding.take(p["norm"], _held(p, spec, "norm", 0), (0, d),
-                         dim=0)[0]
+                         dim=0, apart=apart)[0]
     y = blocks.rms_norm(norm, y)
-    fr = _held(p, spec, "ff_down", 0)       # the rank's rows of the hidden
     f = fr.whole
-    u, gate = sharding.take(y @ p["ff_up"], _held(p, spec, "ff_up", 1),
-                            (fr.lo, fr.hi), (f + fr.lo, f + fr.hi))
+    u, gate = _project(y, p["ff_up"], _held(p, spec, "ff_up", 1),
+                       (fr.lo, fr.hi), (f + fr.lo, f + fr.hi), apart=apart)
     out = (F.gelu(u, approximate="tanh") * gate) @ p["ff_down"]
     if fr.line is not None:
         out = sharding.reduce_from(out, fr.line)

@@ -30,7 +30,8 @@ tensor-parallel in :func:`embed`, the attention layers
 (``attention.gqa_forward``, ``cross_forward``, ``encoder_forward`` in
 :func:`encode`, ``mla_forward``), the recurrent mixers (models/ssm.py
 through :func:`recurrent_forward`), :func:`_ffn` and :func:`logits`, each
-reading its leaves' specs).
+reading its leaves' specs); :func:`train_forward` runs the same layers on
+the rank's shards under autograd (:func:`_train_layer`).
 :class:`ModelConfig` keeps every field of the reference so that the
 configs read the same, with torch dtypes in place of jnp ones
 (``compute_dtype=torch.float32`` works as the reference override does).
@@ -935,10 +936,9 @@ def _rank_tree(model: Transformer, tree, *path, unit: bool = False):
 
 def _check_whole(what: str, spec_tree, item: str = "16.11") -> None:
     """Raise unless every leaf that the rank path runs whole (learned
-    positions, the encoder's final norm; in training every leaf of a
-    layer kind outside :data:`TRAIN_RANK_MIXERS`) is whole once the batch
-    axes are gathered (no spec: no mesh); ``item``: the ROADMAP item that
-    would take it."""
+    positions, the encoder's final norm) is whole once the batch axes are
+    gathered (no spec: no mesh); ``item``: the ROADMAP item that would
+    take it."""
     if spec_tree is None:
         return
     mesh = sharding.current_mesh()
@@ -1251,46 +1251,42 @@ def _cast(tree, dtype):
         lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
 
 
-# the mixers whose training forward takes their leaves cut over the model
-# axis (a layer of another kind refuses such a cut: ROADMAP 16.11c-2)
-TRAIN_RANK_MIXERS = ("gqa", "global", "local")
-
-
 def _train_layer(kind: str, p, x: torch.Tensor, positions: torch.Tensor,
                  extra: Optional[torch.Tensor], cfg: ModelConfig,
                  shared, spec=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer with no cache (the reference's ``_apply_layer`` in train
-    mode): (x, the MoE's aux or None). A ``shared`` site takes ``shared``'s
-    mixer and MLP. ``spec``: on one rank of a mesh, the specs of ``p``
-    once the batch axes are gathered (:func:`_rank_tree`): a GQA layer's
-    attention and :func:`_ffn` then run on the rank's shards, as in
-    serving; a layer of another kind refuses a leaf cut over a non-batch
-    axis."""
+    mode): (x, the MoE's aux or None). A ``shared`` site takes
+    ``shared``'s mixer and MLP (``shared``: the block's leaves and their
+    specs, None without a mesh). ``spec``: on one rank of a mesh, the
+    specs of ``p`` once the batch axes are gathered (:func:`_rank_tree`):
+    every mixer (GQA, encoder, cross, MLA and recurrent) and :func:`_ffn`
+    then run on the rank's shards, as in serving, with the collectives'
+    gradients of parallel/sharding.py."""
     mixer, ffn = parse_kind(kind)
-    if spec is not None and mixer not in TRAIN_RANK_MIXERS:
-        _check_whole(f"a {mixer!r} layer", spec, "16.11c-2")
     if mixer == "shared":
-        p = dict(p, mixer=shared["mixer"], ffn=shared["ffn"])
+        p = dict(p, mixer=shared[0]["mixer"], ffn=shared[0]["ffn"])
+        if spec is not None:
+            spec = dict(spec, **shared[1])
+    sp = None if spec is None else spec["mixer"]
     h = _norm_apply(p["ln1"], x, cfg)
     if mixer in ssm.RECURRENT:
-        y = ssm.FORWARD[mixer](p["mixer"], h, getattr(cfg, mixer))[0]
+        y = ssm.FORWARD[mixer](p["mixer"], h, getattr(cfg, mixer), None,
+                               sp)[0]
     elif mixer == "cross":
-        y = attention.cross_forward(p["mixer"], h, cfg, None, extra)
+        y = attention.cross_forward(p["mixer"], h, cfg, None, extra, sp)
     elif mixer == "mla":
-        y = attention.mla_forward(p["mixer"], h, positions, cfg.mla)
+        y = attention.mla_forward(p["mixer"], h, positions, cfg.mla,
+                                  spec=sp)
     else:
         y = attention.gqa_forward(p["mixer"], h, positions, cfg, None, 0,
                                   window=cfg.window_of(mixer),
-                                  causal=mixer != "enc",
-                                  spec=None if spec is None
-                                  else spec.get("mixer"))
+                                  causal=mixer != "enc", spec=sp)
     x = _residual(p, "ln1_post", x, y, cfg)
     if ffn == "none":
         return x, None
     y, aux = _ffn(p["ffn"], ffn, _norm_apply(p["ln2"], x, cfg), cfg,
-                  None if spec is None or mixer == "shared"
-                  else spec["ffn"])
+                  None if spec is None else spec["ffn"])
     return _residual(p, "ln2_post", x, y, cfg), aux
 
 
@@ -1365,26 +1361,26 @@ def _spec_at(specs, path, unit: bool = False):
 
 def _train_encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder in the training forward (the reference's
-    ``_encode``): frames [B, S_enc, d] at the compute dtype. On a rank its
-    leaves are gathered over the batch axes and must be whole beyond them
-    (ROADMAP 16.11c-2)."""
+    ``_encode``): frames [B, S_enc, d] at the compute dtype. On a rank
+    each ``enc`` layer runs on its shards as :func:`_train_layer` runs a
+    GQA layer (non-causal); the positions and the final norm are whole
+    once the batch axes are gathered."""
     cfg, enc = model.cfg, model.encoder
     S = frames.shape[1]
     if S > cfg.encoder_seq:
         raise ValueError(f"encode: {S} frames past the encoder's "
                          f"{cfg.encoder_seq} learned positions")
-    if model.shards is not None:
-        _check_whole("encoder", _spec_at(model.shards[1], ("encoder",)),
-                     "16.11c-2")
-    table, _ = _rank_tree(model, enc.pos_embed, "encoder", "pos_embed")
+    table, spec = _rank_tree(model, enc.pos_embed, "encoder", "pos_embed")
+    _check_whole("encoder/pos_embed", spec)
     x = frames + table.to(cfg.compute_dtype)[None, :S]
     pos = torch.arange(S, device=x.device)[None].expand(frames.shape[:2])
     x, _ = _train_groups(
         enc.groups, cfg.encoder_groups, x, pos, None, cfg, None,
         lambda t, gi, i: _rank_tree(model, t, "encoder", "groups", gi, i,
                                     unit=True))
-    norm, _ = _rank_tree(model, _norm_leaf(enc, "final_norm"), "encoder",
-                         "final_norm")
+    norm, spec = _rank_tree(model, _norm_leaf(enc, "final_norm"), "encoder",
+                            "final_norm")
+    _check_whole("encoder/final_norm", spec)
     return _norm_apply(_cast(norm, cfg.compute_dtype), x, cfg)
 
 
@@ -1413,14 +1409,16 @@ def train_forward(model: Transformer, tokens: torch.Tensor,
     over the batch axes where it is used (:func:`_rank_tree`, inside each
     unit's remat region) and the model axis runs tensor-parallel as the
     serving forward does: the vocabulary-cut embedding summed over its
-    line (:func:`embed`'s lookup), each GQA layer's attention on the
-    rank's heads and :func:`_ffn` column / row-parallel, with the
-    collectives' gradients of parallel/sharding.py. The head returns the
-    rank's logits over its part of the vocabulary, and then ``aux["vocab"]``
-    is that part (a ``sharding.Held``: train/loss.py's vocabulary-parallel
-    loss reads it). A leaf of another layer kind, the encoder, learned
-    positions or the MTP head cut over the model axis refuses (ROADMAP
-    16.11c-2)."""
+    line (:func:`embed`'s lookup), every layer on the rank's shards
+    (:func:`_train_layer`: the attention of every kind, the encoder's and
+    the shared block's included, on the rank's heads, the recurrent
+    mixers on theirs, :func:`_ffn` column / row-parallel or the MoE's mesh
+    paths), with the collectives' gradients of parallel/sharding.py. The
+    head returns the rank's logits over its part of the vocabulary, and
+    then ``aux["vocab"]`` is that part (a ``sharding.Held``:
+    train/loss.py's vocabulary-parallel loss reads it); so do the MTP
+    head's logits, whose block runs on the ``mtp`` leaves' shards. Learned
+    positions cut over the model axis refuse (no rule cuts them)."""
     cfg = model.cfg
     cd = cfg.compute_dtype
     B, L = tokens.shape
@@ -1432,7 +1430,7 @@ def train_forward(model: Transformer, tokens: torch.Tensor,
         x = x * embed_scale(cfg.d_model, cd)
     if cfg.learned_pos:
         table, spec = _rank_tree(model, model.pos_embed, "pos_embed")
-        _check_whole("pos_embed", spec, "16.11c-2")
+        _check_whole("pos_embed", spec)
         x = x + blocks.embed_lookup(table.to(cd),
                                     positions.clamp(0, cfg.learned_pos - 1))
     if cfg.encoder_groups:
@@ -1449,8 +1447,7 @@ def train_forward(model: Transformer, tokens: torch.Tensor,
     if model.shared_block is not None:
         shared, spec = _rank_tree(model, param_tree(model)["shared_block"],
                                   "shared_block")
-        _check_whole("shared_block", spec, "16.11c-2")
-        shared = _cast(shared, cd)
+        shared = (_cast(shared, cd), spec)
     x, moe_aux = _train_groups(
         model.groups, cfg.groups, x, positions, extra, cfg, shared,
         lambda t, gi, i: _rank_tree(model, t, "groups", gi, i, unit=True))
@@ -1463,21 +1460,19 @@ def train_forward(model: Transformer, tokens: torch.Tensor,
         lm, spec = _rank_tree(model, model.lm_head, "lm_head")
         head, cols = lm.to(cd), sharding.held(lm, spec, 1, mesh)
     aux: Dict[str, Any] = {"moe_aux": moe_aux}
+
+    def head_of(h):     # each rank's columns of the vocabulary differ
+        return (h if cols.line is None else
+                sharding.copy_to(h, cols.line)) @ head
     if cols.line is not None:
         aux["vocab"] = cols
-        h_final = sharding.copy_to(h_final, cols.line)
     if cfg.mtp and next_tokens is not None:
-        if cols.line is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the MTP head over a vocabulary cut over "
-                f"{cols.line.axes} (ROADMAP 16.11c-2)")
         mtp_p, spec = _rank_tree(model, param_tree(model)["mtp"], "mtp")
-        _check_whole("mtp", spec, "16.11c-2")
         mtp_p = _cast(mtp_p, cd)
-        e_next = blocks.embed_lookup(embed_w, next_tokens)
+        e_next = _lookup(embed_w, e_spec, next_tokens)
         h_mtp = torch.cat([h_final, e_next], dim=-1) @ mtp_p["proj"]
         h_mtp, _ = _train_layer(cfg.groups[-1][0][-1], mtp_p["block"], h_mtp,
-                                positions, extra, cfg, shared)
-        h_mtp = _norm_apply(mtp_p["norm"], h_mtp, cfg)
-        aux["mtp_logits"] = h_mtp @ head
-    return h_final @ head, aux
+                                positions, extra, cfg, shared,
+                                None if spec is None else spec["block"])
+        aux["mtp_logits"] = head_of(_norm_apply(mtp_p["norm"], h_mtp, cfg))
+    return head_of(h_final), aux

@@ -1,5 +1,6 @@
-"""Jobs on the ranks of a mesh: the collectives, gpipe, the MoE's mesh
-paths, FSDP training and the serving steps on a rank's shards.
+"""Jobs on the ranks of a mesh: the collectives (and a norm over a cut
+row), gpipe, the MoE's mesh paths, FSDP training and the serving steps
+on a rank's shards.
 
 The rank side of chip_smoke.py's phases 10a–10d and of the CPU tests of
 the mesh paths (tests/test_torch_sharding.py, test_torch_pipeline.py,
@@ -95,10 +96,22 @@ def _host(t: Optional[torch.Tensor]):
     return None if t is None else t.detach().float().cpu().numpy()
 
 
-def fingerprint(t: torch.Tensor) -> Tuple[float, float, float]:
-    """(Σx, Σ|x|, Σx²) of a tensor in f64 (``FsdpJob``'s ``sums``)."""
-    x = t.detach().double()
-    return float(x.sum()), float(x.abs().sum()), float((x * x).sum())
+def fingerprint(t: torch.Tensor, chunk: int = 1 << 24
+                ) -> Tuple[float, float, float]:
+    """(Σx, Σ|x|, Σx²) of a tensor in f64 (``FsdpJob``'s ``sums``),
+    summed over slices of its first dimension of about ``chunk`` elements,
+    so that the f64 copies stay small beside a large leaf (ranks sharing
+    one card hold little spare memory after a step)."""
+    x = t.detach()
+    if x.dim() == 0:
+        x = x.reshape(1)
+    rows = max(1, chunk // max(1, x.numel() // max(1, x.shape[0])))
+    acc = torch.zeros(3, dtype=torch.float64, device=x.device)
+    for c in x.split(rows):
+        c = c.double()
+        acc += torch.stack((c.sum(), c.abs().sum(), (c * c).sum()))
+    s, a, q = acc.tolist()
+    return s, a, q
 
 
 def _device(name: str) -> torch.device:
@@ -119,6 +132,12 @@ def each(rank: int, fn, jobs: Sequence[Any]) -> List[Any]:
     """``fn(rank, job)`` for each job in turn: a file's cases in one
     spawn (``fn`` one of this module's jobs)."""
     return [fn(rank, job) for job in jobs]
+
+
+def run_jobs(rank: int, calls: Sequence[Tuple[Any, Any]]) -> List[Any]:
+    """``fn(rank, job)`` for each ``(fn, job)`` of ``calls`` in turn: jobs
+    of several kinds in one spawn."""
+    return [fn(rank, job) for fn, job in calls]
 
 
 def _mesh(shape: Sequence[int], names: Sequence[str]):
@@ -238,6 +257,35 @@ def collectives_job(rank: int, job: CollectivesJob) -> Dict[str, Any]:
     part = sh.shard_of(whole, spec, mesh)
     check("gather_leaf", sh.gather_leaf(part, spec, mesh), whole)
     return {"bad": bad, "lines": lines, "coords": mesh.coords()}
+
+
+@dataclasses.dataclass
+class NormJob:
+    """``blocks.rms_norm`` of rows ``x`` [N, d] by ``scale`` [d] with the
+    channels cut over the ``model`` line of a (data, model) ``mesh``, and
+    the backward of Σ(y · ``cot``) (numpy, whole: each rank takes its
+    equal part of the channels)."""
+    x: np.ndarray
+    scale: np.ndarray
+    cot: np.ndarray
+    mesh: Tuple[int, int] = (2, 2)
+
+
+def norm_job(rank: int, job: NormJob) -> Dict[str, Any]:
+    """The rank's part of y and the gradients of its parts of x and of the
+    scale (host f32), and its coordinates."""
+    from repro_torch.models import blocks
+    from repro_torch.parallel import sharding as sh
+    mesh = _mesh(job.mesh, ("data", "model"))
+    line = mesh.line("model")
+    n = job.x.shape[-1] // line.size
+    part = slice(line.index * n, (line.index + 1) * n)
+    x, scale = (torch.from_numpy(np.array(a[..., part])).requires_grad_(True)
+                for a in (job.x, job.scale))
+    y = blocks.rms_norm(scale, x, line=line)
+    (y * torch.from_numpy(np.array(job.cot[..., part]))).sum().backward()
+    return {"coords": mesh.coords(), "y": _host(y), "dx": _host(x.grad),
+            "dscale": _host(scale.grad)}
 
 
 # --------------------------------------------------------------------------
@@ -516,8 +564,10 @@ class FsdpJob:
     """Train steps of ``cfg`` on a mesh of the spawned ranks: ``mesh``
     (data, model) under the rules ``rules`` (overrides on
     ``DEFAULT_RULES``), or None: (ranks, 1), the FSDP layout.
-    ``weights``: the reference tree as numpy, or None: drawn from ``seed``
-    on the device (launch/train.py ``build_state``), then cut.
+    ``weights``: the reference tree as numpy, or None: each rank draws
+    its shards of the model ``seed`` gives (launch/train.py
+    ``build_state``'s values), a piece of each leaf at a time
+    (train/step.py ``init_shards``: no whole leaf on the device).
     ``batches`` (global numpy batches, one a step), ``grad_accum``,
     ``compress``, ``opt`` (an ``optim/adamw.Config``; None: its
     defaults). ``save_dir``: rank 0 saves the whole state there after
@@ -552,14 +602,13 @@ class FsdpJob:
 def fsdp_job(rank: int, job: FsdpJob) -> Dict[str, Any]:
     """The steps' metrics (global means, every rank alike) and times (and
     the set-up's before them), this rank's coordinates, shard shapes, peak
-    memory on the card and kernel launches, on rank 0 the whole state
+    memory on the card (allocated and reserved) and kernel launches, on rank 0 the whole state
     (the reference's tree of host leaves) before the steps and after
     each, and this rank's ``shards`` / ``sums`` where the job asks."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import tree as tree_lib
     from repro_torch.data import pipeline as dp
     from repro_torch.launch.mesh import make_dev_mesh
-    from repro_torch.launch.train import build_state
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.optim import adamw
     from repro_torch.parallel import compression, sharding
@@ -572,11 +621,13 @@ def fsdp_job(rank: int, job: FsdpJob) -> Dict[str, Any]:
         torch.cuda.reset_peak_memory_stats(device)
     out: Dict[str, Any] = {"coords": mesh.coords()}
     with sharding.use_mesh(mesh, job.rules):
-        state = step_lib.shard_state(
-            step_lib.init_state(params_from_numpy(job.weights, job.cfg,
-                                                  device))
-            if job.weights is not None else
-            build_state(job.cfg, job.seed, device), mesh)
+        if job.weights is None:
+            state = step_lib.init_state(step_lib.init_shards(
+                job.cfg, mesh, torch.Generator(device=device).manual_seed(
+                    job.seed), device))
+        else:
+            state = step_lib.shard_state(step_lib.init_state(
+                params_from_numpy(job.weights, job.cfg, device)), mesh)
         if job.restore_dir is not None:
             host, _ = CheckpointManager(job.restore_dir).restore(
                 step_lib.state_tree(state),
@@ -610,6 +661,8 @@ def fsdp_job(rank: int, job: FsdpJob) -> Dict[str, Any]:
             metrics.append({k: float(v) for k, v in m.items()})
             _sync(device)
             step_s.append(time.perf_counter() - t0)
+            if device.type == "cuda":   # ranks sharing the card: give back
+                torch.cuda.empty_cache()    # the step's freed blocks
             if job.wholes:
                 wholes.append(step_lib.whole_state(state, keep=keep))
             own()
@@ -624,13 +677,18 @@ def fsdp_job(rank: int, job: FsdpJob) -> Dict[str, Any]:
                 torch.distributed.barrier()
     shapes = [tuple(t.shape) for t in tree_lib.leaves(
         step_lib.state_tree(state).params)]
+    peak, reserved = (torch.cuda.max_memory_allocated(device) / 2**30,
+                      torch.cuda.max_memory_reserved(device) / 2**30) \
+        if device.type == "cuda" else (None, None)
+    del state, ts
+    if device.type == "cuda":       # the next job of the spawn starts empty
+        torch.cuda.empty_cache()
     return dict(out, metrics=metrics, shapes=shapes, step_s=step_s,
                 launches=_launches(),
                 shards=shards if job.shards else None,
                 sums=sums if job.sums else None,
                 wholes=wholes if job.wholes and mesh.rank == 0 else None,
-                peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
-                          if device.type == "cuda" else None))
+                peak_gib=peak, reserved_gib=reserved)
 
 
 def digest(arrays) -> str:

@@ -57,7 +57,10 @@ autograd (models/attention.py ``gqa_forward``, models/transformer.py
     projections, a rank's heads): ``copy_to``, so the input's gradient is
     the sum of the ranks' shares;
   * **row-parallel exit**: ``reduce_from`` (its backward passes the
-    cotangent through: every rank then uses the sum alike);
+    cotangent through: every rank then uses the sum alike); a sum each
+    rank then uses on its own part (a norm's variance over a row cut by
+    channels, partial products read by heads) takes ``reduce_from(...,
+    apart=True)``, whose backward sums the cotangents as well;
   * **an activation gathered over the line and then used apart** (a
     rank's heads out of projection columns cut off a head's boundary):
     ``take(..., apart=True)``, whose gather is ``gather_shards``: the
@@ -675,10 +678,18 @@ def copy_to(x: torch.Tensor, line: Line) -> torch.Tensor:
     return x if line.size == 1 else _CopyTo.apply(x, line)
 
 
-def reduce_from(x: torch.Tensor, line: Line) -> torch.Tensor:
+def reduce_from(x: torch.Tensor, line: Line, apart: bool = False
+                ) -> torch.Tensor:
     """Σ over the line of the ranks' partial ``x``, which every rank then
-    uses alike; the backward passes the cotangent through (Megatron's g)."""
-    return x if line.size == 1 else _ReduceFrom.apply(x, line)
+    uses alike; the backward passes the cotangent through (Megatron's g).
+    With ``apart`` each rank uses the sum on its own part (a norm's
+    variance on its channels, a row-parallel product on its heads), so
+    the backward sums the cotangents over the line too: an all-reduce
+    both ways."""
+    if line.size == 1:
+        return x
+    y = _ReduceFrom.apply(x, line)
+    return _CopyTo.apply(y, line) if apart else y
 
 
 def gather_from(x: torch.Tensor, line: Line, dim: int) -> torch.Tensor:

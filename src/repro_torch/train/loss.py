@@ -76,15 +76,16 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux: Dict,
     """The main CE (over ``aux["vocab"]``'s line where the head is cut
     over the vocabulary), plus the MoE load-balance aux
     (``aux["moe_aux"]``) and deepseek's MTP CE on the t+2 targets
-    (``aux["mtp_logits"]`` against ``aux["mtp_labels"]``) where the
-    forward gives them."""
+    (``aux["mtp_logits"]``, from the same head and so over the same
+    line, against ``aux["mtp_labels"]``) where the forward gives them."""
     loss, metrics = cross_entropy(logits, labels, z_loss, aux.get("vocab"))
     if aux.get("moe_aux") is not None:
         loss = loss + moe_aux_weight * aux["moe_aux"]
         metrics["moe_aux"] = aux["moe_aux"]
     if aux.get("mtp_logits") is not None and \
             aux.get("mtp_labels") is not None:
-        mtp_l, _ = cross_entropy(aux["mtp_logits"], aux["mtp_labels"])
+        mtp_l, _ = cross_entropy(aux["mtp_logits"], aux["mtp_labels"],
+                                 vocab=aux.get("vocab"))
         loss = loss + mtp_weight * mtp_l
         metrics["mtp_loss"] = mtp_l
     metrics["loss"] = loss

@@ -41,11 +41,12 @@ sharded state to and from a checkpoint's whole leaves::
 (data, model) or (pod, data, model) mesh, partitioned by GSPMD): under
 ``sharding.use_mesh(mesh, rules)`` :func:`shard_state` also cuts the
 leaves the rules bind to ``model`` (heads, kv heads, the MLP's hidden,
-the vocabulary, the experts), every rank of a model line takes the same
-rows (:func:`rank_rows`), and the training forward runs that axis
-tensor-parallel under autograd (models/transformer.py ``train_forward``:
-the GQA layers with an MLP or a MoE; other layer kinds refuse, ROADMAP
-16.11c-2) down to a vocabulary-parallel loss (train/loss.py). The
+the vocabulary, the experts, the recurrent mixers' heads), every rank of
+a model line takes the same rows (:func:`rank_rows`), and the training
+forward runs that axis tensor-parallel under autograd
+(models/transformer.py ``train_forward``: every layer kind, the encoder,
+the shared block and the MTP head included) down to a
+vocabulary-parallel loss (train/loss.py). The
 gradient is summed over the free batch axes only and the metrics are
 reduced over the batch line only::
 
@@ -241,18 +242,33 @@ def whole_state(state: TrainState, keep: bool = True) -> TrainState:
         fn=tree_lib.to_host if keep else (lambda t: None))
 
 
+def microbatch_axes(rows: int, mesh: sharding.Mesh) -> Tuple[str, ...]:
+    """The batch axes a microbatch of ``rows`` rows is cut over: the
+    reference constrains each microbatch to ``("batch", None)`` at its
+    own shape, so ``resolve``'s binding (every batch axis where their
+    product divides the rows, else the first that does, else none: the
+    rows are then alike on the ranks of the rest)."""
+    return sharding.spec_axes(sharding.resolve(("batch",), (rows,), mesh))
+
+
 def rank_rows(batch: Dict, grad_accum: int, mesh: sharding.Mesh) -> Dict:
     """This rank's rows of a global ``batch``, as the reference's data
     shard holds them: microbatch m (rows m·B/grad_accum onward, the
-    train step's split) cut into equal parts over the batch axes, this
-    rank's part of each, in microbatch order."""
-    line = mesh.line(tuple(a for a in sharding.BATCH_AXES
-                           if a in mesh.shape))
+    train step's split) cut into equal parts over the batch axes
+    :func:`microbatch_axes` gives it, this rank's part of each, in
+    microbatch order (deepseek-v3-671b's 16 microbatches of 16 rows on
+    2x16x16 are cut over ``pod`` alone, each half alike on the 16 ranks
+    of ``data``, as the reference's constraint leaves them)."""
     B = batch["tokens"].shape[0]
-    if B % (grad_accum * line.size):
+    if B % grad_accum:
         raise ValueError(f"batch {B} does not split into {grad_accum} "
-                         f"microbatches over {line.size} batch ranks")
+                         f"microbatches")
     mb = B // grad_accum
+    axes = microbatch_axes(mb, mesh)
+    line = mesh.line(axes) if axes else sharding.Line((), 1, 0, (), None)
+    if mb % line.size:
+        raise ValueError(f"a microbatch of {mb} rows does not split over "
+                         f"{line.size} batch ranks")
     part = mb // line.size
     rows = np.concatenate([np.arange(m * mb + line.index * part,
                                      m * mb + (line.index + 1) * part)
@@ -329,7 +345,9 @@ def make_train_step(cfg: transformer.ModelConfig, opt_cfg: adamw.Config,
     summed into the f32 leaves' ``.grad`` and divided by ``grad_accum``;
     the loss and each metric are the microbatches' mean. ``compressor``
     (parallel/compression.py) takes the gradient tree before the
-    optimizer. A state from :func:`shard_state` takes the step on
+    optimizer, which steps a leaf at a time (the same values as one
+    ``adamw.update`` of the tree, never every leaf's new weights and
+    moments at once). A state from :func:`shard_state` takes the step on
     this rank's rows (the module docstring) under its mesh: the caller's
     ``sharding.use_mesh(mesh, rules)`` where it is active, else the mesh
     with the default rules."""
@@ -382,15 +400,24 @@ def make_train_step(cfg: transformer.ModelConfig, opt_cfg: adamw.Config,
             gnorm = _global_norm(grads, specs, mesh)
         elif compressor is not None:
             grads = compressor(grads)
-        new_p, new_opt, opt_metrics = adamw.update(
-            grads, state.opt, params, state.step, opt_cfg, gnorm=gnorm)
-        with torch.no_grad():
-            for p, new in zip(leaves, tree_lib.leaves(new_p)):
-                p.copy_(new)
-        for p in leaves:
-            p.grad = None
+        if gnorm is None:
+            gnorm = adamw.global_norm(grads)
+        # AdamW a leaf at a time, each new weight written and its gradient
+        # let go before the next leaf's step: the new weights and moments
+        # of every leaf are never held at once (12 B a parameter)
+        grads = tree_lib.leaves(grads)
+        ms, vs = tree_lib.leaves(state.opt.m), tree_lib.leaves(state.opt.v)
+        for i, p in enumerate(leaves):
+            new, opt, opt_metrics = adamw.update(
+                [grads[i]], adamw.OptState([ms[i]], [vs[i]]), [p],
+                state.step, opt_cfg, gnorm=gnorm)
+            with torch.no_grad():
+                p.copy_(new[0])
+            ms[i], vs[i], grads[i], p.grad = opt.m[0], opt.v[0], None, None
         metrics = dict(metrics, **opt_metrics,
                        tokens=float(batch["tokens"].numel() * ranks))
+        new_opt = adamw.OptState(tree_lib.unflatten(params, ms),
+                                 tree_lib.unflatten(params, vs))
         return TrainState(params=model, opt=new_opt,
                           step=state.step + 1), metrics
 

@@ -16,16 +16,17 @@
     ranks at least 99 % of the analytic count, collectives and temp
     recorded), and so are deepseek-v3-671b's, whose MLA takes its rank
     path, and xlstm-1.3b's, whose mLSTM / sLSTM take theirs; xlstm-1.3b's
-    train_4k cell, whose recurrent layers' training forward takes no model
-    axis yet (ROADMAP 16.11c-2), is not traced: the record names the leaf
-    and the rule.
+    train_4k cell, whose recurrent layers now train on the model axis,
+    has no gaps and is traced from passes of 2-4 periods of its loops
+    (P 128, the mLSTM's chunk).
   * On the 1x1 mesh with real arguments (smoke config, on the CPU, as the
     card's one-rank check builds them) the decode step made with the
     caches' specs runs the whole model of qwen2-0.5b and of xlstm-1.3b
     and gives the logits of the step made without them.
   * A long prefill through recurrent layers, traced from passes of 2, 3
     and 4 periods and fitted, equals its whole pass (xlstm-1.3b,
-    zamba2-1.2b; smoke configs).
+    zamba2-1.2b; smoke configs), and so does a train step through them
+    (xlstm-1.3b's smoke config on the production mesh).
   * A smoke-config ``hillclimb`` run with the model axis unbound traces
     the FSDP train step on the abstract (16, 16) mesh (the all-gathers and
     reduce-scatters recorded) and appends its entry to a log in
@@ -165,13 +166,9 @@ def test_run_cell_traces_the_decode_step_to_the_analytic_flops():
     xl = dryrun.run_cell("xlstm-1.3b", shape, "16x16", verbose=False)
     assert "traced_null" not in xl and xl["traced"]["collective"]["total"] > 0
     assert xl["memory"]["temp_size_in_bytes"] is not None
-    out = dryrun.run_cell("xlstm-1.3b", configs.SHAPES["train_4k"], "16x16",
-                          verbose=False)
-    assert out["traced"] is None and out["roofline"]["collective_s"] is None
-    assert out["memory"]["temp_size_in_bytes"] is None
-    assert out["traced_null"]["leaf"].startswith(
-        "params/groups/0/0/mixer/") and "16.11c-2" in \
-        out["traced_null"]["leaf"], out["traced_null"]
+    train = specs.build_cell("xlstm-1.3b", configs.SHAPES["train_4k"],
+                             dryrun.mesh_of("16x16"))
+    assert train.gaps == () and specs._fit_period(train) == 128
     ds = dryrun.run_cell("deepseek-v3-671b", shape, "16x16", verbose=False)
     assert "traced_null" not in ds and ds["traced"]["collective"]["total"] > 0
     assert ds["memory"]["temp_size_in_bytes"] is not None
@@ -285,6 +282,32 @@ def test_dryrun_cli_writes_records_and_imports_no_jax(tmp_path,
                                        "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_recurrent_train_fit_equals_the_whole_trace():
+    """``trace_cell`` of a train step through recurrent layers fits its
+    counts from passes of 2, 3 and 4 periods of its loops, as a prefill's
+    (xlstm-1.3b's train_4k trace, its sLSTMs stepping 4096 tokens, passed
+    12 minutes whole): on xlstm-1.3b's smoke config (P 32, the mLSTM's
+    chunk) at 5 periods on the production mesh (the model axis on the
+    rank's shards under autograd) the fit equals the whole pass in FLOPs,
+    bytes, every collective and both peaks."""
+    mesh = dryrun.mesh_of("16x16")
+
+    def cell(n):
+        return specs.build_cell("xlstm-1.3b", configs.ShapeSpec(
+            "train_4k", n, 16, "train"), mesh, smoke=True, grad_accum=1)
+
+    specs._traced(cell(32))         # a process's first pass: one-time ops
+    whole = cell(160)
+    assert not whole.gaps and specs._fit_period(whole) == 32
+    fit, want = specs.trace_cell(whole), specs._traced(whole)
+    assert fit.flops == want.flops and fit.kernel_flops == want.kernel_flops
+    assert fit.bytes == want.bytes
+    assert [(c.kind, c.nbytes, c.group) for c in fit.collectives] == \
+        [(c.kind, c.nbytes, c.group) for c in want.collectives]
+    assert (fit.peak_bytes, fit.scratch_peak_bytes) == \
+        (want.peak_bytes, want.scratch_peak_bytes)
 
 
 def test_train_fit_equals_the_whole_trace():
