@@ -81,8 +81,11 @@ prefill / decode steps of ``train/step.py``, their entry point.
 as the reference's flag does): N ranks start with
 ``torch.multiprocessing``, each holding ``n_kv / N`` kv heads of
 every KV page and the whole weights; on the card rank r takes ``cuda:r``
-over NCCL (the run needs N cards), on the CPU the ranks talk gloo. The
-kernels are built before the ranks start, and only rank 0 prints::
+over NCCL (the run needs N cards), on the CPU the ranks talk gloo. Every
+rank's scheduler reads rank 0's clock (broadcast over gloo), so the SLO
+flags, ``--itl-target-ms`` included, work under tp, and a ``clock:`` line
+gives the broadcasts an iteration. The kernels are built before the ranks
+start, and only rank 0 prints::
 
   python -m repro_torch.launch.serve --device cpu --tp 2 --chunked-prefill \
       --requests 4 --slots 2 --max-seq 32 --max-new 3 --page-tokens 8 \
@@ -104,10 +107,12 @@ tier (``--pages``) is full, the least recently decoded resident swaps out
 and resumes later at its chunk offset; ``--host-budget-mb`` bounds the
 cold tier and ``--preempt-quantum`` sets how many decode steps a resident
 is exempt. The run prints a ``[serve:tiered] preemptions ...`` line.
-``--max-in-system`` / ``--max-queue`` attach the SLO policy's admission
-gate and load shedding, ``--itl-target-ms`` its decode-latency budget
-shaping, and ``--priorities N`` cycles the requests through N priority
-classes; a policy run prints ``[serve:slo] shed N (code: n, ...)``::
+``--trace PATH`` exports the execution trace (``--trace-buffer N`` bounds
+its event ring; the ``[serve:trace]`` line counts the events kept and
+dropped). ``--max-in-system`` / ``--max-queue`` attach the SLO policy's
+admission gate and load shedding, ``--itl-target-ms`` its decode-latency
+budget shaping, and ``--priorities N`` cycles the requests through N
+priority classes; a policy run prints ``[serve:slo] shed N (code: n, ...)``::
 
   python -m repro_torch.launch.serve --device cpu --tiered --pages 6 \\
       --page-tokens 8 --requests 6 --slots 2 --max-seq 32 --max-new 3 \\
@@ -170,12 +175,15 @@ def engine_config(args) -> EngineConfig:
             max_in_system=args.max_in_system, max_queue=args.max_queue,
             itl_target_s=(args.itl_target_ms / 1000.0
                           if args.itl_target_ms is not None else None))
+    trace_kw = {}
+    if args.trace_buffer is not None:
+        trace_kw["trace_buffer"] = args.trace_buffer
     return EngineConfig(
         n_slots=args.slots, max_seq=args.max_seq,
         chunked=args.chunked_prefill, token_budget=args.token_budget,
         preempt_quantum=args.preempt_quantum,
         overlap=not args.no_overlap, policy=policy, tp=args.tp,
-        trace=args.trace is not None,
+        trace=args.trace is not None, **trace_kw,
         cache=CacheConfig(paged=args.paged, page_tokens=args.page_tokens,
                           n_pages=args.pages,
                           tiered=args.tiered,
@@ -382,6 +390,9 @@ def main(argv=None):
                     help="print a [metrics] JSON line every N iterations")
     ap.add_argument("--trace", type=str, default=None, metavar="PATH",
                     help="export a Chrome trace-event JSON timeline")
+    ap.add_argument("--trace-buffer", type=int, default=None, metavar="N",
+                    help="tracer event-ring capacity (oldest events drop "
+                         "first; default 65536)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="serve through a fleet of this many engines "
                          "(serve/router.py); 1: one engine")
@@ -400,10 +411,6 @@ def main(argv=None):
     if args.replicas > 1 and (args.profile or args.trace is not None):
         ap.error("--profile and --trace follow one engine; they do not "
                  "combine with --replicas > 1")
-    if args.tp > 1 and args.itl_target_ms is not None:
-        ap.error("--itl-target-ms does not combine with --tp > 1: each rank "
-                 "reads its own clock, so the ranks would shape their "
-                 "budgets differently")
     if engine_config(args).normalized().cache.paged:    # before any weight
         check_pageable(configs.get_smoke_config(args.arch))
     if args.tp > 1:
@@ -495,6 +502,11 @@ def _serve(args) -> None:
               f"{s['peak_in_system']} seqs, queue p50/p90/p99 "
               f"{s['queue_lat_p50_s']:.3f}/{s['queue_lat_p90_s']:.3f}/"
               f"{s['queue_lat_p99_s']:.3f} s")
+    if args.tp > 1:
+        reads = eng.executor.stats["clock_reads"]
+        print(f"[serve:{mode}] clock: {reads} reads of rank 0's clock "
+              f"broadcast over {it} iterations ({reads / max(it, 1):.2f} an "
+              "iteration)")
     print(f"[serve:{mode}] device {eng.device}"
           + (f" ({torch.cuda.get_device_name(eng.device)}), peak memory "
              f"{torch.cuda.max_memory_allocated(eng.device) / 2**30:.2f} GiB"
@@ -504,7 +516,10 @@ def _serve(args) -> None:
     if args.trace is not None:
         path = eng.trace_export(args.trace)
         ts = eng.trace_summary()
-        print(f"[serve:trace] -> {path}; stall% schedule/fetch/dma/"
+        ev = eng.tracer.stats()
+        print(f"[serve:trace] {ev['iterations']} iterations, "
+              f"{ev['events']} events ({ev['dropped']} dropped) -> {path}; "
+              f"stall% schedule/fetch/dma/"
               f"shadowed/other {ts['stall_pct_schedule']:.1f}/"
               f"{ts['stall_pct_fetch']:.1f}/{ts['stall_pct_dma']:.1f}/"
               f"{ts['stall_pct_shadowed']:.1f}/{ts['stall_pct_other']:.1f}")

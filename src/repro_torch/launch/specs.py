@@ -200,9 +200,6 @@ def _serving_gaps(cfg):
         if mixer is None:
             return None
         if mixer in transformer.RANK_MIXERS:
-            if parts[0] == "caches" and cfg.window_of(mixer) is not None:
-                return "a ring cache cut over its rows: no rank path yet", \
-                    (3,)         # the rows (kv_seq) of a ring
             return None
         if parts[0] == "params" and "mixer" not in parts:
             return None          # the layer's norms: whole

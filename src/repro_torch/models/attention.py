@@ -145,19 +145,28 @@ def qkv(m: Dict[str, torch.Tensor], h: torch.Tensor, positions: torch.Tensor,
     return q, k, v
 
 
-def ring_write(cache: torch.Tensor, new: torch.Tensor) -> None:
+def ring_write(cache: torch.Tensor, new: torch.Tensor, W: Optional[int] = None,
+               lo: int = 0) -> None:
     """Land a prefill's L keys ``new`` [B, K, L, hd] (positions 0..L-1)
-    in a ring ``cache`` [B, K, W, hd], in place: only the last ``min(L,
-    W)`` positions, position p in row ``p % W``, so no row is written
-    twice. Two slice copies, from host ints only."""
-    W, L = cache.shape[2], new.shape[2]
+    in a ring of ``W`` rows (default: ``cache``'s) of which ``cache`` [B,
+    K, R, hd] holds the rows ``[lo, lo + R)``, in place: only the last
+    ``min(L, W)`` positions, position p in ring row ``p % W``, so no row is
+    written twice, and of those only the positions whose row falls in
+    ``cache`` (a ring cut over its rows: ``kv_seq``). At most two slice
+    copies, from host ints only."""
+    R, L = cache.shape[2], new.shape[2]
+    W = R if W is None else W
     n = min(L, W)
     first = L - n
     r0 = first % W
     head = min(n, W - r0)
-    cache[:, :, r0:r0 + head] = new[:, :, first:first + head].to(cache.dtype)
-    if n > head:                                      # wraps to row 0
-        cache[:, :, :n - head] = new[:, :, first + head:].to(cache.dtype)
+    # (ring rows [a, b), the position in row a): the run to the ring's
+    # end, then the rest wrapped to row 0
+    for a, b, p in ((r0, r0 + head, first), (0, n - head, first + head)):
+        a_, b_ = max(a, lo), min(b, lo + R)
+        if b_ > a_:
+            cache[:, :, a_ - lo:b_ - lo] = \
+                new[:, :, p + a_ - a:p + b_ - a].to(cache.dtype)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, G: int,
@@ -232,10 +241,12 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
         split on head boundaries), else all-gathered over the line first;
       * the cache: only the kv heads and rows it holds are written; a
         decode position p lands at p − lo on the rank whose rows [lo, hi)
-        hold it; a ring (window) layer keeps ``ring_write``, on its kv
-        heads;
+        hold it; a ring (window) layer's position p lands in ring row p %
+        W, on the rank that holds that row (``ring_write`` of the rank's
+        rows at prefill);
       * decode: ``flash_decode`` over the held rows, at lengths clamp(len
-        − lo, 0, hi − lo); with the rows cut, with ``return_lse`` and
+        − lo, 0, hi − lo) (a ring's len: min(len, W)), an empty slice's
+        lse weighing nothing; with the rows cut, with ``return_lse`` and
         ``combine_partials`` over their line; prefill: ``flash_attention``
         on the heads' L new keys;
       * output: the rank's columns of the attention output times its rows
@@ -268,10 +279,6 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
     if decode and L != 1:
         raise ValueError(f"gqa_forward: a decode step takes one token a "
                          f"slot, got L={L}")
-    if window is not None and rows.line is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: a window-{window} ring cache cut over its rows "
-            "(kv_seq) is not ported (ROADMAP 16.11)")
     if window is not None and S > window:
         raise ValueError(f"gqa_forward: a window-{window} layer keeps a ring "
                          f"of at most {window} rows, got {S}")
@@ -300,8 +307,8 @@ def gqa_forward(m: Dict[str, torch.Tensor], h: torch.Tensor,
                 kc[:, :, :r1 - r0] = kt[:, mine, r0:r1].to(kc.dtype)
                 vc[:, :, :r1 - r0] = vt[:, mine, r0:r1].to(vc.dtype)
         else:
-            ring_write(kc, kt[:, mine])
-            ring_write(vc, vt[:, mine])
+            ring_write(kc, kt[:, mine], S, rows.lo)
+            ring_write(vc, vt[:, mine], S, rows.lo)
         att = attend(q, kt, vt, G, causal=True, window=window,
                      kv=_kv_index(h_lo, h_hi, G, w_lo, h.device),
                      softcap=cfg.logit_softcap)

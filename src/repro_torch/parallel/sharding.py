@@ -800,15 +800,29 @@ def combine_partials(out: torch.Tensor, lse: torch.Tensor, line: Line
 # --------------------------------------------------------------------------
 # serving tensor parallelism (serve/executor.py)
 # --------------------------------------------------------------------------
+# the wait ``init_tp`` gave the group, which host_group's groups keep
+_WAIT: Optional[datetime.timedelta] = None
+
+
 def init_tp(rank: int, tp: int, store_path: str, backend: str,
             timeout_s: float = 120.0) -> None:
     """Join this process to a ``tp``-rank group through a ``FileStore`` at
     ``store_path`` (a file no other group uses). A collective that waits
     longer than ``timeout_s`` raises instead of hanging."""
+    global _WAIT
     store = dist.FileStore(store_path, tp)
-    dist.init_process_group(
-        backend, store=store, rank=rank, world_size=tp,
-        timeout=datetime.timedelta(seconds=timeout_s))
+    _WAIT = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=tp,
+                            timeout=_WAIT)
+
+
+def host_group() -> dist.ProcessGroup:
+    """A new gloo group over every rank of the default group, for values
+    that live on the host (a CPU tensor on an NCCL group would fail, and
+    on a group of its own a host collective never queues behind device
+    work). Every rank must call it, in the same order; it waits as long
+    as the default group (``init_tp``'s ``timeout_s``)."""
+    return dist.new_group(backend="gloo", timeout=_WAIT)
 
 
 def tp_group(tp: int) -> Optional[dist.ProcessGroup]:

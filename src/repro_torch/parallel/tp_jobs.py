@@ -17,6 +17,12 @@ the drained pool, private state included, for the caller to hold equal
 across ranks (:func:`replicated`) and against a reference. On the card,
 pass ``devices=("cuda:0", "cuda:1")`` with NCCL, or one card for every
 rank with gloo (which stages CUDA tensors through the host).
+
+A schedule may carry deadlines, and the job a clock for each rank: a
+:class:`ManualClock` that :func:`drive` sets once an iteration from
+``ticks``. Under tp > 1 the ranks' schedulers read rank 0's clock alone
+(serve/executor.py ``read_clock``), so a rank's own clock, however
+skewed, changes no decision.
 """
 from __future__ import annotations
 
@@ -28,6 +34,21 @@ import numpy as np
 import torch
 
 
+class ManualClock:
+    """A clock the driver sets: ``clock()`` is ``scale * t + offset`` for
+    the last ``t`` given to :meth:`set`. It pickles, so a rank's injected
+    clock reaches it through ``launch.spawn``."""
+
+    def __init__(self, scale: float = 1.0, offset: float = 0.0):
+        self.scale, self.offset, self.t = float(scale), float(offset), 0.0
+
+    def set(self, t: float) -> None:
+        self.t = float(t)
+
+    def __call__(self) -> float:
+        return self.scale * self.t + self.offset
+
+
 @dataclasses.dataclass
 class ServeJob:
     """What :func:`serve_schedule` runs on each rank.
@@ -36,9 +57,12 @@ class ServeJob:
     (models/convert.py), or an int seed for ``init_model`` with a
     ``torch.Generator`` on the rank's device (every rank draws the same
     weights). ``schedule``: ``(arrival iteration, prompt, max_new)`` per
-    request, or ``(arrival iteration, prompt, max_new, priority)``;
-    ``seq_id`` is its index. ``devices[rank]`` is the rank's device
-    (None: the CPU for every rank).
+    request, or ``(arrival iteration, prompt, max_new, priority)``, or
+    ``(..., priority, deadline_s)``; ``seq_id`` is its index.
+    ``devices[rank]`` is the rank's device (None: the CPU for every rank).
+    ``clocks[rank]``: the rank's injected clock (``config.clock``), set to
+    ``ticks[it]`` before iteration ``it``'s arrivals (the last tick holds
+    after); None: ``config.clock`` on every rank.
     ``replicas`` > 0 serves through a :class:`~repro_torch.serve.router.
     Fleet` of that many engines under ``router`` (drained at the end)."""
     cfg: Any
@@ -49,6 +73,8 @@ class ServeJob:
     replicas: int = 0
     router: str = "prefix"
     max_iters: int = 4000
+    clocks: Optional[Sequence[ManualClock]] = None
+    ticks: Optional[Sequence[float]] = None
 
 
 def _model(job: ServeJob, device: torch.device):
@@ -59,18 +85,23 @@ def _model(job: ServeJob, device: torch.device):
     return convert.params_from_numpy(job.weights, job.cfg, device)
 
 
-def drive(target, job: ServeJob) -> List[Any]:
+def drive(target, job: ServeJob, clock: Optional[ManualClock] = None
+          ) -> List[Any]:
     """Feed the schedule into a stepping engine or fleet: each request at
-    its arrival iteration, in (arrival, index) order; step until idle."""
+    its arrival iteration, in (arrival, index) order; step until idle.
+    ``clock`` is set to ``job.ticks[it]`` before iteration ``it``."""
     from repro_torch.serve.engine import Request
     pending = sorted(enumerate(job.schedule), key=lambda t: (t[1][0], t[0]))
     done, it = [], 0
     while True:
+        if clock is not None:
+            clock.set(job.ticks[min(it, len(job.ticks) - 1)])
         while pending and pending[0][1][0] <= it:
-            sid, (_, prompt, max_new, *pri) = pending.pop(0)
-            if not target.submit(Request(seq_id=sid, prompt=prompt.copy(),
-                                         max_new=max_new,
-                                         priority=pri[0] if pri else 0)):
+            sid, (_, prompt, max_new, *rest) = pending.pop(0)
+            req = Request(seq_id=sid, prompt=prompt.copy(), max_new=max_new,
+                          priority=rest[0] if rest else 0,
+                          deadline_s=rest[1] if len(rest) > 1 else None)
+            if not target.submit(req):
                 raise RuntimeError(f"request {sid} refused at submission")
         if not pending and target.idle:
             return done
@@ -91,6 +122,8 @@ def _engine_state(eng) -> Dict[str, Any]:
     the free count after clearing it, the allocator's audit)."""
     sched, pool = eng.scheduler, eng.pool
     out = {"stats": _scalars(eng.stats),
+           "admission_order": list(eng.stats["admission_order"]),
+           "bus_counters": dict(eng.metrics_snapshot().get("counters", {})),
            "iter_log": list(eng.stats.get("iter_log", ())),
            "executor": dict(eng.executor.stats),
            "token_budget": sched.token_budget,
@@ -138,15 +171,19 @@ def serve_schedule(rank: int, job: ServeJob) -> Dict[str, Any]:
     if device.type == "cuda":
         torch.cuda.set_device(device)
     model = _model(job, device)
+    config, clock = job.config, None
+    if job.clocks is not None:
+        clock = job.clocks[rank]
+        config = dataclasses.replace(config, clock=clock)
     if job.replicas:
         from repro_torch.serve.router import Fleet
-        target = Fleet(job.cfg, model, job.config, replicas=job.replicas,
+        target = Fleet(job.cfg, model, config, replicas=job.replicas,
                        router=job.router, device=device)
     else:
-        target = Engine(job.cfg, model, config=job.config, device=device)
+        target = Engine(job.cfg, model, config=config, device=device)
     launches = (paged_flash_decode.launches, paged_flash_prefill.launches)
     t0 = time.perf_counter()
-    done = drive(target, job)
+    done = drive(target, job, clock)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     out: Dict[str, Any] = {

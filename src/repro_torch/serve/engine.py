@@ -7,6 +7,15 @@ Counterpart of ``repro/serve/engine.py``::
         n_slots=8, max_seq=2048, chunked=True, token_budget=256,
         cache=CacheConfig(page_tokens=16, kv_dtype="int8", prefix=True)))
 
+The reference's keyword form still works and builds the same config::
+
+    eng = Engine(cfg, model, n_slots=4, max_seq=96, device="cpu")
+
+its feature flags (``paged=``, ``tiered=``, ``chunked_prefill=``,
+``prefix_cache=``) warn with a ``DeprecationWarning`` naming the config
+path, and a keyword beside ``config=`` that differs from its default
+raises (it would be ignored).
+
 Three loops, as in the reference: the **dense** engine (the default: no
 page pool, one ``[n_slots, max_seq]`` slot cache per layer, a whole prompt
 prefilled at admission), the **monolithic paged** engine
@@ -20,7 +29,10 @@ implies the chunked loop, the chunked loop a page pool.
 pages, with or without the host-DRAM swap tier (``tiered``: preemption),
 with or without the shared-prefix layer. ``tp`` shards the paged steps'
 kv heads over that many ranks, one engine a process (serve/executor.py,
-parallel/launch.py). ``policy`` attaches an SLO
+parallel/launch.py); every rank's scheduler reads rank 0's clock
+(``Tracer.now``, broadcast by the executor), so the ranks decide alike
+under an ITL target and deadlines, as the reference's one controller
+does. ``policy`` attaches an SLO
 :class:`~repro_torch.serve.policy.SchedulerPolicy`. The engine runs on
 ``cuda`` unless the caller passes ``device="cpu"``; without a card and
 without that request it raises instead of falling back to the CPU. A
@@ -32,6 +44,7 @@ wiring.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -70,15 +83,30 @@ def check_servable(cfg: transformer.ModelConfig) -> None:
             "make_prefill_step / make_decode_step)")
 
 
-_TP_CLOCK = ("tp > 1 cannot take {}: each rank's scheduler reads its own "
-             "clock, so the ranks would decide differently and their "
-             "collectives would part")
+_DEPRECATION = (
+    "Engine(paged=/tiered=/chunked_prefill=/prefix_cache=) feature flags are "
+    "deprecated; pass config=EngineConfig(cache=CacheConfig(...)) instead "
+    "(see repro_torch.serve.engine.EngineConfig / "
+    "repro_torch.serve.cache.CacheConfig)")
+
+# the `trace: bool` field below shadows the module name inside the class body
+_DEFAULT_TRACE_BUFFER = trace.DEFAULT_BUFFER
+
+# the keyword form's defaults (the reference's ``_LEGACY_DEFAULTS``)
+_LEGACY_DEFAULTS = dict(
+    n_slots=4, max_seq=256, greedy=True, paged=False, page_tokens=16,
+    n_pages=None, tiered=False, host_budget_bytes=None, preempt_quantum=1,
+    chunked_prefill=False, token_budget=None, prefix_cache=False,
+    prefix_cache_pages=None)
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Declarative engine configuration (the reference's fields, less
-    ``greedy`` and ``trace_buffer``). ``chunked`` selects the
+    """Declarative engine configuration (the reference's fields).
+    ``greedy`` (default True): sampling is greedy argmax either way; False
+    only stops the prefix layer from trusting a cached first token (a
+    full-prompt match is trimmed by one position, and a completed prompt
+    is not indexed), as in the reference. ``chunked`` selects the
     token-budgeted step loop; without it the engine runs the dense loop,
     or the monolithic paged one when ``cache`` is paged.
     ``preempt_quantum``: decode steps a resident of a tiered stack is
@@ -89,14 +117,19 @@ class EngineConfig:
     its snapshots with a replica's name, so the engines of one fleet
     (serve/router.py) do not collide. ``policy`` builds the SLO policy
     (None: policy-free FIFO). ``trace`` enables the execution tracer
-    (``Engine.trace_export``). ``clock`` injects the engine's one time
-    source (default ``time.perf_counter``): the tracer, every scheduler
-    timestamp and the swap copies' stamps read it. ``tp``: the tensor-
-    parallel degree; this process is one rank of a group of that many
-    (parallel/sharding.py), and ``check_ranks`` makes its executor hold the
-    ranks' page tables equal after every iteration (a debug check)."""
+    (``Engine.trace_export``); ``trace_buffer`` bounds its event ring.
+    ``clock`` injects the engine's one time source (default
+    ``time.perf_counter``): the tracer, every scheduler timestamp and the
+    swap copies' stamps read it. ``tp``: the tensor-parallel degree; this
+    process is one rank of a group of that many (parallel/sharding.py).
+    Under tp > 1 each scheduler timestamp is rank 0's reading of its
+    clock, broadcast to the others (spans and swap stamps stay local), so
+    a rank's own ``clock`` decides nothing; ``check_ranks`` makes its
+    executor hold the ranks' page tables and clock reads equal after every
+    iteration (a debug check)."""
     n_slots: int = 4
     max_seq: int = 256
+    greedy: bool = True
     chunked: bool = False
     token_budget: Optional[int] = None
     preempt_quantum: int = 1
@@ -108,6 +141,7 @@ class EngineConfig:
     metrics_namespace: Optional[str] = None
     policy: Optional[PolicyConfig] = None
     trace: bool = False
+    trace_buffer: int = _DEFAULT_TRACE_BUFFER
     clock: Optional[Callable[[], float]] = None
 
     def normalized(self) -> "EngineConfig":
@@ -121,16 +155,8 @@ class EngineConfig:
         set ``paged``; its ``paged`` property adds the swap tier through
         ``cache.any_paged``, and int8 pages without ``paged=True`` leave its
         engine dense. Here int8 pages imply the pool too (no dense int8
-        slot cache exists in either package).
-
-        Under tp > 1 every rank runs its own scheduler on its own clock, so
-        nothing the scheduler decides may read the clock: an ITL target is
-        refused here and a request with a deadline at :meth:`Engine.submit`
-        (the reference is one controller with one clock)."""
+        slot cache exists in either package)."""
         cache = self.cache
-        if (self.tp > 1 and self.policy is not None
-                and self.policy.itl_target_s is not None):
-            raise ValueError(_TP_CLOCK.format("an ITL target (itl_target_s)"))
         chunked = self.chunked or cache.prefix
         paged = (cache.paged or chunked or self.tp > 1 or cache.tiered
                  or cache.kv_dtype != "compute")
@@ -143,14 +169,53 @@ class Engine:
     """Continuous-batching engine over the port's three serving layers.
 
     ``model`` is a :class:`~repro_torch.models.transformer.Transformer`; it
-    is moved to ``device`` and cast to the compute dtype in place.
+    is moved to ``device`` and cast to the compute dtype in place. The
+    reference's keyword form (``n_slots=`` ... ``prefix_cache_pages=``)
+    maps onto :class:`EngineConfig` and :class:`CacheConfig` as its
+    ``_LEGACY_DEFAULTS`` do (see the module docstring).
     """
 
     def __init__(self, cfg: transformer.ModelConfig,
                  model: transformer.Transformer,
+                 n_slots: int = 4, max_seq: int = 256, greedy: bool = True,
+                 paged: bool = False, page_tokens: int = 16,
+                 n_pages: Optional[int] = None, tiered: bool = False,
+                 host_budget_bytes: Optional[int] = None,
+                 preempt_quantum: int = 1, chunked_prefill: bool = False,
+                 token_budget: Optional[int] = None,
+                 prefix_cache: bool = False,
+                 prefix_cache_pages: Optional[int] = None,
                  config: Optional[EngineConfig] = None, device=None):
+        legacy = dict(
+            n_slots=n_slots, max_seq=max_seq, greedy=greedy, paged=paged,
+            page_tokens=page_tokens, n_pages=n_pages, tiered=tiered,
+            host_budget_bytes=host_budget_bytes,
+            preempt_quantum=preempt_quantum, chunked_prefill=chunked_prefill,
+            token_budget=token_budget, prefix_cache=prefix_cache,
+            prefix_cache_pages=prefix_cache_pages)
+        if config is not None:
+            # config is the whole truth: a keyword beside it would be
+            # silently ignored, so refuse it
+            stray = {k for k, v in legacy.items()
+                     if v != _LEGACY_DEFAULTS[k]}
+            if stray:
+                raise ValueError(
+                    f"Engine: config= was given together with legacy "
+                    f"kwargs {sorted(stray)} — fold them into EngineConfig/"
+                    "CacheConfig instead (they would be ignored)")
+        else:
+            if paged or tiered or chunked_prefill or prefix_cache:
+                warnings.warn(_DEPRECATION, DeprecationWarning, stacklevel=2)
+            config = EngineConfig(
+                n_slots=n_slots, max_seq=max_seq, greedy=greedy,
+                chunked=chunked_prefill, token_budget=token_budget,
+                preempt_quantum=preempt_quantum,
+                cache=CacheConfig(
+                    paged=paged, page_tokens=page_tokens, n_pages=n_pages,
+                    tiered=tiered, host_budget_bytes=host_budget_bytes,
+                    prefix=prefix_cache, prefix_pages=prefix_cache_pages))
         check_servable(cfg)
-        config = (config or EngineConfig()).normalized()
+        config = config.normalized()
         if config.cache.paged:    # before a tp executor joins its group
             check_pageable(cfg)
         self.device = resolve_device(device)
@@ -174,7 +239,10 @@ class Engine:
                               namespace=config.metrics_namespace)
         self.executor.bind_metrics(self.bus)
         # a real Tracer even when disabled: its clock is the time source
-        self.tracer = trace.Tracer(enabled=config.trace, clock=config.clock)
+        self.tracer = trace.Tracer(enabled=config.trace, clock=config.clock,
+                                   buffer=config.trace_buffer)
+        if config.tp > 1:     # every rank's scheduler reads rank 0's clock
+            self.tracer.share(self.executor.read_clock)
         self.executor.bind_tracer(self.tracer)
         if config.cache.paged:  # the dense pool has no instrumented work
             pool.bind_tracer(self.tracer)
@@ -183,16 +251,14 @@ class Engine:
             policy = SchedulerPolicy(config.policy, bus=self.bus)
         self.scheduler = Scheduler(
             cfg, pool, self.executor, n_slots=config.n_slots,
-            paged=config.cache.paged, chunked=config.chunked,
-            token_budget=config.token_budget, tiered=config.cache.tiered,
+            greedy=config.greedy, paged=config.cache.paged,
+            chunked=config.chunked, token_budget=config.token_budget,
+            tiered=config.cache.tiered,
             preempt_quantum=config.preempt_quantum, overlap=config.overlap,
             metrics=self.bus, policy=policy, tracer=self.tracer)
 
     # -- host API (delegates to the scheduler) -----------------------------
     def submit(self, req: Request) -> bool:
-        if self.config.tp > 1 and req.deadline_s is not None:
-            raise ValueError(_TP_CLOCK.format(
-                f"request {req.seq_id}'s deadline (deadline_s)"))
         return self.scheduler.submit(req)
 
     @property
@@ -210,6 +276,10 @@ class Engine:
 
     def metrics_snapshot(self, ps=(50, 90, 99)) -> Dict[str, Any]:
         return self.bus.snapshot(ps)
+
+    @property
+    def metrics(self) -> MetricsBus:
+        return self.bus
 
     def trace_export(self, path: str) -> str:
         return self.tracer.export(path)
@@ -241,3 +311,39 @@ class Engine:
         """The stack's :class:`~repro_torch.serve.prefix_cache.PrefixCache`,
         or None without a prefix layer."""
         return self.scheduler.prefix
+
+    @property
+    def active(self):
+        return self.scheduler.active
+
+    @property
+    def prefilling(self):
+        return self.scheduler.prefilling
+
+    @property
+    def prefilled_wait(self):
+        return self.scheduler.prefilled_wait
+
+    @property
+    def greedy(self):
+        return self.scheduler.greedy
+
+    @property
+    def paged(self):
+        return self.scheduler.paged
+
+    @property
+    def tiered(self):
+        return self.scheduler.tiered
+
+    @property
+    def chunked(self):
+        return self.scheduler.chunked
+
+    @property
+    def token_budget(self):
+        return self.scheduler.token_budget
+
+    @property
+    def preempt_quantum(self):
+        return self.scheduler.preempt_quantum

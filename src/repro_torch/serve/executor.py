@@ -34,9 +34,12 @@ step, a chunk's C tokens, and every slot's row of a dense prefill.
     ranks' host state must therefore stay equal: with ``check_ranks`` the
     executor gathers a hash of the page tables after every iteration and
     raises when the ranks differ (:meth:`Executor.check_ranks`, a debug
-    check the tests turn on). Each rank reads its own clock, so the engine
-    refuses tp > 1 with the two policy inputs that decide from it (an ITL
-    target, a request's deadline; serve/engine.py).
+    check the tests turn on). The schedulers' clock is one too: each read
+    is rank 0's, broadcast over a gloo group of the same ranks
+    (:meth:`Executor.read_clock`), a host value that never waits on the
+    device stream; ``stats["clock_reads"]`` counts them, and the rank
+    check hashes the count, so a rank whose reads fall out of step is
+    named at the next check.
 
 The executor owns no scheduling state and no page accounting; pages are
 updated in place by the steps and handed back to the caller.
@@ -48,6 +51,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.offload import TargetRegion
 from repro_torch.models import transformer
@@ -82,10 +86,13 @@ class Executor:
                 "KV pages shard along the kv-head axis")
         self.group = sharding.tp_group(self.tp)
         self.rank = sharding.rank_of(self.group)
+        # the clock's readings are host values: broadcast over gloo (a CPU
+        # tensor on an NCCL group would fail), a group of their own
+        self.host_group = sharding.host_group() if self.tp > 1 else None
         self.check_ranks_on = check_ranks and self.group is not None
         self.model = model.to(dtype=cfg.compute_dtype)
         self.stats = {"token_fetches": 0, "tokens_fetched": 0,
-                      "rank_checks": 0}
+                      "rank_checks": 0, "clock_reads": 0}
         self.bus = None
         self.tracer = trace.null_tracer()
         self._inflight: List[Tuple[str, float]] = []
@@ -189,8 +196,8 @@ class Executor:
     def _note_dispatch(self, kind: str) -> None:
         """Open a device window, closed when this iteration's ids land in
         ``fetch_token_ids``."""
-        if self.tracer.enabled:
-            self._inflight.append((kind, self.tracer.now()))
+        if self.tracer.enabled:      # a span: this rank's own clock
+            self._inflight.append((kind, self.tracer.clock()))
         self.tracer.device_dispatch()
 
     def decode_paged(self, tokens, pages, page_table, lengths, active):
@@ -232,16 +239,30 @@ class Executor:
             self._note_dispatch("prefill_slot")
             return out
 
+    def read_clock(self, clock) -> float:
+        """Rank 0's reading of ``clock``, broadcast to every rank over the
+        host group (the others do not read theirs); counted in
+        ``stats["clock_reads"]``. Every rank must call it at the same
+        points: a read one rank makes alone waits until the group's
+        timeout and raises."""
+        t = torch.tensor([clock() if self.rank == 0 else 0.0],
+                         dtype=torch.float64)
+        dist.broadcast(t, src=0, group=self.host_group)
+        self.stats["clock_reads"] += 1
+        return float(t[0])
+
     def check_ranks(self, pool) -> None:
         """The tp ranks' host state is equal, or raise: every rank hashes
-        its page tables, slot lengths and free-page count, and the hashes
-        are gathered (one collective, which waits for the device). No-op
-        unless ``check_ranks`` was asked for under a process group."""
+        its page tables, slot lengths, free-page count and count of clock
+        reads, and the hashes are gathered (one collective, which waits for
+        the device). No-op unless ``check_ranks`` was asked for under a
+        process group."""
         if not self.check_ranks_on:
             return
         h = hashlib.blake2b(digest_size=8)
         for a in (pool.device_page_tables(), pool.lengths, pool.seq_ids,
-                  np.array([pool.alloc.free_pages])):
+                  np.array([pool.alloc.free_pages,
+                            self.stats["clock_reads"]])):
             h.update(np.ascontiguousarray(a, dtype=np.int64).tobytes())
         mine = torch.tensor([int.from_bytes(h.digest(), "little",
                                             signed=True)],
@@ -275,7 +296,7 @@ class Executor:
             host = joined.cpu().numpy()
         self.tracer.device_landed()
         if self._inflight:
-            t_end = self.tracer.now()
+            t_end = self.tracer.clock()
             for kind, t_begin in self._inflight:
                 self.tracer.async_span("device", "device_step", t_begin,
                                        t_end, kind=kind)

@@ -1,6 +1,6 @@
 """Serving scheduler: the dense, monolithic paged and chunked step loops.
 
-Counterpart of ``repro/serve/scheduler.py`` (greedy only). Requests land
+Counterpart of ``repro/serve/scheduler.py``. Requests land
 in a :class:`~repro_torch.core.offload.Mailbox`; each ``step()`` drains
 it, decides which sequences admit, chunk, promote, preempt, or decode, and
 dispatches the executor's regions. Three loops, chosen by the engine's
@@ -127,7 +127,8 @@ class Scheduler:
     :class:`TieredCachePool` below turns on preemption)."""
 
     def __init__(self, cfg: transformer.ModelConfig, pool, executor: Executor,
-                 *, n_slots: int, paged: bool = True, chunked: bool = True,
+                 *, n_slots: int, greedy: bool = True, paged: bool = True,
+                 chunked: bool = True,
                  token_budget: Optional[int] = None,
                  tiered: bool = False, preempt_quantum: int = 1,
                  overlap: bool = True, metrics: Optional[MetricsBus] = None,
@@ -136,6 +137,7 @@ class Scheduler:
         self.cfg = cfg
         self.pool = pool
         self.executor = executor
+        self.greedy = greedy
         self.paged = paged
         self.chunked = chunked
         self.tiered = tiered
@@ -630,11 +632,16 @@ class Scheduler:
 
     def _prefix_match(self, req: Request) -> PrefixMatch:
         """Prefix-cache lookup for a fresh request (no KV written yet). The
-        port is greedy only, so a full hit's cached first token always
-        holds."""
+        cached first token is honoured only on the greedy path; otherwise
+        the match is trimmed so that at least one position is computed."""
         if self.prefix is None or req.prefill_pos or req.tokens_out:
             return PrefixMatch(length=0, pages=[])
-        return self.pool.match(req.prompt)
+        m = self.pool.match(req.prompt)
+        if m.first_token is not None and not self.greedy:
+            length = min(m.length, len(req.prompt) - 1)
+            m = PrefixMatch(length=length,
+                            pages=m.pages[:self.pool.pages_for(length)])
+        return m
 
     # -- the dense loop -------------------------------------------------------
     def _admit(self) -> None:
@@ -918,8 +925,9 @@ class Scheduler:
 
     def _finish_chunk_prefill(self, slot: int, req: Request, tok: int):
         """Prompt completed: stream the first token, index the prompt in the
-        prefix cache (its pages become claimable by later arrivals, its first
-        token lets an exact re-arrival skip prefill) and try promotion."""
+        prefix cache on the greedy path (its pages become claimable by later
+        arrivals, its first token lets an exact re-arrival skip prefill) and
+        try promotion."""
         self._emit(req, tok)
         self.stats["prefills"] += 1
         if self.prefilling.get(slot) is not req:
@@ -928,7 +936,7 @@ class Scheduler:
             # this token, so the resume activates straight past prefill
             return
         del self.prefilling[slot]
-        if self.prefix is not None:
+        if self.prefix is not None and self.greedy:
             self.pool.insert(req.seq_id, req.prompt, tok)
         if self.pool.reserve_decode(req.seq_id, len(req.prompt),
                                     req.max_new):

@@ -65,6 +65,10 @@ Ownership boundaries & invariants (tests/test_trace.py):
     scheduler routes ALL of its timing (submit stamps, TTFT/ITL, policy
     ``now``) through it, so a fake clock makes the whole serve layer
     time-deterministic end to end.
+    Under tensor parallelism (``Tracer.share``) ``now()`` is rank 0's
+    reading, broadcast to every rank by the executor, so the ranks'
+    schedulers decide on one clock; spans, lifecycle records and swap
+    stamps keep reading each rank's own ``clock``.
   * **Bounded memory.** Completed events land in a ``deque(maxlen=buffer)``
     ring: the oldest events drop first and ``dropped`` counts them — a
     long-running engine never grows without bound, and the exported trace
@@ -211,10 +215,20 @@ class Tracer:
         self._async_id = 0
         self._dev_depth = 0          # dispatched-not-yet-fetched device steps
         self._dev_closes = 0         # total landings (shadow-window fencing)
+        self._read: Optional[Callable[[Callable[[], float]], float]] = None
 
     # -- clock (the serve layer's one timing source) -----------------------
     def now(self) -> float:
-        return self.clock()
+        if self._read is None:
+            return self.clock()
+        return self._read(self.clock)
+
+    def share(self, read: Callable[[Callable[[], float]], float]) -> None:
+        """Route :meth:`now` through ``read(clock)``: the tp executor's
+        broadcast of rank 0's reading (serve/executor.py ``read_clock``).
+        Every rank must then call :meth:`now` at the same points, as ranks
+        running the same scheduler over the same requests do."""
+        self._read = read
 
     # -- phase spans -------------------------------------------------------
     def span(self, name: str, **args):

@@ -365,3 +365,30 @@ def test_train_cell_logits_are_cut_over_the_vocabulary(arch, parts):
                    "vocab_parts": parts}
     if arch == "qwen2-0.5b":
         assert (got["rank_f32"], whole) == (2_489_319_424, 39_829_110_784)
+
+
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
+def test_serving_gaps_name_no_ring(shape_name):
+    """gemma3-27b's cell with ``shard_kv_seq`` and the kv heads whole
+    (``kv_heads_tp=None``) on the production mesh: ``kv_seq`` cuts its
+    local layers' rings over their rows, which the rank path takes
+    (ROADMAP 16.11b-4), so ``_serving_gaps`` names none and the cell has
+    no gap."""
+    mesh = dryrun.mesh_of("16x16")
+    cell = specs.build_cell("gemma3-27b", configs.SHAPES[shape_name], mesh,
+                            cfg_over=dict(shard_kv_seq=True),
+                            rules_over=dict(kv_heads_tp=None))
+    assert cell.gaps == (), cell.gaps
+    missing = specs._serving_gaps(cell.cfg)
+    rings = [(gi, pi) for gi, (pattern, _) in enumerate(cell.cfg.groups)
+             for pi, kind in enumerate(pattern) if kind.startswith("local")]
+    assert rings
+    for gi, pi in rings:
+        assert missing(f"caches/{gi}/{pi}/k") is None
+    # the rings' rows are cut: the cache leaves' specs bind the model axis
+    with sharding.use_mesh(mesh, specs.rule_overrides(cell.cfg)
+                           | {"kv_heads_tp": None}):
+        from repro_torch.train import step as steps
+        spec = steps.rank_caches(cell.cfg, 2, 4096, mesh,
+                                 device="meta")[1][rings[0][0]][rings[0][1]]
+    assert "model" in str(spec["k"]), spec

@@ -7,9 +7,16 @@ the CPU, both at the smoke config in f32, give equal greedy streams and
 equal scheduling counters, with the overlapped loop on and off, on pages
 at the compute dtype and on int8 pages (the port's int8 streams equal the
 reference's int8 streams, not its f32 ones).
+
+The engine's reference surface: the keyword form (its feature flags warn,
+a keyword beside ``config=`` raises, in the reference's words), the
+introspection properties, and ``trace_buffer`` bounding the tracer's ring
+as the reference's does (the same retained events, the same drop count;
+the CLI's ``--trace-buffer``).
 """
 import ast
 import functools
+import warnings
 import os
 import pathlib
 import subprocess
@@ -29,6 +36,7 @@ from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import EngineConfig as JEngineConfig
 from repro.serve.engine import Request as JRequest
 from repro_torch import configs as tconfigs
+from repro_torch.parallel.tp_jobs import ManualClock
 from repro_torch.kernels import paged_decode_attention as tpda
 from repro_torch.kernels import paged_prefill_attention as tppa
 from repro_torch.models.convert import params_from_numpy
@@ -242,6 +250,145 @@ def test_engine_without_a_card_raises_unless_cpu_is_asked_for():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])
+
+
+# --------------------------------------------------------------------------
+# the reference's engine surface
+# --------------------------------------------------------------------------
+# name -> the keyword form's arguments (``config`` stands for an
+# EngineConfig beside them)
+KEYWORD_FORMS = {
+    "flags": dict(n_slots=2, max_seq=32, page_tokens=8, n_pages=12,
+                  paged=True, tiered=True, chunked_prefill=True,
+                  token_budget=8, prefix_cache=True, prefix_cache_pages=4),
+    "plain": dict(n_slots=2, max_seq=32),
+    "stray": dict(config=True, max_seq=32, prefix_cache=True),
+    "defaults_beside_config": dict(config=True, n_slots=4, greedy=True),
+}
+SURFACE = ("paged", "tiered", "chunked", "greedy", "token_budget",
+           "preempt_quantum")
+
+
+def _keyword_engine(pkg, kw):
+    """(engine or the ValueError's text, the warnings' categories and
+    texts) of one package's keyword form."""
+    cfg, tree = _weights()
+    if pkg == "jax":
+        make, conf = JEngine, JEngineConfig
+        model = jax.tree_util.tree_map(jnp.asarray, tree)
+        extra = {}
+    else:
+        tcfg = tconfigs.get_smoke_config("qwen2-0.5b",
+                                         compute_dtype=torch.float32)
+        make, conf, cfg = tengine.Engine, tengine.EngineConfig, tcfg
+        model, extra = params_from_numpy(tree, tcfg), dict(device="cpu")
+    kw = dict(kw)
+    if kw.pop("config", False):
+        kw["config"] = conf(n_slots=2, max_seq=32)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            eng = make(cfg, model, **kw, **extra)
+        except ValueError as err:
+            eng = str(err)
+    return eng, [(w.category, str(w.message)) for w in caught]
+
+
+@pytest.mark.parametrize("form", sorted(KEYWORD_FORMS))
+def test_keyword_form_warns_and_refuses_as_the_reference(form):
+    """The reference's keyword construction: its feature flags build the
+    layered stack and warn (DeprecationWarning naming the config path);
+    plain keywords build without a warning; a keyword beside ``config=``
+    that differs from its default raises, one equal to it does not. The
+    engines built serve a request to the reference's stream."""
+    j, j_warn = _keyword_engine("jax", KEYWORD_FORMS[form])
+    t, t_warn = _keyword_engine("port", KEYWORD_FORMS[form])
+    if form == "stray":
+        assert isinstance(j, str) and t == j
+        assert "['max_seq', 'prefix_cache']" in t
+        return
+    assert [c for c, _ in t_warn] == [c for c, _ in j_warn]
+    assert all("EngineConfig" in m for _, m in t_warn)
+    assert bool(t_warn) == (form == "flags")
+    for name in SURFACE:
+        # the reference's dense scheduler sets no budget and no quantum
+        if hasattr(j.scheduler, name):
+            assert getattr(t, name) == getattr(j, name), name
+    assert (t.prefix is None) == (j.prefix is None)
+    assert hasattr(t.pool, "cold_seqs") == (form == "flags")
+    prompt = _prompts("system")[1]
+    got = []
+    for eng, req in ((j, JRequest), (t, tengine.Request)):
+        eng.submit(req(seq_id=0, prompt=prompt.copy(), max_new=3))
+        got.append([list(r.tokens_out) for r in eng.run(200)])
+    assert got[0] == got[1] and len(got[1][0]) == 3
+
+
+def test_introspection_properties_are_the_scheduler_s():
+    """``active`` / ``prefilling`` / ``prefilled_wait`` are the scheduler's
+    own maps, mid-run as the reference's; ``metrics`` is the bus; the
+    flags read as the reference engine's on the same config."""
+    eng, _ = _keyword_engine("port", KEYWORD_FORMS["flags"])
+    ref, _ = _keyword_engine("jax", KEYWORD_FORMS["flags"])
+    for e, req in ((eng, tengine.Request), (ref, JRequest)):
+        for i, p in enumerate(_prompts("system")):
+            e.submit(req(seq_id=i, prompt=p.copy(), max_new=4))
+        e.step()
+        e.step()
+    for name in ("active", "prefilling", "prefilled_wait"):
+        assert getattr(eng, name) is getattr(eng.scheduler, name)
+        assert sorted(r.seq_id for r in getattr(eng, name).values()) == \
+            sorted(r.seq_id for r in getattr(ref, name).values()), name
+    assert eng.metrics is eng.bus
+    assert eng.metrics.snapshot()["counters"] == \
+        ref.metrics.snapshot()["counters"]
+
+
+def _traced_run(pkg, buffer):
+    cfg, tree = _weights()
+    kw = dict(n_slots=3, max_seq=64, chunked=True, token_budget=8,
+              trace=True, trace_buffer=buffer, clock=ManualClock())
+    if pkg == "jax":
+        eng = JEngine(cfg, jax.tree_util.tree_map(jnp.asarray, tree),
+                      config=JEngineConfig(
+                          **kw, cache=JCacheConfig(paged=True,
+                                                   page_tokens=8)))
+    else:
+        tcfg = tconfigs.get_smoke_config("qwen2-0.5b",
+                                         compute_dtype=torch.float32)
+        eng = tengine.Engine(tcfg, params_from_numpy(tree, tcfg),
+                             device="cpu", config=tengine.EngineConfig(
+                                 **kw, cache=tcache.CacheConfig(
+                                     page_tokens=8)))
+    _run(eng, JRequest if pkg == "jax" else tengine.Request, "system")
+    tr = eng.tracer
+    return (tr.buffer, len(tr.events), tr.dropped,
+            [(e["ph"], e["name"], e["tid"]) for e in tr.events])
+
+
+@pytest.mark.parametrize("buffer", [16, 65536])
+def test_trace_buffer_bounds_the_events_as_the_reference(buffer):
+    """``EngineConfig.trace_buffer`` sizes the tracer's ring: the same
+    retained window (kinds, names, tracks) and drop count as the
+    reference's on the same run."""
+    got, want = _traced_run("port", buffer), _traced_run("jax", buffer)
+    assert got == want
+    assert got[1] == min(buffer, got[1] + got[2])
+    if buffer == 16:
+        assert got[1] == 16 and got[2] > 0
+
+
+def test_serve_cli_trace_buffer(tmp_path, capsys):
+    from repro_torch.launch import serve
+    path = tmp_path / "t.json"
+    serve.main(["--device", "cpu", "--chunked-prefill", "--requests", "3",
+                "--slots", "2", "--max-seq", "32", "--max-new", "3",
+                "--page-tokens", "8", "--token-budget", "6", "--trace",
+                str(path), "--trace-buffer", "32"])
+    out = capsys.readouterr().out
+    line = [ln for ln in out.splitlines() if ln.startswith("[serve:trace]")]
+    assert len(line) == 1 and " 32 events (" in line[0], out
+    assert "0 dropped" not in line[0] and path.exists()
 
 
 @pytest.mark.cuda

@@ -16,7 +16,9 @@ Three layers of the same property, all on the CPU at the smoke config:
     page after every sequence releases; ``clear()`` restores the pool);
   * the port's engine on a prefix stack (and on int8 + prefix) gives the
     JAX engine's greedy streams and counters on shared-prefix schedules,
-    with the overlapped loop on and off.
+    with the overlapped loop on and off; and with ``greedy=False`` (no
+    prompt indexed, a cached first token not trusted: a full-prompt match
+    trimmed by one position) on schedules with exact re-arrivals.
 """
 import functools
 import hashlib
@@ -556,6 +558,72 @@ def test_prefix_engine_matches_jax_engine(name, overlap):
     snap = eng.metrics_snapshot()["gauges"]
     assert snap["prefix_hit_rate"] == \
         counters["prefix_hits"] / len(eng.stats["admission_order"])
+    _check_closed(eng, sched)
+
+
+def _drive_non_greedy(eng, request_cls, schedule, flip_at):
+    """``_drive``, with the scheduler's ``greedy`` set False from iteration
+    ``flip_at`` on (None: as configured)."""
+    pending = sorted(enumerate(schedule), key=lambda t: (t[1][0], t[0]))
+    done, it = [], 0
+    while True:
+        if it == flip_at:
+            eng.scheduler.greedy = False
+        while pending and pending[0][1][0] <= it:
+            sid, (_, prompt, max_new) = pending.pop(0)
+            assert eng.submit(request_cls(seq_id=sid, prompt=prompt.copy(),
+                                          max_new=max_new))
+        if not pending and eng.idle:
+            return {r.seq_id: list(r.tokens_out) for r in done}
+        done.extend(eng.step())
+        it += 1
+        assert it <= 4000
+
+
+@pytest.mark.parametrize("flip", [None, "repeat"],
+                         ids=["non_greedy", "greedy_then_not"])
+@pytest.mark.parametrize("name", ["full_hit", "system_prompt"])
+def test_non_greedy_prefix_engine_matches_jax_engine(name, flip):
+    """``EngineConfig(greedy=False)``: nothing is indexed, so no prompt
+    hits; and a greedy engine turned non-greedy before the exact
+    re-arrival: the match is trimmed by one position (no full hit, the
+    first token computed again). Streams and prefix counters equal the
+    JAX engine's either way, and the streams are the greedy run's."""
+    sched, budget, slots, pages, cap = _cases()[name]
+    flip_at = None if flip is None else sched[-1][0]
+    runs = []
+    cfg, tree = _weights()
+    for pkg in ("jax", "port"):
+        kw = dict(n_slots=slots, max_seq=64, chunked=True,
+                  token_budget=budget, greedy=flip is not None)
+        ckw = dict(page_tokens=8, n_pages=pages, prefix=True,
+                   prefix_pages=cap)
+        if pkg == "jax":
+            eng = JEngine(cfg, jax.tree_util.tree_map(jnp.asarray, tree),
+                          config=JEngineConfig(
+                              **kw, cache=JCacheConfig(paged=True, **ckw)))
+        else:
+            tcfg = tconfigs.get_smoke_config("qwen2-0.5b",
+                                             compute_dtype=torch.float32)
+            eng = tengine.Engine(tcfg, params_from_numpy(tree, tcfg),
+                                 device="cpu", config=tengine.EngineConfig(
+                                     **kw, cache=tcache.CacheConfig(**ckw)))
+        streams = _drive_non_greedy(
+            eng, JRequest if pkg == "jax" else tengine.Request, sched,
+            flip_at)
+        runs.append((streams, {k: eng.stats[k] for k in COUNTERS}))
+        assert eng.greedy is False
+    assert runs[1] == runs[0]
+    streams, counters = runs[1]
+    assert streams == _jax_prefix_run(name, "compute", True)[0]
+    assert counters["prefix_full_hits"] == 0
+    if flip is None:
+        assert counters["prefix_hits"] == 0
+        assert counters["prefill_chunk_tokens"] == \
+            sum(len(p) for _, p, _ in sched)
+    else:       # the repeat matched all but its last position
+        assert counters["prefix_hits"] >= 1
+        assert counters["prefix_shared_tokens"] >= len(sched[-1][1]) - 1
     _check_closed(eng, sched)
 
 

@@ -6,7 +6,8 @@ raises on the installed JAX (ROADMAP.md §3), so here the port's tp = 2
 and tp = 4 engines are held against the JAX engine at tp = 1: the same
 greedy streams and scheduling counters, on the chunked, monolithic paged,
 int8, prefix and tiered stacks, with tracing, with the overlapped loop and
-behind the SLO policy (whose clock-driven inputs tp refuses).
+behind the SLO policy (its clock-driven inputs, an ITL target and
+deadlines, under one clock for the ranks: tests/test_torch_tp_clock.py).
 The f32 smoke config is the reference's, with its ``n_kv=tp`` override
 for tp = 4 (tests/test_scheduler_properties.py:410-420).
 
@@ -389,46 +390,6 @@ def test_tp_policy_matches_jax_tp1(tmp_path):
     _check_drained(res)
 
 
-def _deadline_rank(rank, cfg, tree):
-    """A tp = 2 engine refuses a request with a deadline on every rank."""
-    from repro_torch.models import convert
-    from repro_torch.serve.engine import Request
-    eng = TEngine(cfg, convert.params_from_numpy(tree, cfg), device="cpu",
-                  config=TEngineConfig(
-                      n_slots=2, max_seq=32, chunked=True, tp=2,
-                      policy=TPolicyConfig(max_queue=4),
-                      cache=TCacheConfig(page_tokens=8, n_pages=8)))
-    try:
-        eng.submit(Request(seq_id=0, prompt=np.arange(5, dtype=np.int32),
-                           max_new=2, deadline_s=1.0))
-    except ValueError as err:
-        return str(err), eng.idle
-    return None, eng.idle
-
-
-def test_tp_refuses_clock_driven_policy(tmp_path):
-    """Each rank's scheduler reads its own clock, so under tp > 1 the
-    engine refuses what would decide from it: an ITL target (at
-    ``normalized()`` and in the CLI) and a request's deadline (at submit,
-    on every rank, before the scheduler sees it). At tp = 1 both stand."""
-    pol = TPolicyConfig(itl_target_s=0.05)
-    with pytest.raises(ValueError, match="ITL target"):
-        TEngineConfig(tp=2, policy=pol).normalized()
-    assert TEngineConfig(tp=1, policy=pol).normalized().policy == pol
-    assert TEngineConfig(tp=2, policy=TPolicyConfig(
-        max_in_system=2)).normalized().cache.paged
-    from repro_torch.launch import serve
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--tp", "2", "--chunked-prefill",
-                    "--itl-target-ms", "50"])
-    out = launch.spawn(_deadline_rank, 2, (_tcfg(2), _weights(2)[1]),
-                       store_dir=str(tmp_path), backend="gloo",
-                       timeout_s=TIMEOUT_S)
-    for err, idle in out:
-        assert err is not None and "deadline" in err and "own clock" in err
-        assert idle
-
-
 def test_serve_cli_tp_on_the_cpu(capfd):
     """``--tp 2`` spawns two gloo ranks; only rank 0 prints, and the run
     serves every request on the chunked engine."""
@@ -496,8 +457,9 @@ def test_int8_pages_imply_a_pool_in_the_port_only():
 
 
 def _diverging_rank(rank, cfg, tree):
-    """Serve two requests with the check on, then take a page on rank 1
-    alone: the next check must raise on both ranks."""
+    """Serve two requests with the check on; then rank 1 counts one clock
+    read more than rank 0, and after that is undone takes a page alone:
+    each time the next check must raise on both ranks."""
     from repro_torch.models import convert
     from repro_torch.serve.engine import Request
     eng = TEngine(cfg, convert.params_from_numpy(tree, cfg), device="cpu",
@@ -509,15 +471,22 @@ def _diverging_rank(rank, cfg, tree):
         eng.submit(Request(seq_id=i, prompt=np.arange(5 + i, dtype=np.int32),
                            max_new=2))
     eng.run(max_steps=50)
-    checks = eng.executor.stats["rank_checks"]
-    assert checks > 0
-    if rank == 1:
-        eng.pool.admit_prefill(99, 8)
-    try:
-        eng.executor.check_ranks(eng.pool)
-    except RuntimeError as err:
-        return checks, str(err)
-    return checks, None
+    stats = eng.executor.stats
+    checks, reads = stats["rank_checks"], stats["clock_reads"]
+    assert checks > 0 and reads > 0
+    errors = []
+    for diverge in ("clock", "pages"):
+        if rank == 1 and diverge == "clock":
+            stats["clock_reads"] += 1
+        elif rank == 1:
+            eng.pool.admit_prefill(99, 8)
+        try:
+            eng.executor.check_ranks(eng.pool)
+            errors.append(None)
+        except RuntimeError as err:
+            errors.append(str(err))
+        stats["clock_reads"] = reads
+    return checks, reads, errors
 
 
 def test_rank_check_catches_diverged_host_state(tmp_path):
@@ -525,9 +494,9 @@ def test_rank_check_catches_diverged_host_state(tmp_path):
     out = launch.spawn(_diverging_rank, 2, (_tcfg(2), tree),
                        store_dir=str(tmp_path), backend="gloo",
                        timeout_s=TIMEOUT_S)
-    (c0, e0), (c1, e1) = out
-    assert c0 == c1 > 0
-    for err in (e0, e1):
+    (c0, r0, e0), (c1, r1, e1) = out
+    assert c0 == c1 > 0 and r0 == r1 > 0
+    for err in e0 + e1:
         assert err is not None and "tp ranks diverged" in err
 
 

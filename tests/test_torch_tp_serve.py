@@ -30,6 +30,15 @@ gloo ranks a mesh. Each rank's logits (its rows, the whole vocabulary) and
 cache parts (its slots, kv heads and rows of the reference's final caches)
 within 1e-5 of the largest reference value (the order of the sums).
 
+gemma3-27b's sliding-window rings cut over their rows (ROADMAP 16.11b-4):
+its smoke config with ``shard_kv_seq`` and ``kv_heads_tp=None`` (the kv
+heads whole, so ``kv_seq`` binds every cache's rows, the 8-row rings'
+too) on (1, 4) and (2, 2): a prefill of 6 tokens (L ≤ W: the reference's
+ring prefill scatters L > W keys into colliding rows, ROADMAP §3), then
+decode steps at positions 6-13, past the ring's wrap at 8; and a decode at
+position 20 over caches drawn N(0, 1). The same 1e-5 gate, and the
+collectives against the dry run's trace of the same cell.
+
 Besides: ``flash_decode_plain``'s lse against ``torch.logsumexp`` of the
 masked logits, with an empty slot; ``combine_partials`` of two halves of
 a cache equal to the whole call (the kernel's lse on the card:
@@ -63,6 +72,11 @@ MESHES = ((2, 2), (1, 4), (1, 8))
 B, S, L = 4, 32, 6
 FILL_POS = 20
 TOL = 1e-5
+# the ring case (16.11b-4): gemma3-27b's rings cut over their rows
+RING = ("gemma3-27b", "ring")
+RING_MESHES = ((1, 4), (2, 2))
+RING_RULES = {"kv_seq": ("model",), "kv_heads_tp": None}
+RING_DECODE = tuple(range(L, L + 8))        # past the wrap at W = 8
 
 SCRIPT = r"""
 import os, pickle, sys, dataclasses
@@ -150,41 +164,54 @@ def _cell_rules(arch):
     return cell.shard_kv_seq, specs.rule_overrides(cell)
 
 
+def _case(rng, i, arch, kv_seq, rules, positions):
+    """One arch's case: (its JAX side, its two port jobs)."""
+    jcfg = jconfigs.get_smoke_config(arch, compute_dtype=jax.numpy.float32,
+                                     shard_kv_seq=kv_seq)
+    cfg = configs.get_smoke_config(arch, compute_dtype=torch.float32,
+                                   shard_kv_seq=kv_seq)
+    params, axes = _perturbed(jcfg, i)
+    prompt = rng.integers(0, cfg.vocab, (B, L)).astype(np.int32)
+    decode = [(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32), p)
+              for p in positions]
+    fill_decode = [(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32),
+                    FILL_POS)]
+    zero = jtransformer.init_caches(jcfg, B, S)
+    fill = [rng.standard_normal(a.shape).astype(np.float32)
+            for a in jax.tree_util.tree_leaves(zero)]
+    case = dict(params=params, axes=axes, rules=rules, kv_seq=kv_seq, B=B,
+                S=S, prompt=prompt, decode=decode, fill=fill,
+                fill_decode=fill_decode)
+
+    def jobs(mesh):
+        return [ServeJob(cfg=cfg, mesh=mesh, rules=dict(rules), batch=B,
+                         max_seq=S, prompt=prompt, decode=decode,
+                         weights=params),
+                ServeJob(cfg=cfg, mesh=mesh, rules=dict(rules), batch=B,
+                         max_seq=S, decode=fill_decode, weights=params,
+                         caches=fill)]
+    return case, jobs
+
+
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     """Every case on the JAX side (one subprocess) while the port's ranks
-    run them (one spawn a mesh)."""
+    run them (one spawn a mesh). Keyed ``(arch, mesh)``, and ``(arch,
+    mesh, "ring")`` for the ring case."""
     d = tmp_path_factory.mktemp("tp_serve")
     rng = np.random.default_rng(0)
     cases, jobs = {}, {m: [] for m in MESHES}
     for i, arch in enumerate(ARCHS):
         kv_seq, rules = _cell_rules(arch)
-        jcfg = jconfigs.get_smoke_config(arch, compute_dtype=jax.numpy.float32,
-                                         shard_kv_seq=kv_seq)
-        cfg = configs.get_smoke_config(arch, compute_dtype=torch.float32,
-                                       shard_kv_seq=kv_seq)
-        params, axes = _perturbed(jcfg, i)
-        prompt = rng.integers(0, cfg.vocab, (B, L)).astype(np.int32)
-        decode = [(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32), p)
-                  for p in (L, L + 1)]
-        fill_decode = [(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32),
-                        FILL_POS)]
-        zero = jtransformer.init_caches(jcfg, B, S)
-        fill = [rng.standard_normal(a.shape).astype(np.float32)
-                for a in jax.tree_util.tree_leaves(zero)]
+        case, make = _case(rng, i, arch, kv_seq, rules, (L, L + 1))
         for mesh in MESHES:
-            cases[(arch, mesh)] = dict(
-                params=params, axes=axes, rules=rules, kv_seq=kv_seq, B=B,
-                S=S, prompt=prompt, decode=decode, fill=fill,
-                fill_decode=fill_decode)
-            jrules = {k: v for k, v in rules.items()}
-            jobs[mesh].append(ServeJob(cfg=cfg, mesh=mesh, rules=jrules,
-                                       batch=B, max_seq=S, prompt=prompt,
-                                       decode=decode, weights=params))
-            jobs[mesh].append(ServeJob(cfg=cfg, mesh=mesh, rules=jrules,
-                                       batch=B, max_seq=S,
-                                       decode=fill_decode, weights=params,
-                                       caches=fill))
+            cases[(arch, mesh)] = case
+            jobs[mesh].append(((arch, mesh), make(mesh)))
+    case, make = _case(rng, len(ARCHS), RING[0], True, RING_RULES,
+                       RING_DECODE)
+    for mesh in RING_MESHES:
+        cases[(RING[0], mesh, RING[1])] = case
+        jobs[mesh].append(((RING[0], mesh, RING[1]), make(mesh)))
     with open(d / "in.pkl", "wb") as f:
         pickle.dump(cases, f)
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
@@ -196,12 +223,14 @@ def results(tmp_path_factory):
         ours = {}
         for mesh in MESHES:
             n = mesh[0] * mesh[1]
-            got = launch.spawn(each, n, (serve_job, jobs[mesh]),
-                               store_dir=str(d / f"store{n}{mesh[0]}"),
-                               backend="gloo", timeout_s=300.0)
-            for j, arch in enumerate(ARCHS):
-                ours[(arch, mesh)] = ([r[2 * j] for r in got],
-                                      [r[2 * j + 1] for r in got])
+            got = launch.spawn(
+                each, n, (serve_job, [j for _, pair in jobs[mesh]
+                                      for j in pair]),
+                store_dir=str(d / f"store{n}{mesh[0]}"), backend="gloo",
+                timeout_s=300.0)
+            for j, (key, _) in enumerate(jobs[mesh]):
+                ours[key] = ([r[2 * j] for r in got],
+                             [r[2 * j + 1] for r in got])
         out, err = proc.communicate(timeout=900)
     finally:
         if proc.poll() is None:
@@ -218,15 +247,15 @@ def _close(got, want, what):
     assert err <= TOL * scale, f"{what}: {err:.3e} > {TOL} x {scale:.3e}"
 
 
-@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("run", ("steps", "fill"))
-def test_rank_steps_equal_the_partitioned_reference(arch, mesh, run,
-                                                    results):
+def _check_ranks_steps(key, run, results):
+    """Each rank's logits and cache parts against the reference's → the
+    caches' specs and whether some rank held an empty slice of the
+    rows."""
     ref, ours, cases = results
-    j_logits, j_caches = ref[(arch, mesh)][run]
-    ranks = ours[(arch, mesh)][0 if run == "steps" else 1]
-    c = cases[(arch, mesh)]
+    arch, mesh = key[0], key[1]
+    j_logits, j_caches = ref[key][run]
+    ranks = ours[key][0 if run == "steps" else 1]
+    c = cases[key]
     kv_seq, rules = c["kv_seq"], c["rules"]
     cfg = configs.get_smoke_config(arch, compute_dtype=torch.float32,
                                    shard_kv_seq=kv_seq)
@@ -240,20 +269,44 @@ def test_rank_steps_equal_the_partitioned_reference(arch, mesh, run,
         lo, hi = r["rows"]
         assert len(r["logits"]) == len(j_logits)
         for k, (got, want) in enumerate(zip(r["logits"], j_logits)):
-            _close(got, want[lo:hi], f"{arch} {mesh} {run} rank "
+            _close(got, want[lo:hi], f"{key} {run} rank "
                    f"{r['coords']} logits of step {k}")
         for i, (got, want, spec) in enumerate(zip(r["caches"], j_caches,
                                                   specs_leaves)):
             part = sharding.shard_slices(want.shape, spec, amesh,
                                          amesh.rank_at(r["coords"]))
-            _close(got, want[part], f"{arch} {mesh} {run} rank "
+            _close(got, want[part], f"{key} {run} rank "
                    f"{r['coords']} cache leaf {i}")
             if len(spec) > 3 and spec[3] is not None:
-                last = L + 1 if run == "steps" else FILL_POS
+                last = c["decode"][-1][1] if run == "steps" else FILL_POS
                 saw_empty |= part[3].start > last
         assert r["launches"] == {"flash_decode": 0, "flash_attention": 0}
+    return j_caches, specs_leaves, saw_empty
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("run", ("steps", "fill"))
+def test_rank_steps_equal_the_partitioned_reference(arch, mesh, run,
+                                                    results):
+    _, specs_leaves, saw_empty = _check_ranks_steps((arch, mesh), run,
+                                                    results)
     if any(len(spec) > 3 and spec[3] is not None for spec in specs_leaves):
         assert saw_empty, "no rank held an empty slice of the cache's rows"
+
+
+def _collectives_want(arch, mesh, kv_seq, rules_over=None):
+    """``launch/specs.trace_cell``'s collectives for the decode cell (B 4,
+    S 32, f32) traced on ``meta`` over the abstract mesh."""
+    cell = specs.build_cell(
+        arch, configs.ShapeSpec("decode_32k", S, B, "decode"),
+        sharding.Mesh.abstract(mesh, ("data", "model")), smoke=True,
+        cfg_over=dict(compute_dtype=torch.float32,
+                      param_dtype=torch.float32, shard_kv_seq=kv_seq),
+        rules_over=rules_over)
+    assert not cell.gaps, cell.gaps
+    return [(c.kind, c.nbytes, c.group)
+            for c in specs.trace_cell(cell).collectives]
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
@@ -264,17 +317,33 @@ def test_rank_collectives_equal_the_dry_run_trace(arch, mesh, results):
     ``launch/specs.trace_cell`` records for the same cell (B 4, S 32, f32)
     traced on ``meta`` over the abstract mesh of that shape."""
     _, ours, cases = results
-    kv_seq = cases[(arch, mesh)]["kv_seq"]
-    cell = specs.build_cell(
-        arch, configs.ShapeSpec("decode_32k", S, B, "decode"),
-        sharding.Mesh.abstract(mesh, ("data", "model")), smoke=True,
-        cfg_over=dict(compute_dtype=torch.float32,
-                      param_dtype=torch.float32, shard_kv_seq=kv_seq))
-    want = [(c.kind, c.nbytes, c.group)
-            for c in specs.trace_cell(cell).collectives]
+    want = _collectives_want(arch, mesh, cases[(arch, mesh)]["kv_seq"])
     assert want
     for r in ours[(arch, mesh)][1]:
         assert [tuple(c) for c in r["collectives"]] == want, r["coords"]
+
+
+@pytest.mark.parametrize("mesh", RING_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("run", ("steps", "fill"))
+def test_ring_cut_over_its_rows_equals_the_partitioned_reference(
+        mesh, run, results):
+    """gemma3-27b's rings (W 8 of S 32) cut over their rows: the logits
+    and each rank's ring rows within 1e-5 of the reference's partitioned
+    steps, after decode steps past the wrap; a ring leaf is cut on every
+    mesh, and the filled run's collectives are the dry run's."""
+    key = (RING[0], mesh, RING[1])
+    j_caches, specs_leaves, _ = _check_ranks_steps(key, run, results)
+    W = configs.get_smoke_config(RING[0]).window
+    rings = [spec for a, spec in zip(j_caches, specs_leaves)
+             if a.shape[3] == W]
+    assert rings and all(spec[3] is not None for spec in rings)
+    assert max(p for _, p in results[2][key]["decode"]) >= W
+    if run == "fill":
+        want = _collectives_want(RING[0], mesh, True,
+                                 {"kv_heads_tp": None})
+        for r in results[1][key][1]:
+            assert [tuple(c) for c in r["collectives"]] == want, \
+                r["coords"]
 
 
 def test_flash_decode_lse_is_the_masked_logsumexp():
